@@ -10,7 +10,8 @@ setup(
     version='0.1.0',
     description="TPU-native (JAX/Flax/Pallas) SISR framework: model zoo, meta-attention, "
                 "train/eval harness and degradation tooling.",
-    packages=find_packages(include=['sisr_tpu', 'sisr_tpu.*']),
+    packages=find_packages(include=['sisr_tpu', 'sisr_tpu.*', 'sisr_tpu_torch',
+                                    'sisr_tpu_torch.*']),
     include_package_data=True,
     python_requires='>=3.10',
     entry_points={
