@@ -7,18 +7,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. environment: the card (nvidia-smi), torch and CUDA versions, and the build of every
    CUDA kernel from the sources in this checkout;
 2. kernel: each kernel against its plain PyTorch version on the card, at the main-path
-   shape and at edge shapes, in bf16 and f32, with its time: ``ms`` per call replayed
-   from a CUDA graph (device time with launch gaps, no host), ``host_ms`` per call
-   back to back from Python, ``device_ms`` the profiler's sum of its kernels;
+   shape and at edge shapes, with its time: ``ms`` per call replayed from a CUDA
+   graph (device time with launch gaps, no host), ``host_ms`` per call back to back
+   from Python, ``device_ms`` the profiler's sum of its kernels.  The CA kernel in
+   bf16 and f32; the CA + residual kernel with x f32 and r bf16 or f32;
 3. reference: the full-width RCAN forward and the fused eval on a small input, card
    (CUDA kernels) against the CPU (plain versions), in f32;
-4. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
+4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
+   ``torch._int_mm`` in both weight layouts; calibration on the card (with TF32
+   allowed globally) against the CPU's; the full-width int8 RCAN and its fused eval
+   on the same quantised state, card against CPU;
+5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
    launch counts of that run; then the img/s of warm protocol passes and a device-time
    breakdown of one batch;
+6. int8 main path: ``eval_sisr --fused_eval --int8`` on the same pairs and weights,
+   with its launch counts, its mean PSNR against the bf16 run's, img/s and breakdown;
 
 then the ``kernels`` table, the card's name and power limit, and a last line
-``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout, so
+``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout
+(except where phase 4 turns it on to show calibration turns it off for itself), so
 f32 comparisons are true f32.  It exits non-zero without a result when CUDA is absent
 or when the sisr_tpu_torch package is not beside it.
 """
@@ -40,6 +48,9 @@ RCAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
         'reduction': 16, 'dtype': 'bf16'}
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
 CA_KERNELS = ('ca_pool_partial', 'ca_excite', 'ca_scale')
+CA_RES_KERNELS = ('ca_pool_partial', 'ca_excite', 'ca_res_scale')
+# substrings of cuBLASLt / CUTLASS integer GEMM kernel names (torch._int_mm)
+GEMM_KERNEL_HINTS = ('gemm', 'xmma', 'cutlass', 'imma')
 # substrings of cuDNN / CUTLASS convolution and GEMM kernel names
 CONV_KERNEL_HINTS = ('conv', 'xmma', 'gemm', 'cutlass', 'cudnn', 'fprop', 'implicit')
 
@@ -123,6 +134,18 @@ def device_kernel_ms(fn, reps=20):
             per_kernel[evt.key] = us / 1e3
     total = sum(per_kernel.values())
     return (total / reps if total else None), per_kernel
+
+
+def time_kernel(kern, plain):
+    """A kernel's and its plain version's times, in turns (plain, kernel, kernel,
+    plain: the second turn of each graph timing is reported), and the profiler's
+    per-kernel totals of the kernel over 20 calls."""
+    timing = {'plain_ms': graph_ms(plain), 'ms': graph_ms(kern)}
+    timing['ms'], timing['plain_ms'] = graph_ms(kern), graph_ms(plain)
+    timing['host_ms'], timing['plain_host_ms'] = cuda_ms(kern), cuda_ms(plain)
+    timing['device_ms'], kern_detail = device_kernel_ms(kern)
+    timing['plain_device_ms'], _ = device_kernel_ms(plain)
+    return timing, kern_detail
 
 
 def write_workload(root, rng):
@@ -233,12 +256,7 @@ def phase_kernel():
         kern = lambda: fused_channel_attention(x, w1, b1, w2, b2)
         plain = lambda: reference_channel_attention(x, w1, b1, w2, b2)
         err = (kern().float() - plain().float()).abs().max().item()
-        # plain, kernel, kernel, plain: the second turn of each is reported
-        timing = {'plain_ms': graph_ms(plain), 'ms': graph_ms(kern)}
-        timing['ms'], timing['plain_ms'] = graph_ms(kern), graph_ms(plain)
-        timing['host_ms'], timing['plain_host_ms'] = cuda_ms(kern), cuda_ms(plain)
-        timing['device_ms'], kern_detail = device_kernel_ms(kern)
-        timing['plain_device_ms'], _ = device_kernel_ms(plain)
+        timing, kern_detail = time_kernel(kern, plain)
     n, h, w, c = x.shape
     cr = w1.shape[1]
     bytes_moved = 2 * x.numel() * x.element_size() + 4 * (2 * c * cr + c + cr)
@@ -248,6 +266,76 @@ def phase_kernel():
           'main_shape': [n, h, w, c], 'dtype': 'bfloat16', 'max_abs_err': err,
           'bound_ms': bound_ms, 'bound_us': bound_ms * 1e3, 'bytes': bytes_moved, 'ops': ops,
           'device_kernels_ms_per_20_calls': kern_detail, **timing})
+    return {'max_abs_err': err, 'bound_ms': bound_ms, **timing}
+
+
+def phase_kernel_residual():
+    """fused_channel_attention_residual against reference_channel_attention_residual:
+    x f32 (the dequantised conv output) with r bf16 (the main path) or f32, at the
+    main-path shape, a 512^2 map, C = 18 and 20 (C = 18 takes one element a thread)
+    and an odd H x W.  Tolerances: f32 out 1e-5 abs (summation order only); bf16 out
+    2 bf16 ULPs (rtol 1.6e-2), since the pool's summation order can flip a rounding."""
+    import torch
+    from sisr_tpu_torch.ops.channel_attention import (fused_channel_attention_residual,
+                                                      launch_plan,
+                                                      reference_channel_attention_residual,
+                                                      residual_aligned)
+    gen = torch.Generator().manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    main_shape = (BATCH, LR_SIZE, LR_SIZE, 64)
+    cases = [(main_shape, 16, torch.bfloat16), (main_shape, 16, torch.float32),
+             ((1, 512, 512, 64), 16, torch.bfloat16), ((2, 9, 3, 18), 3, torch.bfloat16),
+             ((1, 7, 5, 20), 4, torch.float32), ((1, 13, 7, 32), 4, torch.bfloat16)]
+
+    def inputs(shape, reduction, r_dtype):
+        x, w1, b1, w2, b2 = ca_inputs(shape, torch.float32, reduction, gen)
+        x = (x - 0.5) * 4  # a conv output: signed
+        r = torch.rand(shape, generator=gen).to(r_dtype).cuda()
+        return x, r, w1, b1, w2, b2
+
+    checks = []
+    with torch.inference_mode():
+        for shape, reduction, r_dtype in cases:
+            args = inputs(shape, reduction, r_dtype)
+            out = fused_channel_attention_residual(*args)
+            again = fused_channel_attention_residual(*args)
+            torch.cuda.synchronize()
+            ref = reference_channel_attention_residual(*args)
+            err = (out.float() - ref.float()).abs().max().item()
+            if out.dtype != r_dtype:
+                raise AssertionError('CA + residual output is %s, not r\'s %s'
+                                     % (out.dtype, r_dtype))
+            if r_dtype == torch.float32:
+                torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+            else:
+                torch.testing.assert_close(out.float(), ref.float(), atol=1e-6,
+                                           rtol=1.6e-2)
+            if not torch.equal(out, again):
+                raise AssertionError('fused_channel_attention_residual is not '
+                                     'deterministic at %s r %s' % (shape, r_dtype))
+            vectorized, slabs = launch_plan(shape[0], shape[1] * shape[2], shape[3], 4,
+                                            residual_aligned(args[0], args[1], out), sms)
+            checks.append({'shape': list(shape), 'x_dtype': 'float32',
+                           'r_dtype': str(r_dtype).split('.')[-1], 'max_abs_err': err,
+                           'vectorized': vectorized, 'slabs_per_image': slabs})
+
+        x, r, w1, b1, w2, b2 = inputs(main_shape, 16, torch.bfloat16)
+        kern = lambda: fused_channel_attention_residual(x, r, w1, b1, w2, b2)
+        plain = lambda: reference_channel_attention_residual(x, r, w1, b1, w2, b2)
+        err = (kern().float() - plain().float()).abs().max().item()
+        timing, kern_detail = time_kernel(kern, plain)
+    n, h, w, c = x.shape
+    cr = w1.shape[1]
+    # read x and r once, write out once (out has r's type), plus the excite's weights
+    bytes_moved = (x.numel() * x.element_size() + 2 * r.numel() * r.element_size()
+                   + 4 * (2 * c * cr + c + cr))
+    ops = 3 * x.numel() + n * (4 * c * cr + 2 * c)  # pool add, multiply, add; excite
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_CUDA_CORE_FLOPS) * 1e3
+    emit({'phase': 'kernel', 'name': 'fused_channel_attention_residual', 'checks': checks,
+          'main_shape': [n, h, w, c], 'x_dtype': 'float32', 'r_dtype': 'bfloat16',
+          'max_abs_err': err, 'bound_ms': bound_ms, 'bound_us': bound_ms * 1e3,
+          'bytes': bytes_moved, 'ops': ops, 'device_kernels_ms_per_20_calls': kern_detail,
+          **timing})
     return {'max_abs_err': err, 'bound_ms': bound_ms, **timing}
 
 
@@ -283,90 +371,276 @@ def phase_reference():
             raise AssertionError('fused eval %s on the card is %g from the CPU' % (k, diff[k]))
 
 
-def phase_main_path(root):
-    import numpy as np
-    import pandas as pd
+def int_mm_layout_ms(m, k, n, gen):
+    """torch._int_mm time (CUDA events) with the (k, n) operand row-major and
+    column-major, on the same values; raises if the two disagree."""
     import torch
-    from sisr_tpu_torch import net_eval
-    from sisr_tpu_torch.evaluation.standard_eval import EvalHub
-    from sisr_tpu_torch.ops.channel_attention import fused_channel_attention
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8, device='cuda')
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8, device='cuda')
+    layouts = {'row_major': b, 'column_major': b.t().contiguous().t()}
+    out = {name: torch._int_mm(a, mat) for name, mat in layouts.items()}
+    if not torch.equal(out['row_major'], out['column_major']):
+        raise AssertionError('torch._int_mm disagrees between weight layouts')
+    return {name: cuda_ms(lambda mat=mat: torch._int_mm(a, mat), reps=20, rounds=3)
+            for name, mat in layouts.items()}
+
+
+def phase_int8_reference():
+    """The int8 path, card against CPU.  One full-width int8 conv: int32 sums equal.
+    Calibration on the card with TF32 allowed globally: scales within rtol 1e-5 of
+    the CPU's (the library turns TF32 off for its own convs).  Full-width int8 RCAN
+    (seeded weights, 10x20, 64f) on a 32^2 LR batch with the CPU's quantised state
+    and scales on both: the forward's PSNR card-vs-CPU is reported; fused-eval PSNR
+    within 0.01 dB and SSIM within 1e-3."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.models.handlers import define_model
+    from sisr_tpu_torch.ops import quantization as qz
+    gen = torch.Generator().manual_seed(2)
+    x_q = torch.randint(-127, 128, (BATCH, 32, 32, 64), generator=gen, dtype=torch.int8)
+    kernel = torch.randint(-127, 128, (3, 3, 64, 64), generator=gen, dtype=torch.int8)
+    acc_host = qz.conv_int8_accumulate(x_q, kernel)
+    acc_card = qz.conv_int8_accumulate(x_q.cuda(), kernel.cuda()).cpu()
+    if acc_card.dtype != torch.int32 or not torch.equal(acc_card, acc_host):
+        raise AssertionError('int8 conv on the card: int32 sums differ from the CPU\'s')
+    # the body conv's product at the main-path shape, and the tail's at 512^2
+    card_gen = torch.Generator(device='cuda').manual_seed(2)
+    layouts = {'body_131072x576x64': int_mm_layout_ms(BATCH * LR_SIZE ** 2, 576, 64,
+                                                      card_gen),
+               'tail_2097152x576x8': int_mm_layout_ms(BATCH * (LR_SIZE * SCALE) ** 2, 576,
+                                                      8, card_gen)}
+
+    f32 = {**RCAN, 'dtype': 'f32'}
+    card = define_model('rcan', device='cuda', seed=3, **f32)
+    host = define_model('rcan', device='cpu', seed=3, **f32)
+    rng = np.random.RandomState(6)
+    lr = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8)
+    hr = rng.randint(0, 256, (2, 32 * SCALE, 32 * SCALE, 3)).astype(np.uint8)
+    x = torch.from_numpy(lr).float() / 255.0
+    for handler in (card, host):
+        handler.set_int8(True)
+    host._ensure_int8_ctx(x)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card._ensure_int8_ctx(x.cuda())
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError('int8 calibration left a global TF32 flag changed')
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    scales_card, scales_host = card._int8_ctx[2], host._int8_ctx[2]
+    scale_rel = max(abs(float(scales_card[k]) / float(scales_host[k]) - 1)
+                    for k in scales_host)
+    if sorted(scales_card) != sorted(scales_host) or not scale_rel <= 1e-5:
+        raise AssertionError('calibration on the card is %g from the CPU\'s (TF32?)'
+                             % scale_rel)
+
+    state = host._int8_ctx[1:]
+
+    def forward_psnr(residual_dtype):
+        """PSNR of the card's int8 forward against the CPU's, on the same state."""
+        for handler in (card, host):
+            handler.set_int8(True, residual_dtype=residual_dtype)
+            handler.load_int8_state(*state)
+        with torch.inference_mode():
+            ours, theirs = card._int8_ctx[0](x.cuda()).cpu(), host._int8_ctx[0](x)
+        mse = (ours - theirs).pow(2).mean().item()
+        return ours, theirs, float('inf') if mse == 0 else 10 * np.log10(1.0 / mse)
+
+    # the f32 carry isolates what the bf16 carry's roundings add to the divergence
+    f32_carry_psnr = forward_psnr('float32')[2]
+    out_card, out_host, fwd_psnr = forward_psnr('bfloat16')
+    (keys, m_card), _ = card.run_eval_fused({'lr': lr, 'hr': hr})
+    (_, m_host), _ = host.run_eval_fused({'lr': lr, 'hr': hr})
+    m_card, m_host = m_card.cpu().numpy(), m_host.numpy()
+    diff = {k: float(np.abs(m_card[i] - m_host[i]).max()) for i, k in enumerate(keys)}
+    emit({'phase': 'int8_reference', 'conv_int32_equal': True,
+          'int_mm_ms_by_weight_layout': layouts, 'calibration_max_rel_diff': scale_rel,
+          'forward_psnr_card_vs_cpu': fwd_psnr,
+          'forward_psnr_card_vs_cpu_f32_carry': f32_carry_psnr,
+          'forward_max_abs_err': (out_card - out_host).abs().max().item(),
+          'metric_max_abs_diff': diff, 'output_shape': list(out_card.shape),
+          'nvidia_smi': nvidia_smi_line()})
+    if not np.isfinite(out_card.numpy()).all() or out_card.shape != out_host.shape:
+        raise AssertionError('int8 RCAN on the card: non-finite or misshapen output')
+    for i, k in enumerate(keys):
+        bar = 0.01 if k.endswith('PSNR') else 1e-3
+        if not diff[k] <= bar:
+            raise AssertionError('int8 fused eval %s on the card is %g from the CPU'
+                                 % (k, diff[k]))
+
+
+def prepare_workload(root):
+    """The 16 synthetic pairs and one seeded RCAN experiment, shared by both paths."""
+    import numpy as np
     lr_dir, hr_dir = write_workload(root, np.random.RandomState(0))
     model_loc = os.path.join(root, 'Results')
     write_experiment(model_loc, 'rcan_10x20', seed=8)
-    out_loc = os.path.join(root, 'out')
-    args = ['--hr_dir', hr_dir, '--lr_dir', lr_dir, '-me', 'rcan_10x20', '0',
-            '--model_loc', model_loc, '--out_loc', out_loc, '--results_name', 'smoke',
-            '-m', 'PSNR', '-m', 'SSIM', '--scale', str(SCALE), '--batch_size', str(BATCH),
-            '--full_directory', '--fused_eval', '--no_image_comparison',
-            '--no-time_models']
+    return {'lr_dir': lr_dir, 'hr_dir': hr_dir, 'model_loc': model_loc,
+            'out_loc': os.path.join(root, 'out')}
 
-    fused_channel_attention.launches = 0
+
+def reset_launches():
+    from sisr_tpu_torch.ops import channel_attention as ca
+    ca.fused_channel_attention.launches = 0
+    ca.fused_channel_attention_residual.launches = 0
+
+
+def read_launches():
+    from sisr_tpu_torch.ops import channel_attention as ca
+    return {'fused_channel_attention': ca.fused_channel_attention.launches,
+            'fused_channel_attention_residual': ca.fused_channel_attention_residual.launches}
+
+
+def run_eval_cli(dirs, results_name, extra=()):
+    """``eval_sisr --fused_eval`` through the CLI entry point; the launch counts of
+    exactly this run (set to 0 just before, read just after), its seconds, and its
+    per-image CSV, checked for 16 finite rows."""
+    import numpy as np
+    import pandas as pd
+    from sisr_tpu_torch import net_eval
+    args = ['--hr_dir', dirs['hr_dir'], '--lr_dir', dirs['lr_dir'], '-me', 'rcan_10x20', '0',
+            '--model_loc', dirs['model_loc'], '--out_loc', dirs['out_loc'],
+            '--results_name', results_name, '-m', 'PSNR', '-m', 'SSIM', '--scale',
+            str(SCALE), '--batch_size', str(BATCH), '--full_directory', '--fused_eval',
+            '--no_image_comparison', '--no-time_models', *extra]
+    reset_launches()
     tic = time.perf_counter()
     net_eval.eval_run.main(args=args, standalone_mode=False)
-    cli_seconds = time.perf_counter() - tic
-    launches = {'fused_channel_attention': fused_channel_attention.launches}
-
-    csv = os.path.join(out_loc, 'smoke', 'standard_metrics', 'individual_metrics.csv')
+    seconds = time.perf_counter() - tic
+    launches = read_launches()
+    csv = os.path.join(dirs['out_loc'], results_name, 'standard_metrics',
+                       'individual_metrics.csv')
     frame = pd.read_csv(csv, header=[0, 1], index_col=0)
     vals = frame[[('rcan_10x20', 'PSNR'), ('rcan_10x20', 'SSIM'), ('LR', 'PSNR'),
                   ('LR', 'SSIM')]].to_numpy()
-    n_batches = -(-N_IMAGES // BATCH)
     if len(frame) != N_IMAGES or not np.isfinite(vals).all():
-        raise AssertionError('individual_metrics.csv: %d rows, finite=%s'
-                             % (len(frame), np.isfinite(vals).all()))
-    if launches['fused_channel_attention'] != CA_PER_FORWARD * n_batches:
-        raise AssertionError('CA kernel launched %d times, expected %d x %d batches'
-                             % (launches['fused_channel_attention'], CA_PER_FORWARD,
-                                n_batches))
+        raise AssertionError('%s individual_metrics.csv: %d rows, finite=%s'
+                             % (results_name, len(frame), np.isfinite(vals).all()))
+    return launches, seconds, frame
 
-    # warm protocol passes on one hub: the first decodes and sets up, the rest are timed
-    hub = EvalHub(hr_dir=hr_dir, lr_dir=lr_dir, model_and_epoch=[('rcan_10x20', '0')],
-                  results_name='smoke_timed', gpu=True, metrics=['PSNR', 'SSIM'],
-                  data_split=None, save_im=False, batch_size=BATCH, full_directory=True,
-                  lr_dir_interp=None, model_only=False, scale=SCALE, model_loc=model_loc,
-                  out_loc=out_loc, use_test_group=False, no_image_comparison=True,
+
+def expect_launches(launches, expected, path):
+    if launches != expected:
+        raise AssertionError('%s launches %s, expected %s' % (path, launches, expected))
+
+
+def warm_passes(dirs, results_name, int8):
+    """img/s of 3 warm fused protocol passes on one hub (the first pass decodes and
+    sets up, the rest are timed), and the hub's handler."""
+    from sisr_tpu_torch.evaluation.standard_eval import EvalHub
+    hub = EvalHub(hr_dir=dirs['hr_dir'], lr_dir=dirs['lr_dir'],
+                  model_and_epoch=[('rcan_10x20', '0')], results_name=results_name,
+                  gpu=True, metrics=['PSNR', 'SSIM'], data_split=None, save_im=False,
+                  batch_size=BATCH, full_directory=True, lr_dir_interp=None,
+                  model_only=False, scale=SCALE, model_loc=dirs['model_loc'],
+                  out_loc=dirs['out_loc'], use_test_group=False, no_image_comparison=True,
                   num_image_save=0, qpi_selection=(None, None), data_attributes=None,
                   dataset_name=None, image_shortlist=None, metadata_file=None, sp_gpu=0,
-                  time_models=False, recursive=False, fused_eval=True)
+                  time_models=False, recursive=False, fused_eval=True, int8=int8)
     hub.full_image_protocol()
     rates = []
     for _ in range(3):
         tic = time.perf_counter()
         hub.full_image_protocol()
         rates.append(N_IMAGES / (time.perf_counter() - tic))
+    return rates, hub.model_bundles[0].model
 
-    handler = hub.model_bundles[0].model
+
+def breakdown_batch():
+    """One seeded uint8 batch on the card, and its f32 LR input."""
+    import numpy as np
+    import torch
     rng = np.random.RandomState(1)
     batch = {'lr': rng.randint(0, 256, (BATCH, LR_SIZE, LR_SIZE, 3)).astype(np.uint8),
              'hr': rng.randint(0, 256, (BATCH, LR_SIZE * SCALE, LR_SIZE * SCALE, 3))
              .astype(np.uint8)}
     dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    return dev, dev['lr'].float() / 255.0
+
+
+def step_times(handler, dev):
+    """The fused step's wall ms (CUDA events), its device-busy ms (profiler) and the
+    idle share; and the step's per-kernel device ms."""
     step = lambda: handler.run_eval_fused(dev)[0][1]
-    x = dev['lr'].float() / 255.0
+    step_ms = cuda_ms(step, reps=5, rounds=3)
+    step_device_ms, per_kernel = device_kernel_ms(step, reps=3)
+    return ({'fused_step_ms': step_ms, 'fused_step_device_ms': step_device_ms,
+             'device_idle_share': (1 - step_device_ms / step_ms) if step_device_ms
+             else None}, {k: v / 3 for k, v in per_kernel.items()})
+
+
+def phase_main_path(dirs):
+    import torch
+    launches, cli_seconds, frame = run_eval_cli(dirs, 'smoke')
+    n_batches = -(-N_IMAGES // BATCH)
+    expect_launches(launches, {'fused_channel_attention': CA_PER_FORWARD * n_batches,
+                               'fused_channel_attention_residual': 0}, 'bf16 main path')
+    rates, handler = warm_passes(dirs, 'smoke_timed', int8=False)
+
+    dev, x = breakdown_batch()
     conv_flops = count_conv_flops(handler, x)
     with torch.inference_mode():
         forward_ms = cuda_ms(lambda: handler.forward(x), reps=5, rounds=3)
-    step_ms = cuda_ms(step, reps=5, rounds=3)
-    step_device_ms, per_kernel = device_kernel_ms(step, reps=3)
-    per_kernel = {k: v / 3 for k, v in per_kernel.items()}
+    steps, per_kernel = step_times(handler, dev)
     ca_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in CA_KERNELS))
     conv_ms = sum(v for k, v in per_kernel.items() if not any(n in k for n in CA_KERNELS)
                   and any(t in k.lower() for t in CONV_KERNEL_HINTS))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    mean_psnr = float(frame[('rcan_10x20', 'PSNR')].mean())
     emit({'phase': 'main_path', 'model': 'rcan 10x20 64f 4x bf16', 'images': N_IMAGES,
           'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds, 'launches': launches,
-          'mean_psnr': float(frame[('rcan_10x20', 'PSNR')].mean()),
-          'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
+          'mean_psnr': mean_psnr, 'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
           'img_per_s_warm_passes': rates, 'img_per_s': statistics.median(rates),
           'nvidia_smi': nvidia_smi_line()})
     emit({'phase': 'breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
           'forward_conv_gflop': conv_flops / 1e9,
-          'forward_bf16_bound_ms': conv_flops / BF16_TENSOR_FLOPS * 1e3,
-          'fused_step_ms': step_ms, 'fused_step_device_ms': step_device_ms,
-          'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms,
-          'device_idle_share': (1 - step_device_ms / step_ms) if step_device_ms else None,
-          'top_kernels_ms': top, 'nvidia_smi': nvidia_smi_line()})
-    return launches
+          'forward_bf16_bound_ms': conv_flops / BF16_TENSOR_FLOPS * 1e3, **steps,
+          'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms, 'top_kernels_ms': top,
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches, 'mean_psnr': mean_psnr}
+
+
+def phase_int8_main_path(dirs, bf16_mean_psnr):
+    """``eval_sisr --fused_eval --int8`` on the same pairs and weights: every RCAB tail
+    through the CA + residual kernel (200 per forward), the module's CA kernel not
+    at all; mean PSNR within 1 dB of the bf16 run's."""
+    import torch
+    launches, cli_seconds, frame = run_eval_cli(dirs, 'smoke_int8', ['--int8'])
+    n_batches = -(-N_IMAGES // BATCH)
+    expect_launches(launches, {'fused_channel_attention': 0,
+                               'fused_channel_attention_residual':
+                                   CA_PER_FORWARD * n_batches}, 'int8 main path')
+    mean_psnr = float(frame[('rcan_10x20', 'PSNR')].mean())
+    if not abs(mean_psnr - bf16_mean_psnr) < 1.0:
+        raise AssertionError('int8 mean PSNR %.4f is not within 1 dB of bf16\'s %.4f'
+                             % (mean_psnr, bf16_mean_psnr))
+    rates, handler = warm_passes(dirs, 'smoke_int8_timed', int8=True)
+
+    dev, x = breakdown_batch()
+    program = handler._int8_ctx[0]
+    with torch.inference_mode():
+        forward_ms = cuda_ms(lambda: program(x), reps=3, rounds=3)
+        forward_device_ms, per_kernel = device_kernel_ms(lambda: program(x), reps=3)
+    steps, _ = step_times(handler, dev)
+    per_kernel = {k: v / 3 for k, v in per_kernel.items()}
+    ca_res_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in CA_RES_KERNELS))
+    gemm_ms = sum(v for k, v in per_kernel.items()
+                  if not any(n in k for n in CA_RES_KERNELS)
+                  and any(t in k.lower() for t in GEMM_KERNEL_HINTS))
+    other_ms = sum(per_kernel.values()) - ca_res_ms - gemm_ms
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit({'phase': 'int8_main_path', 'model': 'rcan 10x20 64f 4x int8 (bf16 carry)',
+          'images': N_IMAGES, 'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds,
+          'launches': launches, 'mean_psnr': mean_psnr, 'bf16_mean_psnr': bf16_mean_psnr,
+          'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
+          'img_per_s_warm_passes': rates, 'img_per_s': statistics.median(rates),
+          'nvidia_smi': nvidia_smi_line()})
+    emit({'phase': 'int8_breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
+          'forward_device_ms': forward_device_ms, **steps,
+          'forward_int8_gemm_device_ms': gemm_ms, 'forward_ca_res_device_ms': ca_res_ms,
+          'forward_other_device_ms': other_ms, 'forward_kernels': len(per_kernel),
+          'top_forward_kernels_ms': top, 'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches, 'mean_psnr': mean_psnr}
 
 
 def count_conv_flops(handler, x):
@@ -405,23 +679,33 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_environment()
-    kernel = phase_kernel()
+    kernels = {'fused_channel_attention': phase_kernel(),
+               'fused_channel_attention_residual': phase_kernel_residual()}
     phase_reference()
+    phase_int8_reference()
     root = tempfile.mkdtemp(prefix='sisr_chip_smoke_')
     try:
-        launches = phase_main_path(root)
+        dirs = prepare_workload(root)
+        main_path = phase_main_path(dirs)
+        int8_path = phase_int8_main_path(dirs, main_path['mean_psnr'])
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # each kernel's launches are those of the path that runs it
+    launches = {'fused_channel_attention':
+                    main_path['launches']['fused_channel_attention'],
+                'fused_channel_attention_residual':
+                    int8_path['launches']['fused_channel_attention_residual']}
+    replaces = {'fused_channel_attention': 'sisr_tpu/ops/pallas/channel_attention.py:104',
+                'fused_channel_attention_residual':
+                    'sisr_tpu/ops/pallas/channel_attention.py:182'}
     emit({'kernels': [{
-        'name': 'fused_channel_attention', 'route': 'cuda',
+        'name': name, 'route': 'cuda',
         'source': 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu',
-        'replaces': 'sisr_tpu/ops/pallas/channel_attention.py:104',
-        'launches': launches['fused_channel_attention'],
-        'max_abs_err': kernel['max_abs_err'], 'ms': kernel['ms'],
-        'plain_ms': kernel['plain_ms'], 'bound_ms': kernel['bound_ms'],
-        'bound_by': 'bytes', 'library_ms': None,
-        'host_ms': kernel['host_ms'], 'device_ms': kernel['device_ms'],
-        'plain_device_ms': kernel['plain_device_ms']}]})
+        'replaces': replaces[name], 'launches': launches[name],
+        'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+        'bound_ms': k['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
+        'host_ms': k['host_ms'], 'device_ms': k['device_ms'],
+        'plain_device_ms': k['plain_device_ms']} for name, k in kernels.items()]})
     print(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -4,8 +4,9 @@
 Each batch runs forward + bicubic LR baseline + YCbCr + PSNR/SSIM on the device (see
 ``BaseHandler.run_eval_fused``); the CSV reports have the reference's layout.  The
 standard protocol (host metrics, SR image outputs, comparisons, interpolated-LR
-folders), metadata files, bucketed eval, int8 serving and multi-device eval are not
-ported yet: asking for them raises NotImplementedError.
+folders), metadata files, bucketed eval and multi-device eval are not ported yet:
+asking for them raises NotImplementedError.  ``int8=True`` turns on each model's int8
+serving path (``BaseHandler.set_int8``), which runs inside the fused step.
 """
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -44,8 +45,6 @@ class EvalHub:
             raise _not_ported('--mesh (multi-device eval)', 'multi-GPU data parallelism')
         if eval_buckets:
             raise _not_ported('--eval_buckets', 'standard eval protocol')
-        if int8:
-            raise _not_ported('--int8', 'int8 serving')
         if metrics and 'FACE_SIM' in metrics:
             raise _not_ported('The FACE_SIM metric', 'long-tail tools')
         if not (fused_eval and metrics and no_image_comparison and not model_only
@@ -76,6 +75,9 @@ class EvalHub:
         self.device = self._select_device(gpu, sp_gpu)
         self.model_bundles = self._prep_models(model_loc, experiment_names, eval_epochs,
                                                self.device, scale=scale)
+        if int8:
+            for model in self.model_bundles:
+                model.model.set_int8(True)
 
         if full_directory:
             split, dataset, custom_split = 'all', None, None

@@ -8,6 +8,9 @@ Each handler is registered under the reference's lowercase model name and owns:
 * parameter initialisation from a seeded ``torch.Generator``;
 * the fused eval step: forward + bicubic LR baseline + YCbCr Y + PSNR/SSIM on the
   device, with only a (K, N) metric matrix for the host;
+* int8 serving (``set_int8``): quantised weights and activation scales calibrated on
+  the first eval batch, and the int8 program of ``ops/quantization.py`` in place of
+  the module in the fused step;
 * checkpoints in the reference's file contract (``saved_models/train_model_<N>``, a
   ``torch.save`` dict with ``network``, ``model_name``, ``model_epoch``, ``step``).
 """
@@ -17,14 +20,29 @@ import time
 import numpy as np
 import torch
 
+from ..ops import quantization as qz
 from ..ops.colorspace import rgb_to_ycbcr_nhwc
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
+from ..tools.convert_weights import params_from_state_dict
 from ..utils.helpers import resolve_device
 from . import advanced
 from .blocks import torch_default_init_
 
 available_models = {}
+
+
+def _int8_not_ported(what, slice_name):
+    return NotImplementedError('%s for int8 serving is not ported to sisr_tpu_torch yet: '
+                               'it comes with the %s slice (ROADMAP.md, Queue 1).'
+                               % (what, slice_name))
+
+
+def _tree_to(tree, device):
+    """A nested dict of tensors with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def register_model(name, *aliases):
@@ -49,6 +67,12 @@ class BaseHandler:
     """Eval-side handler base (ref BaseModel, models/__init__.py:257-575) for RGB
     models that take the LR image as it is."""
 
+    colorspace = 'rgb'
+    im_input = 'unmodified'
+    tiled_eval = False
+    # int8 serving path (ops/quantization.py): family key, or None if unsupported
+    int8_family = None
+
     def __init__(self, scale=4, dtype=None, seed=8, device=None, **kwargs):
         """``kwargs`` are the model's structure parameters; keys that only training
         reads (lr, scheduler, ...) are ignored here, as in the reference's eval mode."""
@@ -61,6 +85,9 @@ class BaseHandler:
         self.module = self.build_module(scale=scale, **kwargs)
         self._eval_step_cache = {}
         self._warm_eval_shapes = set()
+        self.int8_mode = False  # int8 serving (set_int8)
+        self.int8_residual_dtype = 'bfloat16'
+        self._int8_ctx = None  # (program, quantised params, scales) once calibrated
         self.init_state()
 
     def build_module(self, scale, **kwargs):
@@ -104,6 +131,67 @@ class BaseHandler:
             out = self.module(x.permute(0, 3, 1, 2))
         return out.permute(0, 2, 3, 1)
 
+    # --- int8 serving (ref handlers.py:202-292) --------------------------------------------
+    def set_int8(self, enabled=True, residual_dtype='bfloat16'):
+        """Turn the int8 serving path on or off: per-channel int8 weights, static
+        activation scales calibrated (absmax, 10% margin) on the first eval batch, a
+        narrow residual carry ('bfloat16' or 'float32').  Metrics are then computed on
+        the quantised output."""
+        if enabled and self.int8_family is None:
+            print('%s: no int8 serving path for this architecture — ignoring.'
+                  % type(self).__name__)
+            return
+        if residual_dtype not in ('float32', 'bfloat16'):
+            raise ValueError("residual_dtype must be 'float32' or 'bfloat16' (the int16 "
+                             "carry is EDSR-only), got %r" % (residual_dtype,))
+        self.int8_mode = bool(enabled)
+        self.int8_residual_dtype = residual_dtype
+        self._int8_ctx = None
+        self._eval_step_cache = {}
+        self._warm_eval_shapes = set()
+
+    def _int8_calibration_input(self, lr_f32):
+        """The calibration input, matching what the int8 program takes: for RGB
+        models that take the LR image as it is, the f32 LR batch itself."""
+        if self.im_input == 'interp' or self.colorspace != 'rgb':
+            raise _int8_not_ported('Calibrating pre-upscaled or Y-channel inputs',
+                                   'remaining families')
+        if self.tiled_eval:
+            raise _int8_not_ported('Tile-sized calibration crops', 'remaining families')
+        return lr_f32
+
+    def _ensure_int8_ctx(self, x):
+        """Quantise the weights and calibrate the activation scales on ``x`` (the
+        first batch), once; the program then runs with them."""
+        if self._int8_ctx is not None:
+            return
+        params = params_from_state_dict(self.model_name, self.module.state_dict())
+        if self.int8_family == 'rcan':
+            m = self.module
+            qp = qz.quantize_rcan_params(params, m.n_resgroups, m.n_resblocks)
+            scales = qz.calibrate_rcan_scales(params, [x], m.n_resgroups, m.n_resblocks,
+                                              margin=1.1)
+        else:
+            raise RuntimeError('unknown int8 family %r' % self.int8_family)
+        self.load_int8_state(qp, scales)
+
+    def load_int8_state(self, qparams, act_scales):
+        """Run the int8 program with these quantised parameters and scales (from
+        :meth:`_ensure_int8_ctx`, or from sisr_tpu through
+        ``tools.convert_weights.int8_state_from_jax``), moved to this handler's
+        device."""
+        qparams = _tree_to(qparams, self.device)
+        dev_scales = qz.scales_on(act_scales, self.device)
+        if self.int8_family == 'rcan':
+            m, rd = self.module, self.int8_residual_dtype
+
+            def program(x):
+                return qz.rcan_int8_forward_static(qparams, dev_scales, x, m.n_resgroups,
+                                                   m.n_resblocks, residual_dtype=rd)
+        else:
+            raise RuntimeError('unknown int8 family %r' % self.int8_family)
+        self._int8_ctx = (program, qparams, dict(act_scales))
+
     # --- fused eval -----------------------------------------------------------------------
     def _to_device(self, img):
         if isinstance(img, torch.Tensor):
@@ -145,7 +233,11 @@ class BaseHandler:
 
         dev_batch = {'lr': self._to_device(self._as_u8_if_lossless(batch['lr'])),
                      'hr': self._to_device(self._as_u8_if_lossless(batch['hr']))}
-        key = ('fused', tuple(metrics), include_lr)
+        if self.int8_mode and self._int8_ctx is None:
+            # calibrate outside the step, on the input the int8 program takes
+            self._ensure_int8_ctx(self._int8_calibration_input(
+                self._prep_batch(dev_batch)[0]))
+        key = ('fused', tuple(metrics), include_lr, self.int8_mode)
         if key not in self._eval_step_cache:
             self._eval_step_cache[key] = self._make_fused_step(tuple(metrics), include_lr)
         step = self._eval_step_cache[key]
@@ -183,7 +275,9 @@ class BaseHandler:
                 # device bicubic stands in for the host PIL prep (same filter
                 # weights; <=1 uint8 LSB fixed-point difference)
                 lr_y = prep_y(resize_bicubic(lr, hr.shape[1], hr.shape[2]))
-            sr_y = prep_y(self.forward(lr))
+            # the calibrated int8 program when int8 serving is on, else the module
+            sr = self._int8_ctx[0](lr) if self.int8_mode else self.forward(lr)
+            sr_y = prep_y(sr)
             rows = []
             for met in metrics:  # row order matches run_eval_fused's keys tuple
                 if include_lr:
@@ -214,6 +308,11 @@ class BaseHandler:
         state_dict = torch.load(path, map_location='cpu', weights_only=True)
         self.module.load_state_dict(state_dict['network'])  # strict: layouts must match
         self._place()
+        if self._int8_ctx is not None or self.int8_mode:
+            # the quantised weights came from the replaced parameters: requantise and
+            # recalibrate on the next eval batch
+            self._int8_ctx = None
+            self._eval_step_cache = {}
         self.step = int(state_dict.get('step', 0))
         self.set_epoch(int(state_dict['model_epoch']))
         print('Loaded model uses the following architecture:', state_dict['model_name'])
@@ -224,6 +323,8 @@ class BaseHandler:
 class RCANHandler(BaseHandler):
     """(ref: advanced/handlers.py:26-39).  The reference locks the size parameters;
     we accept them as an optional superset (defaults identical)."""
+
+    int8_family = 'rcan'
 
     def build_module(self, scale, in_features=3, n_resblocks=20, n_resgroups=10, n_feats=64,
                      reduction=16, **kwargs):

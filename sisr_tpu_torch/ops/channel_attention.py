@@ -6,10 +6,15 @@ RCAN, with the signature and layout of sisr_tpu's ``fused_channel_attention``: x
 activation permuted to (0, 2, 3, 1) is exactly a contiguous NHWC view, so the model
 passes its activations without a copy.
 
-On a CUDA tensor the wrapper launches ``ops/cuda/csrc/channel_attention.cu`` (design
-and bound in that file) or raises; on a CPU tensor it runs
-:func:`reference_channel_attention`, the plain version the kernel is held against.
-``fused_channel_attention.launches`` counts kernel launches.
+:func:`fused_channel_attention_residual` is the int8 RCAB block tail,
+``out = (float(x) * att(x) + float(r)).to(r.dtype)``, with the signature of sisr_tpu's
+op of the same name.
+
+On a CUDA tensor each wrapper launches ``ops/cuda/csrc/channel_attention.cu`` (design
+and bound in that file) or raises; on a CPU tensor it runs its plain version
+(:func:`reference_channel_attention`, :func:`reference_channel_attention_residual`),
+which the kernel is held against.  Each wrapper's ``launches`` counts its kernel
+launches.
 """
 import ctypes
 
@@ -19,21 +24,37 @@ from .cuda import build as cuda_build
 
 _THREADS = 256  # kThreads in channel_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {'sisr_ca_forward': (
-    ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-    + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])}
+_SIGNATURES = {
+    'sisr_ca_forward': (
+        ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    'sisr_ca_res_forward': (
+        ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+}
 # the excite keeps 2*C + Cr floats in the 48 KB of static shared memory
 _MAX_EXCITE_FLOATS = 12288
 _DEVICES = {}  # CUDA device index -> (library handle, SM count)
 
 
+def _attention(x, w1, b1, w2, b2):
+    """att (N, C) in f32: mean over H, W, then sigmoid(relu(pooled @ w1 + b1) @ w2 + b2)."""
+    pooled = x.float().mean(dim=(1, 2))
+    hidden = torch.relu(pooled @ w1.float() + b1.float())
+    return torch.sigmoid(hidden @ w2.float() + b2.float())
+
+
 def reference_channel_attention(x, w1, b1, w2, b2):
     """Plain PyTorch version (sisr_tpu's ``_reference_ca``): pool and excite in f32,
     scale in x's dtype."""
-    pooled = x.float().mean(dim=(1, 2))
-    hidden = torch.relu(pooled @ w1.float() + b1.float())
-    att = torch.sigmoid(hidden @ w2.float() + b2.float())
-    return x * att[:, None, None, :].to(x.dtype)
+    return x * _attention(x, w1, b1, w2, b2)[:, None, None, :].to(x.dtype)
+
+
+def reference_channel_attention_residual(x, r, w1, b1, w2, b2):
+    """Plain PyTorch version of the CA + residual tail (sisr_tpu's ``_reference_ca_res``
+    and Pallas body): ``float(x) * att + float(r)`` in f32, one cast to r's dtype."""
+    att = _attention(x, w1, b1, w2, b2)
+    return (x.float() * att[:, None, None, :] + r.float()).to(r.dtype)
 
 
 def launch_plan(n, hw, c, itemsize, aligned, sm_count):
@@ -50,41 +71,74 @@ def launch_plan(n, hw, c, itemsize, aligned, sm_count):
     return vectorized, slabs
 
 
-def _check_args(x, w1, b1, w2, b2):
+def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention'):
     if x.dim() != 4:
-        raise ValueError('fused_channel_attention: x must be (N, H, W, C), got %s'
-                         % (tuple(x.shape),))
+        raise ValueError('%s: x must be (N, H, W, C), got %s' % (op, tuple(x.shape)))
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError('fused_channel_attention: x must be float32 or bfloat16, got %s'
-                        % x.dtype)
+        raise TypeError('%s: x must be float32 or bfloat16, got %s' % (op, x.dtype))
     if not x.is_contiguous():
-        raise ValueError('fused_channel_attention: x must be a contiguous NHWC tensor '
-                         '(a channels_last NCHW activation permuted to 0,2,3,1)')
+        raise ValueError('%s: x must be a contiguous NHWC tensor (a channels_last NCHW '
+                         'activation permuted to 0,2,3,1)' % op)
     n, h, w, c = x.shape
     if n == 0 or h * w == 0 or c == 0:
-        raise ValueError('fused_channel_attention: empty map %s' % (tuple(x.shape),))
+        raise ValueError('%s: empty map %s' % (op, tuple(x.shape)))
     if n > 65535:
-        raise ValueError('fused_channel_attention: batch %d exceeds the grid limit '
-                         '65535' % n)
+        raise ValueError('%s: batch %d exceeds the grid limit 65535' % (op, n))
     if w1.dim() != 2 or w1.shape[0] != c or w1.shape[1] == 0:
-        raise ValueError('fused_channel_attention: w1 must be (C, Cr) with C=%d, got %s'
-                         % (c, tuple(w1.shape)))
+        raise ValueError('%s: w1 must be (C, Cr) with C=%d, got %s'
+                         % (op, c, tuple(w1.shape)))
     cr = w1.shape[1]
     if 2 * c + cr > _MAX_EXCITE_FLOATS:
-        raise ValueError('fused_channel_attention: C=%d, Cr=%d exceed the excite\'s shared '
-                         'memory' % (c, cr))
+        raise ValueError('%s: C=%d, Cr=%d exceed the excite\'s shared memory'
+                         % (op, c, cr))
     for t, shape, label in ((b1, (cr,), 'b1'), (w2, (cr, c), 'w2'), (b2, (c,), 'b2')):
         if tuple(t.shape) != shape:
-            raise ValueError('fused_channel_attention: %s must be %s, got %s'
-                             % (label, shape, tuple(t.shape)))
+            raise ValueError('%s: %s must be %s, got %s'
+                             % (op, label, shape, tuple(t.shape)))
     for t in (w1, b1, w2, b2):
         if t.device != x.device:
-            raise ValueError('fused_channel_attention: weights on %s, x on %s'
-                             % (t.device, x.device))
+            raise ValueError('%s: weights on %s, x on %s' % (op, t.device, x.device))
     if any(t.requires_grad for t in (x, w1, b1, w2, b2)) and torch.is_grad_enabled():
-        raise NotImplementedError('fused_channel_attention has no backward on CUDA yet '
-                                  '(it comes with the training slice): call it under '
-                                  'torch.no_grad() or inference_mode().')
+        raise NotImplementedError('%s has no backward on CUDA yet (it comes with the '
+                                  'training slice): call it under torch.no_grad() or '
+                                  'inference_mode().' % op)
+
+
+def _check_residual_args(x, r, w1, b1, w2, b2):
+    op = 'fused_channel_attention_residual'
+    _check_args(x, w1, b1, w2, b2, op=op)
+    if r.dtype not in _DTYPE_CODES:
+        raise TypeError('%s: r must be float32 or bfloat16, got %s' % (op, r.dtype))
+    if tuple(r.shape) != tuple(x.shape) or r.device != x.device:
+        raise ValueError('%s: r must match x in shape and device: r %s on %s, x %s on %s'
+                         % (op, tuple(r.shape), r.device, tuple(x.shape), x.device))
+    if not r.is_contiguous():
+        raise ValueError('%s: r must be a contiguous NHWC tensor' % op)
+    if r.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError('%s has no backward on CUDA yet (it comes with the '
+                                  'training slice): call it under torch.no_grad() or '
+                                  'inference_mode().' % op)
+
+
+def _library(index):
+    """(ctypes library, SM count) of CUDA device ``index``, built on first use."""
+    if index not in _DEVICES:
+        with torch.cuda.device(index):
+            _DEVICES[index] = (cuda_build.load('channel_attention', _SIGNATURES),
+                               torch.cuda.get_device_properties(index).multi_processor_count)
+    return _DEVICES[index]
+
+
+def _excite_args(x, w1, b1, w2, b2, slabs):
+    """The excite's weights as the kernel reads them (strided views are fine) and the
+    f32 scratch for the partial sums and the attention."""
+    n, c = x.shape[0], x.shape[3]
+    w1, w2 = w1.detach().float(), w2.detach().float()
+    b1, b2 = b1.detach().float().contiguous(), b2.detach().float().contiguous()
+    scratch = torch.empty(n * (slabs + 1) * c, dtype=torch.float32, device=x.device)
+    partial, att = scratch[:n * slabs * c], scratch[n * slabs * c:]
+    return ((w1, b1, w2, b2, partial, att),
+            (w1.stride(0), w1.stride(1), w2.stride(0), w2.stride(1)))
 
 
 def fused_channel_attention(x, w1, b1, w2, b2):
@@ -96,30 +150,58 @@ def fused_channel_attention(x, w1, b1, w2, b2):
         raise ValueError('fused_channel_attention: unsupported device %s' % x.device)
     _check_args(x, w1, b1, w2, b2)
     n, h, w, c = x.shape
-    cr = w1.shape[1]
-    w1, w2 = w1.detach().float(), w2.detach().float()  # strided views are fine
-    b1, b2 = b1.detach().float().contiguous(), b2.detach().float().contiguous()
     index = x.device.index
-    if index not in _DEVICES:
-        with torch.cuda.device(index):
-            _DEVICES[index] = (cuda_build.load('channel_attention', _SIGNATURES),
-                               torch.cuda.get_device_properties(index).multi_processor_count)
-    lib, sm_count = _DEVICES[index]
+    lib, sm_count = _library(index)
     vectorized, slabs = launch_plan(n, h * w, c, x.element_size(), x.data_ptr() % 16 == 0,
                                     sm_count)
     out = torch.empty_like(x)
-    scratch = torch.empty(n * (slabs + 1) * c, dtype=torch.float32, device=x.device)
-    partial, att = scratch[:n * slabs * c], scratch[n * slabs * c:]
+    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
     with torch.cuda.device(index):
         code = lib.sisr_ca_forward(
-            x.data_ptr(), out.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), partial.data_ptr(), att.data_ptr(), n, h * w, c, cr,
-            w1.stride(0), w1.stride(1), w2.stride(0), w2.stride(1),
-            _DTYPE_CODES[x.dtype], int(vectorized), slabs, sm_count,
-            torch.cuda.current_stream(index).cuda_stream)
+            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors), n, h * w, c,
+            w1.shape[1], *strides, _DTYPE_CODES[x.dtype], int(vectorized), slabs,
+            sm_count, torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention launch')
     fused_channel_attention.launches += 1
     return out
 
 
 fused_channel_attention.launches = 0
+
+
+def residual_aligned(x, r, out):
+    """Whether the vectorised CA + residual path may take these tensors: x 16-byte
+    aligned, r and out aligned to one vector (16 / x.itemsize elements) of r's type."""
+    r_vec_bytes = 16 // x.element_size() * r.element_size()
+    return (x.data_ptr() % 16 == 0 and r.data_ptr() % r_vec_bytes == 0
+            and out.data_ptr() % r_vec_bytes == 0)
+
+
+def fused_channel_attention_residual(x, r, w1, b1, w2, b2):
+    """The int8 RCAB block tail ``(float(x) * att(x) + float(r)).to(r.dtype)``: the
+    CUDA kernel for a CUDA ``x``, the plain version for a CPU ``x``."""
+    if x.device.type == 'cpu':
+        return reference_channel_attention_residual(x, r, w1, b1, w2, b2)
+    if x.device.type != 'cuda':
+        raise ValueError('fused_channel_attention_residual: unsupported device %s'
+                         % x.device)
+    _check_residual_args(x, r, w1, b1, w2, b2)
+    n, h, w, c = x.shape
+    index = x.device.index
+    lib, sm_count = _library(index)
+    out = torch.empty_like(r)
+    vectorized, slabs = launch_plan(n, h * w, c, x.element_size(),
+                                    residual_aligned(x, r, out), sm_count)
+    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
+    with torch.cuda.device(index):
+        code = lib.sisr_ca_res_forward(
+            x.data_ptr(), r.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors),
+            n, h * w, c, w1.shape[1], *strides, _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[r.dtype], int(vectorized), slabs, sm_count,
+            torch.cuda.current_stream(index).cuda_stream)
+    cuda_build.check(lib, code, 'fused_channel_attention_residual launch')
+    fused_channel_attention_residual.launches += 1
+    return out
+
+
+fused_channel_attention_residual.launches = 0

@@ -28,6 +28,33 @@
 // The map is read twice.  At the main-path shape it is 16.8 MB, well inside the
 // 50 MB L2, so the second read mostly hits L2.  Folding the excite into pass 3, or
 // one cooperative pass that holds the map in L2, is left for a later change.
+//
+// Second entry point, sisr_ca_res_forward: the int8 RCAB block tail
+//
+//   out = TR(float(x) * att(x) + float(r))
+//
+// with att computed as above (pool and excite in float32) and multiplied in float32,
+// not rounded to x's type.  x is float32 or bfloat16 (the main path passes the
+// float32 dequantised conv output), r the residual carry (float32 or bfloat16) of
+// x's shape, and out has r's type.  Passes 1 and 2 are the same ca_pool_partial and
+// ca_excite; pass 3 is ca_res_scale.
+//
+// Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_res_forward` (bodies
+// `_ca_res_kernel_single` and `_ca_res_kernel`).
+//
+// Bound.  At the main-path shape (8, 128, 128, 64), x float32 and r bfloat16, the
+// least traffic is one read of x (33.6 MB), one read of r (16.8 MB) and one write of
+// out (16.8 MB): 67.1 MB, 20.0 us at 3.35 TB/s.  Bytes bound it (three flops per
+// element).  This design reads x twice, once to pool and once to scale: 100.7 MB if
+// the second read of x missed L2 entirely, 30.1 us.  The 33.6 MB map fits in the
+// 50 MB L2 only in part while r and out stream through it, so part of the second read
+// comes from device memory.
+//
+// Design.  Pass 3 moves one 16-byte x vector and the matching r/out vectors (8 bytes
+// for bfloat16) per thread when C is a multiple of the vector width and every pointer
+// is aligned, one element per thread otherwise.  The multiply and the add round
+// separately (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain version
+// does.  No atomics, so repeated runs are bit-identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,12 +190,38 @@ __global__ void ca_scale(const T* __restrict__ x, const float* __restrict__ att,
   }
 }
 
+// Grid-stride over the map's VEC-element vectors: out = TR(x * att[n, c] + r), the
+// product and the sum each rounded to float32 on their own.
+template <typename TX, typename TR, int VEC>
+__global__ void ca_res_scale(const TX* __restrict__ x, const TR* __restrict__ r,
+                             const float* __restrict__ att, TR* __restrict__ out,
+                             int64_t total_vecs, int64_t hw, int c) {
+  const int lanes = c / VEC;
+  const Pack<TX, VEC>* xs = reinterpret_cast<const Pack<TX, VEC>*>(x);
+  const Pack<TR, VEC>* rs = reinterpret_cast<const Pack<TR, VEC>*>(r);
+  Pack<TR, VEC>* dst = reinterpret_cast<Pack<TR, VEC>*>(out);
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total_vecs;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t pix = i / lanes;
+    const int lane = (int)(i - pix * lanes);
+    const float* a = att + (pix / hw) * c + lane * VEC;
+    const Pack<TX, VEC> px = xs[i];
+    const Pack<TR, VEC> pr = rs[i];
+    Pack<TR, VEC> po;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      po.v[v] = from_float<TR>(__fadd_rn(__fmul_rn(to_float(px.v[v]), a[v]),
+                                         to_float(pr.v[v])));
+    dst[i] = po;
+  }
+}
+
+// Passes 1 and 2: att (N, C) float32 from x.
 template <typename T, int VEC>
-cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
-                   const float* w2, const float* b2, float* partial, float* att,
-                   int64_t n, int64_t hw, int c, int cr, const int64_t* w_strides,
-                   int slabs, int sm_count, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
+cudaError_t launch_pool_excite(const T* xt, const float* w1, const float* b1,
+                               const float* w2, const float* b2, float* partial,
+                               float* att, int64_t n, int64_t hw, int c, int cr,
+                               const int64_t* w_strides, int slabs, cudaStream_t stream) {
   const int lanes = c / VEC;
   const int chunk_lanes = lanes < kThreads ? lanes : kThreads;
   const int rows = kThreads / chunk_lanes;
@@ -184,15 +237,58 @@ cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
   ca_excite<<<(unsigned)n, kThreads, sizeof(float) * (c + cr + c * parts), stream>>>(
       partial, w1, b1, w2, b2, att, slabs, c, cr, (float)hw, w_strides[0], w_strides[1],
       w_strides[2], w_strides[3], parts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
-  const int64_t total_vecs = n * hw * lanes;
+// Blocks for a grid-stride pass over total_vecs vectors: at most 16 per SM.
+unsigned scale_blocks(int64_t total_vecs, int sm_count) {
   int64_t blocks = (total_vecs + kThreads - 1) / kThreads;
   const int64_t max_blocks = (int64_t)sm_count * 16;
-  if (blocks > max_blocks) blocks = max_blocks;
-  ca_scale<T, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(xt, att, static_cast<T*>(out),
-                                                              total_vecs, hw, c);
+  return (unsigned)(blocks > max_blocks ? max_blocks : blocks);
+}
+
+template <typename TX, typename TR, int VEC>
+cudaError_t launch_res(const void* x, const void* r, void* out, const float* w1,
+                       const float* b1, const float* w2, const float* b2, float* partial,
+                       float* att, int64_t n, int64_t hw, int c, int cr,
+                       const int64_t* w_strides, int slabs, int sm_count,
+                       cudaStream_t stream) {
+  const TX* xt = static_cast<const TX*>(x);
+  cudaError_t err = launch_pool_excite<TX, VEC>(xt, w1, b1, w2, b2, partial, att, n, hw, c,
+                                                cr, w_strides, slabs, stream);
+  if (err != cudaSuccess) return err;
+  const int64_t total_vecs = n * hw * (c / VEC);
+  ca_res_scale<TX, TR, VEC><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
+      xt, static_cast<const TR*>(r), att, static_cast<TR*>(out), total_vecs, hw, c);
+  return cudaGetLastError();
+}
+
+template <typename TX, int VEC>
+cudaError_t dispatch_res(int r_dtype, const void* x, const void* r, void* out,
+                         const float* w1, const float* b1, const float* w2, const float* b2,
+                         float* partial, float* att, int64_t n, int64_t hw, int c, int cr,
+                         const int64_t* ws, int slabs, int sm_count, cudaStream_t s) {
+  if (r_dtype == 0)
+    return launch_res<TX, float, VEC>(x, r, out, w1, b1, w2, b2, partial, att, n, hw, c, cr,
+                                      ws, slabs, sm_count, s);
+  if (r_dtype == 1)
+    return launch_res<TX, __nv_bfloat16, VEC>(x, r, out, w1, b1, w2, b2, partial, att, n, hw,
+                                              c, cr, ws, slabs, sm_count, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int VEC>
+cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
+                   const float* w2, const float* b2, float* partial, float* att,
+                   int64_t n, int64_t hw, int c, int cr, const int64_t* w_strides,
+                   int slabs, int sm_count, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  cudaError_t err = launch_pool_excite<T, VEC>(xt, w1, b1, w2, b2, partial, att, n, hw, c,
+                                               cr, w_strides, slabs, stream);
+  if (err != cudaSuccess) return err;
+  const int64_t total_vecs = n * hw * (c / VEC);
+  ca_scale<T, VEC><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
+      xt, att, static_cast<T*>(out), total_vecs, hw, c);
   return cudaGetLastError();
 }
 
@@ -224,6 +320,34 @@ int sisr_ca_forward(const void* x, void* out, const float* w1, const float* b1,
                                                  c, cr, ws, slabs, sm_count, s)
                       : launch<__nv_bfloat16, 1>(x, out, w1, b1, w2, b2, partial, att, n, hw,
                                                  c, cr, ws, slabs, sm_count, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The CA + residual block tail.  x_dtype and r_dtype: 0 float32, 1 bfloat16; out has
+// r's type.  vectorized: 1 for VEC = 16 / sizeof(x) elements per thread (the caller
+// checks that C is a multiple of VEC, that x is 16-byte aligned and that r and out
+// are aligned to VEC elements of r's type), 0 for one element per thread.  The other
+// arguments are those of sisr_ca_forward.
+int sisr_ca_res_forward(const void* x, const void* r, void* out, const float* w1,
+                        const float* b1, const float* w2, const float* b2, float* partial,
+                        float* att, long long n, long long hw, int c, int cr, long long w1_s0,
+                        long long w1_s1, long long w2_s0, long long w2_s1, int x_dtype,
+                        int r_dtype, int vectorized, int slabs, int sm_count, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
+  if (x_dtype == 0) {
+    return vectorized ? dispatch_res<float, 4>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
+                                               att, n, hw, c, cr, ws, slabs, sm_count, s)
+                      : dispatch_res<float, 1>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
+                                               att, n, hw, c, cr, ws, slabs, sm_count, s);
+  }
+  if (x_dtype == 1) {
+    return vectorized
+               ? dispatch_res<__nv_bfloat16, 8>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
+                                                att, n, hw, c, cr, ws, slabs, sm_count, s)
+               : dispatch_res<__nv_bfloat16, 1>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
+                                                att, n, hw, c, cr, ws, slabs, sm_count, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-"""sisr_tpu_torch's channel attention against sisr_tpu's Pallas kernel (interpret mode)
-and plain reference, on the CPU; the launch plan, argument checks, build command and
-CALayer wiring in Python.  The CUDA kernel itself is tested on the card by
+"""sisr_tpu_torch's channel attention, and its CA + residual block tail, against
+sisr_tpu's Pallas kernels (interpret mode) and plain references, on the CPU; the
+launch plan, alignment rule, argument checks, build command and CALayer wiring in
+Python.  The CUDA kernels themselves are tested on the card by
 tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
@@ -8,7 +9,9 @@ import torch
 
 import jax.numpy as jnp
 
-from sisr_tpu.ops.pallas.channel_attention import _fused_ca_forward, _reference_ca
+from sisr_tpu.ops.pallas import channel_attention as pallas_ca
+from sisr_tpu.ops.pallas.channel_attention import (_fused_ca_forward, _fused_ca_res_forward,
+                                                   _reference_ca, _reference_ca_res)
 from sisr_tpu_torch.models import blocks
 from sisr_tpu_torch.ops import channel_attention as ca
 from sisr_tpu_torch.ops.cuda import build
@@ -38,6 +41,7 @@ def test_cpu_path_matches_pallas_interpret_and_reference(shape):
 
 @pytest.mark.parametrize('n,hw,c,itemsize,aligned,expect', [
     (8, 128 * 128, 64, 2, True, (True, 66)),   # main path: 16-byte vectors, 66 slabs
+    (8, 128 * 128, 64, 4, True, (True, 66)),   # int8 path's f32 x: 4 floats a vector
     (1, 13 * 8, 32, 4, True, (True, 1)),
     (1, 512 * 512, 64, 2, True, (True, 528)),  # one large map: many slabs per image
     (1, 7 * 5, 20, 2, True, (False, 1)),       # 40-byte pixels: one element a thread
@@ -100,3 +104,91 @@ def test_calayer_passes_a_contiguous_nhwc_view(monkeypatch):
     assert out.shape == x.shape
     assert out.is_contiguous(memory_format=torch.channels_last)
 
+
+
+def _force_multi_tile(monkeypatch, rows_per_tile=4):
+    """sisr_tpu's two-phase tiled grid with several small tiles (as
+    tests/test_pallas.py forces it)."""
+    orig = pallas_ca._pick_tile
+
+    def small_tiles(h, w, c, itemsize):
+        return orig(h, w, c, itemsize, budget=rows_per_tile * w * c * itemsize)
+
+    monkeypatch.setattr(pallas_ca, '_RES_SINGLE_BLOCK_BUDGET', 1)
+    monkeypatch.setattr(pallas_ca, '_pick_tile', small_tiles)
+
+
+@pytest.mark.parametrize('shape', [(2, 16, 8, 32), (1, 13, 8, 32)])
+@pytest.mark.parametrize('r_dtype', [np.float32, 'bfloat16'])
+@pytest.mark.parametrize('force_tiled', [False, True])
+def test_residual_cpu_path_matches_pallas_interpret_and_reference(shape, r_dtype,
+                                                                  force_tiled, monkeypatch):
+    """x f32 (the dequantised conv output) with an f32 or bf16 carry r; the output
+    has r's type.  Bars: f32 1e-5 abs; bf16 one bf16 ULP (rtol 3.9e-3)."""
+    if force_tiled:
+        _force_multi_tile(monkeypatch)
+    x, w1, b1, w2, b2 = _inputs(shape, seed=3)
+    r = np.random.RandomState(4).rand(*shape).astype(np.float32)
+    r_jax = jnp.asarray(r, jnp.bfloat16 if r_dtype == 'bfloat16' else jnp.float32)
+    r_torch = torch.from_numpy(np.array(r_jax.astype(jnp.float32))).to(
+        torch.bfloat16 if r_dtype == 'bfloat16' else torch.float32)
+    launches = ca.fused_channel_attention_residual.launches
+    ours = ca.fused_channel_attention_residual(torch.from_numpy(x), r_torch,
+                                               *map(torch.from_numpy, (w1, b1, w2, b2)))
+    assert ca.fused_channel_attention_residual.launches == launches  # CPU: no launch
+    assert ours.dtype == r_torch.dtype and ours.shape == shape
+    args = [jnp.asarray(x), r_jax] + [jnp.asarray(a) for a in (w1, b1, w2, b2)]
+    for theirs in (_fused_ca_res_forward(*args, interpret=True), _reference_ca_res(*args)):
+        assert theirs.dtype == r_jax.dtype
+        if r_dtype == 'bfloat16':
+            np.testing.assert_allclose(ours.float().numpy(), np.asarray(theirs, np.float32),
+                                       rtol=3.9e-3, atol=1e-6)
+        else:
+            np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-5, rtol=0)
+
+
+def test_residual_reference_multiplies_by_the_f32_attention():
+    """Unlike the plain CA (x * att rounded to x's type), the block tail multiplies
+    float(x) by the f32 att, as sisr_tpu's Pallas body does."""
+    x, w1, b1, w2, b2 = map(torch.from_numpy, _inputs((1, 4, 4, 32), seed=5))
+    x = x.bfloat16()
+    r = torch.zeros(1, 4, 4, 32)
+    att = ca._attention(x, w1, b1, w2, b2)[:, None, None, :]
+    out = ca.reference_channel_attention_residual(x, r, w1, b1, w2, b2)
+    torch.testing.assert_close(out, x.float() * att, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('x_offset,r_offset,r_dtype,expect', [
+    (0, 0, torch.bfloat16, True),
+    (4, 4, torch.bfloat16, True),     # x 16 bytes in, r 8 bytes in: still aligned
+    (1, 0, torch.bfloat16, False),    # x 4 bytes in
+    (0, 2, torch.bfloat16, False),    # r 4 bytes in: not one 8-byte vector
+    (0, 2, torch.float32, False),     # r f32 8 bytes in: not one 16-byte vector
+])
+def test_residual_alignment_rule(x_offset, r_offset, r_dtype, expect):
+    def at_offset(offset, dtype):
+        """64 elements starting ``offset`` elements past a 16-byte boundary."""
+        t = torch.zeros(64 + 16 + offset, dtype=dtype)
+        start = (-t.data_ptr() % 16) // t.element_size() + offset
+        return t[start:start + 64]
+
+    x, r = at_offset(x_offset, torch.float32), at_offset(r_offset, r_dtype)
+    assert ca.residual_aligned(x, r, at_offset(0, r_dtype)) == expect
+
+
+@pytest.mark.parametrize('mutate,error', [
+    (lambda a: {**a, 'r': a['r'][:, :3]}, ValueError),                     # shape
+    (lambda a: {**a, 'r': torch.empty(a['r'].shape, device='meta')}, ValueError),
+    (lambda a: {**a, 'r': a['r'].transpose(1, 2).contiguous().transpose(1, 2)},
+     ValueError),                                                           # strided
+    (lambda a: {**a, 'r': a['r'].half()}, TypeError),
+    (lambda a: {**a, 'r': a['r'].requires_grad_()}, NotImplementedError),
+    (lambda a: {**a, 'x': a['x'].requires_grad_()}, NotImplementedError),
+    (lambda a: {**a, 'b1': a['b1'][:-1]}, ValueError),
+])
+def test_residual_argument_checks(mutate, error):
+    arrays = _inputs((2, 4, 4, 32), seed=6)
+    args = dict(zip(('x', 'w1', 'b1', 'w2', 'b2'), map(torch.from_numpy, arrays)))
+    args['r'] = torch.rand(2, 4, 4, 32).bfloat16()
+    with pytest.raises(error, match='fused_channel_attention_residual'):
+        ca._check_residual_args(**mutate(args))

@@ -1,6 +1,8 @@
-"""sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel against its plain
-version, and a small RCAN on the card against the CPU.  Every test here needs the card
-and skips without one.  Imports torch only (no JAX), so the card's machine runs it:
+"""sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel and the CA +
+residual block-tail kernel against their plain versions, the int8 conv's int32 sums
+against an int64 reference, and a small RCAN (f32, and int8) on the card against the
+CPU.  Every test here needs the card and skips without one.  Imports torch only (no
+JAX), so the card's machine runs it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -10,6 +12,7 @@ import torch
 
 from sisr_tpu_torch.models.handlers import define_model
 from sisr_tpu_torch.ops import channel_attention as ca
+from sisr_tpu_torch.ops import quantization as qz
 
 pytestmark = pytest.mark.cuda
 
@@ -65,3 +68,98 @@ def test_rcan_on_card_matches_cpu():
         ref = host.forward(x)
     assert ca.fused_channel_attention.launches == launches + 4  # one per RCAB
     torch.testing.assert_close(out, ref, atol=5e-4, rtol=0)
+
+
+def _excite_weights(rng, c, cr):
+    """w1 (C, Cr) and w2 (Cr, C) in conv_du's transposed layout, as the int8 tree's
+    Dense kernels are passed."""
+    w1, w2 = (torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.1).cuda()
+              for s in ((c, cr), (cr, c)))
+    b1, b2 = (torch.from_numpy(rng.randn(n).astype(np.float32) * 0.1).cuda()
+              for n in (cr, c))
+    return w1, b1, w2, b2
+
+
+@pytest.mark.parametrize('shape,red,x_dtype,r_dtype,offset', [
+    ((8, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0),   # the main path
+    ((8, 128, 128, 64), 16, torch.float32, torch.float32, 0),
+    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0),
+    ((2, 16, 8, 32), 4, torch.bfloat16, torch.bfloat16, 0),
+    ((1, 13, 7, 32), 4, torch.float32, torch.bfloat16, 0),       # odd H x W
+    ((1, 7, 5, 20), 4, torch.float32, torch.bfloat16, 0),
+    ((2, 9, 3, 18), 3, torch.float32, torch.float32, 0),         # C % 4 != 0: scalar
+    ((2, 16, 8, 32), 4, torch.float32, torch.bfloat16, 2),       # misaligned r: scalar
+])
+def test_residual_kernel_matches_plain_version(shape, red, x_dtype, r_dtype, offset):
+    rng = np.random.RandomState(1)
+    c, cr = shape[-1], shape[-1] // red
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(x_dtype).cuda()
+    numel = int(np.prod(shape))
+    r = torch.from_numpy(rng.rand(numel + offset).astype(np.float32)).to(r_dtype).cuda()
+    r = r[offset:].view(shape)
+    weights = _excite_weights(rng, c, cr)
+    launches = ca.fused_channel_attention_residual.launches
+    with torch.inference_mode():
+        out = ca.fused_channel_attention_residual(x, r, *weights)
+        again = ca.fused_channel_attention_residual(x, r, *weights)
+        torch.cuda.synchronize()
+        ref = ca.reference_channel_attention_residual(x, r, *weights)
+    assert ca.fused_channel_attention_residual.launches == launches + 2
+    assert out.dtype == r_dtype
+    assert torch.equal(out, again)  # no atomics: the same bits every run
+    if r_dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:  # 2 bf16 ULPs: the summation order of the pool can flip a rounding
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+
+
+@pytest.mark.parametrize('n,h,w,cin,cout', [(8, 32, 32, 64, 64), (2, 16, 16, 3, 64),
+                                            (1, 2, 3, 64, 3)])
+def test_int_mm_conv_on_card_matches_int64(n, h, w, cin, cout):
+    rng = np.random.RandomState(2)
+    x_q = torch.from_numpy(rng.randint(-127, 128, (n, h, w, cin)).astype(np.int8))
+    kernel = torch.from_numpy(rng.randint(-127, 128, (3, 3, cin, cout)).astype(np.int8))
+    acc = qz.conv_int8_accumulate(x_q.cuda(), kernel.cuda()).cpu()
+    xp = torch.nn.functional.pad(x_q.long(), (0, 0, 1, 1, 1, 1))
+    ref = sum(torch.einsum('nhwc,co->nhwo', xp[:, i:i + h, j:j + w], kernel[i, j].long())
+              for i in range(3) for j in range(3))
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc.long(), ref)
+
+
+def test_int8_rcan_on_card_matches_cpu():
+    """The same quantised state and scales (calibrated on the CPU) on both devices;
+    every RCAB tail is one launch of the CA + residual kernel on the card."""
+    kw = dict(scale=4, n_resgroups=2, n_resblocks=2, n_feats=32, reduction=16, seed=1)
+    host, card = define_model('rcan', device='cpu', **kw), define_model('rcan', device='cuda',
+                                                                        **kw)
+    x = torch.from_numpy(np.random.RandomState(3).rand(2, 16, 16, 3).astype(np.float32))
+    for h in (host, card):
+        h.set_int8(True)
+    host._ensure_int8_ctx(x)
+    card.load_int8_state(*host._int8_ctx[1:])
+    launches = ca.fused_channel_attention_residual.launches
+    with torch.inference_mode():
+        ref = host._int8_ctx[0](x)
+        out = card._int8_ctx[0](x.cuda()).cpu()
+    assert ca.fused_channel_attention_residual.launches == launches + 4
+    mse = (out - ref).pow(2).mean().item()
+    assert mse == 0 or 10 * np.log10(1.0 / mse) >= 60
+
+
+def test_int8_calibration_on_card_is_true_f32():
+    """With TF32 allowed globally, calibration still runs its convs in f32: the
+    scales agree with the CPU's to rtol 1e-5."""
+    kw = dict(scale=4, n_resgroups=2, n_resblocks=2, n_feats=32, reduction=16, seed=1)
+    host, card = define_model('rcan', device='cpu', **kw), define_model('rcan', device='cuda',
+                                                                        **kw)
+    x = torch.from_numpy(np.random.RandomState(4).rand(2, 16, 16, 3).astype(np.float32))
+    torch.backends.cudnn.allow_tf32 = True  # the fixture restores it
+    for h in (host, card):
+        h.set_int8(True)
+        h._ensure_int8_ctx(x.to(h.device))
+    assert torch.backends.cudnn.allow_tf32  # the library set no global flag
+    theirs, ours = host._int8_ctx[2], card._int8_ctx[2]
+    assert sorted(theirs) == sorted(ours)
+    for k in theirs:
+        np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-5, atol=0, err_msg=k)

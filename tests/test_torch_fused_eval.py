@@ -1,7 +1,7 @@
 """sisr_tpu_torch's fused eval against sisr_tpu's on a small RCAN with the same weights:
-the per-batch metric matrix, and eval_sisr --fused_eval end to end (the port's CLI with
---no-gpu against sisr_tpu's EvalHub).  Bars: PSNR within 0.01 dB, SSIM within 1e-3 per
-image."""
+the per-batch metric matrix in f32 and in bf16, and eval_sisr --fused_eval end to end
+(the port's CLI with --no-gpu against sisr_tpu's EvalHub).  Bars: PSNR within 0.01 dB,
+SSIM within 1e-3 per image."""
 import os
 
 import numpy as np
@@ -31,8 +31,8 @@ def jax_rcan():
     return handler
 
 
-def _port_rcan(jax_handler):
-    handler = define_model('rcan', device='cpu', **RCAN)
+def _port_rcan(jax_handler, **kwargs):
+    handler = define_model('rcan', device='cpu', **{**RCAN, **kwargs})
     params = jax.tree.map(np.asarray, jax_handler.state.params)
     handler.module.load_state_dict(state_dict_from_jax('rcan', params))
     return handler
@@ -54,6 +54,24 @@ def test_run_eval_fused_matches_sisr_tpu(jax_rcan, include_lr):
         batch, include_lr=include_lr)
     assert our_keys == keys and runtime is None
     assert ours.shape == (len(keys), 3) and ours.dtype == torch.float32
+    _assert_metric_rows(keys, ours.numpy(), np.asarray(theirs))
+
+
+@pytest.mark.parametrize('include_lr', [True, False])
+def test_run_eval_fused_bf16_matches_sisr_tpu(include_lr):
+    """bf16: the port's autocast RCAN against sisr_tpu's ``dtype='bf16'`` RCAN.  The
+    two round in other places (sisr_tpu's CALayer pools and excites in bf16, the
+    port's CA kernel in f32; conv accumulation), and still meet the metric bars."""
+    jax_bf16 = jax_define_model('rcan', eval_mode=True, dtype='bf16', **RCAN)
+    jax_bf16.init_state(spatial=(16, 16))
+    rng = np.random.RandomState(7)
+    batch = {'lr': rng.randint(0, 256, (3, 16, 16, 3)).astype(np.uint8),
+             'hr': rng.randint(0, 256, (3, 64, 64, 3)).astype(np.uint8)}
+    (keys, theirs), _ = jax_bf16.run_eval_fused(batch, include_lr=include_lr)
+    port = _port_rcan(jax_bf16, dtype='bf16')
+    assert port.dtype == torch.bfloat16
+    (our_keys, ours), _ = port.run_eval_fused(batch, include_lr=include_lr)
+    assert our_keys == keys
     _assert_metric_rows(keys, ours.numpy(), np.asarray(theirs))
 
 
@@ -139,7 +157,8 @@ def test_cli_fused_eval_matches_sisr_tpu(tmp_path, jax_rcan):
 
 @pytest.mark.parametrize('override', [
     {'fused_eval': False}, {'save_im': True}, {'no_image_comparison': False},
-    {'int8': True}, {'mesh': True}, {'eval_buckets': 128}, {'lr_dir_interp': 'x'},
+    {'decoded_cache_dir': 'd'}, {'mesh': True}, {'eval_buckets': 128},
+    {'lr_dir_interp': 'x'},
     {'metadata_file': 'x.csv'}, {'metrics': ['PSNR', 'FACE_SIM']},
 ])
 def test_unported_options_raise(override):
