@@ -10,7 +10,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    shape and at edge shapes, with its time: ``ms`` per call replayed from a CUDA
    graph (device time with launch gaps, no host), ``host_ms`` per call back to back
    from Python, ``device_ms`` the profiler's sum of its kernels.  The CA kernel in
-   bf16 and f32; the CA + residual kernel with x f32 and r bf16 or f32;
+   bf16 and f32, on both of its paths (which path each shape took is checked against
+   the plan), with the on-chip and three-pass kernels timed in turns at the main
+   shape and the three-pass kernel at the shapes that take it; the CA + residual
+   kernel with x f32 and r bf16 or f32;
 3. reference: the full-width RCAN forward and the fused eval on a small input, card
    (CUDA kernels) against the CPU (plain versions), in f32;
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
@@ -19,8 +22,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    on the same quantised state, card against CPU;
 5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
-   launch counts of that run; then the img/s of warm protocol passes and a device-time
-   breakdown of one batch;
+   launch counts of that run (every CA call on chip); then the img/s of warm protocol
+   passes and a device-time breakdown of one batch;
 6. int8 main path: ``eval_sisr --fused_eval --int8`` on the same pairs and weights,
    with its launch counts, its mean PSNR against the bf16 run's, img/s and breakdown;
 
@@ -47,7 +50,7 @@ LR_SIZE, SCALE, N_IMAGES, BATCH = 128, 4, 16, 8
 RCAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
         'reduction': 16, 'dtype': 'bf16'}
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
-CA_KERNELS = ('ca_pool_partial', 'ca_excite', 'ca_scale')
+CA_KERNELS = ('ca_onchip', 'ca_pool_partial', 'ca_excite', 'ca_scale')
 CA_RES_KERNELS = ('ca_pool_partial', 'ca_excite', 'ca_res_scale')
 # substrings of cuBLASLt / CUTLASS integer GEMM kernel names (torch._int_mm)
 GEMM_KERNEL_HINTS = ('gemm', 'xmma', 'cutlass', 'imma')
@@ -136,16 +139,32 @@ def device_kernel_ms(fn, reps=20):
     return (total / reps if total else None), per_kernel
 
 
-def time_kernel(kern, plain):
-    """A kernel's and its plain version's times, in turns (plain, kernel, kernel,
-    plain: the second turn of each graph timing is reported), and the profiler's
+def time_kernel(kern, plain, three_pass=None):
+    """A kernel's and its plain version's times and, given ``three_pass``, the CA's
+    three-pass path's, in turns (plain, [three-pass,] kernel, kernel, [three-pass,]
+    plain: the second turn of each graph timing is reported); and the profiler's
     per-kernel totals of the kernel over 20 calls."""
-    timing = {'plain_ms': graph_ms(plain), 'ms': graph_ms(kern)}
-    timing['ms'], timing['plain_ms'] = graph_ms(kern), graph_ms(plain)
-    timing['host_ms'], timing['plain_host_ms'] = cuda_ms(kern), cuda_ms(plain)
-    timing['device_ms'], kern_detail = device_kernel_ms(kern)
-    timing['plain_device_ms'], _ = device_kernel_ms(plain)
-    return timing, kern_detail
+    fns = [(prefix, fn) for prefix, fn in (('plain_', plain), ('three_pass_', three_pass),
+                                            ('', kern)) if fn is not None]
+    timing = {}
+    for prefix, fn in fns + fns[::-1]:
+        timing[prefix + 'ms'] = graph_ms(fn)
+    for prefix, fn in fns:
+        timing[prefix + 'host_ms'] = cuda_ms(fn)
+        timing[prefix + 'device_ms'], detail = device_kernel_ms(fn)
+    return timing, detail  # the kernel comes last
+
+
+def ca_bound(x, w1):
+    """Bytes, operations and the bound (ms) of the CA on x: one read and one write of
+    the map plus the excite's weights; the pool's add and the scale's multiply per
+    element plus the excite."""
+    n, h, w, c = x.shape
+    cr = w1.shape[1]
+    bytes_moved = 2 * x.numel() * x.element_size() + 4 * (2 * c * cr + c + cr)
+    ops = 2 * x.numel() + n * (4 * c * cr + 2 * c)
+    return bytes_moved, ops, max(bytes_moved / HBM_BYTES_PER_S,
+                                 ops / F32_CUDA_CORE_FLOPS) * 1e3
 
 
 def write_workload(root, rng):
@@ -214,28 +233,43 @@ def ca_inputs(shape, dtype, reduction, gen):
     return x, w1, b1, w2, b2
 
 
-def phase_kernel():
-    """fused_channel_attention against reference_channel_attention.  Tolerances:
-    f32 1e-5 abs (summation order only); bf16 2 bf16 ULPs of the output (rtol
-    1.6e-2), since the summation order can flip how att rounds to bf16."""
+def ca_path_run(args):
+    """fused_channel_attention twice on ``args``: the output, the repeat, and the path
+    both calls took by the on-chip launch count ('onchip' or 'three_pass')."""
     import torch
-    from sisr_tpu_torch.ops.channel_attention import (fused_channel_attention,
-                                                      launch_plan,
-                                                      reference_channel_attention)
+    from sisr_tpu_torch.ops import channel_attention as ca
+    before = ca.fused_channel_attention.onchip_launches
+    out = ca.fused_channel_attention(*args)
+    again = ca.fused_channel_attention(*args)
+    torch.cuda.synchronize()
+    took = ca.fused_channel_attention.onchip_launches - before
+    if took not in (0, 2):
+        raise AssertionError('the CA took %d on-chip launches in 2 calls' % took)
+    return out, again, 'onchip' if took else 'three_pass'
+
+
+def phase_kernel():
+    """fused_channel_attention against reference_channel_attention, on both paths.
+    Each shape's path is the one onchip_plan gives for this card, and both paths are
+    taken.  Tolerances: f32 1e-5 abs (summation order only); bf16 2 bf16 ULPs of the
+    output (rtol 1.6e-2), since the summation order can flip how att rounds to bf16.
+    At the main shape (on chip) the on-chip kernel is timed against the three-pass
+    kernel (its private launcher) in turns; the three-pass path is also timed at the
+    main shape in f32 and at one 512^2 map, the shapes that take it."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
     gen = torch.Generator().manual_seed(0)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    props = torch.cuda.get_device_properties(0)
     shapes = [((BATCH, LR_SIZE, LR_SIZE, 64), 16), ((1, 13, 8, 32), 4),
               ((2, 16, 8, 32), 4), ((1, 512, 512, 64), 16),
-              ((1, 7, 5, 20), 4), ((2, 9, 3, 18), 3)]
+              ((1, 7, 5, 20), 4), ((2, 9, 3, 18), 3), ((3, 37, 29, 64), 16)]
     checks = []
     with torch.inference_mode():
         for shape, reduction in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 args = ca_inputs(shape, dtype, reduction, gen)
-                out = fused_channel_attention(*args)
-                again = fused_channel_attention(*args)
-                torch.cuda.synchronize()
-                ref = reference_channel_attention(*args)
+                out, again, path = ca_path_run(args)
+                ref = ca.reference_channel_attention(*args)
                 err = (out.float() - ref.float()).abs().max().item()
                 if dtype == torch.float32:
                     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
@@ -245,28 +279,60 @@ def phase_kernel():
                 if not torch.equal(out, again):
                     raise AssertionError('fused_channel_attention is not deterministic '
                                          'at %s %s' % (shape, dtype))
-                vectorized, slabs = launch_plan(shape[0], shape[1] * shape[2], shape[3],
-                                                args[0].element_size(), True, sms)
+                n, h, w, c = shape
+                plan = ca.onchip_plan(n, h * w, c, c // reduction, args[0].element_size(),
+                                      True, props.multi_processor_count,
+                                      props.shared_memory_per_block_optin)
+                if path != ('three_pass' if plan is None else 'onchip'):
+                    raise AssertionError('%s %s took the %s path against plan %s'
+                                         % (shape, dtype, path, plan))
+                if plan is None:
+                    plan = dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
+                        n, h * w, c, args[0].element_size(), True,
+                        props.multi_processor_count)))
+                else:
+                    plan = dict(zip(('blocks_per_image', 'slab_pixels', 'smem_bytes'), plan))
                 checks.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
-                               'max_abs_err': err, 'vectorized': vectorized,
-                               'slabs_per_image': slabs})
+                               'path': path, 'max_abs_err': err, **plan})
+        if {c['path'] for c in checks} != {'onchip', 'three_pass'}:
+            raise AssertionError('the shapes did not take both paths')
+
+        three_pass_shapes = []
+        for shape, dtype in (((BATCH, LR_SIZE, LR_SIZE, 64), torch.float32),
+                             ((1, 512, 512, 64), torch.bfloat16)):
+            args = ca_inputs(shape, dtype, 16, gen)
+            if ca_path_run(args)[2] != 'three_pass':
+                raise AssertionError('%s %s is not on the three-pass path' % (shape, dtype))
+            kern = lambda args=args: ca.fused_channel_attention(*args)
+            plain = lambda args=args: ca.reference_channel_attention(*args)
+            timing = {'plain_ms': graph_ms(plain), 'ms': graph_ms(kern)}
+            timing['ms'], timing['plain_ms'] = graph_ms(kern), graph_ms(plain)
+            three_pass_shapes.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
+                                      'bound_ms': ca_bound(args[0], args[1])[2], **timing})
 
         x, w1, b1, w2, b2 = ca_inputs((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 16,
                                       gen)
-        kern = lambda: fused_channel_attention(x, w1, b1, w2, b2)
-        plain = lambda: reference_channel_attention(x, w1, b1, w2, b2)
-        err = (kern().float() - plain().float()).abs().max().item()
-        timing, kern_detail = time_kernel(kern, plain)
-    n, h, w, c = x.shape
-    cr = w1.shape[1]
-    bytes_moved = 2 * x.numel() * x.element_size() + 4 * (2 * c * cr + c + cr)
-    ops = 2 * x.numel() + n * (4 * c * cr + 2 * c)
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_CUDA_CORE_FLOPS) * 1e3
+        out, _, path = ca_path_run((x, w1, b1, w2, b2))
+        if path != 'onchip':
+            raise AssertionError('the main shape is not on the on-chip path')
+        kern = lambda: ca.fused_channel_attention(x, w1, b1, w2, b2)
+        three_pass = lambda: ca._three_pass(x, w1, b1, w2, b2)
+        plain = lambda: ca.reference_channel_attention(x, w1, b1, w2, b2)
+        ref, three_out = plain().float(), three_pass().float()
+        torch.testing.assert_close(three_out, ref, atol=1e-6, rtol=1.6e-2)
+        err = (out.float() - ref).abs().max().item()
+        three_pass_err = (three_out - ref).abs().max().item()
+        timing, kern_detail = time_kernel(kern, plain, three_pass)
+        # a yardstick, not the same function: one read and one write of the map
+        timing['copy_ms'] = graph_ms(lambda: x.clone())
+    bytes_moved, ops, bound_ms = ca_bound(x, w1)
     emit({'phase': 'kernel', 'name': 'fused_channel_attention', 'checks': checks,
-          'main_shape': [n, h, w, c], 'dtype': 'bfloat16', 'max_abs_err': err,
+          'main_shape': list(x.shape), 'dtype': 'bfloat16', 'path': path,
+          'max_abs_err': err, 'three_pass_max_abs_err': three_pass_err,
           'bound_ms': bound_ms, 'bound_us': bound_ms * 1e3, 'bytes': bytes_moved, 'ops': ops,
-          'device_kernels_ms_per_20_calls': kern_detail, **timing})
-    return {'max_abs_err': err, 'bound_ms': bound_ms, **timing}
+          'device_kernels_ms_per_20_calls': kern_detail, 'three_pass_shapes': three_pass_shapes,
+          'nvidia_smi': nvidia_smi_line(), **timing})
+    return {'max_abs_err': err, 'bound_ms': bound_ms, 'path': path, **timing}
 
 
 def phase_kernel_residual():
@@ -482,12 +548,15 @@ def prepare_workload(root):
 def reset_launches():
     from sisr_tpu_torch.ops import channel_attention as ca
     ca.fused_channel_attention.launches = 0
+    ca.fused_channel_attention.onchip_launches = 0
     ca.fused_channel_attention_residual.launches = 0
 
 
 def read_launches():
+    """Each wrapper's launches, and how many of the CA's were on chip."""
     from sisr_tpu_torch.ops import channel_attention as ca
     return {'fused_channel_attention': ca.fused_channel_attention.launches,
+            'fused_channel_attention_onchip': ca.fused_channel_attention.onchip_launches,
             'fused_channel_attention_residual': ca.fused_channel_attention_residual.launches}
 
 
@@ -570,10 +639,13 @@ def step_times(handler, dev):
 
 
 def phase_main_path(dirs):
+    """``eval_sisr --fused_eval`` in bf16: every CALayer through the on-chip CA kernel
+    (200 per forward), the CA + residual kernel not at all."""
     import torch
     launches, cli_seconds, frame = run_eval_cli(dirs, 'smoke')
     n_batches = -(-N_IMAGES // BATCH)
     expect_launches(launches, {'fused_channel_attention': CA_PER_FORWARD * n_batches,
+                               'fused_channel_attention_onchip': CA_PER_FORWARD * n_batches,
                                'fused_channel_attention_residual': 0}, 'bf16 main path')
     rates, handler = warm_passes(dirs, 'smoke_timed', int8=False)
 
@@ -608,6 +680,7 @@ def phase_int8_main_path(dirs, bf16_mean_psnr):
     launches, cli_seconds, frame = run_eval_cli(dirs, 'smoke_int8', ['--int8'])
     n_batches = -(-N_IMAGES // BATCH)
     expect_launches(launches, {'fused_channel_attention': 0,
+                               'fused_channel_attention_onchip': 0,
                                'fused_channel_attention_residual':
                                    CA_PER_FORWARD * n_batches}, 'int8 main path')
     mean_psnr = float(frame[('rcan_10x20', 'PSNR')].mean())
@@ -695,9 +768,14 @@ def main():
                     main_path['launches']['fused_channel_attention'],
                 'fused_channel_attention_residual':
                     int8_path['launches']['fused_channel_attention_residual']}
-    replaces = {'fused_channel_attention': 'sisr_tpu/ops/pallas/channel_attention.py:104',
+    replaces = {'fused_channel_attention': 'sisr_tpu/ops/pallas/channel_attention.py:112',
                 'fused_channel_attention_residual':
                     'sisr_tpu/ops/pallas/channel_attention.py:182'}
+    ca = kernels['fused_channel_attention']
+    extra = {'fused_channel_attention': {
+        'path': ca['path'], 'three_pass_ms': ca['three_pass_ms'],
+        'three_pass_device_ms': ca['three_pass_device_ms'],
+        'onchip_launches': main_path['launches']['fused_channel_attention_onchip']}}
     emit({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu',
@@ -705,7 +783,8 @@ def main():
         'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
         'bound_ms': k['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
         'host_ms': k['host_ms'], 'device_ms': k['device_ms'],
-        'plain_device_ms': k['plain_device_ms']} for name, k in kernels.items()]})
+        'plain_device_ms': k['plain_device_ms'], **extra.get(name, {})}
+        for name, k in kernels.items()]})
     print(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

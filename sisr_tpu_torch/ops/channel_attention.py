@@ -14,7 +14,10 @@ On a CUDA tensor each wrapper launches ``ops/cuda/csrc/channel_attention.cu`` (d
 and bound in that file) or raises; on a CPU tensor it runs its plain version
 (:func:`reference_channel_attention`, :func:`reference_channel_attention_residual`),
 which the kernel is held against.  Each wrapper's ``launches`` counts its kernel
-launches.
+launches.  The CA has two paths, chosen by :func:`onchip_plan` from the shape and
+the card: one cooperative launch that holds the map in shared memory, counted also
+in ``fused_channel_attention.onchip_launches``, and three launches for maps that do
+not fit.
 """
 import ctypes
 
@@ -23,18 +26,23 @@ import torch
 from .cuda import build as cuda_build
 
 _THREADS = 256  # kThreads in channel_attention.cu
+_ONCHIP_CHUNKS = 4  # kOnchipChunks in channel_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     'sisr_ca_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    'sisr_ca_onchip_forward': (
+        ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p]),
     'sisr_ca_res_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
 # the excite keeps 2*C + Cr floats in the 48 KB of static shared memory
 _MAX_EXCITE_FLOATS = 12288
-_DEVICES = {}  # CUDA device index -> (library handle, SM count)
+_DEVICES = {}  # CUDA device index -> (library handle, SM count, opt-in shared memory)
 
 
 def _attention(x, w1, b1, w2, b2):
@@ -69,6 +77,32 @@ def launch_plan(n, hw, c, itemsize, aligned, sm_count):
     chunks = -(-lanes // chunk_lanes)
     slabs = max(1, min(-(-4 * sm_count // (n * chunks)), -(-hw // (4 * rows))))
     return vectorized, slabs
+
+
+def onchip_smem_bytes(slab_pixels, c, cr, itemsize):
+    """Dynamic shared memory of the on-chip kernel, laid out as ``ca_onchip`` lays it
+    out: the slab; floats for the block's row sums, the excite's weights, the partial
+    sums, pooled, hidden and att; then one 8-byte mbarrier per chunk."""
+    rows = _THREADS // (c * itemsize // 16)
+    parts = _THREADS // c if c < _THREADS else 1
+    floats = rows * c + 2 * c * cr + cr + c + c * parts + c + cr + c
+    return -(-(slab_pixels * c * itemsize + 4 * floats) // 16) * 16 + 8 * _ONCHIP_CHUNKS
+
+
+def onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin):
+    """(blocks_per_image, slab_pixels, smem_bytes) of the one-launch kernel that holds
+    the map in shared memory, or None for the three-pass path.  At most one block per
+    SM, so every block is resident at once; each block owns ``slab_pixels``
+    contiguous pixels of its image (the last block the rest).  Taken only when every
+    image gets a block, a pixel is whole 16-byte units and x is 16-byte aligned (bulk
+    copies move 16-byte units), and slab plus scratch fit ``smem_optin``, the opt-in
+    shared memory of one block."""
+    lanes, ragged = divmod(c * itemsize, 16)
+    if not aligned or ragged or lanes > _THREADS or n > sm_count:
+        return None
+    slab = -(-hw // (sm_count // n))
+    smem = onchip_smem_bytes(slab, c, cr, itemsize)
+    return (-(-hw // slab), slab, smem) if smem <= smem_optin else None
 
 
 def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention'):
@@ -121,11 +155,14 @@ def _check_residual_args(x, r, w1, b1, w2, b2):
 
 
 def _library(index):
-    """(ctypes library, SM count) of CUDA device ``index``, built on first use."""
+    """(ctypes library, SM count, opt-in shared memory per block) of CUDA device
+    ``index``, built on first use."""
     if index not in _DEVICES:
         with torch.cuda.device(index):
+            props = torch.cuda.get_device_properties(index)
             _DEVICES[index] = (cuda_build.load('channel_attention', _SIGNATURES),
-                               torch.cuda.get_device_properties(index).multi_processor_count)
+                               props.multi_processor_count,
+                               props.shared_memory_per_block_optin)
     return _DEVICES[index]
 
 
@@ -142,16 +179,49 @@ def _excite_args(x, w1, b1, w2, b2, slabs):
 
 
 def fused_channel_attention(x, w1, b1, w2, b2):
-    """CA scale-and-excite: the CUDA kernel for a CUDA ``x``, the plain version for
-    a CPU ``x``."""
+    """CA scale-and-excite: the CUDA kernel for a CUDA ``x`` (on chip where
+    :func:`onchip_plan` allows, else three passes), the plain version for a CPU
+    ``x``."""
     if x.device.type == 'cpu':
         return reference_channel_attention(x, w1, b1, w2, b2)
     if x.device.type != 'cuda':
         raise ValueError('fused_channel_attention: unsupported device %s' % x.device)
     _check_args(x, w1, b1, w2, b2)
     n, h, w, c = x.shape
+    _, sm_count, smem_optin = _library(x.device.index)
+    plan = onchip_plan(n, h * w, c, w1.shape[1], x.element_size(), x.data_ptr() % 16 == 0,
+                       sm_count, smem_optin)
+    if plan is None:
+        return _three_pass(x, w1, b1, w2, b2)
+    return _onchip(x, w1, b1, w2, b2, plan)
+
+
+def _onchip(x, w1, b1, w2, b2, plan):
+    """One cooperative launch of ``ca_onchip`` with ``plan`` from :func:`onchip_plan`
+    (arguments already checked)."""
+    n, h, w, c = x.shape
     index = x.device.index
-    lib, sm_count = _library(index)
+    lib = _library(index)[0]
+    slabs, slab_pixels, smem_bytes = plan
+    out = torch.empty_like(x)
+    # the partial sums (N, slabs, C); the att slice is unused on this path
+    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
+    with torch.cuda.device(index):
+        code = lib.sisr_ca_onchip_forward(
+            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors[:5]), n, h * w,
+            c, w1.shape[1], *strides, _DTYPE_CODES[x.dtype], slabs, slab_pixels,
+            smem_bytes, torch.cuda.current_stream(index).cuda_stream)
+    cuda_build.check(lib, code, 'fused_channel_attention on-chip launch')
+    fused_channel_attention.launches += 1
+    fused_channel_attention.onchip_launches += 1
+    return out
+
+
+def _three_pass(x, w1, b1, w2, b2):
+    """The three launches of ``sisr_ca_forward`` (arguments already checked)."""
+    n, h, w, c = x.shape
+    index = x.device.index
+    lib, sm_count, _ = _library(index)
     vectorized, slabs = launch_plan(n, h * w, c, x.element_size(), x.data_ptr() % 16 == 0,
                                     sm_count)
     out = torch.empty_like(x)
@@ -167,6 +237,7 @@ def fused_channel_attention(x, w1, b1, w2, b2):
 
 
 fused_channel_attention.launches = 0
+fused_channel_attention.onchip_launches = 0
 
 
 def residual_aligned(x, r, out):
@@ -188,7 +259,7 @@ def fused_channel_attention_residual(x, r, w1, b1, w2, b2):
     _check_residual_args(x, r, w1, b1, w2, b2)
     n, h, w, c = x.shape
     index = x.device.index
-    lib, sm_count = _library(index)
+    lib, sm_count, _ = _library(index)
     out = torch.empty_like(r)
     vectorized, slabs = launch_plan(n, h * w, c, x.element_size(),
                                     residual_aligned(x, r, out), sm_count)

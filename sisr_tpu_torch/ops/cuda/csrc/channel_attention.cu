@@ -7,14 +7,42 @@
 // The pool and the excite run in float32; the scale multiplies x by the attention
 // rounded to x's type, as `x * att.astype(x.dtype)` does.
 //
-// Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_forward`
-// (bodies `_ca_kernel_single` and `_ca_kernel`, excite `_excite`).
+// Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_forward` (excite
+// `_excite`), by two paths; the wrapper's plan (`onchip_plan` in
+// ops/channel_attention.py) picks one from the shape and the card alone.
 //
 // Bound.  The work is two flops per element and one read plus one write of the map,
 // so bytes bound it: at the main-path shape (8, 128, 128, 64) bf16 the least traffic
 // is 2 x 16.8 MB = 33.6 MB, about 10 us at 3.35 TB/s.
 //
-// Design.  The TPU kernel carries the spatial sum across a sequential grid and then
+// Path 1, on chip (entry sisr_ca_onchip_forward, kernel ca_onchip): replaces the
+// single-block body `_ca_kernel_single`, which holds the whole map in VMEM and reads
+// and writes it once.  Hopper's counterpart of that fast memory is the SMs' shared
+// memory taken together (132 x 227 KB), so one cooperative launch of S blocks per
+// image, all resident at once, each owning one contiguous slab of its image's NHWC
+// pixels (at the main shape 16 blocks of 1024 pixels, 128 KB):
+//   a. thread 0 copies the slab into dynamic shared memory with 1-D bulk async copies
+//      (cp.async.bulk, the TMA), in kOnchipChunks chunks, each on its own mbarrier;
+//      meanwhile the block stages the excite's weights in shared memory, then pools
+//      each chunk in float32 as soon as it lands;
+//   b. the block writes its per-channel sum to partial (N, S, C) with plain stores
+//      and waits at one grid barrier (cooperative_groups grid sync);
+//   c. every block of image n sums the S partials in a fixed order, divides by H*W
+//      and runs the excite itself (64 -> 4 -> 64 at the main shape, well under a
+//      microsecond), so no second barrier is needed;
+//   d. the block scales its slab from shared memory by att rounded to x's type and
+//      writes it out with 16-byte stores.
+// The map leaves device memory once and returns once: the bound's own 33.6 MB.  No
+// atomics on floats and every sum in a fixed order, so runs repeat bit for bit and
+// every block of an image computes the same att.  The launch needs C * itemsize % 16
+// == 0 and x 16-byte aligned (bulk copies move 16-byte units), every image at least
+// one block, all N * S blocks co-resident, and the slab with its scratch inside the
+// per-block opt-in shared memory; a cooperative launch that cannot make the blocks
+// resident fails, and the wrapper raises.
+//
+// Path 2, three passes (entry sisr_ca_forward): replaces the tiled body `_ca_kernel`,
+// for maps that do not fit on chip (at the main shape in float32, or one 512 x 512
+// map).  The TPU kernel carries the spatial sum across a sequential grid and then
 // revisits the tiles; Hopper blocks run in parallel in no order, so this is three
 // launches on one stream:
 //   1. ca_pool_partial: each block reduces a slab of pixels of one image over its
@@ -25,9 +53,7 @@
 //      the two small products, relu and sigmoid into att (N, C) float32.
 //   3. ca_scale: out = x * att, one 16-byte vector per thread where C * itemsize is
 //      a multiple of 16 (and x is 16-byte aligned), one element per thread otherwise.
-// The map is read twice.  At the main-path shape it is 16.8 MB, well inside the
-// 50 MB L2, so the second read mostly hits L2.  Folding the excite into pass 3, or
-// one cooperative pass that holds the map in L2, is left for a later change.
+// The map is read twice; the second read hits L2 where the map fits in its 50 MB.
 //
 // Second entry point, sisr_ca_res_forward: the int8 RCAB block tail
 //
@@ -55,6 +81,7 @@
 // is aligned, one element per thread otherwise.  The multiply and the add round
 // separately (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain version
 // does.  No atomics, so repeated runs are bit-identical.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +89,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kOnchipChunks = 4;  // bulk copies (and mbarriers) per slab
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -216,6 +244,215 @@ __global__ void ca_res_scale(const TX* __restrict__ x, const TR* __restrict__ r,
   }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Thread 0's one arrival, announcing `bytes` of transactions to come.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the barrier's first phase (parity 0) to complete.
+__device__ __forceinline__ void mbar_wait_first(uint64_t* bar) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr)
+        : "memory");
+  }
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared-memory bytes of ca_onchip: the slab, then the float scratch, then the
+// mbarriers.  onchip_smem_bytes in ops/channel_attention.py computes the same.
+__host__ __device__ inline int64_t onchip_float_offset(int64_t slab_len, int c, int itemsize) {
+  return slab_len * c * itemsize;
+}
+__host__ __device__ inline int onchip_parts(int c) {
+  return c < kThreads ? kThreads / c : 1;
+}
+__host__ __device__ inline int64_t onchip_floats(int c, int cr, int vec) {
+  const int rows = kThreads / (c / vec);
+  // red, w1 (as Cr x C), w2, b1, b2, part_sum, pooled, hidden, att
+  return (int64_t)rows * c + 2 * c * cr + cr + c + c * onchip_parts(c) + c + cr + c;
+}
+__host__ __device__ inline int64_t onchip_barrier_offset(int64_t slab_len, int c, int cr,
+                                                         int itemsize) {
+  const int64_t floats_end = onchip_float_offset(slab_len, c, itemsize) +
+                             4 * onchip_floats(c, cr, 16 / itemsize);
+  return (floats_end + 15) / 16 * 16;
+}
+__host__ inline int64_t onchip_smem_bytes(int64_t slab_len, int c, int cr, int itemsize) {
+  return onchip_barrier_offset(slab_len, c, cr, itemsize) + 8 * kOnchipChunks;
+}
+
+// Grid (S, N), kThreads threads, launched cooperatively (path 1 of the note above).
+// Block (s, n) owns pixels [s*slab_len, min(hw, (s+1)*slab_len)) of image n; its
+// threads form `rows` rows of C/VEC lanes (VEC channels each) that stride over the
+// slab's pixels, so each thread keeps one lane's pool and attention in registers.
+// The plan guarantees C/VEC <= kThreads and a non-empty slab for every block.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    ca_onchip(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ b2, float* __restrict__ partial, int64_t hw, int c,
+              int cr, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
+              int64_t w2_sc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int slabs = gridDim.x;
+  const int lanes = c / VEC;
+  const int rows = kThreads / lanes;
+  const int parts = onchip_parts(c);
+  const int t = threadIdx.x;
+  const int row = t / lanes, lane = t % lanes;
+  const int64_t n = blockIdx.y;
+  const int64_t p0 = (int64_t)blockIdx.x * slab_len;
+  const int64_t len = min(hw - p0, slab_len);
+  const int64_t chunk_len = (len + kOnchipChunks - 1) / kOnchipChunks;
+
+  Pack<T, VEC>* slab = reinterpret_cast<Pack<T, VEC>*>(smem);
+  float* red = reinterpret_cast<float*>(smem + onchip_float_offset(slab_len, c, sizeof(T)));
+  float* w1s = red + rows * c;  // [j * c + ch]
+  float* w2s = w1s + c * cr;    // [j * c + ch]
+  float* b1s = w2s + cr * c;
+  float* b2s = b1s + cr;
+  float* part_sum = b2s + c;  // [part * c + ch]
+  float* pooled = part_sum + c * parts;
+  float* hidden = pooled + c;
+  float* att = hidden + cr;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + onchip_barrier_offset(slab_len, c, cr, sizeof(T)));
+
+  // a. bulk copies of the slab, one mbarrier per chunk
+  if (t == 0) {
+    for (int k = 0; k < kOnchipChunks; ++k) mbar_init(&bars[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(x + (n * hw + p0) * c);
+    const int64_t pixel_bytes = (int64_t)c * sizeof(T);
+    for (int k = 0; k < kOnchipChunks; ++k) {
+      const int64_t a = k * chunk_len, b = min(len, a + chunk_len);
+      if (a >= b) break;
+      const uint32_t bytes = (uint32_t)((b - a) * pixel_bytes);
+      mbar_expect_tx(&bars[k], bytes);
+      bulk_load(smem + a * pixel_bytes, src + a * pixel_bytes, bytes, &bars[k]);
+    }
+  }
+  for (int i = t; i < c * cr; i += kThreads) {
+    const int j = i / c, ch = i % c;
+    w1s[i] = w1[ch * w1_sc + j * w1_sj];
+    w2s[i] = w2[j * w2_sj + ch * w2_sc];
+  }
+  for (int i = t; i < cr; i += kThreads) b1s[i] = b1[i];
+  for (int i = t; i < c; i += kThreads) b2s[i] = b2[i];
+
+  float acc[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+  for (int k = 0; k < kOnchipChunks; ++k) {
+    const int64_t a = k * chunk_len, b = min(len, a + chunk_len);
+    if (a >= b) break;
+    mbar_wait_first(&bars[k]);
+    if (row < rows) {
+      for (int64_t p = a + row; p < b; p += rows) {
+        const Pack<T, VEC> pk = slab[p * lanes + lane];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] += to_float(pk.v[v]);
+      }
+    }
+  }
+
+  // b. the block's per-channel sum: rows -> `parts` strided sums -> one, in order
+  if (row < rows) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) red[row * c + lane * VEC + v] = acc[v];
+  }
+  __syncthreads();
+  const int row_parts = min(parts, rows);
+  for (int i = t; i < c * row_parts; i += kThreads) {
+    const int ch = i % c, part = i / c;
+    float s = 0.f;
+    for (int r = part; r < rows; r += row_parts) s += red[r * c + ch];
+    part_sum[i] = s;
+  }
+  __syncthreads();
+  for (int ch = t; ch < c; ch += kThreads) {
+    float s = 0.f;
+    for (int part = 0; part < row_parts; ++part) s += part_sum[part * c + ch];
+    partial[(n * slabs + blockIdx.x) * c + ch] = s;
+  }
+  cooperative_groups::this_grid().sync();
+
+  // c. image n's pool from the S partials (read past L1), then the excite
+  const int slab_parts = min(parts, slabs);
+  for (int i = t; i < c * slab_parts; i += kThreads) {
+    const int ch = i % c, part = i / c;
+    float s = 0.f;
+    for (int k = part; k < slabs; k += slab_parts)
+      s += __ldcg(&partial[(n * slabs + k) * c + ch]);
+    part_sum[i] = s;
+  }
+  __syncthreads();
+  for (int ch = t; ch < c; ch += kThreads) {
+    float s = 0.f;
+    for (int part = 0; part < slab_parts; ++part) s += part_sum[part * c + ch];
+    pooled[ch] = s / (float)hw;
+  }
+  __syncthreads();
+  const int warp = t / 32, wl = t % 32;
+  for (int j = warp; j < cr; j += kThreads / 32) {
+    float h = 0.f;
+    for (int ch = wl; ch < c; ch += 32) h += pooled[ch] * w1s[j * c + ch];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) h += __shfl_down_sync(0xffffffffu, h, off);
+    if (wl == 0) hidden[j] = fmaxf(h + b1s[j], 0.f);
+  }
+  __syncthreads();
+  for (int ch = t; ch < c; ch += kThreads) {
+    float a = 0.f;
+    for (int j = 0; j < cr; ++j) a += hidden[j] * w2s[j * c + ch];
+    att[ch] = 1.f / (1.f + expf(-(a + b2s[ch])));
+  }
+  __syncthreads();
+
+  // d. out = x * T(att) from shared memory, 16-byte stores
+  if (row < rows) {
+    float scale[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) scale[v] = to_float(from_float<T>(att[lane * VEC + v]));
+    Pack<T, VEC>* dst = reinterpret_cast<Pack<T, VEC>*>(out + (n * hw + p0) * c);
+    for (int64_t p = row; p < len; p += rows) {
+      Pack<T, VEC> pk = slab[p * lanes + lane];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) pk.v[v] = from_float<T>(to_float(pk.v[v]) * scale[v]);
+      dst[p * lanes + lane] = pk;
+    }
+  }
+}
+
 // Passes 1 and 2: att (N, C) float32 from x.
 template <typename T, int VEC>
 cudaError_t launch_pool_excite(const T* xt, const float* w1, const float* b1,
@@ -292,6 +529,43 @@ cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
   return cudaGetLastError();
 }
 
+// One cooperative launch of ca_onchip over grid (slabs, n).  smem_bytes is the
+// caller's plan; it must equal this file's layout, or nothing launches.
+template <typename T, int VEC>
+cudaError_t launch_onchip(const void* x, void* out, const float* w1, const float* b1,
+                          const float* w2, const float* b2, float* partial, int64_t n,
+                          int64_t hw, int c, int cr, const int64_t* w_strides, int slabs,
+                          int64_t slab_len, int64_t smem_bytes, cudaStream_t stream) {
+  if (c % VEC != 0 || c / VEC > kThreads ||
+      smem_bytes != onchip_smem_bytes(slab_len, c, cr, sizeof(T)))
+    return cudaErrorInvalidValue;
+  // the opt-in limit above 48 KB, raised once per device for this instance
+  static int64_t allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (smem_bytes > allowed[dev]) {
+    err = cudaFuncSetAttribute(ca_onchip<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = smem_bytes;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)slabs, (unsigned)n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, ca_onchip<T, VEC>, static_cast<const T*>(x),
+                            static_cast<T*>(out), w1, b1, w2, b2, partial, hw, c, cr, slab_len,
+                            w_strides[0], w_strides[1], w_strides[2], w_strides[3]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,6 +595,29 @@ int sisr_ca_forward(const void* x, void* out, const float* w1, const float* b1,
                       : launch<__nv_bfloat16, 1>(x, out, w1, b1, w2, b2, partial, att, n, hw,
                                                  c, cr, ws, slabs, sm_count, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The on-chip path: one cooperative launch of `slabs` blocks per image, each owning
+// slab_len pixels (the last one the rest), with smem_bytes of dynamic shared memory.
+// The caller checks that C * itemsize % 16 == 0, that x is 16-byte aligned, that
+// every block has pixels and that all n * slabs blocks fit on the card at once.
+// dtype, the weights and their strides are those of sisr_ca_forward; partial holds
+// N * slabs * C floats.  Returns the CUDA error code of the launch, 0 when it
+// launched.
+int sisr_ca_onchip_forward(const void* x, void* out, const float* w1, const float* b1,
+                           const float* w2, const float* b2, float* partial, long long n,
+                           long long hw, int c, int cr, long long w1_s0, long long w1_s1,
+                           long long w2_s0, long long w2_s1, int dtype, int slabs,
+                           long long slab_len, long long smem_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
+  if (dtype == 0)
+    return launch_onchip<float, 4>(x, out, w1, b1, w2, b2, partial, n, hw, c, cr, ws, slabs,
+                                   slab_len, smem_bytes, s);
+  if (dtype == 1)
+    return launch_onchip<__nv_bfloat16, 8>(x, out, w1, b1, w2, b2, partial, n, hw, c, cr, ws,
+                                           slabs, slab_len, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,6 +6,8 @@ tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -31,8 +33,10 @@ def _inputs(shape, seed, red=4):
 def test_cpu_path_matches_pallas_interpret_and_reference(shape):
     arrays = _inputs(shape, seed=0)
     launches = ca.fused_channel_attention.launches
+    onchip = ca.fused_channel_attention.onchip_launches
     ours = ca.fused_channel_attention(*map(torch.from_numpy, arrays)).numpy()
     assert ca.fused_channel_attention.launches == launches  # CPU: plain version, no launch
+    assert ca.fused_channel_attention.onchip_launches == onchip
     pallas = np.asarray(_fused_ca_forward(*map(jnp.asarray, arrays), interpret=True))
     ref = np.asarray(_reference_ca(*map(jnp.asarray, arrays)))
     np.testing.assert_allclose(ours, pallas, atol=1e-5, rtol=0)
@@ -49,6 +53,58 @@ def test_cpu_path_matches_pallas_interpret_and_reference(shape):
 ])
 def test_launch_plan(n, hw, c, itemsize, aligned, expect):
     assert ca.launch_plan(n, hw, c, itemsize, aligned, sm_count=132) == expect
+
+
+H100 = {'sm_count': 132, 'smem_optin': 232448}  # SMs, opt-in shared memory per block
+
+
+@pytest.mark.parametrize('n,hw,c,cr,itemsize,aligned,expect', [
+    # main path: on chip, 16 blocks of 1024 pixels (128 KB slabs) per image
+    (8, 128 * 128, 64, 4, 2, True, (16, 1024, 143168)),
+    (8, 128 * 128, 64, 4, 4, True, None),       # f32: a 256 KB slab does not fit
+    (1, 512 * 512, 64, 4, 2, True, None),       # one 33.6 MB map: 248 KB slabs
+    (1, 7 * 5, 20, 5, 2, True, None),           # 40-byte pixels: no bulk copy
+    (8, 128 * 128, 64, 4, 2, False, None),      # misaligned x
+    (133, 4 * 4, 64, 4, 2, True, None),         # more images than SMs
+    (3, 37 * 29, 64, 4, 2, True, (43, 25, 15296)),  # ragged: the last slab 23 pixels
+    (1, 7 * 5, 20, 5, 4, True, (35, 1, 6240)),  # f32 C = 20: 80-byte pixels
+])
+def test_onchip_plan(n, hw, c, cr, itemsize, aligned, expect):
+    assert ca.onchip_plan(n, hw, c, cr, itemsize, aligned, **H100) == expect
+
+
+def _slab_cover(hw, blocks, slab):
+    """How many blocks own each pixel of one image."""
+    owners = np.zeros(hw, np.int64)
+    for s in range(blocks):
+        owners[s * slab:min(hw, (s + 1) * slab)] += 1
+    return owners
+
+
+@pytest.mark.parametrize('n,hw,c,itemsize', [
+    (8, 128 * 128, 64, 2), (3, 37 * 29, 64, 2), (1, 104, 32, 4), (2, 128, 32, 2),
+    (7, 1000, 16, 2), (1, 128 * 128, 64, 2), (66, 9, 64, 4), (132, 1, 8, 2)])
+def test_onchip_slabs_cover_each_pixel_once(n, hw, c, itemsize):
+    blocks, slab, smem = ca.onchip_plan(n, hw, c, max(1, c // 16), itemsize, True, **H100)
+    assert n * blocks <= H100['sm_count']  # all co-resident: one block per SM at most
+    assert smem <= H100['smem_optin']
+    assert np.array_equal(_slab_cover(hw, blocks, slab), np.ones(hw, np.int64))
+    assert 0 < hw - (blocks - 1) * slab <= slab  # the last block has pixels
+
+
+@given(n=st.integers(1, 140), hw=st.integers(1, 300000), c=st.sampled_from([8, 16, 32, 64, 128]),
+       itemsize=st.sampled_from([2, 4]))
+@settings(max_examples=200, deadline=None, derandomize=True)
+def test_onchip_plan_covers_and_fits(n, hw, c, itemsize):
+    plan = ca.onchip_plan(n, hw, c, max(1, c // 16), itemsize, True, **H100)
+    if n > H100['sm_count']:
+        assert plan is None
+    if plan is None:
+        return
+    blocks, slab, smem = plan
+    assert n * blocks <= H100['sm_count'] and smem <= H100['smem_optin']
+    assert smem == ca.onchip_smem_bytes(slab, c, max(1, c // 16), itemsize)
+    assert (blocks - 1) * slab < hw <= blocks * slab  # each pixel once, no empty block
 
 
 @pytest.mark.parametrize('mutate,error', [

@@ -27,13 +27,17 @@ def card():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
 
 
-@pytest.mark.parametrize('shape,red,dtype', [((8, 128, 128, 64), 16, torch.bfloat16),
-                                             ((8, 128, 128, 64), 16, torch.float32),
-                                             ((1, 13, 8, 32), 4, torch.float32),
-                                             ((2, 16, 8, 32), 4, torch.bfloat16),
-                                             ((1, 7, 5, 20), 4, torch.bfloat16)])
+@pytest.mark.parametrize('shape,red,dtype,path', [
+    ((8, 128, 128, 64), 16, torch.bfloat16, 'onchip'),      # the main path
+    ((8, 128, 128, 64), 16, torch.float32, 'three_pass'),   # slab too big for one SM
+    ((1, 13, 8, 32), 4, torch.float32, 'onchip'),
+    ((2, 16, 8, 32), 4, torch.bfloat16, 'onchip'),
+    ((1, 7, 5, 20), 4, torch.bfloat16, 'three_pass'),       # 40-byte pixels
+    ((3, 37, 29, 64), 16, torch.bfloat16, 'onchip'),        # ragged last slab
+    ((1, 512, 512, 64), 16, torch.bfloat16, 'three_pass'),  # one 33.6 MB map
+])
 @pytest.mark.parametrize('transposed_weights', [False, True])
-def test_kernel_matches_plain_version(shape, red, dtype, transposed_weights):
+def test_kernel_matches_plain_version(shape, red, dtype, path, transposed_weights):
     rng = np.random.RandomState(0)
     c, cr = shape[-1], shape[-1] // red
     x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dtype).cuda()
@@ -44,12 +48,15 @@ def test_kernel_matches_plain_version(shape, red, dtype, transposed_weights):
     b1, b2 = (torch.from_numpy(rng.randn(n).astype(np.float32) * 0.1).cuda()
               for n in (cr, c))
     launches = ca.fused_channel_attention.launches
+    onchip = ca.fused_channel_attention.onchip_launches
     with torch.inference_mode():
         out = ca.fused_channel_attention(x, w1, b1, w2, b2)
         again = ca.fused_channel_attention(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         ref = ca.reference_channel_attention(x, w1, b1, w2, b2)
     assert ca.fused_channel_attention.launches == launches + 2
+    took = ca.fused_channel_attention.onchip_launches - onchip
+    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
     assert torch.equal(out, again)  # no atomics: the same bits every run
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
