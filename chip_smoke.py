@@ -13,7 +13,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bf16 and f32, on both of its paths (which path each shape took is checked against
    the plan), with the on-chip and three-pass kernels timed in turns at the main
    shape and the three-pass kernel at the shapes that take it; the CA + residual
-   kernel with x f32 and r bf16 or f32;
+   kernel with x f32 and r bf16 or f32, on both of its paths in the same way (on
+   chip in rounds of images, or three passes);
 3. reference: the full-width RCAN forward and the fused eval on a small input, card
    (CUDA kernels) against the CPU (plain versions), in f32;
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
@@ -25,7 +26,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    launch counts of that run (every CA call on chip); then the img/s of warm protocol
    passes and a device-time breakdown of one batch;
 6. int8 main path: ``eval_sisr --fused_eval --int8`` on the same pairs and weights,
-   with its launch counts, its mean PSNR against the bf16 run's, img/s and breakdown;
+   with its launch counts (every CA + residual call on chip), its mean PSNR against
+   the bf16 run's, img/s and breakdown;
 
 then the ``kernels`` table, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout
@@ -51,7 +53,7 @@ RCAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
         'reduction': 16, 'dtype': 'bf16'}
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
 CA_KERNELS = ('ca_onchip', 'ca_pool_partial', 'ca_excite', 'ca_scale')
-CA_RES_KERNELS = ('ca_pool_partial', 'ca_excite', 'ca_res_scale')
+CA_RES_KERNELS = ('ca_res_onchip', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
 # substrings of cuBLASLt / CUTLASS integer GEMM kernel names (torch._int_mm)
 GEMM_KERNEL_HINTS = ('gemm', 'xmma', 'cutlass', 'imma')
 # substrings of cuDNN / CUTLASS convolution and GEMM kernel names
@@ -140,7 +142,7 @@ def device_kernel_ms(fn, reps=20):
 
 
 def time_kernel(kern, plain, three_pass=None):
-    """A kernel's and its plain version's times and, given ``three_pass``, the CA's
+    """A kernel's and its plain version's times and, given ``three_pass``, its
     three-pass path's, in turns (plain, [three-pass,] kernel, kernel, [three-pass,]
     plain: the second turn of each graph timing is reported); and the profiler's
     per-kernel totals of the kernel over 20 calls."""
@@ -233,18 +235,18 @@ def ca_inputs(shape, dtype, reduction, gen):
     return x, w1, b1, w2, b2
 
 
-def ca_path_run(args):
-    """fused_channel_attention twice on ``args``: the output, the repeat, and the path
-    both calls took by the on-chip launch count ('onchip' or 'three_pass')."""
+def path_run(op, args):
+    """``op`` (fused_channel_attention or fused_channel_attention_residual) twice on
+    ``args``: the output, the repeat, and the path both calls took by its on-chip
+    launch count ('onchip' or 'three_pass')."""
     import torch
-    from sisr_tpu_torch.ops import channel_attention as ca
-    before = ca.fused_channel_attention.onchip_launches
-    out = ca.fused_channel_attention(*args)
-    again = ca.fused_channel_attention(*args)
+    before = op.onchip_launches
+    out = op(*args)
+    again = op(*args)
     torch.cuda.synchronize()
-    took = ca.fused_channel_attention.onchip_launches - before
+    took = op.onchip_launches - before
     if took not in (0, 2):
-        raise AssertionError('the CA took %d on-chip launches in 2 calls' % took)
+        raise AssertionError('%s took %d on-chip launches in 2 calls' % (op.__name__, took))
     return out, again, 'onchip' if took else 'three_pass'
 
 
@@ -268,7 +270,7 @@ def phase_kernel():
         for shape, reduction in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 args = ca_inputs(shape, dtype, reduction, gen)
-                out, again, path = ca_path_run(args)
+                out, again, path = path_run(ca.fused_channel_attention, args)
                 ref = ca.reference_channel_attention(*args)
                 err = (out.float() - ref.float()).abs().max().item()
                 if dtype == torch.float32:
@@ -301,7 +303,7 @@ def phase_kernel():
         for shape, dtype in (((BATCH, LR_SIZE, LR_SIZE, 64), torch.float32),
                              ((1, 512, 512, 64), torch.bfloat16)):
             args = ca_inputs(shape, dtype, 16, gen)
-            if ca_path_run(args)[2] != 'three_pass':
+            if path_run(ca.fused_channel_attention, args)[2] != 'three_pass':
                 raise AssertionError('%s %s is not on the three-pass path' % (shape, dtype))
             kern = lambda args=args: ca.fused_channel_attention(*args)
             plain = lambda args=args: ca.reference_channel_attention(*args)
@@ -312,9 +314,13 @@ def phase_kernel():
 
         x, w1, b1, w2, b2 = ca_inputs((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 16,
                                       gen)
-        out, _, path = ca_path_run((x, w1, b1, w2, b2))
+        out, _, path = path_run(ca.fused_channel_attention, (x, w1, b1, w2, b2))
         if path != 'onchip':
             raise AssertionError('the main shape is not on the on-chip path')
+        n, h, w, c = x.shape
+        plan = dict(zip(('blocks_per_image', 'slab_pixels', 'smem_bytes'), ca.onchip_plan(
+            n, h * w, c, w1.shape[1], x.element_size(), True, props.multi_processor_count,
+            props.shared_memory_per_block_optin)))
         kern = lambda: ca.fused_channel_attention(x, w1, b1, w2, b2)
         three_pass = lambda: ca._three_pass(x, w1, b1, w2, b2)
         plain = lambda: ca.reference_channel_attention(x, w1, b1, w2, b2)
@@ -332,26 +338,45 @@ def phase_kernel():
           'bound_ms': bound_ms, 'bound_us': bound_ms * 1e3, 'bytes': bytes_moved, 'ops': ops,
           'device_kernels_ms_per_20_calls': kern_detail, 'three_pass_shapes': three_pass_shapes,
           'nvidia_smi': nvidia_smi_line(), **timing})
-    return {'max_abs_err': err, 'bound_ms': bound_ms, 'path': path, **timing}
+    return {'max_abs_err': err, 'bound_ms': bound_ms, 'path': path, 'plan': plan, **timing}
+
+
+def res_bound(x, r, w1):
+    """Bytes, operations and the bound (ms) of the CA + residual: one read of x and of
+    r, one write of out (r's type), plus the excite's weights; the pool's add, the
+    multiply and the add per element plus the excite."""
+    n, h, w, c = x.shape
+    cr = w1.shape[1]
+    bytes_moved = (x.numel() * x.element_size() + 2 * r.numel() * r.element_size()
+                   + 4 * (2 * c * cr + c + cr))
+    ops = 3 * x.numel() + n * (4 * c * cr + 2 * c)
+    return bytes_moved, ops, max(bytes_moved / HBM_BYTES_PER_S,
+                                 ops / F32_CUDA_CORE_FLOPS) * 1e3
 
 
 def phase_kernel_residual():
-    """fused_channel_attention_residual against reference_channel_attention_residual:
-    x f32 (the dequantised conv output) with r bf16 (the main path) or f32, at the
-    main-path shape, a 512^2 map, C = 18 and 20 (C = 18 takes one element a thread)
-    and an odd H x W.  Tolerances: f32 out 1e-5 abs (summation order only); bf16 out
-    2 bf16 ULPs (rtol 1.6e-2), since the pool's summation order can flip a rounding."""
+    """fused_channel_attention_residual against reference_channel_attention_residual,
+    on both paths: x f32 (the dequantised conv output) with r bf16 (the main path) or
+    f32, at the main-path shape, 7 images (a ragged last round), (3, 37, 29, 64)
+    (ragged slabs), a 512^2 map, C = 18 and 20 (C = 18 takes one element a thread; C
+    = 20 with r bf16 has 40-byte pixels of r, three passes) and an odd H x W.  Each case's path is the one res_onchip_plan gives for this
+    card, and both paths are taken.  Tolerances: f32 out 1e-5 abs (summation order
+    only); bf16 out 2 bf16 ULPs (rtol 1.6e-2), since the pool's summation order can
+    flip a rounding.  At the main shape (on chip) the on-chip kernel is timed against
+    the three-pass kernel (its private launcher) in turns; the three-pass path is also
+    timed at the 512^2 map, a shape that takes it."""
     import torch
-    from sisr_tpu_torch.ops.channel_attention import (fused_channel_attention_residual,
-                                                      launch_plan,
-                                                      reference_channel_attention_residual,
-                                                      residual_aligned)
+    from sisr_tpu_torch.ops import channel_attention as ca
+    op = ca.fused_channel_attention_residual
     gen = torch.Generator().manual_seed(1)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    props = torch.cuda.get_device_properties(0)
     main_shape = (BATCH, LR_SIZE, LR_SIZE, 64)
     cases = [(main_shape, 16, torch.bfloat16), (main_shape, 16, torch.float32),
+             ((7, LR_SIZE, LR_SIZE, 64), 16, torch.bfloat16),
+             ((3, 37, 29, 64), 16, torch.bfloat16),
              ((1, 512, 512, 64), 16, torch.bfloat16), ((2, 9, 3, 18), 3, torch.bfloat16),
-             ((1, 7, 5, 20), 4, torch.float32), ((1, 13, 7, 32), 4, torch.bfloat16)]
+             ((1, 7, 5, 20), 4, torch.float32), ((1, 7, 5, 20), 4, torch.bfloat16),
+             ((1, 13, 7, 32), 4, torch.bfloat16)]
 
     def inputs(shape, reduction, r_dtype):
         x, w1, b1, w2, b2 = ca_inputs(shape, torch.float32, reduction, gen)
@@ -359,50 +384,87 @@ def phase_kernel_residual():
         r = torch.rand(shape, generator=gen).to(r_dtype).cuda()
         return x, r, w1, b1, w2, b2
 
+    def plan_of(args, out):
+        x, r, w1 = args[:3]
+        n, h, w, c = x.shape
+        plan = ca.res_onchip_plan(n, h * w, c, w1.shape[1], x.element_size(),
+                                  r.element_size(), ca.res_onchip_aligned(x, r, out),
+                                  props.multi_processor_count,
+                                  props.shared_memory_per_block_optin)
+        if plan is not None:
+            return 'onchip', dict(zip(('rounds', 'images_per_round', 'blocks_per_image',
+                                       'slab_pixels', 'smem_bytes'), plan))
+        return 'three_pass', dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
+            n, h * w, c, x.element_size(), ca.residual_aligned(x, r, out),
+            props.multi_processor_count)))
+
+    def check(out, ref, r_dtype):
+        if r_dtype == torch.float32:
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        else:
+            torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+
     checks = []
     with torch.inference_mode():
         for shape, reduction, r_dtype in cases:
             args = inputs(shape, reduction, r_dtype)
-            out = fused_channel_attention_residual(*args)
-            again = fused_channel_attention_residual(*args)
-            torch.cuda.synchronize()
-            ref = reference_channel_attention_residual(*args)
-            err = (out.float() - ref.float()).abs().max().item()
+            out, again, path = path_run(op, args)
+            ref = ca.reference_channel_attention_residual(*args)
             if out.dtype != r_dtype:
                 raise AssertionError('CA + residual output is %s, not r\'s %s'
                                      % (out.dtype, r_dtype))
-            if r_dtype == torch.float32:
-                torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
-            else:
-                torch.testing.assert_close(out.float(), ref.float(), atol=1e-6,
-                                           rtol=1.6e-2)
+            check(out, ref, r_dtype)
             if not torch.equal(out, again):
                 raise AssertionError('fused_channel_attention_residual is not '
                                      'deterministic at %s r %s' % (shape, r_dtype))
-            vectorized, slabs = launch_plan(shape[0], shape[1] * shape[2], shape[3], 4,
-                                            residual_aligned(args[0], args[1], out), sms)
+            planned, plan = plan_of(args, out)
+            if path != planned:
+                raise AssertionError('%s r %s took the %s path against plan %s'
+                                     % (shape, r_dtype, path, plan))
             checks.append({'shape': list(shape), 'x_dtype': 'float32',
-                           'r_dtype': str(r_dtype).split('.')[-1], 'max_abs_err': err,
-                           'vectorized': vectorized, 'slabs_per_image': slabs})
+                           'r_dtype': str(r_dtype).split('.')[-1], 'path': path,
+                           'max_abs_err': (out.float() - ref.float()).abs().max().item(),
+                           **plan})
+        if {c['path'] for c in checks} != {'onchip', 'three_pass'}:
+            raise AssertionError('the CA + residual cases did not take both paths')
+
+        args = inputs((1, 512, 512, 64), 16, torch.bfloat16)
+        if path_run(op, args)[2] != 'three_pass':
+            raise AssertionError('(1, 512, 512, 64) is not on the three-pass path')
+        kern = lambda: op(*args)
+        plain = lambda: ca.reference_channel_attention_residual(*args)
+        timing = {'plain_ms': graph_ms(plain), 'ms': graph_ms(kern)}
+        timing['ms'], timing['plain_ms'] = graph_ms(kern), graph_ms(plain)
+        three_pass_shapes = [{'shape': [1, 512, 512, 64], 'x_dtype': 'float32',
+                              'r_dtype': 'bfloat16', 'bound_ms': res_bound(*args[:3])[2],
+                              **timing}]
 
         x, r, w1, b1, w2, b2 = inputs(main_shape, 16, torch.bfloat16)
-        kern = lambda: fused_channel_attention_residual(x, r, w1, b1, w2, b2)
-        plain = lambda: reference_channel_attention_residual(x, r, w1, b1, w2, b2)
-        err = (kern().float() - plain().float()).abs().max().item()
-        timing, kern_detail = time_kernel(kern, plain)
-    n, h, w, c = x.shape
-    cr = w1.shape[1]
-    # read x and r once, write out once (out has r's type), plus the excite's weights
-    bytes_moved = (x.numel() * x.element_size() + 2 * r.numel() * r.element_size()
-                   + 4 * (2 * c * cr + c + cr))
-    ops = 3 * x.numel() + n * (4 * c * cr + 2 * c)  # pool add, multiply, add; excite
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_CUDA_CORE_FLOPS) * 1e3
+        out, _, path = path_run(op, (x, r, w1, b1, w2, b2))
+        if path != 'onchip':
+            raise AssertionError('the main shape is not on the on-chip path')
+        kern = lambda: op(x, r, w1, b1, w2, b2)
+        three_pass = lambda: ca._res_three_pass(x, r, w1, b1, w2, b2)
+        plain = lambda: ca.reference_channel_attention_residual(x, r, w1, b1, w2, b2)
+        ref, three_out = plain().float(), three_pass().float()
+        check(three_out, ref, torch.bfloat16)
+        err = (out.float() - ref).abs().max().item()
+        three_pass_err = (three_out - ref).abs().max().item()
+        timing, kern_detail = time_kernel(kern, plain, three_pass)
+        # a yardstick, not the same function: a copy of x moves the same 67.1 MB
+        timing['copy_ms'] = graph_ms(lambda: x.clone())
+        plan = plan_of((x, r, w1), out)[1]
+    bytes_moved, ops, bound_ms = res_bound(x, r, w1)
     emit({'phase': 'kernel', 'name': 'fused_channel_attention_residual', 'checks': checks,
-          'main_shape': [n, h, w, c], 'x_dtype': 'float32', 'r_dtype': 'bfloat16',
-          'max_abs_err': err, 'bound_ms': bound_ms, 'bound_us': bound_ms * 1e3,
-          'bytes': bytes_moved, 'ops': ops, 'device_kernels_ms_per_20_calls': kern_detail,
+          'main_shape': list(x.shape), 'x_dtype': 'float32', 'r_dtype': 'bfloat16',
+          'path': path, 'plan': plan, 'max_abs_err': err,
+          'three_pass_max_abs_err': three_pass_err, 'bound_ms': bound_ms,
+          'bound_us': bound_ms * 1e3, 'bytes': bytes_moved, 'ops': ops,
+          'onchip_over_three_pass': timing['ms'] / timing['three_pass_ms'],
+          'device_kernels_ms_per_20_calls': kern_detail,
+          'three_pass_shapes': three_pass_shapes, 'nvidia_smi': nvidia_smi_line(),
           **timing})
-    return {'max_abs_err': err, 'bound_ms': bound_ms, **timing}
+    return {'max_abs_err': err, 'bound_ms': bound_ms, 'path': path, 'plan': plan, **timing}
 
 
 def phase_reference():
@@ -550,14 +612,17 @@ def reset_launches():
     ca.fused_channel_attention.launches = 0
     ca.fused_channel_attention.onchip_launches = 0
     ca.fused_channel_attention_residual.launches = 0
+    ca.fused_channel_attention_residual.onchip_launches = 0
 
 
 def read_launches():
-    """Each wrapper's launches, and how many of the CA's were on chip."""
+    """Each wrapper's launches, and how many of each were on chip."""
     from sisr_tpu_torch.ops import channel_attention as ca
     return {'fused_channel_attention': ca.fused_channel_attention.launches,
             'fused_channel_attention_onchip': ca.fused_channel_attention.onchip_launches,
-            'fused_channel_attention_residual': ca.fused_channel_attention_residual.launches}
+            'fused_channel_attention_residual': ca.fused_channel_attention_residual.launches,
+            'fused_channel_attention_residual_onchip':
+                ca.fused_channel_attention_residual.onchip_launches}
 
 
 def run_eval_cli(dirs, results_name, extra=()):
@@ -646,7 +711,9 @@ def phase_main_path(dirs):
     n_batches = -(-N_IMAGES // BATCH)
     expect_launches(launches, {'fused_channel_attention': CA_PER_FORWARD * n_batches,
                                'fused_channel_attention_onchip': CA_PER_FORWARD * n_batches,
-                               'fused_channel_attention_residual': 0}, 'bf16 main path')
+                               'fused_channel_attention_residual': 0,
+                               'fused_channel_attention_residual_onchip': 0},
+                    'bf16 main path')
     rates, handler = warm_passes(dirs, 'smoke_timed', int8=False)
 
     dev, x = breakdown_batch()
@@ -674,14 +741,16 @@ def phase_main_path(dirs):
 
 def phase_int8_main_path(dirs, bf16_mean_psnr):
     """``eval_sisr --fused_eval --int8`` on the same pairs and weights: every RCAB tail
-    through the CA + residual kernel (200 per forward), the module's CA kernel not
-    at all; mean PSNR within 1 dB of the bf16 run's."""
+    through the CA + residual kernel on chip (200 per forward), the module's CA kernel
+    not at all; mean PSNR within 1 dB of the bf16 run's."""
     import torch
     launches, cli_seconds, frame = run_eval_cli(dirs, 'smoke_int8', ['--int8'])
     n_batches = -(-N_IMAGES // BATCH)
     expect_launches(launches, {'fused_channel_attention': 0,
                                'fused_channel_attention_onchip': 0,
                                'fused_channel_attention_residual':
+                                   CA_PER_FORWARD * n_batches,
+                               'fused_channel_attention_residual_onchip':
                                    CA_PER_FORWARD * n_batches}, 'int8 main path')
     mean_psnr = float(frame[('rcan_10x20', 'PSNR')].mean())
     if not abs(mean_psnr - bf16_mean_psnr) < 1.0:
@@ -764,26 +833,21 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # each kernel's launches are those of the path that runs it
-    launches = {'fused_channel_attention':
-                    main_path['launches']['fused_channel_attention'],
-                'fused_channel_attention_residual':
-                    int8_path['launches']['fused_channel_attention_residual']}
+    path_launches = {'fused_channel_attention': main_path['launches'],
+                     'fused_channel_attention_residual': int8_path['launches']}
     replaces = {'fused_channel_attention': 'sisr_tpu/ops/pallas/channel_attention.py:112',
                 'fused_channel_attention_residual':
-                    'sisr_tpu/ops/pallas/channel_attention.py:182'}
-    ca = kernels['fused_channel_attention']
-    extra = {'fused_channel_attention': {
-        'path': ca['path'], 'three_pass_ms': ca['three_pass_ms'],
-        'three_pass_device_ms': ca['three_pass_device_ms'],
-        'onchip_launches': main_path['launches']['fused_channel_attention_onchip']}}
+                    'sisr_tpu/ops/pallas/channel_attention.py:202'}
     emit({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu',
-        'replaces': replaces[name], 'launches': launches[name],
+        'replaces': replaces[name], 'launches': path_launches[name][name],
         'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
         'bound_ms': k['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
         'host_ms': k['host_ms'], 'device_ms': k['device_ms'],
-        'plain_device_ms': k['plain_device_ms'], **extra.get(name, {})}
+        'plain_device_ms': k['plain_device_ms'], 'path': k['path'],
+        'three_pass_ms': k['three_pass_ms'], 'three_pass_device_ms': k['three_pass_device_ms'],
+        'onchip_launches': path_launches[name][name + '_onchip'], 'plan': k['plan']}
         for name, k in kernels.items()]})
     print(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -14,10 +14,11 @@ On a CUDA tensor each wrapper launches ``ops/cuda/csrc/channel_attention.cu`` (d
 and bound in that file) or raises; on a CPU tensor it runs its plain version
 (:func:`reference_channel_attention`, :func:`reference_channel_attention_residual`),
 which the kernel is held against.  Each wrapper's ``launches`` counts its kernel
-launches.  The CA has two paths, chosen by :func:`onchip_plan` from the shape and
-the card: one cooperative launch that holds the map in shared memory, counted also
-in ``fused_channel_attention.onchip_launches``, and three launches for maps that do
-not fit.
+launches.  Each op has two paths, chosen from the shape and the card alone: one
+cooperative launch that holds the map in shared memory (:func:`onchip_plan`; for
+the CA + residual, :func:`res_onchip_plan` streams the batch through it in rounds of
+images), counted also in the wrapper's ``onchip_launches``, and three launches for
+maps that do not fit.
 """
 import ctypes
 
@@ -27,6 +28,7 @@ from .cuda import build as cuda_build
 
 _THREADS = 256  # kThreads in channel_attention.cu
 _ONCHIP_CHUNKS = 4  # kOnchipChunks in channel_attention.cu
+_RES_CHUNKS = 2  # kResChunks in channel_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     'sisr_ca_forward': (
@@ -35,6 +37,10 @@ _SIGNATURES = {
     'sisr_ca_onchip_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p]),
+    'sisr_ca_res_onchip_forward': (
+        ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
         + [ctypes.c_void_p]),
     'sisr_ca_res_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
@@ -79,14 +85,29 @@ def launch_plan(n, hw, c, itemsize, aligned, sm_count):
     return vectorized, slabs
 
 
-def onchip_smem_bytes(slab_pixels, c, cr, itemsize):
-    """Dynamic shared memory of the on-chip kernel, laid out as ``ca_onchip`` lays it
-    out: the slab; floats for the block's row sums, the excite's weights, the partial
-    sums, pooled, hidden and att; then one 8-byte mbarrier per chunk."""
+def _onchip_floats(c, cr, itemsize):
+    """Floats of the on-chip kernels' scratch: the block's row sums, the excite's
+    weights, the partial sums, pooled, hidden and att."""
     rows = _THREADS // (c * itemsize // 16)
     parts = _THREADS // c if c < _THREADS else 1
-    floats = rows * c + 2 * c * cr + cr + c + c * parts + c + cr + c
-    return -(-(slab_pixels * c * itemsize + 4 * floats) // 16) * 16 + 8 * _ONCHIP_CHUNKS
+    return rows * c + 2 * c * cr + cr + c + c * parts + c + cr + c
+
+
+def onchip_smem_bytes(slab_pixels, c, cr, itemsize):
+    """Dynamic shared memory of the on-chip kernel, laid out as ``ca_onchip`` lays it
+    out: the slab, the float scratch, then one 8-byte mbarrier per chunk."""
+    floats_end = slab_pixels * c * itemsize + 4 * _onchip_floats(c, cr, itemsize)
+    return -(-floats_end // 16) * 16 + 8 * _ONCHIP_CHUNKS
+
+
+def res_onchip_smem_bytes(slab_pixels, c, cr, x_itemsize, r_itemsize):
+    """Dynamic shared memory of ``ca_res_onchip``, laid out as it lays it out: the slab
+    of x; from a 128-byte boundary, the slab of r; the float scratch; then one
+    mbarrier for each chunk of x and one for each chunk of r."""
+    r_offset = -(-slab_pixels * c * x_itemsize // 128) * 128
+    floats_end = r_offset + slab_pixels * c * r_itemsize + 4 * _onchip_floats(c, cr,
+                                                                             x_itemsize)
+    return -(-floats_end // 16) * 16 + 8 * 2 * _RES_CHUNKS
 
 
 def onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin):
@@ -103,6 +124,32 @@ def onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin):
     slab = -(-hw // (sm_count // n))
     smem = onchip_smem_bytes(slab, c, cr, itemsize)
     return (-(-hw // slab), slab, smem) if smem <= smem_optin else None
+
+
+def res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, smem_optin):
+    """(rounds, images_per_round, blocks_per_image, slab_pixels, smem_bytes) of the
+    one-launch CA + residual kernel that streams the batch through shared memory in
+    rounds of images, or None for the three-pass path.  The fewest rounds R for which
+    I = ceil(n / R) images of sm_count // I blocks each have slabs (ceil(hw / blocks)
+    pixels of x and of r, and scratch) within ``smem_optin``; then as many blocks per
+    image as that slab needs, so no block is empty.  At most one block per SM, so
+    every block is resident at once.  Taken only when the pixels of x and of r are
+    whole 16-byte units (bulk copies move 16-byte units) and ``aligned``
+    (:func:`res_onchip_aligned`)."""
+    lanes, ragged = divmod(c * x_itemsize, 16)
+    if not aligned or ragged or (c * r_itemsize) % 16 or lanes > _THREADS:
+        return None
+    rounds = 1
+    while rounds <= n:
+        images = -(-n // rounds)
+        if images <= sm_count:
+            slab = -(-hw // (sm_count // images))
+            smem = res_onchip_smem_bytes(slab, c, cr, x_itemsize, r_itemsize)
+            if smem <= smem_optin:
+                return rounds, images, -(-hw // slab), slab, smem
+        # the fewest rounds that take fewer images each
+        rounds = -(-n // (images - 1)) if images > 1 else n + 1
+    return None
 
 
 def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention'):
@@ -248,9 +295,16 @@ def residual_aligned(x, r, out):
             and out.data_ptr() % r_vec_bytes == 0)
 
 
+def res_onchip_aligned(x, r, out):
+    """Whether the on-chip CA + residual path may take these tensors: x and r 16-byte
+    aligned (bulk copies), out aligned to one vector of r's type."""
+    return residual_aligned(x, r, out) and r.data_ptr() % 16 == 0
+
+
 def fused_channel_attention_residual(x, r, w1, b1, w2, b2):
     """The int8 RCAB block tail ``(float(x) * att(x) + float(r)).to(r.dtype)``: the
-    CUDA kernel for a CUDA ``x``, the plain version for a CPU ``x``."""
+    CUDA kernel for a CUDA ``x`` (on chip in rounds where :func:`res_onchip_plan`
+    allows, else three passes), the plain version for a CPU ``x``."""
     if x.device.type == 'cpu':
         return reference_channel_attention_residual(x, r, w1, b1, w2, b2)
     if x.device.type != 'cuda':
@@ -258,9 +312,43 @@ def fused_channel_attention_residual(x, r, w1, b1, w2, b2):
                          % x.device)
     _check_residual_args(x, r, w1, b1, w2, b2)
     n, h, w, c = x.shape
+    _, sm_count, smem_optin = _library(x.device.index)
+    out = torch.empty_like(r)
+    plan = res_onchip_plan(n, h * w, c, w1.shape[1], x.element_size(), r.element_size(),
+                           res_onchip_aligned(x, r, out), sm_count, smem_optin)
+    if plan is None:
+        return _res_three_pass(x, r, w1, b1, w2, b2, out)
+    return _res_onchip(x, r, w1, b1, w2, b2, out, plan)
+
+
+def _res_onchip(x, r, w1, b1, w2, b2, out, plan):
+    """One cooperative launch of ``ca_res_onchip`` into ``out`` with ``plan`` from
+    :func:`res_onchip_plan` (arguments already checked)."""
+    n, h, w, c = x.shape
+    index = x.device.index
+    lib = _library(index)[0]
+    rounds, images, slabs, slab_pixels, smem_bytes = plan
+    # the partial sums (N, slabs, C); the att slice is unused on this path
+    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
+    with torch.cuda.device(index):
+        code = lib.sisr_ca_res_onchip_forward(
+            x.data_ptr(), r.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors[:5]),
+            n, h * w, c, w1.shape[1], *strides, _DTYPE_CODES[x.dtype], _DTYPE_CODES[r.dtype],
+            rounds, images, slabs, slab_pixels, smem_bytes,
+            torch.cuda.current_stream(index).cuda_stream)
+    cuda_build.check(lib, code, 'fused_channel_attention_residual on-chip launch')
+    fused_channel_attention_residual.launches += 1
+    fused_channel_attention_residual.onchip_launches += 1
+    return out
+
+
+def _res_three_pass(x, r, w1, b1, w2, b2, out=None):
+    """The three launches of ``sisr_ca_res_forward`` into ``out`` (a new tensor when
+    None; arguments already checked)."""
+    n, h, w, c = x.shape
     index = x.device.index
     lib, sm_count, _ = _library(index)
-    out = torch.empty_like(r)
+    out = torch.empty_like(r) if out is None else out
     vectorized, slabs = launch_plan(n, h * w, c, x.element_size(),
                                     residual_aligned(x, r, out), sm_count)
     tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
@@ -276,3 +364,4 @@ def fused_channel_attention_residual(x, r, w1, b1, w2, b2):
 
 
 fused_channel_attention_residual.launches = 0
+fused_channel_attention_residual.onchip_launches = 0

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/lib<name>-<digest>.so``, where the digest covers the source and the flags, so
 a changed source never loads a stale library.  Nothing is built at import: the first
 call of a kernel builds its library (``load``); ``build`` starts one nvcc per missing
-library, all at once (``chip_smoke.py`` calls it up front and times it).
+library, all at once (``chip_smoke.py`` calls it up front and times it).  ``defines``
+are preprocessor macros for a diagnostic build (``tools/ca_res_timeline.py``), which
+gets a library of its own.
 """
 import ctypes
 import hashlib
@@ -41,17 +43,21 @@ def source_path(name):
     return os.path.join(CSRC_DIR, name + '.cu')
 
 
-def library_path(name):
+def _flags(defines):
+    return [*NVCC_FLAGS, *('-D' + d for d in defines)]
+
+
+def library_path(name, defines=()):
     with open(source_path(name), 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha1(f.read() + ' '.join(_flags(defines)).encode()).hexdigest()
     return os.path.join(BUILD_DIR, 'lib%s-%s.so' % (name, digest[:12]))
 
 
-def nvcc_command(name, output):
-    return [nvcc_path(), *NVCC_FLAGS, '-o', output, source_path(name)]
+def nvcc_command(name, output, defines=()):
+    return [nvcc_path(), *_flags(defines), '-o', output, source_path(name)]
 
 
-def build(names=SOURCES):
+def build(names=SOURCES, defines=()):
     """Compile every library in ``names`` that is not built yet, one nvcc process per
     source, all started together.  Returns {name: {'path', 'seconds', 'log'}}; raises
     with the compiler's output if any build fails."""
@@ -59,12 +65,12 @@ def build(names=SOURCES):
     started = {}
     results = {}
     for name in names:
-        path = library_path(name)
+        path = library_path(name, defines)
         if os.path.isfile(path):
             results[name] = {'path': path, 'seconds': 0.0, 'log': 'cached'}
             continue
         tmp = '%s.%d.tmp' % (path, os.getpid())
-        proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
+        proc = subprocess.Popen(nvcc_command(name, tmp, defines), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, path, tmp, time.perf_counter())
     failures = []
@@ -81,19 +87,21 @@ def build(names=SOURCES):
     return results
 
 
-def load(name, signatures):
-    """The ctypes handle of library ``name``, built on first use, once per process.
-    ``signatures`` maps each C entry point to (restype, argtypes)."""
+def load(name, signatures, defines=()):
+    """The ctypes handle of library ``name`` (built with ``defines``), built on first
+    use, once per process.  ``signatures`` maps each C entry point to (restype,
+    argtypes)."""
+    key = (name, tuple(defines))
     with _LOCK:
-        if name not in _LIBS:
-            lib = ctypes.CDLL(build([name])[name]['path'])
+        if key not in _LIBS:
+            lib = ctypes.CDLL(build([name], defines)[name]['path'])
             lib.sisr_cuda_error_string.restype = ctypes.c_char_p
             lib.sisr_cuda_error_string.argtypes = [ctypes.c_int]
             for fn, (restype, argtypes) in signatures.items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
-            _LIBS[name] = lib
-        return _LIBS[name]
+            _LIBS[key] = lib
+        return _LIBS[key]
 
 
 def check(lib, code, what):

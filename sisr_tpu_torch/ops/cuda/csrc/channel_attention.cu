@@ -55,41 +55,81 @@
 //      a multiple of 16 (and x is 16-byte aligned), one element per thread otherwise.
 // The map is read twice; the second read hits L2 where the map fits in its 50 MB.
 //
-// Second entry point, sisr_ca_res_forward: the int8 RCAB block tail
+// The int8 RCAB block tail, entries sisr_ca_res_onchip_forward and
+// sisr_ca_res_forward:
 //
 //   out = TR(float(x) * att(x) + float(r))
 //
 // with att computed as above (pool and excite in float32) and multiplied in float32,
 // not rounded to x's type.  x is float32 or bfloat16 (the main path passes the
 // float32 dequantised conv output), r the residual carry (float32 or bfloat16) of
-// x's shape, and out has r's type.  Passes 1 and 2 are the same ca_pool_partial and
-// ca_excite; pass 3 is ca_res_scale.
-//
-// Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_res_forward` (bodies
-// `_ca_res_kernel_single` and `_ca_res_kernel`).
+// x's shape, and out has r's type.  The multiply and the add round separately
+// (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain version does, so the
+// two differ only by the pool's summation order.  Replaces
+// sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_res_forward`, by two paths;
+// the wrapper's plan (`res_onchip_plan`) picks one from the shape and the card alone.
 //
 // Bound.  At the main-path shape (8, 128, 128, 64), x float32 and r bfloat16, the
 // least traffic is one read of x (33.6 MB), one read of r (16.8 MB) and one write of
 // out (16.8 MB): 67.1 MB, 20.0 us at 3.35 TB/s.  Bytes bound it (three flops per
-// element).  This design reads x twice, once to pool and once to scale: 100.7 MB if
-// the second read of x missed L2 entirely, 30.1 us.  The 33.6 MB map fits in the
-// 50 MB L2 only in part while r and out stream through it, so part of the second read
-// comes from device memory.
+// element).
 //
-// Design.  Pass 3 moves one 16-byte x vector and the matching r/out vectors (8 bytes
-// for bfloat16) per thread when C is a multiple of the vector width and every pointer
-// is aligned, one element per thread otherwise.  The multiply and the add round
-// separately (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain version
-// does.  No atomics, so repeated runs are bit-identical.
+// Path 1, on chip in rounds (entry sisr_ca_res_onchip_forward, kernel
+// ca_res_onchip): replaces the single-block body `_ca_res_kernel_single`, which holds
+// x and r in VMEM and reads each once.  Unlike the CA's bf16 map, the float32 x of
+// the whole batch (33.6 MB) does not fit the SMs' shared memory together (132 x
+// 227 KB = 30.7 MB), and one image (4.2 MB) is more than a 16-block cluster holds, so
+// the batch streams through shared memory in R rounds of I images, with B blocks per
+// image (I * B <= SMs, one block per SM, all resident: one cooperative launch).  A
+// block holds its slab of x and its slab of r.  At the main shape R = 2, I = 4,
+// B = 33: slabs of 497 pixels, 127 KB of x and 64 KB of r.  In round k block (s, i)
+// owns slab s of image k*I + i:
+//   a. its slab of x has come in by bulk async copies (cp.async.bulk) in kResChunks
+//      chunks, each on its own mbarrier, whose phase parity is the round's; the block
+//      pools each chunk in float32 as it lands and writes its per-channel sum to
+//      partial (N, B, C) with plain stores.  Meanwhile the next round's slab of x is
+//      prefetched into L2;
+//   b. one grid barrier per round, split: between the block's arrival and its wait,
+//      its slab of r starts coming in (r does not wait for att), so the barrier's own
+//      traffic is not queued behind it.  Then every block of the image sums its B
+//      partials in a fixed order (kResLoads loads in flight a thread) and runs the
+//      excite itself, so no second barrier is needed;
+//   c. chunk by chunk, the block reads x and r from shared memory and writes out with
+//      vector stores; once every thread is done with chunk j, thread 0 bulk-copies
+//      round k+1's chunk j of x into the same bytes, so the next round's x streams in
+//      while this round's out streams out.
+// x is read once, r once and out written once: the bound's own 67.1 MB.  Blocks with
+// no image in a ragged last round still meet the barrier.  Needs the pixels of x and
+// of r to be whole 16-byte units, x and r 16-byte aligned (bulk copies) and out
+// aligned to one vector of r's type.  Why r sits in shared memory as well, and why it
+// is sent for between the barrier's arrival and its wait: read from device memory in
+// the scale, every chunk waited on memory latency (54 us a call at the main shape on
+// an H100 SXM); issued before the arrival, its traffic queued ahead of the barrier's
+// own.  The partial sums are loaded together because one L2 round trip after another
+// was most of the excite's time.  A build with -DSISR_CA_RES_TIMELINE stamps the
+// phases (res_stamp below; tools/ca_res_timeline.py reads them).
+//
+// Path 2, three passes (entry sisr_ca_res_forward): replaces the tiled body
+// `_ca_res_kernel`, for maps that do not fit on chip (one 512 x 512 float32 map),
+// pixels that are not whole 16-byte units, or a misaligned r.  Passes 1 and 2 are
+// the CA's ca_pool_partial and ca_excite; pass 3, ca_res_scale, moves one 16-byte x
+// vector and the matching r/out vectors per thread when C is a multiple of the
+// vector width and every pointer is aligned, one element per thread otherwise.  It
+// reads x twice: 100.7 MB at the main shape where the second read misses L2.
+// Neither path uses atomics, so repeated runs are bit-identical.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kOnchipChunks = 4;  // bulk copies (and mbarriers) per slab
+constexpr int kResChunks = 2;     // bulk copies of x, and of r, per slab of ca_res_onchip
+constexpr int kResLoads = 16;     // block sums a thread of ca_res_onchip loads at once
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -259,18 +299,26 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// Wait for the barrier's first phase (parity 0) to complete.
-__device__ __forceinline__ void mbar_wait_first(uint64_t* bar) {
+// Wait for the barrier's phase of parity `parity` (0 for its first phase, then 1, 0,
+// ...) to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
   while (!done) {
     asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(addr)
+        : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// Ask for `bytes` (a multiple of 16, from a 16-byte aligned address) of global memory
+// to be brought into L2, without waiting.
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes)
+               : "memory");
 }
 
 // Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
@@ -307,6 +355,139 @@ __host__ inline int64_t onchip_smem_bytes(int64_t slab_len, int c, int cr, int i
   return onchip_barrier_offset(slab_len, c, cr, itemsize) + 8 * kOnchipChunks;
 }
 
+// Shared-memory bytes of ca_res_onchip: the slab of x, the slab of r (from a
+// 128-byte boundary), ca_onchip's float scratch, then one mbarrier for each chunk of x
+// and one for each chunk of r.  res_onchip_smem_bytes in ops/channel_attention.py
+// computes the same.
+__host__ __device__ inline int64_t res_r_offset(int64_t slab_len, int c, int x_itemsize) {
+  return (slab_len * c * x_itemsize + 127) / 128 * 128;
+}
+__host__ __device__ inline int64_t res_barrier_offset(int64_t slab_len, int c, int cr,
+                                                      int x_itemsize, int r_itemsize) {
+  const int64_t floats_end = res_r_offset(slab_len, c, x_itemsize) +
+                             slab_len * c * r_itemsize +
+                             4 * onchip_floats(c, cr, 16 / x_itemsize);
+  return (floats_end + 15) / 16 * 16;
+}
+__host__ inline int64_t res_onchip_smem_bytes(int64_t slab_len, int c, int cr,
+                                              int x_itemsize, int r_itemsize) {
+  return res_barrier_offset(slab_len, c, cr, x_itemsize, r_itemsize) + 8 * 2 * kResChunks;
+}
+
+// The float scratch of the on-chip kernels, after the slab, as onchip_floats counts
+// it: the block's row sums, the excite's weights ([j * c + ch] for w1 and w2), the
+// partial sums ([part * c + ch]), pooled, hidden and att.
+struct OnchipScratch {
+  float *red, *w1s, *w2s, *b1s, *b2s, *part_sum, *pooled, *hidden, *att;
+  __device__ OnchipScratch(float* base, int c, int cr, int rows, int parts)
+      : red(base), w1s(red + rows * c), w2s(w1s + c * cr), b1s(w2s + cr * c),
+        b2s(b1s + cr), part_sum(b2s + c), pooled(part_sum + c * parts),
+        hidden(pooled + c), att(hidden + cr) {}
+};
+
+__device__ __forceinline__ void stage_excite_weights(const OnchipScratch& s,
+                                                     const float* __restrict__ w1,
+                                                     const float* __restrict__ b1,
+                                                     const float* __restrict__ w2,
+                                                     const float* __restrict__ b2, int c,
+                                                     int cr, int64_t w1_sc, int64_t w1_sj,
+                                                     int64_t w2_sj, int64_t w2_sc, int t) {
+  for (int i = t; i < c * cr; i += kThreads) {
+    const int j = i / c, ch = i % c;
+    s.w1s[i] = w1[ch * w1_sc + j * w1_sj];
+    s.w2s[i] = w2[j * w2_sj + ch * w2_sc];
+  }
+  for (int i = t; i < cr; i += kThreads) s.b1s[i] = b1[i];
+  for (int i = t; i < c; i += kThreads) s.b2s[i] = b2[i];
+}
+
+// The block's per-channel sum of its threads' pools (acc: VEC channels of lane `lane`
+// in row `row`) into dst[0, c): rows -> `parts` strided sums -> one, in a fixed order.
+template <int VEC>
+__device__ __forceinline__ void block_channel_sum(const float (&acc)[VEC],
+                                                  const OnchipScratch& s, float* dst, int c,
+                                                  int rows, int parts, int row, int lane,
+                                                  int t) {
+  if (row < rows) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) s.red[row * c + lane * VEC + v] = acc[v];
+  }
+  __syncthreads();
+  const int row_parts = min(parts, rows);
+  for (int i = t; i < c * row_parts; i += kThreads) {
+    const int ch = i % c, part = i / c;
+    float sum = 0.f;
+    for (int r = part; r < rows; r += row_parts) sum += s.red[r * c + ch];
+    s.part_sum[i] = sum;
+  }
+  __syncthreads();
+  for (int ch = t; ch < c; ch += kThreads) {
+    float sum = 0.f;
+    for (int part = 0; part < row_parts; ++part) sum += s.part_sum[part * c + ch];
+    dst[ch] = sum;
+  }
+}
+
+// s.att of one image from its `slabs` block sums img_partial[k * c + ch] (read past
+// L1: other blocks wrote them before the grid barrier), added in a fixed order, then
+// the excite on the staged weights.  Each thread issues LOADS of its sums at once
+// before it adds them (in the same order), so LOADS L2 round trips overlap.  Ends with
+// the block synchronised.
+template <int LOADS>
+__device__ __forceinline__ void image_excite(const OnchipScratch& s, const float* img_partial,
+                                             int slabs, int64_t hw, int c, int cr,
+                                             int parts, int t) {
+  const int slab_parts = min(parts, slabs);
+  for (int i = t; i < c * slab_parts; i += kThreads) {
+    const int ch = i % c, part = i / c;
+    float sum = 0.f;
+    for (int k0 = part; k0 < slabs; k0 += LOADS * slab_parts) {
+      float v[LOADS];
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u) {
+        const int k = k0 + u * slab_parts;
+        v[u] = k < slabs ? __ldcg(&img_partial[k * c + ch]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u)
+        if (k0 + u * slab_parts < slabs) sum += v[u];
+    }
+    s.part_sum[i] = sum;
+  }
+  __syncthreads();
+  for (int ch = t; ch < c; ch += kThreads) {
+    float sum = 0.f;
+    for (int part = 0; part < slab_parts; ++part) sum += s.part_sum[part * c + ch];
+    s.pooled[ch] = sum / (float)hw;
+  }
+  __syncthreads();
+  const int warp = t / 32, wl = t % 32;
+  for (int j = warp; j < cr; j += kThreads / 32) {
+    float h = 0.f;
+    for (int ch = wl; ch < c; ch += 32) h += s.pooled[ch] * s.w1s[j * c + ch];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) h += __shfl_down_sync(0xffffffffu, h, off);
+    if (wl == 0) s.hidden[j] = fmaxf(h + s.b1s[j], 0.f);
+  }
+  __syncthreads();
+  for (int ch = t; ch < c; ch += kThreads) {
+    float a = 0.f;
+    for (int j = 0; j < cr; ++j) a += s.hidden[j] * s.w2s[j * c + ch];
+    s.att[ch] = 1.f / (1.f + expf(-(a + s.b2s[ch])));
+  }
+  __syncthreads();
+}
+
+// Thread 0: bulk-copy pixels [a, b) of `src` (C channels of T each) to dst, counted
+// on bar.
+template <typename T>
+__device__ __forceinline__ void load_pixels(unsigned char* dst, const T* src, int c,
+                                            int64_t a, int64_t b, uint64_t* bar) {
+  const uint32_t bytes = (uint32_t)((b - a) * c * (int64_t)sizeof(T));
+  mbar_expect_tx(bar, bytes);
+  bulk_load(dst, src + a * c, bytes, bar);
+}
+
 // Grid (S, N), kThreads threads, launched cooperatively (path 1 of the note above).
 // Block (s, n) owns pixels [s*slab_len, min(hw, (s+1)*slab_len)) of image n; its
 // threads form `rows` rows of C/VEC lanes (VEC channels each) that stride over the
@@ -332,15 +513,9 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t chunk_len = (len + kOnchipChunks - 1) / kOnchipChunks;
 
   Pack<T, VEC>* slab = reinterpret_cast<Pack<T, VEC>*>(smem);
-  float* red = reinterpret_cast<float*>(smem + onchip_float_offset(slab_len, c, sizeof(T)));
-  float* w1s = red + rows * c;  // [j * c + ch]
-  float* w2s = w1s + c * cr;    // [j * c + ch]
-  float* b1s = w2s + cr * c;
-  float* b2s = b1s + cr;
-  float* part_sum = b2s + c;  // [part * c + ch]
-  float* pooled = part_sum + c * parts;
-  float* hidden = pooled + c;
-  float* att = hidden + cr;
+  const OnchipScratch s(
+      reinterpret_cast<float*>(smem + onchip_float_offset(slab_len, c, sizeof(T))), c, cr,
+      rows, parts);
   uint64_t* bars =
       reinterpret_cast<uint64_t*>(smem + onchip_barrier_offset(slab_len, c, cr, sizeof(T)));
 
@@ -351,23 +526,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (t == 0) {
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(x + (n * hw + p0) * c);
-    const int64_t pixel_bytes = (int64_t)c * sizeof(T);
     for (int k = 0; k < kOnchipChunks; ++k) {
       const int64_t a = k * chunk_len, b = min(len, a + chunk_len);
       if (a >= b) break;
-      const uint32_t bytes = (uint32_t)((b - a) * pixel_bytes);
-      mbar_expect_tx(&bars[k], bytes);
-      bulk_load(smem + a * pixel_bytes, src + a * pixel_bytes, bytes, &bars[k]);
+      load_pixels(smem + a * c * sizeof(T), x + (n * hw + p0) * c, c, a, b, &bars[k]);
     }
   }
-  for (int i = t; i < c * cr; i += kThreads) {
-    const int j = i / c, ch = i % c;
-    w1s[i] = w1[ch * w1_sc + j * w1_sj];
-    w2s[i] = w2[j * w2_sj + ch * w2_sc];
-  }
-  for (int i = t; i < cr; i += kThreads) b1s[i] = b1[i];
-  for (int i = t; i < c; i += kThreads) b2s[i] = b2[i];
+  stage_excite_weights(s, w1, b1, w2, b2, c, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
 
   float acc[VEC];
 #pragma unroll
@@ -375,7 +540,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < kOnchipChunks; ++k) {
     const int64_t a = k * chunk_len, b = min(len, a + chunk_len);
     if (a >= b) break;
-    mbar_wait_first(&bars[k]);
+    mbar_wait(&bars[k], 0);
     if (row < rows) {
       for (int64_t p = a + row; p < b; p += rows) {
         const Pack<T, VEC> pk = slab[p * lanes + lane];
@@ -385,64 +550,19 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // b. the block's per-channel sum: rows -> `parts` strided sums -> one, in order
-  if (row < rows) {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) red[row * c + lane * VEC + v] = acc[v];
-  }
-  __syncthreads();
-  const int row_parts = min(parts, rows);
-  for (int i = t; i < c * row_parts; i += kThreads) {
-    const int ch = i % c, part = i / c;
-    float s = 0.f;
-    for (int r = part; r < rows; r += row_parts) s += red[r * c + ch];
-    part_sum[i] = s;
-  }
-  __syncthreads();
-  for (int ch = t; ch < c; ch += kThreads) {
-    float s = 0.f;
-    for (int part = 0; part < row_parts; ++part) s += part_sum[part * c + ch];
-    partial[(n * slabs + blockIdx.x) * c + ch] = s;
-  }
+  // b. the block's per-channel sum, then the grid barrier
+  block_channel_sum<VEC>(acc, s, partial + (n * slabs + blockIdx.x) * c, c, rows, parts,
+                         row, lane, t);
   cooperative_groups::this_grid().sync();
 
-  // c. image n's pool from the S partials (read past L1), then the excite
-  const int slab_parts = min(parts, slabs);
-  for (int i = t; i < c * slab_parts; i += kThreads) {
-    const int ch = i % c, part = i / c;
-    float s = 0.f;
-    for (int k = part; k < slabs; k += slab_parts)
-      s += __ldcg(&partial[(n * slabs + k) * c + ch]);
-    part_sum[i] = s;
-  }
-  __syncthreads();
-  for (int ch = t; ch < c; ch += kThreads) {
-    float s = 0.f;
-    for (int part = 0; part < slab_parts; ++part) s += part_sum[part * c + ch];
-    pooled[ch] = s / (float)hw;
-  }
-  __syncthreads();
-  const int warp = t / 32, wl = t % 32;
-  for (int j = warp; j < cr; j += kThreads / 32) {
-    float h = 0.f;
-    for (int ch = wl; ch < c; ch += 32) h += pooled[ch] * w1s[j * c + ch];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) h += __shfl_down_sync(0xffffffffu, h, off);
-    if (wl == 0) hidden[j] = fmaxf(h + b1s[j], 0.f);
-  }
-  __syncthreads();
-  for (int ch = t; ch < c; ch += kThreads) {
-    float a = 0.f;
-    for (int j = 0; j < cr; ++j) a += hidden[j] * w2s[j * c + ch];
-    att[ch] = 1.f / (1.f + expf(-(a + b2s[ch])));
-  }
-  __syncthreads();
+  // c. image n's pool from the S partials, then the excite
+  image_excite<1>(s, partial + n * slabs * c, slabs, hw, c, cr, parts, t);
 
   // d. out = x * T(att) from shared memory, 16-byte stores
   if (row < rows) {
     float scale[VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) scale[v] = to_float(from_float<T>(att[lane * VEC + v]));
+    for (int v = 0; v < VEC; ++v) scale[v] = to_float(from_float<T>(s.att[lane * VEC + v]));
     Pack<T, VEC>* dst = reinterpret_cast<Pack<T, VEC>*>(out + (n * hw + p0) * c);
     for (int64_t p = row; p < len; p += rows) {
       Pack<T, VEC> pk = slab[p * lanes + lane];
@@ -450,6 +570,163 @@ __global__ void __launch_bounds__(kThreads)
       for (int v = 0; v < VEC; ++v) pk.v[v] = from_float<T>(to_float(pk.v[v]) * scale[v]);
       dst[p * lanes + lane] = pk;
     }
+  }
+}
+
+// Phase stamps of ca_res_onchip, recorded only in a build with -DSISR_CA_RES_TIMELINE
+// (tools/ca_res_timeline.py): thread 0 of each block takes the global timer (ns) at
+// kernel entry (stamp 0) and, in each of the first kResStampRounds rounds, once its
+// slab is pooled, past the barrier, after the excite and after the scale (stamps
+// 1 + 4k .. 4 + 4k), into res_stamps[block * kResStamps + stamp].
+constexpr int kResStampRounds = 3;
+constexpr int kResStamps = 1 + 4 * kResStampRounds;
+constexpr int kResStampBlocks = 1024;
+#ifdef SISR_CA_RES_TIMELINE
+__device__ unsigned long long res_stamps[kResStampBlocks * kResStamps];
+#endif
+
+__device__ __forceinline__ void res_stamp(int stamp) {
+#ifdef SISR_CA_RES_TIMELINE
+  const unsigned block = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0 && block < kResStampBlocks && stamp < kResStamps) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    res_stamps[block * kResStamps + stamp] = ns;
+  }
+#endif
+}
+
+// Grid (B, I), kThreads threads, launched cooperatively (path 1 of the CA + residual
+// note above).  In round k, block (s, i) owns pixels [s*slab_len, min(hw,
+// (s+1)*slab_len)) of image k*I + i while that image exists (blocks with none only
+// meet the barrier); its threads form rows of C/VEC lanes as in ca_onchip.  The slab
+// splits into `chunks` chunks of chunk_len pixels; chunk j of x lands on xbars[j] and
+// chunk j of r on rbars[j], each of whose phases completes once a round, so round k
+// waits for parity k & 1.  The plan guarantees C/VEC <= kThreads, a non-empty slab
+// for every block and rounds * I >= N.
+template <typename TX, typename TR, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    ca_res_onchip(const TX* __restrict__ x, const TR* __restrict__ r, TR* __restrict__ out,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  float* __restrict__ partial, int64_t n_images, int64_t hw, int c, int cr,
+                  int rounds, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
+                  int64_t w2_sc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int slabs = gridDim.x;
+  const int images = gridDim.y;
+  const int lanes = c / VEC;
+  const int rows = kThreads / lanes;
+  const int parts = onchip_parts(c);
+  const int t = threadIdx.x;
+  const int row = t / lanes, lane = t % lanes;
+  const int64_t p0 = (int64_t)blockIdx.x * slab_len;
+  const int64_t len = min(hw - p0, slab_len);
+  const int64_t chunk_len = (len + kResChunks - 1) / kResChunks;
+  const int chunks = (int)((len + chunk_len - 1) / chunk_len);  // all non-empty
+
+  const Pack<TX, VEC>* xs = reinterpret_cast<const Pack<TX, VEC>*>(smem);
+  unsigned char* r_smem = smem + res_r_offset(slab_len, c, sizeof(TX));
+  const Pack<TR, VEC>* rs = reinterpret_cast<const Pack<TR, VEC>*>(r_smem);
+  const OnchipScratch s(reinterpret_cast<float*>(r_smem + slab_len * c * sizeof(TR)), c, cr,
+                        rows, parts);
+  uint64_t* xbars = reinterpret_cast<uint64_t*>(
+      smem + res_barrier_offset(slab_len, c, cr, sizeof(TX), sizeof(TR)));
+  uint64_t* rbars = xbars + kResChunks;
+  res_stamp(0);
+
+  if (t == 0) {
+    for (int j = 0; j < 2 * kResChunks; ++j) mbar_init(&xbars[j]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0 && blockIdx.y < n_images) {  // round 0's slab of x
+    for (int j = 0; j < chunks; ++j) {
+      const int64_t a = j * chunk_len, b = min(len, a + chunk_len);
+      load_pixels(smem + a * c * sizeof(TX), x + ((int64_t)blockIdx.y * hw + p0) * c, c, a,
+                  b, &xbars[j]);
+    }
+  }
+  stage_excite_weights(s, w1, b1, w2, b2, c, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
+
+  for (int k = 0; k < rounds; ++k) {
+    const int64_t n = (int64_t)k * images + blockIdx.y;
+    const bool mine = n < n_images;  // the same for the whole block
+    const bool more = n + images < n_images;
+    // the next round's slab of x on its way into L2, so that its copy into shared
+    // memory during this round's scale is quick
+    if (t == 0 && more)
+      prefetch_l2(x + ((n + images) * hw + p0) * c, (uint32_t)(len * c * sizeof(TX)));
+    // a. pool the slab of x as its chunks land, then the block's sum to partial
+    if (mine) {
+      float acc[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+      for (int j = 0; j < chunks; ++j) {
+        const int64_t a = j * chunk_len, b = min(len, a + chunk_len);
+        mbar_wait(&xbars[j], (uint32_t)(k & 1));
+        if (row < rows) {
+          for (int64_t p = a + row; p < b; p += rows) {
+            const Pack<TX, VEC> pk = xs[p * lanes + lane];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[v] += to_float(pk.v[v]);
+          }
+        }
+      }
+      block_channel_sum<VEC>(acc, s, partial + (n * slabs + blockIdx.x) * c, c, rows, parts,
+                             row, lane, t);
+    }
+    // b. one grid barrier a round, split: between the arrival and the wait the slab of
+    //    r starts coming in (r does not wait for att; issued before the arrival, its
+    //    traffic would delay the barrier's own); then each block runs its image's excite
+    res_stamp(1 + 4 * k);
+    {
+      const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+      auto token = grid.barrier_arrive();
+      if (t == 0 && mine) {
+        for (int j = 0; j < chunks; ++j) {
+          const int64_t a = j * chunk_len, b = min(len, a + chunk_len);
+          load_pixels(r_smem + a * c * sizeof(TR), r + (n * hw + p0) * c, c, a, b, &rbars[j]);
+        }
+      }
+      grid.barrier_wait(std::move(token));
+    }
+    res_stamp(2 + 4 * k);
+    if (!mine) continue;
+    image_excite<kResLoads>(s, partial + n * slabs * c, slabs, hw, c, cr, parts, t);
+    res_stamp(3 + 4 * k);
+
+    // c. out = TR(x * att + r) chunk by chunk from shared memory; each chunk's bytes of
+    //    x then take the next round's
+    float scale[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) scale[v] = row < rows ? s.att[lane * VEC + v] : 0.f;
+    Pack<TR, VEC>* dst = reinterpret_cast<Pack<TR, VEC>*>(out + (n * hw + p0) * c);
+    for (int j = 0; j < chunks; ++j) {
+      const int64_t a = j * chunk_len, b = min(len, a + chunk_len);
+      mbar_wait(&rbars[j], (uint32_t)(k & 1));
+      if (row < rows) {
+        for (int64_t p = a + row; p < b; p += rows) {
+          const Pack<TX, VEC> px = xs[p * lanes + lane];
+          const Pack<TR, VEC> pr = rs[p * lanes + lane];
+          Pack<TR, VEC> po;
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            po.v[v] = from_float<TR>(__fadd_rn(__fmul_rn(to_float(px.v[v]), scale[v]),
+                                               to_float(pr.v[v])));
+          dst[p * lanes + lane] = po;
+        }
+      }
+      if (more) {
+        __syncthreads();  // every thread is done reading chunk j of x (and of r)
+        if (t == 0) {     // order those reads before the async proxy's writes
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          load_pixels(smem + a * c * sizeof(TX), x + ((n + images) * hw + p0) * c, c, a, b,
+                      &xbars[j]);
+        }
+      }
+    }
+    res_stamp(4 + 4 * k);
   }
 }
 
@@ -529,6 +806,35 @@ cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
   return cudaGetLastError();
 }
 
+// One cooperative launch of `kernel` over `grid` with smem_bytes of dynamic shared
+// memory, raising the kernel's opt-in limit above 48 KB first where this device has
+// not yet (allowed: the limit set so far on each device, one array per kernel).
+template <typename... Params, typename... Args>
+cudaError_t launch_cooperative(void (*kernel)(Params...), int64_t* allowed, dim3 grid,
+                               int64_t smem_bytes, cudaStream_t stream, Args... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (smem_bytes > allowed[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = smem_bytes;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // One cooperative launch of ca_onchip over grid (slabs, n).  smem_bytes is the
 // caller's plan; it must equal this file's layout, or nothing launches.
 template <typename T, int VEC>
@@ -539,31 +845,35 @@ cudaError_t launch_onchip(const void* x, void* out, const float* w1, const float
   if (c % VEC != 0 || c / VEC > kThreads ||
       smem_bytes != onchip_smem_bytes(slab_len, c, cr, sizeof(T)))
     return cudaErrorInvalidValue;
-  // the opt-in limit above 48 KB, raised once per device for this instance
   static int64_t allowed[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (smem_bytes > allowed[dev]) {
-    err = cudaFuncSetAttribute(ca_onchip<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes);
-    if (err != cudaSuccess) return err;
-    allowed[dev] = smem_bytes;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)slabs, (unsigned)n);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = (size_t)smem_bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, ca_onchip<T, VEC>, static_cast<const T*>(x),
-                            static_cast<T*>(out), w1, b1, w2, b2, partial, hw, c, cr, slab_len,
-                            w_strides[0], w_strides[1], w_strides[2], w_strides[3]);
+  return launch_cooperative(ca_onchip<T, VEC>, allowed, dim3((unsigned)slabs, (unsigned)n),
+                            smem_bytes, stream, static_cast<const T*>(x), static_cast<T*>(out),
+                            w1, b1, w2, b2, partial, hw, c, cr, slab_len, w_strides[0],
+                            w_strides[1], w_strides[2], w_strides[3]);
+}
+
+// One cooperative launch of ca_res_onchip over grid (slabs, images) for `rounds`
+// rounds.  The plan must cover every image once and every pixel once with no empty
+// block, and smem_bytes must equal this file's layout, or nothing launches.
+template <typename TX, typename TR, int VEC>
+cudaError_t launch_res_onchip(const void* x, const void* r, void* out, const float* w1,
+                              const float* b1, const float* w2, const float* b2,
+                              float* partial, int64_t n, int64_t hw, int c, int cr,
+                              const int64_t* w_strides, int rounds, int images, int slabs,
+                              int64_t slab_len, int64_t smem_bytes, cudaStream_t stream) {
+  if (c % VEC != 0 || c / VEC > kThreads || rounds < 1 || images < 1 || slabs < 1 ||
+      (int64_t)(rounds - 1) * images >= n || (int64_t)rounds * images < n ||
+      (slabs - 1) * slab_len >= hw || slabs * slab_len < hw ||
+      (c * sizeof(TR)) % 16 != 0 ||
+      smem_bytes != res_onchip_smem_bytes(slab_len, c, cr, sizeof(TX), sizeof(TR)))
+    return cudaErrorInvalidValue;
+  static int64_t allowed[64] = {};
+  return launch_cooperative(ca_res_onchip<TX, TR, VEC>, allowed,
+                            dim3((unsigned)slabs, (unsigned)images), smem_bytes, stream,
+                            static_cast<const TX*>(x), static_cast<const TR*>(r),
+                            static_cast<TR*>(out), w1, b1, w2, b2, partial, n, hw, c, cr,
+                            rounds, slab_len, w_strides[0], w_strides[1], w_strides[2],
+                            w_strides[3]);
 }
 
 }  // namespace
@@ -621,6 +931,43 @@ int sisr_ca_onchip_forward(const void* x, void* out, const float* w1, const floa
   return (int)cudaErrorInvalidValue;
 }
 
+// The CA + residual block tail on chip: one cooperative launch of `slabs` blocks for
+// each of `images` images a round, over `rounds` rounds, each block owning slab_len
+// pixels (the last one of an image the rest), with smem_bytes of dynamic shared
+// memory.  x_dtype and r_dtype: 0 float32, 1 bfloat16; out has r's type.  The caller
+// checks that C * itemsize(x) and C * itemsize(r) are multiples of 16, that x and r
+// are 16-byte aligned, that out is aligned to one vector (16 / itemsize(x) elements)
+// of r's type and that all images * slabs blocks fit on the card at once.  The
+// weights and their strides are those of sisr_ca_forward; partial holds N * slabs * C
+// floats.  Returns the CUDA error code of the launch, 0 when it launched.
+int sisr_ca_res_onchip_forward(const void* x, const void* r, void* out, const float* w1,
+                               const float* b1, const float* w2, const float* b2,
+                               float* partial, long long n, long long hw, int c, int cr,
+                               long long w1_s0, long long w1_s1, long long w2_s0,
+                               long long w2_s1, int x_dtype, int r_dtype, int rounds,
+                               int images, int slabs, long long slab_len,
+                               long long smem_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
+  if (x_dtype == 0 && r_dtype == 0)
+    return launch_res_onchip<float, float, 4>(x, r, out, w1, b1, w2, b2, partial, n, hw, c,
+                                              cr, ws, rounds, images, slabs, slab_len,
+                                              smem_bytes, s);
+  if (x_dtype == 0 && r_dtype == 1)
+    return launch_res_onchip<float, __nv_bfloat16, 4>(x, r, out, w1, b1, w2, b2, partial, n,
+                                                      hw, c, cr, ws, rounds, images, slabs,
+                                                      slab_len, smem_bytes, s);
+  if (x_dtype == 1 && r_dtype == 0)
+    return launch_res_onchip<__nv_bfloat16, float, 8>(x, r, out, w1, b1, w2, b2, partial, n,
+                                                      hw, c, cr, ws, rounds, images, slabs,
+                                                      slab_len, smem_bytes, s);
+  if (x_dtype == 1 && r_dtype == 1)
+    return launch_res_onchip<__nv_bfloat16, __nv_bfloat16, 8>(
+        x, r, out, w1, b1, w2, b2, partial, n, hw, c, cr, ws, rounds, images, slabs,
+        slab_len, smem_bytes, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The CA + residual block tail.  x_dtype and r_dtype: 0 float32, 1 bfloat16; out has
 // r's type.  vectorized: 1 for VEC = 16 / sizeof(x) elements per thread (the caller
 // checks that C is a multiple of VEC, that x is 16-byte aligned and that r and out
@@ -648,6 +995,14 @@ int sisr_ca_res_forward(const void* x, const void* r, void* out, const float* w1
   }
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef SISR_CA_RES_TIMELINE
+// The phase stamps of the last ca_res_onchip launch: kResStampBlocks * kResStamps
+// values (ns), as res_stamp lays them out.
+int sisr_ca_res_stamps(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, res_stamps, sizeof(res_stamps));
+}
+#endif
 
 const char* sisr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -17,6 +17,7 @@ from sisr_tpu.ops.pallas.channel_attention import (_fused_ca_forward, _fused_ca_
 from sisr_tpu_torch.models import blocks
 from sisr_tpu_torch.ops import channel_attention as ca
 from sisr_tpu_torch.ops.cuda import build
+from sisr_tpu_torch.tools import ca_res_timeline
 
 
 def _inputs(shape, seed, red=4):
@@ -107,6 +108,76 @@ def test_onchip_plan_covers_and_fits(n, hw, c, itemsize):
     assert (blocks - 1) * slab < hw <= blocks * slab  # each pixel once, no empty block
 
 
+@pytest.mark.parametrize('n,hw,c,cr,x_itemsize,r_itemsize,aligned,expect', [
+    # main path, x f32 and r bf16: 2 rounds of 4 images, 33 blocks of 497 pixels each
+    # (127 KB of x and 64 KB of r)
+    (8, 128 * 128, 64, 4, 4, 2, True, (2, 4, 33, 497, 198848)),
+    (8, 128 * 128, 64, 4, 4, 4, True, (3, 3, 44, 373, 198976)),   # r f32: 3 rounds
+    # x bf16: one round would need 1024-pixel slabs, 256 KB of x and r together
+    (8, 128 * 128, 64, 4, 2, 2, True, (2, 4, 33, 497, 139328)),
+    (7, 128 * 128, 64, 4, 4, 2, True, (2, 4, 33, 497, 198848)),   # ragged round: 4 + 3
+    (3, 37 * 29, 64, 4, 4, 2, True, (1, 3, 43, 25, 17600)),  # 44 blocks: the last empty
+    (200, 4 * 4, 64, 4, 4, 2, True, (2, 100, 1, 16, 14144)),  # more images than SMs
+    (1, 7 * 5, 20, 5, 4, 4, True, (1, 1, 35, 1, 6368)),       # C = 20 f32: 80-byte pixels
+    (1, 512 * 512, 64, 4, 4, 2, True, None),  # one image of x is 67 MB: 508 KB slabs
+    (2, 9 * 3, 18, 6, 4, 4, True, None),      # 72-byte pixels: no bulk copy
+    (1, 7 * 5, 20, 5, 4, 2, True, None),      # C = 20, r bf16: 40-byte pixels of r
+    (1, 7 * 5, 20, 5, 2, 2, True, None),      # x bf16 C = 20: 40-byte pixels of x
+    (8, 128 * 128, 64, 4, 4, 2, False, None),  # misaligned r
+])
+def test_res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, expect):
+    assert ca.res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, **H100) == expect
+
+
+def _check_res_plan(n, hw, c, cr, x_itemsize, r_itemsize, plan):
+    """The plan's invariants, by intervals: every image in exactly one round (the last
+    round not empty), every pixel in exactly one block (the last not empty), at most
+    one block per SM, the layout's shared memory within the limit."""
+    rounds, images, blocks, slab, smem = plan
+    assert rounds == -(-n // images) and (rounds - 1) * images < n <= rounds * images
+    assert (blocks - 1) * slab < hw <= blocks * slab
+    assert images * blocks <= H100['sm_count']
+    assert smem == ca.res_onchip_smem_bytes(slab, c, cr, x_itemsize, r_itemsize)
+    assert smem <= H100['smem_optin']
+
+
+@pytest.mark.parametrize('n,hw,c,x_itemsize,r_itemsize', [
+    (8, 128 * 128, 64, 4, 2), (7, 128 * 128, 64, 4, 2), (8, 128 * 128, 64, 2, 2),
+    (3, 37 * 29, 64, 4, 4), (200, 16, 64, 4, 2), (10, 50000, 64, 4, 2), (2, 128, 32, 2, 4),
+    (133, 9, 16, 4, 4)])
+def test_res_onchip_rounds_cover_each_pixel_once(n, hw, c, x_itemsize, r_itemsize):
+    cr = max(1, c // 16)
+    plan = ca.res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, True, **H100)
+    rounds, images, blocks, slab, _ = plan
+    _check_res_plan(n, hw, c, cr, x_itemsize, r_itemsize, plan)
+    owners = np.zeros((n, hw), np.int64)  # how many (round, block) own each pixel
+    for k in range(rounds):
+        for i in range(images):
+            if k * images + i < n:
+                owners[k * images + i] += _slab_cover(hw, blocks, slab)
+    assert np.array_equal(owners, np.ones((n, hw), np.int64))
+
+
+@given(n=st.integers(1, 300), hw=st.integers(1, 300000),
+       c=st.sampled_from([8, 16, 20, 32, 64, 128]), x_itemsize=st.sampled_from([2, 4]),
+       r_itemsize=st.sampled_from([2, 4]))
+@settings(max_examples=200, deadline=None, derandomize=True)
+def test_res_onchip_plan_covers_fits_and_takes_fewest_rounds(n, hw, c, x_itemsize,
+                                                             r_itemsize):
+    cr = max(1, c // 16)
+    plan = ca.res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, True, **H100)
+    fits = lambda images: images <= H100['sm_count'] and ca.res_onchip_smem_bytes(
+        -(-hw // (H100['sm_count'] // images)), c, cr, x_itemsize,
+        r_itemsize) <= H100['smem_optin']
+    if plan is None:  # not even one image a round fits, or pixels not whole 16 bytes
+        assert (c * x_itemsize) % 16 or (c * r_itemsize) % 16 or not fits(1)
+        return
+    _check_res_plan(n, hw, c, cr, x_itemsize, r_itemsize, plan)
+    rounds, images = plan[:2]
+    assert fits(images)
+    assert rounds == 1 or not fits(-(-n // (rounds - 1)))  # one round fewer does not fit
+
+
 @pytest.mark.parametrize('mutate,error', [
     (lambda a: {**a, 'x': a['x'].permute(0, 2, 1, 3)}, ValueError),      # not contiguous
     (lambda a: {**a, 'x': a['x'].half()}, TypeError),
@@ -130,6 +201,40 @@ def test_nvcc_command_targets_sm90a(monkeypatch):
     assert 'arch=compute_90a,code=sm_90a' in cmd and '-shared' in cmd
     assert cmd[-1] == build.source_path('channel_attention')
     assert path.startswith(build.BUILD_DIR + '/libchannel_attention-')
+
+
+def test_diagnostic_build_gets_its_own_library(monkeypatch):
+    monkeypatch.setattr(build, 'nvcc_path', lambda: 'nvcc')
+    define = ca_res_timeline.DEFINE
+    path = build.library_path('channel_attention', (define,))
+    assert path != build.library_path('channel_attention')
+    cmd = build.nvcc_command('channel_attention', path, (define,))
+    assert '-D' + define in cmd and cmd[-1] == build.source_path('channel_attention')
+    assert '-D' + define not in build.nvcc_command('channel_attention', path)
+
+
+def test_timeline_reads_stamps_per_block():
+    """Two launches of 3 blocks over 2 rounds; block 2 has no image in round 1, so its
+    round-1 stamps are stale (older than the launch) and are left out."""
+    names = ca_res_timeline.stamp_names(2)
+    assert names[:3] == ['entry', 'round0_pooled', 'round0_past_barrier']
+    assert len(names) == 9
+    stamps = np.zeros((2, ca_res_timeline.STAMP_BLOCKS, ca_res_timeline.STAMPS), np.uint64)
+    for launch, base in enumerate((10**9, 2 * 10**9)):
+        for block in range(3):
+            stamps[launch, block, :9] = base + 1000 * block + 1000 * np.arange(9)
+        stamps[launch, 2, 5:9] = 5  # stale
+    got = ca_res_timeline.timeline(stamps, blocks=3, rounds=2)
+    assert got['entry'] == [0.0, 1.0, 2.0]
+    assert got['round0_pooled'] == [1.0, 2.0, 3.0]
+    assert got['round1_scaled'] == [8.0, 8.5, 9.0]  # blocks 0 and 1 only
+
+
+def test_timeline_tool_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip('this host has a card: the tool would run')
+    assert ca_res_timeline.main([]) == 1
+    assert 'needs a CUDA card' in capsys.readouterr().err
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -230,6 +335,23 @@ def test_residual_alignment_rule(x_offset, r_offset, r_dtype, expect):
 
     x, r = at_offset(x_offset, torch.float32), at_offset(r_offset, r_dtype)
     assert ca.residual_aligned(x, r, at_offset(0, r_dtype)) == expect
+
+
+@pytest.mark.parametrize('r_offset,r_dtype,expect', [
+    (0, torch.bfloat16, True),
+    (4, torch.bfloat16, False),   # r 8 bytes in: vectors, but no bulk copy
+    (8, torch.bfloat16, True),
+    (2, torch.bfloat16, False),
+    (4, torch.float32, True),
+])
+def test_res_onchip_alignment_rule(r_offset, r_dtype, expect):
+    def aligned(n, dtype):
+        t = torch.zeros(n + 16, dtype=dtype)
+        return t[(-t.data_ptr() % 16) // t.element_size():][:n]
+
+    x, out = aligned(64, torch.float32), aligned(64, r_dtype)
+    r = aligned(64 + r_offset, r_dtype)[r_offset:]
+    assert ca.res_onchip_aligned(x, r, out) == expect
 
 
 @pytest.mark.parametrize('mutate,error', [

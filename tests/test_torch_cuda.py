@@ -87,17 +87,22 @@ def _excite_weights(rng, c, cr):
     return w1, b1, w2, b2
 
 
-@pytest.mark.parametrize('shape,red,x_dtype,r_dtype,offset', [
-    ((8, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0),   # the main path
-    ((8, 128, 128, 64), 16, torch.float32, torch.float32, 0),
-    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0),
-    ((2, 16, 8, 32), 4, torch.bfloat16, torch.bfloat16, 0),
-    ((1, 13, 7, 32), 4, torch.float32, torch.bfloat16, 0),       # odd H x W
-    ((1, 7, 5, 20), 4, torch.float32, torch.bfloat16, 0),
-    ((2, 9, 3, 18), 3, torch.float32, torch.float32, 0),         # C % 4 != 0: scalar
-    ((2, 16, 8, 32), 4, torch.float32, torch.bfloat16, 2),       # misaligned r: scalar
+@pytest.mark.parametrize('shape,red,x_dtype,r_dtype,offset,path', [
+    ((8, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),  # the main path
+    ((8, 128, 128, 64), 16, torch.float32, torch.float32, 0, 'onchip'),
+    ((7, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),  # 4 + 3 images
+    ((3, 37, 29, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),    # ragged slabs
+    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0, 'three_pass'),  # 67 MB of x
+    ((2, 16, 8, 32), 4, torch.bfloat16, torch.bfloat16, 0, 'onchip'),
+    ((2, 16, 8, 32), 4, torch.bfloat16, torch.float32, 0, 'onchip'),
+    ((1, 13, 7, 32), 4, torch.float32, torch.bfloat16, 0, 'onchip'),      # odd H x W
+    ((1, 7, 5, 20), 4, torch.float32, torch.bfloat16, 0, 'three_pass'),  # r: 40-byte pixels
+    ((1, 7, 5, 20), 4, torch.float32, torch.float32, 0, 'onchip'),       # 80-byte pixels
+    ((2, 9, 3, 18), 3, torch.float32, torch.float32, 0, 'three_pass'),    # C % 4 != 0
+    ((2, 16, 8, 32), 4, torch.float32, torch.bfloat16, 2, 'three_pass'),  # misaligned r
+    ((2, 16, 8, 32), 4, torch.float32, torch.bfloat16, 4, 'three_pass'),  # r 8 bytes in
 ])
-def test_residual_kernel_matches_plain_version(shape, red, x_dtype, r_dtype, offset):
+def test_residual_kernel_matches_plain_version(shape, red, x_dtype, r_dtype, offset, path):
     rng = np.random.RandomState(1)
     c, cr = shape[-1], shape[-1] // red
     x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(x_dtype).cuda()
@@ -106,18 +111,34 @@ def test_residual_kernel_matches_plain_version(shape, red, x_dtype, r_dtype, off
     r = r[offset:].view(shape)
     weights = _excite_weights(rng, c, cr)
     launches = ca.fused_channel_attention_residual.launches
+    onchip = ca.fused_channel_attention_residual.onchip_launches
     with torch.inference_mode():
         out = ca.fused_channel_attention_residual(x, r, *weights)
         again = ca.fused_channel_attention_residual(x, r, *weights)
         torch.cuda.synchronize()
         ref = ca.reference_channel_attention_residual(x, r, *weights)
     assert ca.fused_channel_attention_residual.launches == launches + 2
+    took = ca.fused_channel_attention_residual.onchip_launches - onchip
+    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
     assert out.dtype == r_dtype
     assert torch.equal(out, again)  # no atomics: the same bits every run
     if r_dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     else:  # 2 bf16 ULPs: the summation order of the pool can flip a rounding
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+
+
+def test_residual_three_pass_matches_onchip():
+    """At the main shape both paths run: the same function up to the pool's order."""
+    rng = np.random.RandomState(5)
+    shape = (8, 128, 128, 64)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+    r = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+    weights = _excite_weights(rng, 64, 4)
+    with torch.inference_mode():
+        onchip = ca.fused_channel_attention_residual(x, r, *weights)
+        three_pass = ca._res_three_pass(x, r, *weights)
+    torch.testing.assert_close(onchip, three_pass, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize('n,h,w,cin,cout', [(8, 32, 32, 64, 64), (2, 16, 16, 3, 64),
