@@ -7,7 +7,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. environment: the card (nvidia-smi), torch and CUDA versions, and the build of every
    CUDA kernel from the sources in this checkout;
 2. kernel: each kernel against its plain PyTorch version on the card, at the main-path
-   shape and at edge shapes, with its time: ``ms`` per call replayed from a CUDA
+   shape and at edge shapes, with its time (the CA kernel also with Q-RCAN's meta and
+   gate, on both paths, timed beside the meta-less call): ``ms`` per call replayed from a CUDA
    graph (device time with launch gaps, no host), ``host_ms`` per call back to back
    from Python, ``device_ms`` the profiler's sum of its kernels.  The CA kernel in
    bf16 and f32, on both of its paths (which path each shape took is checked against
@@ -15,8 +16,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    shape and the three-pass kernel at the shapes that take it; the CA + residual
    kernel with x f32 and r bf16 or f32, on both of its paths in the same way (on
    chip in rounds of images, or three passes);
-3. reference: the full-width RCAN forward and the fused eval on a small input, card
-   (CUDA kernels) against the CPU (plain versions), in f32;
+3. reference: the full-width RCAN, Q-RCAN and EDSR forwards and fused evals on a
+   small input, card (CUDA kernels) against the CPU (plain versions), in f32;
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
    ``torch._int_mm`` in both weight layouts; calibration on the card (with TF32
    allowed globally) against the CPU's; the full-width int8 RCAN and its fused eval
@@ -28,6 +29,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
 6. int8 main path: ``eval_sisr --fused_eval --int8`` on the same pairs and weights,
    with its launch counts (every CA + residual call on chip), its mean PSNR against
    the bf16 run's, img/s and breakdown;
+7. Q-RCAN main path: ``eval_sisr --fused_eval`` on Q-RCAN 10x20, 64 features, 4x,
+   bf16, max_concat with a q_node in every block, over the same pairs with the seeded
+   10-value blur kernels of their degradation_metadata.csv: every QRCAB tail one CA
+   launch with meta and gate, on chip; launches, img/s and breakdown;
+8. EDSR main path: the same for EDSR 64 features, 16 blocks, 4x, bf16 (no kernel of
+   ours);
 
 then the ``kernels`` table, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout
@@ -51,6 +58,14 @@ BF16_TENSOR_FLOPS = 989e12
 LR_SIZE, SCALE, N_IMAGES, BATCH = 128, 4, 16, 8
 RCAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
         'reduction': 16, 'dtype': 'bf16'}
+# sisr_tpu's e2e benchmark configurations (tools/e2e_bench.py:35-47)
+META_COLS = 10  # one blur kernel of 10 values per image
+QRCAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
+         'reduction': 16, 'style': 'max_concat', 'include_q_layer': True,
+         'metadata': ['blur_kernel'], 'dtype': 'bf16'}
+EDSR = {'scale': SCALE, 'num_features': 64, 'num_blocks': 16, 'dtype': 'bf16'}
+MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
+          'edsr_16b': ('edsr', EDSR)}
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
 CA_KERNELS = ('ca_onchip', 'ca_pool_partial', 'ca_excite', 'ca_scale')
 CA_RES_KERNELS = ('ca_res_onchip', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
@@ -171,7 +186,9 @@ def ca_bound(x, w1):
 
 def write_workload(root, rng):
     """16 LR/HR PNG pairs: HR is smooth structure (sinusoids and a gradient) plus
-    per-pixel noise, LR its PIL bicubic downscale."""
+    per-pixel noise, LR its PIL bicubic downscale; beside the LR images a
+    degradation_metadata.csv of one 10-value blur kernel (a Dirichlet draw, as
+    sisr_tpu's e2e benchmark writes them) per image."""
     import numpy as np
     from PIL import Image
     hr_size = LR_SIZE * SCALE
@@ -189,18 +206,25 @@ def write_workload(root, rng):
         name = 'im_%03d.png' % i
         hr.save(os.path.join(hr_dir, name))
         hr.resize((LR_SIZE, LR_SIZE), Image.BICUBIC).save(os.path.join(lr_dir, name))
+    with open(os.path.join(lr_dir, 'degradation_metadata.csv'), 'w') as f:
+        f.write('image,blur_kernel\n')
+        for i in range(N_IMAGES):
+            kernel = rng.dirichlet(np.ones(META_COLS) * 5)
+            f.write('im_%03d.png,"%s"\n' % (i, json.dumps(kernel.tolist())))
     return lr_dir, hr_dir
 
 
 def write_experiment(model_loc, name, seed):
-    """A ready-to-evaluate RCAN experiment: config.toml + saved_models/train_model_0."""
+    """A ready-to-evaluate experiment of MODELS[name]: config.toml +
+    saved_models/train_model_0."""
     from sisr_tpu_torch.models.handlers import define_model
     from sisr_tpu_torch.utils import toml_io
+    model, internal = MODELS[name]
     base = os.path.join(model_loc, name)
     os.makedirs(os.path.join(base, 'saved_models'))
-    toml_io.dump({'model': {'name': 'rcan', 'internal_params': RCAN}},
+    toml_io.dump({'model': {'name': model, 'internal_params': internal}},
                  os.path.join(base, 'config.toml'))
-    define_model('rcan', device='cpu', seed=seed, **RCAN).save_model(
+    define_model(model, device='cpu', seed=seed, **internal).save_model(
         'train_model', 0, os.path.join(base, 'saved_models'))
 
 
@@ -467,36 +491,117 @@ def phase_kernel_residual():
     return {'max_abs_err': err, 'bound_ms': bound_ms, 'path': path, 'plan': plan, **timing}
 
 
-def phase_reference():
-    """Full-width RCAN (seeded weights) on a 32^2 LR input in f32: the card (CUDA
-    kernels, cuDNN) against the CPU (plain versions).  Forward <= 5e-4 abs; fused-eval
-    PSNR within 0.01 dB and SSIM within 1e-3."""
+def meta_gate_inputs(shape, dtype, gen):
+    """x and the excite's weights as Q-RCAN's max_concat QCALayer passes them (w1 with
+    C + 10 rows, transposed views of conv_du's matrices), with meta (N, 10) (blur
+    kernels, Dirichlet-like rows) and gate (N, C) (a q_node's sigmoid)."""
+    import torch
+    n, c = shape[0], shape[-1]
+    x, _, b1, w2, b2 = ca_inputs(shape, dtype, 16, gen)
+    w1 = (torch.randn(c // 16, c + META_COLS, generator=gen) * 0.1).cuda().t()
+    meta = torch.rand(n, META_COLS, generator=gen)
+    meta = (meta / meta.sum(dim=1, keepdim=True)).cuda()
+    gate = torch.sigmoid(torch.randn(n, c, generator=gen)).cuda()
+    return (x, w1, b1, w2, b2), {'meta': meta, 'gate': gate}
+
+
+def phase_kernel_meta():
+    """fused_channel_attention with meta (M = 10: w1 is 74 x 4 at C = 64) and gate
+    against reference_channel_attention with the same, on both paths: the main shape
+    in bf16 (on chip, as the Q-RCAN main path takes it), in f32 and one 512^2 bf16 map
+    (three passes).  Tolerances as phase_kernel's: f32 1e-5 abs, bf16 2 ULPs; the
+    same bits on a rerun.  Each is timed in graph replay beside the meta-less call on
+    the same x and the first C rows of w1, in turns (meta-less, meta, meta,
+    meta-less), and beside its plain version."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    op = ca.fused_channel_attention
+    gen = torch.Generator().manual_seed(4)
+    cases = [((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 'onchip'),
+             ((BATCH, LR_SIZE, LR_SIZE, 64), torch.float32, 'three_pass'),
+             ((1, 512, 512, 64), torch.bfloat16, 'three_pass')]
+    results = []
+    with torch.inference_mode():
+        for shape, dtype, expect in cases:
+            args, extra = meta_gate_inputs(shape, dtype, gen)
+            before = op.onchip_launches
+            out, again = op(*args, **extra), op(*args, **extra)
+            torch.cuda.synchronize()
+            path = 'onchip' if op.onchip_launches - before == 2 else 'three_pass'
+            if path != expect:
+                raise AssertionError('meta/gate %s %s took the %s path' % (shape, dtype, path))
+            ref = ca.reference_channel_attention(*args, **extra)
+            if dtype == torch.float32:
+                torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+            else:
+                torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+            if not torch.equal(out, again):
+                raise AssertionError('meta/gate %s %s is not deterministic' % (shape, dtype))
+            x, w1, b1, w2, b2 = args
+            kern = lambda args=args, extra=extra: op(*args, **extra)
+            bare = lambda x=x, w1=w1[:shape[-1]], b1=b1, w2=w2, b2=b2: op(x, w1, b1, w2, b2)
+            plain = lambda args=args, extra=extra: ca.reference_channel_attention(*args,
+                                                                                  **extra)
+            timing = {}
+            for name, fn in (('no_meta_ms', bare), ('ms', kern), ('ms', kern),
+                             ('no_meta_ms', bare)):
+                timing[name] = graph_ms(fn)  # the second turn of each is kept
+            timing['plain_ms'] = graph_ms(plain)
+            bytes_moved, ops, _ = ca_bound(x, w1)
+            n, c = shape[0], shape[-1]
+            bytes_moved += 4 * (n * (META_COLS + c) + META_COLS * w1.shape[1])
+            ops += n * (2 * META_COLS * w1.shape[1] + c)
+            results.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
+                            'path': path, 'max_abs_err': (out.float() - ref.float()).abs()
+                            .max().item(), 'bytes': bytes_moved, 'ops': ops,
+                            'bound_ms': max(bytes_moved / HBM_BYTES_PER_S,
+                                            ops / F32_CUDA_CORE_FLOPS) * 1e3, **timing})
+    emit({'phase': 'kernel', 'name': 'fused_channel_attention meta+gate',
+          'meta_values': META_COLS, 'cases': results, 'nvidia_smi': nvidia_smi_line()})
+    return results[0]
+
+
+def phase_reference(name='rcan_10x20', seed=3):
+    """Full-width MODELS[name] (seeded weights) on a 32^2 LR input in f32 (with 10
+    seeded metadata values per image for Q-RCAN): the card (CUDA kernels, cuDNN)
+    against the CPU (plain versions).  Forward <= 5e-4 abs; fused-eval PSNR within
+    0.01 dB and SSIM within 1e-3."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
-    f32 = {**RCAN, 'dtype': 'f32'}
-    card = define_model('rcan', device='cuda', seed=3, **f32)
-    host = define_model('rcan', device='cpu', seed=3, **f32)
+    model, internal = MODELS[name]
+    f32 = {**internal, 'dtype': 'f32'}
+    card = define_model(model, device='cuda', seed=seed, **f32)
+    host = define_model(model, device='cpu', seed=seed, **f32)
     rng = np.random.RandomState(5)
     lr = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8)
     hr = rng.randint(0, 256, (2, 32 * SCALE, 32 * SCALE, 3)).astype(np.uint8)
+    batch = {'lr': lr, 'hr': hr}
     x = torch.from_numpy(lr).float() / 255.0
+    meta = ()
+    if card.uses_metadata:
+        batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, 2).astype(np.float32)
+        for handler in (card, host):
+            handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+        meta = (torch.from_numpy(batch['metadata']),)
     with torch.inference_mode():
-        out_card = card.forward(x.cuda()).cpu()
-        out_host = host.forward(x)
+        out_card = card.forward(x.cuda(), *(m.cuda() for m in meta)).cpu()
+        out_host = host.forward(x, *meta)
     fwd_err = (out_card - out_host).abs().max().item()
-    (keys, m_card), _ = card.run_eval_fused({'lr': lr, 'hr': hr})
-    (_, m_host), _ = host.run_eval_fused({'lr': lr, 'hr': hr})
+    (keys, m_card), _ = card.run_eval_fused(batch)
+    (_, m_host), _ = host.run_eval_fused(batch)
     m_card, m_host = m_card.cpu().numpy(), m_host.numpy()
     diff = {k: float(np.abs(m_card[i] - m_host[i]).max()) for i, k in enumerate(keys)}
-    emit({'phase': 'reference', 'forward_max_abs_err': fwd_err, 'metric_max_abs_diff': diff,
-          'output_shape': list(out_card.shape)})
+    emit({'phase': 'reference', 'model': name, 'forward_max_abs_err': fwd_err,
+          'metric_max_abs_diff': diff, 'output_shape': list(out_card.shape)})
     if not np.isfinite(out_card.numpy()).all() or fwd_err > 5e-4:
-        raise AssertionError('RCAN forward on the card disagrees with the CPU: %g' % fwd_err)
+        raise AssertionError('%s forward on the card disagrees with the CPU: %g'
+                             % (name, fwd_err))
     for i, k in enumerate(keys):
         bar = 0.01 if k.endswith('PSNR') else 1e-3
         if not diff[k] <= bar:
-            raise AssertionError('fused eval %s on the card is %g from the CPU' % (k, diff[k]))
+            raise AssertionError('%s fused eval %s on the card is %g from the CPU'
+                                 % (name, k, diff[k]))
 
 
 def int_mm_layout_ms(m, k, n, gen):
@@ -598,11 +703,13 @@ def phase_int8_reference():
 
 
 def prepare_workload(root):
-    """The 16 synthetic pairs and one seeded RCAN experiment, shared by both paths."""
+    """The 16 synthetic pairs (with their metadata CSV) and one seeded experiment of
+    each model (seed 8), shared by every path."""
     import numpy as np
     lr_dir, hr_dir = write_workload(root, np.random.RandomState(0))
     model_loc = os.path.join(root, 'Results')
-    write_experiment(model_loc, 'rcan_10x20', seed=8)
+    for name in MODELS:
+        write_experiment(model_loc, name, seed=8)
     return {'lr_dir': lr_dir, 'hr_dir': hr_dir, 'model_loc': model_loc,
             'out_loc': os.path.join(root, 'out')}
 
@@ -625,14 +732,14 @@ def read_launches():
                 ca.fused_channel_attention_residual.onchip_launches}
 
 
-def run_eval_cli(dirs, results_name, extra=()):
+def run_eval_cli(dirs, results_name, extra=(), experiment='rcan_10x20'):
     """``eval_sisr --fused_eval`` through the CLI entry point; the launch counts of
     exactly this run (set to 0 just before, read just after), its seconds, and its
     per-image CSV, checked for 16 finite rows."""
     import numpy as np
     import pandas as pd
     from sisr_tpu_torch import net_eval
-    args = ['--hr_dir', dirs['hr_dir'], '--lr_dir', dirs['lr_dir'], '-me', 'rcan_10x20', '0',
+    args = ['--hr_dir', dirs['hr_dir'], '--lr_dir', dirs['lr_dir'], '-me', experiment, '0',
             '--model_loc', dirs['model_loc'], '--out_loc', dirs['out_loc'],
             '--results_name', results_name, '-m', 'PSNR', '-m', 'SSIM', '--scale',
             str(SCALE), '--batch_size', str(BATCH), '--full_directory', '--fused_eval',
@@ -645,7 +752,7 @@ def run_eval_cli(dirs, results_name, extra=()):
     csv = os.path.join(dirs['out_loc'], results_name, 'standard_metrics',
                        'individual_metrics.csv')
     frame = pd.read_csv(csv, header=[0, 1], index_col=0)
-    vals = frame[[('rcan_10x20', 'PSNR'), ('rcan_10x20', 'SSIM'), ('LR', 'PSNR'),
+    vals = frame[[(experiment, 'PSNR'), (experiment, 'SSIM'), ('LR', 'PSNR'),
                   ('LR', 'SSIM')]].to_numpy()
     if len(frame) != N_IMAGES or not np.isfinite(vals).all():
         raise AssertionError('%s individual_metrics.csv: %d rows, finite=%s'
@@ -658,12 +765,12 @@ def expect_launches(launches, expected, path):
         raise AssertionError('%s launches %s, expected %s' % (path, launches, expected))
 
 
-def warm_passes(dirs, results_name, int8):
+def warm_passes(dirs, results_name, int8, experiment='rcan_10x20'):
     """img/s of 3 warm fused protocol passes on one hub (the first pass decodes and
     sets up, the rest are timed), and the hub's handler."""
     from sisr_tpu_torch.evaluation.standard_eval import EvalHub
     hub = EvalHub(hr_dir=dirs['hr_dir'], lr_dir=dirs['lr_dir'],
-                  model_and_epoch=[('rcan_10x20', '0')], results_name=results_name,
+                  model_and_epoch=[(experiment, '0')], results_name=results_name,
                   gpu=True, metrics=['PSNR', 'SSIM'], data_split=None, save_im=False,
                   batch_size=BATCH, full_directory=True, lr_dir_interp=None,
                   model_only=False, scale=SCALE, model_loc=dirs['model_loc'],
@@ -680,16 +787,22 @@ def warm_passes(dirs, results_name, int8):
     return rates, hub.model_bundles[0].model
 
 
-def breakdown_batch():
-    """One seeded uint8 batch on the card, and its f32 LR input."""
+def breakdown_batch(handler=None):
+    """One seeded uint8 batch on the card, and its f32 LR input; for a metadata model
+    (``handler.uses_metadata``) also 10 metadata values per image, and the module's
+    metadata input (else None)."""
     import numpy as np
     import torch
     rng = np.random.RandomState(1)
     batch = {'lr': rng.randint(0, 256, (BATCH, LR_SIZE, LR_SIZE, 3)).astype(np.uint8),
              'hr': rng.randint(0, 256, (BATCH, LR_SIZE * SCALE, LR_SIZE * SCALE, 3))
              .astype(np.uint8)}
+    if handler is not None and handler.uses_metadata:
+        batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, BATCH).astype(np.float32)
     dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    return dev, dev['lr'].float() / 255.0
+    x = dev['lr'].float() / 255.0
+    meta = handler.prepare_metadata(x, dev['metadata']) if 'metadata' in dev else None
+    return dev, x, meta
 
 
 def step_times(handler, dev):
@@ -703,38 +816,51 @@ def step_times(handler, dev):
              else None}, {k: v / 3 for k, v in per_kernel.items()})
 
 
-def phase_main_path(dirs):
-    """``eval_sisr --fused_eval`` in bf16: every CALayer through the on-chip CA kernel
-    (200 per forward), the CA + residual kernel not at all."""
+# bf16 main paths: experiment -> (phase name prefix, description, CA calls a forward)
+BF16_PATHS = {
+    'rcan_10x20': ('', 'rcan 10x20 64f 4x bf16', CA_PER_FORWARD),
+    'qrcan_10x20': ('qrcan_', 'qrcan 10x20 64f 4x bf16, max_concat + q_node, '
+                    '10 blur-kernel values', QRCAN['n_resgroups'] * QRCAN['n_resblocks']),
+    'edsr_16b': ('edsr_', 'edsr 16b 64f 4x bf16', 0),
+}
+
+
+def phase_main_path(dirs, experiment='rcan_10x20'):
+    """``eval_sisr --fused_eval`` in bf16 on ``experiment``: every CALayer or QRCAB tail
+    through the on-chip CA kernel (200 per forward for RCAN and Q-RCAN, none for
+    EDSR), the CA + residual kernel not at all."""
     import torch
-    launches, cli_seconds, frame = run_eval_cli(dirs, 'smoke')
+    prefix, description, ca_calls = BF16_PATHS[experiment]
+    launches, cli_seconds, frame = run_eval_cli(dirs, prefix + 'smoke', experiment=experiment)
     n_batches = -(-N_IMAGES // BATCH)
-    expect_launches(launches, {'fused_channel_attention': CA_PER_FORWARD * n_batches,
-                               'fused_channel_attention_onchip': CA_PER_FORWARD * n_batches,
+    expect_launches(launches, {'fused_channel_attention': ca_calls * n_batches,
+                               'fused_channel_attention_onchip': ca_calls * n_batches,
                                'fused_channel_attention_residual': 0,
                                'fused_channel_attention_residual_onchip': 0},
-                    'bf16 main path')
-    rates, handler = warm_passes(dirs, 'smoke_timed', int8=False)
+                    '%s bf16 main path' % experiment)
+    rates, handler = warm_passes(dirs, prefix + 'smoke_timed', int8=False,
+                                 experiment=experiment)
 
-    dev, x = breakdown_batch()
-    conv_flops = count_conv_flops(handler, x)
+    dev, x, meta = breakdown_batch(handler)
+    conv_flops = count_conv_flops(handler, x, meta)
     with torch.inference_mode():
-        forward_ms = cuda_ms(lambda: handler.forward(x), reps=5, rounds=3)
+        forward_ms = cuda_ms(lambda: handler.forward(x, meta), reps=5, rounds=3)
     steps, per_kernel = step_times(handler, dev)
     ca_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in CA_KERNELS))
     conv_ms = sum(v for k, v in per_kernel.items() if not any(n in k for n in CA_KERNELS)
                   and any(t in k.lower() for t in CONV_KERNEL_HINTS))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
-    mean_psnr = float(frame[('rcan_10x20', 'PSNR')].mean())
-    emit({'phase': 'main_path', 'model': 'rcan 10x20 64f 4x bf16', 'images': N_IMAGES,
+    mean_psnr = float(frame[(experiment, 'PSNR')].mean())
+    emit({'phase': prefix + 'main_path', 'model': description, 'images': N_IMAGES,
           'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds, 'launches': launches,
           'mean_psnr': mean_psnr, 'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
           'img_per_s_warm_passes': rates, 'img_per_s': statistics.median(rates),
           'nvidia_smi': nvidia_smi_line()})
-    emit({'phase': 'breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
+    emit({'phase': prefix + 'breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
           'forward_conv_gflop': conv_flops / 1e9,
           'forward_bf16_bound_ms': conv_flops / BF16_TENSOR_FLOPS * 1e3, **steps,
-          'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms, 'top_kernels_ms': top,
+          'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms,
+          'device_kernel_kinds': len(per_kernel), 'top_kernels_ms': top,
           'nvidia_smi': nvidia_smi_line()})
     return {'launches': launches, 'mean_psnr': mean_psnr}
 
@@ -758,7 +884,7 @@ def phase_int8_main_path(dirs, bf16_mean_psnr):
                              % (mean_psnr, bf16_mean_psnr))
     rates, handler = warm_passes(dirs, 'smoke_int8_timed', int8=True)
 
-    dev, x = breakdown_batch()
+    dev, x, _ = breakdown_batch()
     program = handler._int8_ctx[0]
     with torch.inference_mode():
         forward_ms = cuda_ms(lambda: program(x), reps=3, rounds=3)
@@ -785,8 +911,9 @@ def phase_int8_main_path(dirs, bf16_mean_psnr):
     return {'launches': launches, 'mean_psnr': mean_psnr}
 
 
-def count_conv_flops(handler, x):
-    """Multiply-add FLOPs of every Conv2d the forward runs, from forward hooks."""
+def count_conv_flops(handler, x, meta=None):
+    """Multiply-add FLOPs of every Conv2d the forward runs, from forward hooks (the
+    1x1 convs of the attention vectors are not called as modules and are left out)."""
     import torch
     total = [0]
 
@@ -798,7 +925,7 @@ def count_conv_flops(handler, x):
              if isinstance(m, torch.nn.Conv2d)]
     try:
         with torch.inference_mode():
-            handler.forward(x)
+            handler.forward(x, meta)
     finally:
         for h in hooks:
             h.remove()
@@ -823,32 +950,47 @@ def main():
     phase_environment()
     kernels = {'fused_channel_attention': phase_kernel(),
                'fused_channel_attention_residual': phase_kernel_residual()}
-    phase_reference()
+    meta_gate = phase_kernel_meta()
+    for name in MODELS:
+        phase_reference(name)
     phase_int8_reference()
     root = tempfile.mkdtemp(prefix='sisr_chip_smoke_')
     try:
         dirs = prepare_workload(root)
         main_path = phase_main_path(dirs)
         int8_path = phase_int8_main_path(dirs, main_path['mean_psnr'])
+        qrcan_path = phase_main_path(dirs, 'qrcan_10x20')
+        phase_main_path(dirs, 'edsr_16b')  # asserts 0 launches of either kernel
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # each kernel's launches are those of the path that runs it
-    path_launches = {'fused_channel_attention': main_path['launches'],
-                     'fused_channel_attention_residual': int8_path['launches']}
+    # each kernel's launches are those of the paths that run it
+    by_path = {'fused_channel_attention': {'rcan_bf16': main_path['launches'],
+                                           'qrcan_bf16': qrcan_path['launches']},
+               'fused_channel_attention_residual': {'rcan_int8': int8_path['launches']}}
     replaces = {'fused_channel_attention': 'sisr_tpu/ops/pallas/channel_attention.py:112',
                 'fused_channel_attention_residual':
                     'sisr_tpu/ops/pallas/channel_attention.py:202'}
-    emit({'kernels': [{
-        'name': name, 'route': 'cuda',
-        'source': 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu',
-        'replaces': replaces[name], 'launches': path_launches[name][name],
-        'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
-        'bound_ms': k['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
-        'host_ms': k['host_ms'], 'device_ms': k['device_ms'],
-        'plain_device_ms': k['plain_device_ms'], 'path': k['path'],
-        'three_pass_ms': k['three_pass_ms'], 'three_pass_device_ms': k['three_pass_device_ms'],
-        'onchip_launches': path_launches[name][name + '_onchip'], 'plan': k['plan']}
-        for name, k in kernels.items()]})
+    rows = []
+    for name, k in kernels.items():
+        paths = by_path[name]
+        rows.append({
+            'name': name, 'route': 'cuda',
+            'source': 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu',
+            'replaces': replaces[name],
+            'launches': sum(counts[name] for counts in paths.values()),
+            'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
+            'bound_ms': k['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
+            'host_ms': k['host_ms'], 'device_ms': k['device_ms'],
+            'plain_device_ms': k['plain_device_ms'], 'path': k['path'],
+            'three_pass_ms': k['three_pass_ms'],
+            'three_pass_device_ms': k['three_pass_device_ms'],
+            'launches_by_path': {p: counts[name] for p, counts in paths.items()},
+            'onchip_launches': sum(counts[name + '_onchip'] for counts in paths.values()),
+            'plan': k['plan']})
+    # the meta and gate inputs of Q-RCAN's path, at its shape (on chip)
+    rows[0].update({'meta_gate_' + key: meta_gate[key]
+                    for key in ('ms', 'no_meta_ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
+    emit({'kernels': rows})
     print(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

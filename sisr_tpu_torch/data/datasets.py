@@ -2,16 +2,19 @@
 sisr_tpu's ``data/datasets.py``, ref: Code/sr_tools/data_handler.py:147-528).
 
 Index building (``_qN`` group tags, recursive search, dataset splits, shortlists),
-PIL decode to H,W,3 uint8, the HR alignment crop and a capped in-memory
-cache of decoded images.  Degradation metadata, online degradations, CelebA
-attributes, crops and augments come with later slices.
+PIL decode to H,W,3 uint8, the HR alignment crop, a capped in-memory cache of
+decoded images, and the degradation-metadata CSV (:func:`read_augmentation_list`)
+with a float32 ``metadata`` vector per item.  Online degradations, CelebA attributes,
+legacy blur-kernel files, crops and augments come with later slices.
 """
-from collections import OrderedDict
+from collections import OrderedDict, deque
+import json
 import os
 import re
 import threading
 
 import numpy as np
+import pandas as pd
 import PIL.Image
 
 from ..configuration.constants import data_splits
@@ -35,6 +38,72 @@ def center_crop_np(arr, height, width):
     return out
 
 
+def read_augmentation_list(metadata_file, filenames=None, legacy_blur_kernels=None,
+                           data_attributes=None, attributes_loc=None, qpi_selection=None):
+    """Degradation-metadata CSV parser (ref: data_handler.py:62-144): {image name:
+    metadata vector} for ``filenames`` and the key of every entry.
+
+    JSON-list columns (e.g. a 10-value ``blur_kernel``) give one key per value;
+    integer and float columns are normalised to [0, 1] by their range (QPI by the
+    fixed range 20-40), a constant column to 0; ``qpi_selection`` (low, high) keeps
+    the images whose QPI lies in that range."""
+    if attributes_loc is not None and data_attributes is not None:
+        raise NotImplementedError('CelebA data attributes are not ported to '
+                                  'sisr_tpu_torch yet (ROADMAP.md, Queue 1).')
+    if legacy_blur_kernels is not None:
+        raise NotImplementedError('Legacy blur-kernel files are not ported to '
+                                  'sisr_tpu_torch yet (ROADMAP.md, Queue 1).')
+    keys = deque()
+    qpi_cutoffs = bool(qpi_selection) and None not in qpi_selection
+
+    if metadata_file is not None:
+        aug_data = pd.read_csv(metadata_file, header=0, index_col=0)
+        for col in aug_data:
+            if pd.api.types.is_object_dtype(aug_data[col]) \
+                    or pd.api.types.is_string_dtype(aug_data[col]):
+                aug_data[col] = aug_data[col].apply(json.loads)
+                keys.extend([col.lower()] * len(aug_data[col].iloc[0]))
+            elif pd.api.types.is_integer_dtype(aug_data[col]) \
+                    or pd.api.types.is_float_dtype(aug_data[col]):
+                # floats take the integers' normalisation, QPI's fixed range included
+                aug_data[col] = aug_data[col].astype(float)
+                keys.append(col.lower())
+                is_qpi = col.upper() == 'QPI'
+                minimum = 20 if is_qpi else aug_data[col].min()
+                maximum = 40 if is_qpi else aug_data[col].max()
+                if maximum != minimum:
+                    aug_data[col] = (aug_data[col] - minimum) / (maximum - minimum)
+                    if is_qpi and qpi_cutoffs:
+                        qpi_selection = [(q - minimum) / (maximum - minimum)
+                                         for q in qpi_selection]
+                else:
+                    # a constant column carries nothing: 0, not the 0/0 NaN
+                    aug_data[col] = 0.0
+                    if is_qpi and qpi_cutoffs:
+                        qpi_selection = [q - minimum for q in qpi_selection]
+            else:
+                raise RuntimeError('Unidentified datatype in metadata file.')
+
+        all_image_dict = aug_data.T.to_dict('list')
+        augmentation_dict = {}
+        for key in filenames:
+            data = []
+            for v in all_image_dict[key]:
+                if isinstance(v, list):
+                    data.extend(v)
+                else:
+                    data.append(v)
+            augmentation_dict[key] = np.array(data)
+    else:
+        augmentation_dict = {image: np.array([]) for image in filenames}
+
+    if qpi_cutoffs:
+        qpi_pos = list(keys).index('qpi')
+        augmentation_dict = {im: md for im, md in augmentation_dict.items()
+                             if qpi_selection[0] <= md[qpi_pos] <= qpi_selection[-1]}
+    return augmentation_dict, list(keys)
+
+
 class SuperResImages:
     """(ref: data_handler.py:147-528).  Indexable dataset of LR images with their
     HR references, yielding per-image dicts of H,W,3 arrays: float32 in [0,1], or
@@ -42,7 +111,9 @@ class SuperResImages:
     device)."""
 
     def __init__(self, lr_dir, hr_dir=None, dataset=None, split=None, custom_split=None,
-                 recursive_search=False, image_shortlist=None, scale=4, cache_decoded=None):
+                 recursive_search=False, image_shortlist=None, scale=4, cache_decoded=None,
+                 degradation_metadata_file=None, metadata=None, qpi_selection=None,
+                 data_attributes=None):
         if split not in ['train', 'eval', 'test', 'all', None]:
             raise RuntimeError('"Split" must be one of: train | eval | test | all | None')
         self.scale = scale
@@ -59,6 +130,25 @@ class SuperResImages:
             for file_name in val:
                 self.lr_filenames.append(file_name)
                 self.base_filenames.append(key)
+
+        # degradation metadata (ref: datasets.py:226-266): one vector per LR image;
+        # ``metadata`` names the requested columns ('all' for the file's)
+        self.metadata_keys = []
+        self.metadata = None
+        if degradation_metadata_file is not None or metadata is not None:
+            att_dict, self.metadata_keys = read_augmentation_list(
+                degradation_metadata_file, filenames=self.lr_filenames,
+                attributes_loc=data_attributes, data_attributes=metadata,
+                qpi_selection=qpi_selection)
+            if qpi_selection is not None:
+                pairs = [(lr, base) for lr, base in zip(self.lr_filenames,
+                                                        self.base_filenames)
+                         if lr in att_dict]
+                if not pairs:
+                    raise RuntimeError('qpi_selection %s filtered out every image.'
+                                       % (qpi_selection,))
+                self.lr_filenames, self.base_filenames = map(list, zip(*pairs))
+            self.metadata = [att_dict[image] for image in self.lr_filenames]
         self.image_count = len(self.lr_filenames)
 
         # serve decoded uint8 instead of float (the fused eval's transport)
@@ -154,8 +244,10 @@ class SuperResImages:
             if hr_arr.shape[1] != w or hr_arr.shape[0] != h:
                 hr_arr = center_crop_np(hr_arr, height=h, width=w)
             hr_im = self._to_image(hr_arr)
+        metadata = self.metadata[index] if self.metadata is not None else np.array(0)
         return {'lr': self._to_image(lr_arr), 'hr': hr_im, 'tag': image_name,
-                'hr_tag': base_name}
+                'hr_tag': base_name, 'metadata': np.asarray(metadata, dtype=np.float32),
+                'metadata_keys': self.metadata_keys}
 
     def __len__(self):
         return self.image_count

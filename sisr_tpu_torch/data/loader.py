@@ -16,11 +16,16 @@ import torch
 
 
 def _collate(items):
-    """Stack per-item dicts into batch arrays; strings stay lists; differently sized
+    """Stack per-item dicts into batch arrays (``metadata`` to (N, M) float32);
+    strings stay lists; the dataset's ``metadata_keys`` list passes through once (it
+    is the same for every item, and as strings it is no tensor); differently sized
     images (eval sets at bs>1) stay lists of arrays."""
     out = {}
     for key in items[0]:
         vals = [item[key] for item in items]
+        if key == 'metadata_keys':
+            out[key] = vals[0]
+            continue
         if isinstance(vals[0], str):
             out[key] = vals
             continue

@@ -2,11 +2,13 @@
 ``evaluation/standard_eval.py``, ref: Code/SISR/evaluation/standard_eval.py:23-326).
 
 Each batch runs forward + bicubic LR baseline + YCbCr + PSNR/SSIM on the device (see
-``BaseHandler.run_eval_fused``); the CSV reports have the reference's layout.  The
+``BaseHandler.run_eval_fused``); the CSV reports have the reference's layout.
+Degradation metadata for the meta-models comes from ``--metadata_file``, else a
+``degradation_metadata.csv`` or ``qpi_slices.csv`` beside the LR images.  The
 standard protocol (host metrics, SR image outputs, comparisons, interpolated-LR
-folders), metadata files, bucketed eval and multi-device eval are not ported yet:
-asking for them raises NotImplementedError.  ``int8=True`` turns on each model's int8
-serving path (``BaseHandler.set_int8``), which runs inside the fused step.
+folders), CelebA data attributes, bucketed eval and multi-device eval are not ported
+yet: asking for them raises NotImplementedError.  ``int8=True`` turns on each model's
+int8 serving path (``BaseHandler.set_int8``), which runs inside the fused step.
 """
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -52,9 +54,8 @@ class EvalHub:
             raise _not_ported('Only --fused_eval with metrics, --no_image_comparison and '
                               'no image outputs runs; the standard eval protocol',
                               'standard eval protocol')
-        if metadata_file is not None or data_attributes is not None \
-                or any(q is not None for q in (qpi_selection or ())):
-            raise _not_ported('Degradation metadata and data attributes', 'Q-RCAN')
+        if data_attributes is not None:
+            raise _not_ported('CelebA data attributes', 'remaining families')
         if decoded_cache_dir:
             raise _not_ported('--decoded_cache_dir', 'standard eval protocol')
         if not model_and_epoch:
@@ -85,11 +86,34 @@ class EvalHub:
             split = data_split if data_split is not None else 'eval'
             dataset = dataset_name
             custom_split = (162899, 163000) if use_test_group else None
+        metadata_file, requested_metadata = self._find_metadata_file(metadata_file, lr_dir)
         rgb_handler = SuperResImages(
             lr_dir, hr_dir, split=split, dataset=dataset, scale=scale,
             custom_split=custom_split, image_shortlist=image_shortlist,
-            recursive_search=recursive, cache_decoded=cache_decoded)
+            recursive_search=recursive, cache_decoded=cache_decoded,
+            degradation_metadata_file=metadata_file, metadata=requested_metadata,
+            qpi_selection=qpi_selection)
         self.rgb_data = DataLoader(dataset=rgb_handler, batch_size=batch_size)
+        for model in self.model_bundles:
+            model.model.set_metadata_keys(rgb_handler.metadata_keys)
+
+    @staticmethod
+    def _find_metadata_file(metadata_file, lr_dir):
+        """(metadata file, requested columns) (ref: standard_eval.py:84-99): an
+        explicit file must exist; else lr_dir's degradation_metadata.csv, else its
+        qpi_slices.csv, each with all its columns; else none."""
+        if metadata_file is not None and not os.path.isfile(metadata_file):
+            # an explicitly requested file must exist: falling back to the lr_dir
+            # defaults would run with other metadata than asked for
+            raise FileNotFoundError('metadata_file not found: %s' % metadata_file)
+        if metadata_file is None:
+            metadata_file = os.path.join(lr_dir, 'degradation_metadata.csv')
+        if not os.path.isfile(metadata_file):
+            metadata_file = os.path.join(lr_dir, 'qpi_slices.csv')
+            if not os.path.isfile(metadata_file):
+                print('No metadata file found.')
+                return None, None
+        return metadata_file, 'all'
 
     @staticmethod
     def _select_device(gpu, sp_gpu=0):

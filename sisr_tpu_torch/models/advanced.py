@@ -1,8 +1,30 @@
-"""RCAN (PyTorch port of sisr_tpu's ``models/advanced.py``; the other families of that
-module come with later slices)."""
+"""EDSR and RCAN (PyTorch port of sisr_tpu's ``models/advanced.py``; the other
+families of that module come with later slices)."""
 from torch import nn
 
-from .blocks import ResidualGroup, Upsampler, conv
+from .blocks import ResBlock, ResidualGroup, Upsampler, conv
+
+
+class EDSR(nn.Module):
+    """(ref: advanced/architectures.py:183-241).  Paper-standard EDSR: 256 feats / 32
+    blocks / res_scale 0.1; framework default 64/16.
+
+    Keys: ``head.0``, ``body.<i>.body.{0,2}``, ``body.<num_blocks>``, ``tail.0.<2i>``,
+    ``tail.1``."""
+
+    def __init__(self, net_features=64, num_blocks=16, scale=4, res_scale=0.1, in_features=3,
+                 out_features=3):
+        super().__init__()
+        n = net_features
+        self.head = nn.Sequential(conv(in_features, n, 3))
+        self.body = nn.Sequential(*[ResBlock(n, 3, res_scale) for _ in range(num_blocks)],
+                                  conv(n, n, 3))
+        self.tail = nn.Sequential(Upsampler(scale, n), conv(n, out_features, 3))
+
+    def forward(self, x):
+        x = self.head(x)
+        res = self.body(x) + x
+        return self.tail(res)
 
 
 class RCAN(nn.Module):

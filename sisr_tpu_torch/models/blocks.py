@@ -58,6 +58,20 @@ class Upsampler(nn.Sequential):
         super().__init__(*layers)
 
 
+class ResBlock(nn.Module):
+    """conv-relu-conv residual block with res_scale (ref: common.py:48-72).  Keys
+    ``body.{0,2}``."""
+
+    def __init__(self, n_feats, kernel_size=3, res_scale=1.0):
+        super().__init__()
+        self.body = nn.Sequential(conv(n_feats, n_feats, kernel_size), nn.ReLU(inplace=True),
+                                  conv(n_feats, n_feats, kernel_size))
+        self.res_scale = res_scale
+
+    def forward(self, x):
+        return self.body(x) * self.res_scale + x
+
+
 class CALayer(nn.Module):
     """Squeeze-and-excite channel attention (ref: advanced/architectures.py:13-44).
 

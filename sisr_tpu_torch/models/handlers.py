@@ -8,12 +8,17 @@ Each handler is registered under the reference's lowercase model name and owns:
 * parameter initialisation from a seeded ``torch.Generator``;
 * the fused eval step: forward + bicubic LR baseline + YCbCr Y + PSNR/SSIM on the
   device, with only a (K, N) metric matrix for the host;
+* degradation metadata (``uses_metadata`` handlers, :class:`QHandler`): the
+  dataset's metadata key list selects the columns the model takes
+  (``set_metadata_keys``), and each batch's (N, M) metadata reaches the module
+  through ``prepare_metadata``;
 * int8 serving (``set_int8``): quantised weights and activation scales calibrated on
   the first eval batch, and the int8 program of ``ops/quantization.py`` in place of
   the module in the fused step;
 * checkpoints in the reference's file contract (``saved_models/train_model_<N>``, a
   ``torch.save`` dict with ``network``, ``model_name``, ``model_epoch``, ``step``).
 """
+import math
 import os
 import time
 
@@ -26,10 +31,12 @@ from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
 from ..tools.convert_weights import params_from_state_dict
 from ..utils.helpers import resolve_device
-from . import advanced
+from . import advanced, qmodels
 from .blocks import torch_default_init_
 
 available_models = {}
+# int8 families whose program is ported; sisr_tpu's others raise in set_int8
+_INT8_PROGRAMS = ('rcan',)
 
 
 def _int8_not_ported(what, slice_name):
@@ -70,6 +77,7 @@ class BaseHandler:
     colorspace = 'rgb'
     im_input = 'unmodified'
     tiled_eval = False
+    uses_metadata = False
     # int8 serving path (ops/quantization.py): family key, or None if unsupported
     int8_family = None
 
@@ -83,6 +91,8 @@ class BaseHandler:
         self.curr_epoch = 0
         self.step = 0
         self.module = self.build_module(scale=scale, **kwargs)
+        self.metadata_keys = None
+        self.meta_indices = None
         self._eval_step_cache = {}
         self._warm_eval_shapes = set()
         self.int8_mode = False  # int8 serving (set_int8)
@@ -114,21 +124,67 @@ class BaseHandler:
     def set_epoch(self, epoch):
         self.curr_epoch = epoch
 
+    # --- metadata plumbing (ref handlers.py:152-171, 390-398) ------------------------------
+    def set_metadata_keys(self, keys):
+        """Select the metadata columns the model takes from the dataset's key list
+        (ref: attention_manipulators/__init__.py:30-51 mask logic): those named in the
+        handler's ``metadata`` config, every one for 'all', the only one if there is
+        one."""
+        self.metadata_keys = list(keys or [])
+        meta_cfg = getattr(self, 'metadata', None)
+        if not self.uses_metadata or meta_cfg is None:
+            self.meta_indices = None
+            return
+        if 'all' in meta_cfg:
+            mask = [True] * len(self.metadata_keys)
+        else:
+            mask = [k in meta_cfg for k in self.metadata_keys]
+        if len(self.metadata_keys) == 1:
+            mask = [True]
+        self.meta_indices = np.where(np.array(mask))[0]
+
+    def prepare_metadata(self, x, metadata):
+        """(N, M_total) batch metadata -> the module's metadata input in x's dtype (or
+        None for a model that takes none)."""
+        if not self.uses_metadata:
+            return None
+        if metadata is None or metadata.dim() != 2:
+            raise RuntimeError('Metadata needs to be specified for this network to run: '
+                               'an (N, M) batch from a degradation_metadata.csv or '
+                               'qpi_slices.csv beside the LR images, or --metadata_file.')
+        if self.meta_indices is not None and len(self.meta_indices) != metadata.shape[-1]:
+            metadata = metadata[:, self.meta_indices.tolist()]
+        return metadata.to(x.dtype)
+
+    def _metadata_width(self, n_meta):
+        """Width of the module's metadata input for ``n_meta`` selected columns."""
+        return n_meta
+
     # --- forward --------------------------------------------------------------------------
     def _prep_batch(self, batch):
-        """uint8 transport: the /255 happens on the device (ref handlers.py:415)."""
+        """(lr, hr, metadata): uint8 transport, the /255 on the device (ref
+        handlers.py:415), and the module's metadata input (None without)."""
         def as_f32(img):
             return img.float() / 255.0 if img is not None and img.dtype == torch.uint8 \
                 else img
-        return as_f32(batch['lr']), as_f32(batch.get('hr'))
+        lr = as_f32(batch['lr'])
+        metadata = self.prepare_metadata(lr, batch.get('metadata'))
+        if metadata is not None and \
+                metadata.shape[-1] != self._metadata_width(self.num_metadata):
+            raise ValueError('%s takes %d metadata values per image, the batch has %d '
+                             '(selected columns of %s)'
+                             % (type(self).__name__, self._metadata_width(self.num_metadata),
+                                metadata.shape[-1], self.metadata_keys))
+        return lr, as_f32(batch.get('hr')), metadata
 
-    def forward(self, x):
-        """Model output for an NHWC float batch, as NHWC.  A contiguous NHWC tensor
-        permuted to NCHW is channels_last, the layout the convs and the channel
-        attention kernel take."""
+    def forward(self, x, metadata=None):
+        """Model output for an NHWC float batch (and the module's (N, M) metadata for a
+        metadata model), as NHWC.  A contiguous NHWC tensor permuted to NCHW is
+        channels_last, the layout the convs and the channel attention kernel take."""
+        args = (metadata,) if self.uses_metadata else ()
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            out = self.module(x.permute(0, 3, 1, 2))
+            out = self.module(x.permute(0, 3, 1, 2), *args)
         return out.permute(0, 2, 3, 1)
 
     # --- int8 serving (ref handlers.py:202-292) --------------------------------------------
@@ -141,6 +197,9 @@ class BaseHandler:
             print('%s: no int8 serving path for this architecture — ignoring.'
                   % type(self).__name__)
             return
+        if enabled and self.int8_family not in _INT8_PROGRAMS:
+            raise _int8_not_ported('The %s program' % self.int8_family,
+                                   'EDSR and Q-RCAN int8')
         if residual_dtype not in ('float32', 'bfloat16'):
             raise ValueError("residual_dtype must be 'float32' or 'bfloat16' (the int16 "
                              "carry is EDSR-only), got %r" % (residual_dtype,))
@@ -220,12 +279,15 @@ class BaseHandler:
         """
         sides = ('LR', 'model') if include_lr else ('model',)
         keys = tuple('%s>%s' % (side, met) for met in metrics for side in sides)
+        meta = batch.get('metadata') if self.uses_metadata else None
         if isinstance(batch['lr'], (list, tuple)):
-            # ragged batch (mixed-size eval images at bs>1): run per image
+            # ragged batch (mixed-size eval images at bs>1): run per image, each with
+            # its own metadata row
             parts, total = [], 0.0
-            for lr, hr in zip(batch['lr'], batch['hr']):
-                (_, vals), rt = self.run_eval_fused({'lr': lr[None], 'hr': hr[None]},
-                                                    metrics=metrics, timing=timing,
+            for i, (lr, hr) in enumerate(zip(batch['lr'], batch['hr'])):
+                one = {'lr': lr[None], 'hr': hr[None],
+                       'metadata': None if meta is None else meta[i:i + 1]}
+                (_, vals), rt = self.run_eval_fused(one, metrics=metrics, timing=timing,
                                                     include_lr=include_lr)
                 parts.append(vals)
                 total += rt or 0.0
@@ -233,6 +295,8 @@ class BaseHandler:
 
         dev_batch = {'lr': self._to_device(self._as_u8_if_lossless(batch['lr'])),
                      'hr': self._to_device(self._as_u8_if_lossless(batch['hr']))}
+        if meta is not None:
+            dev_batch['metadata'] = self._to_device(meta).float()
         if self.int8_mode and self._int8_ctx is None:
             # calibrate outside the step, on the input the int8 program takes
             self._ensure_int8_ctx(self._int8_calibration_input(
@@ -268,7 +332,7 @@ class BaseHandler:
 
         @torch.inference_mode()
         def step(batch):
-            lr, hr = self._prep_batch(batch)
+            lr, hr, metadata = self._prep_batch(batch)
             hr_y = prep_y(hr)
             lr_y = None
             if include_lr:
@@ -276,7 +340,7 @@ class BaseHandler:
                 # weights; <=1 uint8 LSB fixed-point difference)
                 lr_y = prep_y(resize_bicubic(lr, hr.shape[1], hr.shape[2]))
             # the calibrated int8 program when int8 serving is on, else the module
-            sr = self._int8_ctx[0](lr) if self.int8_mode else self.forward(lr)
+            sr = self._int8_ctx[0](lr) if self.int8_mode else self.forward(lr, metadata)
             sr_y = prep_y(sr)
             rows = []
             for met in metrics:  # row order matches run_eval_fused's keys tuple
@@ -331,3 +395,93 @@ class RCANHandler(BaseHandler):
         return advanced.RCAN(scale=scale, in_feats=in_features or 3,
                              n_resblocks=n_resblocks or 20, n_resgroups=n_resgroups or 10,
                              n_feats=n_feats or 64, reduction=reduction or 16)
+
+
+class QHandler(BaseHandler):
+    """Metadata bookkeeping shared by the meta-models (ref QModel,
+    attention_manipulators/__init__.py:6-27): ``metadata`` names the columns the
+    model takes ('qpi' by default; 'blur_kernel' is 10 values, 'all' adds the 39
+    CelebA attributes)."""
+
+    uses_metadata = True
+
+    def __init__(self, metadata=None, **kwargs):
+        if metadata is not None:
+            self.num_metadata = len(metadata)
+            if 'all' in metadata:
+                self.num_metadata += 39  # all celeba attributes
+            if 'blur_kernel' in metadata:
+                self.num_metadata += 9
+            elif 'unmodified_blur_kernel' in metadata:
+                self.num_metadata += 440
+            self.metadata = metadata
+        else:
+            self.metadata = ['qpi']
+            self.num_metadata = 1
+        super().__init__(**kwargs)
+
+
+@register_model('edsr')
+class EDSRHandler(BaseHandler):
+    """(ref: advanced/handlers.py:7-23)"""
+
+    int8_family = 'edsr'
+
+    def build_module(self, scale, in_features=3, num_features=64, num_blocks=16,
+                     res_scale=0.1, **kwargs):
+        return advanced.EDSR(net_features=num_features or 64, num_blocks=num_blocks or 16,
+                             scale=scale, res_scale=res_scale if res_scale is not None
+                             else 0.1, in_features=in_features or 3)
+
+
+@register_model('qrcan', 'qpircan')
+class QRCANHandler(QHandler):
+    """(ref: attention_manipulators/handlers.py:7-54).  'qpircan' legacy alias
+    (ref: models/__init__.py:92-93).  The 'modulate' style takes the normalised QPI
+    expanded to an n_feats vector (:meth:`scale_qpi`)."""
+
+    colorspace = 'augmented_rgb'
+    int8_family = 'qrcan'
+
+    def __init__(self, style='modulate', clamp=False, min_mu=-0.2, max_mu=0.8, n_feats=64,
+                 **kwargs):
+        self.style = style or 'modulate'
+        self.clamp = clamp
+        self.min_mu = min_mu if min_mu is not None else -0.2
+        self.max_mu = max_mu if max_mu is not None else 0.8
+        self.n_feats = n_feats or 64
+        super().__init__(**kwargs)
+
+    def build_module(self, scale, in_features=3, include_pixel_attention=False,
+                     include_q_layer=False, selective_meta_blocks=None,
+                     num_q_layers_inner_residual=None, n_resblocks=20, n_resgroups=10,
+                     reduction=16, **kwargs):
+        return qmodels.QRCAN(
+            n_resblocks=n_resblocks or 20, n_resgroups=n_resgroups or 10,
+            n_feats=self.n_feats, in_feats=in_features or 3, scale=scale,
+            reduction=reduction or 16, style=self.style, num_metadata=self.num_metadata,
+            include_pixel_attention=bool(include_pixel_attention),
+            include_q_layer=bool(include_q_layer),
+            selective_meta_blocks=selective_meta_blocks,
+            num_q_layers_inner_residual=num_q_layers_inner_residual)
+
+    def _metadata_width(self, n_meta):
+        return self.n_feats if self.style == 'modulate' else n_meta
+
+    def prepare_metadata(self, x, metadata):
+        meta = super().prepare_metadata(x, metadata)
+        if self.style == 'modulate':
+            meta = self.scale_qpi(meta)
+        return meta
+
+    def scale_qpi(self, qpi):
+        """Gaussian-profile expansion of the normalised QPI (its first column) to an
+        n_feats modulation vector (ref: attention_manipulators/handlers.py:42-54)."""
+        sig = 0.2
+        base = torch.linspace(0.0, 1.0, self.n_feats, dtype=qpi.dtype, device=qpi.device)
+        mu = qpi[:, :1] * (self.max_mu - self.min_mu) + self.min_mu  # (N, 1)
+        prof = (1.0 / (math.sqrt(2 * math.pi) * sig)) * torch.exp(
+            -torch.square(base[None, :] - mu) / (2 * sig ** 2))
+        if self.clamp:
+            prof = torch.clamp(prof, 0.0, 1.0)
+        return prof

@@ -1,0 +1,110 @@
+"""Meta-attention model family: QRCAN (PyTorch port of sisr_tpu's
+``models/qmodels.py``; ref: Code/SISR/models/attention_manipulators/architectures.py).
+QEDSR, QSAN and QHAN come with later slices.
+
+Every module takes ``(x, metadata)`` explicitly.  Module and attribute names follow
+the reference's torch modules, so ``state_dict`` keys are those sisr_tpu's
+``convert_qrcan`` reads.
+"""
+from torch import nn
+
+from .blocks import Upsampler, conv
+from .q_layers import PALayer, ParaCALayer, QCALayer
+
+
+class QRCAB(nn.Module):
+    """Residual channel attention block with metadata fusion
+    (ref: attention_manipulators/architectures.py:145-204).
+
+    Keys: ``body.{0,2}`` (the convs), ``final_body`` (the :class:`QCALayer`),
+    ``pa_node.pa.{0,2}`` with ``pa``, ``q_node.attribute_integrator.<k>`` with
+    ``q_layer``.  Without ``pa`` the q_node's gate, which depends on the metadata
+    alone, is handed to the QCALayer, so the CA kernel applies it in the same launch;
+    with ``pa`` the pixel attention sits between the two and the gate is applied
+    after it."""
+
+    def __init__(self, n_feat, kernel_size=3, reduction=16, style='modulate', pa=False,
+                 q_layer=False, num_metadata=1):
+        super().__init__()
+        self.body = nn.Sequential(conv(n_feat, n_feat, kernel_size), nn.ReLU(inplace=True),
+                                  conv(n_feat, n_feat, kernel_size))
+        self.final_body = QCALayer(n_feat, style, reduction, num_metadata)
+        self.pa = pa
+        self.q_layer = q_layer
+        if pa:
+            self.pa_node = PALayer(n_feat)
+        if q_layer:
+            # 'modulate' metadata arrives expanded to n_feat by the handler
+            q_meta_width = n_feat if style == 'modulate' else num_metadata
+            self.q_node = ParaCALayer(n_feat, q_meta_width, nonlinearity=True)
+
+    def forward(self, x, metadata):
+        res = self.body(x)
+        gate = self.q_node.gate(metadata) if self.q_layer and not self.pa else None
+        res = self.final_body(res, metadata, gate)
+        if self.pa:
+            res = self.pa_node(res)
+            if self.q_layer:
+                res = self.q_node(res, metadata)
+        return res + x
+
+
+class QResidualGroup(nn.Module):
+    """(ref: attention_manipulators/architectures.py:208-243).  ``num_q_layers`` limits
+    how many leading blocks get a q_node (None = all).  Keys ``body.<b>`` (the
+    blocks) and ``final_body`` (the group's tail conv)."""
+
+    def __init__(self, n_feat, kernel_size=3, reduction=16, n_resblocks=20,
+                 style='modulate', num_metadata=1, pa=False, q_layer=False,
+                 num_q_layers=None):
+        super().__init__()
+        self.body = nn.ModuleList(
+            QRCAB(n_feat, kernel_size, reduction, style, pa,
+                  q_layer if num_q_layers is None or index < num_q_layers else False,
+                  num_metadata)
+            for index in range(n_resblocks))
+        self.final_body = conv(n_feat, n_feat, kernel_size)
+
+    def forward(self, x, metadata):
+        res = x
+        for block in self.body:
+            res = block(res, metadata)
+        return self.final_body(res) + x
+
+
+class QRCAN(nn.Module):
+    """RCAN with metadata-fused channel attention
+    (ref: attention_manipulators/architectures.py:246-329).
+
+    Keys: ``head.0``, ``body.<g>`` (:class:`QResidualGroup`), ``final_body``,
+    ``tail.0.<2i>``, ``tail.1``."""
+
+    def __init__(self, n_resblocks=20, n_resgroups=10, n_feats=64, in_feats=3, out_feats=3,
+                 scale=4, reduction=16, style='modulate', num_metadata=1,
+                 include_pixel_attention=False, include_q_layer=False,
+                 selective_meta_blocks=None, num_q_layers_inner_residual=None):
+        super().__init__()
+        if selective_meta_blocks is not None and len(selective_meta_blocks) != n_resgroups:
+            raise ValueError('selective_meta_blocks needs one entry per residual group '
+                             '(%d given, n_resgroups=%d).'
+                             % (len(selective_meta_blocks), n_resgroups))
+        self.n_resblocks = n_resblocks
+        self.n_resgroups = n_resgroups
+        self.head = nn.Sequential(conv(in_feats, n_feats, 3))
+        self.body = nn.ModuleList(
+            QResidualGroup(n_feats, 3, reduction, n_resblocks, style, num_metadata,
+                           include_pixel_attention,
+                           include_q_layer if selective_meta_blocks is None
+                           or selective_meta_blocks[i] else False,
+                           num_q_layers_inner_residual)
+            for i in range(n_resgroups))
+        self.final_body = conv(n_feats, n_feats, 3)
+        self.tail = nn.Sequential(Upsampler(scale, n_feats), conv(n_feats, out_feats, 3))
+
+    def forward(self, x, metadata):
+        x = self.head(x)
+        res = x
+        for group in self.body:
+            res = group(res, metadata)
+        res = self.final_body(res) + x
+        return self.tail(res)

@@ -30,7 +30,8 @@ def _config_callback(ctx, param, value):
 @click.option("--lr_dir", default=None, help='LR image directory.')
 @click.option("--lr_dir_interp", default=None, help='LR (interpolated) image directory.')
 @click.option('--data_attributes', default=None,
-              help='Additional data attributes (such as gender etc)')
+              help='Additional data attributes (such as gender etc; CelebA attributes '
+                   'are not ported yet: raises).')
 @click.option("--batch_size", default=1, help='Batch size for parallel data loading.',
               show_default=True)
 @click.option('--full_directory', is_flag=True,
@@ -46,7 +47,7 @@ def _config_callback(ctx, param, value):
               help='Specifies data split to extract (train/test/eval). Defaults to eval.')
 @click.option('--metadata_file', default=None,
               help='Location of datafile containing metadata information. Defaults to '
-                   'degradation_metadata.csv if not specified.')
+                   'degradation_metadata.csv, then qpi_slices.csv, in the LR directory.')
 @click.option('--use_test_group', is_flag=True,
               help='Set this flag to run results only on typical 100 images.')
 @click.option('--recursive', default=False,
@@ -84,7 +85,8 @@ def _config_callback(ctx, param, value):
                    'with int32 sums, a bfloat16 residual carry, and each RCAB tail '
                    '(channel attention + residual add) in one CUDA kernel. Runs '
                    'inside --fused_eval; metrics are of the quantised output. '
-                   'RCAN only so far.')
+                   'RCAN only so far: EDSR and Q-RCAN raise until their int8 programs '
+                   'are ported.')
 @click.option("--sp_gpu", default=0, show_default=True,
               help='Specify specific device to use for computation.')
 @click.option('--scale', default=4, help='Scale of SR to perform.', show_default=True)

@@ -4,7 +4,10 @@ Computes ``out = x * sigmoid(relu(mean_hw(x) @ w1 + b1) @ w2 + b2)``, the CALaye
 RCAN, with the signature and layout of sisr_tpu's ``fused_channel_attention``: x is
 (N, H, W, C), w1 (C, C/r), b1 (C/r), w2 (C/r, C), b2 (C).  A channels_last NCHW
 activation permuted to (0, 2, 3, 1) is exactly a contiguous NHWC view, so the model
-passes its activations without a copy.
+passes its activations without a copy.  Two optional per-image inputs carry Q-RCAN's
+meta-attention (``models/q_layers.py``): ``meta`` (N, M) is concatenated onto the
+pooled vector before the first product (w1 then has C + M rows), and ``gate`` (N, C)
+multiplies the attention after the sigmoid, ``out = x * (att * gate)``.
 
 :func:`fused_channel_attention_residual` is the int8 RCAB block tail,
 ``out = (float(x) * att(x) + float(r)).to(r.dtype)``, with the signature of sisr_tpu's
@@ -32,10 +35,10 @@ _RES_CHUNKS = 2  # kResChunks in channel_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     'sisr_ca_forward': (
-        ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     'sisr_ca_onchip_forward': (
-        ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
         + [ctypes.c_void_p]),
     'sisr_ca_res_onchip_forward': (
@@ -46,22 +49,31 @@ _SIGNATURES = {
         ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
-# the excite keeps 2*C + Cr floats in the 48 KB of static shared memory
+# the three-pass excite keeps 2*C + M + Cr floats in the 48 KB of static shared memory
 _MAX_EXCITE_FLOATS = 12288
 _DEVICES = {}  # CUDA device index -> (library handle, SM count, opt-in shared memory)
 
 
-def _attention(x, w1, b1, w2, b2):
-    """att (N, C) in f32: mean over H, W, then sigmoid(relu(pooled @ w1 + b1) @ w2 + b2)."""
-    pooled = x.float().mean(dim=(1, 2))
-    hidden = torch.relu(pooled @ w1.float() + b1.float())
-    return torch.sigmoid(hidden @ w2.float() + b2.float())
+def _attention(x, w1, b1, w2, b2, meta=None):
+    """att (N, C) in f32: mean over H, W, then sigmoid(relu([pooled | meta] @ w1 + b1)
+    @ w2 + b2).  Autocast is off: the excite stays f32 under a bf16 forward, as in the
+    kernel."""
+    with torch.autocast(x.device.type, enabled=False):
+        pooled = x.float().mean(dim=(1, 2))
+        if meta is not None:
+            pooled = torch.cat([pooled, meta.float()], dim=1)
+        hidden = torch.relu(pooled @ w1.float() + b1.float())
+        return torch.sigmoid(hidden @ w2.float() + b2.float())
 
 
-def reference_channel_attention(x, w1, b1, w2, b2):
-    """Plain PyTorch version (sisr_tpu's ``_reference_ca``): pool and excite in f32,
+def reference_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None):
+    """Plain PyTorch version (sisr_tpu's ``_reference_ca``, with ``meta`` and ``gate``
+    as in the module docstring): pool and excite in f32, the gate's product in f32,
     scale in x's dtype."""
-    return x * _attention(x, w1, b1, w2, b2)[:, None, None, :].to(x.dtype)
+    att = _attention(x, w1, b1, w2, b2, meta)
+    if gate is not None:
+        att = att * gate.float()
+    return x * att[:, None, None, :].to(x.dtype)
 
 
 def reference_channel_attention_residual(x, r, w1, b1, w2, b2):
@@ -85,18 +97,20 @@ def launch_plan(n, hw, c, itemsize, aligned, sm_count):
     return vectorized, slabs
 
 
-def _onchip_floats(c, cr, itemsize):
+def _onchip_floats(c, cr, itemsize, m=0):
     """Floats of the on-chip kernels' scratch: the block's row sums, the excite's
-    weights, the partial sums, pooled, hidden and att."""
+    weights (w1 with its M rows for the meta), the partial sums, pooled with the meta,
+    hidden and att."""
     rows = _THREADS // (c * itemsize // 16)
     parts = _THREADS // c if c < _THREADS else 1
-    return rows * c + 2 * c * cr + cr + c + c * parts + c + cr + c
+    return rows * c + (2 * c + m) * cr + cr + c + c * parts + c + m + cr + c
 
 
-def onchip_smem_bytes(slab_pixels, c, cr, itemsize):
+def onchip_smem_bytes(slab_pixels, c, cr, itemsize, m=0):
     """Dynamic shared memory of the on-chip kernel, laid out as ``ca_onchip`` lays it
-    out: the slab, the float scratch, then one 8-byte mbarrier per chunk."""
-    floats_end = slab_pixels * c * itemsize + 4 * _onchip_floats(c, cr, itemsize)
+    out for M meta values: the slab, the float scratch, then one 8-byte mbarrier per
+    chunk."""
+    floats_end = slab_pixels * c * itemsize + 4 * _onchip_floats(c, cr, itemsize, m)
     return -(-floats_end // 16) * 16 + 8 * _ONCHIP_CHUNKS
 
 
@@ -110,19 +124,19 @@ def res_onchip_smem_bytes(slab_pixels, c, cr, x_itemsize, r_itemsize):
     return -(-floats_end // 16) * 16 + 8 * 2 * _RES_CHUNKS
 
 
-def onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin):
+def onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin, m=0):
     """(blocks_per_image, slab_pixels, smem_bytes) of the one-launch kernel that holds
     the map in shared memory, or None for the three-pass path.  At most one block per
     SM, so every block is resident at once; each block owns ``slab_pixels``
     contiguous pixels of its image (the last block the rest).  Taken only when every
     image gets a block, a pixel is whole 16-byte units and x is 16-byte aligned (bulk
-    copies move 16-byte units), and slab plus scratch fit ``smem_optin``, the opt-in
-    shared memory of one block."""
+    copies move 16-byte units), and slab plus scratch (with ``m`` meta values) fit
+    ``smem_optin``, the opt-in shared memory of one block."""
     lanes, ragged = divmod(c * itemsize, 16)
     if not aligned or ragged or lanes > _THREADS or n > sm_count:
         return None
     slab = -(-hw // (sm_count // n))
-    smem = onchip_smem_bytes(slab, c, cr, itemsize)
+    smem = onchip_smem_bytes(slab, c, cr, itemsize, m)
     return (-(-hw // slab), slab, smem) if smem <= smem_optin else None
 
 
@@ -152,7 +166,7 @@ def res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, sme
     return None
 
 
-def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention'):
+def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention', meta=None, gate=None):
     if x.dim() != 4:
         raise ValueError('%s: x must be (N, H, W, C), got %s' % (op, tuple(x.shape)))
     if x.dtype not in _DTYPE_CODES:
@@ -165,21 +179,33 @@ def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention'):
         raise ValueError('%s: empty map %s' % (op, tuple(x.shape)))
     if n > 65535:
         raise ValueError('%s: batch %d exceeds the grid limit 65535' % (op, n))
-    if w1.dim() != 2 or w1.shape[0] != c or w1.shape[1] == 0:
-        raise ValueError('%s: w1 must be (C, Cr) with C=%d, got %s'
-                         % (op, c, tuple(w1.shape)))
+    if meta is not None and (meta.dim() != 2 or meta.shape[0] != n or meta.shape[1] == 0):
+        raise ValueError('%s: meta must be (N, M) with N=%d, M > 0, got %s'
+                         % (op, n, tuple(meta.shape)))
+    m = 0 if meta is None else meta.shape[1]
+    if w1.dim() != 2 or w1.shape[0] != c + m or w1.shape[1] == 0:
+        raise ValueError('%s: w1 must be (C + M, Cr) with C=%d, M=%d, got %s'
+                         % (op, c, m, tuple(w1.shape)))
     cr = w1.shape[1]
-    if 2 * c + cr > _MAX_EXCITE_FLOATS:
-        raise ValueError('%s: C=%d, Cr=%d exceed the excite\'s shared memory'
-                         % (op, c, cr))
-    for t, shape, label in ((b1, (cr,), 'b1'), (w2, (cr, c), 'w2'), (b2, (c,), 'b2')):
+    if 2 * c + m + cr > _MAX_EXCITE_FLOATS:
+        raise ValueError('%s: C=%d, M=%d, Cr=%d exceed the excite\'s shared memory'
+                         % (op, c, m, cr))
+    checked = [(b1, (cr,), 'b1'), (w2, (cr, c), 'w2'), (b2, (c,), 'b2')]
+    if gate is not None:
+        checked.append((gate, (n, c), 'gate'))
+    for t, shape, label in checked:
         if tuple(t.shape) != shape:
             raise ValueError('%s: %s must be %s, got %s'
                              % (op, label, shape, tuple(t.shape)))
-    for t in (w1, b1, w2, b2):
+    extras = [t for t in (meta, gate) if t is not None]
+    for t in [w1, b1, w2, b2] + extras:
         if t.device != x.device:
             raise ValueError('%s: weights on %s, x on %s' % (op, t.device, x.device))
-    if any(t.requires_grad for t in (x, w1, b1, w2, b2)) and torch.is_grad_enabled():
+        if not t.is_floating_point():
+            raise TypeError('%s: weights, meta and gate must be floating point, got %s'
+                            % (op, t.dtype))
+    if any(t.requires_grad for t in [x, w1, b1, w2, b2] + extras) \
+            and torch.is_grad_enabled():
         raise NotImplementedError('%s has no backward on CUDA yet (it comes with the '
                                   'training slice): call it under torch.no_grad() or '
                                   'inference_mode().' % op)
@@ -225,25 +251,35 @@ def _excite_args(x, w1, b1, w2, b2, slabs):
             (w1.stride(0), w1.stride(1), w2.stride(0), w2.stride(1)))
 
 
-def fused_channel_attention(x, w1, b1, w2, b2):
-    """CA scale-and-excite: the CUDA kernel for a CUDA ``x`` (on chip where
-    :func:`onchip_plan` allows, else three passes), the plain version for a CPU
-    ``x``."""
+def _per_image(t):
+    """meta or gate as the kernel reads it: contiguous f32 (a pointer), or None (null)."""
+    return None if t is None else t.detach().float().contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def fused_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None):
+    """CA scale-and-excite, with the optional ``meta`` (N, M) concatenated onto the
+    pooled vector and ``gate`` (N, C) multiplying the attention: the CUDA kernel for
+    a CUDA ``x`` (on chip where :func:`onchip_plan` allows, else three passes), the
+    plain version for a CPU ``x``."""
     if x.device.type == 'cpu':
-        return reference_channel_attention(x, w1, b1, w2, b2)
+        return reference_channel_attention(x, w1, b1, w2, b2, meta, gate)
     if x.device.type != 'cuda':
         raise ValueError('fused_channel_attention: unsupported device %s' % x.device)
-    _check_args(x, w1, b1, w2, b2)
+    _check_args(x, w1, b1, w2, b2, meta=meta, gate=gate)
     n, h, w, c = x.shape
     _, sm_count, smem_optin = _library(x.device.index)
     plan = onchip_plan(n, h * w, c, w1.shape[1], x.element_size(), x.data_ptr() % 16 == 0,
-                       sm_count, smem_optin)
+                       sm_count, smem_optin, m=0 if meta is None else meta.shape[1])
     if plan is None:
-        return _three_pass(x, w1, b1, w2, b2)
-    return _onchip(x, w1, b1, w2, b2, plan)
+        return _three_pass(x, w1, b1, w2, b2, meta, gate)
+    return _onchip(x, w1, b1, w2, b2, plan, meta, gate)
 
 
-def _onchip(x, w1, b1, w2, b2, plan):
+def _onchip(x, w1, b1, w2, b2, plan, meta=None, gate=None):
     """One cooperative launch of ``ca_onchip`` with ``plan`` from :func:`onchip_plan`
     (arguments already checked)."""
     n, h, w, c = x.shape
@@ -251,20 +287,23 @@ def _onchip(x, w1, b1, w2, b2, plan):
     lib = _library(index)[0]
     slabs, slab_pixels, smem_bytes = plan
     out = torch.empty_like(x)
+    meta, gate = _per_image(meta), _per_image(gate)
     # the partial sums (N, slabs, C); the att slice is unused on this path
-    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
+    (w1, b1, w2, b2, partial, _), strides = _excite_args(x, w1, b1, w2, b2, slabs)
     with torch.cuda.device(index):
         code = lib.sisr_ca_onchip_forward(
-            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors[:5]), n, h * w,
-            c, w1.shape[1], *strides, _DTYPE_CODES[x.dtype], slabs, slab_pixels,
-            smem_bytes, torch.cuda.current_stream(index).cuda_stream)
+            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
+            _ptr(meta), _ptr(gate), partial.data_ptr(), n, h * w, c,
+            0 if meta is None else meta.shape[1], w1.shape[1], *strides,
+            _DTYPE_CODES[x.dtype], slabs, slab_pixels, smem_bytes,
+            torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention on-chip launch')
     fused_channel_attention.launches += 1
     fused_channel_attention.onchip_launches += 1
     return out
 
 
-def _three_pass(x, w1, b1, w2, b2):
+def _three_pass(x, w1, b1, w2, b2, meta=None, gate=None):
     """The three launches of ``sisr_ca_forward`` (arguments already checked)."""
     n, h, w, c = x.shape
     index = x.device.index
@@ -272,12 +311,15 @@ def _three_pass(x, w1, b1, w2, b2):
     vectorized, slabs = launch_plan(n, h * w, c, x.element_size(), x.data_ptr() % 16 == 0,
                                     sm_count)
     out = torch.empty_like(x)
-    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
+    meta, gate = _per_image(meta), _per_image(gate)
+    (w1, b1, w2, b2, partial, att), strides = _excite_args(x, w1, b1, w2, b2, slabs)
     with torch.cuda.device(index):
         code = lib.sisr_ca_forward(
-            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors), n, h * w, c,
-            w1.shape[1], *strides, _DTYPE_CODES[x.dtype], int(vectorized), slabs,
-            sm_count, torch.cuda.current_stream(index).cuda_stream)
+            x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
+            _ptr(meta), _ptr(gate), partial.data_ptr(), att.data_ptr(), n, h * w, c,
+            0 if meta is None else meta.shape[1], w1.shape[1], *strides,
+            _DTYPE_CODES[x.dtype], int(vectorized), slabs, sm_count,
+            torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention launch')
     fused_channel_attention.launches += 1
     return out

@@ -7,6 +7,20 @@
 // The pool and the excite run in float32; the scale multiplies x by the attention
 // rounded to x's type, as `x * att.astype(x.dtype)` does.
 //
+// Two optional per-image inputs carry the meta-attention layers of Q-RCAN
+// (sisr_tpu/models/q_layers.py QCALayer, ParaCALayer), which sisr_tpu computes in
+// plain jnp:
+//   meta (N, M) float32 is concatenated onto the pooled vector before the first
+//     product, so w1 has C + M rows: hidden = relu([pooled | meta] @ w1 + b1)
+//     (QCALayer's max_concat style);
+//   gate (N, C) float32 multiplies the attention after the sigmoid:
+//     out = x * T(att * gate) (QCALayer's modulate style, and the QRCAB's q_node,
+//     whose sigmoid depends on the metadata alone).
+// With neither (meta null and M = 0, gate null) the work is the plain CA's, bit for
+// bit.  Both paths below take them: the excite stages meta[n] beside pooled and the
+// M extra rows of w1 beside the other weights, and multiplies att by gate[n].  The
+// bound grows by N * (M + C) * 4 bytes, 2.8 KB at the main shape.
+//
 // Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_forward` (excite
 // `_excite`), by two paths; the wrapper's plan (`onchip_plan` in
 // ops/channel_attention.py) picks one from the shape and the card alone.
@@ -191,22 +205,28 @@ __global__ void ca_pool_partial(const T* __restrict__ x, float* __restrict__ par
   }
 }
 
-// Grid (N).  pooled = sum of the S partials / (H*W); att = sigmoid(relu(pooled @ w1
-// + b1) @ w2 + b2).  w1[ch, j] is at w1[ch * w1_sc + j * w1_sj], w2[j, ch] at
-// w2[j * w2_sj + ch * w2_sc], so transposed views need no copy.  `parts` threads share
-// each channel's slab sum (a fixed split and a fixed order of the final add).  Shared
-// memory holds pooled (C), hidden (Cr) and the per-part sums (C * parts).  The block
-// size is a multiple of 32 (one warp per hidden unit at a time).
+// Grid (N).  pooled = sum of the S partials / (H*W); att = sigmoid(relu([pooled |
+// meta[n]] @ w1 + b1) @ w2 + b2) * gate[n] (meta and gate optional: null, M = 0).
+// w1[ch, j] is at w1[ch * w1_sc + j * w1_sj] (ch < C + M), w2[j, ch] at w2[j * w2_sj +
+// ch * w2_sc], so transposed views need no copy.  `parts` threads share each
+// channel's slab sum (a fixed split and a fixed order of the final add).  Shared
+// memory holds pooled with meta (C + M), hidden (Cr) and the per-part sums
+// (C * parts).  The block size is a multiple of 32 (one warp per hidden unit at a
+// time).
 __global__ void ca_excite(const float* __restrict__ partial, const float* __restrict__ w1,
                           const float* __restrict__ b1, const float* __restrict__ w2,
-                          const float* __restrict__ b2, float* __restrict__ att,
-                          int slabs, int c, int cr, float hw, int64_t w1_sc, int64_t w1_sj,
-                          int64_t w2_sj, int64_t w2_sc, int parts) {
+                          const float* __restrict__ b2, const float* __restrict__ meta,
+                          const float* __restrict__ gate, float* __restrict__ att,
+                          int slabs, int c, int m, int cr, float hw, int64_t w1_sc,
+                          int64_t w1_sj, int64_t w2_sj, int64_t w2_sc, int parts) {
   extern __shared__ float sh[];
   float* pooled = sh;
-  float* hidden = sh + c;
+  float* hidden = sh + c + m;
   float* part_sum = hidden + cr;
   const int64_t n = blockIdx.x;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) pooled[c + i] = meta[n * m + i];
+  // the thread's first gate value goes out now, not after the sigmoid
+  const float own_gate = gate && (int)threadIdx.x < c ? gate[n * c + threadIdx.x] : 1.f;
   for (int idx = threadIdx.x; idx < c * parts; idx += blockDim.x) {
     const int ch = idx % c;
     const int part = idx / c;
@@ -225,7 +245,7 @@ __global__ void ca_excite(const float* __restrict__ partial, const float* __rest
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int j = warp; j < cr; j += blockDim.x / 32) {
     float h = 0.f;
-    for (int ch = lane; ch < c; ch += 32) h += pooled[ch] * w1[ch * w1_sc + j * w1_sj];
+    for (int ch = lane; ch < c + m; ch += 32) h += pooled[ch] * w1[ch * w1_sc + j * w1_sj];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) h += __shfl_down_sync(0xffffffffu, h, off);
     if (lane == 0) hidden[j] = fmaxf(h + b1[j], 0.f);
@@ -234,7 +254,8 @@ __global__ void ca_excite(const float* __restrict__ partial, const float* __rest
   for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
     float a = 0.f;
     for (int j = 0; j < cr; ++j) a += hidden[j] * w2[j * w2_sj + ch * w2_sc];
-    att[n * c + ch] = 1.f / (1.f + expf(-(a + b2[ch])));
+    a = 1.f / (1.f + expf(-(a + b2[ch])));
+    att[n * c + ch] = gate ? a * (ch == (int)threadIdx.x ? own_gate : gate[n * c + ch]) : a;
   }
 }
 
@@ -340,19 +361,21 @@ __host__ __device__ inline int64_t onchip_float_offset(int64_t slab_len, int c, 
 __host__ __device__ inline int onchip_parts(int c) {
   return c < kThreads ? kThreads / c : 1;
 }
-__host__ __device__ inline int64_t onchip_floats(int c, int cr, int vec) {
+__host__ __device__ inline int64_t onchip_floats(int c, int m, int cr, int vec) {
   const int rows = kThreads / (c / vec);
-  // red, w1 (as Cr x C), w2, b1, b2, part_sum, pooled, hidden, att
-  return (int64_t)rows * c + 2 * c * cr + cr + c + c * onchip_parts(c) + c + cr + c;
+  // red, w1 (as Cr x (C + M)), w2, b1, b2, part_sum, pooled with meta, hidden, att
+  return (int64_t)rows * c + (2 * c + m) * cr + cr + c + c * onchip_parts(c) + c + m + cr +
+         c;
 }
-__host__ __device__ inline int64_t onchip_barrier_offset(int64_t slab_len, int c, int cr,
-                                                         int itemsize) {
+__host__ __device__ inline int64_t onchip_barrier_offset(int64_t slab_len, int c, int m,
+                                                         int cr, int itemsize) {
   const int64_t floats_end = onchip_float_offset(slab_len, c, itemsize) +
-                             4 * onchip_floats(c, cr, 16 / itemsize);
+                             4 * onchip_floats(c, m, cr, 16 / itemsize);
   return (floats_end + 15) / 16 * 16;
 }
-__host__ inline int64_t onchip_smem_bytes(int64_t slab_len, int c, int cr, int itemsize) {
-  return onchip_barrier_offset(slab_len, c, cr, itemsize) + 8 * kOnchipChunks;
+__host__ inline int64_t onchip_smem_bytes(int64_t slab_len, int c, int m, int cr,
+                                          int itemsize) {
+  return onchip_barrier_offset(slab_len, c, m, cr, itemsize) + 8 * kOnchipChunks;
 }
 
 // Shared-memory bytes of ca_res_onchip: the slab of x, the slab of r (from a
@@ -366,7 +389,7 @@ __host__ __device__ inline int64_t res_barrier_offset(int64_t slab_len, int c, i
                                                       int x_itemsize, int r_itemsize) {
   const int64_t floats_end = res_r_offset(slab_len, c, x_itemsize) +
                              slab_len * c * r_itemsize +
-                             4 * onchip_floats(c, cr, 16 / x_itemsize);
+                             4 * onchip_floats(c, 0, cr, 16 / x_itemsize);
   return (floats_end + 15) / 16 * 16;
 }
 __host__ inline int64_t res_onchip_smem_bytes(int64_t slab_len, int c, int cr,
@@ -375,30 +398,35 @@ __host__ inline int64_t res_onchip_smem_bytes(int64_t slab_len, int c, int cr,
 }
 
 // The float scratch of the on-chip kernels, after the slab, as onchip_floats counts
-// it: the block's row sums, the excite's weights ([j * c + ch] for w1 and w2), the
-// partial sums ([part * c + ch]), pooled, hidden and att.
+// it: the block's row sums, the excite's weights ([j * (c + m) + ch] for w1, [j * c +
+// ch] for w2), the partial sums ([part * c + ch]), pooled (C) followed by the image's
+// meta (M), hidden and att.
 struct OnchipScratch {
   float *red, *w1s, *w2s, *b1s, *b2s, *part_sum, *pooled, *hidden, *att;
-  __device__ OnchipScratch(float* base, int c, int cr, int rows, int parts)
-      : red(base), w1s(red + rows * c), w2s(w1s + c * cr), b1s(w2s + cr * c),
+  __device__ OnchipScratch(float* base, int c, int m, int cr, int rows, int parts)
+      : red(base), w1s(red + rows * c), w2s(w1s + (c + m) * cr), b1s(w2s + cr * c),
         b2s(b1s + cr), part_sum(b2s + c), pooled(part_sum + c * parts),
-        hidden(pooled + c), att(hidden + cr) {}
+        hidden(pooled + c + m), att(hidden + cr) {}
 };
 
-__device__ __forceinline__ void stage_excite_weights(const OnchipScratch& s,
-                                                     const float* __restrict__ w1,
-                                                     const float* __restrict__ b1,
-                                                     const float* __restrict__ w2,
-                                                     const float* __restrict__ b2, int c,
-                                                     int cr, int64_t w1_sc, int64_t w1_sj,
-                                                     int64_t w2_sj, int64_t w2_sc, int t) {
+// The excite's weights into shared memory and, with M > 0, the image's meta (img_meta,
+// M floats) after pooled's C.
+__device__ __forceinline__ void stage_excite_weights(
+    const OnchipScratch& s, const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ img_meta, int c, int m, int cr, int64_t w1_sc, int64_t w1_sj,
+    int64_t w2_sj, int64_t w2_sc, int t) {
+  for (int i = t; i < (c + m) * cr; i += kThreads) {
+    const int j = i / (c + m), ch = i % (c + m);
+    s.w1s[i] = w1[ch * w1_sc + j * w1_sj];
+  }
   for (int i = t; i < c * cr; i += kThreads) {
     const int j = i / c, ch = i % c;
-    s.w1s[i] = w1[ch * w1_sc + j * w1_sj];
     s.w2s[i] = w2[j * w2_sj + ch * w2_sc];
   }
   for (int i = t; i < cr; i += kThreads) s.b1s[i] = b1[i];
   for (int i = t; i < c; i += kThreads) s.b2s[i] = b2[i];
+  for (int i = t; i < m; i += kThreads) s.pooled[c + i] = img_meta[i];
 }
 
 // The block's per-channel sum of its threads' pools (acc: VEC channels of lane `lane`
@@ -430,13 +458,18 @@ __device__ __forceinline__ void block_channel_sum(const float (&acc)[VEC],
 
 // s.att of one image from its `slabs` block sums img_partial[k * c + ch] (read past
 // L1: other blocks wrote them before the grid barrier), added in a fixed order, then
-// the excite on the staged weights.  Each thread issues LOADS of its sums at once
+// the excite on the staged weights and meta (M of them), and with img_gate (C floats,
+// or null) the product with the gate.  Each thread issues LOADS of its sums at once
 // before it adds them (in the same order), so LOADS L2 round trips overlap.  Ends with
 // the block synchronised.
 template <int LOADS>
 __device__ __forceinline__ void image_excite(const OnchipScratch& s, const float* img_partial,
-                                             int slabs, int64_t hw, int c, int cr,
-                                             int parts, int t) {
+                                             const float* __restrict__ img_gate, int slabs,
+                                             int64_t hw, int c, int m, int cr, int parts,
+                                             int t) {
+  // the thread's first gate value is loaded with the partial sums, not after the
+  // sigmoid: one round trip to memory on the serial path instead of two
+  const float own_gate = img_gate && t < c ? img_gate[t] : 1.f;
   const int slab_parts = min(parts, slabs);
   for (int i = t; i < c * slab_parts; i += kThreads) {
     const int ch = i % c, part = i / c;
@@ -464,7 +497,7 @@ __device__ __forceinline__ void image_excite(const OnchipScratch& s, const float
   const int warp = t / 32, wl = t % 32;
   for (int j = warp; j < cr; j += kThreads / 32) {
     float h = 0.f;
-    for (int ch = wl; ch < c; ch += 32) h += s.pooled[ch] * s.w1s[j * c + ch];
+    for (int ch = wl; ch < c + m; ch += 32) h += s.pooled[ch] * s.w1s[j * (c + m) + ch];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) h += __shfl_down_sync(0xffffffffu, h, off);
     if (wl == 0) s.hidden[j] = fmaxf(h + s.b1s[j], 0.f);
@@ -473,7 +506,8 @@ __device__ __forceinline__ void image_excite(const OnchipScratch& s, const float
   for (int ch = t; ch < c; ch += kThreads) {
     float a = 0.f;
     for (int j = 0; j < cr; ++j) a += s.hidden[j] * s.w2s[j * c + ch];
-    s.att[ch] = 1.f / (1.f + expf(-(a + s.b2s[ch])));
+    a = 1.f / (1.f + expf(-(a + s.b2s[ch])));
+    s.att[ch] = img_gate ? a * (ch == t ? own_gate : img_gate[ch]) : a;
   }
   __syncthreads();
 }
@@ -492,13 +526,15 @@ __device__ __forceinline__ void load_pixels(unsigned char* dst, const T* src, in
 // Block (s, n) owns pixels [s*slab_len, min(hw, (s+1)*slab_len)) of image n; its
 // threads form `rows` rows of C/VEC lanes (VEC channels each) that stride over the
 // slab's pixels, so each thread keeps one lane's pool and attention in registers.
-// The plan guarantees C/VEC <= kThreads and a non-empty slab for every block.
+// meta (N, M) and gate (N, C) are optional (null, M = 0).  The plan guarantees
+// C/VEC <= kThreads and a non-empty slab for every block.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
     ca_onchip(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ b2, float* __restrict__ partial, int64_t hw, int c,
-              int cr, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
+              const float* __restrict__ b2, const float* __restrict__ meta,
+              const float* __restrict__ gate, float* __restrict__ partial, int64_t hw, int c,
+              int m, int cr, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
               int64_t w2_sc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int slabs = gridDim.x;
@@ -514,10 +550,10 @@ __global__ void __launch_bounds__(kThreads)
 
   Pack<T, VEC>* slab = reinterpret_cast<Pack<T, VEC>*>(smem);
   const OnchipScratch s(
-      reinterpret_cast<float*>(smem + onchip_float_offset(slab_len, c, sizeof(T))), c, cr,
-      rows, parts);
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(smem + onchip_barrier_offset(slab_len, c, cr, sizeof(T)));
+      reinterpret_cast<float*>(smem + onchip_float_offset(slab_len, c, sizeof(T))), c, m,
+      cr, rows, parts);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + onchip_barrier_offset(slab_len, c, m, cr, sizeof(T)));
 
   // a. bulk copies of the slab, one mbarrier per chunk
   if (t == 0) {
@@ -532,7 +568,8 @@ __global__ void __launch_bounds__(kThreads)
       load_pixels(smem + a * c * sizeof(T), x + (n * hw + p0) * c, c, a, b, &bars[k]);
     }
   }
-  stage_excite_weights(s, w1, b1, w2, b2, c, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
+  stage_excite_weights(s, w1, b1, w2, b2, meta + n * m, c, m, cr, w1_sc, w1_sj, w2_sj, w2_sc,
+                       t);
 
   float acc[VEC];
 #pragma unroll
@@ -555,8 +592,9 @@ __global__ void __launch_bounds__(kThreads)
                          row, lane, t);
   cooperative_groups::this_grid().sync();
 
-  // c. image n's pool from the S partials, then the excite
-  image_excite<1>(s, partial + n * slabs * c, slabs, hw, c, cr, parts, t);
+  // c. image n's pool from the S partials, then the excite (and the gate)
+  image_excite<1>(s, partial + n * slabs * c, gate ? gate + n * c : nullptr, slabs, hw, c, m,
+                  cr, parts, t);
 
   // d. out = x * T(att) from shared memory, 16-byte stores
   if (row < rows) {
@@ -628,8 +666,8 @@ __global__ void __launch_bounds__(kThreads)
   const Pack<TX, VEC>* xs = reinterpret_cast<const Pack<TX, VEC>*>(smem);
   unsigned char* r_smem = smem + res_r_offset(slab_len, c, sizeof(TX));
   const Pack<TR, VEC>* rs = reinterpret_cast<const Pack<TR, VEC>*>(r_smem);
-  const OnchipScratch s(reinterpret_cast<float*>(r_smem + slab_len * c * sizeof(TR)), c, cr,
-                        rows, parts);
+  const OnchipScratch s(reinterpret_cast<float*>(r_smem + slab_len * c * sizeof(TR)), c, 0,
+                        cr, rows, parts);
   uint64_t* xbars = reinterpret_cast<uint64_t*>(
       smem + res_barrier_offset(slab_len, c, cr, sizeof(TX), sizeof(TR)));
   uint64_t* rbars = xbars + kResChunks;
@@ -647,7 +685,7 @@ __global__ void __launch_bounds__(kThreads)
                   b, &xbars[j]);
     }
   }
-  stage_excite_weights(s, w1, b1, w2, b2, c, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
+  stage_excite_weights(s, w1, b1, w2, b2, nullptr, c, 0, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
 
   for (int k = 0; k < rounds; ++k) {
     const int64_t n = (int64_t)k * images + blockIdx.y;
@@ -693,7 +731,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     res_stamp(2 + 4 * k);
     if (!mine) continue;
-    image_excite<kResLoads>(s, partial + n * slabs * c, slabs, hw, c, cr, parts, t);
+    image_excite<kResLoads>(s, partial + n * slabs * c, nullptr, slabs, hw, c, 0, cr, parts,
+                            t);
     res_stamp(3 + 4 * k);
 
     // c. out = TR(x * att + r) chunk by chunk from shared memory; each chunk's bytes of
@@ -730,12 +769,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Passes 1 and 2: att (N, C) float32 from x.
+// Passes 1 and 2: att (N, C) float32 from x (and meta (N, M), gate (N, C) where not
+// null).
 template <typename T, int VEC>
 cudaError_t launch_pool_excite(const T* xt, const float* w1, const float* b1,
-                               const float* w2, const float* b2, float* partial,
-                               float* att, int64_t n, int64_t hw, int c, int cr,
-                               const int64_t* w_strides, int slabs, cudaStream_t stream) {
+                               const float* w2, const float* b2, const float* meta,
+                               const float* gate, float* partial, float* att, int64_t n,
+                               int64_t hw, int c, int m, int cr, const int64_t* w_strides,
+                               int slabs, cudaStream_t stream) {
   const int lanes = c / VEC;
   const int chunk_lanes = lanes < kThreads ? lanes : kThreads;
   const int rows = kThreads / chunk_lanes;
@@ -748,9 +789,9 @@ cudaError_t launch_pool_excite(const T* xt, const float* w1, const float* b1,
   if (err != cudaSuccess) return err;
 
   const int parts = c < kThreads ? (slabs < kThreads / c ? slabs : kThreads / c) : 1;
-  ca_excite<<<(unsigned)n, kThreads, sizeof(float) * (c + cr + c * parts), stream>>>(
-      partial, w1, b1, w2, b2, att, slabs, c, cr, (float)hw, w_strides[0], w_strides[1],
-      w_strides[2], w_strides[3], parts);
+  ca_excite<<<(unsigned)n, kThreads, sizeof(float) * (c + m + cr + c * parts), stream>>>(
+      partial, w1, b1, w2, b2, meta, gate, att, slabs, c, m, cr, (float)hw, w_strides[0],
+      w_strides[1], w_strides[2], w_strides[3], parts);
   return cudaGetLastError();
 }
 
@@ -768,8 +809,8 @@ cudaError_t launch_res(const void* x, const void* r, void* out, const float* w1,
                        const int64_t* w_strides, int slabs, int sm_count,
                        cudaStream_t stream) {
   const TX* xt = static_cast<const TX*>(x);
-  cudaError_t err = launch_pool_excite<TX, VEC>(xt, w1, b1, w2, b2, partial, att, n, hw, c,
-                                                cr, w_strides, slabs, stream);
+  cudaError_t err = launch_pool_excite<TX, VEC>(xt, w1, b1, w2, b2, nullptr, nullptr, partial,
+                                                att, n, hw, c, 0, cr, w_strides, slabs, stream);
   if (err != cudaSuccess) return err;
   const int64_t total_vecs = n * hw * (c / VEC);
   ca_res_scale<TX, TR, VEC><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
@@ -793,12 +834,12 @@ cudaError_t dispatch_res(int r_dtype, const void* x, const void* r, void* out,
 
 template <typename T, int VEC>
 cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
-                   const float* w2, const float* b2, float* partial, float* att,
-                   int64_t n, int64_t hw, int c, int cr, const int64_t* w_strides,
-                   int slabs, int sm_count, cudaStream_t stream) {
+                   const float* w2, const float* b2, const float* meta, const float* gate,
+                   float* partial, float* att, int64_t n, int64_t hw, int c, int m, int cr,
+                   const int64_t* w_strides, int slabs, int sm_count, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
-  cudaError_t err = launch_pool_excite<T, VEC>(xt, w1, b1, w2, b2, partial, att, n, hw, c,
-                                               cr, w_strides, slabs, stream);
+  cudaError_t err = launch_pool_excite<T, VEC>(xt, w1, b1, w2, b2, meta, gate, partial, att, n,
+                                               hw, c, m, cr, w_strides, slabs, stream);
   if (err != cudaSuccess) return err;
   const int64_t total_vecs = n * hw * (c / VEC);
   ca_scale<T, VEC><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
@@ -836,20 +877,22 @@ cudaError_t launch_cooperative(void (*kernel)(Params...), int64_t* allowed, dim3
 }
 
 // One cooperative launch of ca_onchip over grid (slabs, n).  smem_bytes is the
-// caller's plan; it must equal this file's layout, or nothing launches.
+// caller's plan; it must equal this file's layout (which counts M), and meta must be
+// given exactly when M > 0, or nothing launches.
 template <typename T, int VEC>
 cudaError_t launch_onchip(const void* x, void* out, const float* w1, const float* b1,
-                          const float* w2, const float* b2, float* partial, int64_t n,
-                          int64_t hw, int c, int cr, const int64_t* w_strides, int slabs,
-                          int64_t slab_len, int64_t smem_bytes, cudaStream_t stream) {
-  if (c % VEC != 0 || c / VEC > kThreads ||
-      smem_bytes != onchip_smem_bytes(slab_len, c, cr, sizeof(T)))
+                          const float* w2, const float* b2, const float* meta,
+                          const float* gate, float* partial, int64_t n, int64_t hw, int c,
+                          int m, int cr, const int64_t* w_strides, int slabs, int64_t slab_len,
+                          int64_t smem_bytes, cudaStream_t stream) {
+  if (c % VEC != 0 || c / VEC > kThreads || m < 0 || (m > 0) != (meta != nullptr) ||
+      smem_bytes != onchip_smem_bytes(slab_len, c, m, cr, sizeof(T)))
     return cudaErrorInvalidValue;
   static int64_t allowed[64] = {};
   return launch_cooperative(ca_onchip<T, VEC>, allowed, dim3((unsigned)slabs, (unsigned)n),
                             smem_bytes, stream, static_cast<const T*>(x), static_cast<T*>(out),
-                            w1, b1, w2, b2, partial, hw, c, cr, slab_len, w_strides[0],
-                            w_strides[1], w_strides[2], w_strides[3]);
+                            w1, b1, w2, b2, meta, gate, partial, hw, c, m, cr, slab_len,
+                            w_strides[0], w_strides[1], w_strides[2], w_strides[3]);
 }
 
 // One cooperative launch of ca_res_onchip over grid (slabs, images) for `rounds`
@@ -882,28 +925,32 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16.  vectorized: 1 for 16-byte vectors (the caller checks
 // that C * itemsize % 16 == 0 and that x is 16-byte aligned), 0 for one element per
-// thread.  w1 (C, Cr) and w2 (Cr, C) are strided (element strides w1 row, w1 col,
-// w2 row, w2 col); b1 and b2 are contiguous.  partial holds N * slabs * C floats, att
-// N * C floats.  Returns the CUDA error code of the first failed launch, 0 when all
-// three launched.
+// thread.  w1 (C + M, Cr) and w2 (Cr, C) are strided (element strides w1 row, w1 col,
+// w2 row, w2 col); b1 and b2 are contiguous.  meta (N, M) and gate (N, C) are
+// contiguous float32, or null (meta null with M = 0).  partial holds N * slabs * C
+// floats, att N * C floats.  Returns the CUDA error code of the first failed launch,
+// 0 when all three launched.
 int sisr_ca_forward(const void* x, void* out, const float* w1, const float* b1,
-                    const float* w2, const float* b2, float* partial, float* att,
-                    long long n, long long hw, int c, int cr, long long w1_s0,
-                    long long w1_s1, long long w2_s0, long long w2_s1, int dtype,
-                    int vectorized, int slabs, int sm_count, void* stream) {
+                    const float* w2, const float* b2, const float* meta, const float* gate,
+                    float* partial, float* att, long long n, long long hw, int c, int m,
+                    int cr, long long w1_s0, long long w1_s1, long long w2_s0,
+                    long long w2_s1, int dtype, int vectorized, int slabs, int sm_count,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
+  if (m < 0 || (m > 0) != (meta != nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    return vectorized ? launch<float, 4>(x, out, w1, b1, w2, b2, partial, att, n, hw, c, cr,
-                                         ws, slabs, sm_count, s)
-                      : launch<float, 1>(x, out, w1, b1, w2, b2, partial, att, n, hw, c, cr,
-                                         ws, slabs, sm_count, s);
+    return vectorized ? launch<float, 4>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
+                                         hw, c, m, cr, ws, slabs, sm_count, s)
+                      : launch<float, 1>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
+                                         hw, c, m, cr, ws, slabs, sm_count, s);
   }
   if (dtype == 1) {
-    return vectorized ? launch<__nv_bfloat16, 8>(x, out, w1, b1, w2, b2, partial, att, n, hw,
-                                                 c, cr, ws, slabs, sm_count, s)
-                      : launch<__nv_bfloat16, 1>(x, out, w1, b1, w2, b2, partial, att, n, hw,
-                                                 c, cr, ws, slabs, sm_count, s);
+    return vectorized
+               ? launch<__nv_bfloat16, 8>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
+                                          hw, c, m, cr, ws, slabs, sm_count, s)
+               : launch<__nv_bfloat16, 1>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
+                                          hw, c, m, cr, ws, slabs, sm_count, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -912,22 +959,23 @@ int sisr_ca_forward(const void* x, void* out, const float* w1, const float* b1,
 // slab_len pixels (the last one the rest), with smem_bytes of dynamic shared memory.
 // The caller checks that C * itemsize % 16 == 0, that x is 16-byte aligned, that
 // every block has pixels and that all n * slabs blocks fit on the card at once.
-// dtype, the weights and their strides are those of sisr_ca_forward; partial holds
-// N * slabs * C floats.  Returns the CUDA error code of the launch, 0 when it
-// launched.
+// dtype, the weights, meta, gate and their strides are those of sisr_ca_forward;
+// partial holds N * slabs * C floats.  Returns the CUDA error code of the launch, 0
+// when it launched.
 int sisr_ca_onchip_forward(const void* x, void* out, const float* w1, const float* b1,
-                           const float* w2, const float* b2, float* partial, long long n,
-                           long long hw, int c, int cr, long long w1_s0, long long w1_s1,
+                           const float* w2, const float* b2, const float* meta,
+                           const float* gate, float* partial, long long n, long long hw,
+                           int c, int m, int cr, long long w1_s0, long long w1_s1,
                            long long w2_s0, long long w2_s1, int dtype, int slabs,
                            long long slab_len, long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
   if (dtype == 0)
-    return launch_onchip<float, 4>(x, out, w1, b1, w2, b2, partial, n, hw, c, cr, ws, slabs,
-                                   slab_len, smem_bytes, s);
+    return launch_onchip<float, 4>(x, out, w1, b1, w2, b2, meta, gate, partial, n, hw, c, m,
+                                   cr, ws, slabs, slab_len, smem_bytes, s);
   if (dtype == 1)
-    return launch_onchip<__nv_bfloat16, 8>(x, out, w1, b1, w2, b2, partial, n, hw, c, cr, ws,
-                                           slabs, slab_len, smem_bytes, s);
+    return launch_onchip<__nv_bfloat16, 8>(x, out, w1, b1, w2, b2, meta, gate, partial, n, hw,
+                                           c, m, cr, ws, slabs, slab_len, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
 

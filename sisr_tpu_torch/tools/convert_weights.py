@@ -1,11 +1,13 @@
 """Weights bridge: sisr_tpu (Flax) parameter trees <-> this package's torch state_dicts.
 
 * :func:`state_dict_from_jax` is the inverse of sisr_tpu's ``tools/convert_weights.py``
-  for the families ported so far: flax Conv kernels (kH, kW, I, O) become torch Conv2d
-  weights (O, I, kH, kW), and the Dense layers that sisr_tpu runs on pooled vectors
-  (I, O) become 1x1 convs (O, I, 1, 1).  The param tree is read as nested dicts of
-  array-likes (pass numpy arrays); every leaf must be consumed and every key the
-  model needs must be present, else it raises.
+  for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan): flax Conv
+  kernels (kH, kW, I, O) become torch Conv2d weights (O, I, kH, kW), and the Dense
+  layers that sisr_tpu runs on pooled or metadata vectors (I, O) become 1x1 convs
+  (O, I, 1, 1).  Each family's layout lists every layer once, for both directions.
+  The param tree is read as nested dicts of array-likes (pass numpy arrays); every
+  leaf must be consumed and every key the model needs must be present, else it
+  raises.
 * :func:`params_from_state_dict` reads a port model's state_dict back in sisr_tpu's
   tree naming and HWIO layout: the form the int8 recipes of ``ops/quantization.py``
   take.
@@ -42,6 +44,20 @@ class _TrackingTree:
         return sorted('/'.join(p) for p in self.leaves if p not in self.accessed)
 
 
+def _count(present):
+    """How many of present(0), present(1), ... hold, from 0 up."""
+    n = 0
+    while present(n):
+        n += 1
+    return n
+
+
+def _upsampler_tail(n_stages):
+    for i in range(n_stages):
+        yield ('upsampler', 'conv_%d' % i), 'tail.0.%d' % (2 * i), 'conv'
+    yield ('tail',), 'tail.1', 'conv'
+
+
 def _rcan_layout(n_groups, n_blocks, n_stages):
     """(sisr_tpu path, torch key, kind) of every RCAN layer; kind is 'conv' (flax Conv)
     or 'dense' (a flax Dense on the pooled vector, a 1x1 conv in torch)."""
@@ -55,61 +71,119 @@ def _rcan_layout(n_groups, n_blocks, n_stages):
             yield src + ('ca', 'du_1'), dst + '.3.conv_du.2', 'dense'
         yield ('group_%d' % g, 'conv_tail'), 'body.%d.body.%d' % (g, n_blocks), 'conv'
     yield ('body_tail',), 'body.%d' % n_groups, 'conv'
-    for i in range(n_stages):
-        yield ('upsampler', 'conv_%d' % i), 'tail.0.%d' % (2 * i), 'conv'
-    yield ('tail',), 'tail.1', 'conv'
+    yield from _upsampler_tail(n_stages)
 
 
-def _rcan(tree):
-    # a gap in the numbering surfaces as a missing or an unconsumed leaf
-    n_groups = len({p[0] for p in tree.leaves if p[0].startswith('group_')})
-    n_blocks = len({p[1] for p in tree.leaves
-                    if p[0] == 'group_0' and p[1].startswith('rcab_')})
-    n_stages = len({p[1] for p in tree.leaves if p[0] == 'upsampler'})
+def _edsr_layout(n_blocks, n_stages):
+    """(path, key, kind) of every EDSR layer (sisr_tpu's ``convert_edsr`` naming)."""
+    yield ('head',), 'head.0', 'conv'
+    for i in range(n_blocks):
+        yield ('block_%d' % i, 'conv_0'), 'body.%d.body.0' % i, 'conv'
+        yield ('block_%d' % i, 'conv_1'), 'body.%d.body.2' % i, 'conv'
+    yield ('body_tail',), 'body.%d' % n_blocks, 'conv'
+    yield from _upsampler_tail(n_stages)
+
+
+# the parts a QRCAB may have, and a torch key that only that part has
+_QRCAB_PARTS = {'pa_node': '.pa_node.pa.0.weight',
+                'q_node': '.q_node.attribute_integrator.0.weight',
+                'pre_concat': '.final_body.pre_concat.weight',  # style mini_concat
+                'feature_0': '.final_body.feature_convs.0.0.weight'}  # extended_attention
+
+
+def _qrcan_layout(n_groups, n_blocks, n_stages, has):
+    """(path, key, kind) of every QRCAN layer (sisr_tpu's ``convert_qrcan`` naming);
+    ``has(g, b, part)`` says whether block b of group g has a part of
+    ``_QRCAB_PARTS``, which also tells the QCALayer's style."""
+    yield ('head',), 'head.0', 'conv'
+    for g in range(n_groups):
+        for b in range(n_blocks):
+            src, dst = ('group_%d' % g, 'qrcab_%d' % b), 'body.%d.body.%d' % (g, b)
+            yield src + ('conv_0',), dst + '.body.0', 'conv'
+            yield src + ('conv_1',), dst + '.body.2', 'conv'
+            qca, ca = src + ('qca',), dst + '.final_body'
+            if has(g, b, 'pre_concat'):
+                yield qca + ('pre_concat',), ca + '.pre_concat', 'dense'
+                yield qca + ('du_1',), ca + '.conv_du.1', 'dense'
+            elif has(g, b, 'feature_0'):
+                for i in range(3):
+                    yield qca + ('feature_%d' % i,), ca + '.feature_convs.%d.0' % i, 'dense'
+                yield qca + ('final',), ca + '.final_conv.0', 'dense'
+            else:  # modulate, standard, max_concat, softmax
+                yield qca + ('du_0',), ca + '.conv_du.0', 'dense'
+                yield qca + ('du_1',), ca + '.conv_du.2', 'dense'
+            if has(g, b, 'pa_node'):
+                yield src + ('pa_node', 'pa_0'), dst + '.pa_node.pa.0', 'conv'
+                yield src + ('pa_node', 'pa_1'), dst + '.pa_node.pa.2', 'conv'
+            if has(g, b, 'q_node'):  # ParaCALayer, two layers with a ReLU between
+                for i in range(2):
+                    yield (src + ('q_node', 'fc_%d' % i),
+                           dst + '.q_node.attribute_integrator.%d' % (2 * i), 'dense')
+        yield ('group_%d' % g, 'final_body'), 'body.%d.final_body' % g, 'conv'
+    yield ('final_body',), 'final_body', 'conv'
+    yield from _upsampler_tail(n_stages)
+
+
+def _tree_layout(model_name, tree):
+    """The layout of the model whose sisr_tpu params ``tree`` holds; a gap in the
+    numbering surfaces as a missing or an unconsumed leaf."""
+    def count(prefix, *parent):
+        return len({p[len(parent)] for p in tree.leaves if p[:len(parent)] == parent
+                    and p[len(parent)].startswith(prefix)})
+    n_stages = count('conv_', 'upsampler')
+    if model_name == 'rcan':
+        return _rcan_layout(count('group_'), count('rcab_', 'group_0'), n_stages)
+    if model_name == 'edsr':
+        return _edsr_layout(count('block_'), n_stages)
+
+    def has(g, b, part):
+        block = ('group_%d' % g, 'qrcab_%d' % b)
+        prefix = block + (('qca', part) if part in ('pre_concat', 'feature_0') else (part,))
+        return any(p[:len(prefix)] == prefix for p in tree.leaves)
+    return _qrcan_layout(count('group_'), count('qrcab_', 'group_0'), n_stages, has)
+
+
+def _state_dict_layout(model_name, state_dict):
+    """The layout of the port model whose ``state_dict`` this is."""
+    n_stages = _count(lambda i: 'tail.0.%d.weight' % (2 * i) in state_dict)
+    if model_name == 'rcan':
+        return _rcan_layout(_count(lambda g: 'body.%d.body.0.body.0.weight' % g in state_dict),
+                            _count(lambda b: 'body.0.body.%d.body.0.weight' % b in state_dict),
+                            n_stages)
+    if model_name == 'edsr':
+        return _edsr_layout(_count(lambda b: 'body.%d.body.0.weight' % b in state_dict),
+                            n_stages)
+
+    def has(g, b, part):
+        return 'body.%d.body.%d%s' % (g, b, _QRCAB_PARTS[part]) in state_dict
+    return _qrcan_layout(_count(lambda g: 'body.%d.final_body.weight' % g in state_dict),
+                         _count(lambda b: 'body.0.body.%d.body.0.weight' % b in state_dict),
+                         n_stages, has)
+
+
+LAYOUT_MODELS = ('edsr', 'qpircan', 'qrcan', 'rcan')
+
+
+def _canonical(model_name):
+    return 'qrcan' if model_name == 'qpircan' else model_name
+
+
+def state_dict_from_jax(model_name, params):
+    """sisr_tpu params of ``model_name`` -> a torch state_dict for this package's
+    model of the same structure (float32 CPU tensors, reference key names).  For
+    ``qrcan`` the QCALayer style, q_node and pa_node of each block are read off the
+    tree."""
+    if model_name not in LAYOUT_MODELS:
+        raise NotImplementedError('No sisr_tpu -> torch converter for %r yet (available: %s)'
+                                  % (model_name, list(LAYOUT_MODELS)))
+    tree = _TrackingTree(params)
     sd = {}
-    for path, key, kind in _rcan_layout(n_groups, n_blocks, n_stages):
+    for path, key, kind in _tree_layout(_canonical(model_name), tree):
         w = tree(*path, 'kernel')
         # flax Conv (kH, kW, I, O) -> (O, I, kH, kW); Dense (I, O) -> (O, I, 1, 1)
         sd[key + '.weight'] = (w.transpose(3, 2, 0, 1) if kind == 'conv'
                                else w.T.reshape(w.shape[1], w.shape[0], 1, 1))
         sd[key + '.bias'] = tree(*path, 'bias')
-    return sd
-
-
-def _rcan_params(state_dict):
-    """The inverse of :func:`_rcan` on torch tensors (views, no copies)."""
-    def count(key_of):
-        n = 0
-        while key_of(n) in state_dict:
-            n += 1
-        return n
-    n_groups = count(lambda g: 'body.%d.body.0.body.0.weight' % g)
-    n_blocks = count(lambda b: 'body.0.body.%d.body.0.weight' % b)
-    n_stages = count(lambda i: 'tail.0.%d.weight' % (2 * i))
-    params, used = {}, set()
-    for path, key, kind in _rcan_layout(n_groups, n_blocks, n_stages):
-        w = state_dict[key + '.weight']
-        node = params
-        for name in path[:-1]:
-            node = node.setdefault(name, {})
-        node[path[-1]] = {'kernel': w.permute(2, 3, 1, 0) if kind == 'conv'
-                          else w.reshape(w.shape[0], w.shape[1]).t(),
-                          'bias': state_dict[key + '.bias']}
-        used.update((key + '.weight', key + '.bias'))
-    return params, used
-
-
-CONVERTERS = {'rcan': _rcan}
-
-
-def state_dict_from_jax(model_name, params):
-    """sisr_tpu params of ``model_name`` -> a torch state_dict for this package's
-    model of the same structure (float32 CPU tensors, reference key names)."""
-    if model_name not in CONVERTERS:
-        raise NotImplementedError('No sisr_tpu -> torch converter for %r yet (available: %s)'
-                                  % (model_name, sorted(CONVERTERS)))
-    tree = _TrackingTree(params)
-    sd = CONVERTERS[model_name](tree)
     leftovers = tree.unconsumed()
     if leftovers:
         raise RuntimeError('sisr_tpu params for %r left %d leaf(s) unconsumed (e.g. %s): '
@@ -123,18 +197,24 @@ def params_from_state_dict(model_name, state_dict):
     """A port model's ``state_dict`` (torch layout) as sisr_tpu's parameter tree:
     nested dicts of tensors, conv kernels HWIO and Dense kernels (I, O), as views of
     the state_dict's tensors (on their device)."""
-    if model_name not in PARAM_READERS:
+    if model_name not in LAYOUT_MODELS:
         raise NotImplementedError('No torch -> sisr_tpu tree reader for %r yet '
-                                  '(available: %s)' % (model_name, sorted(PARAM_READERS)))
-    params, used = PARAM_READERS[model_name](state_dict)
+                                  '(available: %s)' % (model_name, list(LAYOUT_MODELS)))
+    params, used = {}, set()
+    for path, key, kind in _state_dict_layout(_canonical(model_name), state_dict):
+        w = state_dict[key + '.weight']
+        node = params
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = {'kernel': w.permute(2, 3, 1, 0) if kind == 'conv'
+                          else w.reshape(w.shape[0], w.shape[1]).t(),
+                          'bias': state_dict[key + '.bias']}
+        used.update((key + '.weight', key + '.bias'))
     leftovers = sorted(set(state_dict) - used)
     if leftovers:
         raise RuntimeError('state_dict for %r left %d key(s) unread (e.g. %s)'
                            % (model_name, len(leftovers), leftovers[:4]))
     return params
-
-
-PARAM_READERS = {'rcan': _rcan_params}
 
 
 def int8_state_from_jax(qparams, act_scales, device='cpu'):

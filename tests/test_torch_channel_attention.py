@@ -1,20 +1,23 @@
 """sisr_tpu_torch's channel attention, and its CA + residual block tail, against
-sisr_tpu's Pallas kernels (interpret mode) and plain references, on the CPU; the
-launch plan, alignment rule, argument checks, build command and CALayer wiring in
-Python.  The CUDA kernels themselves are tested on the card by
-tests/test_torch_cuda.py."""
+sisr_tpu's Pallas kernels (interpret mode) and plain references, on the CPU; the CA
+with ``meta`` and ``gate`` against sisr_tpu's flax meta-attention layers (QCALayer in
+every style, ParaCALayer, PALayer); the launch plan, alignment rule, argument checks,
+build command and CALayer wiring in Python.  The CUDA kernels themselves are tested
+on the card by tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import jax
 import jax.numpy as jnp
 
+from sisr_tpu.models import q_layers as jax_q_layers
 from sisr_tpu.ops.pallas import channel_attention as pallas_ca
 from sisr_tpu.ops.pallas.channel_attention import (_fused_ca_forward, _fused_ca_res_forward,
                                                    _reference_ca, _reference_ca_res)
-from sisr_tpu_torch.models import blocks
+from sisr_tpu_torch.models import blocks, q_layers
 from sisr_tpu_torch.ops import channel_attention as ca
 from sisr_tpu_torch.ops.cuda import build
 from sisr_tpu_torch.tools import ca_res_timeline
@@ -42,6 +45,132 @@ def test_cpu_path_matches_pallas_interpret_and_reference(shape):
     ref = np.asarray(_reference_ca(*map(jnp.asarray, arrays)))
     np.testing.assert_allclose(ours, pallas, atol=1e-5, rtol=0)
     np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_without_meta_or_gate_the_op_is_unchanged(dtype):
+    """No meta, no gate: the same bits as the plain CA of earlier slices."""
+    x, w1, b1, w2, b2 = map(torch.from_numpy, _inputs((2, 8, 8, 32), seed=11))
+    x = x.to(dtype)
+    att = torch.sigmoid(torch.relu(x.float().mean(dim=(1, 2)) @ w1 + b1) @ w2 + b2)
+    before = x * att[:, None, None, :].to(dtype)
+    assert torch.equal(ca.fused_channel_attention(x, w1, b1, w2, b2), before)
+    assert torch.equal(ca.fused_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None),
+                       before)
+
+
+def test_meta_and_gate_in_the_plain_version():
+    """meta joins the pooled vector before w1's C + M rows; gate scales att after the
+    sigmoid, before the rounding to x's type."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.rand(2, 5, 4, 32).astype(np.float32)).bfloat16()
+    meta = torch.from_numpy(rng.rand(2, 10).astype(np.float32))
+    gate = torch.from_numpy(rng.rand(2, 32).astype(np.float32))
+    w1, b1, w2, b2 = (torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.1)
+                      for s in ((42, 2), (2,), (2, 32), (32,)))
+    pooled = torch.cat([x.float().mean(dim=(1, 2)), meta], dim=1)
+    att = torch.sigmoid(torch.relu(pooled @ w1 + b1) @ w2 + b2) * gate
+    out = ca.fused_channel_attention(x, w1, b1, w2, b2, meta=meta, gate=gate)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, x * att[:, None, None, :].bfloat16())
+    with torch.autocast('cpu', dtype=torch.bfloat16):  # the excite stays f32
+        assert torch.equal(ca.fused_channel_attention(x, w1, b1, w2, b2, meta=meta,
+                                                      gate=gate), out)
+
+
+def _flax_dense(layer):
+    """A port 1x1 conv's weights as a flax Dense param (kernel (I, O), bias)."""
+    w = layer.weight.detach().numpy()
+    return {'kernel': w.reshape(w.shape[0], w.shape[1]).T,
+            'bias': layer.bias.detach().numpy()}
+
+
+def _qca_params(layer, style):
+    if style == 'mini_concat':
+        return {'pre_concat': _flax_dense(layer.pre_concat),
+                'du_1': _flax_dense(layer.conv_du[1])}
+    if style == 'extended_attention':
+        out = {'feature_%d' % i: _flax_dense(f[0]) for i, f in enumerate(layer.feature_convs)}
+        return {**out, 'final': _flax_dense(layer.final_conv[0])}
+    return {'du_0': _flax_dense(layer.conv_du[0]), 'du_1': _flax_dense(layer.conv_du[2])}
+
+
+def _q_inputs(seed, c=32, m=10):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(2, 6, 5, c).astype(np.float32) - 0.3,
+            rng.rand(2, m).astype(np.float32))
+
+
+def _port_layer(cls, seed, *args, **kwargs):
+    torch.manual_seed(seed)
+    return blocks.torch_default_init_(cls(*args, **kwargs), torch.Generator().manual_seed(seed))
+
+
+def _nchw(x):
+    return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize('style', q_layers.STYLES)
+@pytest.mark.parametrize('with_q_node', [False, True])
+def test_qcalayer_matches_flax_for_every_style(style, with_q_node, monkeypatch):
+    """The port's QCALayer (the plain CA with meta/gate for the kernel styles, plain
+    ops for the others), and with a ParaCALayer's gate folded in, against sisr_tpu's
+    QCALayer (then its ParaCALayer) in f32.  'modulate' takes an (N, C) metadata
+    vector, as the handler's scale_qpi expansion gives."""
+    c, m = 32, 32 if style == 'modulate' else 10
+    x, meta = _q_inputs(13, c, m)
+    qca = _port_layer(q_layers.QCALayer, 1, c, style, 16, m)
+    calls = []
+    monkeypatch.setattr(q_layers, 'fused_channel_attention',
+                        lambda *a, **k: calls.append(k) or ca.fused_channel_attention(*a, **k))
+    theirs = jax_q_layers.QCALayer(c, style, 16, m).apply(
+        {'params': _qca_params(qca, style)}, jnp.asarray(x), jnp.asarray(meta))
+    gate = None
+    if with_q_node:
+        q_node = _port_layer(q_layers.ParaCALayer, 2, c, m, nonlinearity=True)
+        gate = q_node.gate(torch.from_numpy(meta))
+        theirs = jax_q_layers.ParaCALayer(c, m, nonlinearity=True).apply(
+            {'params': {'fc_%d' % i: _flax_dense(q_node.attribute_integrator[2 * i])
+                        for i in range(2)}}, theirs, jnp.asarray(meta))
+    with torch.no_grad():
+        ours = qca(_nchw(x), torch.from_numpy(meta), gate).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(ours, np.asarray(theirs), atol=1e-5, rtol=0)
+    assert len(calls) == (1 if style in q_layers.KERNEL_STYLES else 0)
+    if calls:
+        assert (calls[0]['meta'] is not None) == (style == 'max_concat')
+        assert (calls[0]['gate'] is not None) == (style == 'modulate' or with_q_node)
+
+
+@pytest.mark.parametrize('num_metadata', [10, 20])  # 20: the size ladder for > 15
+def test_paracalayer_and_palayer_match_flax(num_metadata):
+    c = 32
+    x, meta = _q_inputs(14, c, num_metadata)
+    para = _port_layer(q_layers.ParaCALayer, 3, c, num_metadata, nonlinearity=True)
+    pa = _port_layer(q_layers.PALayer, 4, c)
+    para_params = {'fc_%d' % i: _flax_dense(para.attribute_integrator[2 * i])
+                   for i in range(2)}
+    pa_params = {'pa_%d' % i: {'kernel': pa.pa[2 * i].weight.detach().numpy()
+                               .transpose(2, 3, 1, 0),
+                               'bias': pa.pa[2 * i].bias.detach().numpy()} for i in range(2)}
+    flax_para = jax_q_layers.ParaCALayer(c, num_metadata, nonlinearity=True)
+    theirs_para = flax_para.apply({'params': para_params}, jnp.asarray(x), jnp.asarray(meta))
+    theirs_pa = jax_q_layers.PALayer(c).apply({'params': pa_params}, jnp.asarray(x))
+    assert [l.out_channels for l in para.attribute_integrator if hasattr(l, 'out_channels')] \
+        == [p['kernel'].shape[1] for p in para_params.values()]
+    with torch.no_grad():
+        ours_para = para(_nchw(x), torch.from_numpy(meta)).permute(0, 2, 3, 1).numpy()
+        ours_pa = pa(_nchw(x)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(ours_para, np.asarray(theirs_para), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(ours_pa, np.asarray(theirs_pa), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('reduction,channel,error', [(8, 64, RuntimeError),
+                                                     (32, 16, ValueError)])
+def test_qcalayer_guards(reduction, channel, error):
+    """reduction < 16 is refused (the reference's guard, kept verbatim); so is a
+    channel count below the reduction."""
+    with pytest.raises(error):
+        q_layers.QCALayer(channel, 'max_concat', reduction, 10)
 
 
 @pytest.mark.parametrize('n,hw,c,itemsize,aligned,expect', [
@@ -72,6 +201,18 @@ H100 = {'sm_count': 132, 'smem_optin': 232448}  # SMs, opt-in shared memory per 
 ])
 def test_onchip_plan(n, hw, c, cr, itemsize, aligned, expect):
     assert ca.onchip_plan(n, hw, c, cr, itemsize, aligned, **H100) == expect
+
+
+@pytest.mark.parametrize('m,expect', [
+    (0, (16, 1024, 143168)),
+    (10, (16, 1024, 143376)),  # Q-RCAN's blur kernel: 10 more rows of w1 and meta
+    (20, (16, 1024, 143568)),  # 20 values: 100 more floats, 400 bytes
+])
+def test_onchip_plan_counts_meta(m, expect):
+    """The main shape in bf16 with M meta values: M * Cr more floats of w1 and M of
+    meta in the scratch, the same layout ca_onchip's OnchipScratch lays out."""
+    assert ca.onchip_plan(8, 128 * 128, 64, 4, 2, True, m=m, **H100) == expect
+    assert ca.onchip_smem_bytes(1024, 64, 4, 2, m) == expect[2]
 
 
 def _slab_cover(hw, blocks, slab):
@@ -191,6 +332,33 @@ def test_kernel_argument_checks(mutate, error):
     args = dict(zip(('x', 'w1', 'b1', 'w2', 'b2'), map(torch.from_numpy, arrays)))
     with pytest.raises(error):
         ca._check_args(**mutate(args))
+
+
+def _meta_args():
+    x, w1, b1, w2, b2 = map(torch.from_numpy, _inputs((2, 4, 4, 32), seed=1))
+    w1 = torch.cat([w1, torch.rand(10, w1.shape[1])])  # C + M rows
+    return {'x': x, 'w1': w1, 'b1': b1, 'w2': w2, 'b2': b2, 'meta': torch.rand(2, 10),
+            'gate': torch.rand(2, 32)}
+
+
+@pytest.mark.parametrize('mutate,error', [
+    (lambda a: a, None),
+    (lambda a: {**a, 'meta': None}, ValueError),              # w1 has C + M rows
+    (lambda a: {**a, 'meta': a['meta'][:1]}, ValueError),     # one row for two images
+    (lambda a: {**a, 'meta': a['meta'][:, :4]}, ValueError),  # M disagrees with w1
+    (lambda a: {**a, 'meta': a['meta'].reshape(2, 10, 1)}, ValueError),
+    (lambda a: {**a, 'gate': a['gate'][:, :31]}, ValueError),
+    (lambda a: {**a, 'gate': a['gate'].long()}, TypeError),
+    (lambda a: {**a, 'gate': torch.empty(2, 32, device='meta')}, ValueError),
+    (lambda a: {**a, 'meta': a['meta'].requires_grad_()}, NotImplementedError),
+])
+def test_meta_and_gate_argument_checks(mutate, error):
+    args = mutate(_meta_args())
+    if error is None:
+        ca._check_args(**args)
+        return
+    with pytest.raises(error):
+        ca._check_args(**args)
 
 
 def test_nvcc_command_targets_sm90a(monkeypatch):

@@ -1,7 +1,7 @@
-"""sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel and the CA +
-residual block-tail kernel against their plain versions, the int8 conv's int32 sums
-against an int64 reference, and a small RCAN (f32, and int8) on the card against the
-CPU.  Every test here needs the card and skips without one.  Imports torch only (no
+"""sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel (with and
+without Q-RCAN's meta and gate) and the CA + residual block-tail kernel against their
+plain versions, the int8 conv's int32 sums against an int64 reference, and a small
+RCAN (f32, and int8), Q-RCAN and EDSR on the card against the CPU.  Every test here needs the card and skips without one.  Imports torch only (no
 JAX), so the card's machine runs it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -62,6 +62,84 @@ def test_kernel_matches_plain_version(shape, red, dtype, path, transposed_weight
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     else:  # 2 bf16 ULPs: the summation order can flip how att rounds to bf16
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+
+
+def _meta_gate_inputs(shape, red, dtype, m, with_gate, seed):
+    """x, w1 (C + M, Cr) and w2 as conv_du's transposed views (as QCALayer passes
+    them), b1, b2, meta (N, M) or None, gate (N, C) or None."""
+    rng = np.random.RandomState(seed)
+    n, c, cr = shape[0], shape[-1], shape[-1] // red
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dtype).cuda()
+    w1 = torch.from_numpy(rng.randn(cr, c + m).astype(np.float32) * 0.1).cuda().t()
+    w2 = torch.from_numpy(rng.randn(c, cr).astype(np.float32) * 0.1).cuda().t()
+    b1, b2 = (torch.from_numpy(rng.randn(k).astype(np.float32) * 0.1).cuda() for k in (cr, c))
+    meta = torch.from_numpy(rng.rand(n, m).astype(np.float32)).cuda() if m else None
+    gate = torch.from_numpy(rng.rand(n, c).astype(np.float32)).cuda() if with_gate else None
+    return (x, w1, b1, w2, b2), {'meta': meta, 'gate': gate}
+
+
+@pytest.mark.parametrize('shape,red,dtype,path', [
+    ((8, 128, 128, 64), 16, torch.bfloat16, 'onchip'),      # Q-RCAN's main path
+    ((8, 128, 128, 64), 16, torch.float32, 'three_pass'),
+    ((1, 512, 512, 64), 16, torch.bfloat16, 'three_pass'),
+    ((3, 37, 29, 64), 16, torch.bfloat16, 'onchip'),        # ragged last slab
+    ((1, 7, 5, 20), 4, torch.bfloat16, 'three_pass'),       # 40-byte pixels
+    ((2, 16, 8, 32), 4, torch.float32, 'onchip'),
+])
+@pytest.mark.parametrize('m,with_gate', [(10, True), (10, False), (0, True)])
+def test_kernel_with_meta_and_gate_matches_plain_version(shape, red, dtype, path, m,
+                                                         with_gate):
+    args, extra = _meta_gate_inputs(shape, red, dtype, m, with_gate, seed=6)
+    onchip = ca.fused_channel_attention.onchip_launches
+    with torch.inference_mode():
+        out = ca.fused_channel_attention(*args, **extra)
+        again = ca.fused_channel_attention(*args, **extra)
+        torch.cuda.synchronize()
+        ref = ca.reference_channel_attention(*args, **extra)
+    took = ca.fused_channel_attention.onchip_launches - onchip
+    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    assert torch.equal(out, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+
+
+def test_onchip_smem_must_equal_the_cu_layout():
+    """The C entry lays out the shared memory itself and refuses a plan that
+    disagrees: one sized without the 10 meta values, or 16 bytes off."""
+    args, extra = _meta_gate_inputs((8, 128, 128, 64), 16, torch.bfloat16, 10, True, seed=7)
+    props = torch.cuda.get_device_properties(0)
+    n, h, w, c = args[0].shape
+    plan_of = lambda m: ca.onchip_plan(n, h * w, c, 4, 2, True, props.multi_processor_count,
+                                       props.shared_memory_per_block_optin, m=m)
+    plan = plan_of(10)
+    with torch.inference_mode():
+        out = ca._onchip(*args, plan, **extra)
+        torch.testing.assert_close(out.float(), ca.reference_channel_attention(
+            *args, **extra).float(), atol=1e-6, rtol=1.6e-2)
+        for bad in (plan_of(0), plan[:2] + (plan[2] + 16,)):
+            with pytest.raises(RuntimeError, match='CUDA error'):
+                ca._onchip(*args, bad, **extra)
+
+
+def test_qrcan_and_edsr_on_card_match_cpu():
+    """Small Q-RCAN (max_concat with q_node: one CA launch per block) and EDSR in f32,
+    card against CPU, on the same seeded weights."""
+    x = torch.from_numpy(np.random.RandomState(8).rand(2, 16, 16, 3).astype(np.float32))
+    meta = torch.from_numpy(np.random.RandomState(9).rand(2, 10).astype(np.float32))
+    qrcan = dict(scale=4, n_resgroups=2, n_resblocks=2, n_feats=32, reduction=16, seed=1,
+                 style='max_concat', include_q_layer=True, metadata=['blur_kernel'])
+    edsr = dict(scale=4, num_features=32, num_blocks=3, seed=1)
+    for name, kw, args in (('qrcan', qrcan, (meta,)), ('edsr', edsr, ())):
+        card, host = define_model(name, device='cuda', **kw), define_model(name, device='cpu',
+                                                                           **kw)
+        launches = ca.fused_channel_attention.launches
+        with torch.inference_mode():
+            out = card.forward(x.cuda(), *(a.cuda() for a in args)).cpu()
+            ref = host.forward(x, *args)
+        assert ca.fused_channel_attention.launches == launches + (4 if name == 'qrcan' else 0)
+        torch.testing.assert_close(out, ref, atol=5e-4, rtol=0)
 
 
 def test_rcan_on_card_matches_cpu():

@@ -159,7 +159,7 @@ def test_cli_fused_eval_matches_sisr_tpu(tmp_path, jax_rcan):
     {'fused_eval': False}, {'save_im': True}, {'no_image_comparison': False},
     {'decoded_cache_dir': 'd'}, {'mesh': True}, {'eval_buckets': 128},
     {'lr_dir_interp': 'x'},
-    {'metadata_file': 'x.csv'}, {'metrics': ['PSNR', 'FACE_SIM']},
+    {'data_attributes': 'list_attr_celeba.txt'}, {'metrics': ['PSNR', 'FACE_SIM']},
 ])
 def test_unported_options_raise(override):
     kwargs = dict(hr_dir='hr', lr_dir='lr', model_and_epoch=[('e', '0')], results_name='r',
