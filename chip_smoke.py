@@ -35,13 +35,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
    launch with meta and gate, on chip; launches, img/s and breakdown;
 8. EDSR main path: the same for EDSR 64 features, 16 blocks, 4x, bf16 (no kernel of
    ours);
+9. kernel backward: the CA op under autograd (the kernel forward, the plain VJP) at the
+   training shape (8, 64, 64, 64) f32 with and without Q-RCAN's gate, and at a
+   three-pass shape, against plain autograd; the kernel's forward time at the
+   training shape;
+10. train reference: 10 training steps of RCAN and Q-RCAN (2 x 2 blocks, 64 features,
+   f32) on the card against the same 10 on the CPU, from the same weights and batches;
+11. train main path: ``train_sisr`` (sisr_tpu_torch.net_train) on the paper's Q-RCAN
+   recipe (configs/div2k/qrcan.toml: 10 x 20 QRCABs, 64 features, 4x, standard style
+   with a q_node in every block, blur-kernel metadata, batch 8, LR crops of 64, flips,
+   Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
+   epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
+   --fused_eval`` of the best epoch; then 20 timed warm train steps each of Q-RCAN and
+   RCAN 10 x 20 through the handler (forward / backward / optimizer, device busy, the
+   CA kernel's share, conv FLOPs against the TF32 and f32 peaks, peak memory), and the
+   same step with the CA's plain version in its place, in turns;
 
 then the ``kernels`` table, the card's name and power limit, and a last line
-``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout
-(except where phase 4 turns it on to show calibration turns it off for itself), so
-f32 comparisons are true f32.  It exits non-zero without a result when CUDA is absent
-or when the sisr_tpu_torch package is not beside it.
+``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout, so
+f32 comparisons are true f32, except where phase 4 turns it on to show calibration
+turns it off for itself, and in phase 11, which trains with PyTorch's default (cuDNN
+TF32 on, matmul TF32 off) as a user's run would.  It exits non-zero without a result
+when CUDA is absent or when the sisr_tpu_torch package is not beside it.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -53,6 +70,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_CUDA_CORE_FLOPS = 67e12  # float32 outside the tensor cores
+TF32_TENSOR_FLOPS = 495e12
 BF16_TENSOR_FLOPS = 989e12
 
 LR_SIZE, SCALE, N_IMAGES, BATCH = 128, 4, 16, 8
@@ -732,14 +750,14 @@ def read_launches():
                 ca.fused_channel_attention_residual.onchip_launches}
 
 
-def run_eval_cli(dirs, results_name, extra=(), experiment='rcan_10x20'):
+def run_eval_cli(dirs, results_name, extra=(), experiment='rcan_10x20', epoch='0'):
     """``eval_sisr --fused_eval`` through the CLI entry point; the launch counts of
     exactly this run (set to 0 just before, read just after), its seconds, and its
     per-image CSV, checked for 16 finite rows."""
     import numpy as np
     import pandas as pd
     from sisr_tpu_torch import net_eval
-    args = ['--hr_dir', dirs['hr_dir'], '--lr_dir', dirs['lr_dir'], '-me', experiment, '0',
+    args = ['--hr_dir', dirs['hr_dir'], '--lr_dir', dirs['lr_dir'], '-me', experiment, epoch,
             '--model_loc', dirs['model_loc'], '--out_loc', dirs['out_loc'],
             '--results_name', results_name, '-m', 'PSNR', '-m', 'SSIM', '--scale',
             str(SCALE), '--batch_size', str(BATCH), '--full_directory', '--fused_eval',
@@ -932,6 +950,365 @@ def count_conv_flops(handler, x, meta=None):
     return total[0]
 
 
+# --- training -------------------------------------------------------------------------------
+TRAIN_CROP = 64  # LR crop of configs/div2k/qrcan.toml
+TRAIN_SHAPE = (BATCH, TRAIN_CROP, TRAIN_CROP, 64)  # the CA's x in a train step
+# configs/div2k/qrcan.toml's [model] (the paper's recipe); RCAN's the same without meta
+QRCAN_TRAIN = {'scale': SCALE, 'lr': 1e-4, 'style': 'standard', 'include_q_layer': True,
+               'metadata': ['blur_kernel'], 'scheduler': 'cosine_annealing_warm_restarts',
+               'scheduler_params': {'t_mult': 1, 'restart_period': 125000, 'lr_min': 1e-7}}
+RCAN_TRAIN = {k: v for k, v in QRCAN_TRAIN.items()
+              if k not in ('style', 'include_q_layer', 'metadata')}
+
+
+FULL_DEPTH = {'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64}
+
+
+@contextlib.contextmanager
+def tf32(cudnn, matmul):
+    """cuDNN's and matmul's TF32 flags set for a block, restored after."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_kernel_backward():
+    """fused_channel_attention under autograd (the Function: the kernel forward, the
+    plain version's VJP in the backward) against plain autograd through
+    reference_channel_attention, in f32: at the training shape (on chip) with and
+    without a gate (Q-RCAN's q_node), and at (8, 128, 128, 64), which takes three
+    passes.  Bars: output 1e-5 abs, every grad 1e-5 abs, the same bits on a rerun,
+    the path the plan gives.  Times per forward + backward (CUDA events) of both; and
+    the kernel's forward alone at the training shape in graph replay, against its
+    plain version and its bound."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    op = ca.fused_channel_attention
+    gen = torch.Generator().manual_seed(7)
+    props = torch.cuda.get_device_properties(0)
+    results = []
+    for shape, with_gate in ((TRAIN_SHAPE, False), (TRAIN_SHAPE, True),
+                             ((BATCH, LR_SIZE, LR_SIZE, 64), False)):
+        args = ca_inputs(shape, torch.float32, 16, gen)
+        gate = torch.sigmoid(torch.randn(shape[0], shape[-1], generator=gen)).cuda() \
+            if with_gate else None
+        cot = torch.randn(shape, generator=gen).cuda()
+
+        def run(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            g = None if gate is None else gate.clone().requires_grad_()
+            out = fn(*leaves, gate=g)
+            out.backward(cot)
+            return out.detach(), [t.grad for t in leaves] + ([] if g is None else [g.grad])
+
+        before = (op.launches, op.onchip_launches)
+        out, grads = run(op)
+        again, grads_again = run(op)
+        torch.cuda.synchronize()
+        launched = op.launches - before[0]
+        path = 'onchip' if op.onchip_launches - before[1] == 2 else 'three_pass'
+        n, h, w, c = shape
+        plan = ca.onchip_plan(n, h * w, c, c // 16, 4, True, props.multi_processor_count,
+                              props.shared_memory_per_block_optin)
+        if launched != 2 or path != ('three_pass' if plan is None else 'onchip'):
+            raise AssertionError('backward case %s: %d launches on the %s path, plan %s'
+                                 % (shape, launched, path, plan))
+        ref, ref_grads = run(ca.reference_channel_attention)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        names = ['x', 'w1', 'b1', 'w2', 'b2'] + (['gate'] if with_gate else [])
+        grad_err = {}
+        for name, a, b, c2 in zip(names, grads, ref_grads, grads_again):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=lambda m: name + ': ' + m)
+            if not torch.equal(a, c2):
+                raise AssertionError('grad of %s differs on a rerun' % name)
+            grad_err[name] = (a - b).abs().max().item()
+        if not torch.equal(out, again):
+            raise AssertionError('the forward under autograd is not deterministic')
+        results.append({'shape': list(shape), 'gate': with_gate, 'path': path,
+                        'max_abs_err': (out - ref).abs().max().item(),
+                        'grad_max_abs_err': grad_err,
+                        'fwd_bwd_ms': cuda_ms(lambda: run(op), reps=10, rounds=3),
+                        'plain_fwd_bwd_ms': cuda_ms(lambda: run(ca.reference_channel_attention),
+                                                    reps=10, rounds=3)})
+    x, w1, b1, w2, b2 = ca_inputs(TRAIN_SHAPE, torch.float32, 16, gen)
+    with torch.inference_mode():
+        kern = lambda: op(x, w1, b1, w2, b2)
+        plain = lambda: ca.reference_channel_attention(x, w1, b1, w2, b2)
+        err = (kern() - plain()).abs().max().item()
+        timing = {}
+        for name, fn in (('plain_ms', plain), ('ms', kern), ('ms', kern), ('plain_ms', plain)):
+            timing[name] = graph_ms(fn)  # the second turn of each is kept
+    bytes_moved, ops, bound_ms = ca_bound(x, w1)
+    training_shape = {'shape': list(TRAIN_SHAPE), 'dtype': 'float32', 'max_abs_err': err,
+                      'bound_ms': bound_ms, 'bytes': bytes_moved, 'ops': ops, **timing}
+    emit({'phase': 'kernel_backward', 'cases': results, 'forward_at_training_shape':
+          training_shape, 'nvidia_smi': nvidia_smi_line()})
+    return training_shape
+
+
+def train_batches(n, rng, lr_size=16, meta=True):
+    import numpy as np
+    out = []
+    for _ in range(n):
+        batch = {'lr': rng.randint(0, 256, (2, lr_size, lr_size, 3)).astype(np.uint8),
+                 'hr': rng.randint(0, 256, (2, lr_size * SCALE, lr_size * SCALE, 3))
+                 .astype(np.uint8)}
+        if meta:
+            batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, 2).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+def phase_train_reference():
+    """10 train steps (run_train: forward with the CA kernel, the plain VJP, Adam with
+    the recipe's schedule) of RCAN and Q-RCAN at 2 x 2 blocks, 64 features, 4x, f32
+    with TF32 off, on the card against the same 10 on the CPU from the same weights
+    and batches (2 images of 16^2 each).  Bar: every loss within rtol 2e-4."""
+    import numpy as np
+    from sisr_tpu_torch.models.handlers import define_model
+    from sisr_tpu_torch.ops import channel_attention as ca
+    small = {'n_resgroups': 2, 'n_resblocks': 2, 'n_feats': 64, 'seed': 3}
+    report = {}
+    with tf32(False, False):
+        for name, model, internal in (('rcan', 'rcan', RCAN_TRAIN),
+                                      ('qrcan', 'qrcan', QRCAN_TRAIN)):
+            card = define_model(model, device='cuda', **small, **internal)
+            host = define_model(model, device='cpu', **small, **internal)
+            for handler in (card, host):
+                handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+            batches = train_batches(10, np.random.RandomState(4), meta=model == 'qrcan')
+            before = ca.fused_channel_attention.launches
+            card_losses = [float(card.run_train(**b)[0]) for b in batches]
+            launched = ca.fused_channel_attention.launches - before
+            host_losses = [float(host.run_train(**b)[0]) for b in batches]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, host_losses))
+            delta = max((a.detach().cpu() - b.detach()).abs().max().item()
+                        for a, b in zip(card.module.parameters(), host.module.parameters()))
+            report[name] = {'card_losses': card_losses, 'cpu_losses': host_losses,
+                            'max_rel_loss_diff': rel, 'max_abs_param_diff': delta,
+                            'ca_launches': launched}
+            if launched != 10 * 4 or not np.all(np.isfinite(card_losses)) or rel > 2e-4:
+                raise AssertionError('%s training on the card: %d CA launches, losses %s '
+                                     'against the CPU\'s %s' % (name, launched, card_losses,
+                                                                host_losses))
+    emit({'phase': 'train_reference', **report, 'nvidia_smi': nvidia_smi_line()})
+
+
+def write_train_config(dirs, save_loc):
+    """configs/div2k/qrcan.toml pointed at the seeded pairs: the same [model] and
+    [training] (epoch_cutoff left out: it overrides --num_epochs), fused validation on,
+    the pairs as both the training and the validation set."""
+    from sisr_tpu_torch.utils import toml_io
+    data_set = {'lr': dirs['lr_dir'], 'hr': dirs['hr_dir'], 'degradation_metadata': 'on_site',
+                'metadata': ['blur_kernel']}
+    path = os.path.join(os.path.dirname(save_loc), 'qrcan_train.toml')
+    toml_io.dump({
+        'experiment': 'qrcan_train', 'experiment_save_loc': save_loc,
+        'data': {'batch_size': BATCH, 'dataloader_threads': 8,
+                 'training_sets': {'data_1': {**data_set, 'crop': TRAIN_CROP,
+                                              'random_augment': True}},
+                 'eval_sets': {'data_1': data_set}},
+        'model': {'name': 'qrcan', 'internal_params': QRCAN_TRAIN},
+        'training': {'gpu': 'single', 'seed': 8, 'metrics': ['PSNR', 'SSIM'],
+                     'logging': 'visual', 'fused_val': True}}, path)
+    return path
+
+
+def run_train_cli(config, *args):
+    """``train_sisr`` through the CLI entry point: the launch counts of exactly this
+    run (set to 0 just before, read just after) and its seconds."""
+    from sisr_tpu_torch import net_train
+    reset_launches()
+    tic = time.perf_counter()
+    net_train.experiment_setup.main(args=['--parameters', config, *args],
+                                    standalone_mode=False)
+    return read_launches(), time.perf_counter() - tic
+
+
+def timed_steps(handler, batch, steps):
+    """``steps`` train steps: per step the wall ms (host clock to a synchronise) and
+    the forward+loss / backward / optimizer ms (CUDA events)."""
+    import torch
+    walls, phases = [], []
+    for _ in range(steps):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        tic = time.perf_counter()
+        events[0].record()
+        loss = handler.forward_loss(batch)
+        events[1].record()
+        handler.backward(loss)
+        events[2].record()
+        handler.update()
+        events[3].record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tic) * 1e3)
+        phases.append([events[i].elapsed_time(events[i + 1]) for i in range(3)])
+    return walls, phases
+
+
+@contextlib.contextmanager
+def plain_channel_attention():
+    """CALayer and QCALayer call the CA's plain version (plain autograd, no kernel)
+    for a block: the yardstick of the step with the op's kernel and Function."""
+    from sisr_tpu_torch.models import blocks, q_layers
+    from sisr_tpu_torch.ops import channel_attention as ca
+    saved = blocks.fused_channel_attention, q_layers.fused_channel_attention
+    blocks.fused_channel_attention = q_layers.fused_channel_attention = \
+        ca.reference_channel_attention
+    try:
+        yield
+    finally:
+        blocks.fused_channel_attention, q_layers.fused_channel_attention = saved
+
+
+def train_step_breakdown(model, internal, steps=20):
+    """20 warm train steps of the full-width model (seed 8, f32, PyTorch's default TF32
+    flags) through the handler on seeded uint8 batches of 8 LR crops of 64^2: per step
+    the wall ms (host clock to a synchronise) and the forward+loss / backward / optimizer
+    ms (CUDA events), medians; then 20 with the CA's plain version in its place (plain
+    autograd) and 20 more with the kernel, in turns; the profiler over 3 steps: device-busy ms, the CA kernel's device ms, the idle share;
+    the launches of one step; conv FLOPs; peak memory."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.models.handlers import define_model
+    handler = define_model(model, device='cuda', seed=8, **FULL_DEPTH, **internal)
+    handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+    rng = np.random.RandomState(6)
+    hr = TRAIN_CROP * SCALE
+    batch = {'lr': torch.from_numpy(rng.randint(0, 256, (BATCH, TRAIN_CROP, TRAIN_CROP, 3))
+                                    .astype(np.uint8)).cuda(),
+             'hr': torch.from_numpy(rng.randint(0, 256, (BATCH, hr, hr, 3))
+                                    .astype(np.uint8)).cuda()}
+    if handler.uses_metadata:
+        batch['metadata'] = torch.from_numpy(rng.dirichlet(np.ones(META_COLS) * 5, BATCH)
+                                             .astype(np.float32)).cuda()
+    for _ in range(3):
+        handler.run_train(**batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, phases = timed_steps(handler, batch, steps)
+    with plain_channel_attention():
+        plain_walls = timed_steps(handler, batch, steps)[0]
+    kernel_walls = timed_steps(handler, batch, steps)[0]
+    peak = torch.cuda.max_memory_allocated()
+    reset_launches()
+    handler.run_train(**batch)
+    torch.cuda.synchronize()
+    step_launches = read_launches()
+    busy_ms, per_kernel = device_kernel_ms(lambda: handler.run_train(**batch), reps=3)
+    ca_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in CA_KERNELS)) / 3
+    conv_ms = sum(v for k, v in per_kernel.items() if not any(n in k for n in CA_KERNELS)
+                  and any(t in k.lower() for t in CONV_KERNEL_HINTS)) / 3
+    x = batch['lr'].float() / 255.0
+    meta = handler.prepare_metadata(x, batch.get('metadata')) if handler.uses_metadata \
+        else None
+    fwd_flops = count_conv_flops(handler, x, meta)
+    head = handler.module.head[0]
+    head_flops = 2 * BATCH * TRAIN_CROP ** 2 * head.out_channels * head.in_channels * 9
+    # backward: the data grad and the weight grad of every conv, each the forward's
+    # FLOPs, but no data grad for the head (its input needs none)
+    step_flops = 3 * fwd_flops - head_flops
+    wall = statistics.median(walls)
+    med = [statistics.median(p[i] for p in phases) for i in range(3)]
+    return {'median_step_wall_ms': wall, 'step_wall_ms': walls,
+            'plain_ca_median_step_wall_ms': statistics.median(plain_walls),
+            'kernel_turn_median_step_wall_ms': statistics.median(kernel_walls),
+            'forward_loss_ms': med[0], 'backward_ms': med[1], 'optimizer_ms': med[2],
+            'device_busy_ms': busy_ms, 'device_idle_share':
+                (1 - busy_ms / wall) if busy_ms else None,
+            'ca_kernel_device_ms': ca_ms, 'conv_device_ms': conv_ms,
+            'launches_per_step': step_launches, 'conv_tflop_per_step': step_flops / 1e12,
+            'tf32_bound_ms': step_flops / TF32_TENSOR_FLOPS * 1e3,
+            'f32_bound_ms': step_flops / F32_CUDA_CORE_FLOPS * 1e3,
+            'max_memory_allocated_gb': peak / 1e9, 'crops_per_s': BATCH / wall * 1e3,
+            'top_kernels_ms': sorted(((k, v / 3) for k, v in per_kernel.items()),
+                                     key=lambda kv: -kv[1])[:8]}
+
+
+def phase_train_main_path(dirs, root):
+    """``train_sisr`` on the Q-RCAN recipe for 2 epochs, then a resume for a third:
+    finite losses, summary.csv, the checkpoints (the resumed one at step 6), every CA
+    call on chip; 200 launches per train step.  ``eval_sisr --fused_eval`` of the best
+    epoch.  Then the timed steps of Q-RCAN and RCAN.  cuDNN TF32 on, matmul TF32 off
+    (PyTorch's defaults) throughout the phase."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    save_loc = os.path.join(root, 'Results_train')
+    config = write_train_config(dirs, save_loc)
+    n_train = N_IMAGES // BATCH  # steps per epoch
+    per_epoch = CA_PER_FORWARD * (n_train + N_IMAGES + 1)  # train, validation, samples
+    report = {'tf32': {'cudnn': True, 'matmul': False}}
+    with tf32(True, False):
+        for label, args, epochs in (('first', ('--num_epochs', '2'), 2),
+                                    ('resume', ('--num_epochs', '1',
+                                                '--continue_from_epoch', '1'), 1)):
+            launches, seconds = run_train_cli(config, *args)
+            expect_launches(launches, {'fused_channel_attention': per_epoch * epochs,
+                                       'fused_channel_attention_onchip': per_epoch * epochs,
+                                       'fused_channel_attention_residual': 0,
+                                       'fused_channel_attention_residual_onchip': 0},
+                            'train_sisr (%s)' % label)
+            report[label] = {'launches': launches, 'cli_seconds': seconds}
+        base = os.path.join(save_loc, 'qrcan_train')
+        summary = pd.read_csv(os.path.join(base, 'result_outputs', 'summary.csv'))
+        values = summary[['train-loss', 'val-loss', 'val-PSNR', 'val-SSIM']].to_numpy()
+        saved = torch.load(os.path.join(base, 'saved_models', 'train_model_2'),
+                           weights_only=True, map_location='cpu')
+        if list(summary['epoch']) != [0, 1, 2] or not np.isfinite(values).all() \
+                or saved['step'] != 3 * n_train or not saved['optimizer']['state']:
+            raise AssertionError('train_sisr: summary %s, checkpoint step %s'
+                                 % (summary.to_dict('list'), saved['step']))
+        for epoch in range(3):
+            if not os.path.isfile(os.path.join(base, 'saved_models', 'train_model_%d' % epoch)):
+                raise AssertionError('train_sisr: no checkpoint of epoch %d' % epoch)
+        report['summary'] = summary.to_dict('list')
+        eval_dirs = {**dirs, 'model_loc': save_loc}
+        eval_launches, eval_seconds, frame = run_eval_cli(eval_dirs, 'train_best',
+                                                          experiment='qrcan_train',
+                                                          epoch='best')
+        # the eval runs in f32 (the experiment's dtype): the batch's 128^2 maps take
+        # the path onchip_plan gives them on this card (three passes on an H100)
+        n_batches = -(-N_IMAGES // BATCH)
+        props = torch.cuda.get_device_properties(0)
+        onchip = ca.onchip_plan(BATCH, LR_SIZE ** 2, 64, 4, 4, True,
+                                props.multi_processor_count,
+                                props.shared_memory_per_block_optin) is not None
+        expect_launches(eval_launches, {
+            'fused_channel_attention': CA_PER_FORWARD * n_batches,
+            'fused_channel_attention_onchip': CA_PER_FORWARD * n_batches * onchip,
+            'fused_channel_attention_residual': 0,
+            'fused_channel_attention_residual_onchip': 0}, 'eval of the best epoch')
+        best = summary.loc[summary['val-PSNR'].idxmax()]
+        report['eval_best'] = {'launches': eval_launches, 'cli_seconds': eval_seconds,
+                               'epoch': int(best['epoch']),
+                               'mean_psnr': float(frame[('qrcan_train', 'PSNR')].mean()),
+                               'val_psnr': float(best['val-PSNR'])}
+        emit({'phase': 'train_main_path', 'model': 'qrcan 10x20 64f 4x f32, standard + '
+              'q_node, 10 blur-kernel values, batch 8, LR crop 64', **report,
+              'nvidia_smi': nvidia_smi_line()})
+        breakdowns = {}
+        for name, model, internal in (('qrcan_10x20', 'qrcan', QRCAN_TRAIN),
+                                      ('rcan_10x20', 'rcan', RCAN_TRAIN)):
+            breakdowns[name] = train_step_breakdown(model, internal)
+            per_step = breakdowns[name]['launches_per_step']
+            if per_step['fused_channel_attention'] != CA_PER_FORWARD \
+                    or per_step['fused_channel_attention_onchip'] != CA_PER_FORWARD:
+                raise AssertionError('%s train step: %s launches' % (name, per_step))
+            emit({'phase': 'train_breakdown', 'model': name, 'batch': BATCH,
+                  'lr_crop': TRAIN_CROP, 'tf32': report['tf32'], **breakdowns[name],
+                  'nvidia_smi': nvidia_smi_line()})
+    launches = {k: report['first']['launches'][k] + report['resume']['launches'][k]
+                + report['eval_best']['launches'][k] for k in report['first']['launches']}
+    return {'launches': launches, 'breakdowns': breakdowns}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -951,9 +1328,11 @@ def main():
     kernels = {'fused_channel_attention': phase_kernel(),
                'fused_channel_attention_residual': phase_kernel_residual()}
     meta_gate = phase_kernel_meta()
+    training_shape = phase_kernel_backward()
     for name in MODELS:
         phase_reference(name)
     phase_int8_reference()
+    phase_train_reference()
     root = tempfile.mkdtemp(prefix='sisr_chip_smoke_')
     try:
         dirs = prepare_workload(root)
@@ -961,11 +1340,13 @@ def main():
         int8_path = phase_int8_main_path(dirs, main_path['mean_psnr'])
         qrcan_path = phase_main_path(dirs, 'qrcan_10x20')
         phase_main_path(dirs, 'edsr_16b')  # asserts 0 launches of either kernel
+        train_path = phase_train_main_path(dirs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # each kernel's launches are those of the paths that run it
     by_path = {'fused_channel_attention': {'rcan_bf16': main_path['launches'],
-                                           'qrcan_bf16': qrcan_path['launches']},
+                                           'qrcan_bf16': qrcan_path['launches'],
+                                           'qrcan_train': train_path['launches']},
                'fused_channel_attention_residual': {'rcan_int8': int8_path['launches']}}
     replaces = {'fused_channel_attention': 'sisr_tpu/ops/pallas/channel_attention.py:112',
                 'fused_channel_attention_residual':
@@ -990,6 +1371,9 @@ def main():
     # the meta and gate inputs of Q-RCAN's path, at its shape (on chip)
     rows[0].update({'meta_gate_' + key: meta_gate[key]
                     for key in ('ms', 'no_meta_ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
+    # the training path's shape, f32 (on chip)
+    rows[0].update({'training_shape_' + key: training_shape[key]
+                    for key in ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
     emit({'kernels': rows})
     print(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

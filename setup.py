@@ -26,6 +26,7 @@ setup(
             'import_reference_model=sisr_tpu.tools.convert_weights:import_reference_model_cli',
             'export_serving=sisr_tpu.tools.export_serving:export_serving_cli',
             'run_serving=sisr_tpu.tools.run_serving:run_serving_cli',
+            'train_sisr_torch=sisr_tpu_torch.net_train:experiment_setup',
         ],
     },
 )

@@ -1,11 +1,15 @@
-"""SuperResImages dataset for LR/HR folder pairs (PyTorch port of the eval subset of
-sisr_tpu's ``data/datasets.py``, ref: Code/sr_tools/data_handler.py:147-528).
+"""SuperResImages dataset for LR/HR folder pairs (PyTorch port of sisr_tpu's
+``data/datasets.py`` for RGB models that take the LR image as it is, ref:
+Code/sr_tools/data_handler.py:147-528).
 
-Index building (``_qN`` group tags, recursive search, dataset splits, shortlists),
-PIL decode to H,W,3 uint8, the HR alignment crop, a capped in-memory cache of
-decoded images, and the degradation-metadata CSV (:func:`read_augmentation_list`)
-with a float32 ``metadata`` vector per item.  Online degradations, CelebA attributes,
-legacy blur-kernel files, crops and augments come with later slices.
+Index building (``_qN`` group tags, recursive search, dataset splits, shortlists,
+blacklists), PIL decode to H,W,3 uint8, the HR alignment crop, a capped in-memory
+cache of decoded images, the degradation-metadata CSV (:func:`read_augmentation_list`)
+with a float32 ``metadata`` vector per item, and the training options: random flips
+and transposes (``random_augments``), matched random crops (``random_crop``) and
+several crops per image (``request_crops``).  Online degradations, CelebA attributes,
+legacy blur-kernel files, masks, and the Y-channel and pre-upscaled inputs of other
+families come with later slices.
 """
 from collections import OrderedDict, deque
 import json
@@ -18,6 +22,7 @@ import pandas as pd
 import PIL.Image
 
 from ..configuration.constants import data_splits
+from ..ops.transforms import random_flip_rotate, random_matched_crop
 from ..utils.helpers import extract_image_names_from_folder
 
 
@@ -104,25 +109,47 @@ def read_augmentation_list(metadata_file, filenames=None, legacy_blur_kernels=No
     return augmentation_dict, list(keys)
 
 
+def _not_ported(what, item):
+    return NotImplementedError('%s is not ported to sisr_tpu_torch yet (ROADMAP.md, Queue 1 '
+                               'item %d).' % (what, item))
+
+
 class SuperResImages:
     """(ref: data_handler.py:147-528).  Indexable dataset of LR images with their
     HR references, yielding per-image dicts of H,W,3 arrays: float32 in [0,1], or
-    the decoded uint8 when ``keep_uint8`` is set (the fused eval divides on the
-    device)."""
+    the decoded uint8 when ``keep_uint8`` is set (the fused eval and the train step
+    divide on the device).  With ``random_crop`` the images are matched LR/HR patches
+    (``request_crops`` of them per image, stacked).  ``y_only`` acts on Y-channel
+    models only, so it changes nothing here; keys of the reference's data tables that
+    no option here reads pass through ``kwargs``."""
 
     def __init__(self, lr_dir, hr_dir=None, dataset=None, split=None, custom_split=None,
                  recursive_search=False, image_shortlist=None, scale=4, cache_decoded=None,
                  degradation_metadata_file=None, metadata=None, qpi_selection=None,
-                 data_attributes=None):
+                 data_attributes=None, input='unmodified', colorspace='rgb', y_only=True,
+                 blacklist=None, random_augments=None, random_crop=None,
+                 request_crops=None, online_degradations=None, mask_data=None,
+                 legacy_blur_kernels=None, **kwargs):
         if split not in ['train', 'eval', 'test', 'all', None]:
             raise RuntimeError('"Split" must be one of: train | eval | test | all | None')
+        if input != 'unmodified' or colorspace not in ('rgb', 'augmented_rgb'):
+            raise _not_ported('Pre-upscaled or Y-channel model inputs (input=%r, '
+                              'colorspace=%r)' % (input, colorspace), 7)
+        if online_degradations:
+            raise _not_ported('Online degradations', 10)
+        if mask_data is not None:
+            raise _not_ported('Segmentation masks (extract_masks)', 10)
         self.scale = scale
         self.lr_base = lr_dir
         self.hr_base = hr_dir
+        self.patch_crop = random_crop
+        self.random_augment = random_augments
+        self.request_crops = request_crops
 
         main_filenames = self.filter_names(lr_dir, recursive_search)
         main_filenames = self.dataset_split(main_filenames, custom_split, image_shortlist,
                                             split, dataset, lr_dir)
+        main_filenames = self.blacklist_removal(main_filenames, blacklist)
         if len(main_filenames) == 0:
             raise RuntimeError('No images were supplied or all images were filtered out!')
         self.lr_filenames, self.base_filenames = [], []
@@ -135,11 +162,12 @@ class SuperResImages:
         # ``metadata`` names the requested columns ('all' for the file's)
         self.metadata_keys = []
         self.metadata = None
-        if degradation_metadata_file is not None or metadata is not None:
+        if degradation_metadata_file is not None or metadata is not None \
+                or legacy_blur_kernels is not None:
             att_dict, self.metadata_keys = read_augmentation_list(
                 degradation_metadata_file, filenames=self.lr_filenames,
                 attributes_loc=data_attributes, data_attributes=metadata,
-                qpi_selection=qpi_selection)
+                qpi_selection=qpi_selection, legacy_blur_kernels=legacy_blur_kernels)
             if qpi_selection is not None:
                 pairs = [(lr, base) for lr, base in zip(self.lr_filenames,
                                                         self.base_filenames)
@@ -151,7 +179,8 @@ class SuperResImages:
             self.metadata = [att_dict[image] for image in self.lr_filenames]
         self.image_count = len(self.lr_filenames)
 
-        # serve decoded uint8 instead of float (the fused eval's transport)
+        # serve decoded uint8 instead of float (the fused eval's and train step's
+        # transport)
         self.keep_uint8 = False
         # decoded-image cache: eval protocols re-iterate the same images (warm-up
         # and timed passes, repeated hub calls), and PNG decode is the host's
@@ -202,6 +231,15 @@ class SuperResImages:
             return OrderedDict((k, v) for k, v in current_files.items() if k in accepted)
         return current_files
 
+    @staticmethod
+    def blacklist_removal(current_files, blacklist):
+        """Drop the images a blacklist CSV names in its ``Images`` column."""
+        if blacklist is None:
+            return current_files
+        print('Removing blacklisted images.')
+        banned = set(pd.read_csv(blacklist, header=[0])['Images'].tolist())
+        return OrderedDict((k, v) for k, v in current_files.items() if k not in banned)
+
     # --- loading --------------------------------------------------------------------------
     @staticmethod
     def read_image(filename):
@@ -244,8 +282,20 @@ class SuperResImages:
             if hr_arr.shape[1] != w or hr_arr.shape[0] != h:
                 hr_arr = center_crop_np(hr_arr, height=h, width=w)
             hr_im = self._to_image(hr_arr)
+        lr_im = self._to_image(lr_arr)
+        # the reference's order: flips and transpose, then the crop
+        if self.random_augment is not None:
+            lr_im, hr_im = random_flip_rotate(lr_im, hr_im)
+        if self.patch_crop is not None:
+            if self.request_crops is not None:
+                lr_im, hr_im = (np.stack(ims, 0) for ims in zip(*(
+                    random_matched_crop(lr_im, hr_im, self.patch_crop, self.scale)
+                    for _ in range(self.request_crops))))
+            else:
+                lr_im, hr_im = random_matched_crop(lr_im, hr_im, self.patch_crop,
+                                                   self.scale)
         metadata = self.metadata[index] if self.metadata is not None else np.array(0)
-        return {'lr': self._to_image(lr_arr), 'hr': hr_im, 'tag': image_name,
+        return {'lr': lr_im, 'hr': hr_im, 'tag': image_name,
                 'hr_tag': base_name, 'metadata': np.asarray(metadata, dtype=np.float32),
                 'metadata_keys': self.metadata_keys}
 

@@ -1,65 +1,136 @@
-"""Threaded, order-preserving batch loader and a device prefetcher (PyTorch port of the
-eval subset of sisr_tpu's ``data/loader.py``).
+"""Threaded, order-preserving batch loader, dataset concatenation and a device
+prefetcher (PyTorch port of sisr_tpu's ``data/loader.py``).
 
 The loader decodes the items of upcoming batches on a thread pool (PIL and zlib
-release the GIL).  :func:`device_prefetch` keeps the next batches on their way to the
-card while the current one computes: pinned host memory and a ``non_blocking`` copy
-on a side CUDA stream, in a background thread.
+release the GIL); with ``shuffle`` each epoch's order comes from a dedicated RNG seeded
+once from the global ``random`` stream when the loader is built.  With one worker the
+items load in the iterating thread, in order, so a seeded run draws its crops and
+flips as sisr_tpu's does.  :func:`device_prefetch` keeps the next batches on their way
+to the card while the current one computes: pinned host memory and a ``non_blocking``
+copy on a side CUDA stream, in a background thread.
 """
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 import queue as queue_mod
+import random
 import threading
 
 import numpy as np
 import torch
 
 
+class ConcatDataset:
+    """Minimal torch-style dataset concatenation; every dataset must carry the same
+    metadata layout."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.cumulative = np.cumsum([len(d) for d in self.datasets]).tolist()
+        self.metadata_keys = self.datasets[0].metadata_keys
+        key_sets = {tuple(d.metadata_keys or []) for d in self.datasets}
+        if len(key_sets) > 1:
+            raise RuntimeError(
+                'Concatenated training sets carry different metadata layouts %s — '
+                'batches straddling the sets would misalign or fail to stack. Give '
+                'every set the same degradation_metadata/metadata configuration.'
+                % sorted(key_sets))
+
+    def __len__(self):
+        return self.cumulative[-1]
+
+    def __getitem__(self, idx):
+        for d_idx, bound in enumerate(self.cumulative):
+            if idx < bound:
+                prev = 0 if d_idx == 0 else self.cumulative[d_idx - 1]
+                return self.datasets[d_idx][idx - prev]
+        raise IndexError(idx)
+
+
+class CelebaSplitSampler:
+    """The reference's attribute-split sampler (ref: data_handler.py:531-573), not
+    ported: it needs the CelebA attributes."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError('CelebaSplitSampler is not ported to sisr_tpu_torch yet: '
+                                  'it comes with the CelebA attributes (ROADMAP.md, Queue 1 '
+                                  'item 3).')
+
+
 def _collate(items):
     """Stack per-item dicts into batch arrays (``metadata`` to (N, M) float32);
     strings stay lists; the dataset's ``metadata_keys`` list passes through once (it
     is the same for every item, and as strings it is no tensor); differently sized
-    images (eval sets at bs>1) stay lists of arrays."""
+    images (eval sets at bs>1) stay lists of arrays.  Items of ``request_crops``
+    carry (K, h, w, c) crop stacks: the crops join the batch axis, and every other
+    entry repeats per crop."""
     out = {}
+    crops_per_item = None
+    for key in ('lr', 'hr'):
+        if np.ndim(items[0].get(key)) >= 4:
+            crops_per_item = np.shape(items[0][key])[0]
+            break
     for key in items[0]:
         vals = [item[key] for item in items]
         if key == 'metadata_keys':
             out[key] = vals[0]
             continue
         if isinstance(vals[0], str):
-            out[key] = vals
+            out[key] = [v for v in vals for _ in range(crops_per_item or 1)]
             continue
         arrs = [np.asarray(v) for v in vals]
+        if arrs[0].ndim >= 4:  # crop stacks: crops into the batch axis
+            out[key] = np.concatenate(arrs, axis=0)
+            continue
         try:
-            out[key] = np.stack(arrs, axis=0)
+            stacked = np.stack(arrs, axis=0)
         except ValueError:  # ragged
             out[key] = arrs
+            continue
+        if crops_per_item is not None and arrs[0].ndim >= 1:
+            stacked = np.repeat(stacked, crops_per_item, axis=0)
+        out[key] = stacked
     return out
 
 
-_WORKERS = 8  # decode threads
 _PREFETCH_BATCHES = 3  # batches whose items are decoding at once
-_DEVICE_BATCHES_AHEAD = 2  # batches on their way to the device at once
 
 
 class DataLoader:
-    """Order-preserving threaded batch loader."""
+    """Order-preserving threaded batch loader (ref: torch DataLoader's options)."""
 
-    def __init__(self, dataset, batch_size=1):
+    def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=8,
+                 drop_last=False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers or 1)
+        self.drop_last = drop_last
+        # seeded from the global stream once, here: epoch orders do not depend on how
+        # many global draws item loading made (sisr_tpu's _shuffle_rng)
+        self._shuffle_rng = random.Random(random.getrandbits(64))
 
     def __len__(self):
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
         return -(-len(self.dataset) // self.batch_size)
 
     def _batches(self):
-        n = len(self.dataset)
-        return [list(range(i, min(i + self.batch_size, n)))
-                for i in range(0, n, self.batch_size)]
+        indices = list(range(len(self.dataset)))
+        if self.shuffle:
+            self._shuffle_rng.shuffle(indices)
+        batches = [indices[i:i + self.batch_size]
+                   for i in range(0, len(indices), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return batches
 
     def __iter__(self):
         batches = iter(self._batches())
-        with ThreadPoolExecutor(max_workers=_WORKERS) as pool:
+        if self.num_workers == 1:
+            for batch in batches:
+                yield _collate([self.dataset[i] for i in batch])
+            return
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             def submit(batch):  # per-ITEM futures: all workers decode in parallel
                 return [pool.submit(self.dataset.__getitem__, i) for i in batch]
 
@@ -74,6 +145,9 @@ class DataLoader:
                 if nxt is not None:
                     pending.append(submit(nxt))
                 yield _collate([f.result() for f in futs])
+
+
+_DEVICE_BATCHES_AHEAD = 2  # batches on their way to the device at once
 
 
 def device_prefetch(iterator, device):

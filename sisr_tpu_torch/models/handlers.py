@@ -1,13 +1,17 @@
-"""Model handlers: config-name -> nn.Module + eval semantics (PyTorch port of the eval
-subset of sisr_tpu's ``models/handlers.py``).
+"""Model handlers: config-name -> nn.Module + eval and training semantics (PyTorch
+port of sisr_tpu's ``models/handlers.py``).
 
 Each handler is registered under the reference's lowercase model name and owns:
 
 * the module, its device and compute type (``dtype='bf16'`` is ``torch.autocast`` to
-  bfloat16 around float32 parameters; activations are channels_last);
+  bfloat16 around float32 parameters, for eval; activations are channels_last);
 * parameter initialisation from a seeded ``torch.Generator``;
-* the fused eval step: forward + bicubic LR baseline + YCbCr Y + PSNR/SSIM on the
-  device, with only a (K, N) metric matrix for the host;
+* training: the Adam optimizer with its per-step lr schedule, optional global-norm
+  clipping and the loss (``training/``), and the train step (:meth:`run_train`,
+  :meth:`run_train_multi`): prep, forward, loss, backward, clip, Adam step;
+* the fused eval step: forward + bicubic LR baseline + YCbCr Y + PSNR/SSIM (and the
+  loss, for the training-time validation) on the device, with only a (K, N) metric
+  matrix for the host;
 * degradation metadata (``uses_metadata`` handlers, :class:`QHandler`): the
   dataset's metadata key list selects the columns the model takes
   (``set_metadata_keys``), and each batch's (N, M) metadata reaches the module
@@ -16,7 +20,9 @@ Each handler is registered under the reference's lowercase model name and owns:
   the first eval batch, and the int8 program of ``ops/quantization.py`` in place of
   the module in the fused step;
 * checkpoints in the reference's file contract (``saved_models/train_model_<N>``, a
-  ``torch.save`` dict with ``network``, ``model_name``, ``model_epoch``, ``step``).
+  ``torch.save`` dict with ``network``, ``optimizer``, ``step``, ``model_name``,
+  ``model_epoch``), written in the background during training
+  (``utils/async_ckpt.py``).
 """
 import math
 import os
@@ -30,6 +36,9 @@ from ..ops.colorspace import rgb_to_ycbcr_nhwc
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
 from ..tools.convert_weights import params_from_state_dict
+from ..training.losses import build_loss
+from ..training.state import apply_update, build_optimizer
+from ..utils import async_ckpt
 from ..utils.helpers import resolve_device
 from . import advanced, qmodels
 from .blocks import torch_default_init_
@@ -37,6 +46,11 @@ from .blocks import torch_default_init_
 available_models = {}
 # int8 families whose program is ported; sisr_tpu's others raise in set_int8
 _INT8_PROGRAMS = ('rcan',)
+
+
+def _training_not_ported(what, item):
+    return NotImplementedError('Training with %s is not ported to sisr_tpu_torch yet '
+                               '(ROADMAP.md, Queue 1 item %d).' % (what, item))
 
 
 def _int8_not_ported(what, slice_name):
@@ -71,25 +85,49 @@ def define_model(name, **kwargs):
 
 
 class BaseHandler:
-    """Eval-side handler base (ref BaseModel, models/__init__.py:257-575) for RGB
-    models that take the LR image as it is."""
+    """Handler base (ref BaseModel, models/__init__.py:257-575) for RGB models that
+    take the LR image as it is."""
 
     colorspace = 'rgb'
     im_input = 'unmodified'
     tiled_eval = False
     uses_metadata = False
+    loss_type = 'l1'
+    grad_clip = None
     # int8 serving path (ops/quantization.py): family key, or None if unsupported
     int8_family = None
 
-    def __init__(self, scale=4, dtype=None, seed=8, device=None, **kwargs):
-        """``kwargs`` are the model's structure parameters; keys that only training
-        reads (lr, scheduler, ...) are ignored here, as in the reference's eval mode."""
+    def __init__(self, eval_mode=False, lr=1e-4, scale=4, scheduler=None,
+                 scheduler_params=None, perceptual=None, optimizer_params=None,
+                 grad_clip=None, dtype=None, seed=8, device=None,
+                 checkpoint_backend='msgpack', async_checkpoint=True,
+                 checkpoint_dtype='f32', **kwargs):
+        """``kwargs`` are the model's structure parameters.  The training keys (lr,
+        scheduler, optimizer_params, grad_clip; ref models/__init__.py:281-329) build
+        the optimizer, schedule and loss.  ``checkpoint_backend`` 'msgpack' (sisr_tpu's
+        name for its single-file checkpoint) is the torch file here."""
+        self.eval_mode = eval_mode
         self.scale = scale
         self.seed = seed
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if dtype in ('bf16', 'bfloat16') else torch.float32
+        if checkpoint_dtype not in ('f32', 'bf16_moments'):
+            raise ValueError("checkpoint_dtype must be 'f32' or 'bf16_moments', got %r"
+                             % (checkpoint_dtype,))
+        # options training refuses (check_trainable); eval runs with them
+        self._unported_training = [(what, item) for what, item, on in (
+            ('dtype = "bf16"', 11, self.dtype == torch.bfloat16),
+            ('checkpoint_backend = "orbax"', 11, checkpoint_backend == 'orbax'),
+            ('checkpoint_dtype = "bf16_moments"', 11, checkpoint_dtype == 'bf16_moments'),
+            ('the perceptual (VGG feature) loss', 10, perceptual is not None)) if on]
+        # background checkpoint writes (utils/async_ckpt.py); false writes at the call
+        self.async_checkpoint = bool(async_checkpoint)
+        if grad_clip == 0:  # explicit 0 disables clipping, incl. subclass defaults
+            self.grad_clip = None  # (ref: models/__init__.py:281-284)
+        elif grad_clip is not None:
+            self.grad_clip = grad_clip
         self.curr_epoch = 0
-        self.step = 0
+        self.step = 0  # optimizer updates made: the schedule's argument
         self.module = self.build_module(scale=scale, **kwargs)
         self.metadata_keys = None
         self.meta_indices = None
@@ -99,6 +137,10 @@ class BaseHandler:
         self.int8_residual_dtype = 'bfloat16'
         self._int8_ctx = None  # (program, quantised params, scales) once calibrated
         self.init_state()
+        self.optimizer, self.schedule = build_optimizer(
+            self.module.parameters(), lr, scheduler, scheduler_params, optimizer_params,
+            fused=self.device.type == 'cuda')
+        self.loss_fn = build_loss(self.loss_type)
 
     def build_module(self, scale, **kwargs):
         raise NotImplementedError
@@ -112,7 +154,13 @@ class BaseHandler:
         self._place()
 
     def _place(self):
-        self.module.to(device=self.device, memory_format=torch.channels_last).eval()
+        self.module.to(device=self.device, memory_format=torch.channels_last)
+
+    def _set_training(self, mode):
+        """``module.train()`` for the train step, ``.eval()`` for eval (no-op when
+        already so: the call walks every submodule)."""
+        if self.module.training != mode:
+            self.module.train(mode)
 
     def _synchronize(self):
         if self.device.type == 'cuda':
@@ -123,6 +171,13 @@ class BaseHandler:
 
     def set_epoch(self, epoch):
         self.curr_epoch = epoch
+
+    def get_learning_rate(self):
+        """The lr of the next update."""
+        return float(self.schedule(self.step))
+
+    def epoch_end_calls(self):
+        pass
 
     # --- metadata plumbing (ref handlers.py:152-171, 390-398) ------------------------------
     def set_metadata_keys(self, keys):
@@ -186,6 +241,82 @@ class BaseHandler:
                             enabled=self.dtype == torch.bfloat16):
             out = self.module(x.permute(0, 3, 1, 2), *args)
         return out.permute(0, 2, 3, 1)
+
+    def super_resolve(self, batch):
+        """The module's output for a batch (as run_eval_fused takes it), clipped to
+        [0, 1], as an NHWC float32 numpy array (the epoch's sample images)."""
+        self._set_training(False)
+        dev = {'lr': self._to_device(batch['lr'])}
+        if self.uses_metadata:
+            dev['metadata'] = self._to_device(batch['metadata']).float()
+        with torch.inference_mode():
+            lr, _, metadata = self._prep_batch(dev)
+            return self.forward(lr, metadata).float().clamp(0.0, 1.0).cpu().numpy()
+
+    # --- training (ref handlers.py:469-545) -----------------------------------------------
+    def _train_batch_keys(self):
+        """Batch entries the train step takes."""
+        return ('lr', 'hr', 'metadata') if self.uses_metadata else ('lr', 'hr')
+
+    def check_trainable(self, batch=None):
+        """Raise unless this handler can train (on ``batch``): eval mode, an option
+        whose training is not ported (bf16, orbax or bf16_moments checkpoints, the
+        perceptual loss), or differently sized images in the batch."""
+        if self.eval_mode:
+            raise RuntimeError('Model initialized in eval mode, training not possible.')
+        if self._unported_training:
+            raise _training_not_ported(*self._unported_training[0])
+        if batch is not None and isinstance(batch['lr'], (list, tuple)):
+            raise RuntimeError('Training batch contains differently-sized images — use a '
+                               'fixed crop (data "crop" option, which must be no larger '
+                               'than the smallest LR image) or batch_size=1.')
+
+    def run_train(self, **batch):
+        """One training step (ref BaseModel.run_train, models/__init__.py:466-489) on a
+        batch of NHWC lr/hr arrays or tensors (uint8 or float) and, for a metadata
+        model, its (N, M) metadata: (the loss, a 0-dim device tensor the device may
+        still be computing, None)."""
+        self.check_trainable(batch)
+        return self._train_step(batch), None
+
+    def run_train_multi(self, batches):
+        """K training steps, one after another: ``batches`` is a list of K batch dicts,
+        or one dict of (K, B, ...) stacked arrays.  Returns the K losses as one device
+        tensor, not waited for."""
+        if isinstance(batches, dict):
+            keys = [k for k in self._train_batch_keys() if batches.get(k) is not None]
+            batches = [{k: batches[k][i] for k in keys} for i in range(len(batches['lr']))]
+        losses = []
+        for batch in batches:
+            self.check_trainable(batch)
+            losses.append(self._train_step(batch))
+        return torch.stack(losses)
+
+    def _train_step(self, batch):
+        loss = self.forward_loss(batch)
+        self.backward(loss)
+        self.update()
+        return loss.detach()
+
+    def forward_loss(self, batch):
+        """The step's first part: the batch on the device (uint8 divided there), the
+        module's forward in train mode and the loss against HR."""
+        self._set_training(True)
+        dev = {k: self._to_device(batch[k]) for k in self._train_batch_keys()
+               if batch.get(k) is not None}
+        if 'metadata' in dev:
+            dev['metadata'] = dev['metadata'].float()
+        lr, hr, metadata = self._prep_batch(dev)
+        return self.loss_fn(self.forward(lr, metadata), hr)
+
+    def backward(self, loss):
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+
+    def update(self):
+        """Clip, lr from the schedule at the updates made so far, Adam."""
+        apply_update(self.optimizer, self.schedule, self.step, self.grad_clip)
+        self.step += 1
 
     # --- int8 serving (ref handlers.py:202-292) --------------------------------------------
     def set_int8(self, enabled=True, residual_dtype='bfloat16'):
@@ -266,7 +397,8 @@ class BaseHandler:
         u8 = np.rint(img * 255).astype(np.uint8)
         return u8 if np.abs(u8.astype(np.float32) / 255.0 - img).max() <= 1e-6 else img
 
-    def run_eval_fused(self, batch, metrics=('PSNR', 'SSIM'), timing=False, include_lr=True):
+    def run_eval_fused(self, batch, metrics=('PSNR', 'SSIM'), timing=False, include_lr=True,
+                       request_loss=False):
         """Eval fast path (ref handlers.py:724): one device step runs forward + bicubic
         LR baseline + YCbCr + PSNR/SSIM, and only per-image scalars stay for the host.
 
@@ -275,10 +407,14 @@ class BaseHandler:
 
         :return: ((keys, values): keys a K-tuple like ('LR>PSNR', 'model>PSNR', ...)
             and values the matching (K, N) float32 device tensor, runtime seconds or
-            None).  ``include_lr=False`` omits the LR-baseline rows.
+            None).  ``include_lr=False`` omits the LR-baseline rows.  With
+            ``request_loss`` a last 'model>loss' row carries the batch-mean loss of SR
+            against HR, once per image (the training-time validation's loss).
         """
         sides = ('LR', 'model') if include_lr else ('model',)
         keys = tuple('%s>%s' % (side, met) for met in metrics for side in sides)
+        if request_loss:
+            keys = keys + ('model>loss',)
         meta = batch.get('metadata') if self.uses_metadata else None
         if isinstance(batch['lr'], (list, tuple)):
             # ragged batch (mixed-size eval images at bs>1): run per image, each with
@@ -288,7 +424,8 @@ class BaseHandler:
                 one = {'lr': lr[None], 'hr': hr[None],
                        'metadata': None if meta is None else meta[i:i + 1]}
                 (_, vals), rt = self.run_eval_fused(one, metrics=metrics, timing=timing,
-                                                    include_lr=include_lr)
+                                                    include_lr=include_lr,
+                                                    request_loss=request_loss)
                 parts.append(vals)
                 total += rt or 0.0
             return (keys, torch.cat(parts, dim=1)), (total if timing else None)
@@ -301,9 +438,10 @@ class BaseHandler:
             # calibrate outside the step, on the input the int8 program takes
             self._ensure_int8_ctx(self._int8_calibration_input(
                 self._prep_batch(dev_batch)[0]))
-        key = ('fused', tuple(metrics), include_lr, self.int8_mode)
+        key = ('fused', tuple(metrics), include_lr, self.int8_mode, request_loss)
         if key not in self._eval_step_cache:
-            self._eval_step_cache[key] = self._make_fused_step(tuple(metrics), include_lr)
+            self._eval_step_cache[key] = self._make_fused_step(tuple(metrics), include_lr,
+                                                               request_loss)
         step = self._eval_step_cache[key]
         runtime = None
         if timing:
@@ -321,7 +459,7 @@ class BaseHandler:
             out = step(dev_batch)
         return (keys, out), runtime
 
-    def _make_fused_step(self, metrics, include_lr=True):
+    def _make_fused_step(self, metrics, include_lr=True, request_loss=False):
         """(ref handlers.py:835) The per-batch device program as one function."""
         fns = {'PSNR': lambda a, b: psnr_nhw(a, b, 1.0),
                'SSIM': lambda a, b: ssim_nhw(a, b, 1.0)}
@@ -332,6 +470,7 @@ class BaseHandler:
 
         @torch.inference_mode()
         def step(batch):
+            self._set_training(False)
             lr, hr, metadata = self._prep_batch(batch)
             hr_y = prep_y(hr)
             lr_y = None
@@ -347,31 +486,51 @@ class BaseHandler:
                 if include_lr:
                     rows.append(fns[met](lr_y, hr_y))
                 rows.append(fns[met](sr_y, hr_y))
+            if request_loss:
+                # the train step's loss on the model's output, once per image so the
+                # (K, N) matrix stays rectangular
+                rows.append(self.loss_fn(sr, hr).float().expand(hr.shape[0]))
             return torch.stack(rows)
 
         return step
 
     # --- checkpointing (ref: models/__init__.py:349-464) -----------------------------------
-    def save_model(self, model_save_name, model_idx, model_save_dir):
-        state_dict = {
-            'network': {k: v.detach().cpu() for k, v in self.module.state_dict().items()},
-            'model_name': self.model_name,
-            'model_epoch': int(self.curr_epoch),
-            'step': int(self.step),
-        }
+    def save_model(self, model_save_name, model_idx, model_save_dir, background=False):
+        """Write ``<model_save_dir>/<name>_<idx>``: a ``torch.save`` dict of
+        ``network`` (the state_dict), ``optimizer`` (Adam's state_dict; training
+        handlers), ``step``, ``model_name`` and ``model_epoch``.  The state is copied to
+        host tensors here, before any later step can change it.  With ``background``
+        (the epoch loop's saves) a training handler with ``async_checkpoint`` writes
+        the file on the background writer (fence: :meth:`wait_pending_checkpoints`);
+        otherwise it is written before this returns."""
+        state = {'network': self.module.state_dict(), 'model_name': self.model_name,
+                 'model_epoch': int(self.curr_epoch), 'step': int(self.step)}
+        if not self.eval_mode:
+            state['optimizer'] = self.optimizer.state_dict()
+        state = async_ckpt.to_host(state)
         path = os.path.join(model_save_dir, '%s_%s' % (model_save_name, model_idx))
-        tmp = '%s.%d.tmp' % (path, os.getpid())
-        with open(tmp, 'wb') as f:
-            torch.save(state_dict, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
+        if background and self.async_checkpoint and not self.eval_mode:
+            async_ckpt.WRITER.submit(path, lambda: async_ckpt.atomic_save(state, path))
+        else:
+            async_ckpt.atomic_save(state, path)
 
-    def load_model(self, model_save_name, model_idx, model_save_dir):
-        path = os.path.join(model_save_dir, '%s_%s' % (model_save_name, model_idx))
+    def wait_pending_checkpoints(self, timeout=None):
+        """Fence: block until every background checkpoint write of the process is on
+        disk, re-raising the first failure."""
+        async_ckpt.WRITER.wait(timeout=timeout)
+
+    def load_model(self, model_save_name, model_idx, model_save_dir, load_override=None):
+        """Load ``<load_override or model_save_dir>/<name>_<idx>``: the network, and for
+        a training handler the Adam state and the step, so the moments and the
+        schedule continue."""
+        self.wait_pending_checkpoints()  # a just-saved epoch may still be in flight
+        path = os.path.join(load_override or model_save_dir,
+                            '%s_%s' % (model_save_name, model_idx))
         state_dict = torch.load(path, map_location='cpu', weights_only=True)
         self.module.load_state_dict(state_dict['network'])  # strict: layouts must match
         self._place()
+        if not self.eval_mode and state_dict.get('optimizer'):
+            self._load_optimizer(state_dict['optimizer'])
         if self._int8_ctx is not None or self.int8_mode:
             # the quantised weights came from the replaced parameters: requantise and
             # recalibrate on the next eval batch
@@ -381,6 +540,13 @@ class BaseHandler:
         self.set_epoch(int(state_dict['model_epoch']))
         print('Loaded model uses the following architecture:', state_dict['model_name'])
         return state_dict
+
+    def _load_optimizer(self, saved):
+        """Adam's moments and counts from a checkpoint; the hyperparameters stay the
+        configured ones (the schedule sets the lr before every update)."""
+        groups = [{**current, 'params': old['params']} for current, old in
+                  zip(self.optimizer.state_dict()['param_groups'], saved['param_groups'])]
+        self.optimizer.load_state_dict({'state': saved['state'], 'param_groups': groups})
 
 
 @register_model('rcan')
@@ -455,11 +621,14 @@ class QRCANHandler(QHandler):
     def build_module(self, scale, in_features=3, include_pixel_attention=False,
                      include_q_layer=False, selective_meta_blocks=None,
                      num_q_layers_inner_residual=None, n_resblocks=20, n_resgroups=10,
-                     reduction=16, **kwargs):
+                     **kwargs):
+        # like sisr_tpu's QRCANHandler this takes no ``reduction``: a config's key falls
+        # into kwargs and every QCALayer reduces by 16, so one config.toml builds the
+        # same network in both packages
         return qmodels.QRCAN(
             n_resblocks=n_resblocks or 20, n_resgroups=n_resgroups or 10,
             n_feats=self.n_feats, in_feats=in_features or 3, scale=scale,
-            reduction=reduction or 16, style=self.style, num_metadata=self.num_metadata,
+            style=self.style, num_metadata=self.num_metadata,
             include_pixel_attention=bool(include_pixel_attention),
             include_q_layer=bool(include_q_layer),
             selective_meta_blocks=selective_meta_blocks,

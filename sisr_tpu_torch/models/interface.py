@@ -1,5 +1,5 @@
-"""Client-side model interface, eval mode: experiment directories and checkpoint
-selection (PyTorch port of sisr_tpu's ``models/interface.py``, ref:
+"""Client-side model interface: experiment directories, checkpoint selection and the
+training passthroughs (PyTorch port of sisr_tpu's ``models/interface.py``, ref:
 Code/SISR/models/__init__.py:33-254 ModelInterface)."""
 import glob
 import os
@@ -8,30 +8,47 @@ import pandas as pd
 import torch
 
 from ..utils import toml_io
+from ..utils.async_ckpt import WRITER
+from ..utils.helpers import create_dir_if_empty
 from .handlers import define_model
 
 
 class ModelInterface:
-    """Loads experiment ``model_loc/experiment`` at ``load_epoch`` (an epoch number,
-    'best' or 'last') onto ``device`` (default: cuda)."""
+    """The experiment ``model_loc/experiment`` on ``device`` (default: cuda).
 
-    def __init__(self, model_loc, experiment, load_epoch, device=None, scale=None):
+    ``mode='eval'`` loads the checkpoint of ``load_epoch`` (an epoch number, 'best' or
+    'last').  ``mode='train'`` builds a new model from ``new_params`` (the config's
+    [model] table), or, given ``load_epoch``, resumes that checkpoint with its optimizer
+    state; ``save_subdir`` puts logs and checkpoints in a subfolder (a branch), and
+    with ``new_branch`` the checkpoint is read from the parent folder."""
+
+    def __init__(self, model_loc, experiment, load_epoch=None, device=None, scale=None,
+                 mode='eval', new_params=None, save_subdir=None, new_branch=False):
+        log_dir, save_dir = 'result_outputs', 'saved_models'
+        if save_subdir is not None:
+            log_dir = os.path.join(log_dir, save_subdir)
+            save_dir = os.path.join(save_dir, save_subdir)
         self.experiment = experiment
         self.base_folder = os.path.abspath(os.path.join(model_loc, experiment))
-        self.logs = os.path.join(self.base_folder, 'result_outputs')
-        self.saved_models = os.path.join(self.base_folder, 'saved_models')
+        self.logs = os.path.join(self.base_folder, log_dir)
+        self.saved_models = os.path.join(self.base_folder, save_dir)
+        self.mode = mode
+        load_override = os.path.dirname(self.saved_models) if new_branch else None
 
-        config_path = os.path.join(self.base_folder, 'config.toml')
-        if not os.path.isfile(config_path):
-            # resumed runs write config_from_epoch_N.toml: fall back to the newest
-            snapshots = sorted(glob.glob(os.path.join(self.base_folder, 'config*.toml')),
-                               key=os.path.getmtime)
-            if not snapshots:
-                raise RuntimeError('No config.toml found in %s - model structure '
-                                   'unknown.' % self.base_folder)
-            config_path = snapshots[-1]
-        self.metadata = toml_io.load(config_path)['model']
+        if mode == 'train':
+            create_dir_if_empty(self.base_folder, self.logs, self.saved_models)
+            if new_params is None and load_epoch is None:
+                raise RuntimeError('Need to specify model parameters to train a new model.')
+        elif load_epoch is None:
+            raise RuntimeError('Need to specify which model epoch to load.')
+
+        if load_epoch is None:
+            self.metadata = new_params
+        else:
+            self.metadata = toml_io.load(self._config_path())['model']
         self.name = self.metadata['name']
+        if self.name == 'qpircan':  # legacy conversion (ref: models/__init__.py:92-93)
+            self.name = 'qrcan'
 
         internal = dict(self.metadata.get('internal_params') or {})
         if scale is not None:
@@ -41,15 +58,38 @@ class ModelInterface:
                 raise Exception('The model loaded has been trained for a different '
                                 'scale, and cannot produce the requested images.')
         internal.pop('metadata_list', None)
-        self.model = define_model(name=self.name, device=device, **internal)
+        self.model = define_model(name=self.name, eval_mode=mode == 'eval', device=device,
+                                  **internal)
+        if mode == 'train':
+            self.model.check_trainable()  # before any epoch runs
 
-        if load_epoch in ('best', 'last'):
-            load_epoch = self._resolve_epoch(load_epoch)
-        self.model_epoch = load_epoch
-        self.model.load_model(model_save_name='train_model', model_idx=load_epoch,
-                              model_save_dir=self.saved_models)
+        self.model_epoch = 0
+        if load_epoch is not None:
+            if load_epoch in ('best', 'last'):
+                # fence first: the best epoch's background write may be in flight
+                self.model.wait_pending_checkpoints()
+                load_epoch = self._resolve_epoch(load_epoch)
+            self.model_epoch = int(load_epoch)
+            self.model.load_model(model_save_name='train_model', model_idx=load_epoch,
+                                  model_save_dir=self.saved_models,
+                                  load_override=load_override)
 
+        self.configuration = {'input': self.model.im_input,
+                              'colorspace': self.model.colorspace}
         self.print_overview()
+
+    def _config_path(self):
+        """config.toml, else the newest config*.toml (resumed runs write
+        config_from_epoch_N.toml)."""
+        config_path = os.path.join(self.base_folder, 'config.toml')
+        if os.path.isfile(config_path):
+            return config_path
+        snapshots = sorted(glob.glob(os.path.join(self.base_folder, 'config*.toml')),
+                           key=os.path.getmtime)
+        if not snapshots:
+            raise RuntimeError('No config.toml found in %s - model structure unknown.'
+                               % self.base_folder)
+        return snapshots[-1]
 
     def _resolve_epoch(self, which):
         """'best' (highest val-PSNR) or 'last' epoch from summary.csv, walking the
@@ -77,15 +117,69 @@ class ModelInterface:
                   'save?) — loading epoch %d instead.' % (which, missing, cand))
         return cand
 
+    # --- training passthroughs ------------------------------------------------------------
+    def train_batch(self, lr, hr, metadata=None, metadata_keys=None, **kwargs):
+        if metadata_keys is not None and self.model.metadata_keys is None:
+            self.model.set_metadata_keys(metadata_keys)
+        return self.model.run_train(lr=lr, hr=hr, metadata=metadata)
+
+    def train_batch_multi(self, batches):
+        """K steps (see BaseHandler.run_train_multi): a list of K batch dicts, or one
+        dict of (K, B, ...) stacked arrays."""
+        first = batches if isinstance(batches, dict) else (batches[0] if batches else {})
+        if first.get('metadata_keys') is not None and self.model.metadata_keys is None:
+            self.model.set_metadata_keys(first['metadata_keys'])
+        return self.model.run_train_multi(batches)
+
+    def set_epoch(self, epoch):
+        self.model_epoch = epoch
+        self.model.set_epoch(epoch)
+
+    def set_metadata_keys(self, keys):
+        self.model.set_metadata_keys(keys)
+
+    def get_learning_rate(self):
+        return self.model.get_learning_rate()
+
+    def epoch_end_calls(self):
+        self.model.epoch_end_calls()
+
+    def wait_pending_checkpoints(self, timeout=None):
+        """Fence for background checkpoint writes (see BaseHandler.save_model)."""
+        self.model.wait_pending_checkpoints(timeout=timeout)
+
+    # --- persistence ----------------------------------------------------------------------
+    def save(self, name='train_model', override=False, dry_run=False):
+        """Save the current epoch's checkpoint; refuse to overwrite one (on disk or
+        still being written) unless ``override``.  ``dry_run`` only checks."""
+        save_path = os.path.join(self.saved_models, '%s_%s' % (name, self.model_epoch))
+        if (os.path.exists(save_path) or save_path in WRITER.pending_paths) \
+                and not override:
+            raise RuntimeError('Saving this model will result in overwriting existing '
+                               'data!  Change model location or enable override.')
+        if dry_run:
+            print('Training cleared to run.')
+            return
+        self.model.save_model(model_save_name=name, model_idx=self.model_epoch,
+                              model_save_dir=self.saved_models, background=True)
+
+    def save_metadata(self):
+        md = pd.DataFrame.from_dict({'model_parameters': [self.model.print_parameters()]})
+        md.to_csv(os.path.join(self.base_folder, 'extra_metadata.csv'), index=False)
+
     def print_overview(self):
         """(ref: models/__init__.py:195-223)"""
         device = self.model.device
         name = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host CPU'
+        if self.mode == 'eval':
+            mode, epoch, message = 'eval', self.model_epoch, 'currently evaluating'
+        else:
+            mode, message = 'train', 'will start training from'
+            epoch = self.model_epoch if self.model_epoch == 0 else self.model_epoch + 1
         print('----------------------------')
         print('Handler for experiment %s initialized successfully.' % self.experiment)
-        print('System loaded in eval mode - %s architecture provided.' % self.name)
+        print('System loaded in %s mode - %s architecture provided.' % (mode, self.name))
         print('Model has %d trainable parameters.' % self.model.print_parameters())
-        print("Using %s (%s) as the model's primary device, and currently evaluating "
-              "epoch %d of the model." % (device, name, self.model_epoch))
+        print("Using %s (%s) as the model's primary device, and %s epoch %d of the model."
+              % (device, name, message, epoch))
         print('----------------------------')
-

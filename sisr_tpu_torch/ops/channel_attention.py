@@ -22,6 +22,12 @@ cooperative launch that holds the map in shared memory (:func:`onchip_plan`; for
 the CA + residual, :func:`res_onchip_plan` streams the batch through it in rounds of
 images), counted also in the wrapper's ``onchip_launches``, and three launches for
 maps that do not fit.
+
+Both ops have a backward, as sisr_tpu's ``custom_vjp`` ops do: when autograd records
+(grad mode on and an input requires a grad), the wrapper runs as a
+``torch.autograd.Function`` whose forward is the one above on detached inputs (the
+kernel on the card) and whose backward recomputes the plain version and returns its
+vector-Jacobian product.  There is no backward kernel.
 """
 import ctypes
 
@@ -204,11 +210,6 @@ def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention', meta=None, gate
         if not t.is_floating_point():
             raise TypeError('%s: weights, meta and gate must be floating point, got %s'
                             % (op, t.dtype))
-    if any(t.requires_grad for t in [x, w1, b1, w2, b2] + extras) \
-            and torch.is_grad_enabled():
-        raise NotImplementedError('%s has no backward on CUDA yet (it comes with the '
-                                  'training slice): call it under torch.no_grad() or '
-                                  'inference_mode().' % op)
 
 
 def _check_residual_args(x, r, w1, b1, w2, b2):
@@ -221,10 +222,53 @@ def _check_residual_args(x, r, w1, b1, w2, b2):
                          % (op, tuple(r.shape), r.device, tuple(x.shape), x.device))
     if not r.is_contiguous():
         raise ValueError('%s: r must be a contiguous NHWC tensor' % op)
-    if r.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError('%s has no backward on CUDA yet (it comes with the '
-                                  'training slice): call it under torch.no_grad() or '
-                                  'inference_mode().' % op)
+
+
+def _records_grad(*tensors):
+    """Whether autograd records a call on these inputs (None entries allowed)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def _plain_vjp(plain, ctx, grad):
+    """The backward of an op whose forward is a kernel: recompute ``plain`` on the
+    saved inputs under autograd and return its VJP, a grad for each input that needs
+    one (sisr_tpu's ``_bwd`` / ``_res_bwd``)."""
+    needs = ctx.needs_input_grad
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, grad))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
+class _ChannelAttention(torch.autograd.Function):
+    """fused_channel_attention under autograd: the kernel forward, the plain VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, meta, gate):
+        ctx.save_for_backward(x, w1, b1, w2, b2, meta, gate)
+        return _ca_forward(x, w1, b1, w2, b2, meta, gate)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _plain_vjp(reference_channel_attention, ctx, grad)
+
+
+class _ChannelAttentionResidual(torch.autograd.Function):
+    """fused_channel_attention_residual under autograd: the kernel forward, the plain
+    VJP."""
+
+    @staticmethod
+    def forward(ctx, x, r, w1, b1, w2, b2):
+        ctx.save_for_backward(x, r, w1, b1, w2, b2)
+        return _ca_res_forward(x, r, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _plain_vjp(reference_channel_attention_residual, ctx, grad)
 
 
 def _library(index):
@@ -264,7 +308,14 @@ def fused_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None):
     """CA scale-and-excite, with the optional ``meta`` (N, M) concatenated onto the
     pooled vector and ``gate`` (N, C) multiplying the attention: the CUDA kernel for
     a CUDA ``x`` (on chip where :func:`onchip_plan` allows, else three passes), the
-    plain version for a CPU ``x``."""
+    plain version for a CPU ``x``; differentiable in every input (the plain VJP)."""
+    if _records_grad(x, w1, b1, w2, b2, meta, gate):
+        return _ChannelAttention.apply(x, w1, b1, w2, b2, meta, gate)
+    return _ca_forward(x, w1, b1, w2, b2, meta, gate)
+
+
+def _ca_forward(x, w1, b1, w2, b2, meta=None, gate=None):
+    """The forward of :func:`fused_channel_attention`, recording no grad."""
     if x.device.type == 'cpu':
         return reference_channel_attention(x, w1, b1, w2, b2, meta, gate)
     if x.device.type != 'cuda':
@@ -346,7 +397,15 @@ def res_onchip_aligned(x, r, out):
 def fused_channel_attention_residual(x, r, w1, b1, w2, b2):
     """The int8 RCAB block tail ``(float(x) * att(x) + float(r)).to(r.dtype)``: the
     CUDA kernel for a CUDA ``x`` (on chip in rounds where :func:`res_onchip_plan`
-    allows, else three passes), the plain version for a CPU ``x``."""
+    allows, else three passes), the plain version for a CPU ``x``; differentiable in
+    every input (the plain VJP)."""
+    if _records_grad(x, r, w1, b1, w2, b2):
+        return _ChannelAttentionResidual.apply(x, r, w1, b1, w2, b2)
+    return _ca_res_forward(x, r, w1, b1, w2, b2)
+
+
+def _ca_res_forward(x, r, w1, b1, w2, b2):
+    """The forward of :func:`fused_channel_attention_residual`, recording no grad."""
     if x.device.type == 'cpu':
         return reference_channel_attention_residual(x, r, w1, b1, w2, b2)
     if x.device.type != 'cuda':

@@ -1,5 +1,5 @@
-"""Small filesystem and device helpers (the eval subset of sisr_tpu's
-``utils/helpers.py``, plus device selection)."""
+"""Small filesystem and device helpers (a subset of sisr_tpu's ``utils/helpers.py``,
+plus device selection)."""
 import glob
 import os
 
@@ -28,6 +28,12 @@ def extract_image_names_from_folder(folder, sorted=True, recursive=False):
     return filenames
 
 
+def read_metadata_list(metadata_file):
+    """Read a text file of metadata key names, one per line (ref: net_train.py:10-13)."""
+    with open(metadata_file, 'r') as f:
+        return [label.rstrip() for label in f.readlines()]
+
+
 def resolve_device(device=None):
     """The device a component runs on: ``cuda`` unless the caller names another.
     Asking for CUDA where there is none raises; there is no quiet CPU fallback."""
@@ -36,3 +42,24 @@ def resolve_device(device=None):
         raise RuntimeError('CUDA was requested (the default) but torch.cuda.is_available() '
                            'is False: pass device="cpu" (CLI: --no-gpu) to run on the CPU.')
     return device
+
+
+def training_device(gpu=None, sp_gpu=0):
+    """The device of a training run from the reference's ``gpu`` option: 'off' (or
+    False) is the CPU; unset, 'single' (or True) is ``cuda:<sp_gpu>`` (device 0 when
+    out of range), and raises without CUDA; 'multi' is not ported."""
+    if gpu in ('off', False):
+        return torch.device('cpu')
+    if gpu == 'multi':
+        raise NotImplementedError('gpu = "multi" (data parallelism over several cards) is '
+                                  'not ported to sisr_tpu_torch yet: it comes with the '
+                                  'multi-GPU slice (ROADMAP.md, Queue 1 item 9).')
+    if gpu not in (None, 'single', True):
+        raise ValueError("gpu must be 'off', 'single' or 'multi', got %r" % (gpu,))
+    resolve_device('cuda')  # raises without CUDA
+    index = int(sp_gpu or 0)
+    if index >= torch.cuda.device_count():
+        print('sp_gpu=%s requested but only %d device(s) visible — using device 0.'
+              % (sp_gpu, torch.cuda.device_count()))
+        index = 0
+    return torch.device('cuda', index)

@@ -1,9 +1,10 @@
-"""TOML reading/writing (copy of sisr_tpu's ``utils/toml_io.py``, eval subset).
+"""TOML reading/writing (copy of sisr_tpu's ``utils/toml_io.py``).
 
 The environment ships ``tomllib`` (read-only); the writer below covers the subset of TOML the
 framework emits (nested tables, strings, numbers, bools, lists).  ``None`` values are skipped on
 write (TOML has no null), matching the behaviour of the ``toml`` package used by the reference.
 """
+from collections import defaultdict
 import tomllib
 
 
@@ -68,3 +69,13 @@ def dump(data, fileobj):
         with open(fileobj, 'w') as f:
             f.write(text)
     return text
+
+
+def convert_default_none_dict(in_dict):
+    """A copy of ``in_dict`` (and of every nested dict) in which missing keys read as
+    ``None`` (ref: Code/sr_tools/helper_functions.py:141-158)."""
+    out = defaultdict(lambda: None, in_dict)
+    for key, value in out.items():
+        if type(value) == dict:
+            out[key] = convert_default_none_dict(value)
+    return out

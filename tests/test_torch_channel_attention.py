@@ -2,8 +2,10 @@
 sisr_tpu's Pallas kernels (interpret mode) and plain references, on the CPU; the CA
 with ``meta`` and ``gate`` against sisr_tpu's flax meta-attention layers (QCALayer in
 every style, ParaCALayer, PALayer); the launch plan, alignment rule, argument checks,
-build command and CALayer wiring in Python.  The CUDA kernels themselves are tested
-on the card by tests/test_torch_cuda.py."""
+build command and CALayer wiring in Python; the backward of both ops (the plain
+version's VJP) against jax.grad through sisr_tpu's custom_vjp ops and against plain
+autograd.  The CUDA kernels themselves are tested on the card by
+tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
@@ -325,11 +327,14 @@ def test_res_onchip_plan_covers_fits_and_takes_fewest_rounds(n, hw, c, x_itemsiz
     (lambda a: {**a, 'x': a['x'][0]}, ValueError),
     (lambda a: {**a, 'w1': a['w1'].t()}, ValueError),
     (lambda a: {**a, 'b2': a['b2'][:-1]}, ValueError),
-    (lambda a: {**a, 'w1': a['w1'].requires_grad_()}, NotImplementedError),
+    (lambda a: {**a, 'w1': a['w1'].requires_grad_()}, None),  # the op has a backward
 ])
 def test_kernel_argument_checks(mutate, error):
     arrays = _inputs((2, 4, 4, 32), seed=1)
     args = dict(zip(('x', 'w1', 'b1', 'w2', 'b2'), map(torch.from_numpy, arrays)))
+    if error is None:
+        ca._check_args(**mutate(args))
+        return
     with pytest.raises(error):
         ca._check_args(**mutate(args))
 
@@ -350,7 +355,7 @@ def _meta_args():
     (lambda a: {**a, 'gate': a['gate'][:, :31]}, ValueError),
     (lambda a: {**a, 'gate': a['gate'].long()}, TypeError),
     (lambda a: {**a, 'gate': torch.empty(2, 32, device='meta')}, ValueError),
-    (lambda a: {**a, 'meta': a['meta'].requires_grad_()}, NotImplementedError),
+    (lambda a: {**a, 'meta': a['meta'].requires_grad_()}, None),  # has a backward
 ])
 def test_meta_and_gate_argument_checks(mutate, error):
     args = mutate(_meta_args())
@@ -528,13 +533,129 @@ def test_res_onchip_alignment_rule(r_offset, r_dtype, expect):
     (lambda a: {**a, 'r': a['r'].transpose(1, 2).contiguous().transpose(1, 2)},
      ValueError),                                                           # strided
     (lambda a: {**a, 'r': a['r'].half()}, TypeError),
-    (lambda a: {**a, 'r': a['r'].requires_grad_()}, NotImplementedError),
-    (lambda a: {**a, 'x': a['x'].requires_grad_()}, NotImplementedError),
+    (lambda a: {**a, 'r': a['r'].requires_grad_()}, None),  # the op has a backward
+    (lambda a: {**a, 'x': a['x'].requires_grad_()}, None),
     (lambda a: {**a, 'b1': a['b1'][:-1]}, ValueError),
 ])
 def test_residual_argument_checks(mutate, error):
     arrays = _inputs((2, 4, 4, 32), seed=6)
     args = dict(zip(('x', 'w1', 'b1', 'w2', 'b2'), map(torch.from_numpy, arrays)))
     args['r'] = torch.rand(2, 4, 4, 32).bfloat16()
+    if error is None:
+        ca._check_residual_args(**mutate(args))
+        return
     with pytest.raises(error, match='fused_channel_attention_residual'):
         ca._check_residual_args(**mutate(args))
+
+
+# --- the backward (the autograd.Function of each op) ------------------------------------
+def _grad_inputs(shape, seed, red=4):
+    x, w1, b1, w2, b2 = _inputs(shape, seed, red)
+    x = x - 0.4  # a signed map, as a conv output
+    cot = np.random.RandomState(seed + 100).randn(*shape).astype(np.float32)
+    return (x, w1, b1, w2, b2), cot
+
+
+def _torch_grads(fn, arrays, cot):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = fn(*leaves)
+    out.backward(torch.from_numpy(cot))
+    return out.detach().numpy(), [t.grad.numpy() for t in leaves]
+
+
+def _jax_grads(fn, arrays, cot):
+    out, vjp = jax.vjp(fn, *map(jnp.asarray, arrays))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+@pytest.mark.parametrize('shape', [(2, 8, 8, 32), (1, 7, 5, 16), (3, 4, 6, 64)])
+def test_ca_grads_match_jax_grad_of_sisr_tpu_op(shape):
+    """dx, dw1, db1, dw2, db2 through the port's Function (CPU: the plain forward)
+    against jax.vjp of sisr_tpu's custom_vjp fused_channel_attention: <= 1e-5 abs."""
+    arrays, cot = _grad_inputs(shape, seed=20, red=4 if shape[-1] < 64 else 16)
+    launches = ca.fused_channel_attention.launches
+    ours, our_grads = _torch_grads(ca.fused_channel_attention, arrays, cot)
+    assert ca.fused_channel_attention.launches == launches  # CPU: no kernel launch
+    theirs, their_grads = _jax_grads(pallas_ca.fused_channel_attention, arrays, cot)
+    np.testing.assert_allclose(ours, theirs, atol=1e-5, rtol=0)
+    for name, a, b in zip(('x', 'w1', 'b1', 'w2', 'b2'), our_grads, their_grads):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize('shape', [(2, 8, 8, 32), (1, 13, 8, 32)])
+def test_ca_residual_grads_match_jax_grad_of_sisr_tpu_op(shape):
+    """The CA + residual tail (x, r f32): the grads of x, r and the excite's weights
+    against jax.vjp of sisr_tpu's fused_channel_attention_residual: <= 1e-5 abs."""
+    (x, w1, b1, w2, b2), cot = _grad_inputs(shape, seed=21)
+    r = np.random.RandomState(22).rand(*shape).astype(np.float32)
+    arrays = (x, r, w1, b1, w2, b2)
+    ours, our_grads = _torch_grads(ca.fused_channel_attention_residual, arrays, cot)
+    theirs, their_grads = _jax_grads(pallas_ca.fused_channel_attention_residual, arrays,
+                                     cot)
+    np.testing.assert_allclose(ours, theirs, atol=1e-5, rtol=0)
+    for name, a, b in zip(('x', 'r', 'w1', 'b1', 'w2', 'b2'), our_grads, their_grads):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize('with_meta,with_gate', [(True, True), (True, False),
+                                                 (False, True)])
+def test_ca_grads_with_meta_and_gate_match_plain_autograd(with_meta, with_gate):
+    """With meta (w1 has C + M rows) and gate, every grad (meta's and gate's too)
+    against torch.autograd through reference_channel_attention."""
+    (x, w1, b1, w2, b2), cot = _grad_inputs((2, 6, 5, 32), seed=23)
+    rng = np.random.RandomState(24)
+    arrays = [x, np.concatenate([w1, rng.randn(10, w1.shape[1]).astype(np.float32) * 0.1])
+              if with_meta else w1, b1, w2, b2]
+    names = ['x', 'w1', 'b1', 'w2', 'b2']
+    if with_meta:
+        arrays.append(rng.rand(2, 10).astype(np.float32))
+        names.append('meta')
+    if with_gate:
+        arrays.append(rng.rand(2, 32).astype(np.float32))
+        names.append('gate')
+
+    def call(op):
+        return lambda *a: op(*a[:5], **dict(zip(names[5:], a[5:])))
+
+    ours, our_grads = _torch_grads(call(ca.fused_channel_attention), arrays, cot)
+    theirs, their_grads = _torch_grads(call(ca.reference_channel_attention), arrays, cot)
+    np.testing.assert_array_equal(ours, theirs)
+    for name, a, b in zip(names, our_grads, their_grads):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0, err_msg=name)
+
+
+def test_function_only_where_autograd_records(monkeypatch):
+    """Under no_grad, or with no input needing a grad, the op is the plain forward
+    with no graph; with a grad needed it is the Function, whose backward returns a
+    grad only for the inputs that need one."""
+    applied = []
+    monkeypatch.setattr(ca._ChannelAttention, 'apply',
+                        classmethod(lambda cls, *a: applied.append(a) or
+                                    torch.autograd.Function.apply.__func__(cls, *a)))
+    x, w1, b1, w2, b2 = map(torch.from_numpy, _inputs((2, 4, 4, 32), seed=25))
+    assert ca.fused_channel_attention(x, w1, b1, w2, b2).grad_fn is None
+    w1.requires_grad_()
+    with torch.no_grad():
+        assert ca.fused_channel_attention(x, w1, b1, w2, b2).grad_fn is None
+    assert not applied
+    out = ca.fused_channel_attention(x, w1, b1, w2, b2)
+    assert len(applied) == 1 and out.grad_fn is not None
+    out.sum().backward()
+    assert w1.grad is not None and x.grad is None and b1.grad is None
+
+
+def test_calayer_grads_reach_conv_du_through_the_views():
+    """CALayer hands the kernel transposed views of conv_du's weights: the backward's
+    grads land on the Conv2d parameters, equal to a plain-torch CALayer's."""
+    torch.manual_seed(0)
+    layer = blocks.CALayer(32, 4)
+    x = torch.rand(2, 32, 6, 5).contiguous(memory_format=torch.channels_last) - 0.5
+    layer(x).square().sum().backward()
+    ours = [p.grad.clone() for p in layer.parameters()]
+    layer.zero_grad()
+    reduce, expand = layer.conv_du[0], layer.conv_du[2]
+    pooled = x.mean(dim=(2, 3), keepdim=True)
+    att = torch.sigmoid(expand(torch.relu(reduce(pooled))))
+    (x * att).square().sum().backward()
+    for a, b in zip(ours, (p.grad for p in layer.parameters())):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)

@@ -1,7 +1,10 @@
 """sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel (with and
 without Q-RCAN's meta and gate) and the CA + residual block-tail kernel against their
-plain versions, the int8 conv's int32 sums against an int64 reference, and a small
-RCAN (f32, and int8), Q-RCAN and EDSR on the card against the CPU.  Every test here needs the card and skips without one.  Imports torch only (no
+plain versions, the int8 conv's int32 sums against an int64 reference, a small RCAN
+(f32, and int8), Q-RCAN and EDSR on the card against the CPU, and the CA op's backward
+(the kernel forward, the plain VJP) and one training step of a small Q-RCAN on the
+card against plain autograd and the CPU.  Every test here needs the card and skips
+without one.  Imports torch only (no
 JAX), so the card's machine runs it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -269,3 +272,61 @@ def test_int8_calibration_on_card_is_true_f32():
     assert sorted(theirs) == sorted(ours)
     for k in theirs:
         np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-5, atol=0, err_msg=k)
+
+
+@pytest.mark.parametrize('shape,with_gate,path', [
+    ((8, 64, 64, 64), False, 'onchip'),       # the training shape (RCAN)
+    ((8, 64, 64, 64), True, 'onchip'),        # with Q-RCAN's q_node gate
+    ((8, 128, 128, 64), False, 'three_pass'),  # f32 slabs too big for one SM
+])
+def test_function_grads_match_plain_autograd(shape, with_gate, path):
+    """Under autograd the op runs the kernel forward (launch counted, path as
+    planned) and the plain VJP: output within 1e-5, every grad within 1e-5 of plain
+    autograd through reference_channel_attention, the same bits on a rerun."""
+    args, extra = _meta_gate_inputs(shape, 16, torch.float32, 0, with_gate, seed=10)
+    cot = torch.from_numpy(np.random.RandomState(11).randn(*shape).astype(np.float32)).cuda()
+
+    def grads(op):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        gate = extra['gate'].clone().requires_grad_() if with_gate else None
+        out = op(*leaves, gate=gate)
+        out.backward(cot)
+        return out.detach(), [t.grad for t in leaves] + ([gate.grad] if with_gate else [])
+
+    launches = ca.fused_channel_attention.launches
+    onchip = ca.fused_channel_attention.onchip_launches
+    out, ours = grads(ca.fused_channel_attention)
+    again, ours_again = grads(ca.fused_channel_attention)
+    assert ca.fused_channel_attention.launches == launches + 2
+    took = ca.fused_channel_attention.onchip_launches - onchip
+    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    ref, theirs = grads(ca.reference_channel_attention)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert torch.equal(out, again)
+    for a, b, c in zip(ours, theirs, ours_again):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        assert torch.equal(a, c)
+
+
+def test_qrcan_train_step_on_card_matches_cpu():
+    """One run_train step of a 2 x 2 Q-RCAN (standard + q_node, 64 features), f32 with
+    TF32 off: the card (CA kernel forward, 4 launches) against the CPU from the same
+    weights and batch: loss within rtol 2e-4, weights within 5e-5."""
+    kw = dict(scale=4, n_resgroups=2, n_resblocks=2, n_feats=64, seed=1,
+              style='standard', include_q_layer=True, metadata=['blur_kernel'],
+              lr=1e-4, scheduler='cosine_annealing_warm_restarts',
+              scheduler_params={'restart_period': 125000, 'lr_min': 1e-7})
+    card, host = define_model('qrcan', device='cuda', **kw), define_model('qrcan',
+                                                                         device='cpu', **kw)
+    rng = np.random.RandomState(12)
+    batch = {'lr': rng.randint(0, 256, (2, 16, 16, 3)).astype(np.uint8),
+             'hr': rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+             'metadata': rng.rand(2, 10).astype(np.float32)}
+    launches = ca.fused_channel_attention.launches
+    loss_card = float(card.run_train(**batch)[0])
+    assert ca.fused_channel_attention.launches == launches + 4
+    loss_host = float(host.run_train(**batch)[0])
+    assert loss_card == pytest.approx(loss_host, rel=2e-4)
+    for a, b in zip(card.module.parameters(), host.module.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=5e-5, rtol=0)
+    assert card.step == host.step == 1

@@ -1,5 +1,6 @@
 """sisr_tpu_torch and chip_smoke import nothing of JAX, Flax or sisr_tpu, and the
-port's entry points run on CUDA unless told otherwise (raising where there is none)."""
+port's entry points (eval and training) run on CUDA unless told otherwise (raising
+where there is none)."""
 import os
 import subprocess
 import sys
@@ -27,9 +28,10 @@ CHECK = textwrap.dedent('''
     from sisr_tpu_torch import net_eval
     from sisr_tpu_torch.evaluation.standard_eval import EvalHub
     from sisr_tpu_torch.models.handlers import define_model
-    from sisr_tpu_torch.utils.helpers import resolve_device
+    from sisr_tpu_torch.utils.helpers import resolve_device, training_device
     for call in (lambda: resolve_device(), lambda: define_model('rcan', n_resgroups=1,
-                 n_resblocks=1, n_feats=16), lambda: EvalHub._select_device(True)):
+                 n_resblocks=1, n_feats=16), lambda: EvalHub._select_device(True),
+                 lambda: training_device(), lambda: training_device('single')):
         try:
             call()
         except RuntimeError as exc:
