@@ -21,7 +21,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
    ``torch._int_mm`` in both weight layouts; calibration on the card (with TF32
    allowed globally) against the CPU's; the full-width int8 RCAN and its fused eval
-   on the same quantised state, card against CPU;
+   on the same quantised state, card against CPU; then the same for EDSR 64
+   features, 16 blocks with each of its three carries (float32, bfloat16, int16),
+   Q-RCAN's e2e configuration at 2 x 2 blocks (its CA launches counted, their path
+   held against the plan) and Q-EDSR at 2 blocks and 256 features (also its f32
+   module forward), each with the int32 sums of its head and first body conv;
 5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
    launch counts of that run (every CA call on chip); then the img/s of warm protocol
@@ -34,7 +38,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    10-value blur kernels of their degradation_metadata.csv: every QRCAB tail one CA
    launch with meta and gate, on chip; launches, img/s and breakdown;
 8. EDSR main path: the same for EDSR 64 features, 16 blocks, 4x, bf16 (no kernel of
-   ours);
+   ours); then ``--int8`` on EDSR (no kernel of ours) and on Q-RCAN (every QRCAB tail
+   one CA launch with meta and gate on the f32 map, all three-pass at this shape),
+   and Q-EDSR at configs/div2k/qedsr.toml's width (256 features, 32 blocks, the
+   gate's nonlinearity, 10 blur-kernel values, 4x) in bf16 and with ``--int8``; each
+   int8 path's mean PSNR within 1 dB of its bf16 run's, with img/s, a device-time
+   breakdown and peak memory;
 9. kernel backward: the CA op under autograd (the kernel forward, the plain VJP) at the
    training shape (8, 64, 64, 64) f32 with and without Q-RCAN's gate, and at a
    three-pass shape, against plain autograd; the kernel's forward time at the
@@ -51,7 +60,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    CA kernel's share, conv FLOPs against the TF32 and f32 peaks, peak memory), and the
    same step with the CA's plain version in its place, in turns;
 
-then the ``kernels`` table, the card's name and power limit, and a last line
+then the ``kernels`` table (a row for each TPU kernel: the two CA paths and the two
+CA + residual paths), the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout, so
 f32 comparisons are true f32, except where phase 4 turns it on to show calibration
 turns it off for itself, and in phase 11, which trains with PyTorch's default (cuDNN
@@ -82,8 +92,11 @@ QRCAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
          'reduction': 16, 'style': 'max_concat', 'include_q_layer': True,
          'metadata': ['blur_kernel'], 'dtype': 'bf16'}
 EDSR = {'scale': SCALE, 'num_features': 64, 'num_blocks': 16, 'dtype': 'bf16'}
+# configs/div2k/qedsr.toml's model: the paper's Q-EDSR, the widest model of the configs
+QEDSR = {'scale': SCALE, 'num_features': 256, 'num_blocks': 32, 'res_scale': 0.1,
+         'q_layer_nonlinearity': True, 'metadata': ['blur_kernel'], 'dtype': 'bf16'}
 MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
-          'edsr_16b': ('edsr', EDSR)}
+          'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR)}
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
 CA_KERNELS = ('ca_onchip', 'ca_pool_partial', 'ca_excite', 'ca_scale')
 CA_RES_KERNELS = ('ca_res_onchip', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
@@ -506,7 +519,8 @@ def phase_kernel_residual():
           'device_kernels_ms_per_20_calls': kern_detail,
           'three_pass_shapes': three_pass_shapes, 'nvidia_smi': nvidia_smi_line(),
           **timing})
-    return {'max_abs_err': err, 'bound_ms': bound_ms, 'path': path, 'plan': plan, **timing}
+    return {'max_abs_err': err, 'three_pass_max_abs_err': three_pass_err,
+            'bound_ms': bound_ms, 'path': path, 'plan': plan, **timing}
 
 
 def meta_gate_inputs(shape, dtype, gen):
@@ -530,7 +544,8 @@ def phase_kernel_meta():
     (three passes).  Tolerances as phase_kernel's: f32 1e-5 abs, bf16 2 ULPs; the
     same bits on a rerun.  Each is timed in graph replay beside the meta-less call on
     the same x and the first C rows of w1, in turns (meta-less, meta, meta,
-    meta-less), and beside its plain version."""
+    meta-less), and beside its plain version.  The f32 case is the shape and inputs
+    of int8 Q-RCAN's QRCAB tail.  Returns the cases' results."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     op = ca.fused_channel_attention
@@ -576,7 +591,7 @@ def phase_kernel_meta():
                                             ops / F32_CUDA_CORE_FLOPS) * 1e3, **timing})
     emit({'phase': 'kernel', 'name': 'fused_channel_attention meta+gate',
           'meta_values': META_COLS, 'cases': results, 'nvidia_smi': nvidia_smi_line()})
-    return results[0]
+    return results
 
 
 def phase_reference(name='rcan_10x20', seed=3):
@@ -720,6 +735,137 @@ def phase_int8_reference():
                                  % (k, diff[k]))
 
 
+# int8 card-vs-CPU phases: name -> (model, structure in f32, LR size, carries; the
+# fused eval runs the last, bfloat16, the serving default)
+INT8_REFERENCE = {
+    'edsr': ('edsr', {**EDSR, 'dtype': 'f32'}, 32, ('float32', 'int16', 'bfloat16')),
+    'qrcan': ('qrcan', {**QRCAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
+              ('bfloat16',)),
+    'qedsr': ('qedsr', {**QEDSR, 'num_blocks': 2, 'dtype': 'f32'}, 16, ('bfloat16',)),
+}
+
+
+def psnr_between(a, b):
+    import numpy as np
+    mse = (a - b).pow(2).mean().item()
+    return float('inf') if mse == 0 else 10 * np.log10(1.0 / mse)
+
+
+def phase_int8_family_reference(name):
+    """The int8 program of INT8_REFERENCE[name] (seeded weights, 10 seeded metadata
+    values per image for the Q-models), card against CPU, in f32 with TF32 off.  The
+    int32 sums of the head and of the first body conv, with the model's quantised
+    kernels on seeded int8 inputs, are equal; calibration on the card (TF32 allowed
+    globally) within rtol 1e-5 of the CPU's; on the CPU's quantised state, each
+    carry's forward: finite, the CPU's shape, its PSNR card-vs-CPU reported; the fused
+    eval (bfloat16 carry) within 0.01 dB PSNR and 1e-3 SSIM.  Q-RCAN counts its CA
+    launches (one per QRCAB) and holds their path against onchip_plan; Q-EDSR also
+    holds its f32 module forward to 5e-4."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.models.handlers import define_model
+    from sisr_tpu_torch.ops import channel_attention as ca
+    from sisr_tpu_torch.ops import quantization as qz
+    model, internal, size, carries = INT8_REFERENCE[name]
+    card = define_model(model, device='cuda', seed=3, **internal)
+    host = define_model(model, device='cpu', seed=3, **internal)
+    rng = np.random.RandomState(7)
+    lr = rng.randint(0, 256, (2, size, size, 3)).astype(np.uint8)
+    batch = {'lr': lr,
+             'hr': rng.randint(0, 256, (2, size * SCALE, size * SCALE, 3)).astype(np.uint8)}
+    x = torch.from_numpy(lr).float() / 255.0
+    meta = meta_card = None
+    if host.uses_metadata:
+        batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, 2).astype(np.float32)
+        for handler in (card, host):
+            handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+        meta = host.prepare_metadata(x, torch.from_numpy(batch['metadata']))
+        meta_card = meta.cuda()
+    report = {'phase': 'int8_reference', 'model': name, 'structure': internal,
+              'lr': size}
+    if name == 'qedsr':
+        with torch.inference_mode():
+            fwd_err = (card.forward(x.cuda(), meta_card).cpu()
+                       - host.forward(x, meta)).abs().max().item()
+        report['f32_forward_max_abs_err'] = fwd_err
+        if not fwd_err <= 5e-4:
+            raise AssertionError('qedsr f32 forward on the card is %g from the CPU' % fwd_err)
+
+    for handler in (card, host):
+        handler.set_int8(True)
+    host._ensure_int8_ctx(x, meta)
+    with tf32(True, True):  # calibration turns TF32 off for its own convs and products
+        card._ensure_int8_ctx(x.cuda(), meta_card)
+        if not (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32):
+            raise AssertionError('int8 calibration left a global TF32 flag changed')
+    scales_card, scales_host = card._int8_ctx[2], host._int8_ctx[2]
+    scale_rel = max(abs(float(scales_card[k]) / float(scales_host[k]) - 1)
+                    for k in scales_host)
+    if sorted(scales_card) != sorted(scales_host) or not scale_rel <= 1e-5:
+        raise AssertionError('%s calibration on the card is %g from the CPU\'s'
+                             % (name, scale_rel))
+    report['calibration_max_rel_diff'] = scale_rel
+
+    qp = host._int8_ctx[1]
+    first_body = qp['block_0']['conv_0'] if 'block_0' in qp \
+        else qp['group_0']['qrcab_0']['conv_0']
+    gen = torch.Generator().manual_seed(8)
+    for conv_name, entry in (('head', qp['head']), ('first_body_conv', first_body)):
+        x_q = torch.randint(-127, 128, (2, size, size, entry['kernel'].shape[2]),
+                            generator=gen, dtype=torch.int8)
+        acc_host = qz.conv_int8_accumulate(x_q, entry['kernel'], entry['matrix'])
+        acc_card = qz.conv_int8_accumulate(x_q.cuda(), entry['kernel'].cuda(),
+                                           entry['matrix'].cuda()).cpu()
+        if acc_card.dtype != torch.int32 or not torch.equal(acc_card, acc_host):
+            raise AssertionError('%s int8 %s on the card: int32 sums differ from the CPU\'s'
+                                 % (name, conv_name))
+    report['conv_int32_equal'] = True
+
+    state = host._int8_ctx[1:]
+    props = torch.cuda.get_device_properties(0)
+    # Q-RCAN: one CA launch a QRCAB, on the path the plan gives its f32 map
+    blocks = internal['n_resgroups'] * internal['n_resblocks'] if name == 'qrcan' else 0
+    plan = ca.onchip_plan(2, size * size, 64, 4, 4, True, props.multi_processor_count,
+                          props.shared_memory_per_block_optin, m=META_COLS)
+    report['carries'] = {}
+    for carry in carries:
+        for handler in (card, host):
+            handler.set_int8(True, residual_dtype=carry)
+            handler.load_int8_state(*state)
+        before = (ca.fused_channel_attention.launches, ca.fused_channel_attention.onchip_launches)
+        with torch.inference_mode():
+            ours = card._int8_ctx[0](x.cuda(), meta_card).cpu()
+            theirs = host._int8_ctx[0](x, meta)
+        torch.cuda.synchronize()
+        launched = ca.fused_channel_attention.launches - before[0]
+        onchip = ca.fused_channel_attention.onchip_launches - before[1]
+        if not torch.isfinite(ours).all() or ours.shape != theirs.shape:
+            raise AssertionError('int8 %s (%s carry) on the card: non-finite or misshapen'
+                                 % (name, carry))
+        report['carries'][carry] = {'forward_psnr_card_vs_cpu': psnr_between(ours, theirs),
+                                    'forward_max_abs_err': (ours - theirs).abs().max().item(),
+                                    'ca_launches': launched, 'ca_onchip_launches': onchip}
+        if launched != blocks or onchip != (blocks if plan is not None else 0):
+            raise AssertionError('int8 %s forward: %d CA launches (%d on chip), expected %d '
+                                 'on the %s path' % (name, launched, onchip, blocks,
+                                                     'on-chip' if plan else 'three-pass'))
+        if blocks:
+            report['carries'][carry]['ca_path'] = 'onchip' if plan is not None \
+                else 'three_pass'
+    (keys, m_card), _ = card.run_eval_fused(batch)
+    (_, m_host), _ = host.run_eval_fused(batch)
+    m_card, m_host = m_card.cpu().numpy(), m_host.numpy()
+    diff = {k: float(np.abs(m_card[i] - m_host[i]).max()) for i, k in enumerate(keys)}
+    report.update({'metric_max_abs_diff': diff, 'output_shape': list(ours.shape),
+                   'nvidia_smi': nvidia_smi_line()})
+    emit(report)
+    for i, k in enumerate(keys):
+        bar = 0.01 if k.endswith('PSNR') else 1e-3
+        if not diff[k] <= bar:
+            raise AssertionError('int8 %s fused eval %s on the card is %g from the CPU'
+                                 % (name, k, diff[k]))
+
+
 def prepare_workload(root):
     """The 16 synthetic pairs (with their metadata CSV) and one seeded experiment of
     each model (seed 8), shared by every path."""
@@ -840,7 +986,20 @@ BF16_PATHS = {
     'qrcan_10x20': ('qrcan_', 'qrcan 10x20 64f 4x bf16, max_concat + q_node, '
                     '10 blur-kernel values', QRCAN['n_resgroups'] * QRCAN['n_resblocks']),
     'edsr_16b': ('edsr_', 'edsr 16b 64f 4x bf16', 0),
+    'qedsr_32b': ('qedsr_', 'qedsr 32b 256f 4x bf16, q_layer_nonlinearity, '
+                  '10 blur-kernel values', 0),
 }
+
+
+def peak_forward_gb(fn):
+    """Peak device memory (GB) allocated while ``fn`` runs once."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
 
 
 def phase_main_path(dirs, experiment='rcan_10x20'):
@@ -863,6 +1022,7 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
     conv_flops = count_conv_flops(handler, x, meta)
     with torch.inference_mode():
         forward_ms = cuda_ms(lambda: handler.forward(x, meta), reps=5, rounds=3)
+    peak_gb = peak_forward_gb(lambda: handler.forward(x, meta))
     steps, per_kernel = step_times(handler, dev)
     ca_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in CA_KERNELS))
     conv_ms = sum(v for k, v in per_kernel.items() if not any(n in k for n in CA_KERNELS)
@@ -877,54 +1037,94 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
     emit({'phase': prefix + 'breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
           'forward_conv_gflop': conv_flops / 1e9,
           'forward_bf16_bound_ms': conv_flops / BF16_TENSOR_FLOPS * 1e3, **steps,
-          'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms,
+          'forward_peak_memory_gb': peak_gb, 'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms,
           'device_kernel_kinds': len(per_kernel), 'top_kernels_ms': top,
           'nvidia_smi': nvidia_smi_line()})
     return {'launches': launches, 'mean_psnr': mean_psnr}
 
 
-def phase_int8_main_path(dirs, bf16_mean_psnr):
-    """``eval_sisr --fused_eval --int8`` on the same pairs and weights: every RCAB tail
-    through the CA + residual kernel on chip (200 per forward), the module's CA kernel
-    not at all; mean PSNR within 1 dB of the bf16 run's."""
-    import torch
-    launches, cli_seconds, frame = run_eval_cli(dirs, 'smoke_int8', ['--int8'])
-    n_batches = -(-N_IMAGES // BATCH)
-    expect_launches(launches, {'fused_channel_attention': 0,
-                               'fused_channel_attention_onchip': 0,
-                               'fused_channel_attention_residual':
-                                   CA_PER_FORWARD * n_batches,
-                               'fused_channel_attention_residual_onchip':
-                                   CA_PER_FORWARD * n_batches}, 'int8 main path')
-    mean_psnr = float(frame[('rcan_10x20', 'PSNR')].mean())
-    if not abs(mean_psnr - bf16_mean_psnr) < 1.0:
-        raise AssertionError('int8 mean PSNR %.4f is not within 1 dB of bf16\'s %.4f'
-                             % (mean_psnr, bf16_mean_psnr))
-    rates, handler = warm_passes(dirs, 'smoke_int8_timed', int8=True)
+# int8 main paths: experiment -> (phase name prefix, description)
+INT8_PATHS = {
+    'rcan_10x20': ('', 'rcan 10x20 64f 4x int8 (bf16 carry)'),
+    'edsr_16b': ('edsr_', 'edsr 16b 64f 4x int8 (bf16 carry)'),
+    'qrcan_10x20': ('qrcan_', 'qrcan 10x20 64f 4x int8 (bf16 carry), max_concat + q_node, '
+                    '10 blur-kernel values'),
+    'qedsr_32b': ('qedsr_', 'qedsr 32b 256f 4x int8 (bf16 carry), q_layer_nonlinearity, '
+                  '10 blur-kernel values'),
+}
 
-    dev, x, _ = breakdown_batch()
+
+def int8_expected_launches(experiment, forwards):
+    """The kernel launches of ``forwards`` int8 forwards of ``experiment``: RCAN's
+    RCAB tails through the CA + residual kernel on chip; Q-RCAN's QRCAB tails through
+    the CA kernel on the f32 map, three-pass at this shape (asserted from the plan);
+    none for EDSR and Q-EDSR."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    counts = dict.fromkeys(('fused_channel_attention', 'fused_channel_attention_onchip',
+                            'fused_channel_attention_residual',
+                            'fused_channel_attention_residual_onchip'), 0)
+    if experiment == 'rcan_10x20':
+        counts['fused_channel_attention_residual'] = CA_PER_FORWARD * forwards
+        counts['fused_channel_attention_residual_onchip'] = CA_PER_FORWARD * forwards
+    elif experiment == 'qrcan_10x20':
+        props = torch.cuda.get_device_properties(0)
+        plan = ca.onchip_plan(BATCH, LR_SIZE ** 2, 64, 4, 4, True,
+                              props.multi_processor_count,
+                              props.shared_memory_per_block_optin, m=META_COLS)
+        if plan is not None:
+            raise AssertionError('int8 Q-RCAN\'s f32 map fits on chip on this card: %s'
+                                 % (plan,))
+        counts['fused_channel_attention'] = QRCAN['n_resgroups'] * QRCAN['n_resblocks'] \
+            * forwards
+    return counts
+
+
+def phase_int8_main_path(dirs, bf16_mean_psnr, experiment='rcan_10x20'):
+    """``eval_sisr --fused_eval --int8`` on the same pairs and weights as
+    ``experiment``'s bf16 run: the launches of int8_expected_launches, the module's
+    kernels not at all; mean PSNR within 1 dB of the bf16 run's; img/s, the forward's
+    device time by kind (our kernels, int8 GEMMs, the rest) and its peak memory."""
+    import torch
+    prefix, description = INT8_PATHS[experiment]
+    launches, cli_seconds, frame = run_eval_cli(dirs, prefix + 'smoke_int8', ['--int8'],
+                                                experiment=experiment)
+    n_batches = -(-N_IMAGES // BATCH)
+    expect_launches(launches, int8_expected_launches(experiment, n_batches),
+                    '%s int8 main path' % experiment)
+    mean_psnr = float(frame[(experiment, 'PSNR')].mean())
+    if not abs(mean_psnr - bf16_mean_psnr) < 1.0:
+        raise AssertionError('%s int8 mean PSNR %.4f is not within 1 dB of bf16\'s %.4f'
+                             % (experiment, mean_psnr, bf16_mean_psnr))
+    rates, handler = warm_passes(dirs, prefix + 'smoke_int8_timed', int8=True,
+                                 experiment=experiment)
+
+    dev, x, meta = breakdown_batch(handler)
     program = handler._int8_ctx[0]
     with torch.inference_mode():
-        forward_ms = cuda_ms(lambda: program(x), reps=3, rounds=3)
-        forward_device_ms, per_kernel = device_kernel_ms(lambda: program(x), reps=3)
+        forward_ms = cuda_ms(lambda: program(x, meta), reps=3, rounds=3)
+        forward_device_ms, per_kernel = device_kernel_ms(lambda: program(x, meta), reps=3)
+    peak_gb = peak_forward_gb(lambda: program(x, meta))
     steps, _ = step_times(handler, dev)
     per_kernel = {k: v / 3 for k, v in per_kernel.items()}
-    ca_res_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in CA_RES_KERNELS))
-    gemm_ms = sum(v for k, v in per_kernel.items()
-                  if not any(n in k for n in CA_RES_KERNELS)
+    ours = CA_KERNELS + CA_RES_KERNELS
+    ca_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in ours))
+    gemm_ms = sum(v for k, v in per_kernel.items() if not any(n in k for n in ours)
                   and any(t in k.lower() for t in GEMM_KERNEL_HINTS))
-    other_ms = sum(per_kernel.values()) - ca_res_ms - gemm_ms
+    other_ms = sum(per_kernel.values()) - ca_ms - gemm_ms
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
-    emit({'phase': 'int8_main_path', 'model': 'rcan 10x20 64f 4x int8 (bf16 carry)',
+    emit({'phase': prefix + 'int8_main_path', 'model': description,
           'images': N_IMAGES, 'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds,
           'launches': launches, 'mean_psnr': mean_psnr, 'bf16_mean_psnr': bf16_mean_psnr,
           'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
           'img_per_s_warm_passes': rates, 'img_per_s': statistics.median(rates),
           'nvidia_smi': nvidia_smi_line()})
-    emit({'phase': 'int8_breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
+    emit({'phase': prefix + 'int8_breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
           'forward_device_ms': forward_device_ms, **steps,
-          'forward_int8_gemm_device_ms': gemm_ms, 'forward_ca_res_device_ms': ca_res_ms,
-          'forward_other_device_ms': other_ms, 'forward_kernels': len(per_kernel),
+          'forward_int8_gemm_device_ms': gemm_ms, 'forward_ca_kernels_device_ms': ca_ms,
+          'forward_ca_kernels_share': ca_ms / forward_device_ms if forward_device_ms
+          else None, 'forward_other_device_ms': other_ms,
+          'forward_peak_memory_gb': peak_gb, 'forward_kernels': len(per_kernel),
           'top_forward_kernels_ms': top, 'nvidia_smi': nvidia_smi_line()})
     return {'launches': launches, 'mean_psnr': mean_psnr}
 
@@ -1325,56 +1525,84 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_environment()
-    kernels = {'fused_channel_attention': phase_kernel(),
-               'fused_channel_attention_residual': phase_kernel_residual()}
+    ca_main = phase_kernel()
+    ca_res_main = phase_kernel_residual()
     meta_gate = phase_kernel_meta()
     training_shape = phase_kernel_backward()
-    for name in MODELS:
+    for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b'):
         phase_reference(name)
     phase_int8_reference()
+    for name in INT8_REFERENCE:
+        phase_int8_family_reference(name)
     phase_train_reference()
     root = tempfile.mkdtemp(prefix='sisr_chip_smoke_')
     try:
         dirs = prepare_workload(root)
-        main_path = phase_main_path(dirs)
-        int8_path = phase_int8_main_path(dirs, main_path['mean_psnr'])
-        qrcan_path = phase_main_path(dirs, 'qrcan_10x20')
-        phase_main_path(dirs, 'edsr_16b')  # asserts 0 launches of either kernel
-        train_path = phase_train_main_path(dirs, root)
+        paths = {'rcan_bf16': phase_main_path(dirs)}
+        paths['rcan_int8'] = phase_int8_main_path(dirs, paths['rcan_bf16']['mean_psnr'])
+        for name, model in (('qrcan', 'qrcan_10x20'), ('edsr', 'edsr_16b'),
+                            ('qedsr', 'qedsr_32b')):
+            paths[name + '_bf16'] = phase_main_path(dirs, model)
+            paths[name + '_int8'] = phase_int8_main_path(
+                dirs, paths[name + '_bf16']['mean_psnr'], model)
+        paths['qrcan_train'] = phase_train_main_path(dirs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # each kernel's launches are those of the paths that run it
-    by_path = {'fused_channel_attention': {'rcan_bf16': main_path['launches'],
-                                           'qrcan_bf16': qrcan_path['launches'],
-                                           'qrcan_train': train_path['launches']},
-               'fused_channel_attention_residual': {'rcan_int8': int8_path['launches']}}
-    replaces = {'fused_channel_attention': 'sisr_tpu/ops/pallas/channel_attention.py:112',
-                'fused_channel_attention_residual':
-                    'sisr_tpu/ops/pallas/channel_attention.py:202'}
-    rows = []
-    for name, k in kernels.items():
-        paths = by_path[name]
-        rows.append({
-            'name': name, 'route': 'cuda',
-            'source': 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu',
-            'replaces': replaces[name],
-            'launches': sum(counts[name] for counts in paths.values()),
-            'max_abs_err': k['max_abs_err'], 'ms': k['ms'], 'plain_ms': k['plain_ms'],
-            'bound_ms': k['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
-            'host_ms': k['host_ms'], 'device_ms': k['device_ms'],
-            'plain_device_ms': k['plain_device_ms'], 'path': k['path'],
-            'three_pass_ms': k['three_pass_ms'],
-            'three_pass_device_ms': k['three_pass_device_ms'],
-            'launches_by_path': {p: counts[name] for p, counts in paths.items()},
-            'onchip_launches': sum(counts[name + '_onchip'] for counts in paths.values()),
-            'plan': k['plan']})
-    # the meta and gate inputs of Q-RCAN's path, at its shape (on chip)
-    rows[0].update({'meta_gate_' + key: meta_gate[key]
-                    for key in ('ms', 'no_meta_ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
+
+    def path_launches(op, onchip):
+        """Each path's launches of ``op`` on one of its two paths."""
+        out = {}
+        for path, result in paths.items():
+            counts = result['launches']
+            n = counts[op + '_onchip'] if onchip else counts[op] - counts[op + '_onchip']
+            if n:
+                out[path] = n
+        return out
+
+    source = 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu'
+    pallas = 'sisr_tpu/ops/pallas/channel_attention.py:'
+    # one row for each TPU kernel; each row's times are those of its main-path shape:
+    # 1a the bf16 eval map on chip, 1b the f32 map of int8 Q-RCAN with its meta and
+    # gate, 2a/2b int8 RCAN's f32 map with its bf16 carry
+    meta_f32 = meta_gate[1]
+    rows = [
+        ('fused_channel_attention: ca_onchip', pallas + '112', 'fused_channel_attention',
+         True, ca_main),
+        ('fused_channel_attention: three-pass (sisr_ca_forward)', pallas + '135',
+         'fused_channel_attention', False, meta_f32),
+        ('fused_channel_attention_residual: ca_res_onchip', pallas + '202',
+         'fused_channel_attention_residual', True, ca_res_main),
+        ('fused_channel_attention_residual: three-pass (sisr_ca_res_forward)',
+         pallas + '226', 'fused_channel_attention_residual', False,
+         {**ca_res_main, 'ms': ca_res_main['three_pass_ms'],
+          'max_abs_err': ca_res_main['three_pass_max_abs_err']}),
+    ]
+    kernel_rows = []
+    for name, replaces, op, onchip, timing in rows:
+        by_path = path_launches(op, onchip)
+        kernel_rows.append({
+            'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+            'launches': sum(by_path.values()), 'max_abs_err': timing['max_abs_err'],
+            'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
+            'bound_ms': timing['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
+            'launches_by_path': by_path})
+    ca_row, ca_three_row, res_row, res_three_row = kernel_rows
+    ca_row.update({'host_ms': ca_main['host_ms'], 'device_ms': ca_main['device_ms'],
+                   'plain_device_ms': ca_main['plain_device_ms'], 'plan': ca_main['plan'],
+                   'three_pass_ms_at_this_shape': ca_main['three_pass_ms']})
+    # the meta and gate inputs of Q-RCAN's bf16 path, at its shape (on chip)
+    ca_row.update({'meta_gate_' + key: meta_gate[0][key]
+                   for key in ('ms', 'no_meta_ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
     # the training path's shape, f32 (on chip)
-    rows[0].update({'training_shape_' + key: training_shape[key]
-                    for key in ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
-    emit({'kernels': rows})
+    ca_row.update({'training_shape_' + key: training_shape[key]
+                   for key in ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
+    ca_three_row.update({'shape': meta_f32['shape'], 'no_meta_ms': meta_f32['no_meta_ms']})
+    res_row.update({'host_ms': ca_res_main['host_ms'], 'device_ms': ca_res_main['device_ms'],
+                    'plain_device_ms': ca_res_main['plain_device_ms'],
+                    'plan': ca_res_main['plan']})
+    res_three_row.update({'host_ms': ca_res_main['three_pass_host_ms'],
+                          'device_ms': ca_res_main['three_pass_device_ms']})
+    emit({'kernels': kernel_rows})
     print(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -16,6 +16,8 @@ class EDSR(nn.Module):
                  out_features=3):
         super().__init__()
         n = net_features
+        self.num_blocks = num_blocks
+        self.res_scale = res_scale
         self.head = nn.Sequential(conv(in_features, n, 3))
         self.body = nn.Sequential(*[ResBlock(n, 3, res_scale) for _ in range(num_blocks)],
                                   conv(n, n, 3))

@@ -17,8 +17,8 @@ Each handler is registered under the reference's lowercase model name and owns:
   (``set_metadata_keys``), and each batch's (N, M) metadata reaches the module
   through ``prepare_metadata``;
 * int8 serving (``set_int8``): quantised weights and activation scales calibrated on
-  the first eval batch, and the int8 program of ``ops/quantization.py`` in place of
-  the module in the fused step;
+  the first eval batch (with its prepared metadata, for a metadata model), and the
+  int8 program of ``ops/quantization.py`` in place of the module in the fused step;
 * checkpoints in the reference's file contract (``saved_models/train_model_<N>``, a
   ``torch.save`` dict with ``network``, ``optimizer``, ``step``, ``model_name``,
   ``model_epoch``), written in the background during training
@@ -45,7 +45,7 @@ from .blocks import torch_default_init_
 
 available_models = {}
 # int8 families whose program is ported; sisr_tpu's others raise in set_int8
-_INT8_PROGRAMS = ('rcan',)
+_INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr')
 
 
 def _training_not_ported(what, item):
@@ -196,7 +196,19 @@ class BaseHandler:
             mask = [k in meta_cfg for k in self.metadata_keys]
         if len(self.metadata_keys) == 1:
             mask = [True]
-        self.meta_indices = np.where(np.array(mask))[0]
+        new_indices = np.where(np.array(mask))[0]
+        if self.meta_indices is None or not np.array_equal(new_indices, self.meta_indices):
+            # int8 scales were calibrated on the old columns (and the metadata width may
+            # differ): drop them with the cached steps
+            self._invalidate_steps()
+        self.meta_indices = new_indices
+
+    def _invalidate_steps(self):
+        """Drop the cached fused steps, the shapes they were warmed on and the int8
+        context (quantised weights and scales)."""
+        self._eval_step_cache = {}
+        self._warm_eval_shapes = set()
+        self._int8_ctx = None
 
     def prepare_metadata(self, x, metadata):
         """(N, M_total) batch metadata -> the module's metadata input in x's dtype (or
@@ -322,64 +334,101 @@ class BaseHandler:
     def set_int8(self, enabled=True, residual_dtype='bfloat16'):
         """Turn the int8 serving path on or off: per-channel int8 weights, static
         activation scales calibrated (absmax, 10% margin) on the first eval batch, a
-        narrow residual carry ('bfloat16' or 'float32').  Metrics are then computed on
-        the quantised output."""
+        narrow residual carry ('bfloat16' or 'float32'; 'int16' is EDSR's fixed-point
+        carry, and the other families take bfloat16 for it).  Metrics are then
+        computed on the quantised output."""
         if enabled and self.int8_family is None:
             print('%s: no int8 serving path for this architecture — ignoring.'
                   % type(self).__name__)
             return
         if enabled and self.int8_family not in _INT8_PROGRAMS:
             raise _int8_not_ported('The %s program' % self.int8_family,
-                                   'EDSR and Q-RCAN int8')
-        if residual_dtype not in ('float32', 'bfloat16'):
-            raise ValueError("residual_dtype must be 'float32' or 'bfloat16' (the int16 "
-                             "carry is EDSR-only), got %r" % (residual_dtype,))
+                                   'remaining families')
+        if residual_dtype not in ('float32', 'bfloat16', 'int16'):
+            raise ValueError("residual_dtype must be 'float32', 'bfloat16' or 'int16', "
+                             "got %r" % (residual_dtype,))
         self.int8_mode = bool(enabled)
         self.int8_residual_dtype = residual_dtype
-        self._int8_ctx = None
-        self._eval_step_cache = {}
-        self._warm_eval_shapes = set()
+        self._invalidate_steps()
 
     def _int8_calibration_input(self, lr_f32):
-        """The calibration input, matching what the int8 program takes: for RGB
-        models that take the LR image as it is, the f32 LR batch itself."""
-        if self.im_input == 'interp' or self.colorspace != 'rgb':
+        """The calibration input, matching what the int8 program takes: for models
+        that take the LR image as it is (RGB, or RGB with metadata beside it), the f32
+        LR batch itself."""
+        if self.im_input == 'interp' or self.colorspace == 'ycbcr':
             raise _int8_not_ported('Calibrating pre-upscaled or Y-channel inputs',
                                    'remaining families')
         if self.tiled_eval:
             raise _int8_not_ported('Tile-sized calibration crops', 'remaining families')
         return lr_f32
 
-    def _ensure_int8_ctx(self, x):
+    def _ensure_int8_ctx(self, x, meta=None):
         """Quantise the weights and calibrate the activation scales on ``x`` (the
-        first batch), once; the program then runs with them."""
+        first batch) and, for a metadata model, ``meta`` (that batch's prepared
+        metadata), once; the program then runs with them."""
         if self._int8_ctx is not None:
             return
+        if self.uses_metadata and meta is None:
+            raise RuntimeError('int8 %s calibration needs a metadata batch alongside the '
+                               'first LR batch.' % self.int8_family.upper())
         params = params_from_state_dict(self.model_name, self.module.state_dict())
-        if self.int8_family == 'rcan':
-            m = self.module
+        m, family = self.module, self.int8_family
+        if family == 'rcan':
             qp = qz.quantize_rcan_params(params, m.n_resgroups, m.n_resblocks)
             scales = qz.calibrate_rcan_scales(params, [x], m.n_resgroups, m.n_resblocks,
                                               margin=1.1)
+        elif family == 'edsr':
+            qp = qz.quantize_edsr_params(params)
+            scales = qz.calibrate_edsr_scales(params, [x], m.num_blocks, self.scale,
+                                              m.res_scale, margin=1.1)
+        elif family == 'qrcan':
+            qp = qz.quantize_qrcan_params(params, m.n_resgroups, m.n_resblocks)
+            scales = qz.calibrate_qrcan_scales(params, [x], [meta], self.style,
+                                               m.n_resgroups, m.n_resblocks, margin=1.1)
+        elif family == 'qedsr':
+            qp = qz.quantize_qedsr_params(params, m.num_blocks)
+            scales = qz.calibrate_qedsr_scales(params, [x], [meta], m.num_blocks,
+                                               self.scale, m.res_scale,
+                                               m.q_layer_nonlinearity, margin=1.1)
         else:
-            raise RuntimeError('unknown int8 family %r' % self.int8_family)
+            raise RuntimeError('unknown int8 family %r' % family)
         self.load_int8_state(qp, scales)
 
     def load_int8_state(self, qparams, act_scales):
         """Run the int8 program with these quantised parameters and scales (from
         :meth:`_ensure_int8_ctx`, or from sisr_tpu through
         ``tools.convert_weights.int8_state_from_jax``), moved to this handler's
-        device."""
+        device.  Every family's program is ``program(x, meta=None)``: the f32 NHWC LR
+        batch and, for a metadata model, its prepared (N, M) metadata."""
         qparams = _tree_to(qparams, self.device)
         dev_scales = qz.scales_on(act_scales, self.device)
-        if self.int8_family == 'rcan':
-            m, rd = self.module, self.int8_residual_dtype
-
-            def program(x):
+        m, family, rd = self.module, self.int8_family, self.int8_residual_dtype
+        if family != 'edsr' and rd == 'int16':
+            print("int8 %s: residual_dtype %r is EDSR-only (int16 grid) — using bfloat16."
+                  % (family, rd))
+            rd = 'bfloat16'
+        if family == 'rcan':
+            def program(x, meta=None):
                 return qz.rcan_int8_forward_static(qparams, dev_scales, x, m.n_resgroups,
                                                    m.n_resblocks, residual_dtype=rd)
+        elif family == 'edsr':
+            def program(x, meta=None):
+                return qz.edsr_int8_forward_static(qparams, dev_scales, x, m.num_blocks,
+                                                   self.scale, m.res_scale,
+                                                   residual_dtype=rd)
+        elif family == 'qrcan':
+            def program(x, meta=None):
+                return qz.qrcan_int8_forward_static(qparams, dev_scales, x, meta,
+                                                    self.style, m.n_resgroups,
+                                                    m.n_resblocks, residual_dtype=rd)
+        elif family == 'qedsr':
+            def program(x, meta=None):
+                return qz.qedsr_int8_forward_static(qparams, dev_scales, x, meta,
+                                                    m.num_blocks, self.scale, m.res_scale,
+                                                    m.q_layer_nonlinearity,
+                                                    residual_dtype=rd)
         else:
-            raise RuntimeError('unknown int8 family %r' % self.int8_family)
+            raise RuntimeError('unknown int8 family %r' % family)
         self._int8_ctx = (program, qparams, dict(act_scales))
 
     # --- fused eval -----------------------------------------------------------------------
@@ -435,9 +484,9 @@ class BaseHandler:
         if meta is not None:
             dev_batch['metadata'] = self._to_device(meta).float()
         if self.int8_mode and self._int8_ctx is None:
-            # calibrate outside the step, on the input the int8 program takes
-            self._ensure_int8_ctx(self._int8_calibration_input(
-                self._prep_batch(dev_batch)[0]))
+            # calibrate outside the step, on the input (and metadata) the program takes
+            lr, _, metadata = self._prep_batch(dev_batch)
+            self._ensure_int8_ctx(self._int8_calibration_input(lr), metadata)
         key = ('fused', tuple(metrics), include_lr, self.int8_mode, request_loss)
         if key not in self._eval_step_cache:
             self._eval_step_cache[key] = self._make_fused_step(tuple(metrics), include_lr,
@@ -479,7 +528,8 @@ class BaseHandler:
                 # weights; <=1 uint8 LSB fixed-point difference)
                 lr_y = prep_y(resize_bicubic(lr, hr.shape[1], hr.shape[2]))
             # the calibrated int8 program when int8 serving is on, else the module
-            sr = self._int8_ctx[0](lr) if self.int8_mode else self.forward(lr, metadata)
+            sr = self._int8_ctx[0](lr, metadata) if self.int8_mode \
+                else self.forward(lr, metadata)
             sr_y = prep_y(sr)
             rows = []
             for met in metrics:  # row order matches run_eval_fused's keys tuple
@@ -534,8 +584,7 @@ class BaseHandler:
         if self._int8_ctx is not None or self.int8_mode:
             # the quantised weights came from the replaced parameters: requantise and
             # recalibrate on the next eval batch
-            self._int8_ctx = None
-            self._eval_step_cache = {}
+            self._invalidate_steps()
         self.step = int(state_dict.get('step', 0))
         self.set_epoch(int(state_dict['model_epoch']))
         print('Loaded model uses the following architecture:', state_dict['model_name'])
@@ -654,3 +703,21 @@ class QRCANHandler(QHandler):
         if self.clamp:
             prof = torch.clamp(prof, 0.0, 1.0)
         return prof
+
+
+@register_model('qedsr')
+class QEDSRHandler(QHandler):
+    """(ref: attention_manipulators/handlers.py:57-76).  EDSR with a ParaCALayer gate
+    on the metadata in every block; ``q_layer_nonlinearity`` puts a ReLU between the
+    gate's two layers."""
+
+    colorspace = 'augmented_rgb'
+    int8_family = 'qedsr'
+
+    def build_module(self, scale, in_features=3, num_features=64, num_blocks=16,
+                     res_scale=0.1, q_layer_nonlinearity=False, **kwargs):
+        return qmodels.QEDSR(num_features=num_features or 64, num_blocks=num_blocks or 16,
+                             scale=scale, res_scale=res_scale if res_scale is not None
+                             else 0.1, in_features=in_features or 3,
+                             input_para=self.num_metadata,
+                             q_layer_nonlinearity=bool(q_layer_nonlinearity))

@@ -25,9 +25,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.channel_attention import fused_channel_attention
+from ..ops.channel_attention import KERNEL_STYLES, fused_channel_attention
 
-KERNEL_STYLES = ('standard', 'max_concat', 'modulate')
 STYLES = KERNEL_STYLES + ('mini_concat', 'softmax', 'extended_attention')
 
 

@@ -1,10 +1,10 @@
-"""Meta-attention model family: QRCAN (PyTorch port of sisr_tpu's
+"""Meta-attention model family: QRCAN and QEDSR (PyTorch port of sisr_tpu's
 ``models/qmodels.py``; ref: Code/SISR/models/attention_manipulators/architectures.py).
-QEDSR, QSAN and QHAN come with later slices.
+QSAN and QHAN come with later slices.
 
 Every module takes ``(x, metadata)`` explicitly.  Module and attribute names follow
 the reference's torch modules, so ``state_dict`` keys are those sisr_tpu's
-``convert_qrcan`` reads.
+``convert_qrcan`` and ``convert_qedsr`` read.
 """
 from torch import nn
 
@@ -106,5 +106,53 @@ class QRCAN(nn.Module):
         res = x
         for group in self.body:
             res = group(res, metadata)
+        res = self.final_body(res) + x
+        return self.tail(res)
+
+
+class ParamResBlock(nn.Module):
+    """EDSR ResBlock + ParaCALayer (ref: attention_manipulators/architectures.py:332-356):
+    ``gate(metadata) * (body(x) * res_scale) + x``, the gate applied after the res_scale
+    multiply.  Keys ``body.{0,2}`` and ``attention_layer.attribute_integrator.<k>``."""
+
+    def __init__(self, n_feats, n_params, kernel_size=3, res_scale=1.0,
+                 q_layer_nonlinearity=False):
+        super().__init__()
+        self.body = nn.Sequential(conv(n_feats, n_feats, kernel_size), nn.ReLU(inplace=True),
+                                  conv(n_feats, n_feats, kernel_size))
+        self.res_scale = res_scale
+        self.attention_layer = ParaCALayer(n_feats, n_params,
+                                           nonlinearity=q_layer_nonlinearity)
+
+    def forward(self, x, metadata):
+        return self.attention_layer(self.body(x) * self.res_scale, metadata) + x
+
+
+class QEDSR(nn.Module):
+    """EDSR with a ParaCALayer in every block (ref: attention_manipulators/
+    architectures.py:359-399).
+
+    Keys: ``head``, ``body.<i>`` (:class:`ParamResBlock`), ``final_body``,
+    ``tail.0.<2i>``, ``tail.1``."""
+
+    def __init__(self, num_features=64, num_blocks=16, scale=4, res_scale=0.1, in_features=3,
+                 out_features=3, input_para=1, q_layer_nonlinearity=False):
+        super().__init__()
+        n = num_features
+        self.num_blocks = num_blocks
+        self.res_scale = res_scale
+        self.q_layer_nonlinearity = q_layer_nonlinearity
+        self.head = conv(in_features, n, 3)
+        self.body = nn.ModuleList(
+            ParamResBlock(n, input_para, 3, res_scale, q_layer_nonlinearity)
+            for _ in range(num_blocks))
+        self.final_body = conv(n, n, 3)
+        self.tail = nn.Sequential(Upsampler(scale, n), conv(n, out_features, 3))
+
+    def forward(self, x, metadata):
+        x = self.head(x)
+        res = x
+        for block in self.body:
+            res = block(res, metadata)
         res = self.final_body(res) + x
         return self.tail(res)

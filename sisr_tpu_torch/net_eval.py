@@ -80,13 +80,13 @@ def _config_callback(ctx, param, value):
               help='Path to the face-network torch weights (defaults to the '
                    'reference external-package paths in configuration/constants).')
 @click.option('--int8', 'int8', is_flag=True,
-              help='int8 serving: per-channel int8 weights and static activation '
-                   'scales calibrated on the first batch (10% margin), int8 convs '
-                   'with int32 sums, a bfloat16 residual carry, and each RCAB tail '
-                   '(channel attention + residual add) in one CUDA kernel. Runs '
-                   'inside --fused_eval; metrics are of the quantised output. '
-                   'RCAN only so far: EDSR and Q-RCAN raise until their int8 programs '
-                   'are ported.')
+              help='int8 serving of rcan, edsr, qrcan and qedsr: per-channel int8 '
+                   'weights and static activation scales calibrated on the first '
+                   'batch (and its metadata; 10% margin), int8 convs with int32 sums, '
+                   'a bfloat16 residual carry; attention stages stay f32, RCAN\'s '
+                   'block tail (channel attention + residual add) and Q-RCAN\'s '
+                   'channel attention each one CUDA kernel. Runs inside --fused_eval; '
+                   'metrics are of the quantised output.')
 @click.option("--sp_gpu", default=0, show_default=True,
               help='Specify specific device to use for computation.')
 @click.option('--scale', default=4, help='Scale of SR to perform.', show_default=True)

@@ -39,6 +39,8 @@ _THREADS = 256  # kThreads in channel_attention.cu
 _ONCHIP_CHUNKS = 4  # kOnchipChunks in channel_attention.cu
 _RES_CHUNKS = 2  # kResChunks in channel_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the QCALayer styles that are this op with Q-RCAN's meta or gate (models/q_layers.py)
+KERNEL_STYLES = ('standard', 'max_concat', 'modulate')
 _SIGNATURES = {
     'sisr_ca_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3

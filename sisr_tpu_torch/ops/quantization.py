@@ -1,17 +1,26 @@
-"""Int8 serving of RCAN: the RCAN subset of sisr_tpu's ``ops/quantization.py``.
+"""Int8 serving of RCAN, EDSR, Q-RCAN and Q-EDSR: those families' part of sisr_tpu's
+``ops/quantization.py``.
 
 The recipe is sisr_tpu's, with its names, NHWC activations, HWIO kernels and
 parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
-``group_<g>.conv_tail``, ``body_tail``, ``upsampler.conv_<i>``, ``tail``):
+``group_<g>.qrcab_<b>.conv_0``, ``block_<i>.conv_0``, ``body_tail`` or
+``final_body``, ``upsampler.conv_<i>``, ``tail``):
 
 * weights: symmetric per-output-channel int8 (scale = max|w| / 127 over H, W, I);
 * activations: one static scale per conv input, from the absmax of a float32
-  calibration pass (:func:`calibrate_rcan_scales`);
+  calibration pass (``calibrate_<family>_scales``);
 * every 3x3 conv in int8 with an exact int32 sum; dequantisation, bias, ReLU and the
-  residual carry (bfloat16 or float32) in float32 or the carry's type;
+  residual carry (bfloat16 or float32; for EDSR also an int16 grid) in float32 or the
+  carry's type;
+* the attention stages (RCAN's CA, Q-RCAN's QCALayer, PALayer and q_node, Q-EDSR's
+  ParaCALayer gates) stay float32;
 * each RCAB tail (channel attention scale + residual add) runs as
   :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention_residual`, the
-  CUDA kernel on the card: the numerics of sisr_tpu's ``ca_epilogue='pallas'``.
+  CUDA kernel on the card: the numerics of sisr_tpu's ``ca_epilogue='pallas'``;
+* each QRCAB tail of the ``standard``, ``max_concat`` and ``modulate`` styles scales
+  by its attention (with the metadata and the q_node's gate) in one
+  :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention` call, then
+  casts once to the carry and adds in the carry's type, sisr_tpu's rounding order.
 
 The int8 convolution is an im2col product: the padded int8 input's 3x3 windows are
 gathered into an (N*H*W, 9*Cin) int8 matrix and multiplied by the HWIO kernel
@@ -24,14 +33,19 @@ run the ``nn.Module``.  Activation scales are ``np.float32`` numbers; the forwar
 also takes them as 0-dim tensors on its device (:func:`scales_on`), which is how the
 handler passes them, so no host-to-device copy runs per conv.
 """
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .channel_attention import fused_channel_attention_residual
+from .channel_attention import (KERNEL_STYLES, fused_channel_attention,
+                                fused_channel_attention_residual)
 
 _INT_MM_MULTIPLE = 8    # _int_mm on CUDA takes K and N divisible by 8 ...
 _INT_MM_MIN_ROWS = 17   # ... and more than 16 rows
+# EDSR's Upsampler: conv + pixel-shuffle stages per scale, x3 in one stage
+_UPSAMPLE_STAGES = {2: 1, 4: 2, 8: 3, 3: 1}
 
 
 def pixel_shuffle(x, factor):
@@ -71,6 +85,14 @@ def _q_entry(entry):
     qk, sc = quantize_kernel_int8(entry['kernel'])
     return {'kernel': qk, 'scale': sc, 'bias': entry['bias'].float(),
             'matrix': pack_kernel_matrix(qk)}
+
+
+def _f32_tree(tree):
+    """A nested dict of tensors with every tensor in f32 (the attention stages the
+    int8 programs keep in float)."""
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    return tree.float()
 
 
 def _fconv(entry, h):
@@ -138,15 +160,23 @@ def conv_int8_accumulate(x_q, q_kernel, matrix=None):
     return acc[:rows, :cout].reshape(n, h, w, cout)
 
 
-def conv_int8_static(x, q_kernel, w_scale, x_scale, bias=None, matrix=None):
-    """int8 conv with a precomputed (static) activation scale: quantise x, sum in
-    int32, dequantise ``acc * (x_scale * w_scale) + bias`` in f32, in that order."""
-    x_scale = _scale_tensor(x_scale, x.device)
-    acc = conv_int8_accumulate(quantize_activations_static(x, x_scale), q_kernel, matrix)
-    out = acc.float() * (x_scale * w_scale)
+def conv_int8(x_q, q_kernel, w_scale, x_scale, bias=None, matrix=None):
+    """int8 conv of an already quantised input ``x_q`` on the grid ``x_scale``
+    (sisr_tpu's ``conv_int8`` with ``x_scale`` given): sum in int32, dequantise
+    ``acc * (x_scale * w_scale) + bias`` in f32, in that order."""
+    x_scale = _scale_tensor(x_scale, x_q.device)
+    out = conv_int8_accumulate(x_q, q_kernel, matrix).float() * (x_scale * w_scale)
     if bias is not None:
         out = out + bias
     return out
+
+
+def conv_int8_static(x, q_kernel, w_scale, x_scale, bias=None, matrix=None):
+    """int8 conv with a precomputed (static) activation scale: quantise x, then
+    :func:`conv_int8`."""
+    x_scale = _scale_tensor(x_scale, x.device)
+    return conv_int8(quantize_activations_static(x, x_scale), q_kernel, w_scale, x_scale,
+                     bias, matrix)
 
 
 def quantize_rcan_params(params, n_resgroups=10, n_resblocks=20):
@@ -162,10 +192,8 @@ def quantize_rcan_params(params, n_resgroups=10, n_resblocks=20):
         qg = {'conv_tail': q(grp['conv_tail'])}
         for b in range(n_resblocks):
             blk = grp['rcab_%d' % b]
-            qg['rcab_%d' % b] = {
-                'conv_0': q(blk['conv_0']), 'conv_1': q(blk['conv_1']),
-                'ca': {k: {kk: vv.float() for kk, vv in v.items()}
-                       for k, v in blk['ca'].items()}}
+            qg['rcab_%d' % b] = {'conv_0': q(blk['conv_0']), 'conv_1': q(blk['conv_1']),
+                                 'ca': _f32_tree(blk['ca'])}
         out['group_%d' % g] = qg
     return out
 
@@ -174,7 +202,7 @@ def _rcan_float_forward(params, x, n_resgroups, n_resblocks, track=None):
     """f32 RCAN forward over the parameter tree (the calibration mirror of
     sisr_tpu's ``_rcan_float_forward``)."""
     tr = track or (lambda name, h: h)
-    fconv = _fconv
+    fconv = _tracked_fconv(tr)
 
     def ca(entry, h):
         a = h.mean(dim=(1, 2))
@@ -182,7 +210,7 @@ def _rcan_float_forward(params, x, n_resgroups, n_resblocks, track=None):
         a = torch.sigmoid(a @ entry['du_1']['kernel'] + entry['du_1']['bias'])
         return h * a[:, None, None, :]
 
-    h = fconv(params['head'], tr('head', x))
+    h = fconv('head', params['head'], x)
     res = tr('_residual', h)
     for g in range(n_resgroups):
         grp = params['group_%d' % g]
@@ -190,17 +218,18 @@ def _rcan_float_forward(params, x, n_resgroups, n_resblocks, track=None):
         for b in range(n_resblocks):
             blk = grp['rcab_%d' % b]
             pre = 'group_%d.rcab_%d' % (g, b)
-            y = torch.relu(fconv(blk['conv_0'], tr(pre + '.conv_0', r)))
-            y = fconv(blk['conv_1'], tr(pre + '.conv_1', y))
+            y = torch.relu(fconv(pre + '.conv_0', blk['conv_0'], r))
+            y = fconv(pre + '.conv_1', blk['conv_1'], y)
             r = tr('_residual', ca(blk['ca'], y) + r)
-        res = tr('_residual',
-                 fconv(grp['conv_tail'], tr('group_%d.conv_tail' % g, r)) + res)
-    res = fconv(params['body_tail'], tr('body_tail', res)) + h
-    _check_rcan_upsampler_pow2(params['upsampler'])
-    for i in range(sum(1 for k in params['upsampler'] if k.startswith('conv_'))):
-        res = fconv(params['upsampler']['conv_%d' % i], tr('upsampler.conv_%d' % i, res))
-        res = pixel_shuffle(res, 2)
-    return fconv(params['tail'], tr('tail', res))
+        res = tr('_residual', fconv('group_%d.conv_tail' % g, grp['conv_tail'], r) + res)
+    res = fconv('body_tail', params['body_tail'], res) + h
+    res = _pow2_upsample(fconv, params['upsampler'], res)
+    return fconv('tail', params['tail'], res)
+
+
+def _tracked_fconv(tr):
+    """The f32 conv as ``conv(name, entry, h)``, recording h under ``name``."""
+    return lambda name, entry, h: _fconv(entry, tr(name, h))
 
 
 def _check_rcan_upsampler_pow2(upsampler):
@@ -213,26 +242,72 @@ def _check_rcan_upsampler_pow2(upsampler):
                                   % str(tuple(k.shape)))
 
 
-def _true_f32_convs():
-    """cuDNN runs f32 convs in TF32 by default on Hopper, which would shift every
-    absmax: calibration turns TF32 off for its own convs only, no global flag."""
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+def _pow2_upsample(conv, upsampler, res):
+    """RCAN's and Q-RCAN's upsampler: one ``conv(name, entry, h)`` and a x2 shuffle
+    per stage."""
+    _check_rcan_upsampler_pow2(upsampler)
+    for i in range(sum(1 for k in upsampler if k.startswith('conv_'))):
+        res = pixel_shuffle(conv('upsampler.conv_%d' % i, upsampler['conv_%d' % i], res), 2)
+    return res
+
+
+def _edsr_upsample(conv, upsampler, res, scale):
+    """EDSR's and Q-EDSR's upsampler: ``conv(name, entry, h)`` and a shuffle per stage,
+    x3 in one stage for scale 3."""
+    for i in range(_UPSAMPLE_STAGES[scale]):
+        res = conv('upsampler.conv_%d' % i, upsampler['conv_%d' % i], res)
+        res = pixel_shuffle(res, 3 if scale == 3 else 2)
+    return res
+
+
+@contextlib.contextmanager
+def _true_f32():
+    """cuDNN runs f32 convs in TF32 by default on Hopper, and a caller may allow TF32
+    matmuls; either would shift every absmax.  Calibration turns TF32 off for its own
+    convs and products, and restores both flags after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
+
+
+def _calibration_maxes(forward, params, sample_batches, metadata_batches=None, name=None):
+    """Absmax of every tracked activation of ``forward(params, x, meta, track)`` over
+    the calibration batches (each with its metadata batch, for a metadata model), in
+    true f32."""
+    prefix = '' if name is None else name + ': '
+    sample_batches = list(sample_batches)
+    if not sample_batches:
+        raise ValueError(prefix + 'no calibration batches provided.')
+    if metadata_batches is None:
+        metadata_batches = [None] * len(sample_batches)
+    metadata_batches = list(metadata_batches)
+    if len(sample_batches) != len(metadata_batches):
+        raise ValueError('%s%d sample batches but %d metadata batches — zip would '
+                         'silently truncate the calibration set.'
+                         % (prefix, len(sample_batches), len(metadata_batches)))
+    device = params['head']['kernel'].device
+    track, maxes = _absmax_tracker()
+    with torch.inference_mode(), _true_f32():
+        for x, meta in zip(sample_batches, metadata_batches):
+            x = torch.as_tensor(x).float().to(device)
+            meta = None if meta is None else torch.as_tensor(meta).float().to(device)
+            forward(params, x, meta, track)
+    return maxes
 
 
 def calibrate_rcan_scales(params, sample_batches, n_resgroups=10, n_resblocks=20,
                           margin=1.0):
     """Static activation scales for the int8 RCAN forward (absmax calibration, true
     f32): {scale key: np.float32}."""
-    track, maxes = _absmax_tracker()
-    if not len(sample_batches):
-        raise ValueError('no calibration batches provided.')
-    with torch.inference_mode(), _true_f32_convs():
-        for x in sample_batches:
-            x = torch.as_tensor(x).float()
-            _rcan_float_forward(params, x.to(params['head']['kernel'].device),
-                                n_resgroups, n_resblocks, track=track)
+    maxes = _calibration_maxes(
+        lambda p, x, _, track: _rcan_float_forward(p, x, n_resgroups, n_resblocks, track),
+        params, sample_batches)
     maxes.pop('_residual')  # RCAN supports only f32/bf16 residual carries (no int16)
     return _finalize_scales(maxes, margin)
 
@@ -251,13 +326,8 @@ def rcan_int8_forward_static(qparams, act_scales, x, n_resgroups=10, n_resblocks
     carry; each RCAB tail is one :func:`fused_channel_attention_residual` call.
 
     ``x`` is the f32 NHWC LR batch; returns the f32 NHWC SR batch."""
-    if residual_dtype not in ('float32', 'bfloat16'):
-        raise ValueError('residual_dtype must be float32 | bfloat16')
-    carry_t = torch.float32 if residual_dtype == 'float32' else torch.bfloat16
-
-    def qconv(name, tree, h):
-        return conv_int8_static(h, tree['kernel'], tree['scale'], act_scales[name],
-                                tree['bias'], tree.get('matrix'))
+    carry_t = _carry_type(residual_dtype)
+    qconv = _qconv_with(act_scales)
 
     def ca_res(entry, h, r):
         return fused_channel_attention_residual(
@@ -277,8 +347,367 @@ def rcan_int8_forward_static(qparams, act_scales, x, n_resgroups=10, n_resblocks
             r = ca_res(blk['ca'], y, r)
         res = qconv('group_%d.conv_tail' % g, grp['conv_tail'], r).to(carry_t) + res
     res = qconv('body_tail', qparams['body_tail'], res) + h.float()
-    _check_rcan_upsampler_pow2(qparams['upsampler'])
-    for i in range(sum(1 for k in qparams['upsampler'] if k.startswith('conv_'))):
-        res = qconv('upsampler.conv_%d' % i, qparams['upsampler']['conv_%d' % i], res)
-        res = pixel_shuffle(res, 2)
+    res = _pow2_upsample(qconv, qparams['upsampler'], res)
+    return qconv('tail', qparams['tail'], res)
+
+
+def _qconv_with(act_scales):
+    """The int8 conv as ``qconv(name, entry, h)``, with the static scale
+    ``act_scales[name]``."""
+    def qconv(name, tree, h):
+        return conv_int8_static(h, tree['kernel'], tree['scale'], act_scales[name],
+                                tree['bias'], tree.get('matrix'))
+    return qconv
+
+
+def _carry_type(residual_dtype):
+    if residual_dtype not in ('float32', 'bfloat16'):
+        raise ValueError('residual_dtype must be float32 | bfloat16')
+    return torch.float32 if residual_dtype == 'float32' else torch.bfloat16
+
+
+# --- EDSR and Q-EDSR -------------------------------------------------------------------------
+def quantize_edsr_params(params):
+    """Quantize an EDSR parameter tree (sisr_tpu's ``models/advanced.py`` naming) to
+    int8."""
+    q = _q_entry
+    out = {'head': q(params['head']), 'body_tail': q(params['body_tail']),
+           'tail': q(params['tail']),
+           'upsampler': {k: q(v) for k, v in params['upsampler'].items()}}
+    for name, block in params.items():
+        if name.startswith('block_'):
+            out[name] = {'conv_0': q(block['conv_0']), 'conv_1': q(block['conv_1'])}
+    return out
+
+
+def _edsr_spine_float(params, x, num_blocks, scale, res_scale, body_tail, track=None,
+                      gate=None):
+    """f32 forward of the EDSR spine over the parameter tree (the calibration mirror
+    of sisr_tpu's ``calibrate_edsr_scales`` and ``_qedsr_float_forward``).  ``gate``,
+    for Q-EDSR, maps a block's entry to the (N, C) gate its branch is multiplied by
+    after the res_scale multiply; ``body_tail`` names the conv after the blocks."""
+    tr = track or (lambda name, h: h)
+    fconv = _tracked_fconv(tr)
+    h = fconv('head', params['head'], x)
+    res = tr('_residual', h)
+    for i in range(num_blocks):
+        name = 'block_%d' % i
+        blk = params[name]
+        y = torch.relu(fconv(name + '.conv_0', blk['conv_0'], res))
+        y = fconv(name + '.conv_1', blk['conv_1'], y) * res_scale
+        if gate is not None:
+            y = y * gate(blk)[:, None, None, :]
+        res = tr('_residual', y + res)
+    res = fconv(body_tail, params[body_tail], res) + h
+    res = _edsr_upsample(fconv, params['upsampler'], res, scale)
+    return fconv('tail', params['tail'], res)
+
+
+def _edsr_spine_int8(qparams, act_scales, x, num_blocks, scale, res_scale, carry_t,
+                     body_tail, gate=None):
+    """The int8 EDSR spine with a float carry: each block's branch in f32 (times its
+    ``gate`` for Q-EDSR), cast once to ``carry_t``, then added in the carry's type."""
+    qconv = _qconv_with(act_scales)
+    h = qconv('head', qparams['head'], x).to(carry_t)
+    res = h
+    for i in range(num_blocks):
+        name = 'block_%d' % i
+        blk = qparams[name]
+        y = torch.relu(qconv(name + '.conv_0', blk['conv_0'], res))
+        y = qconv(name + '.conv_1', blk['conv_1'], y) * res_scale
+        if gate is not None:
+            y = y * gate(blk)[:, None, None, :]
+        res = y.to(carry_t) + res
+    res = qconv(body_tail, qparams[body_tail], res) + h.float()
+    res = _edsr_upsample(qconv, qparams['upsampler'], res, scale)
+    return qconv('tail', qparams['tail'], res)
+
+
+def calibrate_edsr_scales(params, sample_batches, num_blocks=16, scale=4, res_scale=0.1,
+                          margin=1.0):
+    """Static activation scales for the int8 EDSR forward (absmax calibration, true
+    f32), and ``residual16``, the int16 grid of the residual carry."""
+    maxes = _calibration_maxes(
+        lambda p, x, _, track: _edsr_spine_float(p, x, num_blocks, scale, res_scale,
+                                                 'body_tail', track),
+        params, sample_batches)
+    res_absmax = maxes.pop('_residual')
+    scales = _finalize_scales(maxes, margin)
+    scales['residual16'] = np.float32(max(res_absmax * margin, 1e-12) / 32767.0)
+    return scales
+
+
+def edsr_int8_forward_static(qparams, act_scales, x, num_blocks=16, scale=4,
+                             res_scale=0.1, residual_dtype='float32'):
+    """Quantized EDSR forward with static activation scales.  ``residual_dtype``
+    carries the residual stream in float32, bfloat16, or as int16 fixed point on the
+    calibrated grid ``act_scales['residual16']``."""
+    if residual_dtype not in ('float32', 'bfloat16', 'int16'):
+        raise ValueError('residual_dtype must be float32 | bfloat16 | int16')
+    if residual_dtype == 'int16':
+        return _edsr_int8_forward_res16(qparams, act_scales, x, num_blocks, scale,
+                                        res_scale)
+    return _edsr_spine_int8(qparams, act_scales, x, num_blocks, scale, res_scale,
+                            _carry_type(residual_dtype), 'body_tail')
+
+
+def _edsr_int8_forward_res16(qparams, act_scales, x, num_blocks, scale, res_scale):
+    """The int16 fixed-point residual datapath: the carry is requantised straight to
+    each conv's int8 grid, and each block's branch is rounded onto the int16 grid and
+    added in int32."""
+    if 'residual16' not in act_scales:
+        raise KeyError("act_scales has no 'residual16' entry — re-run "
+                       "calibrate_edsr_scales (older calibration dicts predate the "
+                       "int16 residual datapath).")
+    s_res = _scale_tensor(act_scales['residual16'], x.device)
+    qconv = _qconv_with(act_scales)
+
+    def to_i8(h_i16, name):
+        ratio = s_res / _scale_tensor(act_scales[name], x.device)
+        return torch.clamp(torch.round(h_i16.float() * ratio), -127, 127).to(torch.int8)
+
+    def qconv_i8(name, tree, x_q):
+        return conv_int8(x_q, tree['kernel'], tree['scale'], act_scales[name],
+                         tree['bias'], tree.get('matrix'))
+
+    h16 = torch.clamp(torch.round(qconv('head', qparams['head'], x) / s_res),
+                      -32767, 32767).to(torch.int16)
+    res16 = h16
+    step = torch.tensor(res_scale, dtype=torch.float32, device=x.device) / s_res
+    for i in range(num_blocks):
+        name = 'block_%d' % i
+        blk = qparams[name]
+        y = torch.relu(qconv_i8(name + '.conv_0', blk['conv_0'],
+                                to_i8(res16, name + '.conv_0')))
+        y = qconv(name + '.conv_1', blk['conv_1'], y)
+        delta = torch.round(y * step).to(torch.int32)
+        res16 = torch.clamp(res16.to(torch.int32) + delta, -32767, 32767).to(torch.int16)
+    res = qconv_i8('body_tail', qparams['body_tail'], to_i8(res16, 'body_tail')) \
+        + h16.float() * s_res
+    res = _edsr_upsample(qconv, qparams['upsampler'], res, scale)
+    return qconv('tail', qparams['tail'], res)
+
+
+def quantize_qedsr_params(params, num_blocks=16):
+    """Quantize a QEDSR parameter tree (sisr_tpu's ``models/qmodels.py`` naming) to
+    int8: the EDSR conv spine goes int8, each block's ParaCALayer stays f32."""
+    q = _q_entry
+    out = {'head': q(params['head']), 'final_body': q(params['final_body']),
+           'tail': q(params['tail']),
+           'upsampler': {k: q(v) for k, v in params['upsampler'].items()}}
+    for i in range(num_blocks):
+        blk = params['block_%d' % i]
+        out['block_%d' % i] = {'conv_0': q(blk['conv_0']), 'conv_1': q(blk['conv_1']),
+                               'attention': _f32_tree(blk['attention'])}
+    return out
+
+
+def _qedsr_gate(metadata, nonlinearity):
+    """A Q-EDSR block's entry -> its ParaCALayer gate on ``metadata``, in f32."""
+    meta = metadata.float()
+    return lambda blk: _para_ca_apply(blk['attention'], meta, nonlinearity)
+
+
+def _qedsr_float_forward(params, x, metadata, num_blocks, scale, res_scale,
+                         nonlinearity=False, track=None):
+    """f32 QEDSR forward (the calibration mirror): the EDSR spine with each block's
+    ParaCALayer gate applied after the res_scale multiply."""
+    return _edsr_spine_float(params, x, num_blocks, scale, res_scale, 'final_body', track,
+                             gate=_qedsr_gate(metadata, nonlinearity))
+
+
+def calibrate_qedsr_scales(params, sample_batches, metadata_batches, num_blocks=16,
+                           scale=4, res_scale=0.1, nonlinearity=False, margin=1.0):
+    """Static activation scales for the int8 QEDSR forward (absmax calibration, true
+    f32).  ``metadata_batches`` are the handler-prepared (key-masked) metadata of each
+    sample batch."""
+    maxes = _calibration_maxes(
+        lambda p, x, meta, track: _qedsr_float_forward(p, x, meta, num_blocks, scale,
+                                                       res_scale, nonlinearity, track),
+        params, sample_batches, metadata_batches, name='calibrate_qedsr_scales')
+    maxes.pop('_residual')
+    return _finalize_scales(maxes, margin)
+
+
+def qedsr_int8_forward_static(qparams, act_scales, x, metadata, num_blocks=16, scale=4,
+                              res_scale=0.1, nonlinearity=False,
+                              residual_dtype='bfloat16'):
+    """Quantized QEDSR forward: the int8 EDSR spine with f32 ParaCALayer gates on the
+    (N, M) handler-prepared ``metadata``."""
+    return _edsr_spine_int8(qparams, act_scales, x, num_blocks, scale, res_scale,
+                            _carry_type(residual_dtype), 'final_body',
+                            gate=_qedsr_gate(metadata, nonlinearity))
+
+
+# --- Q-RCAN ----------------------------------------------------------------------------------
+def _dense_apply(entry, y):
+    return y @ entry['kernel'] + entry['bias']
+
+
+def _qca_apply(entry, pooled, meta, style):
+    """QCALayer math in f32 on the pooled (N, C) vector, every style (sisr_tpu's
+    ``_qca_apply``)."""
+    y = pooled
+    if style in ('modulate', 'standard'):
+        y = torch.relu(_dense_apply(entry['du_0'], y))
+        y = torch.sigmoid(_dense_apply(entry['du_1'], y))
+        if style == 'modulate':
+            y = y * meta
+    elif style in ('max_concat', 'softmax'):
+        y = torch.cat([y, meta], dim=-1)
+        y = torch.relu(_dense_apply(entry['du_0'], y))
+        y = torch.sigmoid(_dense_apply(entry['du_1'], y))
+        if style == 'softmax':
+            y = torch.softmax(y, dim=-1)
+    elif style == 'mini_concat':
+        y = _dense_apply(entry['pre_concat'], y)
+        y = torch.relu(torch.cat([y, meta], dim=-1))
+        y = torch.sigmoid(_dense_apply(entry['du_1'], y))
+    elif style == 'extended_attention':
+        for i in range(3):
+            y = torch.cat([y, meta], dim=-1)
+            y = torch.relu(_dense_apply(entry['feature_%d' % i], y))
+        y = torch.sigmoid(_dense_apply(entry['final'], y))
+    else:
+        raise NotImplementedError('Unknown QCALayer style %s' % style)
+    return y
+
+
+def _para_ca_apply(entry, meta, nonlinearity=True):
+    """ParaCALayer math in f32: the ``fc_<i>`` chain on the metadata, with a ReLU
+    between layers when ``nonlinearity`` (QRCAB's q_node; Q-EDSR's blocks take the
+    config's ``q_layer_nonlinearity``), then a sigmoid."""
+    n_fc = sum(1 for k in entry if k.startswith('fc_'))
+    y = meta
+    for i in range(n_fc):
+        y = _dense_apply(entry['fc_%d' % i], y)
+        if nonlinearity and i < n_fc - 1:
+            y = torch.relu(y)
+    return torch.sigmoid(y)
+
+
+def _pa_apply(entry, h):
+    """PALayer: two 1x1 convs (products over the channels) and a sigmoid gate, in
+    f32."""
+    def c1x1(e, z):
+        return z @ e['kernel'][0, 0] + e['bias']
+    y = torch.relu(c1x1(entry['pa_0'], h.float()))
+    y = torch.sigmoid(c1x1(entry['pa_1'], y))
+    return h * y.to(h.dtype)
+
+
+def quantize_qrcan_params(params, n_resgroups=10, n_resblocks=20):
+    """Quantize a QRCAN parameter tree (sisr_tpu's ``models/qmodels.py`` naming) to
+    int8: the 3x3 convs go int8, every attention stage (qca, pa_node, q_node) stays
+    f32."""
+    q = _q_entry
+    out = {'head': q(params['head']), 'final_body': q(params['final_body']),
+           'tail': q(params['tail']),
+           'upsampler': {k: q(v) for k, v in params['upsampler'].items()}}
+    for g in range(n_resgroups):
+        grp = params['group_%d' % g]
+        qg = {'final_body': q(grp['final_body'])}
+        for b in range(n_resblocks):
+            blk = grp['qrcab_%d' % b]
+            qb = {'conv_0': q(blk['conv_0']), 'conv_1': q(blk['conv_1']),
+                  'qca': _f32_tree(blk['qca'])}
+            for extra in ('pa_node', 'q_node'):  # presence mirrors the module config
+                if extra in blk:
+                    qb[extra] = _f32_tree(blk[extra])
+            qg['qrcab_%d' % b] = qb
+        out['group_%d' % g] = qg
+    return out
+
+
+def _qrcan_float_forward(params, x, metadata, style, n_resgroups, n_resblocks,
+                         track=None):
+    """f32 QRCAN forward over the parameter tree (the calibration mirror; pa_node and
+    q_node presence is read off the tree)."""
+    tr = track or (lambda name, h: h)
+    fconv = _tracked_fconv(tr)
+    meta = metadata.float()
+    h = fconv('head', params['head'], x)
+    res = tr('_residual', h)
+    for g in range(n_resgroups):
+        grp = params['group_%d' % g]
+        r = res
+        for b in range(n_resblocks):
+            blk = grp['qrcab_%d' % b]
+            pre = 'group_%d.qrcab_%d' % (g, b)
+            y = torch.relu(fconv(pre + '.conv_0', blk['conv_0'], r))
+            y = fconv(pre + '.conv_1', blk['conv_1'], y)
+            y = y * _qca_apply(blk['qca'], y.mean(dim=(1, 2)), meta, style)[:, None, None, :]
+            if 'pa_node' in blk:
+                y = _pa_apply(blk['pa_node'], y)
+            if 'q_node' in blk:
+                y = y * _para_ca_apply(blk['q_node'], meta)[:, None, None, :]
+            r = tr('_residual', y + r)
+        res = tr('_residual', fconv('group_%d.final_body' % g, grp['final_body'], r) + res)
+    res = fconv('final_body', params['final_body'], res) + h
+    res = _pow2_upsample(fconv, params['upsampler'], res)
+    return fconv('tail', params['tail'], res)
+
+
+def calibrate_qrcan_scales(params, sample_batches, metadata_batches, style='modulate',
+                           n_resgroups=10, n_resblocks=20, margin=1.0):
+    """Static activation scales for the int8 QRCAN forward (absmax calibration, true
+    f32).  ``metadata_batches`` are the handler-prepared metadata of each sample batch
+    (key-masked, and scale_qpi-expanded for style='modulate')."""
+    maxes = _calibration_maxes(
+        lambda p, x, meta, track: _qrcan_float_forward(p, x, meta, style, n_resgroups,
+                                                       n_resblocks, track),
+        params, sample_batches, metadata_batches, name='calibrate_qrcan_scales')
+    maxes.pop('_residual')
+    return _finalize_scales(maxes, margin)
+
+
+def _qrcab_tail(blk, y, meta, style):
+    """One int8 QRCAB's branch after its convs, in f32: y times its attention, then
+    the pixel attention and the q_node's gate where the block has them.  The kernel
+    styles scale in one :func:`fused_channel_attention` call, which takes the
+    metadata (max_concat), the expanded metadata (modulate) and, without a pa_node,
+    the q_node's gate; the other styles compute :func:`_qca_apply` in plain f32."""
+    q_gate = _para_ca_apply(blk['q_node'], meta) if 'q_node' in blk else None
+    if style in KERNEL_STYLES:
+        gate = None
+        if 'pa_node' not in blk:
+            gate, q_gate = q_gate, None
+        if style == 'modulate':
+            gate = meta if gate is None else meta * gate
+        qca = blk['qca']
+        y = fused_channel_attention(y, qca['du_0']['kernel'], qca['du_0']['bias'],
+                                    qca['du_1']['kernel'], qca['du_1']['bias'],
+                                    meta=meta if style == 'max_concat' else None,
+                                    gate=gate)
+    else:
+        y = y * _qca_apply(blk['qca'], y.mean(dim=(1, 2)), meta, style)[:, None, None, :]
+    if 'pa_node' in blk:
+        y = _pa_apply(blk['pa_node'], y)
+    if q_gate is not None:
+        y = y * q_gate[:, None, None, :]
+    return y
+
+
+def qrcan_int8_forward_static(qparams, act_scales, x, metadata, style='modulate',
+                              n_resgroups=10, n_resblocks=20, residual_dtype='bfloat16'):
+    """Quantized QRCAN forward: int8 convs, f32 meta-attention (:func:`_qrcab_tail`)
+    on the handler-prepared ``metadata``, and a narrow residual carry: each block's
+    branch is cast once to the carry and added in the carry's type."""
+    carry_t = _carry_type(residual_dtype)
+    meta = metadata.float()
+    qconv = _qconv_with(act_scales)
+    h = qconv('head', qparams['head'], x).to(carry_t)
+    res = h
+    for g in range(n_resgroups):
+        grp = qparams['group_%d' % g]
+        r = res
+        for b in range(n_resblocks):
+            blk = grp['qrcab_%d' % b]
+            pre = 'group_%d.qrcab_%d' % (g, b)
+            y = torch.relu(qconv(pre + '.conv_0', blk['conv_0'], r))
+            y = qconv(pre + '.conv_1', blk['conv_1'], y)
+            r = _qrcab_tail(blk, y, meta, style).to(carry_t) + r
+        res = qconv('group_%d.final_body' % g, grp['final_body'], r).to(carry_t) + res
+    res = qconv('final_body', qparams['final_body'], res) + h.float()
+    res = _pow2_upsample(qconv, qparams['upsampler'], res)
     return qconv('tail', qparams['tail'], res)

@@ -1,7 +1,7 @@
 """Weights bridge: sisr_tpu (Flax) parameter trees <-> this package's torch state_dicts.
 
 * :func:`state_dict_from_jax` is the inverse of sisr_tpu's ``tools/convert_weights.py``
-  for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan): flax Conv
+  for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan, QEDSR): flax Conv
   kernels (kH, kW, I, O) become torch Conv2d weights (O, I, kH, kW), and the Dense
   layers that sisr_tpu runs on pooled or metadata vectors (I, O) become 1x1 convs
   (O, I, 1, 1).  Each family's layout lists every layer once, for both directions.
@@ -11,8 +11,9 @@
 * :func:`params_from_state_dict` reads a port model's state_dict back in sisr_tpu's
   tree naming and HWIO layout: the form the int8 recipes of ``ops/quantization.py``
   take.
-* :func:`int8_state_from_jax` carries sisr_tpu's quantised RCAN tree and activation
-  scales across, so both packages can run the same int8 state.
+* :func:`int8_state_from_jax` carries sisr_tpu's quantised trees and activation
+  scales (RCAN, EDSR, QRCAN, QEDSR) across, so both packages can run the same int8
+  state.
 """
 import numpy as np
 import torch
@@ -124,7 +125,24 @@ def _qrcan_layout(n_groups, n_blocks, n_stages, has):
     yield from _upsampler_tail(n_stages)
 
 
-def _tree_layout(model_name, tree):
+def _qedsr_layout(n_blocks, n_stages, nonlinearity):
+    """(path, key, kind) of every QEDSR layer (sisr_tpu's ``convert_qedsr`` naming).
+    Each block's ParaCALayer has two layers; with ``nonlinearity`` a ReLU sits between
+    them and shifts the second one's index in ``attribute_integrator``."""
+    yield ('head',), 'head', 'conv'
+    for i in range(n_blocks):
+        src, dst = ('block_%d' % i,), 'body.%d' % i
+        yield src + ('conv_0',), dst + '.body.0', 'conv'
+        yield src + ('conv_1',), dst + '.body.2', 'conv'
+        for k in range(2):
+            yield (src + ('attention', 'fc_%d' % k),
+                   dst + '.attention_layer.attribute_integrator.%d'
+                   % (k * (2 if nonlinearity else 1)), 'dense')
+    yield ('final_body',), 'final_body', 'conv'
+    yield from _upsampler_tail(n_stages)
+
+
+def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
     """The layout of the model whose sisr_tpu params ``tree`` holds; a gap in the
     numbering surfaces as a missing or an unconsumed leaf."""
     def count(prefix, *parent):
@@ -135,6 +153,8 @@ def _tree_layout(model_name, tree):
         return _rcan_layout(count('group_'), count('rcab_', 'group_0'), n_stages)
     if model_name == 'edsr':
         return _edsr_layout(count('block_'), n_stages)
+    if model_name == 'qedsr':
+        return _qedsr_layout(count('block_'), n_stages, q_layer_nonlinearity)
 
     def has(g, b, part):
         block = ('group_%d' % g, 'qrcab_%d' % b)
@@ -153,6 +173,11 @@ def _state_dict_layout(model_name, state_dict):
     if model_name == 'edsr':
         return _edsr_layout(_count(lambda b: 'body.%d.body.0.weight' % b in state_dict),
                             n_stages)
+    if model_name == 'qedsr':
+        # with q_layer_nonlinearity a ReLU takes index 1 of every attribute_integrator
+        return _qedsr_layout(
+            _count(lambda b: 'body.%d.body.0.weight' % b in state_dict), n_stages,
+            'body.0.attention_layer.attribute_integrator.2.weight' in state_dict)
 
     def has(g, b, part):
         return 'body.%d.body.%d%s' % (g, b, _QRCAB_PARTS[part]) in state_dict
@@ -161,24 +186,26 @@ def _state_dict_layout(model_name, state_dict):
                          n_stages, has)
 
 
-LAYOUT_MODELS = ('edsr', 'qpircan', 'qrcan', 'rcan')
+LAYOUT_MODELS = ('edsr', 'qedsr', 'qpircan', 'qrcan', 'rcan')
 
 
 def _canonical(model_name):
     return 'qrcan' if model_name == 'qpircan' else model_name
 
 
-def state_dict_from_jax(model_name, params):
+def state_dict_from_jax(model_name, params, q_layer_nonlinearity=False):
     """sisr_tpu params of ``model_name`` -> a torch state_dict for this package's
     model of the same structure (float32 CPU tensors, reference key names).  For
     ``qrcan`` the QCALayer style, q_node and pa_node of each block are read off the
-    tree."""
+    tree.  For ``qedsr`` the tree does not say whether the ParaCALayers have their
+    ReLU, which shifts the torch keys: ``q_layer_nonlinearity`` is the model's
+    flag."""
     if model_name not in LAYOUT_MODELS:
         raise NotImplementedError('No sisr_tpu -> torch converter for %r yet (available: %s)'
                                   % (model_name, list(LAYOUT_MODELS)))
     tree = _TrackingTree(params)
     sd = {}
-    for path, key, kind in _tree_layout(_canonical(model_name), tree):
+    for path, key, kind in _tree_layout(_canonical(model_name), tree, q_layer_nonlinearity):
         w = tree(*path, 'kernel')
         # flax Conv (kH, kW, I, O) -> (O, I, kH, kW); Dense (I, O) -> (O, I, 1, 1)
         sd[key + '.weight'] = (w.transpose(3, 2, 0, 1) if kind == 'conv'
@@ -196,7 +223,8 @@ def state_dict_from_jax(model_name, params):
 def params_from_state_dict(model_name, state_dict):
     """A port model's ``state_dict`` (torch layout) as sisr_tpu's parameter tree:
     nested dicts of tensors, conv kernels HWIO and Dense kernels (I, O), as views of
-    the state_dict's tensors (on their device)."""
+    the state_dict's tensors (on their device).  A ``qedsr`` state_dict tells its
+    ``q_layer_nonlinearity`` by the ReLU-shifted ParaCALayer indices."""
     if model_name not in LAYOUT_MODELS:
         raise NotImplementedError('No torch -> sisr_tpu tree reader for %r yet '
                                   '(available: %s)' % (model_name, list(LAYOUT_MODELS)))
@@ -218,10 +246,12 @@ def params_from_state_dict(model_name, state_dict):
 
 
 def int8_state_from_jax(qparams, act_scales, device='cpu'):
-    """sisr_tpu's quantised tree and activation scales (``quantize_rcan_params`` and
-    ``calibrate_rcan_scales``, as numpy) -> the port's: the same tree of tensors on
-    ``device``, each conv entry with its packed ``_int_mm`` matrix, and the scales as
-    ``np.float32``."""
+    """sisr_tpu's quantised tree and activation scales (``quantize_<family>_params``
+    and ``calibrate_<family>_scales`` of RCAN, EDSR, QRCAN or QEDSR, as numpy) -> the
+    port's: the same tree of tensors on ``device``, each int8 conv entry (one with a
+    ``scale``) with its packed ``_int_mm`` matrix, the f32 attention entries (``ca``,
+    ``qca``, ``pa_node``, ``q_node``, ``attention``) as they are, and the scales
+    (``residual16`` too) as ``np.float32``."""
     from ..ops.quantization import pack_kernel_matrix
 
     def convert(node):

@@ -1,7 +1,8 @@
 """sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel (with and
 without Q-RCAN's meta and gate) and the CA + residual block-tail kernel against their
 plain versions, the int8 conv's int32 sums against an int64 reference, a small RCAN
-(f32, and int8), Q-RCAN and EDSR on the card against the CPU, and the CA op's backward
+(f32, and int8), Q-RCAN and EDSR on the card against the CPU, the int8 programs of
+EDSR (three carries), Q-RCAN and Q-EDSR card against CPU, and the CA op's backward
 (the kernel forward, the plain VJP) and one training step of a small Q-RCAN on the
 card against plain autograd and the CPU.  Every test here needs the card and skips
 without one.  Imports torch only (no
@@ -330,3 +331,82 @@ def test_qrcan_train_step_on_card_matches_cpu():
     for a, b in zip(card.module.parameters(), host.module.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=5e-5, rtol=0)
     assert card.step == host.step == 1
+
+
+def _int8_card_and_host(name, kw, residual_dtype='bfloat16', meta_cols=0):
+    """The same seeded model on the card and the CPU, int8 on, each calibrated on the
+    same batch (and metadata) with TF32 allowed globally (calibration turns it off for
+    itself); then the CPU's quantised state loaded into the card's handler.  Returns
+    (card, host, x, meta, the two calibrations' scales)."""
+    host = define_model(name, device='cpu', **kw)
+    card = define_model(name, device='cuda', **kw)
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.rand(2, 16, 16, 3).astype(np.float32))
+    meta = None
+    if meta_cols:
+        meta = torch.from_numpy(rng.dirichlet(np.ones(meta_cols) * 5, 2).astype(np.float32))
+    for h in (host, card):
+        h.set_metadata_keys(['blur_kernel'] * meta_cols)
+        h.set_int8(True, residual_dtype=residual_dtype)
+    host._ensure_int8_ctx(x, meta)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    card._ensure_int8_ctx(x.cuda(), None if meta is None else meta.cuda())
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    scales = (host._int8_ctx[2], card._int8_ctx[2])
+    card.load_int8_state(*host._int8_ctx[1:])
+    return card, host, x, meta, scales
+
+
+def _assert_int8_card_matches_cpu(card, host, x, meta, scales):
+    theirs, ours = scales
+    assert sorted(theirs) == sorted(ours)
+    for k in theirs:
+        np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-5, atol=0, err_msg=k)
+    with torch.inference_mode():
+        ref = host._int8_ctx[0](x, meta)
+        out = card._int8_ctx[0](x.cuda(), None if meta is None else meta.cuda()).cpu()
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    mse = (out - ref).pow(2).mean().item()
+    assert mse == 0 or 10 * np.log10(1.0 / mse) >= 60
+
+
+@pytest.mark.parametrize('residual_dtype', ['float32', 'bfloat16', 'int16'])
+def test_int8_edsr_on_card_matches_cpu(residual_dtype):
+    """Int8 EDSR with each residual carry (int16: the fixed-point grid), the same
+    quantised state on both devices; no kernel of ours on this path."""
+    kw = dict(scale=4, num_features=32, num_blocks=3, seed=1)
+    args = _int8_card_and_host('edsr', kw, residual_dtype)
+    launches = ca.fused_channel_attention.launches
+    _assert_int8_card_matches_cpu(*args)
+    assert ca.fused_channel_attention.launches == launches
+
+
+def test_int8_qrcan_on_card_matches_cpu():
+    """Int8 Q-RCAN (max_concat, a q_node in every block): every QRCAB tail is one CA
+    launch on the f32 map with the metadata and the q_node's gate, on the path the
+    plan gives."""
+    kw = dict(scale=4, n_resgroups=2, n_resblocks=2, n_feats=64, seed=1, style='max_concat',
+              include_q_layer=True, metadata=['blur_kernel'])
+    args = _int8_card_and_host('qrcan', kw, meta_cols=10)
+    launches = ca.fused_channel_attention.launches
+    onchip = ca.fused_channel_attention.onchip_launches
+    _assert_int8_card_matches_cpu(*args)
+    props = torch.cuda.get_device_properties(0)
+    plan = ca.onchip_plan(2, 16 * 16, 64, 4, 4, True, props.multi_processor_count,
+                          props.shared_memory_per_block_optin, m=10)
+    assert ca.fused_channel_attention.launches == launches + 4
+    assert ca.fused_channel_attention.onchip_launches == onchip + (4 if plan else 0)
+
+
+def test_int8_qedsr_on_card_matches_cpu():
+    """Int8 Q-EDSR with the gate's nonlinearity, and its f32 module forward, card
+    against CPU."""
+    kw = dict(scale=4, num_features=32, num_blocks=2, seed=1, metadata=['blur_kernel'],
+              q_layer_nonlinearity=True)
+    card, host, x, meta, scales = _int8_card_and_host('qedsr', kw, meta_cols=10)
+    _assert_int8_card_matches_cpu(card, host, x, meta, scales)
+    with torch.inference_mode():
+        out = card.forward(x.cuda(), meta.cuda()).cpu()
+        ref = host.forward(x, meta)
+    torch.testing.assert_close(out, ref, atol=5e-4, rtol=0)

@@ -1,6 +1,6 @@
 """sisr_tpu_torch's EDSR against sisr_tpu's on the same weights: the forward in f32,
 the weights bridge both ways and through sisr_tpu's own converter, the fused eval in
-f32 and bf16, eval_sisr --fused_eval end to end, and --int8 refused until its slice.
+f32 and bf16, and eval_sisr --fused_eval end to end, without and with --int8.
 Bars: forward 5e-4 abs, PSNR within 0.01 dB and SSIM within 1e-3 per image."""
 import os
 
@@ -150,7 +150,20 @@ def test_cli_fused_eval_matches_sisr_tpu(tmp_path, jax_edsr):
         for met, bar in BARS.items():
             np.testing.assert_allclose(ours[(side_ours, met)], theirs[(side_theirs, met)],
                                        atol=bar, rtol=0, err_msg='%s %s' % (side_ours, met))
-    # --int8: EDSR has an int8 program in sisr_tpu, not yet here: refused, not ignored
-    with pytest.raises(NotImplementedError, match='EDSR and Q-RCAN int8'):
-        net_eval.eval_run.main(args=args + ['--results_name', 'int8', '--int8'],
-                               standalone_mode=False)
+    # --int8: each package calibrates on the first batch and serves its int8 program
+    net_eval.eval_run.main(args=args + ['--results_name', 'port_int8', '--int8'],
+                           standalone_mode=False)
+    JaxEvalHub(hr_dir=hr_dir, lr_dir=lr_dir, model_and_epoch=[('jax_exp', '0')],
+               results_name='ref_int8', gpu=False, metrics=['PSNR', 'SSIM'], data_split=None,
+               save_im=False, batch_size=2, full_directory=True, lr_dir_interp=None,
+               model_only=False, scale=4, model_loc=model_loc, out_loc=out_loc,
+               use_test_group=False, no_image_comparison=True, num_image_save=0,
+               qpi_selection=(None, None), data_attributes=None, dataset_name=None,
+               image_shortlist=None, metadata_file=None, sp_gpu=0, time_models=False,
+               recursive=False, fused_eval=True, int8=True).full_image_protocol()
+    ours_int8, theirs_int8 = _read_metrics(out_loc, 'port_int8'), _read_metrics(out_loc,
+                                                                                'ref_int8')
+    for met, bar in BARS.items():
+        np.testing.assert_allclose(ours_int8[('torch_exp', met)], theirs_int8[('jax_exp', met)],
+                                   atol=bar, rtol=0, err_msg='int8 %s' % met)
+    assert not np.array_equal(ours_int8[('torch_exp', 'PSNR')], ours[('torch_exp', 'PSNR')])

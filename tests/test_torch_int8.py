@@ -220,11 +220,25 @@ def test_run_eval_fused_int8_matches_sisr_tpu(bridged, include_lr):
     assert not torch.equal(ours, f32)  # the metrics are of the quantised output
 
 
-def test_set_int8_without_a_family_is_ignored(bridged, capsys):
+def test_set_int8_without_a_family_is_ignored(bridged, calibration_batch, capsys):
+    """residual_dtype: 'int16' on RCAN calibrates and runs with the bfloat16 carry,
+    with sisr_tpu's message; a value no family takes raises; a handler without an
+    int8 family ignores set_int8."""
     _, jax_params, _, _ = bridged
     port = _port_rcan(jax_params)
+    x = torch.from_numpy(calibration_batch)
+    outs = {}
+    for rd in ('int16', 'bfloat16'):
+        port.set_int8(True, residual_dtype=rd)
+        port._ensure_int8_ctx(x)
+        with torch.inference_mode():
+            outs[rd] = port._int8_ctx[0](x)
+    assert "residual_dtype 'int16' is EDSR-only (int16 grid) — using bfloat16." \
+        in capsys.readouterr().out
+    torch.testing.assert_close(outs['int16'], outs['bfloat16'], atol=0, rtol=0)
     with pytest.raises(ValueError, match='residual_dtype'):
-        port.set_int8(True, residual_dtype='int16')
+        port.set_int8(True, residual_dtype='float16')
+    port = _port_rcan(jax_params)
     port.int8_family = None
     port.set_int8(True)
     assert not port.int8_mode and 'ignoring' in capsys.readouterr().out

@@ -349,8 +349,17 @@ def test_metadata_file_discovery(tmp_path, jax_model):
     assert len(_read_metrics(out_loc, 'port')) == 2
 
 
-def test_int8_raises_until_its_slice():
-    port = define_model('qrcan', device='cpu', **_internal('max_concat_q'))
-    with pytest.raises(NotImplementedError, match='EDSR and Q-RCAN int8'):
-        port.set_int8(True)
-    assert not port.int8_mode
+def test_int8_raises_until_its_slice(jax_model):
+    """set_int8 on Q-RCAN calibrates on the first batch with its metadata and runs the
+    int8 program in the fused step (tests/test_torch_int8_qrcan.py holds it against
+    sisr_tpu)."""
+    case = 'max_concat_q'
+    port = _port(jax_model(case), case)
+    batch = _batch(case, seed=7)
+    (_, f32), _ = port.run_eval_fused(batch)
+    port.set_int8(True)
+    assert port.int8_mode and port._int8_ctx is None
+    (_, int8), _ = port.run_eval_fused(batch)
+    program, qparams, scales = port._int8_ctx
+    assert 'group_1.qrcab_1.conv_1' in scales and 'q_node' in qparams['group_0']['qrcab_0']
+    assert torch.isfinite(int8).all() and not torch.equal(int8, f32)
