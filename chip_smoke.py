@@ -11,11 +11,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    gate, on both paths, timed beside the meta-less call): ``ms`` per call replayed from a CUDA
    graph (device time with launch gaps, no host), ``host_ms`` per call back to back
    from Python, ``device_ms`` the profiler's sum of its kernels.  The CA kernel in
-   bf16 and f32, on both of its paths (which path each shape took is checked against
-   the plan), with the on-chip and three-pass kernels timed in turns at the main
-   shape and the three-pass kernel at the shapes that take it; the CA + residual
-   kernel with x f32 and r bf16 or f32, on both of its paths in the same way (on
-   chip in rounds of images, or three passes);
+   bf16 and f32, on each of its three routes (on chip, in rounds, three passes; which
+   route each shape took is checked against the plan), with the on-chip and
+   three-pass kernels timed in turns at the main shape, the rounds route against
+   three passes at int8 Q-RCAN's f32 map (with meta and gate, and without), and the
+   three-pass kernel at a shape that takes it; the CA + residual kernel with x f32
+   and r bf16 or f32, on both of its paths in the same way (on chip in rounds of
+   images, or three passes), also with meta, gate and the cast-first rounding of int8
+   Q-RCAN's QRCAB tail, that one-launch tail timed in turns against the three-pass
+   CA, cast and add it replaces;
 3. reference: the full-width RCAN, Q-RCAN and EDSR forwards and fused evals on a
    small input, card (CUDA kernels) against the CPU (plain versions), in f32;
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
@@ -23,8 +27,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    allowed globally) against the CPU's; the full-width int8 RCAN and its fused eval
    on the same quantised state, card against CPU; then the same for EDSR 64
    features, 16 blocks with each of its three carries (float32, bfloat16, int16),
-   Q-RCAN's e2e configuration at 2 x 2 blocks (its CA launches counted, their path
-   held against the plan) and Q-EDSR at 2 blocks and 256 features (also its f32
+   Q-RCAN's e2e configuration at full depth, 10 x 20 (its 200 CA + residual launches
+   a forward counted, their path held against the plan) and Q-EDSR at 2 blocks and 256 features (also its f32
    module forward), each with the int32 sums of its head and first body conv;
 5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
@@ -39,14 +43,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    launch with meta and gate, on chip; launches, img/s and breakdown;
 8. EDSR main path: the same for EDSR 64 features, 16 blocks, 4x, bf16 (no kernel of
    ours); then ``--int8`` on EDSR (no kernel of ours) and on Q-RCAN (every QRCAB tail
-   one CA launch with meta and gate on the f32 map, all three-pass at this shape),
+   one CA + residual launch, cast first, with meta and gate on the f32 map and the
+   bf16 carry, all in rounds at this shape),
    and Q-EDSR at configs/div2k/qedsr.toml's width (256 features, 32 blocks, the
    gate's nonlinearity, 10 blur-kernel values, 4x) in bf16 and with ``--int8``; each
    int8 path's mean PSNR within 1 dB of its bf16 run's, with img/s, a device-time
    breakdown and peak memory;
 9. kernel backward: the CA op under autograd (the kernel forward, the plain VJP) at the
-   training shape (8, 64, 64, 64) f32 with and without Q-RCAN's gate, and at a
-   three-pass shape, against plain autograd; the kernel's forward time at the
+   training shape (8, 64, 64, 64) f32 with and without Q-RCAN's gate, and at the f32
+   eval shape (in rounds), against plain autograd; the kernel's forward time at the
    training shape;
 10. train reference: 10 training steps of RCAN and Q-RCAN (2 x 2 blocks, 64 features,
    f32) on the card against the same 10 on the CPU, from the same weights and batches;
@@ -55,13 +60,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    with a q_node in every block, blur-kernel metadata, batch 8, LR crops of 64, flips,
    Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
    epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
-   --fused_eval`` of the best epoch; then 20 timed warm train steps each of Q-RCAN and
-   RCAN 10 x 20 through the handler (forward / backward / optimizer, device busy, the
+   --fused_eval`` of the best epoch (f32, the CA in rounds); then 20 timed warm train
+   steps each of Q-RCAN and RCAN 10 x 20 through the handler (forward / backward /
+   optimizer, device busy, the
    CA kernel's share, conv FLOPs against the TF32 and f32 peaks, peak memory), and the
    same step with the CA's plain version in its place, in turns;
 
-then the ``kernels`` table (a row for each TPU kernel: the two CA paths and the two
-CA + residual paths), the card's name and power limit, and a last line
+then the ``kernels`` table (a row for each route of each TPU kernel: the CA on chip,
+in rounds and in three passes, the CA + residual in rounds and in three passes), the
+card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout, so
 f32 comparisons are true f32, except where phase 4 turns it on to show calibration
 turns it off for itself, and in phase 11, which trains with PyTorch's default (cuDNN
@@ -98,8 +105,8 @@ QEDSR = {'scale': SCALE, 'num_features': 256, 'num_blocks': 32, 'res_scale': 0.1
 MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
           'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR)}
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
-CA_KERNELS = ('ca_onchip', 'ca_pool_partial', 'ca_excite', 'ca_scale')
-CA_RES_KERNELS = ('ca_res_onchip', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
+CA_KERNELS = ('ca_onchip', 'ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_scale')
+CA_RES_KERNELS = ('ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
 # substrings of cuBLASLt / CUTLASS integer GEMM kernel names (torch._int_mm)
 GEMM_KERNEL_HINTS = ('gemm', 'xmma', 'cutlass', 'imma')
 # substrings of cuDNN / CUTLASS convolution and GEMM kernel names
@@ -290,29 +297,53 @@ def ca_inputs(shape, dtype, reduction, gen):
     return x, w1, b1, w2, b2
 
 
-def path_run(op, args):
+ONCHIP_KEYS = ('blocks_per_image', 'slab_pixels', 'smem_bytes')
+ROUNDS_KEYS = ('rounds', 'images_per_round', 'blocks_per_image', 'slab_pixels',
+               'smem_bytes')
+
+
+def path_run(op, args, **kwargs):
     """``op`` (fused_channel_attention or fused_channel_attention_residual) twice on
-    ``args``: the output, the repeat, and the path both calls took by its on-chip
-    launch count ('onchip' or 'three_pass')."""
+    ``args``: the output, the repeat, and the route both calls took by the op's route
+    counts: 'onchip' (the CA's ca_onchip, or the CA + residual's rounds route, which
+    its onchip_launches count), 'rounds' (the CA's rounds route) or 'three_pass'."""
     import torch
-    before = op.onchip_launches
-    out = op(*args)
-    again = op(*args)
+    counters = [c for c in ('onchip_launches', 'rounds_launches') if hasattr(op, c)]
+    before = [getattr(op, c) for c in counters]
+    out = op(*args, **kwargs)
+    again = op(*args, **kwargs)
     torch.cuda.synchronize()
-    took = op.onchip_launches - before
-    if took not in (0, 2):
-        raise AssertionError('%s took %d on-chip launches in 2 calls' % (op.__name__, took))
-    return out, again, 'onchip' if took else 'three_pass'
+    took = [(c.split('_')[0], getattr(op, c) - b) for c, b in zip(counters, before)]
+    taken = [route for route, k in took if k]
+    if any(k not in (0, 2) for _, k in took) or len(taken) > 1:
+        raise AssertionError('%s: route launches %s in 2 calls' % (op.__name__, took))
+    return out, again, taken[0] if taken else 'three_pass'
+
+
+def planned_ca_route(shape, cr, itemsize, m=0):
+    """(route, plan as a dict) that ca_plan gives the CA on this card for a 16-byte
+    aligned x of ``shape``."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    props = torch.cuda.get_device_properties(0)
+    n, h, w, c = shape
+    route, plan = ca.ca_plan(n, h * w, c, cr, itemsize, True, props.multi_processor_count,
+                             props.shared_memory_per_block_optin, m=m)
+    if route == 'three_pass':
+        return route, dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
+            n, h * w, c, itemsize, True, props.multi_processor_count)))
+    return route, dict(zip(ONCHIP_KEYS if route == 'onchip' else ROUNDS_KEYS, plan))
 
 
 def phase_kernel():
-    """fused_channel_attention against reference_channel_attention, on both paths.
-    Each shape's path is the one onchip_plan gives for this card, and both paths are
-    taken.  Tolerances: f32 1e-5 abs (summation order only); bf16 2 bf16 ULPs of the
-    output (rtol 1.6e-2), since the summation order can flip how att rounds to bf16.
-    At the main shape (on chip) the on-chip kernel is timed against the three-pass
-    kernel (its private launcher) in turns; the three-pass path is also timed at the
-    main shape in f32 and at one 512^2 map, the shapes that take it."""
+    """fused_channel_attention against reference_channel_attention, on each route.
+    Each shape's route is the one ca_plan gives for this card, and all three routes
+    are taken.  Tolerances: f32 1e-5 abs (summation order only); bf16 2 bf16 ULPs of
+    the output (rtol 1.6e-2), since the summation order can flip how att rounds to
+    bf16.  At the main shape (on chip) the on-chip kernel is timed against the
+    three-pass kernel (its private launcher) in turns; the three-pass path is also
+    timed at one 512^2 map, a shape that takes it (the rounds route in
+    phase_kernel_meta)."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     gen = torch.Generator().manual_seed(0)
@@ -336,27 +367,18 @@ def phase_kernel():
                 if not torch.equal(out, again):
                     raise AssertionError('fused_channel_attention is not deterministic '
                                          'at %s %s' % (shape, dtype))
-                n, h, w, c = shape
-                plan = ca.onchip_plan(n, h * w, c, c // reduction, args[0].element_size(),
-                                      True, props.multi_processor_count,
-                                      props.shared_memory_per_block_optin)
-                if path != ('three_pass' if plan is None else 'onchip'):
-                    raise AssertionError('%s %s took the %s path against plan %s'
-                                         % (shape, dtype, path, plan))
-                if plan is None:
-                    plan = dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
-                        n, h * w, c, args[0].element_size(), True,
-                        props.multi_processor_count)))
-                else:
-                    plan = dict(zip(('blocks_per_image', 'slab_pixels', 'smem_bytes'), plan))
+                planned, plan = planned_ca_route(shape, shape[-1] // reduction,
+                                                 args[0].element_size())
+                if path != planned:
+                    raise AssertionError('%s %s took the %s path against plan %s %s'
+                                         % (shape, dtype, path, planned, plan))
                 checks.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
                                'path': path, 'max_abs_err': err, **plan})
-        if {c['path'] for c in checks} != {'onchip', 'three_pass'}:
-            raise AssertionError('the shapes did not take both paths')
+        if {c['path'] for c in checks} != {'onchip', 'rounds', 'three_pass'}:
+            raise AssertionError('the shapes did not take all three routes')
 
         three_pass_shapes = []
-        for shape, dtype in (((BATCH, LR_SIZE, LR_SIZE, 64), torch.float32),
-                             ((1, 512, 512, 64), torch.bfloat16)):
+        for shape, dtype in (((1, 512, 512, 64), torch.bfloat16),):
             args = ca_inputs(shape, dtype, 16, gen)
             if path_run(ca.fused_channel_attention, args)[2] != 'three_pass':
                 raise AssertionError('%s %s is not on the three-pass path' % (shape, dtype))
@@ -373,7 +395,7 @@ def phase_kernel():
         if path != 'onchip':
             raise AssertionError('the main shape is not on the on-chip path')
         n, h, w, c = x.shape
-        plan = dict(zip(('blocks_per_image', 'slab_pixels', 'smem_bytes'), ca.onchip_plan(
+        plan = dict(zip(ONCHIP_KEYS, ca.onchip_plan(
             n, h * w, c, w1.shape[1], x.element_size(), True, props.multi_processor_count,
             props.shared_memory_per_block_optin)))
         kern = lambda: ca.fused_channel_attention(x, w1, b1, w2, b2)
@@ -414,12 +436,18 @@ def phase_kernel_residual():
     on both paths: x f32 (the dequantised conv output) with r bf16 (the main path) or
     f32, at the main-path shape, 7 images (a ragged last round), (3, 37, 29, 64)
     (ragged slabs), a 512^2 map, C = 18 and 20 (C = 18 takes one element a thread; C
-    = 20 with r bf16 has 40-byte pixels of r, three passes) and an odd H x W.  Each case's path is the one res_onchip_plan gives for this
-    card, and both paths are taken.  Tolerances: f32 out 1e-5 abs (summation order
-    only); bf16 out 2 bf16 ULPs (rtol 1.6e-2), since the pool's summation order can
-    flip a rounding.  At the main shape (on chip) the on-chip kernel is timed against
-    the three-pass kernel (its private launcher) in turns; the three-pass path is also
-    timed at the 512^2 map, a shape that takes it."""
+    = 20 with r bf16 has 40-byte pixels of r, three passes) and an odd H x W; then
+    with Q-RCAN's meta (M = 10) and gate, cast first and not, on both paths (the main
+    shape with r bf16 and f32, 7 images, a 512^2 map, a misaligned r).  Each case's
+    path is the one res_onchip_plan gives for this card, and both paths are taken.
+    Tolerances: f32 out 1e-5 abs (summation order only); bf16 out 2 bf16 ULPs (rtol
+    1.6e-2) of the output or, cast first, of the bf16 branch, since the pool's
+    summation order can flip a rounding.  At the main shape (on chip) the on-chip
+    kernel is timed against the three-pass kernel (its private launcher) in turns; the
+    three-pass path is also timed at the 512^2 map, a shape that takes it; and int8
+    Q-RCAN's one-launch QRCAB tail (x f32, r bf16, meta and gate, cast first) in turns
+    against the sequence it replaces: the three-pass CA with meta and gate, then
+    ``.to(bf16)``, then ``+ r``."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     op = ca.fused_channel_attention_residual
@@ -439,25 +467,36 @@ def phase_kernel_residual():
         r = torch.rand(shape, generator=gen).to(r_dtype).cuda()
         return x, r, w1, b1, w2, b2
 
-    def plan_of(args, out):
+    def plan_of(args, out, m=0):
         x, r, w1 = args[:3]
         n, h, w, c = x.shape
         plan = ca.res_onchip_plan(n, h * w, c, w1.shape[1], x.element_size(),
                                   r.element_size(), ca.res_onchip_aligned(x, r, out),
                                   props.multi_processor_count,
-                                  props.shared_memory_per_block_optin)
+                                  props.shared_memory_per_block_optin, m=m)
         if plan is not None:
-            return 'onchip', dict(zip(('rounds', 'images_per_round', 'blocks_per_image',
-                                       'slab_pixels', 'smem_bytes'), plan))
+            return 'onchip', dict(zip(ROUNDS_KEYS, plan))
         return 'three_pass', dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
             n, h * w, c, x.element_size(), ca.residual_aligned(x, r, out),
             props.multi_processor_count)))
 
-    def check(out, ref, r_dtype):
+    def check(out, ref, r_dtype, r=None):
         if r_dtype == torch.float32:
             torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
-        else:
+        elif r is None:
             torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+        else:  # cast first: 2 ULPs of the bf16 branch, |branch| <= |out| + |r|
+            err = (out.float() - ref.float()).abs()
+            if not bool((err <= 1.6e-2 * (ref.float().abs() + r.float().abs())
+                         + 1e-6).all()):
+                raise AssertionError('cast-first tail: max err %g' % err.max().item())
+
+    def tail_inputs(shape, r_dtype, offset=0):
+        """x f32 (signed), r (``offset`` elements into its storage), the weights with
+        w1 (C + 10, Cr), meta (N, 10) and gate (N, C)."""
+        (x, w1, b1, w2, b2), extra = meta_gate_inputs(shape, torch.float32, gen)
+        r = torch.rand(int(x.numel()) + offset, generator=gen).to(r_dtype).cuda()
+        return ((x - 0.5) * 4, r[offset:].view(shape), w1, b1, w2, b2), extra
 
     checks = []
     with torch.inference_mode():
@@ -482,6 +521,61 @@ def phase_kernel_residual():
                            **plan})
         if {c['path'] for c in checks} != {'onchip', 'three_pass'}:
             raise AssertionError('the CA + residual cases did not take both paths')
+
+        tail_checks = []
+        for shape, r_dtype, offset, cast_first in (
+                (main_shape, torch.bfloat16, 0, True), (main_shape, torch.float32, 0, True),
+                (main_shape, torch.bfloat16, 0, False),
+                ((7, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 0, True),
+                ((1, 512, 512, 64), torch.bfloat16, 0, True),
+                ((2, 16, 8, 64), torch.bfloat16, 2, True)):
+            args, extra = tail_inputs(shape, r_dtype, offset)
+            out, again, path = path_run(op, args, cast_first=cast_first, **extra)
+            ref = ca.reference_channel_attention_residual(*args, cast_first=cast_first,
+                                                          **extra)
+            check(out, ref, r_dtype, args[1] if cast_first else None)
+            if out.dtype != r_dtype or not torch.equal(out, again):
+                raise AssertionError('CA + residual with meta/gate at %s r %s: type %s or '
+                                     'not deterministic' % (shape, r_dtype, out.dtype))
+            planned, plan = plan_of(args, out, m=META_COLS)
+            if path != planned:
+                raise AssertionError('meta/gate tail %s r %s took the %s path against plan '
+                                     '%s' % (shape, r_dtype, path, plan))
+            tail_checks.append({'shape': list(shape), 'r_dtype': str(r_dtype).split('.')[-1],
+                                'r_offset': offset, 'cast_first': cast_first,
+                                'meta_values': META_COLS, 'gate': True, 'path': path,
+                                'max_abs_err': (out.float() - ref.float()).abs().max().item(),
+                                **plan})
+        if {c['path'] for c in tail_checks} != {'onchip', 'three_pass'}:
+            raise AssertionError('the meta/gate tail cases did not take both paths')
+
+        # int8 Q-RCAN's QRCAB tail: one launch against the three-pass CA, cast and add
+        (x, r, w1, b1, w2, b2), extra = tail_inputs(main_shape, torch.bfloat16)
+        tail = lambda: op(x, r, w1, b1, w2, b2, cast_first=True, **extra)
+        sequence = lambda: ca._three_pass(x, w1, b1, w2, b2, **extra).to(r.dtype) + r
+        plain = lambda: ca.reference_channel_attention_residual(x, r, w1, b1, w2, b2,
+                                                                cast_first=True, **extra)
+        ref = plain()
+        tail_out, seq_out = tail(), sequence()
+        check(tail_out, ref, r.dtype, r)
+        check(seq_out, ref, r.dtype, r)
+        tail_timing = {}
+        for name, fn in (('sequence_ms', sequence), ('ms', tail), ('ms', tail),
+                         ('sequence_ms', sequence)):
+            tail_timing[name] = graph_ms(fn)  # the second turn of each is kept
+        tail_timing['plain_ms'] = graph_ms(plain)
+        tail_bytes, tail_ops, _ = res_bound(x, r, w1)
+        tail_bytes += 4 * (x.shape[0] * (META_COLS + 64) + META_COLS * w1.shape[1])
+        tail_ops += x.shape[0] * (2 * META_COLS * w1.shape[1] + 64)
+        tail_timing.update({
+            'shape': list(x.shape), 'x_dtype': 'float32', 'r_dtype': 'bfloat16',
+            'meta_values': META_COLS, 'gate': True, 'cast_first': True,
+            'plan': plan_of((x, r, w1), tail_out, m=META_COLS)[1],
+            'max_abs_err': (tail_out.float() - ref.float()).abs().max().item(),
+            'sequence_max_abs_err': (seq_out.float() - ref.float()).abs().max().item(),
+            'bytes': tail_bytes, 'ops': tail_ops,
+            'bound_ms': max(tail_bytes / HBM_BYTES_PER_S, tail_ops / F32_CUDA_CORE_FLOPS) * 1e3})
+        tail_timing['tail_over_sequence'] = tail_timing['ms'] / tail_timing['sequence_ms']
 
         args = inputs((1, 512, 512, 64), 16, torch.bfloat16)
         if path_run(op, args)[2] != 'three_pass':
@@ -517,10 +611,11 @@ def phase_kernel_residual():
           'bound_us': bound_ms * 1e3, 'bytes': bytes_moved, 'ops': ops,
           'onchip_over_three_pass': timing['ms'] / timing['three_pass_ms'],
           'device_kernels_ms_per_20_calls': kern_detail,
-          'three_pass_shapes': three_pass_shapes, 'nvidia_smi': nvidia_smi_line(),
-          **timing})
+          'three_pass_shapes': three_pass_shapes, 'meta_gate_checks': tail_checks,
+          'qrcab_tail': tail_timing, 'nvidia_smi': nvidia_smi_line(), **timing})
     return {'max_abs_err': err, 'three_pass_max_abs_err': three_pass_err,
-            'bound_ms': bound_ms, 'path': path, 'plan': plan, **timing}
+            'bound_ms': bound_ms, 'path': path, 'plan': plan, 'qrcab_tail': tail_timing,
+            **timing}
 
 
 def meta_gate_inputs(shape, dtype, gen):
@@ -539,30 +634,32 @@ def meta_gate_inputs(shape, dtype, gen):
 
 def phase_kernel_meta():
     """fused_channel_attention with meta (M = 10: w1 is 74 x 4 at C = 64) and gate
-    against reference_channel_attention with the same, on both paths: the main shape
-    in bf16 (on chip, as the Q-RCAN main path takes it), in f32 and one 512^2 bf16 map
-    (three passes).  Tolerances as phase_kernel's: f32 1e-5 abs, bf16 2 ULPs; the
-    same bits on a rerun.  Each is timed in graph replay beside the meta-less call on
-    the same x and the first C rows of w1, in turns (meta-less, meta, meta,
-    meta-less), and beside its plain version.  The f32 case is the shape and inputs
-    of int8 Q-RCAN's QRCAB tail.  Returns the cases' results."""
+    against reference_channel_attention with the same, on each route: the main shape
+    in bf16 (on chip, as the Q-RCAN main path takes it), in f32 (in rounds: the map of
+    int8 Q-RCAN's QRCAB tail and of the f32 eval) and one 512^2 bf16 map (three
+    passes).  Tolerances as phase_kernel's: f32 1e-5 abs, bf16 2 ULPs; the same bits
+    on a rerun.  Each is timed in graph replay beside the meta-less call on the same x
+    and the first C rows of w1, in turns (meta-less, meta, meta, meta-less), and
+    beside its plain version; the f32 case also against the three passes (its private
+    launcher) with and without meta, in turns, each with its bound.  Returns the
+    cases' results."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     op = ca.fused_channel_attention
     gen = torch.Generator().manual_seed(4)
     cases = [((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 'onchip'),
-             ((BATCH, LR_SIZE, LR_SIZE, 64), torch.float32, 'three_pass'),
+             ((BATCH, LR_SIZE, LR_SIZE, 64), torch.float32, 'rounds'),
              ((1, 512, 512, 64), torch.bfloat16, 'three_pass')]
     results = []
     with torch.inference_mode():
         for shape, dtype, expect in cases:
             args, extra = meta_gate_inputs(shape, dtype, gen)
-            before = op.onchip_launches
-            out, again = op(*args, **extra), op(*args, **extra)
-            torch.cuda.synchronize()
-            path = 'onchip' if op.onchip_launches - before == 2 else 'three_pass'
-            if path != expect:
-                raise AssertionError('meta/gate %s %s took the %s path' % (shape, dtype, path))
+            out, again, path = path_run(op, args, **extra)
+            planned, plan = planned_ca_route(shape, shape[-1] // 16,
+                                             args[0].element_size(), m=META_COLS)
+            if path != expect or path != planned:
+                raise AssertionError('meta/gate %s %s took the %s path (plan %s %s)'
+                                     % (shape, dtype, path, planned, plan))
             ref = ca.reference_channel_attention(*args, **extra)
             if dtype == torch.float32:
                 torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
@@ -575,20 +672,31 @@ def phase_kernel_meta():
             bare = lambda x=x, w1=w1[:shape[-1]], b1=b1, w2=w2, b2=b2: op(x, w1, b1, w2, b2)
             plain = lambda args=args, extra=extra: ca.reference_channel_attention(*args,
                                                                                   **extra)
+            turns, extra_err = [('no_meta_ms', bare), ('ms', kern)], {}
+            if path == 'rounds':
+                three = lambda args=args, extra=extra: ca._three_pass(*args, **extra)
+                bare_three = lambda x=x, w1=w1[:shape[-1]], b1=b1, w2=w2, b2=b2: \
+                    ca._three_pass(x, w1, b1, w2, b2)
+                three_out = three()
+                torch.testing.assert_close(three_out, ref, atol=1e-5, rtol=0)
+                extra_err['three_pass_max_abs_err'] = (three_out - ref).abs().max().item()
+                turns = [('three_pass_ms', three), ('no_meta_three_pass_ms', bare_three)] \
+                    + turns
             timing = {}
-            for name, fn in (('no_meta_ms', bare), ('ms', kern), ('ms', kern),
-                             ('no_meta_ms', bare)):
+            for name, fn in turns + turns[::-1]:
                 timing[name] = graph_ms(fn)  # the second turn of each is kept
             timing['plain_ms'] = graph_ms(plain)
-            bytes_moved, ops, _ = ca_bound(x, w1)
+            no_meta_bytes, no_meta_ops, no_meta_bound = ca_bound(x, w1[:shape[-1]])
             n, c = shape[0], shape[-1]
-            bytes_moved += 4 * (n * (META_COLS + c) + META_COLS * w1.shape[1])
-            ops += n * (2 * META_COLS * w1.shape[1] + c)
+            bytes_moved = no_meta_bytes + 4 * (n * (META_COLS + c) + META_COLS * w1.shape[1])
+            ops = no_meta_ops + n * (2 * META_COLS * w1.shape[1] + c)
             results.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
-                            'path': path, 'max_abs_err': (out.float() - ref.float()).abs()
-                            .max().item(), 'bytes': bytes_moved, 'ops': ops,
+                            'path': path, 'plan': plan, 'max_abs_err':
+                            (out.float() - ref.float()).abs().max().item(),
+                            'bytes': bytes_moved, 'ops': ops,
                             'bound_ms': max(bytes_moved / HBM_BYTES_PER_S,
-                                            ops / F32_CUDA_CORE_FLOPS) * 1e3, **timing})
+                                            ops / F32_CUDA_CORE_FLOPS) * 1e3,
+                            'no_meta_bound_ms': no_meta_bound, **extra_err, **timing})
     emit({'phase': 'kernel', 'name': 'fused_channel_attention meta+gate',
           'meta_values': META_COLS, 'cases': results, 'nvidia_smi': nvidia_smi_line()})
     return results
@@ -739,8 +847,7 @@ def phase_int8_reference():
 # fused eval runs the last, bfloat16, the serving default)
 INT8_REFERENCE = {
     'edsr': ('edsr', {**EDSR, 'dtype': 'f32'}, 32, ('float32', 'int16', 'bfloat16')),
-    'qrcan': ('qrcan', {**QRCAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
-              ('bfloat16',)),
+    'qrcan': ('qrcan', {**QRCAN, 'dtype': 'f32'}, 32, ('bfloat16',)),
     'qedsr': ('qedsr', {**QEDSR, 'num_blocks': 2, 'dtype': 'f32'}, 16, ('bfloat16',)),
 }
 
@@ -758,9 +865,10 @@ def phase_int8_family_reference(name):
     kernels on seeded int8 inputs, are equal; calibration on the card (TF32 allowed
     globally) within rtol 1e-5 of the CPU's; on the CPU's quantised state, each
     carry's forward: finite, the CPU's shape, its PSNR card-vs-CPU reported; the fused
-    eval (bfloat16 carry) within 0.01 dB PSNR and 1e-3 SSIM.  Q-RCAN counts its CA
-    launches (one per QRCAB) and holds their path against onchip_plan; Q-EDSR also
-    holds its f32 module forward to 5e-4."""
+    eval (bfloat16 carry) within 0.01 dB PSNR and 1e-3 SSIM.  Q-RCAN counts its CA +
+    residual launches (one per QRCAB: the cast-first tail) and holds their path
+    against res_onchip_plan, and launches no CA; Q-EDSR also holds its f32 module
+    forward to 5e-4."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -823,34 +931,34 @@ def phase_int8_family_reference(name):
 
     state = host._int8_ctx[1:]
     props = torch.cuda.get_device_properties(0)
-    # Q-RCAN: one CA launch a QRCAB, on the path the plan gives its f32 map
+    # Q-RCAN: one CA + residual launch a QRCAB (its f32 map, the bf16 carry), on the
+    # path the plan gives
     blocks = internal['n_resgroups'] * internal['n_resblocks'] if name == 'qrcan' else 0
-    plan = ca.onchip_plan(2, size * size, 64, 4, 4, True, props.multi_processor_count,
-                          props.shared_memory_per_block_optin, m=META_COLS)
+    plan = ca.res_onchip_plan(2, size * size, 64, 4, 4, 2, True, props.multi_processor_count,
+                              props.shared_memory_per_block_optin, m=META_COLS)
     report['carries'] = {}
     for carry in carries:
         for handler in (card, host):
             handler.set_int8(True, residual_dtype=carry)
             handler.load_int8_state(*state)
-        before = (ca.fused_channel_attention.launches, ca.fused_channel_attention.onchip_launches)
+        reset_launches()
         with torch.inference_mode():
             ours = card._int8_ctx[0](x.cuda(), meta_card).cpu()
             theirs = host._int8_ctx[0](x, meta)
         torch.cuda.synchronize()
-        launched = ca.fused_channel_attention.launches - before[0]
-        onchip = ca.fused_channel_attention.onchip_launches - before[1]
+        launches = read_launches()
         if not torch.isfinite(ours).all() or ours.shape != theirs.shape:
             raise AssertionError('int8 %s (%s carry) on the card: non-finite or misshapen'
                                  % (name, carry))
         report['carries'][carry] = {'forward_psnr_card_vs_cpu': psnr_between(ours, theirs),
                                     'forward_max_abs_err': (ours - theirs).abs().max().item(),
-                                    'ca_launches': launched, 'ca_onchip_launches': onchip}
-        if launched != blocks or onchip != (blocks if plan is not None else 0):
-            raise AssertionError('int8 %s forward: %d CA launches (%d on chip), expected %d '
-                                 'on the %s path' % (name, launched, onchip, blocks,
-                                                     'on-chip' if plan else 'three-pass'))
+                                    'launches': launches}
+        expect_launches(launches, {**NO_LAUNCHES, 'fused_channel_attention_residual': blocks,
+                                   'fused_channel_attention_residual_onchip':
+                                       blocks if plan is not None else 0},
+                        'int8 %s forward (%s carry)' % (name, carry))
         if blocks:
-            report['carries'][carry]['ca_path'] = 'onchip' if plan is not None \
+            report['carries'][carry]['ca_res_path'] = 'onchip' if plan is not None \
                 else 'three_pass'
     (keys, m_card), _ = card.run_eval_fused(batch)
     (_, m_host), _ = host.run_eval_fused(batch)
@@ -882,15 +990,26 @@ def reset_launches():
     from sisr_tpu_torch.ops import channel_attention as ca
     ca.fused_channel_attention.launches = 0
     ca.fused_channel_attention.onchip_launches = 0
+    ca.fused_channel_attention.rounds_launches = 0
     ca.fused_channel_attention_residual.launches = 0
     ca.fused_channel_attention_residual.onchip_launches = 0
 
 
+# the counts of read_launches: each wrapper's launches, the CA's on chip and in rounds,
+# the CA + residual's in rounds (its onchip_launches)
+NO_LAUNCHES = dict.fromkeys(('fused_channel_attention', 'fused_channel_attention_onchip',
+                             'fused_channel_attention_rounds',
+                             'fused_channel_attention_residual',
+                             'fused_channel_attention_residual_onchip'), 0)
+
+
 def read_launches():
-    """Each wrapper's launches, and how many of each were on chip."""
+    """Each wrapper's launches, and how many of each took its on-chip or rounds
+    route."""
     from sisr_tpu_torch.ops import channel_attention as ca
     return {'fused_channel_attention': ca.fused_channel_attention.launches,
             'fused_channel_attention_onchip': ca.fused_channel_attention.onchip_launches,
+            'fused_channel_attention_rounds': ca.fused_channel_attention.rounds_launches,
             'fused_channel_attention_residual': ca.fused_channel_attention_residual.launches,
             'fused_channel_attention_residual_onchip':
                 ca.fused_channel_attention_residual.onchip_launches}
@@ -1010,10 +1129,9 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
     prefix, description, ca_calls = BF16_PATHS[experiment]
     launches, cli_seconds, frame = run_eval_cli(dirs, prefix + 'smoke', experiment=experiment)
     n_batches = -(-N_IMAGES // BATCH)
-    expect_launches(launches, {'fused_channel_attention': ca_calls * n_batches,
-                               'fused_channel_attention_onchip': ca_calls * n_batches,
-                               'fused_channel_attention_residual': 0,
-                               'fused_channel_attention_residual_onchip': 0},
+    expect_launches(launches, {**NO_LAUNCHES,
+                               'fused_channel_attention': ca_calls * n_batches,
+                               'fused_channel_attention_onchip': ca_calls * n_batches},
                     '%s bf16 main path' % experiment)
     rates, handler = warm_passes(dirs, prefix + 'smoke_timed', int8=False,
                                  experiment=experiment)
@@ -1056,27 +1174,25 @@ INT8_PATHS = {
 
 def int8_expected_launches(experiment, forwards):
     """The kernel launches of ``forwards`` int8 forwards of ``experiment``: RCAN's
-    RCAB tails through the CA + residual kernel on chip; Q-RCAN's QRCAB tails through
-    the CA kernel on the f32 map, three-pass at this shape (asserted from the plan);
-    none for EDSR and Q-EDSR."""
+    RCAB tails through the CA + residual kernel in rounds; Q-RCAN's QRCAB tails
+    through it too (cast first, with meta and gate, on the f32 map and the bf16
+    carry), in rounds at this shape (asserted from the plan), and no CA launch; none
+    for EDSR and Q-EDSR."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
-    counts = dict.fromkeys(('fused_channel_attention', 'fused_channel_attention_onchip',
-                            'fused_channel_attention_residual',
-                            'fused_channel_attention_residual_onchip'), 0)
-    if experiment == 'rcan_10x20':
-        counts['fused_channel_attention_residual'] = CA_PER_FORWARD * forwards
-        counts['fused_channel_attention_residual_onchip'] = CA_PER_FORWARD * forwards
-    elif experiment == 'qrcan_10x20':
+    counts = dict(NO_LAUNCHES)
+    tails = {'rcan_10x20': CA_PER_FORWARD,
+             'qrcan_10x20': QRCAN['n_resgroups'] * QRCAN['n_resblocks']}.get(experiment, 0)
+    if experiment == 'qrcan_10x20':
         props = torch.cuda.get_device_properties(0)
-        plan = ca.onchip_plan(BATCH, LR_SIZE ** 2, 64, 4, 4, True,
-                              props.multi_processor_count,
-                              props.shared_memory_per_block_optin, m=META_COLS)
-        if plan is not None:
-            raise AssertionError('int8 Q-RCAN\'s f32 map fits on chip on this card: %s'
-                                 % (plan,))
-        counts['fused_channel_attention'] = QRCAN['n_resgroups'] * QRCAN['n_resblocks'] \
-            * forwards
+        plan = ca.res_onchip_plan(BATCH, LR_SIZE ** 2, 64, 4, 4, 2, True,
+                                  props.multi_processor_count,
+                                  props.shared_memory_per_block_optin, m=META_COLS)
+        if plan is None:
+            raise AssertionError('int8 Q-RCAN\'s tail does not take the rounds route on '
+                                 'this card')
+    counts['fused_channel_attention_residual'] = tails * forwards
+    counts['fused_channel_attention_residual_onchip'] = tails * forwards
     return counts
 
 
@@ -1180,17 +1296,15 @@ def phase_kernel_backward():
     """fused_channel_attention under autograd (the Function: the kernel forward, the
     plain version's VJP in the backward) against plain autograd through
     reference_channel_attention, in f32: at the training shape (on chip) with and
-    without a gate (Q-RCAN's q_node), and at (8, 128, 128, 64), which takes three
-    passes.  Bars: output 1e-5 abs, every grad 1e-5 abs, the same bits on a rerun,
-    the path the plan gives.  Times per forward + backward (CUDA events) of both; and
+    without a gate (Q-RCAN's q_node), and at (8, 128, 128, 64), which takes the rounds
+    route.  Bars: output 1e-5 abs, every grad 1e-5 abs, the same bits on a rerun,
+    the route the plan gives.  Times per forward + backward (CUDA events) of both; and
     the kernel's forward alone at the training shape in graph replay, against its
     plain version and its bound."""
-    import numpy as np
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     op = ca.fused_channel_attention
     gen = torch.Generator().manual_seed(7)
-    props = torch.cuda.get_device_properties(0)
     results = []
     for shape, with_gate in ((TRAIN_SHAPE, False), (TRAIN_SHAPE, True),
                              ((BATCH, LR_SIZE, LR_SIZE, 64), False)):
@@ -1206,18 +1320,17 @@ def phase_kernel_backward():
             out.backward(cot)
             return out.detach(), [t.grad for t in leaves] + ([] if g is None else [g.grad])
 
-        before = (op.launches, op.onchip_launches)
+        reset_launches()
         out, grads = run(op)
         again, grads_again = run(op)
         torch.cuda.synchronize()
-        launched = op.launches - before[0]
-        path = 'onchip' if op.onchip_launches - before[1] == 2 else 'three_pass'
-        n, h, w, c = shape
-        plan = ca.onchip_plan(n, h * w, c, c // 16, 4, True, props.multi_processor_count,
-                              props.shared_memory_per_block_optin)
-        if launched != 2 or path != ('three_pass' if plan is None else 'onchip'):
-            raise AssertionError('backward case %s: %d launches on the %s path, plan %s'
-                                 % (shape, launched, path, plan))
+        launches = read_launches()
+        path, plan = planned_ca_route(shape, shape[-1] // 16, 4)
+        expected = {**NO_LAUNCHES, 'fused_channel_attention': 2}
+        if path != 'three_pass':
+            expected['fused_channel_attention_' + path] = 2
+        expect_launches(launches, expected, 'backward case %s, plan %s %s'
+                        % (shape, path, plan))
         ref, ref_grads = run(ca.reference_channel_attention)
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
         names = ['x', 'w1', 'b1', 'w2', 'b2'] + (['gate'] if with_gate else [])
@@ -1439,7 +1552,6 @@ def phase_train_main_path(dirs, root):
     import numpy as np
     import pandas as pd
     import torch
-    from sisr_tpu_torch.ops import channel_attention as ca
     save_loc = os.path.join(root, 'Results_train')
     config = write_train_config(dirs, save_loc)
     n_train = N_IMAGES // BATCH  # steps per epoch
@@ -1450,10 +1562,9 @@ def phase_train_main_path(dirs, root):
                                     ('resume', ('--num_epochs', '1',
                                                 '--continue_from_epoch', '1'), 1)):
             launches, seconds = run_train_cli(config, *args)
-            expect_launches(launches, {'fused_channel_attention': per_epoch * epochs,
-                                       'fused_channel_attention_onchip': per_epoch * epochs,
-                                       'fused_channel_attention_residual': 0,
-                                       'fused_channel_attention_residual_onchip': 0},
+            expect_launches(launches, {**NO_LAUNCHES,
+                                       'fused_channel_attention': per_epoch * epochs,
+                                       'fused_channel_attention_onchip': per_epoch * epochs},
                             'train_sisr (%s)' % label)
             report[label] = {'launches': launches, 'cli_seconds': seconds}
         base = os.path.join(save_loc, 'qrcan_train')
@@ -1474,17 +1585,16 @@ def phase_train_main_path(dirs, root):
                                                           experiment='qrcan_train',
                                                           epoch='best')
         # the eval runs in f32 (the experiment's dtype): the batch's 128^2 maps take
-        # the path onchip_plan gives them on this card (three passes on an H100)
+        # the route ca_plan gives them on this card (with the q_node's gate, no meta:
+        # the standard style), in rounds on an H100
         n_batches = -(-N_IMAGES // BATCH)
-        props = torch.cuda.get_device_properties(0)
-        onchip = ca.onchip_plan(BATCH, LR_SIZE ** 2, 64, 4, 4, True,
-                                props.multi_processor_count,
-                                props.shared_memory_per_block_optin) is not None
+        route = planned_ca_route((BATCH, LR_SIZE, LR_SIZE, 64), 4, 4)[0]
+        if route != 'rounds':
+            raise AssertionError('the f32 eval\'s maps take the %s route' % route)
         expect_launches(eval_launches, {
-            'fused_channel_attention': CA_PER_FORWARD * n_batches,
-            'fused_channel_attention_onchip': CA_PER_FORWARD * n_batches * onchip,
-            'fused_channel_attention_residual': 0,
-            'fused_channel_attention_residual_onchip': 0}, 'eval of the best epoch')
+            **NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD * n_batches,
+            'fused_channel_attention_rounds': CA_PER_FORWARD * n_batches},
+            'eval of the best epoch')
         best = summary.loc[summary['val-PSNR'].idxmax()]
         report['eval_best'] = {'launches': eval_launches, 'cli_seconds': eval_seconds,
                                'epoch': int(best['epoch']),
@@ -1549,44 +1659,49 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    def path_launches(op, onchip):
-        """Each path's launches of ``op`` on one of its two paths."""
+    def path_launches(count):
+        """Each path's launches of one route, ``count`` of its read_launches."""
         out = {}
         for path, result in paths.items():
-            counts = result['launches']
-            n = counts[op + '_onchip'] if onchip else counts[op] - counts[op + '_onchip']
+            n = count(result['launches'])
             if n:
                 out[path] = n
         return out
 
+    ca_key, res_key = 'fused_channel_attention', 'fused_channel_attention_residual'
     source = 'sisr_tpu_torch/ops/cuda/csrc/channel_attention.cu'
     pallas = 'sisr_tpu/ops/pallas/channel_attention.py:'
-    # one row for each TPU kernel; each row's times are those of its main-path shape:
-    # 1a the bf16 eval map on chip, 1b the f32 map of int8 Q-RCAN with its meta and
-    # gate, 2a/2b int8 RCAN's f32 map with its bf16 carry
+    # one row for each route of each TPU kernel; each row's times are those of its
+    # main-path shape: 1a the bf16 eval map on chip; 1b (three passes, and the rounds
+    # route that took its place) the f32 map of int8 Q-RCAN's tail with its meta and
+    # gate; 2a/2b int8 RCAN's f32 map with its bf16 carry
     meta_f32 = meta_gate[1]
     rows = [
-        ('fused_channel_attention: ca_onchip', pallas + '112', 'fused_channel_attention',
-         True, ca_main),
+        ('fused_channel_attention: ca_onchip', pallas + '112',
+         lambda c: c[ca_key + '_onchip'], ca_main),
         ('fused_channel_attention: three-pass (sisr_ca_forward)', pallas + '135',
-         'fused_channel_attention', False, meta_f32),
-        ('fused_channel_attention_residual: ca_res_onchip', pallas + '202',
-         'fused_channel_attention_residual', True, ca_res_main),
+         lambda c: c[ca_key] - c[ca_key + '_onchip'] - c[ca_key + '_rounds'],
+         {**meta_f32, 'ms': meta_f32['three_pass_ms'],
+          'max_abs_err': meta_f32['three_pass_max_abs_err']}),
+        ('fused_channel_attention: ca_rounds without r (sisr_ca_rounds_forward)',
+         pallas + '135', lambda c: c[ca_key + '_rounds'], meta_f32),
+        ('fused_channel_attention_residual: ca_rounds with r (sisr_ca_rounds_forward)',
+         pallas + '202', lambda c: c[res_key + '_onchip'], ca_res_main),
         ('fused_channel_attention_residual: three-pass (sisr_ca_res_forward)',
-         pallas + '226', 'fused_channel_attention_residual', False,
+         pallas + '226', lambda c: c[res_key] - c[res_key + '_onchip'],
          {**ca_res_main, 'ms': ca_res_main['three_pass_ms'],
           'max_abs_err': ca_res_main['three_pass_max_abs_err']}),
     ]
     kernel_rows = []
-    for name, replaces, op, onchip, timing in rows:
-        by_path = path_launches(op, onchip)
+    for name, replaces, count, timing in rows:
+        by_path = path_launches(count)
         kernel_rows.append({
             'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
             'launches': sum(by_path.values()), 'max_abs_err': timing['max_abs_err'],
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
             'bound_ms': timing['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
             'launches_by_path': by_path})
-    ca_row, ca_three_row, res_row, res_three_row = kernel_rows
+    ca_row, ca_three_row, ca_rounds_row, res_row, res_three_row = kernel_rows
     ca_row.update({'host_ms': ca_main['host_ms'], 'device_ms': ca_main['device_ms'],
                    'plain_device_ms': ca_main['plain_device_ms'], 'plan': ca_main['plan'],
                    'three_pass_ms_at_this_shape': ca_main['three_pass_ms']})
@@ -1596,10 +1711,20 @@ def main():
     # the training path's shape, f32 (on chip)
     ca_row.update({'training_shape_' + key: training_shape[key]
                    for key in ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
-    ca_three_row.update({'shape': meta_f32['shape'], 'no_meta_ms': meta_f32['no_meta_ms']})
+    # int8 Q-RCAN's f32 map with meta and gate (and without), the two routes in turns
+    ca_three_row.update({'shape': meta_f32['shape'],
+                         'no_meta_ms': meta_f32['no_meta_three_pass_ms']})
+    ca_rounds_row.update({'shape': meta_f32['shape'], 'plan': meta_f32['plan'],
+                          'no_meta_ms': meta_f32['no_meta_ms'],
+                          'no_meta_bound_ms': meta_f32['no_meta_bound_ms'],
+                          'three_pass_ms_at_this_shape': meta_f32['three_pass_ms']})
     res_row.update({'host_ms': ca_res_main['host_ms'], 'device_ms': ca_res_main['device_ms'],
                     'plain_device_ms': ca_res_main['plain_device_ms'],
                     'plan': ca_res_main['plan']})
+    # int8 Q-RCAN's QRCAB tail (meta, gate, cast first) against the sequence it replaced
+    res_row.update({'qrcab_tail_' + key: ca_res_main['qrcab_tail'][key]
+                    for key in ('ms', 'sequence_ms', 'plain_ms', 'bound_ms', 'max_abs_err',
+                                'tail_over_sequence', 'plan')})
     res_three_row.update({'host_ms': ca_res_main['three_pass_host_ms'],
                           'device_ms': ca_res_main['three_pass_device_ms']})
     emit({'kernels': kernel_rows})

@@ -11,17 +11,21 @@ multiplies the attention after the sigmoid, ``out = x * (att * gate)``.
 
 :func:`fused_channel_attention_residual` is the int8 RCAB block tail,
 ``out = (float(x) * att(x) + float(r)).to(r.dtype)``, with the signature of sisr_tpu's
-op of the same name.
+op of the same name; it also takes ``meta``, ``gate`` and ``cast_first``, which makes
+it the int8 QRCAB tail of Q-RCAN, ``fused_channel_attention(x, ..., meta,
+gate).to(r.dtype) + r``.
 
 On a CUDA tensor each wrapper launches ``ops/cuda/csrc/channel_attention.cu`` (design
 and bound in that file) or raises; on a CPU tensor it runs its plain version
 (:func:`reference_channel_attention`, :func:`reference_channel_attention_residual`),
 which the kernel is held against.  Each wrapper's ``launches`` counts its kernel
-launches.  Each op has two paths, chosen from the shape and the card alone: one
-cooperative launch that holds the map in shared memory (:func:`onchip_plan`; for
-the CA + residual, :func:`res_onchip_plan` streams the batch through it in rounds of
-images), counted also in the wrapper's ``onchip_launches``, and three launches for
-maps that do not fit.
+launches.  The routes are chosen from the shape and the card alone.  The CA has
+three (:func:`ca_plan`): one cooperative launch that holds the whole batch's map in
+shared memory (:func:`onchip_plan`, counted also in ``onchip_launches``), one that
+streams the batch through it in rounds of images (:func:`res_onchip_plan` with no r,
+counted also in ``rounds_launches``), and three launches for maps that do not fit.
+The CA + residual has the rounds route (:func:`res_onchip_plan`, counted also in its
+``onchip_launches``) and three launches.  Both rounds routes are one kernel.
 
 Both ops have a backward, as sisr_tpu's ``custom_vjp`` ops do: when autograd records
 (grad mode on and an input requires a grad), the wrapper runs as a
@@ -30,6 +34,7 @@ kernel on the card) and whose backward recomputes the plain version and returns 
 vector-Jacobian product.  There is no backward kernel.
 """
 import ctypes
+import functools
 
 import torch
 
@@ -49,14 +54,15 @@ _SIGNATURES = {
         ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
         + [ctypes.c_void_p]),
-    'sisr_ca_res_onchip_forward': (
-        ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+    'sisr_ca_rounds_forward': (
+        ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
         + [ctypes.c_void_p]),
     'sisr_ca_res_forward': (
-        ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+        ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
+_NO_R = -1  # r_dtype of the rounds entry for the CA op (no r)
 # the three-pass excite keeps 2*C + M + Cr floats in the 48 KB of static shared memory
 _MAX_EXCITE_FLOATS = 12288
 _DEVICES = {}  # CUDA device index -> (library handle, SM count, opt-in shared memory)
@@ -84,10 +90,18 @@ def reference_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None):
     return x * att[:, None, None, :].to(x.dtype)
 
 
-def reference_channel_attention_residual(x, r, w1, b1, w2, b2):
+def reference_channel_attention_residual(x, r, w1, b1, w2, b2, meta=None, gate=None,
+                                         cast_first=False):
     """Plain PyTorch version of the CA + residual tail (sisr_tpu's ``_reference_ca_res``
-    and Pallas body): ``float(x) * att + float(r)`` in f32, one cast to r's dtype."""
-    att = _attention(x, w1, b1, w2, b2)
+    and Pallas body): ``float(x) * att + float(r)`` in f32, one cast to r's dtype, with
+    att taking ``meta`` and ``gate`` as the CA does.  With ``cast_first`` it is the
+    int8 QRCAB tail, sisr_tpu's rounding order for Q-RCAN: the CA op's output cast to
+    r's dtype, then added in r's dtype."""
+    if cast_first:
+        return reference_channel_attention(x, w1, b1, w2, b2, meta, gate).to(r.dtype) + r
+    att = _attention(x, w1, b1, w2, b2, meta)
+    if gate is not None:
+        att = att * gate.float()
     return (x.float() * att[:, None, None, :] + r.float()).to(r.dtype)
 
 
@@ -122,13 +136,14 @@ def onchip_smem_bytes(slab_pixels, c, cr, itemsize, m=0):
     return -(-floats_end // 16) * 16 + 8 * _ONCHIP_CHUNKS
 
 
-def res_onchip_smem_bytes(slab_pixels, c, cr, x_itemsize, r_itemsize):
-    """Dynamic shared memory of ``ca_res_onchip``, laid out as it lays it out: the slab
-    of x; from a 128-byte boundary, the slab of r; the float scratch; then one
-    mbarrier for each chunk of x and one for each chunk of r."""
+def res_onchip_smem_bytes(slab_pixels, c, cr, x_itemsize, r_itemsize, m=0):
+    """Dynamic shared memory of ``ca_rounds``, laid out as it lays it out: the slab of
+    x; from a 128-byte boundary, the slab of r (``r_itemsize`` 0: no r); the float
+    scratch for ``m`` meta values; then one mbarrier for each chunk of x and one for
+    each chunk of r."""
     r_offset = -(-slab_pixels * c * x_itemsize // 128) * 128
-    floats_end = r_offset + slab_pixels * c * r_itemsize + 4 * _onchip_floats(c, cr,
-                                                                             x_itemsize)
+    floats_end = r_offset + slab_pixels * c * r_itemsize + 4 * _onchip_floats(
+        c, cr, x_itemsize, m)
     return -(-floats_end // 16) * 16 + 8 * 2 * _RES_CHUNKS
 
 
@@ -148,16 +163,18 @@ def onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin, m=0):
     return (-(-hw // slab), slab, smem) if smem <= smem_optin else None
 
 
-def res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, smem_optin):
+def res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, smem_optin,
+                    m=0):
     """(rounds, images_per_round, blocks_per_image, slab_pixels, smem_bytes) of the
-    one-launch CA + residual kernel that streams the batch through shared memory in
-    rounds of images, or None for the three-pass path.  The fewest rounds R for which
-    I = ceil(n / R) images of sm_count // I blocks each have slabs (ceil(hw / blocks)
-    pixels of x and of r, and scratch) within ``smem_optin``; then as many blocks per
-    image as that slab needs, so no block is empty.  At most one block per SM, so
-    every block is resident at once.  Taken only when the pixels of x and of r are
-    whole 16-byte units (bulk copies move 16-byte units) and ``aligned``
-    (:func:`res_onchip_aligned`)."""
+    one-launch kernel that streams the batch through shared memory in rounds of
+    images (``ca_rounds``: the CA + residual, or with ``r_itemsize`` 0 the CA alone),
+    or None.  The fewest rounds R for which I = ceil(n / R) images of sm_count // I
+    blocks each have slabs (ceil(hw / blocks) pixels of x and of r, and scratch with
+    ``m`` meta values) within ``smem_optin``; then as many blocks per image as that
+    slab needs, so no block is empty.  At most one block per SM, so every block is
+    resident at once.  Taken only when the pixels of x and of r are whole 16-byte
+    units (bulk copies move 16-byte units) and ``aligned`` (for the CA + residual
+    :func:`res_onchip_aligned`)."""
     lanes, ragged = divmod(c * x_itemsize, 16)
     if not aligned or ragged or (c * r_itemsize) % 16 or lanes > _THREADS:
         return None
@@ -166,12 +183,26 @@ def res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, sme
         images = -(-n // rounds)
         if images <= sm_count:
             slab = -(-hw // (sm_count // images))
-            smem = res_onchip_smem_bytes(slab, c, cr, x_itemsize, r_itemsize)
+            smem = res_onchip_smem_bytes(slab, c, cr, x_itemsize, r_itemsize, m)
             if smem <= smem_optin:
                 return rounds, images, -(-hw // slab), slab, smem
         # the fewest rounds that take fewer images each
         rounds = -(-n // (images - 1)) if images > 1 else n + 1
     return None
+
+
+def ca_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin, m=0):
+    """The CA op's route and its plan, from the shape and the card alone, in this
+    order: ('onchip', :func:`onchip_plan`) where the whole batch fits on chip at once;
+    ('rounds', :func:`res_onchip_plan` with no r) where it streams through in rounds;
+    else ('three_pass', None).  ``aligned``: x 16-byte aligned."""
+    plan = onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin, m)
+    if plan is not None:
+        return 'onchip', plan
+    plan = res_onchip_plan(n, hw, c, cr, itemsize, 0, aligned, sm_count, smem_optin, m)
+    if plan is not None:
+        return 'rounds', plan
+    return 'three_pass', None
 
 
 def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention', meta=None, gate=None):
@@ -214,9 +245,9 @@ def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention', meta=None, gate
                             % (op, t.dtype))
 
 
-def _check_residual_args(x, r, w1, b1, w2, b2):
+def _check_residual_args(x, r, w1, b1, w2, b2, meta=None, gate=None):
     op = 'fused_channel_attention_residual'
-    _check_args(x, w1, b1, w2, b2, op=op)
+    _check_args(x, w1, b1, w2, b2, op=op, meta=meta, gate=gate)
     if r.dtype not in _DTYPE_CODES:
         raise TypeError('%s: r must be float32 or bfloat16, got %s' % (op, r.dtype))
     if tuple(r.shape) != tuple(x.shape) or r.device != x.device:
@@ -264,13 +295,16 @@ class _ChannelAttentionResidual(torch.autograd.Function):
     VJP."""
 
     @staticmethod
-    def forward(ctx, x, r, w1, b1, w2, b2):
-        ctx.save_for_backward(x, r, w1, b1, w2, b2)
-        return _ca_res_forward(x, r, w1, b1, w2, b2)
+    def forward(ctx, x, r, w1, b1, w2, b2, meta, gate, cast_first):
+        ctx.save_for_backward(x, r, w1, b1, w2, b2, meta, gate)
+        ctx.cast_first = cast_first
+        return _ca_res_forward(x, r, w1, b1, w2, b2, meta, gate, cast_first)
 
     @staticmethod
     def backward(ctx, grad):
-        return _plain_vjp(reference_channel_attention_residual, ctx, grad)
+        plain = functools.partial(reference_channel_attention_residual,
+                                  cast_first=ctx.cast_first)
+        return _plain_vjp(plain, ctx, grad) + (None,)  # no grad for cast_first
 
 
 def _library(index):
@@ -309,11 +343,15 @@ def _ptr(t):
 def fused_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None):
     """CA scale-and-excite, with the optional ``meta`` (N, M) concatenated onto the
     pooled vector and ``gate`` (N, C) multiplying the attention: the CUDA kernel for
-    a CUDA ``x`` (on chip where :func:`onchip_plan` allows, else three passes), the
-    plain version for a CPU ``x``; differentiable in every input (the plain VJP)."""
+    a CUDA ``x`` (on the route :func:`ca_plan` gives), the plain version for a CPU
+    ``x``; differentiable in every input (the plain VJP)."""
     if _records_grad(x, w1, b1, w2, b2, meta, gate):
         return _ChannelAttention.apply(x, w1, b1, w2, b2, meta, gate)
     return _ca_forward(x, w1, b1, w2, b2, meta, gate)
+
+
+def _meta_count(meta):
+    return 0 if meta is None else meta.shape[1]
 
 
 def _ca_forward(x, w1, b1, w2, b2, meta=None, gate=None):
@@ -325,11 +363,13 @@ def _ca_forward(x, w1, b1, w2, b2, meta=None, gate=None):
     _check_args(x, w1, b1, w2, b2, meta=meta, gate=gate)
     n, h, w, c = x.shape
     _, sm_count, smem_optin = _library(x.device.index)
-    plan = onchip_plan(n, h * w, c, w1.shape[1], x.element_size(), x.data_ptr() % 16 == 0,
-                       sm_count, smem_optin, m=0 if meta is None else meta.shape[1])
-    if plan is None:
-        return _three_pass(x, w1, b1, w2, b2, meta, gate)
-    return _onchip(x, w1, b1, w2, b2, plan, meta, gate)
+    route, plan = ca_plan(n, h * w, c, w1.shape[1], x.element_size(), x.data_ptr() % 16 == 0,
+                          sm_count, smem_optin, m=_meta_count(meta))
+    if route == 'onchip':
+        return _onchip(x, w1, b1, w2, b2, plan, meta, gate)
+    if route == 'rounds':
+        return _rounds(x, None, w1, b1, w2, b2, torch.empty_like(x), plan, meta, gate)
+    return _three_pass(x, w1, b1, w2, b2, meta, gate)
 
 
 def _onchip(x, w1, b1, w2, b2, plan, meta=None, gate=None):
@@ -346,13 +386,41 @@ def _onchip(x, w1, b1, w2, b2, plan, meta=None, gate=None):
     with torch.cuda.device(index):
         code = lib.sisr_ca_onchip_forward(
             x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
-            _ptr(meta), _ptr(gate), partial.data_ptr(), n, h * w, c,
-            0 if meta is None else meta.shape[1], w1.shape[1], *strides,
-            _DTYPE_CODES[x.dtype], slabs, slab_pixels, smem_bytes,
+            _ptr(meta), _ptr(gate), partial.data_ptr(), n, h * w, c, _meta_count(meta),
+            w1.shape[1], *strides, _DTYPE_CODES[x.dtype], slabs, slab_pixels, smem_bytes,
             torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention on-chip launch')
     fused_channel_attention.launches += 1
     fused_channel_attention.onchip_launches += 1
+    return out
+
+
+def _rounds(x, r, w1, b1, w2, b2, out, plan, meta=None, gate=None, cast_first=False):
+    """One cooperative launch of ``ca_rounds`` into ``out`` with ``plan`` from
+    :func:`res_onchip_plan` (arguments already checked): the CA op where ``r`` is
+    None, counted on :func:`fused_channel_attention`, else the CA + residual tail,
+    counted on :func:`fused_channel_attention_residual`."""
+    n, h, w, c = x.shape
+    index = x.device.index
+    lib = _library(index)[0]
+    rounds, images, slabs, slab_pixels, smem_bytes = plan
+    meta, gate = _per_image(meta), _per_image(gate)
+    # the partial sums (N, slabs, C); the att slice is unused on this path
+    (w1, b1, w2, b2, partial, _), strides = _excite_args(x, w1, b1, w2, b2, slabs)
+    op = fused_channel_attention if r is None else fused_channel_attention_residual
+    with torch.cuda.device(index):
+        code = lib.sisr_ca_rounds_forward(
+            x.data_ptr(), _ptr(r), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
+            _ptr(meta), _ptr(gate), partial.data_ptr(), n, h * w, c, _meta_count(meta),
+            w1.shape[1], *strides, _DTYPE_CODES[x.dtype],
+            _NO_R if r is None else _DTYPE_CODES[r.dtype], int(cast_first), rounds, images,
+            slabs, slab_pixels, smem_bytes, torch.cuda.current_stream(index).cuda_stream)
+    cuda_build.check(lib, code, '%s rounds launch' % op.__name__)
+    op.launches += 1
+    if r is None:
+        op.rounds_launches += 1
+    else:
+        op.onchip_launches += 1
     return out
 
 
@@ -370,9 +438,8 @@ def _three_pass(x, w1, b1, w2, b2, meta=None, gate=None):
         code = lib.sisr_ca_forward(
             x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
             _ptr(meta), _ptr(gate), partial.data_ptr(), att.data_ptr(), n, h * w, c,
-            0 if meta is None else meta.shape[1], w1.shape[1], *strides,
-            _DTYPE_CODES[x.dtype], int(vectorized), slabs, sm_count,
-            torch.cuda.current_stream(index).cuda_stream)
+            _meta_count(meta), w1.shape[1], *strides, _DTYPE_CODES[x.dtype],
+            int(vectorized), slabs, sm_count, torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention launch')
     fused_channel_attention.launches += 1
     return out
@@ -380,6 +447,7 @@ def _three_pass(x, w1, b1, w2, b2, meta=None, gate=None):
 
 fused_channel_attention.launches = 0
 fused_channel_attention.onchip_launches = 0
+fused_channel_attention.rounds_launches = 0
 
 
 def residual_aligned(x, r, out):
@@ -396,56 +464,41 @@ def res_onchip_aligned(x, r, out):
     return residual_aligned(x, r, out) and r.data_ptr() % 16 == 0
 
 
-def fused_channel_attention_residual(x, r, w1, b1, w2, b2):
-    """The int8 RCAB block tail ``(float(x) * att(x) + float(r)).to(r.dtype)``: the
-    CUDA kernel for a CUDA ``x`` (on chip in rounds where :func:`res_onchip_plan`
-    allows, else three passes), the plain version for a CPU ``x``; differentiable in
-    every input (the plain VJP)."""
-    if _records_grad(x, r, w1, b1, w2, b2):
-        return _ChannelAttentionResidual.apply(x, r, w1, b1, w2, b2)
-    return _ca_res_forward(x, r, w1, b1, w2, b2)
+def fused_channel_attention_residual(x, r, w1, b1, w2, b2, meta=None, gate=None,
+                                     cast_first=False):
+    """The int8 RCAB block tail ``(float(x) * att(x) + float(r)).to(r.dtype)``, with
+    att taking ``meta`` and ``gate`` as :func:`fused_channel_attention` does; with
+    ``cast_first`` the int8 QRCAB tail ``fused_channel_attention(x, ..., meta,
+    gate).to(r.dtype) + r``.  The CUDA kernel for a CUDA ``x`` (on chip in rounds where
+    :func:`res_onchip_plan` allows, else three passes), the plain version for a CPU
+    ``x``; differentiable in every tensor input (the plain VJP)."""
+    if _records_grad(x, r, w1, b1, w2, b2, meta, gate):
+        return _ChannelAttentionResidual.apply(x, r, w1, b1, w2, b2, meta, gate, cast_first)
+    return _ca_res_forward(x, r, w1, b1, w2, b2, meta, gate, cast_first)
 
 
-def _ca_res_forward(x, r, w1, b1, w2, b2):
+def _ca_res_forward(x, r, w1, b1, w2, b2, meta=None, gate=None, cast_first=False):
     """The forward of :func:`fused_channel_attention_residual`, recording no grad."""
     if x.device.type == 'cpu':
-        return reference_channel_attention_residual(x, r, w1, b1, w2, b2)
+        return reference_channel_attention_residual(x, r, w1, b1, w2, b2, meta, gate,
+                                                    cast_first)
     if x.device.type != 'cuda':
         raise ValueError('fused_channel_attention_residual: unsupported device %s'
                          % x.device)
-    _check_residual_args(x, r, w1, b1, w2, b2)
+    _check_residual_args(x, r, w1, b1, w2, b2, meta, gate)
     n, h, w, c = x.shape
     _, sm_count, smem_optin = _library(x.device.index)
     out = torch.empty_like(r)
     plan = res_onchip_plan(n, h * w, c, w1.shape[1], x.element_size(), r.element_size(),
-                           res_onchip_aligned(x, r, out), sm_count, smem_optin)
+                           res_onchip_aligned(x, r, out), sm_count, smem_optin,
+                           m=_meta_count(meta))
     if plan is None:
-        return _res_three_pass(x, r, w1, b1, w2, b2, out)
-    return _res_onchip(x, r, w1, b1, w2, b2, out, plan)
+        return _res_three_pass(x, r, w1, b1, w2, b2, out, meta, gate, cast_first)
+    return _rounds(x, r, w1, b1, w2, b2, out, plan, meta, gate, cast_first)
 
 
-def _res_onchip(x, r, w1, b1, w2, b2, out, plan):
-    """One cooperative launch of ``ca_res_onchip`` into ``out`` with ``plan`` from
-    :func:`res_onchip_plan` (arguments already checked)."""
-    n, h, w, c = x.shape
-    index = x.device.index
-    lib = _library(index)[0]
-    rounds, images, slabs, slab_pixels, smem_bytes = plan
-    # the partial sums (N, slabs, C); the att slice is unused on this path
-    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
-    with torch.cuda.device(index):
-        code = lib.sisr_ca_res_onchip_forward(
-            x.data_ptr(), r.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors[:5]),
-            n, h * w, c, w1.shape[1], *strides, _DTYPE_CODES[x.dtype], _DTYPE_CODES[r.dtype],
-            rounds, images, slabs, slab_pixels, smem_bytes,
-            torch.cuda.current_stream(index).cuda_stream)
-    cuda_build.check(lib, code, 'fused_channel_attention_residual on-chip launch')
-    fused_channel_attention_residual.launches += 1
-    fused_channel_attention_residual.onchip_launches += 1
-    return out
-
-
-def _res_three_pass(x, r, w1, b1, w2, b2, out=None):
+def _res_three_pass(x, r, w1, b1, w2, b2, out=None, meta=None, gate=None,
+                    cast_first=False):
     """The three launches of ``sisr_ca_res_forward`` into ``out`` (a new tensor when
     None; arguments already checked)."""
     n, h, w, c = x.shape
@@ -454,13 +507,15 @@ def _res_three_pass(x, r, w1, b1, w2, b2, out=None):
     out = torch.empty_like(r) if out is None else out
     vectorized, slabs = launch_plan(n, h * w, c, x.element_size(),
                                     residual_aligned(x, r, out), sm_count)
-    tensors, strides = _excite_args(x, w1, b1, w2, b2, slabs)
+    meta, gate = _per_image(meta), _per_image(gate)
+    (w1, b1, w2, b2, partial, att), strides = _excite_args(x, w1, b1, w2, b2, slabs)
     with torch.cuda.device(index):
         code = lib.sisr_ca_res_forward(
-            x.data_ptr(), r.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tensors),
-            n, h * w, c, w1.shape[1], *strides, _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[r.dtype], int(vectorized), slabs, sm_count,
-            torch.cuda.current_stream(index).cuda_stream)
+            x.data_ptr(), r.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in (w1, b1, w2, b2)), _ptr(meta), _ptr(gate),
+            partial.data_ptr(), att.data_ptr(), n, h * w, c, _meta_count(meta), w1.shape[1],
+            *strides, _DTYPE_CODES[x.dtype], _DTYPE_CODES[r.dtype], int(cast_first),
+            int(vectorized), slabs, sm_count, torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention_residual launch')
     fused_channel_attention_residual.launches += 1
     return out

@@ -22,8 +22,10 @@
 // bound grows by N * (M + C) * 4 bytes, 2.8 KB at the main shape.
 //
 // Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_forward` (excite
-// `_excite`), by two paths; the wrapper's plan (`onchip_plan` in
-// ops/channel_attention.py) picks one from the shape and the card alone.
+// `_excite`), by three paths; the wrapper's plan (`ca_plan` in ops/channel_attention.py)
+// picks one from the shape and the card alone: on chip where the whole batch fits in
+// the SMs' shared memory at once, else in rounds where one round's images fit, else
+// three passes.
 //
 // Bound.  The work is two flops per element and one read plus one write of the map,
 // so bytes bound it: at the main-path shape (8, 128, 128, 64) bf16 the least traffic
@@ -54,11 +56,20 @@
 // per-block opt-in shared memory; a cooperative launch that cannot make the blocks
 // resident fails, and the wrapper raises.
 //
-// Path 2, three passes (entry sisr_ca_forward): replaces the tiled body `_ca_kernel`,
-// for maps that do not fit on chip (at the main shape in float32, or one 512 x 512
-// map).  The TPU kernel carries the spatial sum across a sequential grid and then
-// revisits the tiles; Hopper blocks run in parallel in no order, so this is three
-// launches on one stream:
+// Path 2, in rounds (entry sisr_ca_rounds_forward with no r, kernel ca_rounds): replaces
+// the tiled body `_ca_kernel` where the batch does not fit on chip at once but one
+// round of images does: the float32 map of int8 Q-RCAN's QRCAB tail and of the f32
+// eval, (8, 128, 128, 64), 33.6 MB against the SMs' 30.7 MB.  It is the CA +
+// residual's path 1 below without r: the batch streams through shared memory in
+// rounds (2 of 4 images at that shape, 33 blocks of 497 pixels, 127 KB slabs), one
+// grid barrier a round, and out = x * T(att * gate) is written from the slab.  The map
+// leaves device memory once and returns once, as on path 1.
+//
+// Path 3, three passes (entry sisr_ca_forward): replaces the tiled body `_ca_kernel`
+// for maps of which not even one image a round fits (one 512 x 512 float32 map), or
+// whose pixels are not whole 16-byte units.  The TPU kernel carries the spatial sum
+// across a sequential grid and then revisits the tiles; Hopper blocks run in parallel
+// in no order, so this is three launches on one stream:
 //   1. ca_pool_partial: each block reduces a slab of pixels of one image over its
 //      lanes of channels in float32 and writes one partial sum per channel to
 //      partial (N, S, C).  Plain stores, no atomics: every sum is taken in a fixed
@@ -69,7 +80,7 @@
 //      a multiple of 16 (and x is 16-byte aligned), one element per thread otherwise.
 // The map is read twice; the second read hits L2 where the map fits in its 50 MB.
 //
-// The int8 RCAB block tail, entries sisr_ca_res_onchip_forward and
+// The int8 RCAB block tail, entries sisr_ca_rounds_forward (with r) and
 // sisr_ca_res_forward:
 //
 //   out = TR(float(x) * att(x) + float(r))
@@ -83,13 +94,22 @@
 // sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_res_forward`, by two paths;
 // the wrapper's plan (`res_onchip_plan`) picks one from the shape and the card alone.
 //
+// Both paths also take the CA's meta and gate, and a cast-first rounding for the int8
+// QRCAB tail of Q-RCAN, whose branch sisr_tpu casts to the carry before it adds
+// (sisr_tpu/ops/quantization.py `qrcan_int8_forward_static`):
+//
+//   out = TR(TR(TX(x * TX(att * gate))) + r)
+//
+// the CA op's output rounded to r's type, then added in r's type: bit for bit the
+// plain `fused_channel_attention(x, ...).to(r.dtype) + r` up to the pool's order.
+//
 // Bound.  At the main-path shape (8, 128, 128, 64), x float32 and r bfloat16, the
 // least traffic is one read of x (33.6 MB), one read of r (16.8 MB) and one write of
 // out (16.8 MB): 67.1 MB, 20.0 us at 3.35 TB/s.  Bytes bound it (three flops per
 // element).
 //
-// Path 1, on chip in rounds (entry sisr_ca_res_onchip_forward, kernel
-// ca_res_onchip): replaces the single-block body `_ca_res_kernel_single`, which holds
+// Path 1, on chip in rounds (entry sisr_ca_rounds_forward, kernel ca_rounds, the CA's
+// path 2 with r): replaces the single-block body `_ca_res_kernel_single`, which holds
 // x and r in VMEM and reads each once.  Unlike the CA's bf16 map, the float32 x of
 // the whole batch (33.6 MB) does not fit the SMs' shared memory together (132 x
 // 227 KB = 30.7 MB), and one image (4.2 MB) is more than a 16-block cluster holds, so
@@ -120,8 +140,12 @@
 // the scale, every chunk waited on memory latency (54 us a call at the main shape on
 // an H100 SXM); issued before the arrival, its traffic queued ahead of the barrier's
 // own.  The partial sums are loaded together because one L2 round trip after another
-// was most of the excite's time.  A build with -DSISR_CA_RES_TIMELINE stamps the
-// phases (res_stamp below; tools/ca_res_timeline.py reads them).
+// was most of the excite's time.  Meta and gate change with the image, hence with the
+// round: each round stages its image's M meta values beside pooled while the slab is
+// pooled, and the excite reads that image's gate.  Without r (the CA's path 2) the
+// slab of r takes no bytes and its mbarriers are not armed.  A build with
+// -DSISR_CA_RES_TIMELINE stamps the phases (res_stamp below; tools/ca_res_timeline.py
+// reads them).
 //
 // Path 2, three passes (entry sisr_ca_res_forward): replaces the tiled body
 // `_ca_res_kernel`, for maps that do not fit on chip (one 512 x 512 float32 map),
@@ -142,8 +166,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kOnchipChunks = 4;  // bulk copies (and mbarriers) per slab
-constexpr int kResChunks = 2;     // bulk copies of x, and of r, per slab of ca_res_onchip
-constexpr int kResLoads = 16;     // block sums a thread of ca_res_onchip loads at once
+constexpr int kResChunks = 2;     // bulk copies of x, and of r, per slab of ca_rounds
+constexpr int kResLoads = 16;     // block sums a thread of ca_rounds loads at once
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -279,9 +303,34 @@ __global__ void ca_scale(const T* __restrict__ x, const float* __restrict__ att,
   }
 }
 
-// Grid-stride over the map's VEC-element vectors: out = TR(x * att[n, c] + r), the
-// product and the sum each rounded to float32 on their own.
-template <typename TX, typename TR, int VEC>
+// What ca_rounds writes: the CA's out = x * T(att) (no r), the plain tail TR(x * att +
+// r), or the cast-first tail TR(TR(TX(x * TX(att))) + r).
+enum RoundsMode { kNoR = 0, kRes = 1, kResCastFirst = 2 };
+
+// The factor x is multiplied by: the float32 att for the plain tail; att rounded to
+// x's type for the CA and the cast-first tail (`x * att.to(x.dtype)`).
+template <typename TX, int MODE>
+__device__ __forceinline__ float scale_of(float att) {
+  return MODE == kRes ? att : to_float(from_float<TX>(att));
+}
+
+// One element of the tail from x, its scale_of<TX, MODE> factor and r: the product,
+// then for the cast-first tail a round to x's type and to r's, then the sum, each
+// rounded on its own (no fused multiply-add).
+template <typename TX, typename TR, int MODE>
+__device__ __forceinline__ TR res_out(TX x, float scale, TR r) {
+  const float prod = __fmul_rn(to_float(x), scale);
+  if constexpr (MODE == kResCastFirst) {
+    const float branch = to_float(from_float<TR>(to_float(from_float<TX>(prod))));
+    return from_float<TR>(__fadd_rn(branch, to_float(r)));
+  } else {
+    return from_float<TR>(__fadd_rn(prod, to_float(r)));
+  }
+}
+
+// Grid-stride over the map's VEC-element vectors: out = res_out<TX, TR, MODE>(x,
+// att[n, c], r), the plain (kRes) or the cast-first tail.
+template <typename TX, typename TR, int VEC, int MODE>
 __global__ void ca_res_scale(const TX* __restrict__ x, const TR* __restrict__ r,
                              const float* __restrict__ att, TR* __restrict__ out,
                              int64_t total_vecs, int64_t hw, int c) {
@@ -299,8 +348,7 @@ __global__ void ca_res_scale(const TX* __restrict__ x, const TR* __restrict__ r,
     Pack<TR, VEC> po;
 #pragma unroll
     for (int v = 0; v < VEC; ++v)
-      po.v[v] = from_float<TR>(__fadd_rn(__fmul_rn(to_float(px.v[v]), a[v]),
-                                         to_float(pr.v[v])));
+      po.v[v] = res_out<TX, TR, MODE>(px.v[v], scale_of<TX, MODE>(a[v]), pr.v[v]);
     dst[i] = po;
   }
 }
@@ -378,23 +426,23 @@ __host__ inline int64_t onchip_smem_bytes(int64_t slab_len, int c, int m, int cr
   return onchip_barrier_offset(slab_len, c, m, cr, itemsize) + 8 * kOnchipChunks;
 }
 
-// Shared-memory bytes of ca_res_onchip: the slab of x, the slab of r (from a
-// 128-byte boundary), ca_onchip's float scratch, then one mbarrier for each chunk of x
-// and one for each chunk of r.  res_onchip_smem_bytes in ops/channel_attention.py
-// computes the same.
+// Shared-memory bytes of ca_rounds: the slab of x, the slab of r (from a 128-byte
+// boundary; r_itemsize 0 without r), ca_onchip's float scratch for M meta values, then
+// one mbarrier for each chunk of x and one for each chunk of r.  res_onchip_smem_bytes
+// in ops/channel_attention.py computes the same.
 __host__ __device__ inline int64_t res_r_offset(int64_t slab_len, int c, int x_itemsize) {
   return (slab_len * c * x_itemsize + 127) / 128 * 128;
 }
-__host__ __device__ inline int64_t res_barrier_offset(int64_t slab_len, int c, int cr,
+__host__ __device__ inline int64_t res_barrier_offset(int64_t slab_len, int c, int m, int cr,
                                                       int x_itemsize, int r_itemsize) {
   const int64_t floats_end = res_r_offset(slab_len, c, x_itemsize) +
                              slab_len * c * r_itemsize +
-                             4 * onchip_floats(c, 0, cr, 16 / x_itemsize);
+                             4 * onchip_floats(c, m, cr, 16 / x_itemsize);
   return (floats_end + 15) / 16 * 16;
 }
-__host__ inline int64_t res_onchip_smem_bytes(int64_t slab_len, int c, int cr,
+__host__ inline int64_t res_onchip_smem_bytes(int64_t slab_len, int c, int m, int cr,
                                               int x_itemsize, int r_itemsize) {
-  return res_barrier_offset(slab_len, c, cr, x_itemsize, r_itemsize) + 8 * 2 * kResChunks;
+  return res_barrier_offset(slab_len, c, m, cr, x_itemsize, r_itemsize) + 8 * 2 * kResChunks;
 }
 
 // The float scratch of the on-chip kernels, after the slab, as onchip_floats counts
@@ -409,8 +457,8 @@ struct OnchipScratch {
         hidden(pooled + c + m), att(hidden + cr) {}
 };
 
-// The excite's weights into shared memory and, with M > 0, the image's meta (img_meta,
-// M floats) after pooled's C.
+// The excite's weights into shared memory and, given img_meta, the image's M meta
+// values after pooled's C (ca_rounds passes null and stages each round's own).
 __device__ __forceinline__ void stage_excite_weights(
     const OnchipScratch& s, const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
@@ -426,7 +474,8 @@ __device__ __forceinline__ void stage_excite_weights(
   }
   for (int i = t; i < cr; i += kThreads) s.b1s[i] = b1[i];
   for (int i = t; i < c; i += kThreads) s.b2s[i] = b2[i];
-  for (int i = t; i < m; i += kThreads) s.pooled[c + i] = img_meta[i];
+  if (img_meta)
+    for (int i = t; i < m; i += kThreads) s.pooled[c + i] = img_meta[i];
 }
 
 // The block's per-channel sum of its threads' pools (acc: VEC channels of lane `lane`
@@ -611,7 +660,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Phase stamps of ca_res_onchip, recorded only in a build with -DSISR_CA_RES_TIMELINE
+// Phase stamps of ca_rounds, recorded only in a build with -DSISR_CA_RES_TIMELINE
 // (tools/ca_res_timeline.py): thread 0 of each block takes the global timer (ns) at
 // kernel entry (stamp 0) and, in each of the first kResStampRounds rounds, once its
 // slab is pooled, past the barrier, after the excite and after the scale (stamps
@@ -635,21 +684,26 @@ __device__ __forceinline__ void res_stamp(int stamp) {
 }
 
 // Grid (B, I), kThreads threads, launched cooperatively (path 1 of the CA + residual
-// note above).  In round k, block (s, i) owns pixels [s*slab_len, min(hw,
-// (s+1)*slab_len)) of image k*I + i while that image exists (blocks with none only
-// meet the barrier); its threads form rows of C/VEC lanes as in ca_onchip.  The slab
-// splits into `chunks` chunks of chunk_len pixels; chunk j of x lands on xbars[j] and
-// chunk j of r on rbars[j], each of whose phases completes once a round, so round k
-// waits for parity k & 1.  The plan guarantees C/VEC <= kThreads, a non-empty slab
-// for every block and rounds * I >= N.
-template <typename TX, typename TR, int VEC>
+// note above, and the CA's path 2).  In round k, block (s, i) owns pixels [s*slab_len,
+// min(hw, (s+1)*slab_len)) of image k*I + i while that image exists (blocks with none
+// only meet the barrier); its threads form rows of C/VEC lanes as in ca_onchip.  The
+// slab splits into `chunks` chunks of chunk_len pixels; chunk j of x lands on xbars[j]
+// and chunk j of r on rbars[j], each of whose phases completes once a round, so round
+// k waits for parity k & 1.  MODE (RoundsMode) says what is written: with kNoR, r is
+// null, TR is TX and out = x * T(att); else out = res_out<TX, TR, MODE>.  meta (N, M)
+// and gate (N, C) are optional (null, M = 0).  The plan guarantees C/VEC <= kThreads,
+// a non-empty slab for every block and rounds * I >= N.
+template <typename TX, typename TR, int VEC, int MODE>
 __global__ void __launch_bounds__(kThreads)
-    ca_res_onchip(const TX* __restrict__ x, const TR* __restrict__ r, TR* __restrict__ out,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  float* __restrict__ partial, int64_t n_images, int64_t hw, int c, int cr,
-                  int rounds, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
-                  int64_t w2_sc) {
+    ca_rounds(const TX* __restrict__ x, const TR* __restrict__ r, TR* __restrict__ out,
+              const float* __restrict__ w1, const float* __restrict__ b1,
+              const float* __restrict__ w2, const float* __restrict__ b2,
+              const float* __restrict__ meta, const float* __restrict__ gate,
+              float* __restrict__ partial, int64_t n_images, int64_t hw, int c, int m, int cr,
+              int rounds, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
+              int64_t w2_sc) {
+  constexpr bool kHasR = MODE != kNoR;
+  constexpr int kRBytes = kHasR ? (int)sizeof(TR) : 0;  // r's itemsize in the layout
   extern __shared__ __align__(128) unsigned char smem[];
   const int slabs = gridDim.x;
   const int images = gridDim.y;
@@ -666,15 +720,15 @@ __global__ void __launch_bounds__(kThreads)
   const Pack<TX, VEC>* xs = reinterpret_cast<const Pack<TX, VEC>*>(smem);
   unsigned char* r_smem = smem + res_r_offset(slab_len, c, sizeof(TX));
   const Pack<TR, VEC>* rs = reinterpret_cast<const Pack<TR, VEC>*>(r_smem);
-  const OnchipScratch s(reinterpret_cast<float*>(r_smem + slab_len * c * sizeof(TR)), c, 0,
-                        cr, rows, parts);
+  const OnchipScratch s(reinterpret_cast<float*>(r_smem + slab_len * c * kRBytes), c, m, cr,
+                        rows, parts);
   uint64_t* xbars = reinterpret_cast<uint64_t*>(
-      smem + res_barrier_offset(slab_len, c, cr, sizeof(TX), sizeof(TR)));
+      smem + res_barrier_offset(slab_len, c, m, cr, sizeof(TX), kRBytes));
   uint64_t* rbars = xbars + kResChunks;
   res_stamp(0);
 
   if (t == 0) {
-    for (int j = 0; j < 2 * kResChunks; ++j) mbar_init(&xbars[j]);
+    for (int j = 0; j < (kHasR ? 2 : 1) * kResChunks; ++j) mbar_init(&xbars[j]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -685,7 +739,7 @@ __global__ void __launch_bounds__(kThreads)
                   b, &xbars[j]);
     }
   }
-  stage_excite_weights(s, w1, b1, w2, b2, nullptr, c, 0, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
+  stage_excite_weights(s, w1, b1, w2, b2, nullptr, c, m, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
 
   for (int k = 0; k < rounds; ++k) {
     const int64_t n = (int64_t)k * images + blockIdx.y;
@@ -695,8 +749,10 @@ __global__ void __launch_bounds__(kThreads)
     // memory during this round's scale is quick
     if (t == 0 && more)
       prefetch_l2(x + ((n + images) * hw + p0) * c, (uint32_t)(len * c * sizeof(TX)));
-    // a. pool the slab of x as its chunks land, then the block's sum to partial
+    // a. this round's image's meta beside pooled (read by the excite after its block
+    //    syncs); pool the slab of x as its chunks land, then the block's sum to partial
     if (mine) {
+      for (int i = t; i < m; i += kThreads) s.pooled[c + i] = meta[n * m + i];
       float acc[VEC];
 #pragma unroll
       for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
@@ -721,7 +777,7 @@ __global__ void __launch_bounds__(kThreads)
     {
       const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
       auto token = grid.barrier_arrive();
-      if (t == 0 && mine) {
+      if (kHasR && t == 0 && mine) {
         for (int j = 0; j < chunks; ++j) {
           const int64_t a = j * chunk_len, b = min(len, a + chunk_len);
           load_pixels(r_smem + a * c * sizeof(TR), r + (n * hw + p0) * c, c, a, b, &rbars[j]);
@@ -731,28 +787,34 @@ __global__ void __launch_bounds__(kThreads)
     }
     res_stamp(2 + 4 * k);
     if (!mine) continue;
-    image_excite<kResLoads>(s, partial + n * slabs * c, nullptr, slabs, hw, c, 0, cr, parts,
-                            t);
+    image_excite<kResLoads>(s, partial + n * slabs * c, gate ? gate + n * c : nullptr, slabs,
+                            hw, c, m, cr, parts, t);
     res_stamp(3 + 4 * k);
 
-    // c. out = TR(x * att + r) chunk by chunk from shared memory; each chunk's bytes of
-    //    x then take the next round's
+    // c. out chunk by chunk from shared memory; each chunk's bytes of x then take the
+    //    next round's
     float scale[VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) scale[v] = row < rows ? s.att[lane * VEC + v] : 0.f;
+    for (int v = 0; v < VEC; ++v)
+      scale[v] = row < rows ? scale_of<TX, MODE>(s.att[lane * VEC + v]) : 0.f;
     Pack<TR, VEC>* dst = reinterpret_cast<Pack<TR, VEC>*>(out + (n * hw + p0) * c);
     for (int j = 0; j < chunks; ++j) {
       const int64_t a = j * chunk_len, b = min(len, a + chunk_len);
-      mbar_wait(&rbars[j], (uint32_t)(k & 1));
+      if (kHasR) mbar_wait(&rbars[j], (uint32_t)(k & 1));
       if (row < rows) {
         for (int64_t p = a + row; p < b; p += rows) {
           const Pack<TX, VEC> px = xs[p * lanes + lane];
-          const Pack<TR, VEC> pr = rs[p * lanes + lane];
           Pack<TR, VEC> po;
+          if constexpr (kHasR) {
+            const Pack<TR, VEC> pr = rs[p * lanes + lane];
 #pragma unroll
-          for (int v = 0; v < VEC; ++v)
-            po.v[v] = from_float<TR>(__fadd_rn(__fmul_rn(to_float(px.v[v]), scale[v]),
-                                               to_float(pr.v[v])));
+            for (int v = 0; v < VEC; ++v)
+              po.v[v] = res_out<TX, TR, MODE>(px.v[v], scale[v], pr.v[v]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v)
+              po.v[v] = from_float<TR>(to_float(px.v[v]) * scale[v]);
+          }
           dst[p * lanes + lane] = po;
         }
       }
@@ -802,33 +864,51 @@ unsigned scale_blocks(int64_t total_vecs, int sm_count) {
   return (unsigned)(blocks > max_blocks ? max_blocks : blocks);
 }
 
-template <typename TX, typename TR, int VEC>
-cudaError_t launch_res(const void* x, const void* r, void* out, const float* w1,
-                       const float* b1, const float* w2, const float* b2, float* partial,
-                       float* att, int64_t n, int64_t hw, int c, int cr,
-                       const int64_t* w_strides, int slabs, int sm_count,
+// What every launch of the CA + residual tail and of ca_rounds takes: x, r (null for
+// ca_rounds without r), out, the excite's weights with their strides (as in
+// sisr_ca_forward), meta (null with M = 0), gate (or null) and partial.
+struct TailArgs {
+  const void* x;
+  const void* r;
+  void* out;
+  const float *w1, *b1, *w2, *b2, *meta, *gate;
+  float* partial;
+  int64_t n, hw;
+  int c, m, cr;
+  int64_t ws[4];
+};
+
+// ca_rounds' plan: `rounds` rounds of `images` images, `slabs` blocks of slab_len pixels
+// per image, smem_bytes of dynamic shared memory a block.
+struct RoundsPlan {
+  int rounds, images, slabs;
+  int64_t slab_len, smem_bytes;
+};
+
+template <typename TX, typename TR, int VEC, int MODE>
+cudaError_t launch_res(const TailArgs& a, float* att, int slabs, int sm_count,
                        cudaStream_t stream) {
-  const TX* xt = static_cast<const TX*>(x);
-  cudaError_t err = launch_pool_excite<TX, VEC>(xt, w1, b1, w2, b2, nullptr, nullptr, partial,
-                                                att, n, hw, c, 0, cr, w_strides, slabs, stream);
+  const TX* xt = static_cast<const TX*>(a.x);
+  cudaError_t err = launch_pool_excite<TX, VEC>(xt, a.w1, a.b1, a.w2, a.b2, a.meta, a.gate,
+                                                a.partial, att, a.n, a.hw, a.c, a.m, a.cr, a.ws,
+                                                slabs, stream);
   if (err != cudaSuccess) return err;
-  const int64_t total_vecs = n * hw * (c / VEC);
-  ca_res_scale<TX, TR, VEC><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
-      xt, static_cast<const TR*>(r), att, static_cast<TR*>(out), total_vecs, hw, c);
+  const int64_t total_vecs = a.n * a.hw * (a.c / VEC);
+  ca_res_scale<TX, TR, VEC, MODE><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
+      xt, static_cast<const TR*>(a.r), att, static_cast<TR*>(a.out), total_vecs, a.hw, a.c);
   return cudaGetLastError();
 }
 
 template <typename TX, int VEC>
-cudaError_t dispatch_res(int r_dtype, const void* x, const void* r, void* out,
-                         const float* w1, const float* b1, const float* w2, const float* b2,
-                         float* partial, float* att, int64_t n, int64_t hw, int c, int cr,
-                         const int64_t* ws, int slabs, int sm_count, cudaStream_t s) {
+cudaError_t dispatch_res(int r_dtype, int cast_first, const TailArgs& a, float* att,
+                         int slabs, int sm_count, cudaStream_t s) {
   if (r_dtype == 0)
-    return launch_res<TX, float, VEC>(x, r, out, w1, b1, w2, b2, partial, att, n, hw, c, cr,
-                                      ws, slabs, sm_count, s);
+    return cast_first ? launch_res<TX, float, VEC, kResCastFirst>(a, att, slabs, sm_count, s)
+                      : launch_res<TX, float, VEC, kRes>(a, att, slabs, sm_count, s);
   if (r_dtype == 1)
-    return launch_res<TX, __nv_bfloat16, VEC>(x, r, out, w1, b1, w2, b2, partial, att, n, hw,
-                                              c, cr, ws, slabs, sm_count, s);
+    return cast_first
+               ? launch_res<TX, __nv_bfloat16, VEC, kResCastFirst>(a, att, slabs, sm_count, s)
+               : launch_res<TX, __nv_bfloat16, VEC, kRes>(a, att, slabs, sm_count, s);
   return cudaErrorInvalidValue;
 }
 
@@ -895,28 +975,44 @@ cudaError_t launch_onchip(const void* x, void* out, const float* w1, const float
                             w_strides[0], w_strides[1], w_strides[2], w_strides[3]);
 }
 
-// One cooperative launch of ca_res_onchip over grid (slabs, images) for `rounds`
-// rounds.  The plan must cover every image once and every pixel once with no empty
-// block, and smem_bytes must equal this file's layout, or nothing launches.
-template <typename TX, typename TR, int VEC>
-cudaError_t launch_res_onchip(const void* x, const void* r, void* out, const float* w1,
-                              const float* b1, const float* w2, const float* b2,
-                              float* partial, int64_t n, int64_t hw, int c, int cr,
-                              const int64_t* w_strides, int rounds, int images, int slabs,
-                              int64_t slab_len, int64_t smem_bytes, cudaStream_t stream) {
-  if (c % VEC != 0 || c / VEC > kThreads || rounds < 1 || images < 1 || slabs < 1 ||
-      (int64_t)(rounds - 1) * images >= n || (int64_t)rounds * images < n ||
-      (slabs - 1) * slab_len >= hw || slabs * slab_len < hw ||
-      (c * sizeof(TR)) % 16 != 0 ||
-      smem_bytes != res_onchip_smem_bytes(slab_len, c, cr, sizeof(TX), sizeof(TR)))
+// One cooperative launch of ca_rounds over grid (slabs, images) for `rounds` rounds.
+// The plan must cover every image once and every pixel once with no empty block, r
+// must be given exactly when MODE has one, meta exactly when M > 0, and smem_bytes
+// must equal this file's layout (which counts M, and r's itemsize as 0 without r), or
+// nothing launches.
+template <typename TX, typename TR, int VEC, int MODE>
+cudaError_t launch_rounds(const TailArgs& a, const RoundsPlan& p, cudaStream_t stream) {
+  constexpr bool kHasR = MODE != kNoR;
+  constexpr int kRBytes = kHasR ? (int)sizeof(TR) : 0;
+  if (a.c % VEC != 0 || a.c / VEC > kThreads || a.m < 0 || (a.m > 0) != (a.meta != nullptr) ||
+      kHasR != (a.r != nullptr) || p.rounds < 1 || p.images < 1 || p.slabs < 1 ||
+      (int64_t)(p.rounds - 1) * p.images >= a.n || (int64_t)p.rounds * p.images < a.n ||
+      (p.slabs - 1) * p.slab_len >= a.hw || p.slabs * p.slab_len < a.hw ||
+      (a.c * kRBytes) % 16 != 0 ||
+      p.smem_bytes != res_onchip_smem_bytes(p.slab_len, a.c, a.m, a.cr, sizeof(TX), kRBytes))
     return cudaErrorInvalidValue;
   static int64_t allowed[64] = {};
-  return launch_cooperative(ca_res_onchip<TX, TR, VEC>, allowed,
-                            dim3((unsigned)slabs, (unsigned)images), smem_bytes, stream,
-                            static_cast<const TX*>(x), static_cast<const TR*>(r),
-                            static_cast<TR*>(out), w1, b1, w2, b2, partial, n, hw, c, cr,
-                            rounds, slab_len, w_strides[0], w_strides[1], w_strides[2],
-                            w_strides[3]);
+  return launch_cooperative(ca_rounds<TX, TR, VEC, MODE>, allowed,
+                            dim3((unsigned)p.slabs, (unsigned)p.images), p.smem_bytes, stream,
+                            static_cast<const TX*>(a.x), static_cast<const TR*>(a.r),
+                            static_cast<TR*>(a.out), a.w1, a.b1, a.w2, a.b2, a.meta, a.gate,
+                            a.partial, a.n, a.hw, a.c, a.m, a.cr, p.rounds, p.slab_len,
+                            a.ws[0], a.ws[1], a.ws[2], a.ws[3]);
+}
+
+// ca_rounds for x of type TX: without r (r_dtype -1), or the tail with r float32 (0)
+// or bfloat16 (1), plain or cast first.
+template <typename TX, int VEC>
+cudaError_t dispatch_rounds(int r_dtype, int cast_first, const TailArgs& a,
+                            const RoundsPlan& p, cudaStream_t s) {
+  if (r_dtype == -1 && !cast_first) return launch_rounds<TX, TX, VEC, kNoR>(a, p, s);
+  if (r_dtype == 0)
+    return cast_first ? launch_rounds<TX, float, VEC, kResCastFirst>(a, p, s)
+                      : launch_rounds<TX, float, VEC, kRes>(a, p, s);
+  if (r_dtype == 1)
+    return cast_first ? launch_rounds<TX, __nv_bfloat16, VEC, kResCastFirst>(a, p, s)
+                      : launch_rounds<TX, __nv_bfloat16, VEC, kRes>(a, p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -979,74 +1075,65 @@ int sisr_ca_onchip_forward(const void* x, void* out, const float* w1, const floa
   return (int)cudaErrorInvalidValue;
 }
 
-// The CA + residual block tail on chip: one cooperative launch of `slabs` blocks for
-// each of `images` images a round, over `rounds` rounds, each block owning slab_len
-// pixels (the last one of an image the rest), with smem_bytes of dynamic shared
-// memory.  x_dtype and r_dtype: 0 float32, 1 bfloat16; out has r's type.  The caller
-// checks that C * itemsize(x) and C * itemsize(r) are multiples of 16, that x and r
-// are 16-byte aligned, that out is aligned to one vector (16 / itemsize(x) elements)
-// of r's type and that all images * slabs blocks fit on the card at once.  The
-// weights and their strides are those of sisr_ca_forward; partial holds N * slabs * C
-// floats.  Returns the CUDA error code of the launch, 0 when it launched.
-int sisr_ca_res_onchip_forward(const void* x, const void* r, void* out, const float* w1,
-                               const float* b1, const float* w2, const float* b2,
-                               float* partial, long long n, long long hw, int c, int cr,
-                               long long w1_s0, long long w1_s1, long long w2_s0,
-                               long long w2_s1, int x_dtype, int r_dtype, int rounds,
-                               int images, int slabs, long long slab_len,
-                               long long smem_bytes, void* stream) {
+// The rounds path (ca_rounds): one cooperative launch of `slabs` blocks for each of
+// `images` images a round, over `rounds` rounds, each block owning slab_len pixels
+// (the last one of an image the rest), with smem_bytes of dynamic shared memory.
+// Without r (null, r_dtype -1, cast_first 0) it is the CA op, out in x's type; with r
+// the CA + residual tail, out in r's type, with cast_first 1 the cast-first tail.
+// x_dtype and r_dtype: 0 float32, 1 bfloat16.  The caller checks that C * itemsize(x)
+// and C * itemsize(r) are multiples of 16, that x and r are 16-byte aligned, that out
+// is aligned to one vector (16 / itemsize(x) elements) of its type and that all
+// images * slabs blocks fit on the card at once.  The weights, meta, gate and their
+// strides are those of sisr_ca_forward; partial holds N * slabs * C floats.  Returns
+// the CUDA error code of the launch, 0 when it launched.
+int sisr_ca_rounds_forward(const void* x, const void* r, void* out, const float* w1,
+                           const float* b1, const float* w2, const float* b2,
+                           const float* meta, const float* gate, float* partial, long long n,
+                           long long hw, int c, int m, int cr, long long w1_s0,
+                           long long w1_s1, long long w2_s0, long long w2_s1, int x_dtype,
+                           int r_dtype, int cast_first, int rounds, int images, int slabs,
+                           long long slab_len, long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
-  if (x_dtype == 0 && r_dtype == 0)
-    return launch_res_onchip<float, float, 4>(x, r, out, w1, b1, w2, b2, partial, n, hw, c,
-                                              cr, ws, rounds, images, slabs, slab_len,
-                                              smem_bytes, s);
-  if (x_dtype == 0 && r_dtype == 1)
-    return launch_res_onchip<float, __nv_bfloat16, 4>(x, r, out, w1, b1, w2, b2, partial, n,
-                                                      hw, c, cr, ws, rounds, images, slabs,
-                                                      slab_len, smem_bytes, s);
-  if (x_dtype == 1 && r_dtype == 0)
-    return launch_res_onchip<__nv_bfloat16, float, 8>(x, r, out, w1, b1, w2, b2, partial, n,
-                                                      hw, c, cr, ws, rounds, images, slabs,
-                                                      slab_len, smem_bytes, s);
-  if (x_dtype == 1 && r_dtype == 1)
-    return launch_res_onchip<__nv_bfloat16, __nv_bfloat16, 8>(
-        x, r, out, w1, b1, w2, b2, partial, n, hw, c, cr, ws, rounds, images, slabs,
-        slab_len, smem_bytes, s);
+  const TailArgs a = {x, r, out, w1, b1, w2, b2, meta, gate, partial, n, hw, c, m, cr,
+                      {w1_s0, w1_s1, w2_s0, w2_s1}};
+  const RoundsPlan p = {rounds, images, slabs, slab_len, smem_bytes};
+  if (x_dtype == 0) return (int)dispatch_rounds<float, 4>(r_dtype, cast_first, a, p, s);
+  if (x_dtype == 1) return (int)dispatch_rounds<__nv_bfloat16, 8>(r_dtype, cast_first, a, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The CA + residual block tail.  x_dtype and r_dtype: 0 float32, 1 bfloat16; out has
-// r's type.  vectorized: 1 for VEC = 16 / sizeof(x) elements per thread (the caller
-// checks that C is a multiple of VEC, that x is 16-byte aligned and that r and out
-// are aligned to VEC elements of r's type), 0 for one element per thread.  The other
-// arguments are those of sisr_ca_forward.
+// The CA + residual block tail in three passes.  x_dtype and r_dtype: 0 float32, 1
+// bfloat16; out has r's type; cast_first 1 for the cast-first tail.  vectorized: 1
+// for VEC = 16 / sizeof(x) elements per thread (the caller checks that C is a
+// multiple of VEC, that x is 16-byte aligned and that r and out are aligned to VEC
+// elements of r's type), 0 for one element per thread.  The other arguments are those
+// of sisr_ca_forward.
 int sisr_ca_res_forward(const void* x, const void* r, void* out, const float* w1,
-                        const float* b1, const float* w2, const float* b2, float* partial,
-                        float* att, long long n, long long hw, int c, int cr, long long w1_s0,
-                        long long w1_s1, long long w2_s0, long long w2_s1, int x_dtype,
-                        int r_dtype, int vectorized, int slabs, int sm_count, void* stream) {
+                        const float* b1, const float* w2, const float* b2, const float* meta,
+                        const float* gate, float* partial, float* att, long long n,
+                        long long hw, int c, int m, int cr, long long w1_s0, long long w1_s1,
+                        long long w2_s0, long long w2_s1, int x_dtype, int r_dtype,
+                        int cast_first, int vectorized, int slabs, int sm_count,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
+  if (m < 0 || (m > 0) != (meta != nullptr)) return (int)cudaErrorInvalidValue;
+  const TailArgs a = {x, r, out, w1, b1, w2, b2, meta, gate, partial, n, hw, c, m, cr,
+                      {w1_s0, w1_s1, w2_s0, w2_s1}};
   if (x_dtype == 0) {
-    return vectorized ? dispatch_res<float, 4>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
-                                               att, n, hw, c, cr, ws, slabs, sm_count, s)
-                      : dispatch_res<float, 1>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
-                                               att, n, hw, c, cr, ws, slabs, sm_count, s);
+    return vectorized ? dispatch_res<float, 4>(r_dtype, cast_first, a, att, slabs, sm_count, s)
+                      : dispatch_res<float, 1>(r_dtype, cast_first, a, att, slabs, sm_count, s);
   }
   if (x_dtype == 1) {
     return vectorized
-               ? dispatch_res<__nv_bfloat16, 8>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
-                                                att, n, hw, c, cr, ws, slabs, sm_count, s)
-               : dispatch_res<__nv_bfloat16, 1>(r_dtype, x, r, out, w1, b1, w2, b2, partial,
-                                                att, n, hw, c, cr, ws, slabs, sm_count, s);
+               ? dispatch_res<__nv_bfloat16, 8>(r_dtype, cast_first, a, att, slabs, sm_count, s)
+               : dispatch_res<__nv_bfloat16, 1>(r_dtype, cast_first, a, att, slabs, sm_count, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 #ifdef SISR_CA_RES_TIMELINE
-// The phase stamps of the last ca_res_onchip launch: kResStampBlocks * kResStamps
-// values (ns), as res_stamp lays them out.
+// The phase stamps of the last ca_rounds launch: kResStampBlocks * kResStamps values
+// (ns), as res_stamp lays them out.
 int sisr_ca_res_stamps(unsigned long long* host) {
   return (int)cudaMemcpyFromSymbol(host, res_stamps, sizeof(res_stamps));
 }

@@ -17,10 +17,12 @@ parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
 * each RCAB tail (channel attention scale + residual add) runs as
   :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention_residual`, the
   CUDA kernel on the card: the numerics of sisr_tpu's ``ca_epilogue='pallas'``;
-* each QRCAB tail of the ``standard``, ``max_concat`` and ``modulate`` styles scales
-  by its attention (with the metadata and the q_node's gate) in one
-  :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention` call, then
-  casts once to the carry and adds in the carry's type, sisr_tpu's rounding order.
+* each QRCAB tail of the ``standard``, ``max_concat`` and ``modulate`` styles without
+  a pa_node (attention with the metadata and the q_node's gate, one cast to the carry,
+  the add in the carry's type: sisr_tpu's rounding order) is one
+  :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention_residual` call
+  with ``cast_first``; with a pa_node, the attention is one
+  :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention` call.
 
 The int8 convolution is an im2col product: the padded int8 input's 3x3 windows are
 gathered into an (N*H*W, 9*Cin) int8 matrix and multiplied by the HWIO kernel
@@ -661,12 +663,15 @@ def calibrate_qrcan_scales(params, sample_batches, metadata_batches, style='modu
     return _finalize_scales(maxes, margin)
 
 
-def _qrcab_tail(blk, y, meta, style):
-    """One int8 QRCAB's branch after its convs, in f32: y times its attention, then
-    the pixel attention and the q_node's gate where the block has them.  The kernel
-    styles scale in one :func:`fused_channel_attention` call, which takes the
-    metadata (max_concat), the expanded metadata (modulate) and, without a pa_node,
-    the q_node's gate; the other styles compute :func:`_qca_apply` in plain f32."""
+def _qrcab_tail(blk, y, r, meta, style):
+    """One int8 QRCAB's tail after its convs: the f32 branch y times its attention,
+    then the pixel attention and the q_node's gate where the block has them, cast once
+    to the carry r's type and added to r in that type (sisr_tpu's rounding order).
+    Without a pa_node, the kernel styles' whole tail is one
+    :func:`fused_channel_attention_residual` call with ``cast_first``, taking the
+    metadata (max_concat), the expanded metadata (modulate) and the q_node's gate;
+    with one, they scale in one :func:`fused_channel_attention` call.  The other
+    styles compute :func:`_qca_apply` in plain f32."""
     q_gate = _para_ca_apply(blk['q_node'], meta) if 'q_node' in blk else None
     if style in KERNEL_STYLES:
         gate = None
@@ -675,17 +680,20 @@ def _qrcab_tail(blk, y, meta, style):
         if style == 'modulate':
             gate = meta if gate is None else meta * gate
         qca = blk['qca']
-        y = fused_channel_attention(y, qca['du_0']['kernel'], qca['du_0']['bias'],
-                                    qca['du_1']['kernel'], qca['du_1']['bias'],
-                                    meta=meta if style == 'max_concat' else None,
-                                    gate=gate)
+        weights = (qca['du_0']['kernel'], qca['du_0']['bias'], qca['du_1']['kernel'],
+                   qca['du_1']['bias'])
+        ca_meta = meta if style == 'max_concat' else None
+        if 'pa_node' not in blk:
+            return fused_channel_attention_residual(y, r, *weights, meta=ca_meta, gate=gate,
+                                                    cast_first=True)
+        y = fused_channel_attention(y, *weights, meta=ca_meta, gate=gate)
     else:
         y = y * _qca_apply(blk['qca'], y.mean(dim=(1, 2)), meta, style)[:, None, None, :]
     if 'pa_node' in blk:
         y = _pa_apply(blk['pa_node'], y)
     if q_gate is not None:
         y = y * q_gate[:, None, None, :]
-    return y
+    return y.to(r.dtype) + r
 
 
 def qrcan_int8_forward_static(qparams, act_scales, x, metadata, style='modulate',
@@ -706,7 +714,7 @@ def qrcan_int8_forward_static(qparams, act_scales, x, metadata, style='modulate'
             pre = 'group_%d.qrcab_%d' % (g, b)
             y = torch.relu(qconv(pre + '.conv_0', blk['conv_0'], r))
             y = qconv(pre + '.conv_1', blk['conv_1'], y)
-            r = _qrcab_tail(blk, y, meta, style).to(carry_t) + r
+            r = _qrcab_tail(blk, y, r, meta, style)
         res = qconv('group_%d.final_body' % g, grp['final_body'], r).to(carry_t) + res
     res = qconv('final_body', qparams['final_body'], res) + h.float()
     res = _pow2_upsample(qconv, qparams['upsampler'], res)

@@ -1,9 +1,9 @@
-"""Phase timeline of the on-chip CA + residual kernel (``ca_res_onchip``) on a card.
+"""Phase timeline of the CA + residual tail's rounds kernel (``ca_rounds``) on a card.
 
     python -m sisr_tpu_torch.tools.ca_res_timeline [--batch 8] [--size 128] [--runs 7]
 
 Builds ``ops/cuda/csrc/channel_attention.cu`` with ``-DSISR_CA_RES_TIMELINE`` (a
-library of its own), in which thread 0 of every block of ``ca_res_onchip`` takes the
+library of its own), in which thread 0 of every block of ``ca_rounds`` takes the
 GPU's global timer at kernel entry and, in each round, once its slab is pooled, past
 the grid barrier, after the excite and after the scale.  Runs
 ``fused_channel_attention_residual`` through that library on seeded x (float32) and

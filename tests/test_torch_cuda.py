@@ -1,12 +1,14 @@
 """sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel (with and
-without Q-RCAN's meta and gate) and the CA + residual block-tail kernel against their
-plain versions, the int8 conv's int32 sums against an int64 reference, a small RCAN
-(f32, and int8), Q-RCAN and EDSR on the card against the CPU, the int8 programs of
-EDSR (three carries), Q-RCAN and Q-EDSR card against CPU, and the CA op's backward
-(the kernel forward, the plain VJP) and one training step of a small Q-RCAN on the
-card against plain autograd and the CPU.  Every test here needs the card and skips
-without one.  Imports torch only (no
-JAX), so the card's machine runs it:
+without Q-RCAN's meta and gate) on each of its routes (on chip, in rounds, three
+passes) and the CA + residual block-tail kernel (also with meta, gate and the
+cast-first rounding of int8 Q-RCAN's tail) against their plain versions, the rounds
+route against three passes, the int8 conv's int32 sums against an int64 reference,
+a small RCAN (f32, and int8), Q-RCAN and EDSR on the card against the CPU, the int8
+programs of EDSR (three carries), Q-RCAN and Q-EDSR card against CPU, and the CA
+op's backward (the kernel forward, the plain VJP) and one training step of a small
+Q-RCAN on the card against plain autograd and the CPU.  Every test here needs the
+card and skips without one.  Imports torch only (no JAX), so the card's machine runs
+it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -19,6 +21,17 @@ from sisr_tpu_torch.ops import channel_attention as ca
 from sisr_tpu_torch.ops import quantization as qz
 
 pytestmark = pytest.mark.cuda
+# the CA op's (on-chip, rounds) launch counts over two calls on each route
+ROUTE_LAUNCHES = {'onchip': (2, 0), 'rounds': (0, 2), 'three_pass': (0, 0)}
+
+
+def _ca_route_counts():
+    return (ca.fused_channel_attention.onchip_launches,
+            ca.fused_channel_attention.rounds_launches)
+
+
+def _ca_route_took(before):
+    return tuple(a - b for a, b in zip(_ca_route_counts(), before))
 
 
 @pytest.fixture(autouse=True)
@@ -33,7 +46,7 @@ def card():
 
 @pytest.mark.parametrize('shape,red,dtype,path', [
     ((8, 128, 128, 64), 16, torch.bfloat16, 'onchip'),      # the main path
-    ((8, 128, 128, 64), 16, torch.float32, 'three_pass'),   # slab too big for one SM
+    ((8, 128, 128, 64), 16, torch.float32, 'rounds'),       # 2 rounds of 4 images
     ((1, 13, 8, 32), 4, torch.float32, 'onchip'),
     ((2, 16, 8, 32), 4, torch.bfloat16, 'onchip'),
     ((1, 7, 5, 20), 4, torch.bfloat16, 'three_pass'),       # 40-byte pixels
@@ -52,15 +65,14 @@ def test_kernel_matches_plain_version(shape, red, dtype, path, transposed_weight
     b1, b2 = (torch.from_numpy(rng.randn(n).astype(np.float32) * 0.1).cuda()
               for n in (cr, c))
     launches = ca.fused_channel_attention.launches
-    onchip = ca.fused_channel_attention.onchip_launches
+    before = _ca_route_counts()
     with torch.inference_mode():
         out = ca.fused_channel_attention(x, w1, b1, w2, b2)
         again = ca.fused_channel_attention(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         ref = ca.reference_channel_attention(x, w1, b1, w2, b2)
     assert ca.fused_channel_attention.launches == launches + 2
-    took = ca.fused_channel_attention.onchip_launches - onchip
-    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    assert _ca_route_took(before) == ROUTE_LAUNCHES[path], 'expected the %s path' % path
     assert torch.equal(out, again)  # no atomics: the same bits every run
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
@@ -84,7 +96,8 @@ def _meta_gate_inputs(shape, red, dtype, m, with_gate, seed):
 
 @pytest.mark.parametrize('shape,red,dtype,path', [
     ((8, 128, 128, 64), 16, torch.bfloat16, 'onchip'),      # Q-RCAN's main path
-    ((8, 128, 128, 64), 16, torch.float32, 'three_pass'),
+    ((8, 128, 128, 64), 16, torch.float32, 'rounds'),       # int8 Q-RCAN's tail map
+    ((7, 128, 128, 64), 16, torch.float32, 'rounds'),       # a ragged last round
     ((1, 512, 512, 64), 16, torch.bfloat16, 'three_pass'),
     ((3, 37, 29, 64), 16, torch.bfloat16, 'onchip'),        # ragged last slab
     ((1, 7, 5, 20), 4, torch.bfloat16, 'three_pass'),       # 40-byte pixels
@@ -94,14 +107,13 @@ def _meta_gate_inputs(shape, red, dtype, m, with_gate, seed):
 def test_kernel_with_meta_and_gate_matches_plain_version(shape, red, dtype, path, m,
                                                          with_gate):
     args, extra = _meta_gate_inputs(shape, red, dtype, m, with_gate, seed=6)
-    onchip = ca.fused_channel_attention.onchip_launches
+    before = _ca_route_counts()
     with torch.inference_mode():
         out = ca.fused_channel_attention(*args, **extra)
         again = ca.fused_channel_attention(*args, **extra)
         torch.cuda.synchronize()
         ref = ca.reference_channel_attention(*args, **extra)
-    took = ca.fused_channel_attention.onchip_launches - onchip
-    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    assert _ca_route_took(before) == ROUTE_LAUNCHES[path], 'expected the %s path' % path
     assert torch.equal(out, again)
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
@@ -223,6 +235,90 @@ def test_residual_three_pass_matches_onchip():
     torch.testing.assert_close(onchip, three_pass, atol=1e-5, rtol=0)
 
 
+def assert_tail_close(out, ref, r):
+    """f32 out within 1e-5 abs; bf16 out within 2 bf16 ULPs of the output or, for the
+    cast-first tail, of the bf16 branch (|branch| <= |out| + |r|), since the pool's
+    summation order can flip a rounding."""
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        return
+    err = (out.float() - ref.float()).abs()
+    bar = 1.6e-2 * (ref.float().abs() + r.float().abs()) + 1e-6
+    assert bool((err <= bar).all()), 'max err %g' % err.max().item()
+
+
+@pytest.mark.parametrize('shape,red,x_dtype,r_dtype,offset,path', [
+    ((8, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),  # int8 Q-RCAN
+    ((8, 128, 128, 64), 16, torch.float32, torch.float32, 0, 'onchip'),
+    ((7, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),  # 4 + 3 images
+    ((3, 37, 29, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),    # ragged slabs
+    ((2, 16, 8, 32), 4, torch.bfloat16, torch.bfloat16, 0, 'onchip'),
+    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0, 'three_pass'),
+    ((2, 16, 8, 32), 4, torch.float32, torch.bfloat16, 2, 'three_pass'),  # misaligned r
+    ((2, 9, 3, 18), 3, torch.bfloat16, torch.float32, 0, 'three_pass'),   # C % 8 != 0
+])
+@pytest.mark.parametrize('m,with_gate,cast_first', [(10, True, True), (0, True, True),
+                                                    (10, False, False), (0, False, True)])
+def test_residual_with_meta_gate_cast_first_matches_plain_version(
+        shape, red, x_dtype, r_dtype, offset, path, m, with_gate, cast_first):
+    (x, w1, b1, w2, b2), extra = _meta_gate_inputs(shape, red, x_dtype, m, with_gate, seed=14)
+    x = (x - 0.5) * 4  # a conv output: signed
+    numel = int(np.prod(shape))
+    rng = np.random.RandomState(15)
+    r = torch.from_numpy(rng.rand(numel + offset).astype(np.float32)).to(r_dtype).cuda()
+    r = r[offset:].view(shape)
+    args = (x, r, w1, b1, w2, b2)
+    launches = ca.fused_channel_attention_residual.launches
+    onchip = ca.fused_channel_attention_residual.onchip_launches
+    with torch.inference_mode():
+        out = ca.fused_channel_attention_residual(*args, cast_first=cast_first, **extra)
+        again = ca.fused_channel_attention_residual(*args, cast_first=cast_first, **extra)
+        torch.cuda.synchronize()
+        ref = ca.reference_channel_attention_residual(*args, cast_first=cast_first, **extra)
+    assert ca.fused_channel_attention_residual.launches == launches + 2
+    took = ca.fused_channel_attention_residual.onchip_launches - onchip
+    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    assert out.dtype == r_dtype and torch.equal(out, again)
+    assert_tail_close(out, ref, r)
+
+
+def test_rounds_route_matches_three_passes():
+    """At int8 Q-RCAN's f32 map with meta and gate, the CA's rounds route against its
+    three passes, and the cast-first tail (f32 carry) in rounds against its three
+    passes: the same function up to the pool's order, within 1e-5."""
+    args, extra = _meta_gate_inputs((8, 128, 128, 64), 16, torch.float32, 10, True, seed=16)
+    r = torch.rand(args[0].shape, device='cuda')
+    rounds = ca.fused_channel_attention.rounds_launches
+    with torch.inference_mode():
+        ours = ca.fused_channel_attention(*args, **extra)
+        three_pass = ca._three_pass(*args, **extra)
+        tail = ca.fused_channel_attention_residual(args[0], r, *args[1:], cast_first=True,
+                                                   **extra)
+        tail_three = ca._res_three_pass(args[0], r, *args[1:], cast_first=True, **extra)
+    assert ca.fused_channel_attention.rounds_launches == rounds + 1
+    torch.testing.assert_close(ours, three_pass, atol=1e-5, rtol=0)
+    torch.testing.assert_close(tail, tail_three, atol=1e-5, rtol=0)
+
+
+def test_rounds_smem_must_equal_the_cu_layout():
+    """The rounds entry lays out the shared memory itself and refuses a plan that
+    disagrees: one sized without the 10 meta values, or with a slab of r the CA op
+    does not have."""
+    args, extra = _meta_gate_inputs((8, 128, 128, 64), 16, torch.float32, 10, True, seed=17)
+    props = torch.cuda.get_device_properties(0)
+    plan_of = lambda r_itemsize, m: ca.res_onchip_plan(
+        8, 128 * 128, 64, 4, 4, r_itemsize, True, props.multi_processor_count,
+        props.shared_memory_per_block_optin, m=m)
+    x = args[0]
+    with torch.inference_mode():
+        out = ca._rounds(x, None, *args[1:], torch.empty_like(x), plan_of(0, 10), **extra)
+        torch.testing.assert_close(out, ca.reference_channel_attention(*args, **extra),
+                                   atol=1e-5, rtol=0)
+        for bad in (plan_of(0, 0), plan_of(2, 10)):
+            with pytest.raises(RuntimeError, match='CUDA error'):
+                ca._rounds(x, None, *args[1:], torch.empty_like(x), bad, **extra)
+
+
 @pytest.mark.parametrize('n,h,w,cin,cout', [(8, 32, 32, 64, 64), (2, 16, 16, 3, 64),
                                             (1, 2, 3, 64, 3)])
 def test_int_mm_conv_on_card_matches_int64(n, h, w, cin, cout):
@@ -278,7 +374,7 @@ def test_int8_calibration_on_card_is_true_f32():
 @pytest.mark.parametrize('shape,with_gate,path', [
     ((8, 64, 64, 64), False, 'onchip'),       # the training shape (RCAN)
     ((8, 64, 64, 64), True, 'onchip'),        # with Q-RCAN's q_node gate
-    ((8, 128, 128, 64), False, 'three_pass'),  # f32 slabs too big for one SM
+    ((8, 128, 128, 64), False, 'rounds'),      # the f32 eval's map: 2 rounds
 ])
 def test_function_grads_match_plain_autograd(shape, with_gate, path):
     """Under autograd the op runs the kernel forward (launch counted, path as
@@ -295,12 +391,11 @@ def test_function_grads_match_plain_autograd(shape, with_gate, path):
         return out.detach(), [t.grad for t in leaves] + ([gate.grad] if with_gate else [])
 
     launches = ca.fused_channel_attention.launches
-    onchip = ca.fused_channel_attention.onchip_launches
+    before = _ca_route_counts()
     out, ours = grads(ca.fused_channel_attention)
     again, ours_again = grads(ca.fused_channel_attention)
     assert ca.fused_channel_attention.launches == launches + 2
-    took = ca.fused_channel_attention.onchip_launches - onchip
-    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    assert _ca_route_took(before) == ROUTE_LAUNCHES[path], 'expected the %s path' % path
     ref, theirs = grads(ca.reference_channel_attention)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     assert torch.equal(out, again)
@@ -383,20 +478,23 @@ def test_int8_edsr_on_card_matches_cpu(residual_dtype):
 
 
 def test_int8_qrcan_on_card_matches_cpu():
-    """Int8 Q-RCAN (max_concat, a q_node in every block): every QRCAB tail is one CA
-    launch on the f32 map with the metadata and the q_node's gate, on the path the
-    plan gives."""
+    """Int8 Q-RCAN (max_concat, a q_node in every block): every QRCAB tail is one
+    launch of the CA + residual kernel (cast first) on the f32 map and the bfloat16
+    carry, with the metadata and the q_node's gate, on the path the plan gives; no CA
+    launch."""
     kw = dict(scale=4, n_resgroups=2, n_resblocks=2, n_feats=64, seed=1, style='max_concat',
               include_q_layer=True, metadata=['blur_kernel'])
     args = _int8_card_and_host('qrcan', kw, meta_cols=10)
     launches = ca.fused_channel_attention.launches
-    onchip = ca.fused_channel_attention.onchip_launches
+    res = (ca.fused_channel_attention_residual.launches,
+           ca.fused_channel_attention_residual.onchip_launches)
     _assert_int8_card_matches_cpu(*args)
     props = torch.cuda.get_device_properties(0)
-    plan = ca.onchip_plan(2, 16 * 16, 64, 4, 4, True, props.multi_processor_count,
-                          props.shared_memory_per_block_optin, m=10)
-    assert ca.fused_channel_attention.launches == launches + 4
-    assert ca.fused_channel_attention.onchip_launches == onchip + (4 if plan else 0)
+    plan = ca.res_onchip_plan(2, 16 * 16, 64, 4, 4, 2, True, props.multi_processor_count,
+                              props.shared_memory_per_block_optin, m=10)
+    assert ca.fused_channel_attention.launches == launches
+    assert ca.fused_channel_attention_residual.launches == res[0] + 4
+    assert ca.fused_channel_attention_residual.onchip_launches == res[1] + (4 if plan else 0)
 
 
 def test_int8_qedsr_on_card_matches_cpu():

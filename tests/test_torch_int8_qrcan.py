@@ -2,7 +2,8 @@
 the CPU, for every QCALayer style, with and without pa_node and q_node: the f32
 attention helpers, quantisation, calibration on the handler-prepared metadata, the
 int8 forward on the same int8 state (the kernel styles' tail through
-fused_channel_attention, its plain version here), the handler's fused eval and
+fused_channel_attention_residual, or fused_channel_attention before a pa_node, their
+plain versions here), the handler's fused eval and
 eval_sisr --fused_eval --int8 end to end; and the handler's int8 bookkeeping: a
 re-key drops the int8 context, augmented_rgb inputs calibrate, metadata is required.
 
@@ -187,9 +188,11 @@ def test_calibrate_qrcan_scales_refuses_a_count_mismatch(bridged):
                          + [('max_concat_q', 'float32'), ('modulate_pa', 'float32')])
 def test_int8_forward_matches_sisr_tpu(bridged, case, residual_dtype, monkeypatch):
     """The same int8 state (sisr_tpu's, carried across) through both forwards.  The
-    kernel styles make one fused_channel_attention call per QRCAB on f32 y, with the
-    metadata (max_concat), the expanded metadata (modulate) and the q_node's gate
-    when no pa_node sits between; the other styles make none."""
+    kernel styles make one kernel call per QRCAB on f32 y, with the metadata
+    (max_concat) and the expanded metadata (modulate): without a pa_node the whole
+    tail, one fused_channel_attention_residual call (cast first, on the carry, with
+    the q_node's gate); with one, a fused_channel_attention call.  The other styles
+    make none."""
     _, jax_params, _, _ = bridged(case)
     style = CASES[case][0]
     x, meta = _inputs(case, 4)
@@ -205,10 +208,17 @@ def test_int8_forward_matches_sisr_tpu(bridged, case, residual_dtype, monkeypatc
     calls = []
 
     def spy(y, *weights, meta=None, gate=None):
-        calls.append((y.dtype, meta is not None, gate is not None))
+        calls.append(('ca', y.dtype, meta is not None, gate is not None))
         return ca.fused_channel_attention(y, *weights, meta=meta, gate=gate)
 
+    def spy_residual(y, r, *weights, meta=None, gate=None, cast_first=False):
+        calls.append(('residual', y.dtype, meta is not None, gate is not None, r.dtype,
+                      cast_first))
+        return ca.fused_channel_attention_residual(y, r, *weights, meta=meta, gate=gate,
+                                                   cast_first=cast_first)
+
     monkeypatch.setattr(tq, 'fused_channel_attention', spy)
+    monkeypatch.setattr(tq, 'fused_channel_attention_residual', spy_residual)
     with torch.inference_mode():
         ours = tq.qrcan_int8_forward_static(*int8_state_from_jax(qp, scales),
                                             torch.from_numpy(x2), torch.from_numpy(meta2),
@@ -219,10 +229,12 @@ def test_int8_forward_matches_sisr_tpu(bridged, case, residual_dtype, monkeypatc
         assert calls == []
         return
     flags = CASES[case][1]
+    carry = torch.float32 if residual_dtype == 'float32' else torch.bfloat16
     blocks = [qp['group_%d' % g]['qrcab_%d' % b] for g in range(2) for b in range(2)]
-    expected = [(torch.float32, style == 'max_concat',
-                 style == 'modulate' or ('q_node' in blk
-                                         and not flags.get('include_pixel_attention')))
+    expected = [('ca', torch.float32, style == 'max_concat', style == 'modulate')
+                if flags.get('include_pixel_attention') else
+                ('residual', torch.float32, style == 'max_concat',
+                 style == 'modulate' or 'q_node' in blk, carry, True)
                 for blk in blocks]
     assert calls == expected
 
