@@ -60,19 +60,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
    with a q_node in every block, blur-kernel metadata, batch 8, LR crops of 64, flips,
    Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
    epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
-   --fused_eval`` of the best epoch (f32, the CA in rounds); then 20 timed warm train
+   --fused_eval`` of the best epoch (f32, the CA in rounds); then 10 timed warm train
    steps each of Q-RCAN and RCAN 10 x 20 through the handler (forward / backward /
    optimizer, device busy, the
    CA kernel's share, conv FLOPs against the TF32 and f32 peaks, peak memory), and the
    same step with the CA's plain version in its place, in turns;
 
-then the ``kernels`` table (a row for each route of each TPU kernel: the CA on chip,
-in rounds and in three passes, the CA + residual in rounds and in three passes), the
-card's name and power limit, and a last line
+12. kernel extent (run after phase 2's meta case): the CA with a valid extent (bucketed
+   eval) on each of its routes, against its plain version, timed against the same call
+   without an extent;
+13. standard protocol: ``eval_sisr`` without --fused_eval (batch 1, --save_im,
+   comparisons, --time_models) on RCAN and Q-RCAN bf16 over a 31-image mixed-size set
+   (the 16 pairs, the HR sizes of Set14's images, one 2040 x 1356 image): launches by
+   route against each image's plan, the 16 shared pairs against the fused protocol's
+   metrics, img/s and the host time split; then ``--eval_buckets 128`` (every CA call
+   given its extent, metrics against the unbucketed run), ``--int8`` (the CA +
+   residual's three passes on the 2040-wide image, timed there), ``--model_only``;
+14. train_sisr on configs/div2k/qrcan.toml as shipped (no fused_val: the standard
+   validation epoch), its val-PSNR against a fused validation of the same checkpoint;
+
+then the script's total seconds, the ``kernels`` table (a row for each route of each
+TPU kernel: the CA on chip, in rounds and in three passes, the CA + residual in rounds
+and in three passes), the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout, so
 f32 comparisons are true f32, except where phase 4 turns it on to show calibration
-turns it off for itself, and in phase 11, which trains with PyTorch's default (cuDNN
-TF32 on, matmul TF32 off) as a user's run would.  It exits non-zero without a result
+turns it off for itself, and in phases 11 and 14, which train with PyTorch's default
+(cuDNN TF32 on, matmul TF32 off) as a user's run would.  It exits non-zero without a result
 when CUDA is absent or when the sisr_tpu_torch package is not beside it.
 """
 import contextlib
@@ -222,34 +235,82 @@ def ca_bound(x, w1):
                                  ops / F32_CUDA_CORE_FLOPS) * 1e3
 
 
-def write_workload(root, rng):
-    """16 LR/HR PNG pairs: HR is smooth structure (sinusoids and a gradient) plus
-    per-pixel noise, LR its PIL bicubic downscale; beside the LR images a
-    degradation_metadata.csv of one 10-value blur kernel (a Dirichlet draw, as
-    sisr_tpu's e2e benchmark writes them) per image."""
+def synthetic_pair(rng, height, width):
+    """One HR PNG image of height x width (smooth structure: sinusoids and a gradient,
+    plus per-pixel noise) and its PIL bicubic 1/SCALE downscale, as PIL images."""
     import numpy as np
     from PIL import Image
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    yy, xx = yy / height, xx / width
+    fx, fy, phase = rng.uniform(2, 12), rng.uniform(2, 12), rng.uniform(0, 6.3, 3)
+    chans = [0.5 + 0.35 * np.sin(2 * np.pi * (fx * xx + fy * yy) + phase[c])
+             * np.cos(2 * np.pi * fy * xx * (c + 1) / 3) + 0.15 * (xx - yy)
+             for c in range(3)]
+    img = np.stack(chans, -1) * 255 + rng.normal(0, 12, (height, width, 3))
+    hr = Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+    return hr, hr.resize((width // SCALE, height // SCALE), Image.BICUBIC)
+
+
+def write_metadata(lr_dir, names, rng):
+    """degradation_metadata.csv beside the LR images: one 10-value blur kernel (a
+    Dirichlet draw, as sisr_tpu's e2e benchmark writes them) per image."""
+    import numpy as np
+    with open(os.path.join(lr_dir, 'degradation_metadata.csv'), 'w') as f:
+        f.write('image,blur_kernel\n')
+        for name in names:
+            kernel = rng.dirichlet(np.ones(META_COLS) * 5)
+            f.write('%s,"%s"\n' % (name, json.dumps(kernel.tolist())))
+
+
+def write_workload(root, rng):
+    """16 LR/HR PNG pairs of 128^2 -> 512^2 (synthetic_pair), with their
+    degradation_metadata.csv."""
     hr_size = LR_SIZE * SCALE
     lr_dir, hr_dir = os.path.join(root, 'lr'), os.path.join(root, 'hr')
     os.makedirs(lr_dir)
     os.makedirs(hr_dir)
-    yy, xx = np.mgrid[0:hr_size, 0:hr_size].astype(np.float32) / hr_size
-    for i in range(N_IMAGES):
-        fx, fy, phase = rng.uniform(2, 12), rng.uniform(2, 12), rng.uniform(0, 6.3, 3)
-        chans = [0.5 + 0.35 * np.sin(2 * np.pi * (fx * xx + fy * yy) + phase[c])
-                 * np.cos(2 * np.pi * fy * xx * (c + 1) / 3) + 0.15 * (xx - yy)
-                 for c in range(3)]
-        img = np.stack(chans, -1) * 255 + rng.normal(0, 12, (hr_size, hr_size, 3))
-        hr = Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
-        name = 'im_%03d.png' % i
+    names = ['im_%03d.png' % i for i in range(N_IMAGES)]
+    for name in names:
+        hr, lr = synthetic_pair(rng, hr_size, hr_size)
         hr.save(os.path.join(hr_dir, name))
-        hr.resize((LR_SIZE, LR_SIZE), Image.BICUBIC).save(os.path.join(lr_dir, name))
-    with open(os.path.join(lr_dir, 'degradation_metadata.csv'), 'w') as f:
-        f.write('image,blur_kernel\n')
-        for i in range(N_IMAGES):
-            kernel = rng.dirichlet(np.ones(META_COLS) * 5)
-            f.write('im_%03d.png,"%s"\n' % (i, json.dumps(kernel.tolist())))
+        lr.save(os.path.join(lr_dir, name))
+    write_metadata(lr_dir, names, rng)
     return lr_dir, hr_dir
+
+
+# the HR sizes (width, height) of Set14's images, each cut to multiples of 4, and of a
+# DIV2K validation image: synthetic stand-ins for the sizes of those sets (neither set
+# is in the repo)
+SET14_HR = {'baboon': (500, 480), 'barbara': (720, 576), 'bridge': (512, 512),
+            'coastguard': (352, 288), 'comic': (248, 360), 'face': (276, 276),
+            'flowers': (500, 360), 'foreman': (352, 288), 'lenna': (512, 512),
+            'man': (512, 512), 'monarch': (768, 512), 'pepper': (512, 512),
+            'ppt3': (528, 656), 'zebra': (584, 388)}
+DIV2K_HR = {'div2k_0801': (2040, 1356)}
+
+
+def write_mixed_workload(dirs, root):
+    """The mixed-size eval set: the 16 pairs of ``dirs`` (hard links), one synthetic
+    pair at each Set14 HR size and one at 2040 x 1356 (numpy seed 12), and a
+    degradation_metadata.csv for all 31."""
+    import numpy as np
+    rng = np.random.RandomState(12)
+    mixed = {'lr_dir': os.path.join(root, 'mixed', 'lr'),
+             'hr_dir': os.path.join(root, 'mixed', 'hr'),
+             'model_loc': dirs['model_loc'], 'out_loc': os.path.join(root, 'out_mixed')}
+    names = sorted(n for n in os.listdir(dirs['lr_dir']) if n.endswith('.png'))
+    for key in ('lr_dir', 'hr_dir'):
+        os.makedirs(mixed[key])
+        for name in names:
+            os.link(os.path.join(dirs[key], name), os.path.join(mixed[key], name))
+    for stem, (width, height) in {**SET14_HR, **DIV2K_HR}.items():
+        name = ('set14_%s.png' if stem in SET14_HR else '%s.png') % stem
+        hr, lr = synthetic_pair(rng, height, width)
+        hr.save(os.path.join(mixed['hr_dir'], name))
+        lr.save(os.path.join(mixed['lr_dir'], name))
+        names.append(name)
+    write_metadata(mixed['lr_dir'], names, rng)
+    return mixed
 
 
 def write_experiment(model_loc, name, seed):
@@ -271,7 +332,11 @@ def phase_environment():
     from sisr_tpu_torch.ops.cuda import build
     tic = time.perf_counter()
     built = build.build()
+    from PIL import Image, features
+    Image.init()
     emit({'phase': 'environment', 'nvidia_smi': nvidia_smi_line(),
+          'pil': {'save_formats': sorted(Image.SAVE), 'jpeg_codec': features.check_codec('jpg'),
+                  'zlib_codec': features.check_codec('zlib')},
           'torch': torch.__version__, 'cuda': torch.version.cuda,
           'python': sys.version.split()[0], 'nvcc': build.nvcc_path(),
           'nvcc_flags': ' '.join(build.NVCC_FLAGS),
@@ -702,6 +767,90 @@ def phase_kernel_meta():
     return results
 
 
+# the CA op's valid-extent pool (bucketed eval), one case per route: the 512 x 384
+# bucket of a DIV2K-size 510 x 339 LR image in bf16 (on chip) and f32 (three passes),
+# and the f32 eval batch of 128^2 maps with a (100, 120) extent (in rounds)
+EXTENT_CASES = (((1, 384, 512, 64), (339, 510), 'bfloat16', 'onchip'),
+                ((1, 384, 512, 64), (339, 510), 'float32', 'three_pass'),
+                ((BATCH, LR_SIZE, LR_SIZE, 64), (100, 120), 'float32', 'rounds'))
+
+
+def phase_kernel_extent():
+    """fused_channel_attention with a valid extent (``valid_hw``) against
+    reference_channel_attention with the same, on each route of EXTENT_CASES (each
+    route checked against ca_plan), without and with Q-RCAN's meta (M = 10) and gate;
+    the pad region holds garbage the pool must skip.  Tolerances as phase_kernel's:
+    f32 1e-5 abs, bf16 2 ULPs; the same bits on a rerun; the full extent bit-equal to
+    no extent; every call counted in masked_launches.  Each case is timed in graph
+    replay with and without the extent on the same x, in turns (without, with, with,
+    without), beside its plain version; its bound reads and writes the whole map and
+    pools the valid pixels only."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    op = ca.fused_channel_attention
+    gen = torch.Generator().manual_seed(11)
+    results = []
+    with torch.inference_mode():
+        for shape, valid, dtype_name, expect in EXTENT_CASES:
+            dtype = getattr(torch, dtype_name)
+            for with_meta in (False, True):
+                if with_meta:
+                    args, extra = meta_gate_inputs(shape, dtype, gen)
+                else:
+                    args, extra = ca_inputs(shape, dtype, 16, gen), {}
+                x = args[0]
+                x[:, valid[0]:] += 3
+                x[:, :, valid[1]:] += 3
+                masked = op.masked_launches
+                out, again, path = path_run(op, args, valid_hw=valid, **extra)
+                m = META_COLS if with_meta else 0
+                planned, plan = planned_ca_route(shape, shape[-1] // 16, x.element_size(),
+                                                 m=m)
+                if path != expect or path != planned:
+                    raise AssertionError('extent %s %s took the %s path (plan %s %s)'
+                                         % (shape, dtype, path, planned, plan))
+                if op.masked_launches - masked != 2:
+                    raise AssertionError('masked_launches counted %d of 2 calls'
+                                         % (op.masked_launches - masked))
+                ref = ca.reference_channel_attention(*args, valid_hw=valid, **extra)
+                if dtype == torch.float32:
+                    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+                else:
+                    torch.testing.assert_close(out.float(), ref.float(), atol=1e-6,
+                                               rtol=1.6e-2)
+                full = op(*args, valid_hw=shape[1:3], **extra)
+                bare = op(*args, **extra)
+                if not torch.equal(out, again) or not torch.equal(full, bare):
+                    raise AssertionError('extent %s %s: a rerun or the full extent '
+                                         'differs' % (shape, dtype))
+                kern = lambda args=args, extra=extra: op(*args, valid_hw=valid, **extra)
+                unmasked = lambda args=args, extra=extra: op(*args, **extra)
+                plain = lambda args=args, extra=extra: ca.reference_channel_attention(
+                    *args, valid_hw=valid, **extra)
+                turns, timing = [('unmasked_ms', unmasked), ('ms', kern)], {}
+                for name, fn in turns + turns[::-1]:
+                    timing[name] = graph_ms(fn)  # the second turn of each is kept
+                timing['plain_ms'] = graph_ms(plain)
+                n, h, w, c = shape
+                cr = args[1].shape[1]
+                bytes_moved = (2 * x.numel() * x.element_size()
+                               + 4 * ((2 * c + m) * cr + c + cr + n * (m + c) * with_meta))
+                ops = (n * valid[0] * valid[1] * c + x.numel()
+                       + n * (2 * (c + m) * cr + 2 * cr * c + 2 * c))
+                results.append({'shape': list(shape), 'valid_hw': list(valid),
+                                'dtype': dtype_name, 'meta_gate': with_meta, 'path': path,
+                                'plan': plan, 'max_abs_err':
+                                (out.float() - ref.float()).abs().max().item(),
+                                'bytes': bytes_moved, 'ops': ops, 'bound_by': 'bytes'
+                                if bytes_moved / HBM_BYTES_PER_S >= ops / F32_CUDA_CORE_FLOPS
+                                else 'operations',
+                                'bound_ms': max(bytes_moved / HBM_BYTES_PER_S,
+                                                ops / F32_CUDA_CORE_FLOPS) * 1e3, **timing})
+    emit({'phase': 'kernel', 'name': 'fused_channel_attention valid extent',
+          'cases': results, 'nvidia_smi': nvidia_smi_line()})
+    return results
+
+
 def phase_reference(name='rcan_10x20', seed=3):
     """Full-width MODELS[name] (seeded weights) on a 32^2 LR input in f32 (with 10
     seeded metadata values per image for Q-RCAN): the card (CUDA kernels, cuDNN)
@@ -991,14 +1140,17 @@ def reset_launches():
     ca.fused_channel_attention.launches = 0
     ca.fused_channel_attention.onchip_launches = 0
     ca.fused_channel_attention.rounds_launches = 0
+    ca.fused_channel_attention.masked_launches = 0
     ca.fused_channel_attention_residual.launches = 0
     ca.fused_channel_attention_residual.onchip_launches = 0
 
 
-# the counts of read_launches: each wrapper's launches, the CA's on chip and in rounds,
-# the CA + residual's in rounds (its onchip_launches)
+# the counts of read_launches: each wrapper's launches, the CA's on chip, in rounds and
+# given a valid extent (bucketed eval), the CA + residual's in rounds (its
+# onchip_launches)
 NO_LAUNCHES = dict.fromkeys(('fused_channel_attention', 'fused_channel_attention_onchip',
                              'fused_channel_attention_rounds',
+                             'fused_channel_attention_masked',
                              'fused_channel_attention_residual',
                              'fused_channel_attention_residual_onchip'), 0)
 
@@ -1010,6 +1162,7 @@ def read_launches():
     return {'fused_channel_attention': ca.fused_channel_attention.launches,
             'fused_channel_attention_onchip': ca.fused_channel_attention.onchip_launches,
             'fused_channel_attention_rounds': ca.fused_channel_attention.rounds_launches,
+            'fused_channel_attention_masked': ca.fused_channel_attention.masked_launches,
             'fused_channel_attention_residual': ca.fused_channel_attention_residual.launches,
             'fused_channel_attention_residual_onchip':
                 ca.fused_channel_attention_residual.onchip_launches}
@@ -1158,7 +1311,7 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
           'forward_peak_memory_gb': peak_gb, 'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms,
           'device_kernel_kinds': len(per_kernel), 'top_kernels_ms': top,
           'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches, 'mean_psnr': mean_psnr}
+    return {'launches': launches, 'mean_psnr': mean_psnr, 'frame': frame}
 
 
 # int8 main paths: experiment -> (phase name prefix, description)
@@ -1479,12 +1632,12 @@ def plain_channel_attention():
         blocks.fused_channel_attention, q_layers.fused_channel_attention = saved
 
 
-def train_step_breakdown(model, internal, steps=20):
-    """20 warm train steps of the full-width model (seed 8, f32, PyTorch's default TF32
+def train_step_breakdown(model, internal, steps=10):
+    """10 warm train steps of the full-width model (seed 8, f32, PyTorch's default TF32
     flags) through the handler on seeded uint8 batches of 8 LR crops of 64^2: per step
     the wall ms (host clock to a synchronise) and the forward+loss / backward / optimizer
     ms (CUDA events), medians; then 20 with the CA's plain version in its place (plain
-    autograd) and 20 more with the kernel, in turns; the profiler over 3 steps: device-busy ms, the CA kernel's device ms, the idle share;
+    autograd) and 10 more with the kernel, in turns; the profiler over 3 steps: device-busy ms, the CA kernel's device ms, the idle share;
     the launches of one step; conv FLOPs; peak memory."""
     import numpy as np
     import torch
@@ -1619,6 +1772,327 @@ def phase_train_main_path(dirs, root):
     return {'launches': launches, 'breakdowns': breakdowns}
 
 
+@contextlib.contextmanager
+def host_time_split():
+    """Seconds spent, while the block runs, in each part of the standard protocol:
+    'protocol' (the whole protocol call), 'forward' (BaseHandler.run_eval: the
+    forward on the card with its warm-up, and the copy back), 'colorspace' (the rest
+    of ModelInterface.net_run_and_process: clipping and YCbCr on the host),
+    'host_psnr' and 'host_ssim' (Metrics), 'resize' (the Pillow-exact LR bicubic),
+    'image_writes' (safe_image_save) and 'collages' (interpret_sisr_images), and
+    'other' (the protocol's remainder: decode, batching, the rest)."""
+    from sisr_tpu_torch.evaluation import standard_eval
+    from sisr_tpu_torch.models import handlers, interface
+    from sisr_tpu_torch.ops import metrics
+    split = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            tic = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                name = key(args) if callable(key) else key
+                split[name] = split.get(name, 0.0) + time.perf_counter() - tic
+        return wrapper
+
+    patches = [(standard_eval, 'resize_uint8', 'resize'),
+               (standard_eval, 'safe_image_save', 'image_writes'),
+               (standard_eval, 'interpret_sisr_images', 'collages'),
+               (metrics.Metrics, 'run_image_metric', lambda a: 'host_' + a[1].lower()),
+               (handlers.BaseHandler, 'run_eval', 'forward'),
+               (interface.ModelInterface, 'net_run_and_process', 'net_run_and_process'),
+               (standard_eval.EvalHub, 'full_image_protocol', 'protocol'),
+               (standard_eval.EvalHub, 'direct_model_protocol', 'protocol')]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, key in patches:
+            setattr(obj, name, timed(key, getattr(obj, name)))
+        yield split
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        split['colorspace'] = split.pop('net_run_and_process', 0.0) - split.get('forward', 0.0)
+        split['other'] = split.get('protocol', 0.0) - sum(
+            v for k, v in split.items() if k != 'protocol')
+
+
+def lr_shapes(lr_dir):
+    """(name, (h, w)) of each LR image, in the order the dataset reads them."""
+    from PIL import Image
+    shapes = []
+    for name in sorted(n for n in os.listdir(lr_dir) if n.endswith('.png')):
+        with Image.open(os.path.join(lr_dir, name)) as im:
+            shapes.append((name, (im.height, im.width)))
+    return shapes
+
+
+def standard_launches(shapes, route_of, timed=True, residual=False):
+    """The launch counts of a standard-protocol run at batch 1 (and the calls by
+    route): CA_PER_FORWARD kernel calls a forward, one forward an image and, when the
+    run is timed, one more (the untimed first call) for the first image of each LR
+    shape; each image's calls on the route ``route_of((h, w))`` gives ('onchip',
+    'rounds' or 'three_pass'), of the CA or, with ``residual``, of the CA + residual
+    (whose rounds route its onchip_launches counts)."""
+    by_route, seen = {}, set()
+    for _, hw in shapes:
+        route = route_of(hw)
+        by_route[route] = by_route.get(route, 0) + CA_PER_FORWARD * (
+            1 + (timed and hw not in seen))
+        seen.add(hw)
+    total = sum(by_route.values())
+    if residual:
+        counts = {'fused_channel_attention_residual': total,
+                  'fused_channel_attention_residual_onchip': by_route.get('rounds', 0)}
+    else:
+        counts = {'fused_channel_attention': total,
+                  'fused_channel_attention_onchip': by_route.get('onchip', 0),
+                  'fused_channel_attention_rounds': by_route.get('rounds', 0)}
+    return {**NO_LAUNCHES, **counts}, by_route
+
+
+def run_standard_cli(mixed, results_name, experiment, extra=()):
+    """``eval_sisr`` without --fused_eval at batch 1 through the CLI entry point
+    (--time_models on, its default): the launch counts of exactly this run, its
+    seconds, the host_time_split of it, its peak device memory (GB) and its per-image
+    CSV (None for --model_only)."""
+    import pandas as pd
+    import torch
+    from sisr_tpu_torch import net_eval
+    args = ['--hr_dir', mixed['hr_dir'], '--lr_dir', mixed['lr_dir'], '-me', experiment,
+            '0', '--model_loc', mixed['model_loc'], '--out_loc', mixed['out_loc'],
+            '--results_name', results_name, '-m', 'PSNR', '-m', 'SSIM', '--scale',
+            str(SCALE), '--batch_size', '1', '--full_directory', *extra]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with host_time_split() as split:
+        tic = time.perf_counter()
+        net_eval.eval_run.main(args=args, standalone_mode=False)
+        seconds = time.perf_counter() - tic
+    launches = read_launches()
+    csv = os.path.join(mixed['out_loc'], results_name, 'standard_metrics',
+                       'individual_metrics.csv')
+    frame = pd.read_csv(csv, header=[0, 1], index_col=0) if os.path.isfile(csv) else None
+    return launches, seconds, split, torch.cuda.max_memory_allocated() / 1e9, frame
+
+
+def check_frame(frame, shapes, experiment, what):
+    import numpy as np
+    cols = [(experiment, 'PSNR'), (experiment, 'SSIM'), ('LR', 'PSNR'), ('LR', 'SSIM')]
+    if list(frame.index) != [n for n, _ in shapes] or \
+            not np.isfinite(frame[cols].to_numpy()).all():
+        raise AssertionError('%s individual_metrics.csv: %s' % (what, frame))
+
+
+def max_metric_diff(ours, theirs, sides):
+    """The largest per-image |difference| of PSNR and SSIM on ``sides`` ((ours, theirs)
+    column pairs), over the images of ``theirs``."""
+    return {met: max(float((ours.loc[theirs.index, (a, met)] - theirs[(b, met)]).abs().max())
+                     for a, b in sides) for met in ('PSNR', 'SSIM')}
+
+
+def hold_bars(diff, what):
+    for met, bar in (('PSNR', 0.01), ('SSIM', 1e-3)):
+        if not diff[met] <= bar:
+            raise AssertionError('%s: %s differs by %g' % (what, met, diff[met]))
+
+
+def phase_standard_eval(mixed, experiment, fused_frame):
+    """``eval_sisr`` on the standard protocol (batch 1, --save_im, comparisons on,
+    --time_models) over the mixed-size set in bf16: every CA call on the route its
+    image's plan gives (Q-RCAN: with its 10 meta values), 200 a forward; a finite row,
+    an SR image and a collage for every image; on the 16 shared pairs the metrics
+    within 0.01 dB / 1e-3 of the fused protocol's on the same weights (``fused_frame``);
+    img/s and the host time split."""
+    shapes = lr_shapes(mixed['lr_dir'])
+    m = META_COLS if experiment == 'qrcan_10x20' else 0
+    expected, by_route = standard_launches(
+        shapes, lambda hw: planned_ca_route((1,) + hw + (64,), 4, 2, m=m)[0])
+    name = experiment.split('_')[0] + '_standard'
+    launches, seconds, split, peak_gb, frame = run_standard_cli(mixed, name, experiment,
+                                                                ['--save_im'])
+    expect_launches(launches, expected, '%s standard protocol' % experiment)
+    check_frame(frame, shapes, experiment, name)
+    out = os.path.join(mixed['out_loc'], name)
+    written = sorted(os.listdir(os.path.join(out, experiment)))
+    collages = os.listdir(os.path.join(out, 'model_comparisons'))
+    if written != [n for n, _ in shapes] or len(collages) != len(shapes):
+        raise AssertionError('%s: %d SR images, %d collages for %d images'
+                             % (name, len(written), len(collages), len(shapes)))
+    diff = max_metric_diff(frame, fused_frame, ((experiment, experiment), ('LR', 'LR')))
+    hold_bars(diff, '%s standard against fused on the shared pairs' % experiment)
+    mean_psnr = float(frame[(experiment, 'PSNR')].mean())
+    emit({'phase': name, 'images': len(shapes), 'lr_shapes': sorted({hw for _, hw in shapes}),
+          'launches': launches, 'calls_by_route': by_route, 'cli_seconds': seconds,
+          'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
+          'peak_memory_gb': peak_gb, 'mean_psnr': mean_psnr,
+          'max_diff_to_fused_on_shared_pairs': diff, 'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches, 'frame': frame, 'mean_psnr': mean_psnr}
+
+
+def bucket_of(hw, multiple=128):
+    return tuple(-(-v // multiple) * multiple for v in hw)
+
+
+def phase_bucketed_eval(mixed, unbucketed_frame):
+    """``--eval_buckets 128`` on RCAN's standard protocol over the mixed-size set: every
+    CA call given its image's valid extent (masked_launches equals the CA's launches)
+    on the route of its bucket's plan; every image's metrics within 0.01 dB / 1e-3 of
+    the unbucketed run's."""
+    shapes = lr_shapes(mixed['lr_dir'])
+    expected, by_route = standard_launches(
+        shapes, lambda hw: planned_ca_route((1,) + bucket_of(hw) + (64,), 4, 2)[0])
+    expected['fused_channel_attention_masked'] = expected['fused_channel_attention']
+    launches, seconds, split, peak_gb, frame = run_standard_cli(
+        mixed, 'rcan_buckets', 'rcan_10x20', ['--eval_buckets', '128',
+                                              '--no_image_comparison'])
+    expect_launches(launches, expected, 'rcan --eval_buckets 128')
+    check_frame(frame, shapes, 'rcan_10x20', 'rcan_buckets')
+    diff = max_metric_diff(frame, unbucketed_frame, (('rcan_10x20', 'rcan_10x20'),))
+    hold_bars(diff, 'bucketed against unbucketed')
+    emit({'phase': 'rcan_buckets', 'images': len(shapes),
+          'buckets': sorted({bucket_of(hw) for _, hw in shapes}), 'launches': launches,
+          'calls_by_route': by_route, 'cli_seconds': seconds,
+          'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
+          'peak_memory_gb': peak_gb, 'max_diff_to_unbucketed': diff,
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches}
+
+
+def phase_int8_standard(mixed, bf16_mean_psnr):
+    """``--int8`` on RCAN's standard protocol over the mixed-size set (calibrated on the
+    first image): every RCAB tail one CA + residual call (x f32, r bf16) on the route
+    res_onchip_plan gives its image, in rounds or three passes (row 2b), and no CA
+    launch; mean PSNR within 1 dB of the bf16 run's; peak memory.  Beforehand, the
+    three-pass tail timed at the DIV2K-size image's map against its plain version."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    props = torch.cuda.get_device_properties(0)
+    shapes = lr_shapes(mixed['lr_dir'])
+
+    def route_of(hw):
+        plan = ca.res_onchip_plan(1, hw[0] * hw[1], 64, 4, 4, 2, True,
+                                  props.multi_processor_count,
+                                  props.shared_memory_per_block_optin)
+        return 'rounds' if plan is not None else 'three_pass'
+    expected, by_route = standard_launches(shapes, route_of, residual=True)
+    # the tail at the DIV2K-size image's map: x f32 (the dequantised conv output), r the
+    # bf16 carry; three passes (row 2b) on this card, timed against its plain version
+    (hw,) = {hw for _, hw in shapes if route_of(hw) == 'three_pass'}
+    gen = torch.Generator().manual_seed(13)
+    x, w1, b1, w2, b2 = ca_inputs((1,) + hw + (64,), torch.float32, 16, gen)
+    r = torch.rand(x.shape, generator=gen).to(torch.bfloat16).cuda()
+    with torch.inference_mode():
+        tail = lambda: ca.fused_channel_attention_residual(x, r, w1, b1, w2, b2)
+        plain = lambda: ca.reference_channel_attention_residual(x, r, w1, b1, w2, b2)
+        err = (tail().float() - plain().float()).abs().max().item()
+        torch.testing.assert_close(tail().float(), plain().float(), atol=1e-6, rtol=1.6e-2)
+        div2k_tail = {'shape': list(x.shape), 'max_abs_err': err, 'plain_ms': graph_ms(plain),
+                      'ms': graph_ms(tail)}
+        div2k_tail['ms'], div2k_tail['plain_ms'] = graph_ms(tail), graph_ms(plain)
+    bytes_moved, ops, div2k_tail['bound_ms'] = res_bound(x, r, w1)
+    launches, seconds, split, peak_gb, frame = run_standard_cli(
+        mixed, 'rcan_int8_standard', 'rcan_10x20', ['--int8', '--no_image_comparison'])
+    expect_launches(launches, expected, 'rcan --int8 standard protocol')
+    check_frame(frame, shapes, 'rcan_10x20', 'rcan_int8_standard')
+    mean_psnr = float(frame[('rcan_10x20', 'PSNR')].mean())
+    if not abs(mean_psnr - bf16_mean_psnr) < 1.0:
+        raise AssertionError('int8 standard mean PSNR %.4f is not within 1 dB of bf16\'s '
+                             '%.4f' % (mean_psnr, bf16_mean_psnr))
+    emit({'phase': 'rcan_int8_standard', 'images': len(shapes), 'launches': launches,
+          'calls_by_route': by_route, 'cli_seconds': seconds,
+          'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
+          'peak_memory_gb': peak_gb, 'mean_psnr': mean_psnr,
+          'bf16_mean_psnr': bf16_mean_psnr, 'three_pass_tail': div2k_tail,
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches, 'three_pass_tail': div2k_tail}
+
+
+def phase_model_only(mixed):
+    """``--model_only``: one SR image per LR image, one forward each (untimed)."""
+    shapes = lr_shapes(mixed['lr_dir'])
+    expected, by_route = standard_launches(
+        shapes, lambda hw: planned_ca_route((1,) + hw + (64,), 4, 2)[0], timed=False)
+    launches, seconds, split, _, _ = run_standard_cli(
+        mixed, 'rcan_model_only', 'rcan_10x20', ['--model_only', '--no_image_comparison'])
+    expect_launches(launches, expected, 'rcan --model_only')
+    out = os.path.join(mixed['out_loc'], 'rcan_model_only')
+    written = sorted(os.listdir(os.path.join(out, 'rcan_10x20')))
+    if written != [n for n, _ in shapes] or os.path.isdir(os.path.join(out,
+                                                                      'standard_metrics')):
+        raise AssertionError('--model_only wrote %s' % written)
+    emit({'phase': 'rcan_model_only', 'images': len(written), 'launches': launches,
+          'calls_by_route': by_route, 'cli_seconds': seconds,
+          'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches}
+
+
+def phase_train_standard_val(dirs, root):
+    """``train_sisr`` on configs/div2k/qrcan.toml as shipped (no fused_val key: the
+    standard validation epoch), with only its data paths, save location, num_epochs
+    and epoch_cutoff (1) set, and the eval set's ``cutoff`` (its ``name = "div2k"``
+    selects DIV2K's validation images by index, 800-900, which the 16 pairs do not
+    have): one epoch, 200 CA launches a forward on the planned routes (the train steps'
+    (8, 64, 64, 64) and the validation's (1, 128, 128, 64) f32 maps); then a
+    fused_val = true validation of the same checkpoint, its val-PSNR within 0.01 dB
+    of the standard epoch's.  cuDNN TF32 on, matmul off (PyTorch's defaults)."""
+    import numpy as np
+    import pandas as pd
+    from sisr_tpu_torch.training.handler import TrainingHandler
+    from sisr_tpu_torch.utils import toml_io
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = toml_io.load(os.path.join(here, 'configs', 'div2k', 'qrcan.toml'))
+    if 'fused_val' in config['training']:
+        raise AssertionError('configs/div2k/qrcan.toml sets fused_val')
+    save_loc = os.path.join(root, 'Results_shipped')
+    config['experiment_save_loc'] = save_loc
+    for table in (config['data']['training_sets']['data_1'],
+                  config['data']['eval_sets']['data_1']):
+        table['lr'], table['hr'] = dirs['lr_dir'], dirs['hr_dir']
+    config['data']['eval_sets']['data_1']['cutoff'] = N_IMAGES
+    config['training']['epoch_cutoff'] = 1
+    path = os.path.join(root, 'qrcan_shipped.toml')
+    toml_io.dump(config, path)
+    n_train = N_IMAGES // BATCH
+    routes = {'train': planned_ca_route(TRAIN_SHAPE, 4, 4)[0],
+              'validation': planned_ca_route((1, LR_SIZE, LR_SIZE, 64), 4, 4)[0]}
+    counts = {'train': CA_PER_FORWARD * n_train, 'validation': CA_PER_FORWARD * N_IMAGES}
+    expected = dict(NO_LAUNCHES)
+    for part, route in routes.items():
+        expected['fused_channel_attention'] += counts[part]
+        if route in ('onchip', 'rounds'):
+            expected['fused_channel_attention_' + route] += counts[part]
+    with tf32(True, False):
+        launches, seconds = run_train_cli(path, '--num_epochs', '1')
+        expect_launches(launches, expected, 'train_sisr qrcan.toml (standard validation)')
+        base = os.path.join(save_loc, config['experiment'])
+        summary = pd.read_csv(os.path.join(base, 'result_outputs', 'summary.csv'))
+        if list(summary['epoch']) != [0] or not np.isfinite(
+                summary[['train-loss', 'val-loss', 'val-PSNR', 'val-SSIM']].to_numpy()).all():
+            raise AssertionError('train_sisr (standard validation): %s'
+                                 % summary.to_dict('list'))
+        handler = TrainingHandler(
+            experiment_name=config['experiment'], save_loc=save_loc,
+            model_params=config['model'], data_params=config['data'], gpu='single',
+            num_epochs=1, continue_from_epoch=0, metrics=config['training']['metrics'],
+            save_samples=False, fused_val=True)
+        if not handler._use_fused_val():
+            raise AssertionError('the fused validation does not serve the recipe')
+        fused = handler.eval(0)
+    diff = {'PSNR': abs(float(np.mean(fused['val-PSNR'])) - float(summary['val-PSNR'][0])),
+            'SSIM': abs(float(np.mean(fused['val-SSIM'])) - float(summary['val-SSIM'][0]))}
+    hold_bars(diff, 'standard against fused validation')
+    emit({'phase': 'train_standard_val', 'config': 'configs/div2k/qrcan.toml',
+          'launches': launches, 'routes': routes, 'cli_seconds': seconds,
+          'summary': summary.to_dict('list'),
+          'fused_val_psnr': float(np.mean(fused['val-PSNR'])),
+          'fused_val_ssim': float(np.mean(fused['val-SSIM'])), 'diff': diff,
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1631,6 +2105,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, here)
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1638,6 +2113,7 @@ def main():
     ca_main = phase_kernel()
     ca_res_main = phase_kernel_residual()
     meta_gate = phase_kernel_meta()
+    extent = phase_kernel_extent()
     training_shape = phase_kernel_backward()
     for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b'):
         phase_reference(name)
@@ -1656,6 +2132,16 @@ def main():
             paths[name + '_int8'] = phase_int8_main_path(
                 dirs, paths[name + '_bf16']['mean_psnr'], model)
         paths['qrcan_train'] = phase_train_main_path(dirs, root)
+        mixed = write_mixed_workload(dirs, root)
+        for name, model in (('rcan', 'rcan_10x20'), ('qrcan', 'qrcan_10x20')):
+            paths[name + '_standard'] = phase_standard_eval(mixed, model,
+                                                            paths[name + '_bf16']['frame'])
+        paths['rcan_buckets'] = phase_bucketed_eval(mixed, paths['rcan_standard']['frame'])
+        paths['rcan_int8_standard'] = phase_int8_standard(
+            mixed, paths['rcan_standard']['mean_psnr'])
+        div2k_tail = paths['rcan_int8_standard']['three_pass_tail']
+        paths['rcan_model_only'] = phase_model_only(mixed)
+        paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1727,6 +2213,20 @@ def main():
                                 'tail_over_sequence', 'plan')})
     res_three_row.update({'host_ms': ca_res_main['three_pass_host_ms'],
                           'device_ms': ca_res_main['three_pass_device_ms']})
+    # its main-path shape from PR 9: the DIV2K-size image of int8 RCAN's standard protocol
+    res_three_row.update({'div2k_' + k: v for k, v in div2k_tail.items()})
+    # the valid-extent pool (bucketed eval) on each CA route, with and without meta
+    # and gate, timed in turns against the same call without an extent
+    for row, route in ((ca_row, 'onchip'), (ca_three_row, 'three_pass'),
+                       (ca_rounds_row, 'rounds')):
+        for case in extent:
+            if case['path'] == route:
+                tag = 'masked_meta_gate_' if case['meta_gate'] else 'masked_'
+                row.update({tag + key: case[key] for key in (
+                    'shape', 'valid_hw', 'dtype', 'ms', 'unmasked_ms', 'plain_ms',
+                    'bound_ms', 'max_abs_err')})
+    emit({'phase': 'total', 'seconds': time.perf_counter() - start,
+          'masked_launches_by_path': path_launches(lambda c: c[ca_key + '_masked'])})
     emit({'kernels': kernel_rows})
     print(nvidia_smi_line())
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

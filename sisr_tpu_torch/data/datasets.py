@@ -1,21 +1,24 @@
 """SuperResImages dataset for LR/HR folder pairs (PyTorch port of sisr_tpu's
-``data/datasets.py`` for RGB models that take the LR image as it is, ref:
-Code/sr_tools/data_handler.py:147-528).
+``data/datasets.py`` for RGB images, ref: Code/sr_tools/data_handler.py:147-528).
 
 Index building (``_qN`` group tags, recursive search, dataset splits, shortlists,
 blacklists), PIL decode to H,W,3 uint8, the HR alignment crop, a capped in-memory
-cache of decoded images, the degradation-metadata CSV (:func:`read_augmentation_list`)
-with a float32 ``metadata`` vector per item, and the training options: random flips
-and transposes (``random_augments``), matched random crops (``random_crop``) and
-several crops per image (``request_crops``).  Online degradations, CelebA attributes,
-legacy blur-kernel files, masks, and the Y-channel and pre-upscaled inputs of other
+cache of decoded images with optional decoded ``.npy`` sidecars on disk, the
+degradation-metadata CSV (:func:`read_augmentation_list`) with a float32 ``metadata``
+vector per item, and the training options: random flips and transposes
+(``random_augments``), matched random crops (``random_crop``) and several crops per
+image (``request_crops``).  ``input='interp'`` reads RGB LR images that are already
+at the HR size (the eval's ``--lr_dir_interp``).  Online degradations, CelebA
+attributes, legacy blur-kernel files, masks, and the Y-channel inputs of other
 families come with later slices.
 """
 from collections import OrderedDict, deque
+import hashlib
 import json
 import os
 import re
 import threading
+import time
 
 import numpy as np
 import pandas as pd
@@ -121,7 +124,14 @@ class SuperResImages:
     divide on the device).  With ``random_crop`` the images are matched LR/HR patches
     (``request_crops`` of them per image, stacked).  ``y_only`` acts on Y-channel
     models only, so it changes nothing here; keys of the reference's data tables that
-    no option here reads pass through ``kwargs``."""
+    no option here reads pass through ``kwargs``.
+
+    ``cache_decoded``: True (a 4 GiB cap) or an int > 1 (the cap in bytes) keeps
+    decoded images in memory; a string also persists them as decoded uint8 ``.npy``
+    sidecars, so a new process skips the decode: 'sidecar' puts them in a
+    ``.decoded_u8/`` folder beside each image, any other string is a cache folder
+    (hashed names).  A sidecar's name holds its source's mtime and size, so an edited
+    source is decoded again; stale sidecars are removed."""
 
     def __init__(self, lr_dir, hr_dir=None, dataset=None, split=None, custom_split=None,
                  recursive_search=False, image_shortlist=None, scale=4, cache_decoded=None,
@@ -132,14 +142,17 @@ class SuperResImages:
                  legacy_blur_kernels=None, **kwargs):
         if split not in ['train', 'eval', 'test', 'all', None]:
             raise RuntimeError('"Split" must be one of: train | eval | test | all | None')
-        if input != 'unmodified' or colorspace not in ('rgb', 'augmented_rgb'):
-            raise _not_ported('Pre-upscaled or Y-channel model inputs (input=%r, '
-                              'colorspace=%r)' % (input, colorspace), 7)
+        if input not in ('interp', 'unmodified'):
+            raise RuntimeError('"lr_type" must be one of: interp | unmodified')
+        if colorspace not in ('rgb', 'augmented_rgb'):
+            raise _not_ported('Y-channel model inputs (input=%r, colorspace=%r)'
+                              % (input, colorspace), 7)
         if online_degradations:
             raise _not_ported('Online degradations', 10)
         if mask_data is not None:
             raise _not_ported('Segmentation masks (extract_masks)', 10)
         self.scale = scale
+        self.lr_type = input
         self.lr_base = lr_dir
         self.hr_base = hr_dir
         self.patch_crop = random_crop
@@ -190,6 +203,13 @@ class SuperResImages:
         self._decode_cache_lock = threading.Lock()
         self._decode_cache_cap = (cache_decoded if isinstance(cache_decoded, int)
                                   and cache_decoded > 1 else 4 << 30)
+        self._disk_cache_dir = None
+        # per folder, the sidecar names in it (one listdir, then kept up to date under
+        # the lock), for the stale-sidecar clean-up
+        self._sidecar_listing = {}
+        if isinstance(cache_decoded, str):
+            self._disk_cache_dir = 'sidecar' if cache_decoded == 'sidecar' \
+                else os.path.abspath(os.path.expanduser(cache_decoded))
         print('Initialized %s data with %d image%s.' % (
             dataset if dataset is not None else 'image', self.image_count,
             's' if self.image_count > 1 else ''))
@@ -249,15 +269,87 @@ class SuperResImages:
                 im = im.convert('RGB')
             return np.asarray(im, np.uint8)
 
+    def _sidecar_path(self, filename):
+        """Where ``filename``'s decoded sidecar lives; its name holds the source's
+        (mtime_ns, size), so an edited source does not read a stale one."""
+        st = os.stat(filename)
+        stem = '%s.%d.%d.npy' % (os.path.basename(filename), st.st_mtime_ns, st.st_size)
+        if self._disk_cache_dir == 'sidecar':
+            return os.path.join(os.path.dirname(os.path.abspath(filename)), '.decoded_u8',
+                                stem)
+        digest = hashlib.sha1(os.path.abspath(filename).encode()).hexdigest()[:16]
+        return os.path.join(self._disk_cache_dir, '%s_%s' % (digest, stem))
+
+    def _disk_cache_load(self, filename):
+        """The decoded sidecar of ``filename``, or None (none, or unreadable)."""
+        try:
+            path = self._sidecar_path(filename)
+            if os.path.isfile(path):
+                arr = np.load(path)
+                if arr.dtype == np.uint8 and arr.ndim == 3:
+                    return arr
+        except (OSError, ValueError):
+            pass
+        return None
+
+    def _disk_cache_store(self, filename, arr):
+        """Write ``filename``'s sidecar atomically (a temporary file, then a rename),
+        first removing its stale sidecars and temporary files left by a crash more
+        than 10 minutes ago.  A folder that cannot be written turns the disk layer off
+        for this dataset (one notice); decoding goes on."""
+        try:
+            path = self._sidecar_path(filename)
+            folder, base = os.path.split(path)
+            os.makedirs(folder, exist_ok=True)
+            with self._decode_cache_lock:
+                names = self._sidecar_listing.get(folder)
+                if names is None:
+                    names = self._sidecar_listing[folder] = set(os.listdir(folder))
+                listing = list(names)
+            prefix = base.rsplit('.', 3)[0] + '.'
+            for old in listing:
+                if old == base or not old.startswith(prefix):
+                    continue
+                full = os.path.join(folder, old)
+                if '.tmp' in old:
+                    try:
+                        if time.time() - os.stat(full).st_mtime < 600:
+                            continue  # perhaps a live writer's
+                    except OSError:
+                        pass
+                elif not old.endswith('.npy'):
+                    continue
+                try:
+                    os.remove(full)
+                except OSError:
+                    pass
+                with self._decode_cache_lock:
+                    names.discard(old)
+            tmp = '%s.tmp%d.npy' % (path, os.getpid())
+            with open(tmp, 'wb') as f:
+                np.save(f, arr)
+            os.replace(tmp, path)
+            with self._decode_cache_lock:
+                names.add(base)
+        except OSError as exc:
+            print('decoded-image disk cache disabled (%s): %s' % (self._disk_cache_dir, exc))
+            self._disk_cache_dir = None
+
     def _read_cached(self, filename):
-        """read_image through the decoded-uint8 cache.  Returned arrays are treated
-        as read-only (crops are views; float conversions copy)."""
+        """read_image through the decoded-uint8 cache (and its sidecars on disk).
+        Returned arrays are treated as read-only (crops are views; float conversions
+        copy)."""
         cache = self._decode_cache
         if cache is None:
             return self.read_image(filename)
         arr = cache.get(filename)
         if arr is None:
-            arr = self.read_image(filename)
+            if self._disk_cache_dir is not None:
+                arr = self._disk_cache_load(filename)
+            if arr is None:
+                arr = self.read_image(filename)
+                if self._disk_cache_dir is not None:
+                    self._disk_cache_store(filename, arr)
             with self._decode_cache_lock:  # loader threads race on the byte budget
                 if self._decode_cache_bytes + arr.nbytes <= self._decode_cache_cap:
                     cache[filename] = arr
@@ -276,9 +368,11 @@ class SuperResImages:
         lr_arr = self._read_cached(os.path.join(self.lr_base, image_name))
         hr_im = np.array(0)
         if self.hr_base is not None:
-            # HR alignment crop (ref: data_handler.py:471-489)
+            # HR alignment crop (ref: data_handler.py:471-489); an interpolated LR image
+            # is already at the HR size
             hr_arr = self._read_cached(os.path.join(self.hr_base, base_name))
-            h, w = lr_arr.shape[0] * self.scale, lr_arr.shape[1] * self.scale
+            factor = 1 if self.lr_type == 'interp' else self.scale
+            h, w = lr_arr.shape[0] * factor, lr_arr.shape[1] * factor
             if hr_arr.shape[1] != w or hr_arr.shape[0] != h:
                 hr_arr = center_crop_np(hr_arr, height=h, width=w)
             hr_im = self._to_image(hr_arr)
@@ -287,13 +381,15 @@ class SuperResImages:
         if self.random_augment is not None:
             lr_im, hr_im = random_flip_rotate(lr_im, hr_im)
         if self.patch_crop is not None:
+            # interpolated LR images align with HR 1:1
+            crop_scale = 1 if self.lr_type == 'interp' else self.scale
             if self.request_crops is not None:
                 lr_im, hr_im = (np.stack(ims, 0) for ims in zip(*(
-                    random_matched_crop(lr_im, hr_im, self.patch_crop, self.scale)
+                    random_matched_crop(lr_im, hr_im, self.patch_crop, crop_scale)
                     for _ in range(self.request_crops))))
             else:
                 lr_im, hr_im = random_matched_crop(lr_im, hr_im, self.patch_crop,
-                                                   self.scale)
+                                                   crop_scale)
         metadata = self.metadata[index] if self.metadata is not None else np.array(0)
         return {'lr': lr_im, 'hr': hr_im, 'tag': image_name,
                 'hr_tag': base_name, 'metadata': np.asarray(metadata, dtype=np.float32),

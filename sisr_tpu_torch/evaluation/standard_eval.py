@@ -1,19 +1,31 @@
-"""EvalHub: the fused metrics protocol (PyTorch port of the fused path of sisr_tpu's
+"""EvalHub: model evaluation protocols (PyTorch port of sisr_tpu's
 ``evaluation/standard_eval.py``, ref: Code/SISR/evaluation/standard_eval.py:23-326).
 
-Each batch runs forward + bicubic LR baseline + YCbCr + PSNR/SSIM on the device (see
-``BaseHandler.run_eval_fused``); the CSV reports have the reference's layout.
-Degradation metadata for the meta-models comes from ``--metadata_file``, else a
-``degradation_metadata.csv`` or ``qpi_slices.csv`` beside the LR images.  The
-standard protocol (host metrics, SR image outputs, comparisons, interpolated-LR
-folders), CelebA data attributes, bucketed eval and multi-device eval are not ported
-yet: asking for them raises NotImplementedError.  ``int8=True`` turns on each model's
-int8 serving path (``BaseHandler.set_int8``), which runs inside the fused step.
+* The standard protocol (:meth:`EvalHub.full_image_protocol`): per batch the
+  Pillow-exact host bicubic LR baseline (timed per image) or an interpolated-LR
+  folder, each model's forward on the card (``ModelInterface.net_run_and_process``,
+  timed), host PSNR/SSIM on the Y channel (or on the card with ``device_metrics``),
+  the SR images (``save_im``) and a comparison collage per image (PNG pages, see
+  ``tools/visualization.py``).
+* The fused protocol (``fused_eval``, metrics only): forward + bicubic LR baseline +
+  YCbCr + PSNR/SSIM in one device step per batch (``BaseHandler.run_eval_fused``);
+  it falls back to the standard protocol where it cannot serve (image outputs,
+  interpolated LR, bucketed eval), as in sisr_tpu.
+* :meth:`EvalHub.direct_model_protocol` (``model_only``): SR images only.
+
+The CSV reports have the reference's layout.  Degradation metadata for the
+meta-models comes from ``--metadata_file``, else a ``degradation_metadata.csv`` or
+``qpi_slices.csv`` beside the LR images.  ``int8=True`` turns on each model's int8
+serving path (``BaseHandler.set_int8``), ``eval_buckets`` the bucketed eval
+(``BaseHandler.set_eval_buckets``; int8 takes precedence), ``decoded_cache_dir`` the
+decoded-image sidecars.  CelebA data attributes, the FACE_SIM metric and multi-device
+eval are not ported yet: asking for them raises NotImplementedError.
 """
-from collections import defaultdict
+from collections import OrderedDict, defaultdict
 from concurrent.futures import ThreadPoolExecutor
 import itertools
 import os
+import time
 
 import numpy as np
 import pandas as pd
@@ -23,6 +35,10 @@ from tqdm import tqdm
 from ..data.datasets import SuperResImages
 from ..data.loader import DataLoader, device_prefetch
 from ..models.interface import ModelInterface
+from ..ops.colorspace import ycbcr_convert
+from ..ops.metrics import Metrics
+from ..ops.resize import resize_uint8
+from ..tools.visualization import interpret_sisr_images, safe_image_save
 from ..utils import toml_io
 from ..utils.helpers import create_dir_if_empty
 
@@ -45,22 +61,16 @@ class EvalHub:
         """Main eval class; param info in net_eval.py (mirrors the reference CLI)."""
         if mesh:
             raise _not_ported('--mesh (multi-device eval)', 'multi-GPU data parallelism')
-        if eval_buckets:
-            raise _not_ported('--eval_buckets', 'standard eval protocol')
         if metrics and 'FACE_SIM' in metrics:
             raise _not_ported('The FACE_SIM metric', 'long-tail tools')
-        if not (fused_eval and metrics and no_image_comparison and not model_only
-                and not save_im and not lr_dir_interp):
-            raise _not_ported('Only --fused_eval with metrics, --no_image_comparison and '
-                              'no image outputs runs; the standard eval protocol',
-                              'standard eval protocol')
         if data_attributes is not None:
             raise _not_ported('CelebA data attributes', 'remaining families')
-        if decoded_cache_dir:
-            raise _not_ported('--decoded_cache_dir', 'standard eval protocol')
         if not model_and_epoch:
             raise ValueError('No models specified: pass at least one '
                              '-me/--model_and_epoch EXPERIMENT EPOCH pair.')
+        if decoded_cache_dir:
+            # decoded uint8 sidecars on disk: a new process skips the PNG decode
+            cache_decoded = decoded_cache_dir
 
         self.out_dir = os.path.join(out_loc, results_name)
         create_dir_if_empty(self.out_dir)
@@ -71,11 +81,19 @@ class EvalHub:
                           for k, v in input_params.items() if v is not None}, f)
 
         experiment_names, eval_epochs = zip(*model_and_epoch)
-        self.metrics = list(metrics)
+        self.metrics = list(metrics) if metrics is not None else []
+        self.scale = scale
+        self.no_image_comparison = no_image_comparison
+        self.num_image_save = num_image_save
         self.time_models = time_models
+        self.images_processed = 0
+        self.save_im = save_im
         self.device = self._select_device(gpu, sp_gpu)
         self.model_bundles = self._prep_models(model_loc, experiment_names, eval_epochs,
                                                self.device, scale=scale)
+        if eval_buckets:
+            for model in self.model_bundles:
+                model.model.set_eval_buckets(eval_buckets)
         if int8:
             for model in self.model_bundles:
                 model.model.set_int8(True)
@@ -96,6 +114,37 @@ class EvalHub:
         self.rgb_data = DataLoader(dataset=rgb_handler, batch_size=batch_size)
         for model in self.model_bundles:
             model.model.set_metadata_keys(rgb_handler.metadata_keys)
+
+        self.interp_loader = None
+        if lr_dir_interp:
+            # a loader, not one iterator: each protocol run iterates it again
+            interp_handler = SuperResImages(
+                lr_dir_interp, hr_dir, split=split, input='interp', dataset=dataset,
+                scale=scale, custom_split=custom_split, image_shortlist=image_shortlist,
+                recursive_search=recursive, cache_decoded=cache_decoded,
+                degradation_metadata_file=metadata_file, qpi_selection=qpi_selection)
+            self.interp_loader = DataLoader(dataset=interp_handler, batch_size=batch_size)
+        self.interp_data = None  # this run's iterator, set when a protocol starts
+
+        self.comparisons_dir = os.path.join(self.out_dir, 'model_comparisons')
+        if not no_image_comparison:
+            create_dir_if_empty(self.comparisons_dir)
+        self.save_folders = {}
+        if save_im or model_only:
+            for exp in experiment_names:
+                self.save_folders[exp] = os.path.join(self.out_dir, exp)
+                create_dir_if_empty(self.save_folders[exp])
+        self.metric_hub = Metrics(self.metrics, delimeter='>',
+                                  device=self.device if device_metrics else None)
+
+        # the fused protocol serves metrics-only runs; an interpolated-LR folder it
+        # cannot honour (it computes the device bicubic instead)
+        self.fused_eval = bool(fused_eval) and bool(metrics) and not model_only \
+            and not save_im and no_image_comparison and not lr_dir_interp
+        if fused_eval and not self.fused_eval:
+            print('fused_eval needs metrics and no image outputs '
+                  '(--no_image_comparison, no --save_im/--model_only, no '
+                  '--lr_dir_interp) — disabled.')
 
     @staticmethod
     def _find_metadata_file(metadata_file, lr_dir):
@@ -139,9 +188,162 @@ class EvalHub:
                                device=device, scale=scale)
                 for experiment, eval_epoch in zip(experiment_names, eval_epochs)]
 
+    def _low_res_prep(self, lr_data, timing=True):
+        """The bicubic x``scale`` upsample of the LR batch, Pillow-exact on the host
+        (ref: standard_eval.py:146-158): (the float images, each image's resize
+        seconds or None)."""
+        lr_data = np.asarray(lr_data)
+        n, h, w, c = lr_data.shape
+        interp = np.empty((n, h * self.scale, w * self.scale, c), np.float32)
+        times = [] if timing else None
+        for i in range(n):
+            u8 = (lr_data[i] * 255).astype(np.uint8)  # ToPILImage's truncation
+            tic = time.perf_counter()
+            resized = resize_uint8(u8, (w * self.scale, h * self.scale))
+            if timing:
+                times.append(time.perf_counter() - tic)
+            interp[i] = resized.astype(np.float32) / 255.0
+        return interp, times
+
+    @staticmethod
+    def _high_res_prep(hr_data):
+        """RGB -> full 3-channel YCbCr ('jpg' matrices) after a [0, 1] clip (ref:
+        standard_eval.py:160-164).  The metrics read channel 0 (Y); Y-channel models
+        take channel 0 and their outputs are recombined with channels 1-2."""
+        prep = ModelInterface._standard_image_formatting(np.asarray(hr_data))
+        for i in range(prep.shape[0]):
+            prep[i] = ycbcr_convert(prep[i].transpose(2, 0, 1), im_type='jpg', input='rgb',
+                                    y_only=False).transpose(1, 2, 0)
+        return prep
+
+    def _generate_image_collage(self, interp_data, model_data, probe_names, metrics=None,
+                                metric_slice=None, hr_rgb=None):
+        """One comparison collage per image: HR (when given), LR and each model, with
+        each model's epoch and metrics (ref: standard_eval.py:166-185)."""
+        output_package = OrderedDict()
+        if hr_rgb is not None:
+            output_package['HR'] = np.asarray(hr_rgb)
+        output_package['LR'] = np.asarray(interp_data)
+        output_package.update(model_data)
+        interpret_sisr_images(
+            output_package, metric_slice or {}, metrics or [], self.comparisons_dir,
+            names=['image_comparison_%s.png' % p.replace(os.path.sep, '_')
+                   for p in probe_names],
+            config='rgb', extra_info={model.experiment: [['epoch', model.model_epoch]]
+                                      for model in self.model_bundles})
+
+    def _host_batches(self):
+        """The protocol's float batches (the fused protocol may have left the dataset
+        serving uint8), and this run's interpolated-LR iterator."""
+        for ds in getattr(self.rgb_data.dataset, 'datasets', [self.rgb_data.dataset]):
+            ds.keep_uint8 = False
+        self.interp_data = iter(self.interp_loader) if self.interp_loader else None
+        return self.rgb_data
+
+    def _model_input(self, model, batch, interp_data, lr_prep=None):
+        """What ``model`` takes: the LR batch, the interpolated one, or (a Y-channel
+        model) the interpolated one in YCbCr."""
+        if 'rgb' in model.configuration['colorspace']:
+            return batch['lr'] if model.configuration['input'] == 'unmodified' \
+                else interp_data
+        return lr_prep if lr_prep is not None else self._high_res_prep(interp_data)
+
+    def _save_images(self, model, rgb_im, im_names):
+        folder = self.save_folders[model.experiment]
+        for name in im_names:  # recursive datasets: subfolders must exist
+            if os.sep in name:
+                create_dir_if_empty(os.path.join(folder, os.path.dirname(name)))
+        safe_image_save(rgb_im, folder, im_names, config='rgb')
+
+    def direct_model_protocol(self):
+        """SR images only (``model_only``; ref: standard_eval.py:187-215): each
+        model's output for each LR image, and the comparison collages unless
+        ``no_image_comparison``."""
+        with tqdm(total=len(self.rgb_data)) as pbar:
+            for batch in self._host_batches():
+                im_names = batch['tag']
+                self.images_processed += len(im_names)
+                probe_names = [n.split('.')[0] for n in list(im_names)]
+                if self.interp_data:
+                    interp_data = next(self.interp_data)['lr']
+                else:
+                    interp_data, _ = self._low_res_prep(batch['lr'], timing=False)
+                output_package = {}
+                for model in self.model_bundles:
+                    rgb_im, _, _, _ = model.net_run_and_process(
+                        **{**batch, 'lr': self._model_input(model, batch, interp_data)})
+                    self._save_images(model, rgb_im, im_names)
+                    output_package[model.experiment] = rgb_im
+                if not self.no_image_comparison:
+                    self._generate_image_collage(interp_data, output_package,
+                                                 probe_names=probe_names)
+                pbar.update(1)
+
     def full_image_protocol(self):
-        """Full metrics run (ref: standard_eval.py:217-294), fused on the device."""
-        return self._fused_image_protocol()
+        """Full metrics run (ref: standard_eval.py:217-294): the fused protocol where
+        it serves, else the standard one."""
+        if self.fused_eval:
+            if all(m.model.supports_fused_eval() for m in self.model_bundles):
+                return self._fused_image_protocol()
+            print('fused_eval: some models lack a fused path (bucketed eval) — '
+                  'using the standard protocol.')
+        metric_package = defaultdict(list)
+        hub, delim = self.metric_hub, self.metric_hub.delimeter
+        with tqdm(total=len(self.rgb_data)) as pbar:
+            for batch in self._host_batches():
+                lr_rgb, hr_rgb = batch['lr'], batch['hr']
+                im_names = batch['tag']
+                self.images_processed += len(im_names)
+                probe_names = [n.split('.')[0] for n in list(im_names)]
+                hr_names = [n.split('.')[0] for n in list(batch['hr_tag'])]
+                metric_package['Image_Name'].append(list(im_names))
+
+                if self.interp_data:
+                    interp_data = next(self.interp_data)['lr']
+                else:
+                    interp_data, timing_info = self._low_res_prep(
+                        lr_rgb, timing=self.time_models)
+                    if timing_info is not None:
+                        # one resize time per image, so the column stays aligned at
+                        # batch sizes above 1
+                        metric_package['LR%sruntime' % delim].append(timing_info)
+
+                hr_prep = self._high_res_prep(hr_rgb)
+                lr_prep = self._high_res_prep(interp_data)
+                metric_slice, diag_string = hub.run_metrics(lr_prep, references=hr_prep,
+                                                            key='LR', probe_names=hr_names)
+                for key, value in metric_slice.items():
+                    metric_package[key].append(value)
+
+                output_package = {}
+                for model in self.model_bundles:
+                    rgb_im, ycbcr_im, _, runtime = model.net_run_and_process(
+                        **{**batch, 'lr': self._model_input(model, batch, interp_data,
+                                                            lr_prep)},
+                        timing=self.time_models)
+                    if runtime is not None:
+                        metric_package['%s%sruntime' % (model.experiment, delim)].append(
+                            [runtime] * len(im_names))
+                    metric_slice, mini_diag = hub.run_metrics(
+                        ycbcr_im, hr_prep, key=model.experiment, probe_names=hr_names)
+                    for key, value in metric_slice.items():
+                        metric_package[key].append(value)
+                    diag_string += mini_diag
+                    output_package[model.experiment] = rgb_im
+                    # as in the reference, images_processed counts this batch already,
+                    # so up to batch_size - 1 fewer images are saved than asked for
+                    if self.save_im and self.images_processed < self.num_image_save:
+                        self._save_images(model, rgb_im, im_names)
+
+                if not self.no_image_comparison \
+                        and self.images_processed < self.num_image_save:
+                    self._generate_image_collage(
+                        interp_data, output_package, metrics=self.metrics,
+                        metric_slice={k: metric_package[k][-1] for k in metric_package},
+                        probe_names=probe_names, hr_rgb=hr_rgb)
+                pbar.update(1)
+                pbar.set_description(diag_string[:-2])
+        self.manipulate_and_save_metrics(metric_package)
 
     def _fused_image_protocol(self):
         """Metrics-only eval with the whole per-batch pipeline on the device (see

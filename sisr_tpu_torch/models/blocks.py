@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.channel_attention import fused_channel_attention
+from ..ops.masking import valid_extent
 
 
 def torch_default_init_(module, generator):
@@ -77,7 +78,8 @@ class CALayer(nn.Module):
 
     GAP -> 1x1 reduce -> ReLU -> 1x1 expand -> sigmoid -> scale, run as one
     :func:`fused_channel_attention` call (the CUDA kernel on the card) on the NHWC view
-    of the channels_last activation.  ``conv_du`` keeps the reference's layout."""
+    of the channels_last activation.  Under bucketed eval the pool averages the valid
+    extent only (``ops/masking.py``).  ``conv_du`` keeps the reference's layout."""
 
     def __init__(self, channel, reduction=16):
         super().__init__()
@@ -94,7 +96,8 @@ class CALayer(nn.Module):
         cr, c = reduce.out_channels, reduce.in_channels
         out = fused_channel_attention(
             x.permute(0, 2, 3, 1), reduce.weight.view(cr, c).t(), reduce.bias,
-            expand.weight.view(c, cr).t(), expand.bias)
+            expand.weight.view(c, cr).t(), expand.bias,
+            valid_hw=valid_extent(x.shape[2], x.shape[3]))
         return out.permute(0, 3, 1, 2)
 
 

@@ -12,6 +12,9 @@ Each handler is registered under the reference's lowercase model name and owns:
 * the fused eval step: forward + bicubic LR baseline + YCbCr Y + PSNR/SSIM (and the
   loss, for the training-time validation) on the device, with only a (K, N) metric
   matrix for the host;
+* the standard eval step (:meth:`run_eval`): the SR image (and the loss) for the
+  host, through the module, the int8 program, or with ``set_eval_buckets`` the
+  zero-padded, mask-exact bucketed forward (``ops/masking.py``);
 * degradation metadata (``uses_metadata`` handlers, :class:`QHandler`): the
   dataset's metadata key list selects the columns the model takes
   (``set_metadata_keys``), and each batch's (N, M) metadata reaches the module
@@ -33,6 +36,7 @@ import torch
 
 from ..ops import quantization as qz
 from ..ops.colorspace import rgb_to_ycbcr_nhwc
+from ..ops.masking import apply_mask, conv_mask_hooks, spatial_masks
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
 from ..tools.convert_weights import params_from_state_dict
@@ -96,6 +100,9 @@ class BaseHandler:
     grad_clip = None
     # int8 serving path (ops/quantization.py): family key, or None if unsupported
     int8_family = None
+    # exact bucketed eval holds for pure-conv models; sisr_tpu's spatial-softmax,
+    # covariance-pooling and strided families set it False
+    bucketed_eval_ok = True
 
     def __init__(self, eval_mode=False, lr=1e-4, scale=4, scheduler=None,
                  scheduler_params=None, perceptual=None, optimizer_params=None,
@@ -133,6 +140,7 @@ class BaseHandler:
         self.meta_indices = None
         self._eval_step_cache = {}
         self._warm_eval_shapes = set()
+        self.eval_buckets = None  # pad eval images to multiples of this (set_eval_buckets)
         self.int8_mode = False  # int8 serving (set_int8)
         self.int8_residual_dtype = 'bfloat16'
         self._int8_ctx = None  # (program, quantised params, scales) once calibrated
@@ -330,6 +338,17 @@ class BaseHandler:
         apply_update(self.optimizer, self.schedule, self.step, self.grad_clip)
         self.step += 1
 
+    def set_eval_buckets(self, multiple):
+        """Bucketed eval (ref handlers.py:191-200): pad each eval image up to the next
+        multiple of ``multiple`` per spatial axis and run the mask-exact padded forward,
+        so a set of differently sized images runs at a few shapes only."""
+        if multiple and not self.bucketed_eval_ok:
+            print('%s: bucketed eval is not exact for this architecture '
+                  '(spatial softmax/covariance or strided pooling) — ignoring.'
+                  % type(self).__name__)
+            return
+        self.eval_buckets = int(multiple) if multiple else None
+
     # --- int8 serving (ref handlers.py:202-292) --------------------------------------------
     def set_int8(self, enabled=True, residual_dtype='bfloat16'):
         """Turn the int8 serving path on or off: per-channel int8 weights, static
@@ -430,6 +449,99 @@ class BaseHandler:
         else:
             raise RuntimeError('unknown int8 family %r' % family)
         self._int8_ctx = (program, qparams, dict(act_scales))
+
+    def _int8_forward(self, batch):
+        """The int8 program on a device batch (ref handlers.py:251): quantises the
+        weights and calibrates the scales on the first batch it sees (and its prepared
+        metadata), then runs with them."""
+        x = batch['lr'].float()
+        meta = self.prepare_metadata(x, batch.get('metadata')) if self.uses_metadata \
+            else None
+        self._ensure_int8_ctx(self._int8_calibration_input(x), meta)
+        return self._int8_ctx[0](x, meta)
+
+    # --- standard eval (ref handlers.py:547-618, training/state.py:123-167) ----------------
+    def _eval_step(self, batch):
+        """The plain eval step (ref training/state.py make_eval_step): (SR, loss
+        against batch['hr'] or None)."""
+        lr, hr, metadata = self._prep_batch(batch)
+        out = self.forward(lr, metadata)
+        return out, (self.loss_fn(out.float(), hr) if hr is not None else None)
+
+    def _masked_eval_step(self, batch):
+        """The bucketed eval step (ref training/state.py make_masked_eval_step): the
+        zero-padded input (and metadata maps) masked, the forward under the conv mask
+        hooks, inside a mask context of batch['valid_hw']."""
+        with spatial_masks(batch['lr'].shape[1:3], batch['valid_hw']):
+            lr, _, metadata = self._prep_batch(batch)
+            lr = apply_mask(lr, spatial_dims=(1, 2))
+            if metadata is not None and metadata.dim() == 4:
+                metadata = apply_mask(metadata, spatial_dims=(1, 2))
+            with conv_mask_hooks(self.module):
+                return self.forward(lr, metadata)
+
+    def _bucketed_forward(self, batch):
+        """Zero-pad the LR batch to the bucket grid, run the mask-exact padded step and
+        slice the SR output back to the true size (ref handlers.py:919-936)."""
+        x = batch['lr']
+        n, h, w, c = x.shape
+        m = self.eval_buckets
+        bh, bw = -(-h // m) * m, -(-w // m) * m
+        padded = {'lr': torch.nn.functional.pad(x, (0, 0, 0, bw - w, 0, bh - h)),
+                  'valid_hw': (h, w)}
+        if batch.get('metadata') is not None:
+            padded['metadata'] = batch['metadata']
+        out = self._masked_eval_step(padded)
+        factor = out.shape[1] // bh
+        return out[:, :h * factor, :w * factor, :]
+
+    def run_eval(self, x, y=None, request_loss=False, metadata=None, timing=False,
+                 **kwargs):
+        """Eval of one batch for the host (ref BaseModel.run_eval, handlers.py:554-618):
+        NHWC float images (numpy or tensors) in [0, 1], and for a metadata model its
+        (N, M) metadata.  The forward is the int8 program under ``set_int8``, else the
+        bucketed forward under ``set_eval_buckets``, else the module (sisr_tpu's order,
+        so ``--int8 --eval_buckets`` runs int8 unpadded).  With ``timing`` the card is
+        synchronised around the forward, and the first call of each (path, shape) runs
+        once untimed first (set-up: cuDNN heuristics, kernel builds).
+
+        :return: (SR as an NHWC float32 numpy array, the loss against ``y`` when
+            ``request_loss``, else None, the forward's seconds or None).
+        """
+        self._set_training(False)
+        batch = {'lr': self._to_device(x).float()}
+        if metadata is not None and self.uses_metadata:
+            batch['metadata'] = self._to_device(metadata).float()
+        if y is not None and request_loss:
+            batch['hr'] = self._to_device(y).float()
+        path = 'int8' if self.int8_mode else 'buckets' if self.eval_buckets else 'module'
+        fwd = {'int8': self._int8_forward, 'buckets': self._bucketed_forward}.get(path)
+        step = self._eval_step if fwd is None else (lambda b: (fwd(b), None))
+        runtime = None
+        with torch.inference_mode():
+            warm_key = ('eval', path, tuple(batch['lr'].shape))
+            if timing and warm_key not in self._warm_eval_shapes:
+                step(batch)
+            self._warm_eval_shapes.add(warm_key)
+            if timing:
+                self._synchronize()
+                tic = time.perf_counter()
+            out, loss = step(batch)
+            if timing:
+                self._synchronize()  # model compute only: the loss comes after
+                runtime = time.perf_counter() - tic
+            if request_loss and y is not None:
+                if loss is None:
+                    loss = self.loss_fn(out.float(), batch['hr'])
+                loss = float(loss)
+            else:
+                loss = None
+            return out.float().cpu().numpy(), loss, runtime
+
+    def supports_fused_eval(self):
+        """Whether the fused protocol can run this handler (ref handlers.py:711-722):
+        not under bucketed eval, which keeps its own path."""
+        return not self.eval_buckets
 
     # --- fused eval -----------------------------------------------------------------------
     def _to_device(self, img):

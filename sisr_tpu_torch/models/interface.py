@@ -1,12 +1,15 @@
-"""Client-side model interface: experiment directories, checkpoint selection and the
-training passthroughs (PyTorch port of sisr_tpu's ``models/interface.py``, ref:
+"""Client-side model interface: experiment directories, checkpoint selection, the
+standard eval's forward with its colorspace post-processing and the training
+passthroughs (PyTorch port of sisr_tpu's ``models/interface.py``, ref:
 Code/SISR/models/__init__.py:33-254 ModelInterface)."""
 import glob
 import os
 
+import numpy as np
 import pandas as pd
 import torch
 
+from ..ops.colorspace import ycbcr_convert
 from ..utils import toml_io
 from ..utils.async_ckpt import WRITER
 from ..utils.helpers import create_dir_if_empty
@@ -137,6 +140,47 @@ class ModelInterface:
 
     def set_metadata_keys(self, keys):
         self.model.set_metadata_keys(keys)
+
+    def net_run_and_process(self, lr=None, hr=None, metadata=None, metadata_keys=None,
+                            request_loss=False, timing=False, **kwargs):
+        """The model's forward and its colorspace post-processing (ref:
+        models/__init__.py:138-156): (RGB output, YCbCr output, loss or None, runtime or
+        None), NHWC float32 numpy arrays clipped to [0, 1].  Y-channel models take
+        and return the Y channel, recombined with the input's chroma."""
+        if metadata_keys is not None and self.model.metadata_keys is None:
+            self.model.set_metadata_keys(metadata_keys)
+        if 'rgb' in self.configuration['colorspace']:
+            out_rgb, loss, runtime = self.model.run_eval(
+                lr, hr, request_loss=request_loss, metadata=metadata, timing=timing)
+            out_ycbcr = self.colorspace_convert(out_rgb, colorspace='rgb')
+            out_rgb = self._standard_image_formatting(out_rgb)
+        else:
+            f_ref = None if hr is None else hr[..., :1]
+            out_y, loss, runtime = self.model.run_eval(
+                lr[..., :1], f_ref, request_loss=request_loss, metadata=metadata,
+                timing=timing)
+            out_ycbcr = np.concatenate([out_y, np.asarray(lr[..., 1:], np.float32)], axis=-1)
+            out_rgb = self.colorspace_convert(out_ycbcr, colorspace='ycbcr')
+            out_ycbcr = self._standard_image_formatting(out_ycbcr)
+        return out_rgb, out_ycbcr, loss, runtime
+
+    @staticmethod
+    def colorspace_convert(image, colorspace='rgb'):
+        """NHWC batch conversion from ``colorspace`` ('rgb' or 'ycbcr') to the other,
+        the JPEG matrices, with [0, 1] clipping before (ref:
+        models/__init__.py:158-163)."""
+        processed = ModelInterface._standard_image_formatting(np.asarray(image))
+        out = np.empty_like(processed)
+        for i in range(processed.shape[0]):
+            conv = ycbcr_convert(processed[i].transpose(2, 0, 1), im_type='jpg',
+                                 input=colorspace, y_only=False)
+            out[i] = conv.transpose(1, 2, 0)
+        return out
+
+    @staticmethod
+    def _standard_image_formatting(im, min_value=0, max_value=1):
+        """A float copy of ``im`` clipped to [min_value, max_value]."""
+        return np.clip(np.array(im, copy=True), min_value, max_value)
 
     def get_learning_rate(self):
         return self.model.get_learning_rate()

@@ -20,12 +20,16 @@ the style alone:
 
 ``gate`` also carries a QRCAB's ``q_node`` (:meth:`ParaCALayer.gate`, a sigmoid of
 the metadata alone), so the block's whole tail is one launch.
+
+Under bucketed eval (``ops/masking.py``) every style pools the valid extent only: the
+kernel styles hand it to the kernel, the others take :func:`masked_global_mean`.
 """
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ..ops.channel_attention import KERNEL_STYLES, fused_channel_attention
+from ..ops.masking import masked_global_mean, valid_extent
 
 STYLES = KERNEL_STYLES + ('mini_concat', 'softmax', 'extended_attention')
 
@@ -156,10 +160,11 @@ class QCALayer(nn.Module):
             if style == 'modulate':
                 gate = metadata if gate is None else metadata * gate
             out = fused_channel_attention(x.permute(0, 2, 3, 1), w1, b1, w2, b2,
-                                          meta=meta, gate=gate)
+                                          meta=meta, gate=gate,
+                                          valid_hw=valid_extent(x.shape[2], x.shape[3]))
             return out.permute(0, 3, 1, 2)
         with _f32(x.device):
-            y = x.float().mean(dim=(2, 3))
+            y = masked_global_mean(x)
             meta = metadata.float()
             if style == 'softmax':
                 y = torch.cat([y, meta], dim=1)

@@ -62,14 +62,16 @@ def _config_callback(ctx, param, value):
 @click.option('--mesh', is_flag=True,
               help='Shard eval over all local devices (not ported yet: raises).')
 @click.option('--eval_buckets', type=int, default=None,
-              help='Pad eval images up to multiples of this size (not ported yet: '
-                   'raises).')
+              help='Pad eval images up to multiples of this size and run the mask-exact '
+                   'padded forward (the channel attention pools the valid pixels only), '
+                   'so mixed-size sets run at few shapes. Standard protocol; --int8 '
+                   'takes precedence and runs unpadded.')
 @click.option('--fused_eval', is_flag=True,
               help='Metrics-only fast path: forward + LR baseline + YCbCr + PSNR/SSIM '
                    'in one device step per batch; only scalars return to the host. '
-                   'Needs --no_image_comparison and no image saving. The LR baseline '
-                   'uses the device bicubic (<=1 uint8 LSB vs PIL). The only protocol '
-                   'ported so far.')
+                   'Needs --no_image_comparison and no image saving or interpolated LR '
+                   '(else the standard protocol runs). The LR baseline uses the device '
+                   'bicubic (<=1 uint8 LSB vs PIL).')
 @click.option('--device_metrics', is_flag=True,
               help='Compute PSNR/SSIM on the device (the fused protocol always does).')
 @click.option('--face_model', default='lightcnn',
@@ -85,8 +87,8 @@ def _config_callback(ctx, param, value):
                    'batch (and its metadata; 10% margin), int8 convs with int32 sums, '
                    'a bfloat16 residual carry; attention stages stay f32, RCAN\'s '
                    'block tail (channel attention + residual add) and Q-RCAN\'s '
-                   'channel attention each one CUDA kernel. Runs inside --fused_eval; '
-                   'metrics are of the quantised output.')
+                   'channel attention each one CUDA kernel. Metrics are of the '
+                   'quantised output.')
 @click.option("--sp_gpu", default=0, show_default=True,
               help='Specify specific device to use for computation.')
 @click.option('--scale', default=4, help='Scale of SR to perform.', show_default=True)
@@ -112,7 +114,9 @@ def _config_callback(ctx, param, value):
               help='Cache decoded images in memory (capped at 4 GiB) so repeated '
                    'protocol passes skip PNG re-decode. Default on.')
 @click.option('--decoded_cache_dir', default=None,
-              help="Persist decoded uint8 '.npy' sidecars (not ported yet: raises).")
+              help="Persist decoded uint8 '.npy' sidecars so later runs skip the image "
+                   "decode: 'sidecar' writes them into a .decoded_u8/ folder beside each "
+                   'image, any other value is a cache folder.')
 @click.option('--config', type=click.Path(exists=True), callback=_config_callback,
               is_eager=True, expose_value=False,
               help='Read option defaults from a TOML config file.')
@@ -123,7 +127,10 @@ def eval_run(model_only, **kwargs):
     """
     from .evaluation.standard_eval import EvalHub
     eval_hub = EvalHub(model_only=model_only, **kwargs)
-    eval_hub.full_image_protocol()
+    if model_only:
+        eval_hub.direct_model_protocol()
+    else:
+        eval_hub.full_image_protocol()
 
 
 if __name__ == '__main__':

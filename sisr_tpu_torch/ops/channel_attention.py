@@ -7,7 +7,11 @@ activation permuted to (0, 2, 3, 1) is exactly a contiguous NHWC view, so the mo
 passes its activations without a copy.  Two optional per-image inputs carry Q-RCAN's
 meta-attention (``models/q_layers.py``): ``meta`` (N, M) is concatenated onto the
 pooled vector before the first product (w1 then has C + M rows), and ``gate`` (N, C)
-multiplies the attention after the sigmoid, ``out = x * (att * gate)``.
+multiplies the attention after the sigmoid, ``out = x * (att * gate)``.  ``valid_hw``
+(vh, vw), one host pair for the batch, is the valid extent of a bucketed eval's
+zero-padded map (``ops/masking.py``): the pool averages only the pixels whose row is
+under vh and column under vw (sisr_tpu's ``masked_global_mean``), and the scale still
+multiplies every pixel.  The full extent gives the call without one, bit for bit.
 
 :func:`fused_channel_attention_residual` is the int8 RCAB block tail,
 ``out = (float(x) * att(x) + float(r)).to(r.dtype)``, with the signature of sisr_tpu's
@@ -19,7 +23,8 @@ On a CUDA tensor each wrapper launches ``ops/cuda/csrc/channel_attention.cu`` (d
 and bound in that file) or raises; on a CPU tensor it runs its plain version
 (:func:`reference_channel_attention`, :func:`reference_channel_attention_residual`),
 which the kernel is held against.  Each wrapper's ``launches`` counts its kernel
-launches.  The routes are chosen from the shape and the card alone.  The CA has
+launches, and ``fused_channel_attention.masked_launches`` those given a valid extent
+(every call of a bucketed eval's forward).  The routes are chosen from the shape and the card alone.  The CA has
 three (:func:`ca_plan`): one cooperative launch that holds the whole batch's map in
 shared memory (:func:`onchip_plan`, counted also in ``onchip_launches``), one that
 streams the batch through it in rounds of images (:func:`res_onchip_plan` with no r,
@@ -49,14 +54,15 @@ KERNEL_STYLES = ('standard', 'max_concat', 'modulate')
 _SIGNATURES = {
     'sisr_ca_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+        + [ctypes.c_void_p]),
     'sisr_ca_onchip_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 5
         + [ctypes.c_void_p]),
     'sisr_ca_rounds_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 5
         + [ctypes.c_void_p]),
     'sisr_ca_res_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
@@ -68,23 +74,35 @@ _MAX_EXCITE_FLOATS = 12288
 _DEVICES = {}  # CUDA device index -> (library handle, SM count, opt-in shared memory)
 
 
-def _attention(x, w1, b1, w2, b2, meta=None):
-    """att (N, C) in f32: mean over H, W, then sigmoid(relu([pooled | meta] @ w1 + b1)
-    @ w2 + b2).  Autocast is off: the excite stays f32 under a bf16 forward, as in the
-    kernel."""
+def _masked(x, valid_hw):
+    """Whether ``valid_hw`` is an extent smaller than x's (N, H, W, C) map."""
+    return valid_hw is not None and tuple(valid_hw) != tuple(x.shape[1:3])
+
+
+def _attention(x, w1, b1, w2, b2, meta=None, valid_hw=None):
+    """att (N, C) in f32: mean over H, W (over the valid extent ``valid_hw``: its f32
+    sum over the pixel count, as sisr_tpu's masked_global_mean), then
+    sigmoid(relu([pooled | meta] @ w1 + b1) @ w2 + b2).  Autocast is off: the excite
+    stays f32 under a bf16 forward, as in the kernel."""
     with torch.autocast(x.device.type, enabled=False):
-        pooled = x.float().mean(dim=(1, 2))
+        if _masked(x, valid_hw):
+            vh, vw = valid_hw
+            # the count as a device tensor (a true division, and no host copy)
+            pooled = x[:, :vh, :vw].float().sum(dim=(1, 2)) / x.new_full(
+                (), float(vh * vw), dtype=torch.float32)
+        else:
+            pooled = x.float().mean(dim=(1, 2))
         if meta is not None:
             pooled = torch.cat([pooled, meta.float()], dim=1)
         hidden = torch.relu(pooled @ w1.float() + b1.float())
         return torch.sigmoid(hidden @ w2.float() + b2.float())
 
 
-def reference_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None):
-    """Plain PyTorch version (sisr_tpu's ``_reference_ca``, with ``meta`` and ``gate``
-    as in the module docstring): pool and excite in f32, the gate's product in f32,
-    scale in x's dtype."""
-    att = _attention(x, w1, b1, w2, b2, meta)
+def reference_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None, valid_hw=None):
+    """Plain PyTorch version (sisr_tpu's ``_reference_ca``, with ``meta``, ``gate`` and
+    ``valid_hw`` as in the module docstring): pool and excite in f32, the gate's
+    product in f32, scale in x's dtype."""
+    att = _attention(x, w1, b1, w2, b2, meta, valid_hw)
     if gate is not None:
         att = att * gate.float()
     return x * att[:, None, None, :].to(x.dtype)
@@ -205,7 +223,8 @@ def ca_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin, m=0):
     return 'three_pass', None
 
 
-def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention', meta=None, gate=None):
+def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention', meta=None, gate=None,
+                valid_hw=None):
     if x.dim() != 4:
         raise ValueError('%s: x must be (N, H, W, C), got %s' % (op, tuple(x.shape)))
     if x.dtype not in _DTYPE_CODES:
@@ -218,6 +237,11 @@ def _check_args(x, w1, b1, w2, b2, op='fused_channel_attention', meta=None, gate
         raise ValueError('%s: empty map %s' % (op, tuple(x.shape)))
     if n > 65535:
         raise ValueError('%s: batch %d exceeds the grid limit 65535' % (op, n))
+    if valid_hw is not None:
+        vh, vw = (int(v) for v in valid_hw)
+        if not (0 < vh <= h and 0 < vw <= w):
+            raise ValueError('%s: valid extent %s outside the %dx%d map'
+                             % (op, tuple(valid_hw), h, w))
     if meta is not None and (meta.dim() != 2 or meta.shape[0] != n or meta.shape[1] == 0):
         raise ValueError('%s: meta must be (N, M) with N=%d, M > 0, got %s'
                          % (op, n, tuple(meta.shape)))
@@ -281,13 +305,15 @@ class _ChannelAttention(torch.autograd.Function):
     """fused_channel_attention under autograd: the kernel forward, the plain VJP."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, meta, gate):
+    def forward(ctx, x, w1, b1, w2, b2, meta, gate, valid_hw):
         ctx.save_for_backward(x, w1, b1, w2, b2, meta, gate)
-        return _ca_forward(x, w1, b1, w2, b2, meta, gate)
+        ctx.valid_hw = valid_hw
+        return _ca_forward(x, w1, b1, w2, b2, meta, gate, valid_hw)
 
     @staticmethod
     def backward(ctx, grad):
-        return _plain_vjp(reference_channel_attention, ctx, grad)
+        plain = functools.partial(reference_channel_attention, valid_hw=ctx.valid_hw)
+        return _plain_vjp(plain, ctx, grad) + (None,)  # no grad for valid_hw
 
 
 class _ChannelAttentionResidual(torch.autograd.Function):
@@ -340,39 +366,55 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fused_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None):
+def fused_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None, valid_hw=None):
     """CA scale-and-excite, with the optional ``meta`` (N, M) concatenated onto the
-    pooled vector and ``gate`` (N, C) multiplying the attention: the CUDA kernel for
-    a CUDA ``x`` (on the route :func:`ca_plan` gives), the plain version for a CPU
-    ``x``; differentiable in every input (the plain VJP)."""
+    pooled vector, ``gate`` (N, C) multiplying the attention and ``valid_hw`` (vh, vw)
+    the extent the pool averages over: the CUDA kernel for a CUDA ``x`` (on the route
+    :func:`ca_plan` gives), the plain version for a CPU ``x``; differentiable in every
+    tensor input (the plain VJP)."""
+    if valid_hw is not None:
+        valid_hw = (int(valid_hw[0]), int(valid_hw[1]))
     if _records_grad(x, w1, b1, w2, b2, meta, gate):
-        return _ChannelAttention.apply(x, w1, b1, w2, b2, meta, gate)
-    return _ca_forward(x, w1, b1, w2, b2, meta, gate)
+        return _ChannelAttention.apply(x, w1, b1, w2, b2, meta, gate, valid_hw)
+    return _ca_forward(x, w1, b1, w2, b2, meta, gate, valid_hw)
 
 
 def _meta_count(meta):
     return 0 if meta is None else meta.shape[1]
 
 
-def _ca_forward(x, w1, b1, w2, b2, meta=None, gate=None):
+def _ca_forward(x, w1, b1, w2, b2, meta=None, gate=None, valid_hw=None):
     """The forward of :func:`fused_channel_attention`, recording no grad."""
     if x.device.type == 'cpu':
-        return reference_channel_attention(x, w1, b1, w2, b2, meta, gate)
+        return reference_channel_attention(x, w1, b1, w2, b2, meta, gate, valid_hw)
     if x.device.type != 'cuda':
         raise ValueError('fused_channel_attention: unsupported device %s' % x.device)
-    _check_args(x, w1, b1, w2, b2, meta=meta, gate=gate)
+    _check_args(x, w1, b1, w2, b2, meta=meta, gate=gate, valid_hw=valid_hw)
     n, h, w, c = x.shape
     _, sm_count, smem_optin = _library(x.device.index)
     route, plan = ca_plan(n, h * w, c, w1.shape[1], x.element_size(), x.data_ptr() % 16 == 0,
                           sm_count, smem_optin, m=_meta_count(meta))
     if route == 'onchip':
-        return _onchip(x, w1, b1, w2, b2, plan, meta, gate)
+        return _onchip(x, w1, b1, w2, b2, plan, meta, gate, valid_hw)
     if route == 'rounds':
-        return _rounds(x, None, w1, b1, w2, b2, torch.empty_like(x), plan, meta, gate)
-    return _three_pass(x, w1, b1, w2, b2, meta, gate)
+        return _rounds(x, None, w1, b1, w2, b2, torch.empty_like(x), plan, meta, gate,
+                       valid_hw=valid_hw)
+    return _three_pass(x, w1, b1, w2, b2, meta, gate, valid_hw)
 
 
-def _onchip(x, w1, b1, w2, b2, plan, meta=None, gate=None):
+def _extent_args(x, valid_hw):
+    """(W, vh, vw) as the C entries take them; the full map without an extent."""
+    h, w = x.shape[1], x.shape[2]
+    vh, vw = (h, w) if valid_hw is None else valid_hw
+    return w, vh, vw
+
+
+def _count_masked(valid_hw):
+    if valid_hw is not None:
+        fused_channel_attention.masked_launches += 1
+
+
+def _onchip(x, w1, b1, w2, b2, plan, meta=None, gate=None, valid_hw=None):
     """One cooperative launch of ``ca_onchip`` with ``plan`` from :func:`onchip_plan`
     (arguments already checked)."""
     n, h, w, c = x.shape
@@ -388,18 +430,20 @@ def _onchip(x, w1, b1, w2, b2, plan, meta=None, gate=None):
             x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
             _ptr(meta), _ptr(gate), partial.data_ptr(), n, h * w, c, _meta_count(meta),
             w1.shape[1], *strides, _DTYPE_CODES[x.dtype], slabs, slab_pixels, smem_bytes,
-            torch.cuda.current_stream(index).cuda_stream)
+            *_extent_args(x, valid_hw), torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention on-chip launch')
     fused_channel_attention.launches += 1
     fused_channel_attention.onchip_launches += 1
+    _count_masked(valid_hw)
     return out
 
 
-def _rounds(x, r, w1, b1, w2, b2, out, plan, meta=None, gate=None, cast_first=False):
+def _rounds(x, r, w1, b1, w2, b2, out, plan, meta=None, gate=None, cast_first=False,
+            valid_hw=None):
     """One cooperative launch of ``ca_rounds`` into ``out`` with ``plan`` from
     :func:`res_onchip_plan` (arguments already checked): the CA op where ``r`` is
     None, counted on :func:`fused_channel_attention`, else the CA + residual tail,
-    counted on :func:`fused_channel_attention_residual`."""
+    counted on :func:`fused_channel_attention_residual` (whose pool takes no extent)."""
     n, h, w, c = x.shape
     index = x.device.index
     lib = _library(index)[0]
@@ -414,17 +458,19 @@ def _rounds(x, r, w1, b1, w2, b2, out, plan, meta=None, gate=None, cast_first=Fa
             _ptr(meta), _ptr(gate), partial.data_ptr(), n, h * w, c, _meta_count(meta),
             w1.shape[1], *strides, _DTYPE_CODES[x.dtype],
             _NO_R if r is None else _DTYPE_CODES[r.dtype], int(cast_first), rounds, images,
-            slabs, slab_pixels, smem_bytes, torch.cuda.current_stream(index).cuda_stream)
+            slabs, slab_pixels, smem_bytes, *_extent_args(x, valid_hw),
+            torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, '%s rounds launch' % op.__name__)
     op.launches += 1
     if r is None:
         op.rounds_launches += 1
+        _count_masked(valid_hw)
     else:
         op.onchip_launches += 1
     return out
 
 
-def _three_pass(x, w1, b1, w2, b2, meta=None, gate=None):
+def _three_pass(x, w1, b1, w2, b2, meta=None, gate=None, valid_hw=None):
     """The three launches of ``sisr_ca_forward`` (arguments already checked)."""
     n, h, w, c = x.shape
     index = x.device.index
@@ -439,15 +485,18 @@ def _three_pass(x, w1, b1, w2, b2, meta=None, gate=None):
             x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
             _ptr(meta), _ptr(gate), partial.data_ptr(), att.data_ptr(), n, h * w, c,
             _meta_count(meta), w1.shape[1], *strides, _DTYPE_CODES[x.dtype],
-            int(vectorized), slabs, sm_count, torch.cuda.current_stream(index).cuda_stream)
+            int(vectorized), slabs, sm_count, *_extent_args(x, valid_hw),
+            torch.cuda.current_stream(index).cuda_stream)
     cuda_build.check(lib, code, 'fused_channel_attention launch')
     fused_channel_attention.launches += 1
+    _count_masked(valid_hw)
     return out
 
 
 fused_channel_attention.launches = 0
 fused_channel_attention.onchip_launches = 0
 fused_channel_attention.rounds_launches = 0
+fused_channel_attention.masked_launches = 0
 
 
 def residual_aligned(x, r, out):

@@ -21,6 +21,16 @@
 // M extra rows of w1 beside the other weights, and multiplies att by gate[n].  The
 // bound grows by N * (M + C) * 4 bytes, 2.8 KB at the main shape.
 //
+// Bucketed eval (sisr_tpu/ops/masking.py) zero-pads a batch of images of true size
+// (vh, vw) to a bucket (H, W).  Every CA entry takes the map's width and that valid
+// extent: the pool sums only the pixels whose row is under vh and column under vw and
+// divides by vh * vw (masked_global_mean); the scale still multiplies every pixel, as
+// `x * y` does in sisr_tpu's CALayer.  A pixel's row and column come from its flat
+// index, walked without a division per pixel (Extent, ExtentWalk below), and tested only
+// when the extent is smaller than the map, so the full extent is the plain call bit for
+// bit.  The CA + residual tail takes
+// no extent: sisr_tpu's int8 program runs unpadded.
+//
 // Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_forward` (excite
 // `_excite`), by three paths; the wrapper's plan (`ca_plan` in ops/channel_attention.py)
 // picks one from the shape and the card alone: on chip where the whole batch fits in
@@ -184,12 +194,54 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+// The valid extent of an image of width w that bucketed eval zero-padded (sisr_tpu's
+// masked_global_mean): the pool sums only the pixels whose row is under vh and whose
+// column is under vw, and divides by count = vh * vw.  With masked 0 (the full extent,
+// count = H * W) no pixel is tested, so the pool adds the same elements in the same
+// order as without an extent, bit for bit.
+struct Extent {
+  int64_t w, vh, vw, count;
+  int masked;
+};
+
+// A thread's walk over the pixels p, p + step, p + 2 * step, ... of one image, saying
+// whether each lies inside the extent: the row and column of the first pixel come from
+// one division, then each step adds step / w rows and step % w columns and wraps the
+// column, so the pool pays no division per pixel.  Under the full extent it does
+// nothing.
+struct ExtentWalk {
+  int64_t row, col, step_rows, step_cols, w, vh, vw;
+  bool masked;
+  __device__ __forceinline__ ExtentWalk(const Extent& e, int64_t p, int64_t step)
+      : row(0), col(0), step_rows(0), step_cols(0), w(e.w), vh(e.vh), vw(e.vw),
+        masked(e.masked != 0) {
+    if (masked) {
+      row = p / w;
+      col = p - row * w;
+      step_rows = step / w;
+      step_cols = step - step_rows * w;
+    }
+  }
+  __device__ __forceinline__ bool inside() const { return !masked || (row < vh && col < vw); }
+  __device__ __forceinline__ void next() {
+    if (masked) {
+      row += step_rows;
+      col += step_cols;
+      if (col >= w) {
+        col -= w;
+        ++row;
+      }
+    }
+  }
+};
+
 // Grid (S, N, lane chunks).  A block covers pixels [s*slab_len, (s+1)*slab_len) of
 // image n and up to blockDim.x lanes (VEC channels each) of the channel axis; its
-// threads form `rows` rows of `chunk_lanes` lanes that stride over the slab's pixels.
+// threads form `rows` rows of `chunk_lanes` lanes that stride over the slab's pixels
+// and pool those inside the valid extent `ext`.
 template <typename T, int VEC>
 __global__ void ca_pool_partial(const T* __restrict__ x, float* __restrict__ partial,
-                                int64_t hw, int c, int slabs, int64_t slab_len) {
+                                int64_t hw, int c, int slabs, int64_t slab_len, Extent ext) {
   extern __shared__ float red[];  // [rows][chunk_lanes * VEC]
   const int lanes = c / VEC;
   const int chunk_lanes = min(lanes, (int)blockDim.x);
@@ -208,7 +260,9 @@ __global__ void ca_pool_partial(const T* __restrict__ x, float* __restrict__ par
   for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
   if (row < rows && lane < lanes) {
     const Pack<T, VEC>* img = reinterpret_cast<const Pack<T, VEC>*>(x + n * hw * c);
-    for (int64_t p = p0 + row; p < p1; p += rows) {
+    ExtentWalk walk(ext, p0 + row, rows);
+    for (int64_t p = p0 + row; p < p1; p += rows, walk.next()) {
+      if (!walk.inside()) continue;
       const Pack<T, VEC> pk = img[p * lanes + lane];
 #pragma unroll
       for (int v = 0; v < VEC; ++v) acc[v] += to_float(pk.v[v]);
@@ -229,7 +283,8 @@ __global__ void ca_pool_partial(const T* __restrict__ x, float* __restrict__ par
   }
 }
 
-// Grid (N).  pooled = sum of the S partials / (H*W); att = sigmoid(relu([pooled |
+// Grid (N).  pooled = sum of the S partials / count (H*W, or the valid extent's
+// pixels); att = sigmoid(relu([pooled |
 // meta[n]] @ w1 + b1) @ w2 + b2) * gate[n] (meta and gate optional: null, M = 0).
 // w1[ch, j] is at w1[ch * w1_sc + j * w1_sj] (ch < C + M), w2[j, ch] at w2[j * w2_sj +
 // ch * w2_sc], so transposed views need no copy.  `parts` threads share each
@@ -241,7 +296,7 @@ __global__ void ca_excite(const float* __restrict__ partial, const float* __rest
                           const float* __restrict__ b1, const float* __restrict__ w2,
                           const float* __restrict__ b2, const float* __restrict__ meta,
                           const float* __restrict__ gate, float* __restrict__ att,
-                          int slabs, int c, int m, int cr, float hw, int64_t w1_sc,
+                          int slabs, int c, int m, int cr, float count, int64_t w1_sc,
                           int64_t w1_sj, int64_t w2_sj, int64_t w2_sc, int parts) {
   extern __shared__ float sh[];
   float* pooled = sh;
@@ -262,7 +317,7 @@ __global__ void ca_excite(const float* __restrict__ partial, const float* __rest
   for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
     float s = 0.f;
     for (int part = 0; part < parts; ++part) s += part_sum[part * c + ch];
-    pooled[ch] = s / hw;
+    pooled[ch] = s / count;
   }
   __syncthreads();
   // one warp per hidden unit: lanes split the channels, a fixed shuffle tree adds up
@@ -506,16 +561,16 @@ __device__ __forceinline__ void block_channel_sum(const float (&acc)[VEC],
 }
 
 // s.att of one image from its `slabs` block sums img_partial[k * c + ch] (read past
-// L1: other blocks wrote them before the grid barrier), added in a fixed order, then
-// the excite on the staged weights and meta (M of them), and with img_gate (C floats,
+// L1: other blocks wrote them before the grid barrier), added in a fixed order and
+// divided by `count` (the pooled pixels), then the excite on the staged weights and meta (M of them), and with img_gate (C floats,
 // or null) the product with the gate.  Each thread issues LOADS of its sums at once
 // before it adds them (in the same order), so LOADS L2 round trips overlap.  Ends with
 // the block synchronised.
 template <int LOADS>
 __device__ __forceinline__ void image_excite(const OnchipScratch& s, const float* img_partial,
                                              const float* __restrict__ img_gate, int slabs,
-                                             int64_t hw, int c, int m, int cr, int parts,
-                                             int t) {
+                                             int64_t count, int c, int m, int cr,
+                                             int parts, int t) {
   // the thread's first gate value is loaded with the partial sums, not after the
   // sigmoid: one round trip to memory on the serial path instead of two
   const float own_gate = img_gate && t < c ? img_gate[t] : 1.f;
@@ -540,7 +595,7 @@ __device__ __forceinline__ void image_excite(const OnchipScratch& s, const float
   for (int ch = t; ch < c; ch += kThreads) {
     float sum = 0.f;
     for (int part = 0; part < slab_parts; ++part) sum += s.part_sum[part * c + ch];
-    s.pooled[ch] = sum / (float)hw;
+    s.pooled[ch] = sum / (float)count;
   }
   __syncthreads();
   const int warp = t / 32, wl = t % 32;
@@ -574,8 +629,9 @@ __device__ __forceinline__ void load_pixels(unsigned char* dst, const T* src, in
 // Grid (S, N), kThreads threads, launched cooperatively (path 1 of the note above).
 // Block (s, n) owns pixels [s*slab_len, min(hw, (s+1)*slab_len)) of image n; its
 // threads form `rows` rows of C/VEC lanes (VEC channels each) that stride over the
-// slab's pixels, so each thread keeps one lane's pool and attention in registers.
-// meta (N, M) and gate (N, C) are optional (null, M = 0).  The plan guarantees
+// slab's pixels, so each thread keeps one lane's pool (of the pixels inside `ext`) and
+// attention in registers.  meta (N, M) and gate (N, C) are optional (null, M = 0).
+// The plan guarantees
 // C/VEC <= kThreads and a non-empty slab for every block.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -584,7 +640,7 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ b2, const float* __restrict__ meta,
               const float* __restrict__ gate, float* __restrict__ partial, int64_t hw, int c,
               int m, int cr, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
-              int64_t w2_sc) {
+              int64_t w2_sc, Extent ext) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int slabs = gridDim.x;
   const int lanes = c / VEC;
@@ -628,7 +684,9 @@ __global__ void __launch_bounds__(kThreads)
     if (a >= b) break;
     mbar_wait(&bars[k], 0);
     if (row < rows) {
-      for (int64_t p = a + row; p < b; p += rows) {
+      ExtentWalk walk(ext, p0 + a + row, rows);
+      for (int64_t p = a + row; p < b; p += rows, walk.next()) {
+        if (!walk.inside()) continue;
         const Pack<T, VEC> pk = slab[p * lanes + lane];
 #pragma unroll
         for (int v = 0; v < VEC; ++v) acc[v] += to_float(pk.v[v]);
@@ -642,8 +700,8 @@ __global__ void __launch_bounds__(kThreads)
   cooperative_groups::this_grid().sync();
 
   // c. image n's pool from the S partials, then the excite (and the gate)
-  image_excite<1>(s, partial + n * slabs * c, gate ? gate + n * c : nullptr, slabs, hw, c, m,
-                  cr, parts, t);
+  image_excite<1>(s, partial + n * slabs * c, gate ? gate + n * c : nullptr, slabs, ext.count,
+                  c, m, cr, parts, t);
 
   // d. out = x * T(att) from shared memory, 16-byte stores
   if (row < rows) {
@@ -691,8 +749,9 @@ __device__ __forceinline__ void res_stamp(int stamp) {
 // and chunk j of r on rbars[j], each of whose phases completes once a round, so round
 // k waits for parity k & 1.  MODE (RoundsMode) says what is written: with kNoR, r is
 // null, TR is TX and out = x * T(att); else out = res_out<TX, TR, MODE>.  meta (N, M)
-// and gate (N, C) are optional (null, M = 0).  The plan guarantees C/VEC <= kThreads,
-// a non-empty slab for every block and rounds * I >= N.
+// and gate (N, C) are optional (null, M = 0).  The pool takes the pixels inside `ext`
+// (the full extent with r).  The plan guarantees C/VEC <= kThreads, a non-empty slab
+// for every block and rounds * I >= N.
 template <typename TX, typename TR, int VEC, int MODE>
 __global__ void __launch_bounds__(kThreads)
     ca_rounds(const TX* __restrict__ x, const TR* __restrict__ r, TR* __restrict__ out,
@@ -701,7 +760,7 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ meta, const float* __restrict__ gate,
               float* __restrict__ partial, int64_t n_images, int64_t hw, int c, int m, int cr,
               int rounds, int64_t slab_len, int64_t w1_sc, int64_t w1_sj, int64_t w2_sj,
-              int64_t w2_sc) {
+              int64_t w2_sc, Extent ext) {
   constexpr bool kHasR = MODE != kNoR;
   constexpr int kRBytes = kHasR ? (int)sizeof(TR) : 0;  // r's itemsize in the layout
   extern __shared__ __align__(128) unsigned char smem[];
@@ -760,7 +819,9 @@ __global__ void __launch_bounds__(kThreads)
         const int64_t a = j * chunk_len, b = min(len, a + chunk_len);
         mbar_wait(&xbars[j], (uint32_t)(k & 1));
         if (row < rows) {
-          for (int64_t p = a + row; p < b; p += rows) {
+          ExtentWalk walk(ext, p0 + a + row, rows);
+          for (int64_t p = a + row; p < b; p += rows, walk.next()) {
+            if (!walk.inside()) continue;
             const Pack<TX, VEC> pk = xs[p * lanes + lane];
 #pragma unroll
             for (int v = 0; v < VEC; ++v) acc[v] += to_float(pk.v[v]);
@@ -788,7 +849,7 @@ __global__ void __launch_bounds__(kThreads)
     res_stamp(2 + 4 * k);
     if (!mine) continue;
     image_excite<kResLoads>(s, partial + n * slabs * c, gate ? gate + n * c : nullptr, slabs,
-                            hw, c, m, cr, parts, t);
+                            ext.count, c, m, cr, parts, t);
     res_stamp(3 + 4 * k);
 
     // c. out chunk by chunk from shared memory; each chunk's bytes of x then take the
@@ -832,13 +893,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Passes 1 and 2: att (N, C) float32 from x (and meta (N, M), gate (N, C) where not
-// null).
+// null), pooled over the valid extent `ext`.
 template <typename T, int VEC>
 cudaError_t launch_pool_excite(const T* xt, const float* w1, const float* b1,
                                const float* w2, const float* b2, const float* meta,
                                const float* gate, float* partial, float* att, int64_t n,
                                int64_t hw, int c, int m, int cr, const int64_t* w_strides,
-                               int slabs, cudaStream_t stream) {
+                               int slabs, const Extent& ext, cudaStream_t stream) {
   const int lanes = c / VEC;
   const int chunk_lanes = lanes < kThreads ? lanes : kThreads;
   const int rows = kThreads / chunk_lanes;
@@ -846,13 +907,13 @@ cudaError_t launch_pool_excite(const T* xt, const float* w1, const float* b1,
   const int64_t slab_len = (hw + slabs - 1) / slabs;
   const size_t red_bytes = sizeof(float) * rows * chunk_lanes * VEC;
   ca_pool_partial<T, VEC><<<dim3(slabs, (unsigned)n, chunks), kThreads, red_bytes, stream>>>(
-      xt, partial, hw, c, slabs, slab_len);
+      xt, partial, hw, c, slabs, slab_len, ext);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int parts = c < kThreads ? (slabs < kThreads / c ? slabs : kThreads / c) : 1;
   ca_excite<<<(unsigned)n, kThreads, sizeof(float) * (c + m + cr + c * parts), stream>>>(
-      partial, w1, b1, w2, b2, meta, gate, att, slabs, c, m, cr, (float)hw, w_strides[0],
+      partial, w1, b1, w2, b2, meta, gate, att, slabs, c, m, cr, (float)ext.count, w_strides[0],
       w_strides[1], w_strides[2], w_strides[3], parts);
   return cudaGetLastError();
 }
@@ -866,7 +927,8 @@ unsigned scale_blocks(int64_t total_vecs, int sm_count) {
 
 // What every launch of the CA + residual tail and of ca_rounds takes: x, r (null for
 // ca_rounds without r), out, the excite's weights with their strides (as in
-// sisr_ca_forward), meta (null with M = 0), gate (or null) and partial.
+// sisr_ca_forward), meta (null with M = 0), gate (or null), partial and the valid
+// extent of the pool (the full extent for the tail).
 struct TailArgs {
   const void* x;
   const void* r;
@@ -876,6 +938,7 @@ struct TailArgs {
   int64_t n, hw;
   int c, m, cr;
   int64_t ws[4];
+  Extent ext;
 };
 
 // ca_rounds' plan: `rounds` rounds of `images` images, `slabs` blocks of slab_len pixels
@@ -891,7 +954,7 @@ cudaError_t launch_res(const TailArgs& a, float* att, int slabs, int sm_count,
   const TX* xt = static_cast<const TX*>(a.x);
   cudaError_t err = launch_pool_excite<TX, VEC>(xt, a.w1, a.b1, a.w2, a.b2, a.meta, a.gate,
                                                 a.partial, att, a.n, a.hw, a.c, a.m, a.cr, a.ws,
-                                                slabs, stream);
+                                                slabs, a.ext, stream);
   if (err != cudaSuccess) return err;
   const int64_t total_vecs = a.n * a.hw * (a.c / VEC);
   ca_res_scale<TX, TR, VEC, MODE><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
@@ -916,10 +979,11 @@ template <typename T, int VEC>
 cudaError_t launch(const void* x, void* out, const float* w1, const float* b1,
                    const float* w2, const float* b2, const float* meta, const float* gate,
                    float* partial, float* att, int64_t n, int64_t hw, int c, int m, int cr,
-                   const int64_t* w_strides, int slabs, int sm_count, cudaStream_t stream) {
+                   const int64_t* w_strides, int slabs, int sm_count, const Extent& ext,
+                   cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   cudaError_t err = launch_pool_excite<T, VEC>(xt, w1, b1, w2, b2, meta, gate, partial, att, n,
-                                               hw, c, m, cr, w_strides, slabs, stream);
+                                               hw, c, m, cr, w_strides, slabs, ext, stream);
   if (err != cudaSuccess) return err;
   const int64_t total_vecs = n * hw * (c / VEC);
   ca_scale<T, VEC><<<scale_blocks(total_vecs, sm_count), kThreads, 0, stream>>>(
@@ -964,7 +1028,7 @@ cudaError_t launch_onchip(const void* x, void* out, const float* w1, const float
                           const float* w2, const float* b2, const float* meta,
                           const float* gate, float* partial, int64_t n, int64_t hw, int c,
                           int m, int cr, const int64_t* w_strides, int slabs, int64_t slab_len,
-                          int64_t smem_bytes, cudaStream_t stream) {
+                          int64_t smem_bytes, const Extent& ext, cudaStream_t stream) {
   if (c % VEC != 0 || c / VEC > kThreads || m < 0 || (m > 0) != (meta != nullptr) ||
       smem_bytes != onchip_smem_bytes(slab_len, c, m, cr, sizeof(T)))
     return cudaErrorInvalidValue;
@@ -972,12 +1036,13 @@ cudaError_t launch_onchip(const void* x, void* out, const float* w1, const float
   return launch_cooperative(ca_onchip<T, VEC>, allowed, dim3((unsigned)slabs, (unsigned)n),
                             smem_bytes, stream, static_cast<const T*>(x), static_cast<T*>(out),
                             w1, b1, w2, b2, meta, gate, partial, hw, c, m, cr, slab_len,
-                            w_strides[0], w_strides[1], w_strides[2], w_strides[3]);
+                            w_strides[0], w_strides[1], w_strides[2], w_strides[3], ext);
 }
 
 // One cooperative launch of ca_rounds over grid (slabs, images) for `rounds` rounds.
 // The plan must cover every image once and every pixel once with no empty block, r
-// must be given exactly when MODE has one, meta exactly when M > 0, and smem_bytes
+// must be given exactly when MODE has one (and then the extent be full), meta exactly
+// when M > 0, and smem_bytes
 // must equal this file's layout (which counts M, and r's itemsize as 0 without r), or
 // nothing launches.
 template <typename TX, typename TR, int VEC, int MODE>
@@ -985,7 +1050,8 @@ cudaError_t launch_rounds(const TailArgs& a, const RoundsPlan& p, cudaStream_t s
   constexpr bool kHasR = MODE != kNoR;
   constexpr int kRBytes = kHasR ? (int)sizeof(TR) : 0;
   if (a.c % VEC != 0 || a.c / VEC > kThreads || a.m < 0 || (a.m > 0) != (a.meta != nullptr) ||
-      kHasR != (a.r != nullptr) || p.rounds < 1 || p.images < 1 || p.slabs < 1 ||
+      kHasR != (a.r != nullptr) || (kHasR && a.ext.masked) || p.rounds < 1 || p.images < 1 ||
+      p.slabs < 1 ||
       (int64_t)(p.rounds - 1) * p.images >= a.n || (int64_t)p.rounds * p.images < a.n ||
       (p.slabs - 1) * p.slab_len >= a.hw || p.slabs * p.slab_len < a.hw ||
       (a.c * kRBytes) % 16 != 0 ||
@@ -997,7 +1063,7 @@ cudaError_t launch_rounds(const TailArgs& a, const RoundsPlan& p, cudaStream_t s
                             static_cast<const TX*>(a.x), static_cast<const TR*>(a.r),
                             static_cast<TR*>(a.out), a.w1, a.b1, a.w2, a.b2, a.meta, a.gate,
                             a.partial, a.n, a.hw, a.c, a.m, a.cr, p.rounds, p.slab_len,
-                            a.ws[0], a.ws[1], a.ws[2], a.ws[3]);
+                            a.ws[0], a.ws[1], a.ws[2], a.ws[3], a.ext);
 }
 
 // ca_rounds for x of type TX: without r (r_dtype -1), or the tail with r float32 (0)
@@ -1015,6 +1081,19 @@ cudaError_t dispatch_rounds(int r_dtype, int cast_first, const TailArgs& a,
   return cudaErrorInvalidValue;
 }
 
+// The valid extent (vh, vw) of images of hw pixels, w wide, into *e: false (and nothing
+// launches) unless w divides hw, 0 < vh <= H = hw / w and 0 < vw <= w.
+bool make_extent(int64_t hw, int64_t w, int64_t vh, int64_t vw, Extent* e) {
+  if (w <= 0 || hw % w != 0) return false;
+  const int64_t h = hw / w;
+  if (vh <= 0 || vh > h || vw <= 0 || vw > w) return false;
+  *e = {w, vh, vw, vh * vw, (vh < h || vw < w) ? 1 : 0};
+  return true;
+}
+
+// The whole image of hw pixels: the CA + residual tail's pool.
+Extent full_extent(int64_t hw) { return {hw, 1, hw, hw, 0}; }
+
 }  // namespace
 
 extern "C" {
@@ -1024,29 +1103,33 @@ extern "C" {
 // thread.  w1 (C + M, Cr) and w2 (Cr, C) are strided (element strides w1 row, w1 col,
 // w2 row, w2 col); b1 and b2 are contiguous.  meta (N, M) and gate (N, C) are
 // contiguous float32, or null (meta null with M = 0).  partial holds N * slabs * C
-// floats, att N * C floats.  Returns the CUDA error code of the first failed launch,
-// 0 when all three launched.
+// floats, att N * C floats.  The map is w pixels wide; the pool takes the pixels of
+// each image whose row is under vh and column under vw (vh = H, vw = w: all of them),
+// as make_extent checks.  Returns the CUDA error code of the first failed launch, 0
+// when all three launched.
 int sisr_ca_forward(const void* x, void* out, const float* w1, const float* b1,
                     const float* w2, const float* b2, const float* meta, const float* gate,
                     float* partial, float* att, long long n, long long hw, int c, int m,
                     int cr, long long w1_s0, long long w1_s1, long long w2_s0,
                     long long w2_s1, int dtype, int vectorized, int slabs, int sm_count,
-                    void* stream) {
+                    long long w, long long vh, long long vw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
-  if (m < 0 || (m > 0) != (meta != nullptr)) return (int)cudaErrorInvalidValue;
+  Extent e;
+  if (m < 0 || (m > 0) != (meta != nullptr) || !make_extent(hw, w, vh, vw, &e))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     return vectorized ? launch<float, 4>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
-                                         hw, c, m, cr, ws, slabs, sm_count, s)
+                                         hw, c, m, cr, ws, slabs, sm_count, e, s)
                       : launch<float, 1>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
-                                         hw, c, m, cr, ws, slabs, sm_count, s);
+                                         hw, c, m, cr, ws, slabs, sm_count, e, s);
   }
   if (dtype == 1) {
     return vectorized
                ? launch<__nv_bfloat16, 8>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
-                                          hw, c, m, cr, ws, slabs, sm_count, s)
+                                          hw, c, m, cr, ws, slabs, sm_count, e, s)
                : launch<__nv_bfloat16, 1>(x, out, w1, b1, w2, b2, meta, gate, partial, att, n,
-                                          hw, c, m, cr, ws, slabs, sm_count, s);
+                                          hw, c, m, cr, ws, slabs, sm_count, e, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1055,23 +1138,26 @@ int sisr_ca_forward(const void* x, void* out, const float* w1, const float* b1,
 // slab_len pixels (the last one the rest), with smem_bytes of dynamic shared memory.
 // The caller checks that C * itemsize % 16 == 0, that x is 16-byte aligned, that
 // every block has pixels and that all n * slabs blocks fit on the card at once.
-// dtype, the weights, meta, gate and their strides are those of sisr_ca_forward;
-// partial holds N * slabs * C floats.  Returns the CUDA error code of the launch, 0
-// when it launched.
+// dtype, the weights, meta, gate and their strides, and the width w and valid extent
+// (vh, vw) are those of sisr_ca_forward; partial holds N * slabs * C floats.  Returns
+// the CUDA error code of the launch, 0 when it launched.
 int sisr_ca_onchip_forward(const void* x, void* out, const float* w1, const float* b1,
                            const float* w2, const float* b2, const float* meta,
                            const float* gate, float* partial, long long n, long long hw,
                            int c, int m, int cr, long long w1_s0, long long w1_s1,
                            long long w2_s0, long long w2_s1, int dtype, int slabs,
-                           long long slab_len, long long smem_bytes, void* stream) {
+                           long long slab_len, long long smem_bytes, long long w, long long vh,
+                           long long vw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t ws[4] = {w1_s0, w1_s1, w2_s0, w2_s1};
+  Extent e;
+  if (!make_extent(hw, w, vh, vw, &e)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_onchip<float, 4>(x, out, w1, b1, w2, b2, meta, gate, partial, n, hw, c, m,
-                                   cr, ws, slabs, slab_len, smem_bytes, s);
+                                   cr, ws, slabs, slab_len, smem_bytes, e, s);
   if (dtype == 1)
     return launch_onchip<__nv_bfloat16, 8>(x, out, w1, b1, w2, b2, meta, gate, partial, n, hw,
-                                           c, m, cr, ws, slabs, slab_len, smem_bytes, s);
+                                           c, m, cr, ws, slabs, slab_len, smem_bytes, e, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1084,7 +1170,8 @@ int sisr_ca_onchip_forward(const void* x, void* out, const float* w1, const floa
 // and C * itemsize(r) are multiples of 16, that x and r are 16-byte aligned, that out
 // is aligned to one vector (16 / itemsize(x) elements) of its type and that all
 // images * slabs blocks fit on the card at once.  The weights, meta, gate and their
-// strides are those of sisr_ca_forward; partial holds N * slabs * C floats.  Returns
+// strides, and the width w and valid extent (vh, vw) are those of sisr_ca_forward; with
+// r the extent must be the full image.  partial holds N * slabs * C floats.  Returns
 // the CUDA error code of the launch, 0 when it launched.
 int sisr_ca_rounds_forward(const void* x, const void* r, void* out, const float* w1,
                            const float* b1, const float* w2, const float* b2,
@@ -1092,10 +1179,13 @@ int sisr_ca_rounds_forward(const void* x, const void* r, void* out, const float*
                            long long hw, int c, int m, int cr, long long w1_s0,
                            long long w1_s1, long long w2_s0, long long w2_s1, int x_dtype,
                            int r_dtype, int cast_first, int rounds, int images, int slabs,
-                           long long slab_len, long long smem_bytes, void* stream) {
+                           long long slab_len, long long smem_bytes, long long w, long long vh,
+                           long long vw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Extent e;
+  if (!make_extent(hw, w, vh, vw, &e)) return (int)cudaErrorInvalidValue;
   const TailArgs a = {x, r, out, w1, b1, w2, b2, meta, gate, partial, n, hw, c, m, cr,
-                      {w1_s0, w1_s1, w2_s0, w2_s1}};
+                      {w1_s0, w1_s1, w2_s0, w2_s1}, e};
   const RoundsPlan p = {rounds, images, slabs, slab_len, smem_bytes};
   if (x_dtype == 0) return (int)dispatch_rounds<float, 4>(r_dtype, cast_first, a, p, s);
   if (x_dtype == 1) return (int)dispatch_rounds<__nv_bfloat16, 8>(r_dtype, cast_first, a, p, s);
@@ -1118,7 +1208,7 @@ int sisr_ca_res_forward(const void* x, const void* r, void* out, const float* w1
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 0 || (m > 0) != (meta != nullptr)) return (int)cudaErrorInvalidValue;
   const TailArgs a = {x, r, out, w1, b1, w2, b2, meta, gate, partial, n, hw, c, m, cr,
-                      {w1_s0, w1_s1, w2_s0, w2_s1}};
+                      {w1_s0, w1_s1, w2_s0, w2_s1}, full_extent(hw)};
   if (x_dtype == 0) {
     return vectorized ? dispatch_res<float, 4>(r_dtype, cast_first, a, att, slabs, sm_count, s)
                       : dispatch_res<float, 1>(r_dtype, cast_first, a, att, slabs, sm_count, s);

@@ -7,9 +7,13 @@ array, ``20*log10(max/sqrt(mse))``, 100 when mse == 0.
 SSIM reimplements ``skimage.metrics.structural_similarity`` with the reference's settings
 (ref: metrics.py:74-90): ``gaussian_weights=True, sigma=1.5, use_sample_covariance=False``,
 i.e. 11-tap gaussian windows (truncate=3.5), cov_norm = 1, and the result averaged over the
-map cropped by ``(win-1)//2`` on every side.  The gaussian filter with scipy's 'reflect'
-boundary is one banded matrix per axis, on the host in float64 and on the device in
-float32, so filtering is two matrix products.
+map cropped by ``(win-1)//2`` on every side.  On the host the filter is scipy's
+``gaussian_filter`` ('reflect' boundary) in float64, as sisr_tpu's; on the device the
+same filter is one banded matrix per axis in float32, so filtering is two matrix
+products.
+
+:class:`Metrics` is the host metric hub of the standard eval protocol and the
+standard validation epoch.
 """
 from collections import defaultdict
 import functools
@@ -66,15 +70,21 @@ def _check_ssim_size(h, w, win_size):
                          % (h, w, win_size))
 
 
-def structural_similarity(im1, im2, data_range=1.0):
-    """skimage-compatible gaussian-weighted SSIM of two 2-D images, in float64."""
+def structural_similarity(im1, im2, data_range=1.0, multichannel=False):
+    """skimage-compatible gaussian-weighted SSIM of two 2-D images, in float64; with
+    ``multichannel`` the last axis is channels and their SSIMs are averaged."""
+    if multichannel:
+        return float(np.mean([structural_similarity(im1[..., ch], im2[..., ch], data_range)
+                              for ch in range(np.shape(im1)[-1])]))
+    from scipy.ndimage import gaussian_filter
     im1 = np.asarray(im1, dtype=np.float64)
     im2 = np.asarray(im2, dtype=np.float64)
-    kern, r = _gaussian_kernel1d(dtype=np.float64)
+    _, r = _gaussian_kernel1d()
     _check_ssim_size(im1.shape[0], im1.shape[1], 2 * r + 1)
-    mh = _reflect_filter_matrix(im1.shape[0], kern, np.float64)
-    mw = _reflect_filter_matrix(im1.shape[1], kern, np.float64)
-    return float(_ssim_map_mean(lambda x: mh @ x @ mw.T, im1, im2, data_range, r).mean())
+
+    def filt(x):
+        return gaussian_filter(x, sigma=1.5, truncate=3.5)  # mode 'reflect'
+    return float(_ssim_map_mean(filt, im1, im2, data_range, r).mean())
 
 
 # --- device-side (torch, batched) --------------------------------------------------------
@@ -105,33 +115,78 @@ def psnr_nhw(im1, im2, max_value=1.0):
 
 
 class Metrics:
-    """Metric hub mirroring the reference class (ref: metrics.py:20-121): PSNR and
-    SSIM on channel 0 (the Y channel) of N,H,W,C numpy batches, per image, keyed
-    ``'{key}{delim}{metric}'``."""
+    """Host metric hub (ref: metrics.py:20-121, sisr_tpu's ops/metrics.py:171-276):
+    PSNR and SSIM on channel 0 (the Y channel) of N,H,W,C numpy batches, keyed
+    ``'{key}{delimeter}{metric}'``.  ``device`` (a torch device, or True for
+    ``cuda``) computes the per-image PSNR/SSIM of a single-channel comparison as one
+    batched pass on that device (:func:`psnr_nhw`, :func:`ssim_nhw`; eval's
+    ``--device_metrics``) instead of per image on the host."""
 
-    def __init__(self, metrics, delimeter='-'):
+    def __init__(self, metrics, delimeter='-', device=None):
         self.metrics = metrics
         self.delimeter = delimeter
+        self.device = torch.device('cuda') if device is True \
+            else torch.device(device) if device else None
 
-    def run_image_metric(self, metric, im_a, im_ref, max_value=1):
-        """Per-image values of ``metric`` over a batch."""
-        if im_a.ndim == 3:
-            im_a, im_ref = im_a[None], im_ref[None]
+    def _device_metric(self, metric, im_a, im_ref, max_value):
+        a = torch.as_tensor(np.ascontiguousarray(im_a[..., 0]), dtype=torch.float32,
+                            device=self.device)
+        b = torch.as_tensor(np.ascontiguousarray(im_ref[..., 0]), dtype=torch.float32,
+                            device=self.device)
+        fn = psnr_nhw if metric == 'PSNR' else ssim_nhw
+        return [float(v) for v in fn(a, b, float(max_value)).cpu()]
+
+    def run_image_metric(self, metric, im_a, im_ref=None, single_values=False, max_value=1,
+                         multichannel=False):
+        """``metric`` of a batch against its references: per image with
+        ``single_values``; else one value for the batch (``multichannel``: over all
+        channels)."""
+        if len(im_a.shape) == 3:
+            im_a = np.expand_dims(im_a, axis=0)
+        if im_ref is not None and len(im_ref.shape) == 3:
+            im_ref = np.expand_dims(im_ref, axis=0)
+        if metric == 'FACE_SIM':
+            raise NotImplementedError('The FACE_SIM metric is not ported to sisr_tpu_torch '
+                                      'yet (ROADMAP.md, Queue 1 item 10).')
+        if metric not in ('PSNR', 'SSIM'):
+            raise ValueError('Unknown metric %s' % metric)
+        if im_ref is None:
+            raise ValueError('Need a reference to calculate %s.' % metric)
+        if self.device is not None and single_values and not multichannel:
+            return self._device_metric(metric, im_a, im_ref, max_value)
         if metric == 'PSNR':
-            return [psnr(im_a[i, :, :, 0], im_ref[i, :, :, 0], max_value=max_value)
-                    for i in range(im_a.shape[0])]
-        if metric == 'SSIM':
+            if single_values:
+                return [psnr(im_a[i, :, :, 0], im_ref[i, :, :, 0], max_value=max_value)
+                        for i in range(im_a.shape[0])]
+            if multichannel:
+                return psnr(im_a, im_ref, max_value=max_value)
+            return psnr(im_a[:, :, :, 0], im_ref[:, :, :, 0], max_value=max_value)
+        if multichannel:
+            vals = [structural_similarity(im_a[i], im_ref[i], data_range=max_value,
+                                          multichannel=True) for i in range(im_a.shape[0])]
+            return sum(vals) / len(vals)
+        if single_values:
             return [structural_similarity(im_a[i, :, :, 0], im_ref[i, :, :, 0],
                                           data_range=max_value)
                     for i in range(im_a.shape[0])]
-        raise ValueError('Unknown metric %s' % metric)
+        # the batch as the channel axis, as the reference's (H, W, N) call
+        return structural_similarity(np.moveaxis(im_a[:, :, :, 0], 0, -1),
+                                     np.moveaxis(im_ref[:, :, :, 0], 0, -1),
+                                     data_range=max_value, multichannel=True)
 
-    def run_metrics(self, images, references, key='', max_value=1):
-        """Run every metric over a batch (ref: metrics.py:92-121)."""
+    def run_metrics(self, images, references=None, key='', metrics=None, probe_names=None,
+                    max_value=1):
+        """Every metric of ``metrics`` (default: the hub's) per image of a batch (ref:
+        metrics.py:92-121): ({'key<delim>metric': values}, a 'key PSNR: mean, '
+        diagnostic string).  ``probe_names`` name the images, as the reference's
+        signature has them."""
+        if metrics is None:
+            metrics = self.metrics
         diag_string = ''
         output = defaultdict(list)
-        for metric in self.metrics:
-            value = self.run_image_metric(metric, images, references, max_value=max_value)
+        for metric in metrics:
+            value = self.run_image_metric(metric, images, references, max_value=max_value,
+                                          single_values=True)
             output['%s%s%s' % (key, self.delimeter, metric)] = value
             if metric.upper() == 'PSNR':
                 diag_string = '{} {}: {:.4f}, '.format(key, metric, np.average(value))

@@ -2,14 +2,17 @@
 ``training/handler.py``, ref: Code/SISR/training/training_handler.py:25-323).
 
 Each epoch trains over the shuffled training loader (batches on their way to the card
-while the current step runs), then runs the fused validation epoch (forward, loss, Y
-PSNR/SSIM on the device, one (K, N) matrix per batch), writes summary.csv, the loss
-plots and the first validation batch's SR images, and saves a checkpoint.  Resume
-(``continue_from_epoch``) and branching (``new_branch``) continue from a saved epoch;
-early stopping watches the validation PSNR; ``epoch_cutoff`` fixes the last epoch.
+while the current step runs), then runs the validation epoch, writes summary.csv, the
+loss plots and the first validation batch's SR images, and saves a checkpoint.  The
+validation epoch is the standard one (sisr_tpu's default: each batch's SR image and
+loss from the card, host PSNR/SSIM on the Y channel) or, with ``fused_val = true``
+where it serves (no bucketed eval, metrics within PSNR/SSIM at ``max_im_val`` 1), the
+fused one (forward, loss, Y PSNR/SSIM on the device, one (K, N) matrix per batch).
+Resume (``continue_from_epoch``) and branching (``new_branch``) continue from a saved
+epoch; early stopping watches the validation PSNR; ``epoch_cutoff`` fixes the last
+epoch.
 
-Not ported, and raising NotImplementedError: the standard (host-metric) validation
-path (so a run needs ``fused_val = true``), ``aim_track`` and
+Not ported, and raising NotImplementedError: ``aim_track`` and
 ``model_cleanup_frequency``.
 """
 from collections import defaultdict
@@ -28,11 +31,12 @@ from ..configuration import constants as sconst
 from ..data.loader import device_prefetch
 from ..data.setup import sisr_data_setup
 from ..models.interface import ModelInterface
+from ..ops.metrics import Metrics
 from ..tools.stats import legacy_load_statistics, plot_stats, save_statistics
 from ..tools.visualization import safe_image_save
 from ..utils.helpers import create_dir_if_empty, training_device
 
-_FUSED_METRICS = ('PSNR', 'SSIM')
+_FUSED_METRICS = {'PSNR', 'SSIM'}
 
 
 def _not_ported(what, item, reason=''):
@@ -55,18 +59,17 @@ class TrainingHandler:
         sisr_tpu's ``steps_per_dispatch`` (K steps in one device dispatch) falls into
         ``kwargs``: here every step is its own dispatch, and K steps in a row are
         the same K steps."""
-        if not fused_val:
-            raise _not_ported('The standard (host-metric) validation epoch', 6,
-                              ': set fused_val = true in [training]')
         if aim_track:
             raise _not_ported('aim_track (tools/tracker.py)', 10)
         if model_cleanup_frequency is not None:
             raise _not_ported('model_cleanup_frequency (tools/helper_cli.py clean_models)',
                               10)
         self.metrics = tuple(metrics or ())
-        if not set(self.metrics) <= set(_FUSED_METRICS) or float(max_im_val) != 1.0:
-            raise _not_ported('Validation metrics other than PSNR/SSIM at max_im_val 1 '
-                              '(%s, %s)' % (list(self.metrics), max_im_val), 6)
+        # an unknown metric fails in the validation epoch, as in sisr_tpu
+        self.metric_hub = Metrics(metrics) if metrics is not None else None
+        self.max_im_val = max_im_val
+        self.fused_val = bool(fused_val)
+        self._fused_val_warned = False
         device = training_device(gpu, sp_gpu)
         self.experiment_name = experiment_name
         self.num_epochs = num_epochs
@@ -147,6 +150,69 @@ class TrainingHandler:
             drain(force=True)
         current_epoch_losses['learning-rate'].append(self.model.get_learning_rate())
         self.model.epoch_end_calls()
+        return current_epoch_losses
+
+    def _use_fused_val(self):
+        """Whether the fused validation epoch serves this run (ref:
+        training/handler.py:252-265): ``fused_val``, a handler with a fused path, an RGB
+        model and metrics within PSNR/SSIM at max_im_val 1; otherwise the standard
+        epoch, with one notice."""
+        if not self.fused_val:
+            return False
+        ok = (self.handler.supports_fused_eval()
+              and 'rgb' in self.model.configuration['colorspace']
+              and float(self.max_im_val) == 1.0 and set(self.metrics) <= _FUSED_METRICS)
+        if not ok and not self._fused_val_warned:
+            print('fused_val: unsupported for this model/metric set — using the '
+                  'standard validation path.')
+            self._fused_val_warned = True
+        return ok
+
+    def eval(self, epoch_idx):
+        """One validation epoch (ref: training_handler.py:179-224): the fused one where
+        it serves, else the standard one."""
+        if self._use_fused_val():
+            return self._fused_eval_epoch(epoch_idx)
+        return self._standard_eval_epoch(epoch_idx)
+
+    def _standard_eval_epoch(self, epoch_idx):
+        """The standard validation epoch (ref: sisr_tpu training/handler.py:347-384):
+        per batch the SR image and the loss from the card
+        (``ModelInterface.net_run_and_process``), the metrics of its Y channel against
+        HR's on the host at ``max_im_val``, and the first batch's SR images as the
+        epoch's samples."""
+        for ds in getattr(self.val_data.dataset, 'datasets', [self.val_data.dataset]):
+            ds.keep_uint8 = False
+        current_epoch_losses = defaultdict(list)
+        metric_package = {}
+        with tqdm.tqdm(total=len(self.val_data)) as pbar_val:
+            for index, batch in enumerate(self.val_data):
+                y, im_names = batch['hr'], batch['tag']
+                rgb_out, ycbcr_out, loss, _ = self.model.net_run_and_process(
+                    **batch, request_loss=True)
+                if 'rgb' in self.model.configuration['colorspace']:
+                    y_proc = self.model.colorspace_convert(y, colorspace='rgb')
+                else:
+                    y_proc = self.model._standard_image_formatting(np.asarray(y))
+                current_epoch_losses['val-loss'].append(loss)
+                if self.metric_hub is not None:
+                    metric_package, _ = self.metric_hub.run_metrics(
+                        ycbcr_out, references=y_proc, max_value=self.max_im_val, key='val',
+                        probe_names=[n.split('.')[0] for n in im_names])
+                    for metric, result in metric_package.items():
+                        current_epoch_losses[metric].extend(result)
+                if index == 0 and self.save_samples:
+                    folder = os.path.join(self.model.logs, 'epoch_%d_samples' % epoch_idx)
+                    create_dir_if_empty(folder)
+                    safe_image_save(rgb_out, folder,
+                                    [name.replace(os.sep, '_') for name in im_names],
+                                    config='rgb')
+                pbar_val.update(1)
+                diag_string = 'loss: {:.4f}, '.format(loss)
+                for metric in metric_package.keys():
+                    diag_string += '{}: {:.4f}, '.format(metric,
+                                                         np.mean(metric_package[metric]))
+                pbar_val.set_description(diag_string[:-2])
         return current_epoch_losses
 
     def _fused_eval_epoch(self, epoch_idx):
@@ -241,7 +307,7 @@ class TrainingHandler:
             print('Training Run:')
             training_loss = self.train()
             print('Validation Run:')
-            eval_loss = self._fused_eval_epoch(epoch_idx)
+            eval_loss = self.eval(epoch_idx)
             current_epoch_losses = {**training_loss, **eval_loss}
 
             if 'val-PSNR' in current_epoch_losses:

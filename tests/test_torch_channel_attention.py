@@ -424,9 +424,10 @@ def test_calayer_passes_a_contiguous_nhwc_view(monkeypatch):
     copy), with conv_du's weights as (C, Cr) / (Cr, C)."""
     seen = {}
 
-    def spy(x, w1, b1, w2, b2):
+    def spy(x, w1, b1, w2, b2, valid_hw=None):
         seen.update(contiguous=x.is_contiguous(), shape=tuple(x.shape),
-                    w1=tuple(w1.shape), w2=tuple(w2.shape), ptr=x.data_ptr())
+                    w1=tuple(w1.shape), w2=tuple(w2.shape), ptr=x.data_ptr(),
+                    valid_hw=valid_hw)
         return ca.reference_channel_attention(x, w1, b1, w2, b2)
 
     monkeypatch.setattr(blocks, 'fused_channel_attention', spy)
@@ -434,7 +435,7 @@ def test_calayer_passes_a_contiguous_nhwc_view(monkeypatch):
     x = torch.rand(2, 32, 6, 5).contiguous(memory_format=torch.channels_last)
     out = layer(x)
     assert seen == {'contiguous': True, 'shape': (2, 6, 5, 32), 'w1': (32, 8),
-                    'w2': (8, 32), 'ptr': x.data_ptr()}
+                    'w2': (8, 32), 'ptr': x.data_ptr(), 'valid_hw': None}
     assert out.shape == x.shape
     assert out.is_contiguous(memory_format=torch.channels_last)
 

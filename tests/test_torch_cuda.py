@@ -1,7 +1,8 @@
 """sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel (with and
 without Q-RCAN's meta and gate) on each of its routes (on chip, in rounds, three
 passes) and the CA + residual block-tail kernel (also with meta, gate and the
-cast-first rounding of int8 Q-RCAN's tail) against their plain versions, the rounds
+cast-first rounding of int8 Q-RCAN's tail) against their plain versions, the CA's
+valid-extent pool (bucketed eval) on each route and its refusals, the rounds
 route against three passes, the int8 conv's int32 sums against an int64 reference,
 a small RCAN (f32, and int8), Q-RCAN and EDSR on the card against the CPU, the int8
 programs of EDSR (three carries), Q-RCAN and Q-EDSR card against CPU, and the CA
@@ -119,6 +120,67 @@ def test_kernel_with_meta_and_gate_matches_plain_version(shape, red, dtype, path
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     else:
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+
+
+@pytest.mark.parametrize('shape,valid,dtype,path', [
+    ((1, 384, 512, 64), (339, 510), torch.bfloat16, 'onchip'),      # a DIV2K bucket
+    ((1, 384, 512, 64), (339, 510), torch.float32, 'three_pass'),
+    ((8, 128, 128, 64), (100, 120), torch.float32, 'rounds'),
+    ((7, 128, 128, 64), (128, 1), torch.float32, 'rounds'),         # a ragged round
+    ((3, 37, 29, 64), (1, 29), torch.bfloat16, 'onchip'),
+    ((1, 7, 5, 20), (4, 3), torch.bfloat16, 'three_pass'),          # 40-byte pixels
+])
+@pytest.mark.parametrize('m,with_gate', [(0, False), (10, True)])
+def test_masked_kernel_matches_plain_version(shape, valid, dtype, path, m, with_gate):
+    """The valid-extent pool on each route (bucketed eval): the pad holds garbage the
+    pool must skip; the kernel against the plain version with the same extent, every
+    launch given an extent counted; the full extent bit-equal to no extent."""
+    args, extra = _meta_gate_inputs(shape, 16 if shape[-1] == 64 else 4, dtype, m,
+                                    with_gate, seed=8)
+    x = args[0].clone()
+    x[:, valid[0]:] += 3
+    x[:, :, valid[1]:] += 3
+    args = (x,) + args[1:]
+    before, masked = _ca_route_counts(), ca.fused_channel_attention.masked_launches
+    with torch.inference_mode():
+        out = ca.fused_channel_attention(*args, valid_hw=valid, **extra)
+        again = ca.fused_channel_attention(*args, valid_hw=valid, **extra)
+        full = ca.fused_channel_attention(*args, valid_hw=shape[1:3], **extra)
+        bare = ca.fused_channel_attention(*args, **extra)
+        torch.cuda.synchronize()
+        ref = ca.reference_channel_attention(*args, valid_hw=valid, **extra)
+    assert _ca_route_took(before) == tuple(2 * k for k in ROUTE_LAUNCHES[path])
+    assert ca.fused_channel_attention.masked_launches == masked + 3
+    assert torch.equal(out, again) and torch.equal(full, bare)
+    assert not torch.equal(out, bare)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+
+
+def test_c_entries_refuse_bad_extents():
+    """Each CA entry refuses an extent of 0 or past the map (the wrapper checks first;
+    the private launchers reach the C entries directly)."""
+    args, _ = _meta_gate_inputs((2, 16, 8, 32), 4, torch.float32, 0, False, seed=9)
+    props = torch.cuda.get_device_properties(0)
+    plan = ca.onchip_plan(2, 128, 32, 8, 4, True, props.multi_processor_count,
+                          props.shared_memory_per_block_optin)
+    rounds = ca.res_onchip_plan(2, 128, 32, 8, 4, 0, True, props.multi_processor_count,
+                                props.shared_memory_per_block_optin)
+    launchers = (lambda v: ca._onchip(*args, plan, valid_hw=v),
+                 lambda v: ca._rounds(args[0], None, *args[1:], torch.empty_like(args[0]),
+                                      rounds, valid_hw=v),
+                 lambda v: ca._three_pass(*args, valid_hw=v))
+    with torch.inference_mode():
+        for launch in launchers:
+            launch((16, 8))
+            for bad in ((0, 8), (16, 0), (17, 8), (16, 9)):
+                with pytest.raises(RuntimeError, match='CUDA error'):
+                    launch(bad)
+        for bad in ((0, 8), (17, 8)):
+            with pytest.raises(ValueError, match='valid extent'):
+                ca.fused_channel_attention(*args, valid_hw=bad)
 
 
 def test_onchip_smem_must_equal_the_cu_layout():

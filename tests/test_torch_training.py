@@ -465,11 +465,26 @@ def test_training_device_and_unported_handler_options(tmp_path):
     params = {'name': 'rcan', 'internal_params': {'scale': 2, **MODELS['rcan'][1]}}
     base = dict(experiment_name='x', save_loc=str(tmp_path), model_params=params,
                 gpu='off', data_params={}, num_epochs=1, fused_val=True)
-    for option, match in (({'fused_val': False}, 'item 6'), ({'aim_track': True}, 'item 10'),
-                          ({'model_cleanup_frequency': 2}, 'item 10'),
-                          ({'metrics': ['LPIPS']}, 'item 6')):
+    for option, match in (({'aim_track': True}, 'item 10'),
+                          ({'model_cleanup_frequency': 2}, 'item 10')):
         with pytest.raises(NotImplementedError, match=match):
             TrainingHandler(**{**base, **option})
+    # the standard validation epoch and other metrics are ported: fused_val = false
+    # runs, and an unknown metric fails in the validation epoch, as in sisr_tpu
+    lr_dir, hr_dir = build_workload(str(tmp_path / 'data'), 2, lr_size=8, scale=2)
+    data = {'batch_size': 1, 'dataloader_threads': 1,
+            'training_sets': {'d': {'lr': lr_dir, 'hr': hr_dir}},
+            'eval_sets': {'d': {'lr': lr_dir, 'hr': hr_dir, 'cutoff': 2}}}
+    for option, runs in (({'fused_val': False, 'metrics': ['PSNR']}, True),
+                         ({'metrics': ['LPIPS']}, False)):
+        handler = TrainingHandler(**{**base, 'data_params': data, 'save_samples': False,
+                                     'logging': 'none', **option})
+        assert not handler._use_fused_val()
+        if runs:
+            assert len(handler.eval(0)['val-PSNR']) == 2
+        else:
+            with pytest.raises(ValueError, match='Unknown metric LPIPS'):
+                handler.eval(0)
     with pytest.raises(NotImplementedError, match='dtype'):
         ModelInterface(str(tmp_path), 'y', device='cpu', mode='train',
                        new_params={'name': 'rcan', 'internal_params': {
