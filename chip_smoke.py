@@ -11,15 +11,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
    gate, on both paths, timed beside the meta-less call): ``ms`` per call replayed from a CUDA
    graph (device time with launch gaps, no host), ``host_ms`` per call back to back
    from Python, ``device_ms`` the profiler's sum of its kernels.  The CA kernel in
-   bf16 and f32, on each of its three routes (on chip, in rounds, three passes; which
-   route each shape took is checked against the plan), with the on-chip and
-   three-pass kernels timed in turns at the main shape, the rounds route against
-   three passes at int8 Q-RCAN's f32 map (with meta and gate, and without), and the
-   three-pass kernel at a shape that takes it; the CA + residual kernel with x f32
-   and r bf16 or f32, on both of its paths in the same way (on chip in rounds of
-   images, or three passes), also with meta, gate and the cast-first rounding of int8
-   Q-RCAN's QRCAB tail, that one-launch tail timed in turns against the three-pass
-   CA, cast and add it replaces;
+   bf16 and f32, on each of its four routes (on chip, in rounds, streaming one image
+   a round, three passes; which route each shape took is checked against the plan),
+   with the on-chip and three-pass kernels timed in turns at the main shape, the
+   rounds route against three passes at int8 Q-RCAN's f32 map (with meta and gate,
+   and without), and the three passes also at the DIV2K shapes of the stream route
+   below; the CA + residual kernel with x f32 and r bf16 or f32, on its three paths
+   in the same way (in rounds of images, streaming, or three passes), also with meta,
+   gate and the cast-first rounding of int8 Q-RCAN's QRCAB tail, that one-launch tail
+   timed in turns against the three-pass CA, cast and add it replaces; then the
+   stream route of both ops at DIV2K size (1, 339, 510, 64) and its 512 x 384 bucket,
+   f32, in every mode (the CA bare, with the gate, meta + gate and a valid extent; the
+   tail with r bf16 and f32, plain and cast first), timed in turns against its three
+   passes; and the on-chip
+   CA at the standard protocol's batch-1 bf16 maps (128^2, the largest Set14 LR
+   shape, 510 x 339) against its bound, with its launches there as each
+   standard-protocol run counts them by map;
 3. reference: the full-width RCAN, Q-RCAN and EDSR forwards and fused evals on a
    small input, card (CUDA kernels) against the CPU (plain versions), in f32;
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
@@ -75,13 +82,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    route against each image's plan, the 16 shared pairs against the fused protocol's
    metrics, img/s and the host time split; then ``--eval_buckets 128`` (every CA call
    given its extent, metrics against the unbucketed run), ``--int8`` (the CA +
-   residual's three passes on the 2040-wide image, timed there), ``--model_only``;
+   residual's stream route on the 2040-wide image, timed there against its three
+   passes), ``--model_only``; then ``--model_only`` of Q-RCAN as configs/div2k/qrcan.toml
+   builds it (f32, standard style with a q_node: the CA with a gate), the 510 x 339
+   image's CA calls streaming, its SR output against the plain CA's forward;
 14. train_sisr on configs/div2k/qrcan.toml as shipped (no fused_val: the standard
    validation epoch), its val-PSNR against a fused validation of the same checkpoint;
 
 then the script's total seconds, the ``kernels`` table (a row for each route of each
-TPU kernel: the CA on chip, in rounds and in three passes, the CA + residual in rounds
-and in three passes), the card's name and power limit, and a last line
+TPU kernel: the CA on chip, in three passes, in rounds and streaming, the CA + residual
+in rounds, in three passes and streaming), the card's name and power limit, and a last
+line
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout, so
 f32 comparisons are true f32, except where phase 4 turns it on to show calibration
 turns it off for itself, and in phases 11 and 14, which train with PyTorch's default
@@ -287,6 +298,7 @@ SET14_HR = {'baboon': (500, 480), 'barbara': (720, 576), 'bridge': (512, 512),
             'man': (512, 512), 'monarch': (768, 512), 'pepper': (512, 512),
             'ppt3': (528, 656), 'zebra': (584, 388)}
 DIV2K_HR = {'div2k_0801': (2040, 1356)}
+DIV2K_LR = (1356 // SCALE, 2040 // SCALE)  # (h, w) of its LR map
 
 
 def write_mixed_workload(dirs, root):
@@ -365,15 +377,18 @@ def ca_inputs(shape, dtype, reduction, gen):
 ONCHIP_KEYS = ('blocks_per_image', 'slab_pixels', 'smem_bytes')
 ROUNDS_KEYS = ('rounds', 'images_per_round', 'blocks_per_image', 'slab_pixels',
                'smem_bytes')
+STREAM_KEYS = ('rounds', 'blocks_per_image', 'slab_pixels', 'head_pixels', 'smem_bytes')
 
 
 def path_run(op, args, **kwargs):
     """``op`` (fused_channel_attention or fused_channel_attention_residual) twice on
     ``args``: the output, the repeat, and the route both calls took by the op's route
     counts: 'onchip' (the CA's ca_onchip, or the CA + residual's rounds route, which
-    its onchip_launches count), 'rounds' (the CA's rounds route) or 'three_pass'."""
+    its onchip_launches count), 'rounds' (the CA's rounds route), 'stream' or
+    'three_pass'."""
     import torch
-    counters = [c for c in ('onchip_launches', 'rounds_launches') if hasattr(op, c)]
+    counters = [c for c in ('onchip_launches', 'rounds_launches', 'stream_launches')
+                if hasattr(op, c)]
     before = [getattr(op, c) for c in counters]
     out = op(*args, **kwargs)
     again = op(*args, **kwargs)
@@ -397,18 +412,36 @@ def planned_ca_route(shape, cr, itemsize, m=0):
     if route == 'three_pass':
         return route, dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
             n, h * w, c, itemsize, True, props.multi_processor_count)))
-    return route, dict(zip(ONCHIP_KEYS if route == 'onchip' else ROUNDS_KEYS, plan))
+    keys = {'onchip': ONCHIP_KEYS, 'rounds': ROUNDS_KEYS, 'stream': STREAM_KEYS}[route]
+    return route, dict(zip(keys, plan))
+
+
+def planned_res_route(shape, cr, x_itemsize, r_itemsize, aligned=True, m=0):
+    """(route as path_run names it, plan as a dict) that ca_res_plan gives the CA +
+    residual on this card: 'onchip' (its rounds route), 'stream' or 'three_pass'."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    props = torch.cuda.get_device_properties(0)
+    n, h, w, c = shape
+    route, plan = ca.ca_res_plan(n, h * w, c, cr, x_itemsize, r_itemsize, aligned,
+                                 props.multi_processor_count,
+                                 props.shared_memory_per_block_optin, m=m)
+    if route == 'rounds':
+        return 'onchip', dict(zip(ROUNDS_KEYS, plan))
+    if route == 'stream':
+        return route, dict(zip(STREAM_KEYS, plan))
+    return route, dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
+        n, h * w, c, x_itemsize, aligned, props.multi_processor_count)))
 
 
 def phase_kernel():
     """fused_channel_attention against reference_channel_attention, on each route.
-    Each shape's route is the one ca_plan gives for this card, and all three routes
+    Each shape's route is the one ca_plan gives for this card, and all four routes
     are taken.  Tolerances: f32 1e-5 abs (summation order only); bf16 2 bf16 ULPs of
     the output (rtol 1.6e-2), since the summation order can flip how att rounds to
     bf16.  At the main shape (on chip) the on-chip kernel is timed against the
-    three-pass kernel (its private launcher) in turns; the three-pass path is also
-    timed at one 512^2 map, a shape that takes it (the rounds route in
-    phase_kernel_meta)."""
+    three-pass kernel (its private launcher) in turns (the rounds route in
+    phase_kernel_meta, the stream route in phase_kernel_stream)."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     gen = torch.Generator().manual_seed(0)
@@ -439,20 +472,9 @@ def phase_kernel():
                                          % (shape, dtype, path, planned, plan))
                 checks.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
                                'path': path, 'max_abs_err': err, **plan})
-        if {c['path'] for c in checks} != {'onchip', 'rounds', 'three_pass'}:
-            raise AssertionError('the shapes did not take all three routes')
+        if {c['path'] for c in checks} != {'onchip', 'rounds', 'stream', 'three_pass'}:
+            raise AssertionError('the shapes did not take all four routes')
 
-        three_pass_shapes = []
-        for shape, dtype in (((1, 512, 512, 64), torch.bfloat16),):
-            args = ca_inputs(shape, dtype, 16, gen)
-            if path_run(ca.fused_channel_attention, args)[2] != 'three_pass':
-                raise AssertionError('%s %s is not on the three-pass path' % (shape, dtype))
-            kern = lambda args=args: ca.fused_channel_attention(*args)
-            plain = lambda args=args: ca.reference_channel_attention(*args)
-            timing = {'plain_ms': graph_ms(plain), 'ms': graph_ms(kern)}
-            timing['ms'], timing['plain_ms'] = graph_ms(kern), graph_ms(plain)
-            three_pass_shapes.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
-                                      'bound_ms': ca_bound(args[0], args[1])[2], **timing})
 
         x, w1, b1, w2, b2 = ca_inputs((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 16,
                                       gen)
@@ -478,8 +500,8 @@ def phase_kernel():
           'main_shape': list(x.shape), 'dtype': 'bfloat16', 'path': path,
           'max_abs_err': err, 'three_pass_max_abs_err': three_pass_err,
           'bound_ms': bound_ms, 'bound_us': bound_ms * 1e3, 'bytes': bytes_moved, 'ops': ops,
-          'device_kernels_ms_per_20_calls': kern_detail, 'three_pass_shapes': three_pass_shapes,
-          'nvidia_smi': nvidia_smi_line(), **timing})
+          'device_kernels_ms_per_20_calls': kern_detail, 'nvidia_smi': nvidia_smi_line(),
+          **timing})
     return {'max_abs_err': err, 'bound_ms': bound_ms, 'path': path, 'plan': plan, **timing}
 
 
@@ -498,19 +520,19 @@ def res_bound(x, r, w1):
 
 def phase_kernel_residual():
     """fused_channel_attention_residual against reference_channel_attention_residual,
-    on both paths: x f32 (the dequantised conv output) with r bf16 (the main path) or
+    on its three paths: x f32 (the dequantised conv output) with r bf16 (the main path) or
     f32, at the main-path shape, 7 images (a ragged last round), (3, 37, 29, 64)
     (ragged slabs), a 512^2 map, C = 18 and 20 (C = 18 takes one element a thread; C
     = 20 with r bf16 has 40-byte pixels of r, three passes) and an odd H x W; then
-    with Q-RCAN's meta (M = 10) and gate, cast first and not, on both paths (the main
+    with Q-RCAN's meta (M = 10) and gate, cast first and not, on each path (the main
     shape with r bf16 and f32, 7 images, a 512^2 map, a misaligned r).  Each case's
-    path is the one res_onchip_plan gives for this card, and both paths are taken.
+    path is the one ca_res_plan gives for this card (the 512^2 map streams), and all
+    three paths are taken.
     Tolerances: f32 out 1e-5 abs (summation order only); bf16 out 2 bf16 ULPs (rtol
     1.6e-2) of the output or, cast first, of the bf16 branch, since the pool's
     summation order can flip a rounding.  At the main shape (on chip) the on-chip
-    kernel is timed against the three-pass kernel (its private launcher) in turns; the
-    three-pass path is also timed at the 512^2 map, a shape that takes it; and int8
-    Q-RCAN's one-launch QRCAB tail (x f32, r bf16, meta and gate, cast first) in turns
+    kernel is timed against the three-pass kernel (its private launcher) in turns; and
+    int8 Q-RCAN's one-launch QRCAB tail (x f32, r bf16, meta and gate, cast first) in turns
     against the sequence it replaces: the three-pass CA with meta and gate, then
     ``.to(bf16)``, then ``+ r``."""
     import torch
@@ -534,13 +556,10 @@ def phase_kernel_residual():
 
     def plan_of(args, out, m=0):
         x, r, w1 = args[:3]
+        if ca.res_onchip_aligned(x, r, out):
+            return planned_res_route(x.shape, w1.shape[1], x.element_size(),
+                                     r.element_size(), m=m)
         n, h, w, c = x.shape
-        plan = ca.res_onchip_plan(n, h * w, c, w1.shape[1], x.element_size(),
-                                  r.element_size(), ca.res_onchip_aligned(x, r, out),
-                                  props.multi_processor_count,
-                                  props.shared_memory_per_block_optin, m=m)
-        if plan is not None:
-            return 'onchip', dict(zip(ROUNDS_KEYS, plan))
         return 'three_pass', dict(zip(('vectorized', 'slabs_per_image'), ca.launch_plan(
             n, h * w, c, x.element_size(), ca.residual_aligned(x, r, out),
             props.multi_processor_count)))
@@ -584,8 +603,8 @@ def phase_kernel_residual():
                            'r_dtype': str(r_dtype).split('.')[-1], 'path': path,
                            'max_abs_err': (out.float() - ref.float()).abs().max().item(),
                            **plan})
-        if {c['path'] for c in checks} != {'onchip', 'three_pass'}:
-            raise AssertionError('the CA + residual cases did not take both paths')
+        if {c['path'] for c in checks} != {'onchip', 'stream', 'three_pass'}:
+            raise AssertionError('the CA + residual cases did not take all three paths')
 
         tail_checks = []
         for shape, r_dtype, offset, cast_first in (
@@ -611,8 +630,8 @@ def phase_kernel_residual():
                                 'meta_values': META_COLS, 'gate': True, 'path': path,
                                 'max_abs_err': (out.float() - ref.float()).abs().max().item(),
                                 **plan})
-        if {c['path'] for c in tail_checks} != {'onchip', 'three_pass'}:
-            raise AssertionError('the meta/gate tail cases did not take both paths')
+        if {c['path'] for c in tail_checks} != {'onchip', 'stream', 'three_pass'}:
+            raise AssertionError('the meta/gate tail cases did not take all three paths')
 
         # int8 Q-RCAN's QRCAB tail: one launch against the three-pass CA, cast and add
         (x, r, w1, b1, w2, b2), extra = tail_inputs(main_shape, torch.bfloat16)
@@ -642,17 +661,6 @@ def phase_kernel_residual():
             'bound_ms': max(tail_bytes / HBM_BYTES_PER_S, tail_ops / F32_CUDA_CORE_FLOPS) * 1e3})
         tail_timing['tail_over_sequence'] = tail_timing['ms'] / tail_timing['sequence_ms']
 
-        args = inputs((1, 512, 512, 64), 16, torch.bfloat16)
-        if path_run(op, args)[2] != 'three_pass':
-            raise AssertionError('(1, 512, 512, 64) is not on the three-pass path')
-        kern = lambda: op(*args)
-        plain = lambda: ca.reference_channel_attention_residual(*args)
-        timing = {'plain_ms': graph_ms(plain), 'ms': graph_ms(kern)}
-        timing['ms'], timing['plain_ms'] = graph_ms(kern), graph_ms(plain)
-        three_pass_shapes = [{'shape': [1, 512, 512, 64], 'x_dtype': 'float32',
-                              'r_dtype': 'bfloat16', 'bound_ms': res_bound(*args[:3])[2],
-                              **timing}]
-
         x, r, w1, b1, w2, b2 = inputs(main_shape, 16, torch.bfloat16)
         out, _, path = path_run(op, (x, r, w1, b1, w2, b2))
         if path != 'onchip':
@@ -675,8 +683,7 @@ def phase_kernel_residual():
           'three_pass_max_abs_err': three_pass_err, 'bound_ms': bound_ms,
           'bound_us': bound_ms * 1e3, 'bytes': bytes_moved, 'ops': ops,
           'onchip_over_three_pass': timing['ms'] / timing['three_pass_ms'],
-          'device_kernels_ms_per_20_calls': kern_detail,
-          'three_pass_shapes': three_pass_shapes, 'meta_gate_checks': tail_checks,
+          'device_kernels_ms_per_20_calls': kern_detail, 'meta_gate_checks': tail_checks,
           'qrcab_tail': tail_timing, 'nvidia_smi': nvidia_smi_line(), **timing})
     return {'max_abs_err': err, 'three_pass_max_abs_err': three_pass_err,
             'bound_ms': bound_ms, 'path': path, 'plan': plan, 'qrcab_tail': tail_timing,
@@ -701,11 +708,11 @@ def phase_kernel_meta():
     """fused_channel_attention with meta (M = 10: w1 is 74 x 4 at C = 64) and gate
     against reference_channel_attention with the same, on each route: the main shape
     in bf16 (on chip, as the Q-RCAN main path takes it), in f32 (in rounds: the map of
-    int8 Q-RCAN's QRCAB tail and of the f32 eval) and one 512^2 bf16 map (three
-    passes).  Tolerances as phase_kernel's: f32 1e-5 abs, bf16 2 ULPs; the same bits
-    on a rerun.  Each is timed in graph replay beside the meta-less call on the same x
-    and the first C rows of w1, in turns (meta-less, meta, meta, meta-less), and
-    beside its plain version; the f32 case also against the three passes (its private
+    int8 Q-RCAN's QRCAB tail and of the f32 eval) and one 512^2 bf16 map (streaming).
+    Tolerances as phase_kernel's: f32 1e-5 abs, bf16 2 ULPs; the same bits on a rerun.
+    Each is timed in graph replay beside the meta-less call on the same x and the
+    first C rows of w1, in turns (meta-less, meta, meta, meta-less), and beside its
+    plain version; the f32 case also against the three passes (its private
     launcher) with and without meta, in turns, each with its bound.  Returns the
     cases' results."""
     import torch
@@ -714,7 +721,7 @@ def phase_kernel_meta():
     gen = torch.Generator().manual_seed(4)
     cases = [((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 'onchip'),
              ((BATCH, LR_SIZE, LR_SIZE, 64), torch.float32, 'rounds'),
-             ((1, 512, 512, 64), torch.bfloat16, 'three_pass')]
+             ((1, 512, 512, 64), torch.bfloat16, 'stream')]
     results = []
     with torch.inference_mode():
         for shape, dtype, expect in cases:
@@ -768,11 +775,13 @@ def phase_kernel_meta():
 
 
 # the CA op's valid-extent pool (bucketed eval), one case per route: the 512 x 384
-# bucket of a DIV2K-size 510 x 339 LR image in bf16 (on chip) and f32 (three passes),
-# and the f32 eval batch of 128^2 maps with a (100, 120) extent (in rounds)
+# bucket of a DIV2K-size 510 x 339 LR image in bf16 (on chip) and f32 (streaming),
+# the f32 eval batch of 128^2 maps with a (100, 120) extent (in rounds), and 40-byte
+# pixels (three passes)
 EXTENT_CASES = (((1, 384, 512, 64), (339, 510), 'bfloat16', 'onchip'),
-                ((1, 384, 512, 64), (339, 510), 'float32', 'three_pass'),
-                ((BATCH, LR_SIZE, LR_SIZE, 64), (100, 120), 'float32', 'rounds'))
+                ((1, 384, 512, 64), (339, 510), 'float32', 'stream'),
+                ((BATCH, LR_SIZE, LR_SIZE, 64), (100, 120), 'float32', 'rounds'),
+                ((1, 7, 5, 20), (4, 3), 'bfloat16', 'three_pass'))
 
 
 def phase_kernel_extent():
@@ -849,6 +858,171 @@ def phase_kernel_extent():
     emit({'phase': 'kernel', 'name': 'fused_channel_attention valid extent',
           'cases': results, 'nvidia_smi': nvidia_smi_line()})
     return results
+
+
+# the stream route's shapes, f32: a DIV2K validation image's LR map (x of the int8 RCAB
+# tail under --int8 and of the f32 Q-RCAN forward, in the standard protocol) and its
+# 512 x 384 bucket
+STREAM_SHAPES = ((1, 339, 510, 64), (1, 384, 512, 64))
+
+
+def phase_kernel_stream():
+    """The stream route (``ca_stream``) of both ops against their plain versions at
+    STREAM_SHAPES, x f32: the CA bare, with Q-RCAN's gate (the f32 recipe's standard
+    style with a q_node), with meta (M = 10) and gate, with a valid extent (bare and
+    with meta and gate); the CA + residual with r bf16 (int8 RCAN's tail) and f32,
+    plain, and cast first with meta and gate.  Every call on the stream route (the plan
+    and the launch counts), within 1e-5 abs (f32 out) or 2 bf16 ULPs (of the output,
+    or cast first of the bf16 branch), the same bits on a rerun and the full extent
+    bit-equal to none.  At each shape, in turns: the CA with the gate and the tail
+    with r bf16 against their three passes (private launchers; three-pass, stream,
+    stream, three-pass: the second turn of each is kept), beside their plain versions,
+    each with its bound.  Returns {'ca': [...], 'res': [...]}: the timings at each
+    shape, the first at (1, 339, 510, 64)."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    gen = torch.Generator().manual_seed(21)
+    checks, timings = [], {'ca': [], 'res': []}
+
+    def check(out, ref, r=None):
+        """f32 within 1e-5; bf16 within 2 ULPs of out or, given the cast-first tail's
+        r, of its bf16 branch (|branch| <= |out| + |r|)."""
+        if out.dtype == torch.float32:
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        elif r is None:
+            torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+        else:
+            err = (out.float() - ref.float()).abs()
+            if not bool((err <= 1.6e-2 * (ref.float().abs() + r.float().abs())
+                         + 1e-6).all()):
+                raise AssertionError('stream tail: max err %g' % err.max().item())
+
+    with torch.inference_mode():
+        for shape in STREAM_SHAPES:
+            (x, w1m, b1, w2, b2), mg = meta_gate_inputs(shape, torch.float32, gen)
+            x = (x - 0.5) * 4  # a conv output: signed
+            w1 = w1m[:shape[-1]]  # the CA without meta: the first C rows
+            gate = {'gate': mg['gate']}
+            valid = (shape[1] * 7 // 8, shape[2] * 5 // 6)  # edges mid-slab
+            r16 = torch.rand(shape, generator=gen).to(torch.bfloat16).cuda()
+            r32 = torch.rand(shape, generator=gen).cuda()
+            bare, with_meta = (x, w1, b1, w2, b2), (x, w1m, b1, w2, b2)
+            cases = [('ca', None, bare, {}), ('ca_gate', None, bare, gate),
+                     ('ca_meta_gate', None, with_meta, mg),
+                     ('ca_extent', None, bare, {'valid_hw': valid}),
+                     ('ca_extent_meta_gate', None, with_meta, {**mg, 'valid_hw': valid})]
+            for r, tag in ((r16, 'bf16'), (r32, 'f32')):
+                cases += [('res_' + tag, r, bare, {}),
+                          ('res_%s_meta_gate_cast_first' % tag, r, with_meta,
+                           {**mg, 'cast_first': True})]
+            for name, r, args, kw in cases:
+                m = META_COLS if 'meta' in kw else 0
+                if r is None:
+                    op, full_args = ca.fused_channel_attention, args
+                    planned, plan = planned_ca_route(shape, 4, 4, m=m)
+                    ref = ca.reference_channel_attention(*args, **kw)
+                else:
+                    op, full_args = ca.fused_channel_attention_residual, (x, r) + args[1:]
+                    planned, plan = planned_res_route(shape, 4, 4, r.element_size(), m=m)
+                    ref = ca.reference_channel_attention_residual(*full_args, **kw)
+                out, again, path = path_run(op, full_args, **kw)
+                if path != 'stream' or planned != 'stream':
+                    raise AssertionError('stream %s %s took %s (plan %s %s)'
+                                         % (name, shape, path, planned, plan))
+                check(out, ref, r if kw.get('cast_first') else None)
+                if not torch.equal(out, again):
+                    raise AssertionError('stream %s %s is not deterministic' % (name, shape))
+                if 'valid_hw' in kw:
+                    full = op(*full_args, **{**kw, 'valid_hw': shape[1:3]})
+                    if not torch.equal(full, op(*full_args, **{k: v for k, v in kw.items()
+                                                              if k != 'valid_hw'})):
+                        raise AssertionError('stream %s: the full extent differs from none'
+                                             % name)
+                checks.append({'shape': list(shape), 'case': name, 'path': path,
+                               'max_abs_err': (out.float() - ref.float()).abs().max().item(),
+                               **plan})
+
+            # in turns against the three passes
+            for key, r in (('ca', None), ('res', r16)):
+                if r is None:
+                    kern = lambda: ca.fused_channel_attention(*bare, **gate)
+                    three = lambda: ca._three_pass(*bare, **gate)
+                    plain = lambda: ca.reference_channel_attention(*bare, **gate)
+                    bytes_moved, ops, _ = ca_bound(x, w1)
+                    bytes_moved += 4 * x.shape[0] * x.shape[-1]  # the gate
+                    plan = planned_ca_route(shape, 4, 4)[1]
+                else:
+                    kern = lambda r=r: ca.fused_channel_attention_residual(x, r, *bare[1:])
+                    three = lambda r=r: ca._res_three_pass(x, r, *bare[1:])
+                    plain = lambda r=r: ca.reference_channel_attention_residual(x, r,
+                                                                                *bare[1:])
+                    bytes_moved, ops, _ = res_bound(x, r, w1)
+                    plan = planned_res_route(shape, 4, 4, 2)[1]
+                ref = plain()
+                three_out = three()
+                check(three_out, ref)
+                timing = {}
+                for name, fn in (('three_pass_ms', three), ('ms', kern), ('ms', kern),
+                                 ('three_pass_ms', three)):
+                    timing[name] = graph_ms(fn)  # the second turn of each is kept
+                timing['plain_ms'] = graph_ms(plain)
+                bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_CUDA_CORE_FLOPS) * 1e3
+                timings[key].append({
+                    'shape': list(shape), 'x_dtype': 'float32',
+                    'r_dtype': None if r is None else 'bfloat16', 'gate': r is None,
+                    'plan': plan, 'bytes': bytes_moved, 'ops': ops, 'bound_ms': bound_ms,
+                    'bound_by': 'bytes' if bytes_moved / HBM_BYTES_PER_S
+                    >= ops / F32_CUDA_CORE_FLOPS else 'operations',
+                    'max_abs_err': (kern().float() - ref.float()).abs().max().item(),
+                    'three_pass_max_abs_err': (three_out.float() - ref.float()).abs().max()
+                    .item(), 'share_of_bound': bound_ms / timing['ms'],
+                    'stream_over_three_pass': timing['ms'] / timing['three_pass_ms'],
+                    **timing})
+    emit({'phase': 'kernel', 'name': 'ca_stream (both ops)', 'checks': checks,
+          'timings': timings, 'nvidia_smi': nvidia_smi_line()})
+    return timings
+
+
+def largest_set14_lr():
+    """The LR shape (h, w) of the mixed set's largest Set14 image."""
+    return max(((h // SCALE, w // SCALE) for w, h in SET14_HR.values()),
+               key=lambda hw: hw[0] * hw[1])
+
+
+def phase_kernel_batch1():
+    """Row 1a (``ca_onchip``) at the standard protocol's batch-1 bf16 maps: one 128^2 LR
+    image, the largest Set14 LR shape of the mixed set, and the DIV2K-size 510 x 339:
+    on chip by the plan, within 2 bf16 ULPs of the plain version, timed in turns
+    against it (plain, kernel, kernel, plain), with its bound."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    gen = torch.Generator().manual_seed(23)
+    rows = []
+    with torch.inference_mode():
+        for hw in ((LR_SIZE, LR_SIZE), largest_set14_lr(), DIV2K_LR):
+            shape = (1,) + hw + (64,)
+            args = ca_inputs(shape, torch.bfloat16, 16, gen)
+            out, again, path = path_run(ca.fused_channel_attention, args)
+            planned, plan = planned_ca_route(shape, 4, 2)
+            if path != 'onchip' or planned != 'onchip' or not torch.equal(out, again):
+                raise AssertionError('batch-1 %s took %s (plan %s %s) or is not '
+                                     'deterministic' % (shape, path, planned, plan))
+            ref = ca.reference_channel_attention(*args)
+            torch.testing.assert_close(out.float(), ref.float(), atol=1e-6, rtol=1.6e-2)
+            kern = lambda args=args: ca.fused_channel_attention(*args)
+            plain = lambda args=args: ca.reference_channel_attention(*args)
+            timing = {}
+            for name, fn in (('plain_ms', plain), ('ms', kern), ('ms', kern),
+                             ('plain_ms', plain)):
+                timing[name] = graph_ms(fn)  # the second turn of each is kept
+            bytes_moved, ops, bound_ms = ca_bound(args[0], args[1])
+            rows.append({'shape': list(shape), 'dtype': 'bfloat16', 'plan': plan,
+                         'max_abs_err': (out.float() - ref.float()).abs().max().item(),
+                         'bytes': bytes_moved, 'bound_ms': bound_ms,
+                         'share_of_bound': bound_ms / timing['ms'], **timing})
+    emit({'phase': 'kernel', 'name': 'ca_onchip at batch-1 maps', 'cases': rows,
+          'nvidia_smi': nvidia_smi_line()})
+    return rows
 
 
 def phase_reference(name='rcan_10x20', seed=3):
@@ -1139,33 +1313,47 @@ def reset_launches():
     from sisr_tpu_torch.ops import channel_attention as ca
     ca.fused_channel_attention.launches = 0
     ca.fused_channel_attention.onchip_launches = 0
+    ca.fused_channel_attention.onchip_shapes.clear()
     ca.fused_channel_attention.rounds_launches = 0
+    ca.fused_channel_attention.stream_launches = 0
     ca.fused_channel_attention.masked_launches = 0
     ca.fused_channel_attention_residual.launches = 0
     ca.fused_channel_attention_residual.onchip_launches = 0
+    ca.fused_channel_attention_residual.stream_launches = 0
 
 
-# the counts of read_launches: each wrapper's launches, the CA's on chip, in rounds and
-# given a valid extent (bucketed eval), the CA + residual's in rounds (its
-# onchip_launches)
+# the counts of read_launches: each wrapper's launches, the CA's on chip, in rounds,
+# streaming and given a valid extent (bucketed eval), the CA + residual's in rounds (its
+# onchip_launches) and streaming
 NO_LAUNCHES = dict.fromkeys(('fused_channel_attention', 'fused_channel_attention_onchip',
                              'fused_channel_attention_rounds',
+                             'fused_channel_attention_stream',
                              'fused_channel_attention_masked',
                              'fused_channel_attention_residual',
-                             'fused_channel_attention_residual_onchip'), 0)
+                             'fused_channel_attention_residual_onchip',
+                             'fused_channel_attention_residual_stream'), 0)
 
 
 def read_launches():
-    """Each wrapper's launches, and how many of each took its on-chip or rounds
-    route."""
+    """Each wrapper's launches, and how many of each took its on-chip, rounds or
+    stream route."""
     from sisr_tpu_torch.ops import channel_attention as ca
-    return {'fused_channel_attention': ca.fused_channel_attention.launches,
-            'fused_channel_attention_onchip': ca.fused_channel_attention.onchip_launches,
-            'fused_channel_attention_rounds': ca.fused_channel_attention.rounds_launches,
-            'fused_channel_attention_masked': ca.fused_channel_attention.masked_launches,
-            'fused_channel_attention_residual': ca.fused_channel_attention_residual.launches,
-            'fused_channel_attention_residual_onchip':
-                ca.fused_channel_attention_residual.onchip_launches}
+    op, res = ca.fused_channel_attention, ca.fused_channel_attention_residual
+    return {'fused_channel_attention': op.launches,
+            'fused_channel_attention_onchip': op.onchip_launches,
+            'fused_channel_attention_rounds': op.rounds_launches,
+            'fused_channel_attention_stream': op.stream_launches,
+            'fused_channel_attention_masked': op.masked_launches,
+            'fused_channel_attention_residual': res.launches,
+            'fused_channel_attention_residual_onchip': res.onchip_launches,
+            'fused_channel_attention_residual_stream': res.stream_launches}
+
+
+def read_onchip_shapes():
+    """ca_onchip's launches by map: {'1x128x128x64 bfloat16': n}."""
+    from sisr_tpu_torch.ops import channel_attention as ca
+    return {'%s %s' % ('x'.join(map(str, shape)), str(dtype).split('.')[-1]): n
+            for (shape, dtype), n in ca.fused_channel_attention.onchip_shapes.items()}
 
 
 def run_eval_cli(dirs, results_name, extra=(), experiment='rcan_10x20', epoch='0'):
@@ -1832,8 +2020,8 @@ def standard_launches(shapes, route_of, timed=True, residual=False):
     route): CA_PER_FORWARD kernel calls a forward, one forward an image and, when the
     run is timed, one more (the untimed first call) for the first image of each LR
     shape; each image's calls on the route ``route_of((h, w))`` gives ('onchip',
-    'rounds' or 'three_pass'), of the CA or, with ``residual``, of the CA + residual
-    (whose rounds route its onchip_launches counts)."""
+    'rounds', 'stream' or 'three_pass'), of the CA or, with ``residual``, of the CA +
+    residual (whose rounds route its onchip_launches counts)."""
     by_route, seen = {}, set()
     for _, hw in shapes:
         route = route_of(hw)
@@ -1843,19 +2031,21 @@ def standard_launches(shapes, route_of, timed=True, residual=False):
     total = sum(by_route.values())
     if residual:
         counts = {'fused_channel_attention_residual': total,
-                  'fused_channel_attention_residual_onchip': by_route.get('rounds', 0)}
+                  'fused_channel_attention_residual_onchip': by_route.get('rounds', 0),
+                  'fused_channel_attention_residual_stream': by_route.get('stream', 0)}
     else:
         counts = {'fused_channel_attention': total,
                   'fused_channel_attention_onchip': by_route.get('onchip', 0),
-                  'fused_channel_attention_rounds': by_route.get('rounds', 0)}
+                  'fused_channel_attention_rounds': by_route.get('rounds', 0),
+                  'fused_channel_attention_stream': by_route.get('stream', 0)}
     return {**NO_LAUNCHES, **counts}, by_route
 
 
 def run_standard_cli(mixed, results_name, experiment, extra=()):
     """``eval_sisr`` without --fused_eval at batch 1 through the CLI entry point
     (--time_models on, its default): the launch counts of exactly this run, its
-    seconds, the host_time_split of it, its peak device memory (GB) and its per-image
-    CSV (None for --model_only)."""
+    seconds, the host_time_split of it, its peak device memory (GB), its per-image
+    CSV (None for --model_only) and its ca_onchip launches by map (read_onchip_shapes)."""
     import pandas as pd
     import torch
     from sisr_tpu_torch import net_eval
@@ -1870,11 +2060,11 @@ def run_standard_cli(mixed, results_name, experiment, extra=()):
         tic = time.perf_counter()
         net_eval.eval_run.main(args=args, standalone_mode=False)
         seconds = time.perf_counter() - tic
-    launches = read_launches()
+    launches, by_map = read_launches(), read_onchip_shapes()
     csv = os.path.join(mixed['out_loc'], results_name, 'standard_metrics',
                        'individual_metrics.csv')
     frame = pd.read_csv(csv, header=[0, 1], index_col=0) if os.path.isfile(csv) else None
-    return launches, seconds, split, torch.cuda.max_memory_allocated() / 1e9, frame
+    return launches, seconds, split, torch.cuda.max_memory_allocated() / 1e9, frame, by_map
 
 
 def check_frame(frame, shapes, experiment, what):
@@ -1910,8 +2100,8 @@ def phase_standard_eval(mixed, experiment, fused_frame):
     expected, by_route = standard_launches(
         shapes, lambda hw: planned_ca_route((1,) + hw + (64,), 4, 2, m=m)[0])
     name = experiment.split('_')[0] + '_standard'
-    launches, seconds, split, peak_gb, frame = run_standard_cli(mixed, name, experiment,
-                                                                ['--save_im'])
+    launches, seconds, split, peak_gb, frame, by_map = run_standard_cli(
+        mixed, name, experiment, ['--save_im'])
     expect_launches(launches, expected, '%s standard protocol' % experiment)
     check_frame(frame, shapes, experiment, name)
     out = os.path.join(mixed['out_loc'], name)
@@ -1924,11 +2114,12 @@ def phase_standard_eval(mixed, experiment, fused_frame):
     hold_bars(diff, '%s standard against fused on the shared pairs' % experiment)
     mean_psnr = float(frame[(experiment, 'PSNR')].mean())
     emit({'phase': name, 'images': len(shapes), 'lr_shapes': sorted({hw for _, hw in shapes}),
-          'launches': launches, 'calls_by_route': by_route, 'cli_seconds': seconds,
-          'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
-          'peak_memory_gb': peak_gb, 'mean_psnr': mean_psnr,
+          'launches': launches, 'calls_by_route': by_route, 'onchip_by_map': by_map,
+          'cli_seconds': seconds, 'img_per_s': len(shapes) / split['protocol'],
+          'host_split_s': split, 'peak_memory_gb': peak_gb, 'mean_psnr': mean_psnr,
           'max_diff_to_fused_on_shared_pairs': diff, 'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches, 'frame': frame, 'mean_psnr': mean_psnr}
+    return {'launches': launches, 'frame': frame, 'mean_psnr': mean_psnr,
+            'onchip_by_map': by_map}
 
 
 def bucket_of(hw, multiple=128):
@@ -1944,7 +2135,7 @@ def phase_bucketed_eval(mixed, unbucketed_frame):
     expected, by_route = standard_launches(
         shapes, lambda hw: planned_ca_route((1,) + bucket_of(hw) + (64,), 4, 2)[0])
     expected['fused_channel_attention_masked'] = expected['fused_channel_attention']
-    launches, seconds, split, peak_gb, frame = run_standard_cli(
+    launches, seconds, split, peak_gb, frame, by_map = run_standard_cli(
         mixed, 'rcan_buckets', 'rcan_10x20', ['--eval_buckets', '128',
                                               '--no_image_comparison'])
     expect_launches(launches, expected, 'rcan --eval_buckets 128')
@@ -1953,46 +2144,50 @@ def phase_bucketed_eval(mixed, unbucketed_frame):
     hold_bars(diff, 'bucketed against unbucketed')
     emit({'phase': 'rcan_buckets', 'images': len(shapes),
           'buckets': sorted({bucket_of(hw) for _, hw in shapes}), 'launches': launches,
-          'calls_by_route': by_route, 'cli_seconds': seconds,
+          'calls_by_route': by_route, 'onchip_by_map': by_map, 'cli_seconds': seconds,
           'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
           'peak_memory_gb': peak_gb, 'max_diff_to_unbucketed': diff,
           'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches}
+    return {'launches': launches, 'onchip_by_map': by_map}
 
 
 def phase_int8_standard(mixed, bf16_mean_psnr):
     """``--int8`` on RCAN's standard protocol over the mixed-size set (calibrated on the
     first image): every RCAB tail one CA + residual call (x f32, r bf16) on the route
-    res_onchip_plan gives its image, in rounds or three passes (row 2b), and no CA
-    launch; mean PSNR within 1 dB of the bf16 run's; peak memory.  Beforehand, the
-    three-pass tail timed at the DIV2K-size image's map against its plain version."""
+    ca_res_plan gives its image, in rounds or streaming (the DIV2K-size image, rows
+    2b and 1b's stream route), none in three passes, and no CA launch; mean PSNR within
+    1 dB of the bf16 run's; peak memory.  Beforehand, the stream tail timed at the
+    DIV2K-size image's map in turns against its three passes, beside its plain
+    version."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
-    props = torch.cuda.get_device_properties(0)
     shapes = lr_shapes(mixed['lr_dir'])
-
     def route_of(hw):
-        plan = ca.res_onchip_plan(1, hw[0] * hw[1], 64, 4, 4, 2, True,
-                                  props.multi_processor_count,
-                                  props.shared_memory_per_block_optin)
-        return 'rounds' if plan is not None else 'three_pass'
+        route = planned_res_route((1,) + hw + (64,), 4, 4, 2)[0]
+        return 'rounds' if route == 'onchip' else route
     expected, by_route = standard_launches(shapes, route_of, residual=True)
+    if set(by_route) != {'rounds', 'stream'}:
+        raise AssertionError('int8 standard protocol routes %s' % by_route)
     # the tail at the DIV2K-size image's map: x f32 (the dequantised conv output), r the
-    # bf16 carry; three passes (row 2b) on this card, timed against its plain version
-    (hw,) = {hw for _, hw in shapes if route_of(hw) == 'three_pass'}
+    # bf16 carry; streaming on this card, timed in turns against its three passes
+    (hw,) = {hw for _, hw in shapes if route_of(hw) == 'stream'}
     gen = torch.Generator().manual_seed(13)
     x, w1, b1, w2, b2 = ca_inputs((1,) + hw + (64,), torch.float32, 16, gen)
     r = torch.rand(x.shape, generator=gen).to(torch.bfloat16).cuda()
     with torch.inference_mode():
         tail = lambda: ca.fused_channel_attention_residual(x, r, w1, b1, w2, b2)
+        three = lambda: ca._res_three_pass(x, r, w1, b1, w2, b2)
         plain = lambda: ca.reference_channel_attention_residual(x, r, w1, b1, w2, b2)
         err = (tail().float() - plain().float()).abs().max().item()
         torch.testing.assert_close(tail().float(), plain().float(), atol=1e-6, rtol=1.6e-2)
-        div2k_tail = {'shape': list(x.shape), 'max_abs_err': err, 'plain_ms': graph_ms(plain),
-                      'ms': graph_ms(tail)}
-        div2k_tail['ms'], div2k_tail['plain_ms'] = graph_ms(tail), graph_ms(plain)
+        div2k_tail = {'shape': list(x.shape), 'max_abs_err': err,
+                      'plan': planned_res_route(x.shape, 4, 4, 2)[1]}
+        for name, fn in (('three_pass_ms', three), ('ms', tail), ('ms', tail),
+                         ('three_pass_ms', three)):
+            div2k_tail[name] = graph_ms(fn)  # the second turn of each is kept
+        div2k_tail['plain_ms'] = graph_ms(plain)
     bytes_moved, ops, div2k_tail['bound_ms'] = res_bound(x, r, w1)
-    launches, seconds, split, peak_gb, frame = run_standard_cli(
+    launches, seconds, split, peak_gb, frame, _ = run_standard_cli(
         mixed, 'rcan_int8_standard', 'rcan_10x20', ['--int8', '--no_image_comparison'])
     expect_launches(launches, expected, 'rcan --int8 standard protocol')
     check_frame(frame, shapes, 'rcan_10x20', 'rcan_int8_standard')
@@ -2004,9 +2199,9 @@ def phase_int8_standard(mixed, bf16_mean_psnr):
           'calls_by_route': by_route, 'cli_seconds': seconds,
           'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
           'peak_memory_gb': peak_gb, 'mean_psnr': mean_psnr,
-          'bf16_mean_psnr': bf16_mean_psnr, 'three_pass_tail': div2k_tail,
+          'bf16_mean_psnr': bf16_mean_psnr, 'stream_tail': div2k_tail,
           'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches, 'three_pass_tail': div2k_tail}
+    return {'launches': launches, 'stream_tail': div2k_tail}
 
 
 def phase_model_only(mixed):
@@ -2014,7 +2209,7 @@ def phase_model_only(mixed):
     shapes = lr_shapes(mixed['lr_dir'])
     expected, by_route = standard_launches(
         shapes, lambda hw: planned_ca_route((1,) + hw + (64,), 4, 2)[0], timed=False)
-    launches, seconds, split, _, _ = run_standard_cli(
+    launches, seconds, split, _, _, by_map = run_standard_cli(
         mixed, 'rcan_model_only', 'rcan_10x20', ['--model_only', '--no_image_comparison'])
     expect_launches(launches, expected, 'rcan --model_only')
     out = os.path.join(mixed['out_loc'], 'rcan_model_only')
@@ -2023,10 +2218,86 @@ def phase_model_only(mixed):
                                                                       'standard_metrics')):
         raise AssertionError('--model_only wrote %s' % written)
     emit({'phase': 'rcan_model_only', 'images': len(written), 'launches': launches,
-          'calls_by_route': by_route, 'cli_seconds': seconds,
+          'calls_by_route': by_route, 'onchip_by_map': by_map, 'cli_seconds': seconds,
           'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
           'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches}
+    return {'launches': launches, 'onchip_by_map': by_map}
+
+
+def phase_qrcan_f32_model_only(mixed):
+    """``eval_sisr --model_only`` of Q-RCAN as configs/div2k/qrcan.toml builds it (its
+    [model] table as shipped: standard style, a q_node in every block, 10 blur-kernel
+    values, no dtype, so f32; 10 x 20 at 64 features, the handler's defaults; seeded
+    weights) over the mixed-size set, TF32 off: one forward an image, every CA call
+    (with the q_node's gate) on the route its image's plan gives, the DIV2K-size
+    image's 200 streaming and the rest on chip; img/s and the host split.  Then that
+    image's SR output against the same forward with the CA's plain version, within
+    the f32 forward bar of 5e-4 abs."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from PIL import Image
+    from sisr_tpu_torch.models.handlers import define_model
+    from sisr_tpu_torch.utils import toml_io
+    here = os.path.dirname(os.path.abspath(__file__))
+    model = toml_io.load(os.path.join(here, 'configs', 'div2k', 'qrcan.toml'))['model']
+    name, params = model['name'], model['internal_params']
+    if 'dtype' in params:
+        raise AssertionError('configs/div2k/qrcan.toml sets a dtype')
+    experiment = 'qrcan_recipe_f32'
+    base = os.path.join(mixed['model_loc'], experiment)
+    os.makedirs(os.path.join(base, 'saved_models'))
+    toml_io.dump({'model': model}, os.path.join(base, 'config.toml'))
+    define_model(name, device='cpu', seed=8, **params).save_model(
+        'train_model', 0, os.path.join(base, 'saved_models'))
+    shapes = lr_shapes(mixed['lr_dir'])
+    route_of = lambda hw: planned_ca_route((1,) + hw + (64,), 4, 4)[0]
+    expected, by_route = standard_launches(shapes, route_of, timed=False)
+    if by_route.get('stream') != CA_PER_FORWARD or set(by_route) != {'onchip', 'stream'}:
+        raise AssertionError('f32 Q-RCAN routes %s: the DIV2K-size image alone should '
+                             'stream' % by_route)
+    launches, seconds, split, peak_gb, _, by_map = run_standard_cli(
+        mixed, 'qrcan_f32_model_only', experiment, ['--model_only', '--no_image_comparison'])
+    expect_launches(launches, expected, 'f32 qrcan --model_only')
+    written = sorted(os.listdir(os.path.join(mixed['out_loc'], 'qrcan_f32_model_only',
+                                             experiment)))
+    if written != [n for n, _ in shapes]:
+        raise AssertionError('f32 qrcan --model_only wrote %s' % written)
+
+    # the DIV2K-size image: the kernel's forward against the plain CA's
+    image = 'div2k_0801.png'
+    meta_csv = pd.read_csv(os.path.join(mixed['lr_dir'], 'degradation_metadata.csv'),
+                           index_col=0)
+    raw = np.asarray(json.loads(meta_csv.loc[image, 'blur_kernel']), np.float32)
+    with Image.open(os.path.join(mixed['lr_dir'], image)) as im:
+        lr = np.asarray(im.convert('RGB'), np.float32) / 255
+    card = define_model(name, device='cuda', seed=8, **params)
+    card.set_metadata_keys(['blur_kernel'] * META_COLS)
+    x = torch.from_numpy(lr[None]).cuda()
+    meta = card.prepare_metadata(x, torch.from_numpy(raw[None]).cuda())
+    with torch.inference_mode():
+        reset_launches()
+        out = card.forward(x, meta)
+        torch.cuda.synchronize()
+        forward_launches = read_launches()
+        with plain_channel_attention():
+            ref = card.forward(x, meta)
+    expect_launches(forward_launches, {**NO_LAUNCHES, 'fused_channel_attention':
+                                       CA_PER_FORWARD, 'fused_channel_attention_stream':
+                                       CA_PER_FORWARD}, 'f32 qrcan forward at DIV2K size')
+    err = (out - ref).abs().max().item()
+    if tuple(out.shape) != (1, lr.shape[0] * SCALE, lr.shape[1] * SCALE, 3) or \
+            not bool(torch.isfinite(out).all()) or not err <= 5e-4:
+        raise AssertionError('f32 qrcan at DIV2K size: shape %s, max abs err %g against '
+                             'the plain CA' % (tuple(out.shape), err))
+    emit({'phase': 'qrcan_f32_model_only', 'config': 'configs/div2k/qrcan.toml',
+          'images': len(shapes), 'launches': launches, 'calls_by_route': by_route,
+          'onchip_by_map': by_map, 'cli_seconds': seconds,
+          'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
+          'peak_memory_gb': peak_gb,
+          'div2k_forward_max_abs_err_vs_plain_ca': err, 'div2k_lr_shape': list(lr.shape[:2]),
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches, 'div2k_max_abs_err': err, 'onchip_by_map': by_map}
 
 
 def phase_train_standard_val(dirs, root):
@@ -2062,7 +2333,7 @@ def phase_train_standard_val(dirs, root):
     expected = dict(NO_LAUNCHES)
     for part, route in routes.items():
         expected['fused_channel_attention'] += counts[part]
-        if route in ('onchip', 'rounds'):
+        if route != 'three_pass':
             expected['fused_channel_attention_' + route] += counts[part]
     with tf32(True, False):
         launches, seconds = run_train_cli(path, '--num_epochs', '1')
@@ -2114,6 +2385,8 @@ def main():
     ca_res_main = phase_kernel_residual()
     meta_gate = phase_kernel_meta()
     extent = phase_kernel_extent()
+    stream = phase_kernel_stream()
+    batch1 = phase_kernel_batch1()
     training_shape = phase_kernel_backward()
     for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b'):
         phase_reference(name)
@@ -2139,8 +2412,9 @@ def main():
         paths['rcan_buckets'] = phase_bucketed_eval(mixed, paths['rcan_standard']['frame'])
         paths['rcan_int8_standard'] = phase_int8_standard(
             mixed, paths['rcan_standard']['mean_psnr'])
-        div2k_tail = paths['rcan_int8_standard']['three_pass_tail']
+        div2k_tail = paths['rcan_int8_standard']['stream_tail']
         paths['rcan_model_only'] = phase_model_only(mixed)
+        paths['qrcan_f32_model_only'] = phase_qrcan_f32_model_only(mixed)
         paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2160,23 +2434,30 @@ def main():
     # one row for each route of each TPU kernel; each row's times are those of its
     # main-path shape: 1a the bf16 eval map on chip; 1b (three passes, and the rounds
     # route that took its place) the f32 map of int8 Q-RCAN's tail with its meta and
-    # gate; 2a/2b int8 RCAN's f32 map with its bf16 carry
+    # gate; 1b's stream route the DIV2K-size f32 map with the f32 Q-RCAN's gate; 2a/2b
+    # int8 RCAN's f32 map with its bf16 carry; 2b's stream route the same at DIV2K size
     meta_f32 = meta_gate[1]
     rows = [
         ('fused_channel_attention: ca_onchip', pallas + '112',
          lambda c: c[ca_key + '_onchip'], ca_main),
         ('fused_channel_attention: three-pass (sisr_ca_forward)', pallas + '135',
-         lambda c: c[ca_key] - c[ca_key + '_onchip'] - c[ca_key + '_rounds'],
+         lambda c: (c[ca_key] - c[ca_key + '_onchip'] - c[ca_key + '_rounds']
+                    - c[ca_key + '_stream']),
          {**meta_f32, 'ms': meta_f32['three_pass_ms'],
           'max_abs_err': meta_f32['three_pass_max_abs_err']}),
         ('fused_channel_attention: ca_rounds without r (sisr_ca_rounds_forward)',
          pallas + '135', lambda c: c[ca_key + '_rounds'], meta_f32),
+        ('fused_channel_attention: ca_stream without r (sisr_ca_stream_forward)',
+         pallas + '135', lambda c: c[ca_key + '_stream'], stream['ca'][0]),
         ('fused_channel_attention_residual: ca_rounds with r (sisr_ca_rounds_forward)',
          pallas + '202', lambda c: c[res_key + '_onchip'], ca_res_main),
         ('fused_channel_attention_residual: three-pass (sisr_ca_res_forward)',
-         pallas + '226', lambda c: c[res_key] - c[res_key + '_onchip'],
+         pallas + '226',
+         lambda c: c[res_key] - c[res_key + '_onchip'] - c[res_key + '_stream'],
          {**ca_res_main, 'ms': ca_res_main['three_pass_ms'],
           'max_abs_err': ca_res_main['three_pass_max_abs_err']}),
+        ('fused_channel_attention_residual: ca_stream with r (sisr_ca_stream_forward)',
+         pallas + '226', lambda c: c[res_key + '_stream'], stream['res'][0]),
     ]
     kernel_rows = []
     for name, replaces, count, timing in rows:
@@ -2185,9 +2466,10 @@ def main():
             'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
             'launches': sum(by_path.values()), 'max_abs_err': timing['max_abs_err'],
             'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
-            'bound_ms': timing['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
-            'launches_by_path': by_path})
-    ca_row, ca_three_row, ca_rounds_row, res_row, res_three_row = kernel_rows
+            'bound_ms': timing['bound_ms'], 'bound_by': timing.get('bound_by', 'bytes'),
+            'library_ms': None, 'launches_by_path': by_path})
+    (ca_row, ca_three_row, ca_rounds_row, ca_stream_row, res_row, res_three_row,
+     res_stream_row) = kernel_rows
     ca_row.update({'host_ms': ca_main['host_ms'], 'device_ms': ca_main['device_ms'],
                    'plain_device_ms': ca_main['plain_device_ms'], 'plan': ca_main['plan'],
                    'three_pass_ms_at_this_shape': ca_main['three_pass_ms']})
@@ -2197,6 +2479,17 @@ def main():
     # the training path's shape, f32 (on chip)
     ca_row.update({'training_shape_' + key: training_shape[key]
                    for key in ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
+    # the standard protocol's batch-1 bf16 maps, each with its ca_onchip launches as
+    # each standard-protocol path's run counted them (batch 1 is that protocol's alone)
+    for case in batch1:
+        key = '%s bfloat16' % 'x'.join(map(str, case['shape']))
+        case['launches_by_path'] = {path: result['onchip_by_map'][key]
+                                    for path, result in paths.items()
+                                    if key in result.get('onchip_by_map', {})}
+        case['launches'] = sum(case['launches_by_path'].values())
+        if not case['launches']:
+            raise AssertionError('no main path launched ca_onchip at %s' % key)
+    ca_row['batch1_shapes'] = batch1
     # int8 Q-RCAN's f32 map with meta and gate (and without), the two routes in turns
     ca_three_row.update({'shape': meta_f32['shape'],
                          'no_meta_ms': meta_f32['no_meta_three_pass_ms']})
@@ -2213,12 +2506,20 @@ def main():
                                 'tail_over_sequence', 'plan')})
     res_three_row.update({'host_ms': ca_res_main['three_pass_host_ms'],
                           'device_ms': ca_res_main['three_pass_device_ms']})
-    # its main-path shape from PR 9: the DIV2K-size image of int8 RCAN's standard protocol
-    res_three_row.update({'div2k_' + k: v for k, v in div2k_tail.items()})
+    # the stream route at DIV2K size, in turns against the three passes; at the 512 x
+    # 384 bucket too; the tail also as int8 RCAN's standard protocol timed it
+    for row, key in ((ca_stream_row, 'ca'), (res_stream_row, 'res')):
+        first, bucket = stream[key]
+        row.update({k: first[k] for k in ('shape', 'plan', 'three_pass_ms',
+                                          'three_pass_max_abs_err', 'share_of_bound')})
+        row.update({'bucket_' + k: bucket[k] for k in ('shape', 'ms', 'three_pass_ms',
+                                                       'plain_ms', 'bound_ms',
+                                                       'share_of_bound')})
+    res_stream_row.update({'int8_standard_' + k: v for k, v in div2k_tail.items()})
     # the valid-extent pool (bucketed eval) on each CA route, with and without meta
     # and gate, timed in turns against the same call without an extent
     for row, route in ((ca_row, 'onchip'), (ca_three_row, 'three_pass'),
-                       (ca_rounds_row, 'rounds')):
+                       (ca_rounds_row, 'rounds'), (ca_stream_row, 'stream')):
         for case in extent:
             if case['path'] == route:
                 tag = 'masked_meta_gate_' if case['meta_gate'] else 'masked_'

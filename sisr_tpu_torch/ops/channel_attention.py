@@ -24,13 +24,18 @@ and bound in that file) or raises; on a CPU tensor it runs its plain version
 (:func:`reference_channel_attention`, :func:`reference_channel_attention_residual`),
 which the kernel is held against.  Each wrapper's ``launches`` counts its kernel
 launches, and ``fused_channel_attention.masked_launches`` those given a valid extent
-(every call of a bucketed eval's forward).  The routes are chosen from the shape and the card alone.  The CA has
-three (:func:`ca_plan`): one cooperative launch that holds the whole batch's map in
-shared memory (:func:`onchip_plan`, counted also in ``onchip_launches``), one that
-streams the batch through it in rounds of images (:func:`res_onchip_plan` with no r,
-counted also in ``rounds_launches``), and three launches for maps that do not fit.
-The CA + residual has the rounds route (:func:`res_onchip_plan`, counted also in its
-``onchip_launches``) and three launches.  Both rounds routes are one kernel.
+(every call of a bucketed eval's forward).  The routes are chosen from the shape and
+the card alone.  The CA has four (:func:`ca_plan`): one cooperative launch that holds
+the whole batch's map in shared memory (:func:`onchip_plan`, counted also in
+``onchip_launches`` and, by shape and dtype, in ``onchip_shapes``), one that streams
+the batch through it in rounds of images (:func:`res_onchip_plan` with no r, counted
+also in ``rounds_launches``), one that takes one image a round with part of each
+slab in shared memory and the rest read again from L2 (:func:`stream_plan`, counted
+also in ``stream_launches``), and three launches for pixels that are not whole
+16-byte units or a misaligned x.  The CA + residual has the rounds and the stream
+routes (:func:`ca_res_plan`, counted also in its ``onchip_launches`` and
+``stream_launches``) and three launches.  Each of the rounds and the stream routes is
+one kernel for both ops.
 
 Both ops have a backward, as sisr_tpu's ``custom_vjp`` ops do: when autograd records
 (grad mode on and an input requires a grad), the wrapper runs as a
@@ -38,6 +43,7 @@ Both ops have a backward, as sisr_tpu's ``custom_vjp`` ops do: when autograd rec
 kernel on the card) and whose backward recomputes the plain version and returns its
 vector-Jacobian product.  There is no backward kernel.
 """
+import collections
 import ctypes
 import functools
 
@@ -48,6 +54,9 @@ from .cuda import build as cuda_build
 _THREADS = 256  # kThreads in channel_attention.cu
 _ONCHIP_CHUNKS = 4  # kOnchipChunks in channel_attention.cu
 _RES_CHUNKS = 2  # kResChunks in channel_attention.cu
+_STREAM_CHUNKS = 4  # kStreamChunks
+_STREAM_SLOTS = 2  # kStreamSlots
+_STREAM_SLOT_BYTES = 8192  # kStreamSlotBytes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the QCALayer styles that are this op with Q-RCAN's meta or gate (models/q_layers.py)
 KERNEL_STYLES = ('standard', 'max_concat', 'modulate')
@@ -64,11 +73,15 @@ _SIGNATURES = {
         ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 5
         + [ctypes.c_void_p]),
+    'sisr_ca_stream_forward': (
+        ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+        + [ctypes.c_void_p]),
     'sisr_ca_res_forward': (
         ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
-_NO_R = -1  # r_dtype of the rounds entry for the CA op (no r)
+_NO_R = -1  # r_dtype of the rounds and stream entries for the CA op (no r)
 # the three-pass excite keeps 2*C + M + Cr floats in the 48 KB of static shared memory
 _MAX_EXCITE_FLOATS = 12288
 _DEVICES = {}  # CUDA device index -> (library handle, SM count, opt-in shared memory)
@@ -209,17 +222,72 @@ def res_onchip_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, sme
     return None
 
 
+def _stream_ring_pixels(c, r_itemsize):
+    """Pixels of r a slot of ``ca_stream``'s ring holds (none without r)."""
+    return max(1, _STREAM_SLOT_BYTES // (c * r_itemsize)) if r_itemsize else 0
+
+
+def stream_smem_bytes(head_pixels, c, cr, x_itemsize, r_itemsize, m=0):
+    """Dynamic shared memory of ``ca_stream``, laid out as it lays it out: the slab's
+    head of x; from a 128-byte boundary, the ring of r (``r_itemsize`` 0: none); the
+    float scratch for ``m`` meta values; then one mbarrier for each chunk of the head
+    and one for each slot of the ring."""
+    ring_offset = -(-head_pixels * c * x_itemsize // 128) * 128
+    floats_end = (ring_offset + _STREAM_SLOTS * _stream_ring_pixels(c, r_itemsize) * c
+                  * r_itemsize + 4 * _onchip_floats(c, cr, x_itemsize, m))
+    return -(-floats_end // 16) * 16 + 8 * (_STREAM_CHUNKS + _STREAM_SLOTS)
+
+
+def stream_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, smem_optin, m=0):
+    """(rounds, blocks_per_image, slab_pixels, head_pixels, smem_bytes) of the
+    one-launch kernel that takes one image a round (``ca_stream``: the CA + residual,
+    or with ``r_itemsize`` 0 the CA alone), or None.  One block per SM at most, each
+    owning ceil(hw / sm_count) contiguous pixels of the image (the last block the
+    rest, so none is empty); the first ``head_pixels`` of them, as many as fit
+    ``smem_optin`` beside the ring of r and the scratch (with ``m`` meta values), sit
+    in shared memory.  Taken only when the pixels of x and of r are whole 16-byte units
+    and ``aligned`` (as for :func:`res_onchip_plan`)."""
+    lanes, ragged = divmod(c * x_itemsize, 16)
+    if not aligned or ragged or (c * r_itemsize) % 16 or lanes > _THREADS:
+        return None
+    slab = -(-hw // sm_count)
+    room = smem_optin - stream_smem_bytes(0, c, cr, x_itemsize, r_itemsize, m)
+    head = min(slab, max(0, room // (c * x_itemsize)))
+    while head and stream_smem_bytes(head, c, cr, x_itemsize, r_itemsize, m) > smem_optin:
+        head -= 1  # the head's 128-byte round-up
+    if not head:
+        return None
+    return (n, -(-hw // slab), slab, head,
+            stream_smem_bytes(head, c, cr, x_itemsize, r_itemsize, m))
+
+
 def ca_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin, m=0):
     """The CA op's route and its plan, from the shape and the card alone, in this
     order: ('onchip', :func:`onchip_plan`) where the whole batch fits on chip at once;
     ('rounds', :func:`res_onchip_plan` with no r) where it streams through in rounds;
-    else ('three_pass', None).  ``aligned``: x 16-byte aligned."""
+    ('stream', :func:`stream_plan` with no r) where not even one image fits; else
+    ('three_pass', None).  ``aligned``: x 16-byte aligned."""
     plan = onchip_plan(n, hw, c, cr, itemsize, aligned, sm_count, smem_optin, m)
     if plan is not None:
         return 'onchip', plan
     plan = res_onchip_plan(n, hw, c, cr, itemsize, 0, aligned, sm_count, smem_optin, m)
     if plan is not None:
         return 'rounds', plan
+    plan = stream_plan(n, hw, c, cr, itemsize, 0, aligned, sm_count, smem_optin, m)
+    if plan is not None:
+        return 'stream', plan
+    return 'three_pass', None
+
+
+def ca_res_plan(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, smem_optin, m=0):
+    """The CA + residual op's route and its plan, in this order: ('rounds',
+    :func:`res_onchip_plan`), ('stream', :func:`stream_plan`), else ('three_pass',
+    None).  ``aligned``: :func:`res_onchip_aligned`."""
+    for route, plan_of in (('rounds', res_onchip_plan), ('stream', stream_plan)):
+        plan = plan_of(n, hw, c, cr, x_itemsize, r_itemsize, aligned, sm_count, smem_optin,
+                       m)
+        if plan is not None:
+            return route, plan
     return 'three_pass', None
 
 
@@ -396,9 +464,10 @@ def _ca_forward(x, w1, b1, w2, b2, meta=None, gate=None, valid_hw=None):
                           sm_count, smem_optin, m=_meta_count(meta))
     if route == 'onchip':
         return _onchip(x, w1, b1, w2, b2, plan, meta, gate, valid_hw)
-    if route == 'rounds':
-        return _rounds(x, None, w1, b1, w2, b2, torch.empty_like(x), plan, meta, gate,
-                       valid_hw=valid_hw)
+    if route in ('rounds', 'stream'):
+        launch = _rounds if route == 'rounds' else _stream
+        return launch(x, None, w1, b1, w2, b2, torch.empty_like(x), plan, meta, gate,
+                      valid_hw=valid_hw)
     return _three_pass(x, w1, b1, w2, b2, meta, gate, valid_hw)
 
 
@@ -434,6 +503,7 @@ def _onchip(x, w1, b1, w2, b2, plan, meta=None, gate=None, valid_hw=None):
     cuda_build.check(lib, code, 'fused_channel_attention on-chip launch')
     fused_channel_attention.launches += 1
     fused_channel_attention.onchip_launches += 1
+    fused_channel_attention.onchip_shapes[(tuple(x.shape), x.dtype)] += 1
     _count_masked(valid_hw)
     return out
 
@@ -442,31 +512,50 @@ def _rounds(x, r, w1, b1, w2, b2, out, plan, meta=None, gate=None, cast_first=Fa
             valid_hw=None):
     """One cooperative launch of ``ca_rounds`` into ``out`` with ``plan`` from
     :func:`res_onchip_plan` (arguments already checked): the CA op where ``r`` is
-    None, counted on :func:`fused_channel_attention`, else the CA + residual tail,
-    counted on :func:`fused_channel_attention_residual` (whose pool takes no extent)."""
+    None, counted on :func:`fused_channel_attention` (``rounds_launches``), else the CA
+    + residual tail, counted on :func:`fused_channel_attention_residual`
+    (``onchip_launches``), whose pool takes no extent."""
+    return _cooperative('rounds', x, r, w1, b1, w2, b2, out, plan[2], plan, meta, gate,
+                        cast_first, valid_hw)
+
+
+def _stream(x, r, w1, b1, w2, b2, out, plan, meta=None, gate=None, cast_first=False,
+            valid_hw=None):
+    """One cooperative launch of ``ca_stream`` into ``out`` with ``plan`` from
+    :func:`stream_plan` (arguments already checked), for either op as :func:`_rounds`,
+    counted in its ``stream_launches``."""
+    return _cooperative('stream', x, r, w1, b1, w2, b2, out, plan[1], plan, meta, gate,
+                        cast_first, valid_hw)
+
+
+def _cooperative(route, x, r, w1, b1, w2, b2, out, slabs, plan_args, meta, gate, cast_first,
+                 valid_hw):
+    """The launch of :func:`_rounds` or :func:`_stream` (``route``) through its C entry,
+    with ``plan_args`` the entry's arguments after ``cast_first``."""
     n, h, w, c = x.shape
     index = x.device.index
     lib = _library(index)[0]
-    rounds, images, slabs, slab_pixels, smem_bytes = plan
     meta, gate = _per_image(meta), _per_image(gate)
     # the partial sums (N, slabs, C); the att slice is unused on this path
     (w1, b1, w2, b2, partial, _), strides = _excite_args(x, w1, b1, w2, b2, slabs)
     op = fused_channel_attention if r is None else fused_channel_attention_residual
     with torch.cuda.device(index):
-        code = lib.sisr_ca_rounds_forward(
+        code = getattr(lib, 'sisr_ca_%s_forward' % route)(
             x.data_ptr(), _ptr(r), out.data_ptr(), *(t.data_ptr() for t in (w1, b1, w2, b2)),
             _ptr(meta), _ptr(gate), partial.data_ptr(), n, h * w, c, _meta_count(meta),
             w1.shape[1], *strides, _DTYPE_CODES[x.dtype],
-            _NO_R if r is None else _DTYPE_CODES[r.dtype], int(cast_first), rounds, images,
-            slabs, slab_pixels, smem_bytes, *_extent_args(x, valid_hw),
-            torch.cuda.current_stream(index).cuda_stream)
-    cuda_build.check(lib, code, '%s rounds launch' % op.__name__)
+            _NO_R if r is None else _DTYPE_CODES[r.dtype], int(cast_first), *plan_args,
+            *_extent_args(x, valid_hw), torch.cuda.current_stream(index).cuda_stream)
+    cuda_build.check(lib, code, '%s %s launch' % (op.__name__, route))
     op.launches += 1
-    if r is None:
+    if route == 'stream':
+        op.stream_launches += 1
+    elif r is None:
         op.rounds_launches += 1
-        _count_masked(valid_hw)
     else:
         op.onchip_launches += 1
+    if r is None:
+        _count_masked(valid_hw)
     return out
 
 
@@ -495,7 +584,9 @@ def _three_pass(x, w1, b1, w2, b2, meta=None, gate=None, valid_hw=None):
 
 fused_channel_attention.launches = 0
 fused_channel_attention.onchip_launches = 0
+fused_channel_attention.onchip_shapes = collections.Counter()  # (shape, dtype) -> launches
 fused_channel_attention.rounds_launches = 0
+fused_channel_attention.stream_launches = 0
 fused_channel_attention.masked_launches = 0
 
 
@@ -518,9 +609,9 @@ def fused_channel_attention_residual(x, r, w1, b1, w2, b2, meta=None, gate=None,
     """The int8 RCAB block tail ``(float(x) * att(x) + float(r)).to(r.dtype)``, with
     att taking ``meta`` and ``gate`` as :func:`fused_channel_attention` does; with
     ``cast_first`` the int8 QRCAB tail ``fused_channel_attention(x, ..., meta,
-    gate).to(r.dtype) + r``.  The CUDA kernel for a CUDA ``x`` (on chip in rounds where
-    :func:`res_onchip_plan` allows, else three passes), the plain version for a CPU
-    ``x``; differentiable in every tensor input (the plain VJP)."""
+    gate).to(r.dtype) + r``.  The CUDA kernel for a CUDA ``x`` (on the route
+    :func:`ca_res_plan` gives), the plain version for a CPU ``x``; differentiable in
+    every tensor input (the plain VJP)."""
     if _records_grad(x, r, w1, b1, w2, b2, meta, gate):
         return _ChannelAttentionResidual.apply(x, r, w1, b1, w2, b2, meta, gate, cast_first)
     return _ca_res_forward(x, r, w1, b1, w2, b2, meta, gate, cast_first)
@@ -538,12 +629,13 @@ def _ca_res_forward(x, r, w1, b1, w2, b2, meta=None, gate=None, cast_first=False
     n, h, w, c = x.shape
     _, sm_count, smem_optin = _library(x.device.index)
     out = torch.empty_like(r)
-    plan = res_onchip_plan(n, h * w, c, w1.shape[1], x.element_size(), r.element_size(),
-                           res_onchip_aligned(x, r, out), sm_count, smem_optin,
-                           m=_meta_count(meta))
-    if plan is None:
+    route, plan = ca_res_plan(n, h * w, c, w1.shape[1], x.element_size(), r.element_size(),
+                              res_onchip_aligned(x, r, out), sm_count, smem_optin,
+                              m=_meta_count(meta))
+    if route == 'three_pass':
         return _res_three_pass(x, r, w1, b1, w2, b2, out, meta, gate, cast_first)
-    return _rounds(x, r, w1, b1, w2, b2, out, plan, meta, gate, cast_first)
+    launch = _rounds if route == 'rounds' else _stream
+    return launch(x, r, w1, b1, w2, b2, out, plan, meta, gate, cast_first)
 
 
 def _res_three_pass(x, r, w1, b1, w2, b2, out=None, meta=None, gate=None,
@@ -572,3 +664,4 @@ def _res_three_pass(x, r, w1, b1, w2, b2, out=None, meta=None, gate=None,
 
 fused_channel_attention_residual.launches = 0
 fused_channel_attention_residual.onchip_launches = 0
+fused_channel_attention_residual.stream_launches = 0

@@ -32,10 +32,11 @@
 // no extent: sisr_tpu's int8 program runs unpadded.
 //
 // Replaces sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_forward` (excite
-// `_excite`), by three paths; the wrapper's plan (`ca_plan` in ops/channel_attention.py)
+// `_excite`), by four paths; the wrapper's plan (`ca_plan` in ops/channel_attention.py)
 // picks one from the shape and the card alone: on chip where the whole batch fits in
 // the SMs' shared memory at once, else in rounds where one round's images fit, else
-// three passes.
+// streaming one image a round where not even that fits, else (pixels that are not
+// whole 16-byte units, a misaligned x) three passes.
 //
 // Bound.  The work is two flops per element and one read plus one write of the map,
 // so bytes bound it: at the main-path shape (8, 128, 128, 64) bf16 the least traffic
@@ -75,9 +76,15 @@
 // grid barrier a round, and out = x * T(att * gate) is written from the slab.  The map
 // leaves device memory once and returns once, as on path 1.
 //
-// Path 3, three passes (entry sisr_ca_forward): replaces the tiled body `_ca_kernel`
-// for maps of which not even one image a round fits (one 512 x 512 float32 map), or
-// whose pixels are not whole 16-byte units.  The TPU kernel carries the spatial sum
+// Path 3, streaming (entry sisr_ca_stream_forward with no r, kernel ca_stream): replaces
+// the tiled body `_ca_kernel` for maps of which not even one image fits the SMs' shared
+// memory: a DIV2K-size f32 map, (1, 339, 510, 64) is 44.3 MB against 30.7 MB.  It is
+// the CA + residual's path 2 below without r, and moves the bound's own bytes plus a
+// second read of each slab's tail from L2.
+//
+// Path 4, three passes (entry sisr_ca_forward): replaces the tiled body `_ca_kernel`
+// for maps whose pixels are not whole 16-byte units or whose x is misaligned, which
+// no bulk copy takes.  The TPU kernel carries the spatial sum
 // across a sequential grid and then revisits the tiles; Hopper blocks run in parallel
 // in no order, so this is three launches on one stream:
 //   1. ca_pool_partial: each block reduces a slab of pixels of one image over its
@@ -90,8 +97,8 @@
 //      a multiple of 16 (and x is 16-byte aligned), one element per thread otherwise.
 // The map is read twice; the second read hits L2 where the map fits in its 50 MB.
 //
-// The int8 RCAB block tail, entries sisr_ca_rounds_forward (with r) and
-// sisr_ca_res_forward:
+// The int8 RCAB block tail, entries sisr_ca_rounds_forward (with r),
+// sisr_ca_stream_forward (with r) and sisr_ca_res_forward:
 //
 //   out = TR(float(x) * att(x) + float(r))
 //
@@ -101,10 +108,10 @@
 // x's shape, and out has r's type.  The multiply and the add round separately
 // (__fmul_rn, __fadd_rn: no fused multiply-add), as the plain version does, so the
 // two differ only by the pool's summation order.  Replaces
-// sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_res_forward`, by two paths;
-// the wrapper's plan (`res_onchip_plan`) picks one from the shape and the card alone.
+// sisr_tpu/ops/pallas/channel_attention.py `_fused_ca_res_forward`, by three paths;
+// the wrapper's plan (`ca_res_plan`) picks one from the shape and the card alone.
 //
-// Both paths also take the CA's meta and gate, and a cast-first rounding for the int8
+// Every path also takes the CA's meta and gate, and a cast-first rounding for the int8
 // QRCAB tail of Q-RCAN, whose branch sisr_tpu casts to the carry before it adds
 // (sisr_tpu/ops/quantization.py `qrcan_int8_forward_static`):
 //
@@ -157,18 +164,51 @@
 // -DSISR_CA_RES_TIMELINE stamps the phases (res_stamp below; tools/ca_res_timeline.py
 // reads them).
 //
-// Path 2, three passes (entry sisr_ca_res_forward): replaces the tiled body
-// `_ca_res_kernel`, for maps that do not fit on chip (one 512 x 512 float32 map),
-// pixels that are not whole 16-byte units, or a misaligned r.  Passes 1 and 2 are
+// Path 2, streaming (entry sisr_ca_stream_forward, kernel ca_stream, the CA's path 3
+// with r): replaces the tiled body `_ca_res_kernel` where not even one image's slabs
+// of x and r fit a round: the int8 RCAB tail of a DIV2K-size image, x (1, 339, 510,
+// 64) f32 (44.3 MB) with a bf16 carry, 503 KB a slab on 132 blocks.  Clusters and
+// distributed shared memory add no capacity (132 x 227 KB is all there is), so the
+// slab is split: one block per SM, all resident (one cooperative launch), one image a
+// round, block s owning slab s of ceil(hw / SMs) pixels (1310 at that shape), whose
+// first head_len pixels (its head, as many as fit beside the scratch and a ring of r)
+// sit in shared memory and whose rest (its tail) does not.  In round n:
+//   a. the head comes in by bulk copies in kStreamChunks chunks (evict_first: read
+//      once) and is pooled as each lands; the tail was sent for into L2 in one bulk
+//      prefetch under evict_last, and is pooled after the head with 16-byte loads
+//      (kStreamLoads at once) under the same policy, so it is the freshest data in L2
+//      at the barrier.  The order is fixed (head, then tail), so runs repeat bit for
+//      bit, and the extent's walk restarts where the tail begins;
+//   b. one grid barrier, split as in ca_rounds: between the arrival and the wait the
+//      first pieces of r start into their ring (kStreamSlots slots of kStreamSlotBytes,
+//      bulk copies under evict_first, each slot on its own mbarrier whose phase is
+//      counted per use, not per round); then every block runs the image's excite;
+//   c. the scale, tail first while L2 still holds it (16-byte loads under
+//      evict_first, its last use), then the head from shared memory; r through the
+//      ring, each slot refilled once every thread is done with it; out by vector
+//      stores under evict_first, so neither r nor out pushes the tail out of L2.
+// x leaves device memory once, r once and out once: the bound's 88.5 MB at that
+// shape (0.0264 ms at 3.35 TB/s), plus the tail's second read (16.8 MB at 812-pixel
+// heads with the ring; 14.7 MB at 876 without r), from L2 where it still holds it.
+// The ring's two slots, the eight loads at once and the tail-first order are timed
+// against four slots, sixteen loads and head first by tools/ca_res_timeline.py
+// --variants (PERF.md).  Needs what path 1 needs.  The timeline build stamps its
+// phases too: head pooled, tail pooled, past the barrier, excited, tail scaled, head
+// scaled.
+//
+// Path 3, three passes (entry sisr_ca_res_forward): replaces the tiled body
+// `_ca_res_kernel`, for pixels that are not whole 16-byte units or a misaligned x or
+// r, which no bulk copy takes.  Passes 1 and 2 are
 // the CA's ca_pool_partial and ca_excite; pass 3, ca_res_scale, moves one 16-byte x
 // vector and the matching r/out vectors per thread when C is a multiple of the
 // vector width and every pointer is aligned, one element per thread otherwise.  It
 // reads x twice: 100.7 MB at the main shape where the second read misses L2.
-// Neither path uses atomics, so repeated runs are bit-identical.
+// No path uses atomics, so repeated runs are bit-identical.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <utility>
 
@@ -178,6 +218,26 @@ constexpr int kThreads = 256;
 constexpr int kOnchipChunks = 4;  // bulk copies (and mbarriers) per slab
 constexpr int kResChunks = 2;     // bulk copies of x, and of r, per slab of ca_rounds
 constexpr int kResLoads = 16;     // block sums a thread of ca_rounds loads at once
+// ca_stream's ring slots, its loads from L2 at once and its order of the scale (each
+// slab's tail before its head) are fixed here; a build with -DSISR_CA_STREAM_SLOTS=n,
+// -DSISR_CA_STREAM_LOADS=n or -DSISR_CA_STREAM_HEAD_FIRST changes one of them, for
+// tools/ca_res_timeline.py --variants to time against this build in turns.
+#ifndef SISR_CA_STREAM_SLOTS
+#define SISR_CA_STREAM_SLOTS 2
+#endif
+#ifndef SISR_CA_STREAM_LOADS
+#define SISR_CA_STREAM_LOADS 8
+#endif
+constexpr int kStreamChunks = 4;  // bulk copies (and mbarriers) of a slab's head in ca_stream
+constexpr int kStreamSlots = SISR_CA_STREAM_SLOTS;  // slots of ca_stream's ring of r
+constexpr int kStreamSlotBytes = 8192;  // bytes of r a slot holds (whole pixels)
+// vectors of x a thread of ca_stream loads from L2 at once
+constexpr int kStreamLoads = SISR_CA_STREAM_LOADS;
+#ifdef SISR_CA_STREAM_HEAD_FIRST
+constexpr bool kStreamTailFirst = false;
+#else
+constexpr bool kStreamTailFirst = true;
+#endif
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -456,6 +516,71 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// L2 eviction policies for the cache hints below: a line touched under evict_last
+// outlives the lines of normal priority, one under evict_first goes before them.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// bulk_load and prefetch_l2 with an L2 cache policy.
+__device__ __forceinline__ void bulk_load_hint(void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_l2_hint(const void* src, uint32_t bytes,
+                                                 uint64_t policy) {
+  asm volatile("cp.async.bulk.prefetch.L2.global.L2::cache_hint [%0], %1, %2;\n" ::"l"(src),
+               "r"(bytes), "l"(policy)
+               : "memory");
+}
+
+// One 16-byte vector of global memory under an L2 cache policy.  Only for data that no
+// thread writes while the kernel runs (x), so the load may move freely.
+template <typename P>
+__device__ __forceinline__ P ld_hint(const P* src, uint64_t policy) {
+  static_assert(sizeof(P) == 16, "one 16-byte vector");
+  uint4 v;
+  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(src), "l"(policy));
+  P out;
+  memcpy(&out, &v, sizeof(P));
+  return out;
+}
+
+// A vector of 8, 16 or 32 bytes to global memory under an L2 cache policy.
+template <typename P>
+__device__ __forceinline__ void st_hint(P* dst, const P& v, uint64_t policy) {
+  uint32_t w[sizeof(P) / 4];
+  memcpy(w, &v, sizeof(P));
+  char* d = reinterpret_cast<char*>(dst);
+  if constexpr (sizeof(P) % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < (int)(sizeof(P) / 16); ++i)
+      asm volatile("st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(
+                       d + 16 * i),
+                   "r"(w[4 * i]), "r"(w[4 * i + 1]), "r"(w[4 * i + 2]), "r"(w[4 * i + 3]),
+                   "l"(policy)
+                   : "memory");
+  } else {
+    static_assert(sizeof(P) == 8, "a vector of 8, 16 or 32 bytes");
+    asm volatile("st.global.L2::cache_hint.v2.u32 [%0], {%1, %2}, %3;\n" ::"l"(d), "r"(w[0]),
+                 "r"(w[1]), "l"(policy)
+                 : "memory");
+  }
+}
+
 // Shared-memory bytes of ca_onchip: the slab, then the float scratch, then the
 // mbarriers.  onchip_smem_bytes in ops/channel_attention.py computes the same.
 __host__ __device__ inline int64_t onchip_float_offset(int64_t slab_len, int c, int itemsize) {
@@ -498,6 +623,32 @@ __host__ __device__ inline int64_t res_barrier_offset(int64_t slab_len, int c, i
 __host__ inline int64_t res_onchip_smem_bytes(int64_t slab_len, int c, int m, int cr,
                                               int x_itemsize, int r_itemsize) {
   return res_barrier_offset(slab_len, c, m, cr, x_itemsize, r_itemsize) + 8 * 2 * kResChunks;
+}
+
+// Shared-memory bytes of ca_stream: the slab's head (head_len pixels of x); from a
+// 128-byte boundary the ring of r, kStreamSlots slots of stream_ring_pixels pixels each
+// (none without r: r_itemsize 0); ca_onchip's float scratch for M meta values; then one
+// mbarrier for each chunk of the head and one for each slot of the ring.
+// stream_smem_bytes in ops/channel_attention.py computes the same.
+__host__ __device__ inline int64_t stream_ring_pixels(int c, int r_itemsize) {
+  if (r_itemsize == 0) return 0;
+  const int64_t pixels = kStreamSlotBytes / ((int64_t)c * r_itemsize);
+  return pixels > 0 ? pixels : 1;
+}
+__host__ __device__ inline int64_t stream_ring_offset(int64_t head_len, int c, int x_itemsize) {
+  return (head_len * c * x_itemsize + 127) / 128 * 128;
+}
+__host__ __device__ inline int64_t stream_barrier_offset(int64_t head_len, int c, int m, int cr,
+                                                         int x_itemsize, int r_itemsize) {
+  const int64_t floats_end = stream_ring_offset(head_len, c, x_itemsize) +
+                             kStreamSlots * stream_ring_pixels(c, r_itemsize) * c * r_itemsize +
+                             4 * onchip_floats(c, m, cr, 16 / x_itemsize);
+  return (floats_end + 15) / 16 * 16;
+}
+__host__ inline int64_t stream_smem_bytes(int64_t head_len, int c, int m, int cr,
+                                          int x_itemsize, int r_itemsize) {
+  return stream_barrier_offset(head_len, c, m, cr, x_itemsize, r_itemsize) +
+         8 * (kStreamChunks + kStreamSlots);
 }
 
 // The float scratch of the on-chip kernels, after the slab, as onchip_floats counts
@@ -892,6 +1043,254 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ca_stream's pool of pixels [a, b) of a slab past shared memory (src its first pixel),
+// the thread's lane of rows `row`, `row + rows`, ... inside `walk`'s extent, into acc:
+// kStreamLoads loads at once under `policy`, added in pixel order.
+template <typename TX, int VEC>
+__device__ __forceinline__ void stream_pool(const Pack<TX, VEC>* src, int64_t a, int64_t b,
+                                            int row, int rows, int lanes, int lane,
+                                            ExtentWalk walk, uint64_t policy,
+                                            float (&acc)[VEC]) {
+  for (int64_t p = a + row; p < b; p += kStreamLoads * rows) {
+    Pack<TX, VEC> px[kStreamLoads];
+    bool take[kStreamLoads];
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u) {
+      const int64_t q = p + u * rows;
+      take[u] = q < b && walk.inside();
+      if (q < b) walk.next();
+      if (take[u]) px[u] = ld_hint(&src[q * lanes + lane], policy);
+    }
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u)
+      if (take[u]) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] += to_float(px[u].v[v]);
+      }
+  }
+}
+
+// ca_stream's scale of pixels [a, b) of a slab: x from xs (kGlobalX: the slab in
+// global memory, read under `policy`, kStreamLoads loads at once; else the head in
+// shared memory), r (with MODE's r) from rs, which holds pixels [a, b), and out to dst
+// (the slab's first pixel) under `policy`.
+template <bool kGlobalX, typename TX, typename TR, int VEC, int MODE>
+__device__ __forceinline__ void stream_scale(const Pack<TX, VEC>* xs, const Pack<TR, VEC>* rs,
+                                             Pack<TR, VEC>* dst, int64_t a, int64_t b,
+                                             int row, int rows, int lanes, int lane,
+                                             const float (&scale)[VEC], uint64_t policy) {
+  for (int64_t p = a + row; p < b; p += kStreamLoads * rows) {
+    Pack<TX, VEC> px[kStreamLoads];
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u) {
+      const int64_t q = p + u * rows;
+      if (q < b) {
+        if constexpr (kGlobalX)
+          px[u] = ld_hint(&xs[q * lanes + lane], policy);
+        else
+          px[u] = xs[q * lanes + lane];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u) {
+      const int64_t q = p + u * rows;
+      if (q >= b) break;
+      Pack<TR, VEC> po;
+      if constexpr (MODE != kNoR) {
+        const Pack<TR, VEC> pr = rs[(q - a) * lanes + lane];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          po.v[v] = res_out<TX, TR, MODE>(px[u].v[v], scale[v], pr.v[v]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) po.v[v] = from_float<TR>(to_float(px[u].v[v]) * scale[v]);
+      }
+      st_hint(&dst[q * lanes + lane], po, policy);
+    }
+  }
+}
+
+// Grid (B), kThreads threads, launched cooperatively (the CA's path 3 and the CA +
+// residual's path 2 of the note above).  One image a round (N rounds): block s owns
+// pixels [s*slab_len, min(hw, (s+1)*slab_len)) of each image, the first head_len of
+// them (its head) in shared memory, the rest (its tail) read past it; rows of C/VEC
+// lanes as in ca_onchip.  The head lands in kStreamChunks bulk copies on xbars, whose
+// phases complete once a round (parity k & 1).  The scale walks the slab in pieces:
+// runs of stream_ring_pixels pixels (one slot of r's ring each), the tail's first and
+// then the head's (kStreamTailFirst false: the head's first), or without r the tail
+// and the head whole; piece j of round k is use g = k * pieces + j of the ring, in slot g %
+// kStreamSlots, whose phase is the slot's (g / kStreamSlots)-th (parity & 1).  MODE,
+// meta, gate and ext as in ca_rounds.  The plan guarantees C/VEC <= kThreads, a
+// non-empty slab for every block and 1 <= head_len <= slab_len.
+template <typename TX, typename TR, int VEC, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    ca_stream(const TX* __restrict__ x, const TR* __restrict__ r, TR* __restrict__ out,
+              const float* __restrict__ w1, const float* __restrict__ b1,
+              const float* __restrict__ w2, const float* __restrict__ b2,
+              const float* __restrict__ meta, const float* __restrict__ gate,
+              float* __restrict__ partial, int64_t n_images, int64_t hw, int c, int m, int cr,
+              int64_t slab_len, int64_t head_len, int64_t w1_sc,
+              int64_t w1_sj, int64_t w2_sj, int64_t w2_sc, Extent ext) {
+  constexpr bool kHasR = MODE != kNoR;
+  constexpr int kRBytes = kHasR ? (int)sizeof(TR) : 0;  // r's itemsize in the layout
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int slabs = gridDim.x;
+  const int lanes = c / VEC;
+  const int rows = kThreads / lanes;
+  const int parts = onchip_parts(c);
+  const int t = threadIdx.x;
+  const int row = t / lanes, lane = t % lanes;
+  const int64_t p0 = (int64_t)blockIdx.x * slab_len;
+  const int64_t len = min(hw - p0, slab_len);
+  const int64_t head = min(len, head_len);  // pixels [0, head): in shared memory
+  const int64_t tail = len - head;          // pixels [head, len): from L2
+  const int64_t chunk_len = (head + kStreamChunks - 1) / kStreamChunks;
+  const int chunks = (int)((head + chunk_len - 1) / chunk_len);  // all non-empty
+  const int64_t ring_len = stream_ring_pixels(c, kRBytes);
+  const int tail_pieces = (int)(kHasR ? (tail + ring_len - 1) / ring_len : (tail > 0));
+  const int head_pieces = (int)(kHasR ? (head + ring_len - 1) / ring_len : 1);
+  const int pieces = tail_pieces + head_pieces;
+
+  const Pack<TX, VEC>* xs = reinterpret_cast<const Pack<TX, VEC>*>(smem);
+  unsigned char* ring = smem + stream_ring_offset(head_len, c, sizeof(TX));
+  const int64_t slot_bytes = ring_len * c * kRBytes;
+  const OnchipScratch s(reinterpret_cast<float*>(ring + kStreamSlots * slot_bytes), c, m, cr,
+                        rows, parts);
+  uint64_t* xbars = reinterpret_cast<uint64_t*>(
+      smem + stream_barrier_offset(head_len, c, m, cr, sizeof(TX), kRBytes));
+  uint64_t* rbars = xbars + kStreamChunks;
+  const uint64_t keep = l2_evict_last(), pass = l2_evict_first();
+  res_stamp(0);
+
+  // piece j of the scale: pixels [*a, *b) of the slab; true when they are in the tail
+  auto piece = [&](int j, int64_t* a, int64_t* b) {
+    const int first = kStreamTailFirst ? tail_pieces : head_pieces;
+    const bool in_tail = kStreamTailFirst == (j < first);
+    const int i = j < first ? j : j - first;
+    const int64_t lo = in_tail ? head : 0, hi = in_tail ? len : head;
+    *a = lo + i * (kHasR ? ring_len : hi - lo);
+    *b = min(hi, *a + (kHasR ? ring_len : hi - lo));
+    return in_tail;
+  };
+  // thread 0: round k's piece j of r (image n) into its slot, past L2 (evict_first)
+  auto send_r = [&](int64_t n, int k, int j) {
+    int64_t a, b;
+    piece(j, &a, &b);
+    const int slot = (int)(((int64_t)k * pieces + j) % kStreamSlots);
+    const uint32_t bytes = (uint32_t)((b - a) * c * (int64_t)sizeof(TR));
+    mbar_expect_tx(&rbars[slot], bytes);
+    bulk_load_hint(ring + slot * slot_bytes, r + (n * hw + p0 + a) * c, bytes, &rbars[slot],
+                   pass);
+  };
+
+  // a. thread 0: image n's head by bulk copies, read once (evict_first), and its tail
+  //    sent for into L2 to stay there (evict_last) until the scale reads it again
+  auto send_x = [&](int64_t n) {
+    const TX* img = x + (n * hw + p0) * c;
+    for (int i = 0; i < chunks; ++i) {
+      const int64_t a = i * chunk_len, b = min(head, a + chunk_len);
+      const uint32_t bytes = (uint32_t)((b - a) * c * (int64_t)sizeof(TX));
+      mbar_expect_tx(&xbars[i], bytes);
+      bulk_load_hint(smem + a * c * sizeof(TX), img + a * c, bytes, &xbars[i], pass);
+    }
+    if (tail > 0)
+      prefetch_l2_hint(img + head * c, (uint32_t)(tail * c * (int64_t)sizeof(TX)), keep);
+  };
+
+  if (t == 0) {
+    for (int j = 0; j < kStreamChunks + (kHasR ? kStreamSlots : 0); ++j) mbar_init(&xbars[j]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) send_x(0);
+  stage_excite_weights(s, w1, b1, w2, b2, nullptr, c, m, cr, w1_sc, w1_sj, w2_sj, w2_sc, t);
+
+  for (int k = 0; k < (int)n_images; ++k) {
+    const int64_t n = k;
+    const TX* img = x + (n * hw + p0) * c;  // the slab's first pixel
+    if (t == 0 && k > 0) {  // order the last round's reads of the head before the copies
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      send_x(n);
+    }
+    for (int i = t; i < m; i += kThreads) s.pooled[c + i] = meta[n * m + i];
+    // pool the head as its chunks land, then the tail from L2, always in that order
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+    const Pack<TX, VEC>* img_packs = reinterpret_cast<const Pack<TX, VEC>*>(img);
+    for (int i = 0; i < chunks; ++i) {
+      const int64_t a = i * chunk_len, b = min(head, a + chunk_len);
+      mbar_wait(&xbars[i], (uint32_t)(k & 1));
+      if (row < rows) {
+        ExtentWalk walk(ext, p0 + a + row, rows);
+        for (int64_t p = a + row; p < b; p += rows, walk.next()) {
+          if (!walk.inside()) continue;
+          const Pack<TX, VEC> pk = xs[p * lanes + lane];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[v] += to_float(pk.v[v]);
+        }
+      }
+    }
+    res_stamp(1 + 6 * k);
+    if (row < rows)
+      stream_pool<TX, VEC>(img_packs, head, len, row, rows, lanes, lane,
+                           ExtentWalk(ext, p0 + head + row, rows), keep, acc);
+    block_channel_sum<VEC>(acc, s, partial + (n * slabs + blockIdx.x) * c, c, rows, parts, row,
+                           lane, t);
+    res_stamp(2 + 6 * k);
+    // b. one grid barrier a round, split: r's first pieces start between the arrival
+    //    and the wait (every thread is done with the ring: block_channel_sum synced)
+    {
+      const cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+      auto token = grid.barrier_arrive();
+      if (kHasR && t == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int j = 0; j < pieces && j < kStreamSlots; ++j) send_r(n, k, j);
+      }
+      grid.barrier_wait(std::move(token));
+    }
+    res_stamp(3 + 6 * k);
+    image_excite<kResLoads>(s, partial + n * slabs * c, gate ? gate + n * c : nullptr, slabs,
+                            ext.count, c, m, cr, parts, t);
+    res_stamp(4 + 6 * k);
+
+    // c. the scale piece by piece: the tail first, while L2 still holds it; r through
+    //    its ring, out past L2 (evict_first); each slot takes the piece kStreamSlots on
+    //    once every thread is done with it
+    float scale[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      scale[v] = row < rows ? scale_of<TX, MODE>(s.att[lane * VEC + v]) : 0.f;
+    Pack<TR, VEC>* dst = reinterpret_cast<Pack<TR, VEC>*>(out + (n * hw + p0) * c);
+    for (int j = 0; j < pieces; ++j) {
+      int64_t a, b;
+      const bool in_tail = piece(j, &a, &b);
+      const int64_t g = (int64_t)k * pieces + j;
+      const Pack<TR, VEC>* rs =
+          reinterpret_cast<const Pack<TR, VEC>*>(ring + (g % kStreamSlots) * slot_bytes);
+      if (kHasR) mbar_wait(&rbars[g % kStreamSlots], (uint32_t)((g / kStreamSlots) & 1));
+      if (row < rows) {
+        if (in_tail)
+          stream_scale<true, TX, TR, VEC, MODE>(img_packs, rs, dst, a, b, row, rows, lanes,
+                                                lane, scale, pass);
+        else
+          stream_scale<false, TX, TR, VEC, MODE>(xs, rs, dst, a, b, row, rows, lanes, lane,
+                                                 scale, pass);
+      }
+      if (kHasR && j + kStreamSlots < pieces) {
+        __syncthreads();  // every thread is done reading the slot
+        if (t == 0) {     // order those reads before the async proxy's writes
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          send_r(n, k, j + kStreamSlots);
+        }
+      }
+      if (j + 1 == (kStreamTailFirst ? tail_pieces : head_pieces)) res_stamp(5 + 6 * k);
+    }
+    res_stamp(6 + 6 * k);
+    __syncthreads();  // every thread is done with the head and the ring
+  }
+}
+
 // Passes 1 and 2: att (N, C) float32 from x (and meta (N, M), gate (N, C) where not
 // null), pooled over the valid extent `ext`.
 template <typename T, int VEC>
@@ -1081,6 +1480,51 @@ cudaError_t dispatch_rounds(int r_dtype, int cast_first, const TailArgs& a,
   return cudaErrorInvalidValue;
 }
 
+// ca_stream's plan: one round an image, `slabs` blocks of slab_len pixels whose first
+// head_len sit in shared memory, smem_bytes of dynamic shared memory a block.
+struct StreamPlan {
+  int rounds, slabs;
+  int64_t slab_len, head_len, smem_bytes;
+};
+
+// One cooperative launch of ca_stream over `slabs` blocks for one round an image.  The
+// plan must take each image in its own round and cover every pixel once with no empty
+// block and a head of 1 to slab_len pixels; r, meta and the extent are held to what
+// launch_rounds holds them to, and smem_bytes must equal this file's layout, or nothing
+// launches.
+template <typename TX, typename TR, int VEC, int MODE>
+cudaError_t launch_stream(const TailArgs& a, const StreamPlan& p, cudaStream_t stream) {
+  constexpr bool kHasR = MODE != kNoR;
+  constexpr int kRBytes = kHasR ? (int)sizeof(TR) : 0;
+  if (a.c % VEC != 0 || a.c / VEC > kThreads || a.m < 0 || (a.m > 0) != (a.meta != nullptr) ||
+      kHasR != (a.r != nullptr) || (kHasR && a.ext.masked) || p.rounds != a.n ||
+      p.slabs < 1 || (p.slabs - 1) * p.slab_len >= a.hw || p.slabs * p.slab_len < a.hw ||
+      p.head_len < 1 || p.head_len > p.slab_len || (a.c * kRBytes) % 16 != 0 ||
+      p.smem_bytes != stream_smem_bytes(p.head_len, a.c, a.m, a.cr, sizeof(TX), kRBytes))
+    return cudaErrorInvalidValue;
+  static int64_t allowed[64] = {};
+  return launch_cooperative(ca_stream<TX, TR, VEC, MODE>, allowed, dim3((unsigned)p.slabs),
+                            p.smem_bytes, stream, static_cast<const TX*>(a.x),
+                            static_cast<const TR*>(a.r), static_cast<TR*>(a.out), a.w1, a.b1,
+                            a.w2, a.b2, a.meta, a.gate, a.partial, a.n, a.hw, a.c, a.m, a.cr,
+                            p.slab_len, p.head_len, a.ws[0], a.ws[1], a.ws[2], a.ws[3],
+                            a.ext);
+}
+
+// ca_stream for x of type TX, with r as dispatch_rounds takes it.
+template <typename TX, int VEC>
+cudaError_t dispatch_stream(int r_dtype, int cast_first, const TailArgs& a,
+                            const StreamPlan& p, cudaStream_t s) {
+  if (r_dtype == -1 && !cast_first) return launch_stream<TX, TX, VEC, kNoR>(a, p, s);
+  if (r_dtype == 0)
+    return cast_first ? launch_stream<TX, float, VEC, kResCastFirst>(a, p, s)
+                      : launch_stream<TX, float, VEC, kRes>(a, p, s);
+  if (r_dtype == 1)
+    return cast_first ? launch_stream<TX, __nv_bfloat16, VEC, kResCastFirst>(a, p, s)
+                      : launch_stream<TX, __nv_bfloat16, VEC, kRes>(a, p, s);
+  return cudaErrorInvalidValue;
+}
+
 // The valid extent (vh, vw) of images of hw pixels, w wide, into *e: false (and nothing
 // launches) unless w divides hw, 0 < vh <= H = hw / w and 0 < vw <= w.
 bool make_extent(int64_t hw, int64_t w, int64_t vh, int64_t vw, Extent* e) {
@@ -1189,6 +1633,31 @@ int sisr_ca_rounds_forward(const void* x, const void* r, void* out, const float*
   const RoundsPlan p = {rounds, images, slabs, slab_len, smem_bytes};
   if (x_dtype == 0) return (int)dispatch_rounds<float, 4>(r_dtype, cast_first, a, p, s);
   if (x_dtype == 1) return (int)dispatch_rounds<__nv_bfloat16, 8>(r_dtype, cast_first, a, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The stream path (ca_stream): one cooperative launch of `slabs` blocks, one image a
+// round over `rounds` (= n) rounds, each block owning slab_len pixels (the last one the
+// rest) of which the first head_len sit in shared memory, with smem_bytes of dynamic
+// shared memory, whose tail is scaled before its head.  The other arguments, and
+// what the caller checks, are those of sisr_ca_rounds_forward.  Returns the CUDA
+// error code of the launch, 0 when it launched.
+int sisr_ca_stream_forward(const void* x, const void* r, void* out, const float* w1,
+                           const float* b1, const float* w2, const float* b2,
+                           const float* meta, const float* gate, float* partial, long long n,
+                           long long hw, int c, int m, int cr, long long w1_s0,
+                           long long w1_s1, long long w2_s0, long long w2_s1, int x_dtype,
+                           int r_dtype, int cast_first, int rounds, int slabs,
+                           long long slab_len, long long head_len, long long smem_bytes,
+                           long long w, long long vh, long long vw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Extent e;
+  if (!make_extent(hw, w, vh, vw, &e)) return (int)cudaErrorInvalidValue;
+  const TailArgs a = {x, r, out, w1, b1, w2, b2, meta, gate, partial, n, hw, c, m, cr,
+                      {w1_s0, w1_s1, w2_s0, w2_s1}, e};
+  const StreamPlan p = {rounds, slabs, slab_len, head_len, smem_bytes};
+  if (x_dtype == 0) return (int)dispatch_stream<float, 4>(r_dtype, cast_first, a, p, s);
+  if (x_dtype == 1) return (int)dispatch_stream<__nv_bfloat16, 8>(r_dtype, cast_first, a, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

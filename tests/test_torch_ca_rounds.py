@@ -36,8 +36,9 @@ MAIN = (8, 128 * 128, 64, 4)  # n, H * W, C, Cr of the 128^2 eval maps
     (7, 128 * 128, 64, 4, 4, True, 10, ('rounds', (2, 4, 33, 497, 135440))),  # 4 + 3
     (200, 4 * 4, 64, 4, 4, True, 0, ('rounds', (2, 100, 1, 16, 12096))),  # > 132 images
     (8, 64 * 64, 64, 4, 4, True, 0, ('onchip', (16, 256, 73536))),  # the training map
-    (1, 512 * 512, 64, 4, 4, True, 0, ('three_pass', None)),  # one image: 508 KB slabs
-    (1, 512 * 512, 64, 4, 2, True, 0, ('three_pass', None)),
+    # one image: 508 KB slabs fit no round, so it streams (876 of 1986 pixels on chip)
+    (1, 512 * 512, 64, 4, 4, True, 0, ('stream', (1, 132, 1986, 876, 232272))),
+    (1, 512 * 512, 64, 4, 2, True, 0, ('stream', (1, 132, 1986, 1721, 232400))),
     (1, 7 * 5, 20, 5, 2, True, 0, ('three_pass', None)),      # 40-byte pixels
     (*MAIN, 4, False, 0, ('three_pass', None)),                # misaligned x
 ])

@@ -1,15 +1,16 @@
 """sisr_tpu_torch on an NVIDIA card: the CUDA channel-attention kernel (with and
 without Q-RCAN's meta and gate) on each of its routes (on chip, in rounds, three
-passes) and the CA + residual block-tail kernel (also with meta, gate and the
-cast-first rounding of int8 Q-RCAN's tail) against their plain versions, the CA's
-valid-extent pool (bucketed eval) on each route and its refusals, the rounds
-route against three passes, the int8 conv's int32 sums against an int64 reference,
-a small RCAN (f32, and int8), Q-RCAN and EDSR on the card against the CPU, the int8
-programs of EDSR (three carries), Q-RCAN and Q-EDSR card against CPU, and the CA
-op's backward (the kernel forward, the plain VJP) and one training step of a small
-Q-RCAN on the card against plain autograd and the CPU.  Every test here needs the
-card and skips without one.  Imports torch only (no JAX), so the card's machine runs
-it:
+passes, and streaming one image a round) and the CA + residual block-tail kernel
+(also with meta, gate and the cast-first rounding of int8 Q-RCAN's tail, in rounds,
+streaming or in three passes) against their plain versions, the CA's valid-extent
+pool (bucketed eval) on each route and its refusals, the rounds and the stream
+routes against three passes, the stream route's layout, the int8 conv's int32 sums
+against an int64 reference, a small RCAN (f32, and int8), Q-RCAN and EDSR on the card
+against the CPU, the int8 programs of EDSR (three carries), Q-RCAN and Q-EDSR card
+against CPU, and the CA op's backward (the kernel forward, the plain VJP) and one
+training step of a small Q-RCAN on the card against plain autograd and the CPU.
+Every test here needs the card and skips without one.  Imports torch only (no JAX),
+so the card's machine runs it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -22,13 +23,25 @@ from sisr_tpu_torch.ops import channel_attention as ca
 from sisr_tpu_torch.ops import quantization as qz
 
 pytestmark = pytest.mark.cuda
-# the CA op's (on-chip, rounds) launch counts over two calls on each route
-ROUTE_LAUNCHES = {'onchip': (2, 0), 'rounds': (0, 2), 'three_pass': (0, 0)}
+# the CA op's (on-chip, rounds, stream) launch counts over two calls on each route
+ROUTE_LAUNCHES = {'onchip': (2, 0, 0), 'rounds': (0, 2, 0), 'stream': (0, 0, 2),
+                  'three_pass': (0, 0, 0)}
 
 
 def _ca_route_counts():
     return (ca.fused_channel_attention.onchip_launches,
-            ca.fused_channel_attention.rounds_launches)
+            ca.fused_channel_attention.rounds_launches,
+            ca.fused_channel_attention.stream_launches)
+
+
+def _res_route_counts():
+    """The CA + residual op's (rounds, stream) launch counts."""
+    op = ca.fused_channel_attention_residual
+    return op.onchip_launches, op.stream_launches
+
+
+# the CA + residual's (rounds, stream) launch counts over two calls on each route
+RES_ROUTE_LAUNCHES = {'onchip': (2, 0), 'stream': (0, 2), 'three_pass': (0, 0)}
 
 
 def _ca_route_took(before):
@@ -52,7 +65,7 @@ def card():
     ((2, 16, 8, 32), 4, torch.bfloat16, 'onchip'),
     ((1, 7, 5, 20), 4, torch.bfloat16, 'three_pass'),       # 40-byte pixels
     ((3, 37, 29, 64), 16, torch.bfloat16, 'onchip'),        # ragged last slab
-    ((1, 512, 512, 64), 16, torch.bfloat16, 'three_pass'),  # one 33.6 MB map
+    ((1, 512, 512, 64), 16, torch.bfloat16, 'stream'),      # one 33.6 MB map
 ])
 @pytest.mark.parametrize('transposed_weights', [False, True])
 def test_kernel_matches_plain_version(shape, red, dtype, path, transposed_weights):
@@ -99,7 +112,7 @@ def _meta_gate_inputs(shape, red, dtype, m, with_gate, seed):
     ((8, 128, 128, 64), 16, torch.bfloat16, 'onchip'),      # Q-RCAN's main path
     ((8, 128, 128, 64), 16, torch.float32, 'rounds'),       # int8 Q-RCAN's tail map
     ((7, 128, 128, 64), 16, torch.float32, 'rounds'),       # a ragged last round
-    ((1, 512, 512, 64), 16, torch.bfloat16, 'three_pass'),
+    ((1, 512, 512, 64), 16, torch.bfloat16, 'stream'),
     ((3, 37, 29, 64), 16, torch.bfloat16, 'onchip'),        # ragged last slab
     ((1, 7, 5, 20), 4, torch.bfloat16, 'three_pass'),       # 40-byte pixels
     ((2, 16, 8, 32), 4, torch.float32, 'onchip'),
@@ -124,7 +137,8 @@ def test_kernel_with_meta_and_gate_matches_plain_version(shape, red, dtype, path
 
 @pytest.mark.parametrize('shape,valid,dtype,path', [
     ((1, 384, 512, 64), (339, 510), torch.bfloat16, 'onchip'),      # a DIV2K bucket
-    ((1, 384, 512, 64), (339, 510), torch.float32, 'three_pass'),
+    ((1, 384, 512, 64), (339, 510), torch.float32, 'stream'),
+    ((2, 339, 510, 64), (200, 301), torch.float32, 'stream'),      # 2 rounds, a mid-slab edge
     ((8, 128, 128, 64), (100, 120), torch.float32, 'rounds'),
     ((7, 128, 128, 64), (128, 1), torch.float32, 'rounds'),         # a ragged round
     ((3, 37, 29, 64), (1, 29), torch.bfloat16, 'onchip'),
@@ -168,9 +182,13 @@ def test_c_entries_refuse_bad_extents():
                           props.shared_memory_per_block_optin)
     rounds = ca.res_onchip_plan(2, 128, 32, 8, 4, 0, True, props.multi_processor_count,
                                 props.shared_memory_per_block_optin)
+    stream = ca.stream_plan(2, 128, 32, 8, 4, 0, True, props.multi_processor_count,
+                            props.shared_memory_per_block_optin)
     launchers = (lambda v: ca._onchip(*args, plan, valid_hw=v),
                  lambda v: ca._rounds(args[0], None, *args[1:], torch.empty_like(args[0]),
                                       rounds, valid_hw=v),
+                 lambda v: ca._stream(args[0], None, *args[1:], torch.empty_like(args[0]),
+                                      stream, valid_hw=v),
                  lambda v: ca._three_pass(*args, valid_hw=v))
     with torch.inference_mode():
         for launch in launchers:
@@ -248,7 +266,7 @@ def _excite_weights(rng, c, cr):
     ((8, 128, 128, 64), 16, torch.float32, torch.float32, 0, 'onchip'),
     ((7, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),  # 4 + 3 images
     ((3, 37, 29, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),    # ragged slabs
-    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0, 'three_pass'),  # 67 MB of x
+    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0, 'stream'),  # 67 MB of x
     ((2, 16, 8, 32), 4, torch.bfloat16, torch.bfloat16, 0, 'onchip'),
     ((2, 16, 8, 32), 4, torch.bfloat16, torch.float32, 0, 'onchip'),
     ((1, 13, 7, 32), 4, torch.float32, torch.bfloat16, 0, 'onchip'),      # odd H x W
@@ -267,15 +285,15 @@ def test_residual_kernel_matches_plain_version(shape, red, x_dtype, r_dtype, off
     r = r[offset:].view(shape)
     weights = _excite_weights(rng, c, cr)
     launches = ca.fused_channel_attention_residual.launches
-    onchip = ca.fused_channel_attention_residual.onchip_launches
+    before = _res_route_counts()
     with torch.inference_mode():
         out = ca.fused_channel_attention_residual(x, r, *weights)
         again = ca.fused_channel_attention_residual(x, r, *weights)
         torch.cuda.synchronize()
         ref = ca.reference_channel_attention_residual(x, r, *weights)
     assert ca.fused_channel_attention_residual.launches == launches + 2
-    took = ca.fused_channel_attention_residual.onchip_launches - onchip
-    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    took = tuple(a - b for a, b in zip(_res_route_counts(), before))
+    assert took == RES_ROUTE_LAUNCHES[path], 'expected the %s path' % path
     assert out.dtype == r_dtype
     assert torch.equal(out, again)  # no atomics: the same bits every run
     if r_dtype == torch.float32:
@@ -315,7 +333,7 @@ def assert_tail_close(out, ref, r):
     ((7, 128, 128, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),  # 4 + 3 images
     ((3, 37, 29, 64), 16, torch.float32, torch.bfloat16, 0, 'onchip'),    # ragged slabs
     ((2, 16, 8, 32), 4, torch.bfloat16, torch.bfloat16, 0, 'onchip'),
-    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0, 'three_pass'),
+    ((1, 512, 512, 64), 16, torch.float32, torch.bfloat16, 0, 'stream'),
     ((2, 16, 8, 32), 4, torch.float32, torch.bfloat16, 2, 'three_pass'),  # misaligned r
     ((2, 9, 3, 18), 3, torch.bfloat16, torch.float32, 0, 'three_pass'),   # C % 8 != 0
 ])
@@ -331,15 +349,15 @@ def test_residual_with_meta_gate_cast_first_matches_plain_version(
     r = r[offset:].view(shape)
     args = (x, r, w1, b1, w2, b2)
     launches = ca.fused_channel_attention_residual.launches
-    onchip = ca.fused_channel_attention_residual.onchip_launches
+    before = _res_route_counts()
     with torch.inference_mode():
         out = ca.fused_channel_attention_residual(*args, cast_first=cast_first, **extra)
         again = ca.fused_channel_attention_residual(*args, cast_first=cast_first, **extra)
         torch.cuda.synchronize()
         ref = ca.reference_channel_attention_residual(*args, cast_first=cast_first, **extra)
     assert ca.fused_channel_attention_residual.launches == launches + 2
-    took = ca.fused_channel_attention_residual.onchip_launches - onchip
-    assert took == (2 if path == 'onchip' else 0), 'expected the %s path' % path
+    took = tuple(a - b for a, b in zip(_res_route_counts(), before))
+    assert took == RES_ROUTE_LAUNCHES[path], 'expected the %s path' % path
     assert out.dtype == r_dtype and torch.equal(out, again)
     assert_tail_close(out, ref, r)
 
@@ -379,6 +397,92 @@ def test_rounds_smem_must_equal_the_cu_layout():
         for bad in (plan_of(0, 0), plan_of(2, 10)):
             with pytest.raises(RuntimeError, match='CUDA error'):
                 ca._rounds(x, None, *args[1:], torch.empty_like(x), bad, **extra)
+
+
+DIV2K_LR = (1, 339, 510, 64)  # the f32 map of a DIV2K validation image's LR
+
+
+def _stream_inputs(shape, x_dtype, r_dtype, m, with_gate, seed):
+    """x (a signed conv output), r (None for the CA op), the weights and meta/gate."""
+    args, extra = _meta_gate_inputs(shape, 16, x_dtype, m, with_gate, seed)
+    x = ((args[0].float() - 0.5) * 4).to(x_dtype)
+    r = None if r_dtype is None else torch.rand(shape, device='cuda').to(r_dtype)
+    return (x, r) + args[1:], extra
+
+
+@pytest.mark.parametrize('shape', [DIV2K_LR, (2, 339, 510, 64), (1, 384, 512, 64)])
+@pytest.mark.parametrize('r_dtype,cast_first', [(None, False), (torch.bfloat16, False),
+                                                (torch.bfloat16, True), (torch.float32, False),
+                                                (torch.float32, True)])
+@pytest.mark.parametrize('m,with_gate', [(0, False), (10, True)])
+def test_stream_kernel_matches_plain_version(shape, r_dtype, cast_first, m, with_gate):
+    """ca_stream in each mode (the CA; the tail with r bf16 or f32, plain or cast first)
+    at DIV2K size, f32 x, with and without meta and gate: the route the plan gives,
+    within 1e-5 (f32) or 2 bf16 ULPs, the same bits on a rerun."""
+    (x, r, *weights), extra = _stream_inputs(shape, torch.float32, r_dtype, m, with_gate,
+                                             seed=20)
+    with torch.inference_mode():
+        if r is None:
+            before = _ca_route_counts()
+            out = ca.fused_channel_attention(x, *weights, **extra)
+            again = ca.fused_channel_attention(x, *weights, **extra)
+            torch.cuda.synchronize()
+            assert _ca_route_took(before) == ROUTE_LAUNCHES['stream']
+            ref = ca.reference_channel_attention(x, *weights, **extra)
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        else:
+            before = _res_route_counts()
+            op = ca.fused_channel_attention_residual
+            out = op(x, r, *weights, cast_first=cast_first, **extra)
+            again = op(x, r, *weights, cast_first=cast_first, **extra)
+            torch.cuda.synchronize()
+            took = tuple(a - b for a, b in zip(_res_route_counts(), before))
+            assert took == RES_ROUTE_LAUNCHES['stream']
+            ref = ca.reference_channel_attention_residual(x, r, *weights,
+                                                          cast_first=cast_first, **extra)
+            assert out.dtype == r.dtype
+            assert_tail_close(out, ref, r)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize('r_dtype', [None, torch.bfloat16])
+def test_stream_and_three_passes_agree(r_dtype):
+    """At DIV2K size the stream route and three passes give the same function within
+    1e-5."""
+    (x, r, *weights), extra = _stream_inputs(DIV2K_LR, torch.float32, r_dtype, 10, True,
+                                             seed=21)
+    props = torch.cuda.get_device_properties(0)
+    n, h, w, c = x.shape
+    plan = ca.stream_plan(n, h * w, c, 4, 4, 0 if r is None else 2, True,
+                          props.multi_processor_count, props.shared_memory_per_block_optin,
+                          m=10)
+    with torch.inference_mode():
+        out = ca._stream(x, r, *weights, torch.empty_like(x if r is None else r), plan,
+                         **extra)
+        three = (ca._three_pass(x, *weights, **extra) if r is None
+                 else ca._res_three_pass(x, r, *weights, **extra))
+    torch.testing.assert_close(out.float(), three.float(), atol=1e-5, rtol=0)
+
+
+def test_stream_smem_must_equal_the_cu_layout():
+    """The stream entry lays out the shared memory itself and refuses a plan that
+    disagrees: one sized without the 10 meta values, with a ring of r the CA op does
+    not have, 16 bytes off, or with an empty head."""
+    args, extra = _meta_gate_inputs(DIV2K_LR, 16, torch.float32, 10, True, seed=22)
+    props = torch.cuda.get_device_properties(0)
+    plan_of = lambda r_itemsize, m: ca.stream_plan(
+        1, 339 * 510, 64, 4, 4, r_itemsize, True, props.multi_processor_count,
+        props.shared_memory_per_block_optin, m=m)
+    x = args[0]
+    plan = plan_of(0, 10)
+    with torch.inference_mode():
+        out = ca._stream(x, None, *args[1:], torch.empty_like(x), plan, **extra)
+        torch.testing.assert_close(out, ca.reference_channel_attention(*args, **extra),
+                                   atol=1e-5, rtol=0)
+        for bad in (plan_of(0, 0), plan_of(2, 10), plan[:4] + (plan[4] + 16,),
+                    plan[:3] + (0, ca.stream_smem_bytes(0, 64, 4, 4, 0, 10))):
+            with pytest.raises(RuntimeError, match='CUDA error'):
+                ca._stream(x, None, *args[1:], torch.empty_like(x), bad, **extra)
 
 
 @pytest.mark.parametrize('n,h,w,cin,cout', [(8, 32, 32, 64, 64), (2, 16, 16, 3, 64),
