@@ -27,16 +27,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    CA at the standard protocol's batch-1 bf16 maps (128^2, the largest Set14 LR
    shape, 510 x 339) against its bound, with its launches there as each
    standard-protocol run counts them by map;
-3. reference: the full-width RCAN, Q-RCAN and EDSR forwards and fused evals on a
-   small input, card (CUDA kernels) against the CPU (plain versions), in f32;
+3. reference: the full-width RCAN, Q-RCAN, EDSR, HAN and Q-HAN forwards and fused
+   evals on a small input, card (CUDA kernels) against the CPU (plain versions), in
+   f32 (every HAN and Q-HAN of this script with LAM's and CSAM's gammas non-zero:
+   GAMMAS); then HAN's LAM and CSAM alone at the fused eval's shapes, card against
+   CPU in f32, and timed in bf16 and f32 beside their bounds;
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
    ``torch._int_mm`` in both weight layouts; calibration on the card (with TF32
    allowed globally) against the CPU's; the full-width int8 RCAN and its fused eval
    on the same quantised state, card against CPU; then the same for EDSR 64
    features, 16 blocks with each of its three carries (float32, bfloat16, int16),
-   Q-RCAN's e2e configuration at full depth, 10 x 20 (its 200 CA + residual launches
-   a forward counted, their path held against the plan) and Q-EDSR at 2 blocks and 256 features (also its f32
-   module forward), each with the int32 sums of its head and first body conv;
+   Q-RCAN's e2e configuration cut to 2 x 2 (from 10 x 20, to make room for HAN's
+   phases; its 4 CA + residual launches a forward counted, their path held against
+   the plan: the int8 main path runs it at full depth), Q-EDSR at 2 blocks and 256
+   features (also its f32 module forward), and HAN and Q-HAN at 2 x 2 (LAM and CSAM
+   in bf16), each with the int32 sums of its head and first body conv;
 5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
    launch counts of that run (every CA call on chip); then the img/s of warm protocol
@@ -53,9 +58,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    one CA + residual launch, cast first, with meta and gate on the f32 map and the
    bf16 carry, all in rounds at this shape),
    and Q-EDSR at configs/div2k/qedsr.toml's width (256 features, 32 blocks, the
-   gate's nonlinearity, 10 blur-kernel values, 4x) in bf16 and with ``--int8``; each
-   int8 path's mean PSNR within 1 dB of its bf16 run's, with img/s, a device-time
-   breakdown and peak memory;
+   gate's nonlinearity, 10 blur-kernel values, 4x) in bf16 and with ``--int8``; then
+   HAN and Q-HAN as configs/div2k/han.toml and qhan.toml build them (10 x 20, 64
+   features, 4x; Q-HAN's QRCABs the standard style with a q_node, on the blur
+   kernel) in bf16 (200 CA launches a forward on chip, Q-HAN's with the gate) and
+   with ``--int8`` (200 CA + residual launches a forward in rounds, Q-HAN's cast
+   first with the gate), LAM, CSAM and last_conv timed apart; each int8 path's mean
+   PSNR within 1 dB of its bf16 run's, with img/s, a device-time breakdown and peak
+   memory;
 9. kernel backward: the CA op under autograd (the kernel forward, the plain VJP) at the
    training shape (8, 64, 64, 64) f32 with and without Q-RCAN's gate, and at the f32
    eval shape (in rounds), against plain autograd; the kernel's forward time at the
@@ -68,10 +78,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
    epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
    --fused_eval`` of the best epoch (f32, the CA in rounds); then 10 timed warm train
-   steps each of Q-RCAN and RCAN 10 x 20 through the handler (forward / backward /
-   optimizer, device busy, the
-   CA kernel's share, conv FLOPs against the TF32 and f32 peaks, peak memory), and the
-   same step with the CA's plain version in its place, in turns;
+   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20 through the handler (forward /
+   backward / optimizer, device busy, the CA kernel's share, conv FLOPs against the
+   TF32 and f32 peaks, peak memory), and the same step with the CA's plain version in
+   its place, in turns;
 
 12. kernel extent (run after phase 2's meta case): the CA with a valid extent (bucketed
    eval) on each of its routes, against its plain version, timed against the same call
@@ -85,11 +95,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
    residual's stream route on the 2040-wide image, timed there against its three
    passes), ``--model_only``; then ``--model_only`` of Q-RCAN as configs/div2k/qrcan.toml
    builds it (f32, standard style with a q_node: the CA with a gate), the 510 x 339
-   image's CA calls streaming, its SR output against the plain CA's forward;
-14. train_sisr on configs/div2k/qrcan.toml as shipped (no fused_val: the standard
-   validation epoch), its val-PSNR against a fused validation of the same checkpoint;
+   image's CA calls streaming, its SR output against the plain CA's forward; then
+   Q-HAN bf16 with ``--no_image_comparison`` and with ``--eval_buckets 128`` (its
+   LAM and CSAM on the zero-masked pads), each against the run before it;
+14. train_sisr on configs/div2k/qrcan.toml and on configs/div2k/qhan.toml (both
+   training sets on the pairs) as shipped (no fused_val: the standard validation
+   epoch), each one's val-PSNR against a fused validation of the same checkpoint;
 
-then the script's total seconds, the ``kernels`` table (a row for each route of each
+then the script's total seconds with each family's int8 img/s over its bf16 img/s
+(the table of ``INT8_MEASURED_SLOWER``), the ``kernels`` table (a row for each route
+of each
 TPU kernel: the CA on chip, in three passes, in rounds and streaming, the CA + residual
 in rounds, in three passes and streaming), the card's name and power limit, and a last
 line
@@ -126,8 +141,17 @@ EDSR = {'scale': SCALE, 'num_features': 64, 'num_blocks': 16, 'dtype': 'bf16'}
 # configs/div2k/qedsr.toml's model: the paper's Q-EDSR, the widest model of the configs
 QEDSR = {'scale': SCALE, 'num_features': 256, 'num_blocks': 32, 'res_scale': 0.1,
          'q_layer_nonlinearity': True, 'metadata': ['blur_kernel'], 'dtype': 'bf16'}
+# configs/div2k/han.toml's and qhan.toml's models: 10 x 20, 64 features, 4x (Q-HAN's
+# groups take the 'standard' style and a q_node in every block, on the blur kernel)
+HAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
+       'reduction': 16, 'dtype': 'bf16'}
+QHAN = {**HAN, 'metadata': ['blur_kernel']}
 MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
-          'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR)}
+          'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR),
+          'han_10x20': ('han', HAN), 'qhan_10x20': ('qhan', QHAN)}
+# LAM's and CSAM's gammas start at 0, where both are the identity: every HAN and Q-HAN
+# of this script sets them to these, so each check exercises them
+GAMMAS = {'la': 0.5, 'csa': -0.7}
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
 CA_KERNELS = ('ca_onchip', 'ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_scale')
 CA_RES_KERNELS = ('ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
@@ -137,7 +161,24 @@ GEMM_KERNEL_HINTS = ('gemm', 'xmma', 'cutlass', 'imma')
 CONV_KERNEL_HINTS = ('conv', 'xmma', 'gemm', 'cutlass', 'cudnn', 'fprop', 'implicit')
 
 
+def set_gammas(module):
+    """GAMMAS into a HAN or Q-HAN module's LAM and CSAM (nothing for other models)."""
+    import torch
+    if hasattr(module, 'la'):
+        with torch.no_grad():
+            for name, value in GAMMAS.items():
+                getattr(module, name).gamma.fill_(value)
+    return module
+
+
+START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries ``at_s``, the script's seconds when it
+    was printed (the time split of a run)."""
+    if 'phase' in obj:
+        obj = {**obj, 'at_s': time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -335,8 +376,9 @@ def write_experiment(model_loc, name, seed):
     os.makedirs(os.path.join(base, 'saved_models'))
     toml_io.dump({'model': {'name': model, 'internal_params': internal}},
                  os.path.join(base, 'config.toml'))
-    define_model(model, device='cpu', seed=seed, **internal).save_model(
-        'train_model', 0, os.path.join(base, 'saved_models'))
+    handler = define_model(model, device='cpu', seed=seed, **internal)
+    set_gammas(handler.module)
+    handler.save_model('train_model', 0, os.path.join(base, 'saved_models'))
 
 
 def phase_environment():
@@ -1026,10 +1068,10 @@ def phase_kernel_batch1():
 
 
 def phase_reference(name='rcan_10x20', seed=3):
-    """Full-width MODELS[name] (seeded weights) on a 32^2 LR input in f32 (with 10
-    seeded metadata values per image for Q-RCAN): the card (CUDA kernels, cuDNN)
-    against the CPU (plain versions).  Forward <= 5e-4 abs; fused-eval PSNR within
-    0.01 dB and SSIM within 1e-3."""
+    """Full-width MODELS[name] (seeded weights; HAN's gammas set) on a 32^2 LR input in
+    f32 (with 10 seeded metadata values per image for Q-RCAN and Q-HAN): the card
+    (CUDA kernels, cuDNN) against the CPU (plain versions).  Forward <= 5e-4 abs;
+    fused-eval PSNR within 0.01 dB and SSIM within 1e-3."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1037,6 +1079,8 @@ def phase_reference(name='rcan_10x20', seed=3):
     f32 = {**internal, 'dtype': 'f32'}
     card = define_model(model, device='cuda', seed=seed, **f32)
     host = define_model(model, device='cpu', seed=seed, **f32)
+    for handler in (card, host):
+        set_gammas(handler.module)
     rng = np.random.RandomState(5)
     lr = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8)
     hr = rng.randint(0, 256, (2, 32 * SCALE, 32 * SCALE, 3)).astype(np.uint8)
@@ -1066,6 +1110,61 @@ def phase_reference(name='rcan_10x20', seed=3):
         if not diff[k] <= bar:
             raise AssertionError('%s fused eval %s on the card is %g from the CPU'
                                  % (name, k, diff[k]))
+
+
+def phase_holistic_attention():
+    """HAN's LAM and CSAM alone (the port's modules, GAMMAS, CSAM's conv seeded), at the
+    fused eval's shapes: LAM over 11 maps of (8, 128, 128, 64) (0.05 * U(0, 1): energies
+    near 870 that differ by about 1, so the softmax mixes the layers), CSAM on one map,
+    in f32 with TF32 off, card (cuBLAS, cuDNN) against the CPU: LAM <= 5e-5 abs (the
+    bar of the CPU tests: the gram's summation order moves the energies), CSAM
+    <= 1e-5.  Then each on the card in bf16 (the fused eval's type) and f32
+    (training's), CUDA-event ms a call, beside the bound of its bytes (the maps read
+    once, the output written once) and of LAM's two f32 products."""
+    import torch
+    from sisr_tpu_torch.models.advanced import CSAM, LAM
+    from sisr_tpu_torch.models.blocks import torch_default_init_
+    gen = torch.Generator().manual_seed(9)
+    shape = (BATCH, LR_SIZE, LR_SIZE, 64)
+    n_maps = HAN['n_resgroups'] + 1
+    maps = [0.05 * torch.rand(shape, generator=gen) for _ in range(n_maps)]
+    vol = torch.randn(shape, generator=gen)
+    lam, csam = LAM(), torch_default_init_(CSAM(), gen)
+    with torch.no_grad():
+        lam.gamma.fill_(GAMMAS['la'])
+        csam.gamma.fill_(GAMMAS['csa'])
+
+    def calls(device, dtype):
+        lam.to(device)
+        csam.to(device)
+        nchw = [m.to(device, dtype).permute(0, 3, 1, 2) for m in maps]
+        x = vol.to(device, dtype).permute(0, 3, 1, 2)
+        return lambda: lam(nchw), lambda: csam(x)
+
+    report = {'phase': 'holistic_attention', 'lam_shape': [BATCH, n_maps] + list(shape[1:]),
+              'csam_shape': list(shape)}
+    with torch.inference_mode():
+        host = [fn().permute(0, 2, 3, 1) for fn in calls('cpu', torch.float32)]
+        card = [fn().permute(0, 2, 3, 1).cpu() for fn in calls('cuda', torch.float32)]
+        for key, a, b in (('lam', card[0], host[0]), ('csam', card[1], host[1])):
+            report[key + '_max_abs_err'] = (a - b).abs().max().item()
+        map_bytes = BATCH * LR_SIZE ** 2 * 64
+        lam_flops = 2 * 2 * BATCH * n_maps ** 2 * LR_SIZE ** 2 * 64
+        for dtype, itemsize in ((torch.bfloat16, 2), (torch.float32, 4)):
+            tag = str(dtype).split('.')[-1]
+            lam_fn, csam_fn = calls('cuda', dtype)
+            report['lam_%s_ms' % tag] = cuda_ms(lam_fn, reps=10, rounds=3)
+            report['csam_%s_ms' % tag] = cuda_ms(csam_fn, reps=10, rounds=3)
+            report['lam_%s_bound_ms' % tag] = max(
+                2 * n_maps * map_bytes * itemsize / HBM_BYTES_PER_S,
+                lam_flops / F32_CUDA_CORE_FLOPS) * 1e3
+            report['csam_%s_bound_ms' % tag] = 2 * map_bytes * itemsize / HBM_BYTES_PER_S * 1e3
+    report['nvidia_smi'] = nvidia_smi_line()
+    emit(report)
+    for key, bar in (('lam', 5e-5), ('csam', 1e-5)):
+        if not report[key + '_max_abs_err'] <= bar:
+            raise AssertionError('%s on the card is %g from the CPU'
+                                 % (key, report[key + '_max_abs_err']))
 
 
 def int_mm_layout_ms(m, k, n, gen):
@@ -1170,8 +1269,13 @@ def phase_int8_reference():
 # fused eval runs the last, bfloat16, the serving default)
 INT8_REFERENCE = {
     'edsr': ('edsr', {**EDSR, 'dtype': 'f32'}, 32, ('float32', 'int16', 'bfloat16')),
-    'qrcan': ('qrcan', {**QRCAN, 'dtype': 'f32'}, 32, ('bfloat16',)),
+    'qrcan': ('qrcan', {**QRCAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
+              ('bfloat16',)),
     'qedsr': ('qedsr', {**QEDSR, 'num_blocks': 2, 'dtype': 'f32'}, 16, ('bfloat16',)),
+    'han': ('han', {**HAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
+            ('bfloat16',)),
+    'qhan': ('qhan', {**QHAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
+             ('bfloat16',)),
 }
 
 
@@ -1188,10 +1292,11 @@ def phase_int8_family_reference(name):
     kernels on seeded int8 inputs, are equal; calibration on the card (TF32 allowed
     globally) within rtol 1e-5 of the CPU's; on the CPU's quantised state, each
     carry's forward: finite, the CPU's shape, its PSNR card-vs-CPU reported; the fused
-    eval (bfloat16 carry) within 0.01 dB PSNR and 1e-3 SSIM.  Q-RCAN counts its CA +
-    residual launches (one per QRCAB: the cast-first tail) and holds their path
-    against res_onchip_plan, and launches no CA; Q-EDSR also holds its f32 module
-    forward to 5e-4."""
+    eval (bfloat16 carry) within 0.01 dB PSNR and 1e-3 SSIM.  Q-RCAN, HAN and Q-HAN
+    (2 x 2, gammas set; LAM and CSAM in bf16 on cuBLAS and cuDNN) count their CA +
+    residual launches (one per block: the RCAB tail, or the cast-first QRCAB tail) and
+    hold their path against res_onchip_plan, and launch no CA; Q-EDSR also holds its
+    f32 module forward to 5e-4."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1200,6 +1305,8 @@ def phase_int8_family_reference(name):
     model, internal, size, carries = INT8_REFERENCE[name]
     card = define_model(model, device='cuda', seed=3, **internal)
     host = define_model(model, device='cpu', seed=3, **internal)
+    for handler in (card, host):
+        set_gammas(handler.module)
     rng = np.random.RandomState(7)
     lr = rng.randint(0, 256, (2, size, size, 3)).astype(np.uint8)
     batch = {'lr': lr,
@@ -1239,7 +1346,7 @@ def phase_int8_family_reference(name):
 
     qp = host._int8_ctx[1]
     first_body = qp['block_0']['conv_0'] if 'block_0' in qp \
-        else qp['group_0']['qrcab_0']['conv_0']
+        else qp['group_0'].get('rcab_0', qp['group_0'].get('qrcab_0'))['conv_0']
     gen = torch.Generator().manual_seed(8)
     for conv_name, entry in (('head', qp['head']), ('first_body_conv', first_body)):
         x_q = torch.randint(-127, 128, (2, size, size, entry['kernel'].shape[2]),
@@ -1254,11 +1361,13 @@ def phase_int8_family_reference(name):
 
     state = host._int8_ctx[1:]
     props = torch.cuda.get_device_properties(0)
-    # Q-RCAN: one CA + residual launch a QRCAB (its f32 map, the bf16 carry), on the
-    # path the plan gives
-    blocks = internal['n_resgroups'] * internal['n_resblocks'] if name == 'qrcan' else 0
+    # Q-RCAN, HAN, Q-HAN: one CA + residual launch a block (its f32 map, the bf16
+    # carry; Q-RCAN's max_concat with its metadata), on the path the plan gives
+    blocks = internal['n_resgroups'] * internal['n_resblocks'] \
+        if name in ('qrcan', 'han', 'qhan') else 0
     plan = ca.res_onchip_plan(2, size * size, 64, 4, 4, 2, True, props.multi_processor_count,
-                              props.shared_memory_per_block_optin, m=META_COLS)
+                              props.shared_memory_per_block_optin,
+                              m=META_COLS if name == 'qrcan' else 0)
     report['carries'] = {}
     for carry in carries:
         for handler in (card, host):
@@ -1448,6 +1557,10 @@ BF16_PATHS = {
     'edsr_16b': ('edsr_', 'edsr 16b 64f 4x bf16', 0),
     'qedsr_32b': ('qedsr_', 'qedsr 32b 256f 4x bf16, q_layer_nonlinearity, '
                   '10 blur-kernel values', 0),
+    'han_10x20': ('han_', 'han 10x20 64f 4x bf16, LAM over 11 maps + CSAM',
+                  HAN['n_resgroups'] * HAN['n_resblocks']),
+    'qhan_10x20': ('qhan_', 'qhan 10x20 64f 4x bf16, standard + q_node, 10 blur-kernel '
+                   'values, LAM + CSAM', QHAN['n_resgroups'] * QHAN['n_resblocks']),
 }
 
 
@@ -1462,10 +1575,59 @@ def peak_forward_gb(fn):
     return torch.cuda.max_memory_allocated() / 1e9
 
 
+def holistic_ms(module, forward):
+    """HAN's LAM, CSAM and ``last_conv`` each timed alone (CUDA events, under the bf16
+    autocast the forward runs them in) on the inputs one ``forward`` gives them."""
+    import torch
+    inputs = {}
+    hooks = [getattr(module, name).register_forward_pre_hook(
+        lambda mod, args, name=name: inputs.setdefault(name, args))
+        for name in ('la', 'csa', 'last_conv')]
+    try:
+        with torch.inference_mode():
+            forward()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    with torch.inference_mode(), torch.autocast('cuda', dtype=torch.bfloat16):
+        return {name + '_ms': cuda_ms(lambda fn=getattr(module, name), args=args: fn(*args),
+                                      reps=10, rounds=3) for name, args in inputs.items()}
+
+
+def holistic_int8_ms(handler, x, meta):
+    """The int8 program's LAM and CSAM (bf16) and its int8 ``last_conv``, each timed
+    alone (CUDA events) on the inputs one forward gives them."""
+    import torch
+    from sisr_tpu_torch.ops import quantization as qz
+    program, qparams, scales = handler._int8_ctx
+    seen, lam, csam = {}, qz._lam_apply, qz._csam_apply
+
+    def spy(key, fn):
+        def call(*args, **kwargs):
+            seen[key] = (args, kwargs, fn(*args, **kwargs))
+            return seen[key][2]
+        return call
+
+    qz._lam_apply, qz._csam_apply = spy('la', lam), spy('csa', csam)
+    try:
+        with torch.inference_mode():
+            program(x, meta)
+    finally:
+        qz._lam_apply, qz._csam_apply = lam, csam
+    entry, x_scale = qparams['last_conv'], qz.scales_on(scales, x.device)['last_conv']
+    with torch.inference_mode():
+        return {'la_ms': cuda_ms(lambda: lam(*seen['la'][0], **seen['la'][1]), 10, 3),
+                'csa_ms': cuda_ms(lambda: csam(*seen['csa'][0], **seen['csa'][1]), 10, 3),
+                'last_conv_ms': cuda_ms(lambda: qz.conv_int8_static(
+                    seen['la'][2], entry['kernel'], entry['scale'], x_scale, entry['bias'],
+                    entry['matrix']), 10, 3)}
+
+
 def phase_main_path(dirs, experiment='rcan_10x20'):
     """``eval_sisr --fused_eval`` in bf16 on ``experiment``: every CALayer or QRCAB tail
-    through the on-chip CA kernel (200 per forward for RCAN and Q-RCAN, none for
-    EDSR), the CA + residual kernel not at all."""
+    through the on-chip CA kernel (200 per forward for RCAN, Q-RCAN, HAN and Q-HAN,
+    none for EDSR), the CA + residual kernel not at all; HAN's LAM, CSAM and
+    last_conv timed apart."""
     import torch
     prefix, description, ca_calls = BF16_PATHS[experiment]
     launches, cli_seconds, frame = run_eval_cli(dirs, prefix + 'smoke', experiment=experiment)
@@ -1488,6 +1650,8 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
                   and any(t in k.lower() for t in CONV_KERNEL_HINTS))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     mean_psnr = float(frame[(experiment, 'PSNR')].mean())
+    holistic = holistic_ms(handler.module, lambda: handler.forward(x, meta)) \
+        if hasattr(handler.module, 'la') else {}
     emit({'phase': prefix + 'main_path', 'model': description, 'images': N_IMAGES,
           'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds, 'launches': launches,
           'mean_psnr': mean_psnr, 'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
@@ -1497,9 +1661,10 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
           'forward_conv_gflop': conv_flops / 1e9,
           'forward_bf16_bound_ms': conv_flops / BF16_TENSOR_FLOPS * 1e3, **steps,
           'forward_peak_memory_gb': peak_gb, 'ca_device_ms': ca_ms, 'conv_device_ms': conv_ms,
-          'device_kernel_kinds': len(per_kernel), 'top_kernels_ms': top,
+          'device_kernel_kinds': len(per_kernel), 'top_kernels_ms': top, **holistic,
           'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches, 'mean_psnr': mean_psnr, 'frame': frame}
+    return {'launches': launches, 'mean_psnr': mean_psnr, 'frame': frame,
+            'img_per_s': statistics.median(rates)}
 
 
 # int8 main paths: experiment -> (phase name prefix, description)
@@ -1510,28 +1675,34 @@ INT8_PATHS = {
                     '10 blur-kernel values'),
     'qedsr_32b': ('qedsr_', 'qedsr 32b 256f 4x int8 (bf16 carry), q_layer_nonlinearity, '
                   '10 blur-kernel values'),
+    'han_10x20': ('han_', 'han 10x20 64f 4x int8 (bf16 carry), LAM + CSAM in bf16'),
+    'qhan_10x20': ('qhan_', 'qhan 10x20 64f 4x int8 (bf16 carry), standard + q_node, '
+                   '10 blur-kernel values, LAM + CSAM in bf16'),
 }
 
 
 def int8_expected_launches(experiment, forwards):
-    """The kernel launches of ``forwards`` int8 forwards of ``experiment``: RCAN's
-    RCAB tails through the CA + residual kernel in rounds; Q-RCAN's QRCAB tails
-    through it too (cast first, with meta and gate, on the f32 map and the bf16
-    carry), in rounds at this shape (asserted from the plan), and no CA launch; none
-    for EDSR and Q-EDSR."""
+    """The kernel launches of ``forwards`` int8 forwards of ``experiment``: RCAN's and
+    HAN's RCAB tails through the CA + residual kernel in rounds; Q-RCAN's and Q-HAN's
+    QRCAB tails through it too (cast first, with the gate (and Q-RCAN's meta), on the
+    f32 map and the bf16 carry), in rounds at this shape (asserted from the plan), and
+    no CA launch; none for EDSR and Q-EDSR."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     counts = dict(NO_LAUNCHES)
     tails = {'rcan_10x20': CA_PER_FORWARD,
-             'qrcan_10x20': QRCAN['n_resgroups'] * QRCAN['n_resblocks']}.get(experiment, 0)
-    if experiment == 'qrcan_10x20':
+             'qrcan_10x20': QRCAN['n_resgroups'] * QRCAN['n_resblocks'],
+             'han_10x20': HAN['n_resgroups'] * HAN['n_resblocks'],
+             'qhan_10x20': QHAN['n_resgroups'] * QHAN['n_resblocks']}.get(experiment, 0)
+    if tails:
         props = torch.cuda.get_device_properties(0)
         plan = ca.res_onchip_plan(BATCH, LR_SIZE ** 2, 64, 4, 4, 2, True,
                                   props.multi_processor_count,
-                                  props.shared_memory_per_block_optin, m=META_COLS)
+                                  props.shared_memory_per_block_optin,
+                                  m=META_COLS if experiment == 'qrcan_10x20' else 0)
         if plan is None:
-            raise AssertionError('int8 Q-RCAN\'s tail does not take the rounds route on '
-                                 'this card')
+            raise AssertionError('int8 %s\'s tail does not take the rounds route on this '
+                                 'card' % experiment)
     counts['fused_channel_attention_residual'] = tails * forwards
     counts['fused_channel_attention_residual_onchip'] = tails * forwards
     return counts
@@ -1541,7 +1712,8 @@ def phase_int8_main_path(dirs, bf16_mean_psnr, experiment='rcan_10x20'):
     """``eval_sisr --fused_eval --int8`` on the same pairs and weights as
     ``experiment``'s bf16 run: the launches of int8_expected_launches, the module's
     kernels not at all; mean PSNR within 1 dB of the bf16 run's; img/s, the forward's
-    device time by kind (our kernels, int8 GEMMs, the rest) and its peak memory."""
+    device time by kind (our kernels, int8 GEMMs, the rest) and its peak memory; HAN's
+    LAM, CSAM and int8 last_conv timed apart."""
     import torch
     prefix, description = INT8_PATHS[experiment]
     launches, cli_seconds, frame = run_eval_cli(dirs, prefix + 'smoke_int8', ['--int8'],
@@ -1570,6 +1742,7 @@ def phase_int8_main_path(dirs, bf16_mean_psnr, experiment='rcan_10x20'):
                   and any(t in k.lower() for t in GEMM_KERNEL_HINTS))
     other_ms = sum(per_kernel.values()) - ca_ms - gemm_ms
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    holistic = holistic_int8_ms(handler, x, meta) if hasattr(handler.module, 'la') else {}
     emit({'phase': prefix + 'int8_main_path', 'model': description,
           'images': N_IMAGES, 'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds,
           'launches': launches, 'mean_psnr': mean_psnr, 'bf16_mean_psnr': bf16_mean_psnr,
@@ -1582,8 +1755,9 @@ def phase_int8_main_path(dirs, bf16_mean_psnr, experiment='rcan_10x20'):
           'forward_ca_kernels_share': ca_ms / forward_device_ms if forward_device_ms
           else None, 'forward_other_device_ms': other_ms,
           'forward_peak_memory_gb': peak_gb, 'forward_kernels': len(per_kernel),
-          'top_forward_kernels_ms': top, 'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches, 'mean_psnr': mean_psnr}
+          'top_forward_kernels_ms': top, **holistic, 'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches, 'mean_psnr': mean_psnr,
+            'img_per_s': statistics.median(rates)}
 
 
 def count_conv_flops(handler, x, meta=None):
@@ -1616,6 +1790,10 @@ QRCAN_TRAIN = {'scale': SCALE, 'lr': 1e-4, 'style': 'standard', 'include_q_layer
                'scheduler_params': {'t_mult': 1, 'restart_period': 125000, 'lr_min': 1e-7}}
 RCAN_TRAIN = {k: v for k, v in QRCAN_TRAIN.items()
               if k not in ('style', 'include_q_layer', 'metadata')}
+# configs/div2k/han.toml's and qhan.toml's [model]
+HAN_TRAIN = {'scale': SCALE, 'lr': 1e-4, 'scheduler': 'cosine_annealing_warm_restarts',
+             'scheduler_params': {'t_mult': 1, 'restart_period': 40000, 'lr_min': 1e-7}}
+QHAN_TRAIN = {**HAN_TRAIN, 'metadata': ['blur_kernel']}
 
 
 FULL_DEPTH = {'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64}
@@ -1820,18 +1998,20 @@ def plain_channel_attention():
         blocks.fused_channel_attention, q_layers.fused_channel_attention = saved
 
 
-def train_step_breakdown(model, internal, steps=10):
+def train_step_breakdown(model, internal, steps=10, turns=True):
     """10 warm train steps of the full-width model (seed 8, f32, PyTorch's default TF32
-    flags) through the handler on seeded uint8 batches of 8 LR crops of 64^2: per step
-    the wall ms (host clock to a synchronise) and the forward+loss / backward / optimizer
-    ms (CUDA events), medians; then 20 with the CA's plain version in its place (plain
-    autograd) and 10 more with the kernel, in turns; the profiler over 3 steps: device-busy ms, the CA kernel's device ms, the idle share;
-    the launches of one step; conv FLOPs; peak memory."""
+    flags; HAN's gammas set) through the handler on seeded uint8 batches of 8 LR crops
+    of 64^2: per step the wall ms (host clock to a synchronise) and the forward+loss /
+    backward / optimizer ms (CUDA events), medians; with ``turns``, then 10 with the
+    CA's plain version in its place (plain autograd) and 10 more with the kernel, in
+    turns; the profiler over 3 steps: device-busy ms, the CA kernel's device ms, the
+    idle share; the launches of one step; conv FLOPs; peak memory."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
     handler = define_model(model, device='cuda', seed=8, **FULL_DEPTH, **internal)
     handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+    set_gammas(handler.module)
     rng = np.random.RandomState(6)
     hr = TRAIN_CROP * SCALE
     batch = {'lr': torch.from_numpy(rng.randint(0, 256, (BATCH, TRAIN_CROP, TRAIN_CROP, 3))
@@ -1846,9 +2026,13 @@ def train_step_breakdown(model, internal, steps=10):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls, phases = timed_steps(handler, batch, steps)
-    with plain_channel_attention():
-        plain_walls = timed_steps(handler, batch, steps)[0]
-    kernel_walls = timed_steps(handler, batch, steps)[0]
+    report = {}
+    if turns:
+        with plain_channel_attention():
+            plain_walls = timed_steps(handler, batch, steps)[0]
+        report = {'plain_ca_median_step_wall_ms': statistics.median(plain_walls),
+                  'kernel_turn_median_step_wall_ms': statistics.median(
+                      timed_steps(handler, batch, steps)[0])}
     peak = torch.cuda.max_memory_allocated()
     reset_launches()
     handler.run_train(**batch)
@@ -1869,9 +2053,7 @@ def train_step_breakdown(model, internal, steps=10):
     step_flops = 3 * fwd_flops - head_flops
     wall = statistics.median(walls)
     med = [statistics.median(p[i] for p in phases) for i in range(3)]
-    return {'median_step_wall_ms': wall, 'step_wall_ms': walls,
-            'plain_ca_median_step_wall_ms': statistics.median(plain_walls),
-            'kernel_turn_median_step_wall_ms': statistics.median(kernel_walls),
+    return {'median_step_wall_ms': wall, 'step_wall_ms': walls, **report,
             'forward_loss_ms': med[0], 'backward_ms': med[1], 'optimizer_ms': med[2],
             'device_busy_ms': busy_ms, 'device_idle_share':
                 (1 - busy_ms / wall) if busy_ms else None,
@@ -1888,7 +2070,7 @@ def phase_train_main_path(dirs, root):
     """``train_sisr`` on the Q-RCAN recipe for 2 epochs, then a resume for a third:
     finite losses, summary.csv, the checkpoints (the resumed one at step 6), every CA
     call on chip; 200 launches per train step.  ``eval_sisr --fused_eval`` of the best
-    epoch.  Then the timed steps of Q-RCAN and RCAN.  cuDNN TF32 on, matmul TF32 off
+    epoch.  Then the timed steps of Q-RCAN, RCAN, HAN and Q-HAN.  cuDNN TF32 on, matmul TF32 off
     (PyTorch's defaults) throughout the phase."""
     import numpy as np
     import pandas as pd
@@ -1945,9 +2127,13 @@ def phase_train_main_path(dirs, root):
               'q_node, 10 blur-kernel values, batch 8, LR crop 64', **report,
               'nvidia_smi': nvidia_smi_line()})
         breakdowns = {}
-        for name, model, internal in (('qrcan_10x20', 'qrcan', QRCAN_TRAIN),
-                                      ('rcan_10x20', 'rcan', RCAN_TRAIN)):
-            breakdowns[name] = train_step_breakdown(model, internal)
+        # HAN's and Q-HAN's CA calls are RCAN's and Q-RCAN's: their steps skip the
+        # turns against the CA's plain version
+        for name, model, internal, turns in (('qrcan_10x20', 'qrcan', QRCAN_TRAIN, True),
+                                             ('rcan_10x20', 'rcan', RCAN_TRAIN, True),
+                                             ('han_10x20', 'han', HAN_TRAIN, False),
+                                             ('qhan_10x20', 'qhan', QHAN_TRAIN, False)):
+            breakdowns[name] = train_step_breakdown(model, internal, turns=turns)
             per_step = breakdowns[name]['launches_per_step']
             if per_step['fused_channel_attention'] != CA_PER_FORWARD \
                     or per_step['fused_channel_attention_onchip'] != CA_PER_FORWARD:
@@ -2088,28 +2274,32 @@ def hold_bars(diff, what):
             raise AssertionError('%s: %s differs by %g' % (what, met, diff[met]))
 
 
-def phase_standard_eval(mixed, experiment, fused_frame):
-    """``eval_sisr`` on the standard protocol (batch 1, --save_im, comparisons on,
-    --time_models) over the mixed-size set in bf16: every CA call on the route its
-    image's plan gives (Q-RCAN: with its 10 meta values), 200 a forward; a finite row,
-    an SR image and a collage for every image; on the 16 shared pairs the metrics
-    within 0.01 dB / 1e-3 of the fused protocol's on the same weights (``fused_frame``);
-    img/s and the host time split."""
+def phase_standard_eval(mixed, experiment, fused_frame, images=True):
+    """``eval_sisr`` on the standard protocol (batch 1, --time_models; with ``images``
+    --save_im and comparisons on, else --no_image_comparison) over the mixed-size set
+    in bf16: every CA call on the route its image's plan gives (Q-RCAN: with its 10
+    meta values), 200 a forward; a finite row for every image and, with ``images``,
+    an SR image and a collage (``image_comparison_<name>.pdf``, sisr_tpu's name); on
+    the 16 shared pairs the metrics within 0.01 dB / 1e-3 of the fused protocol's on
+    the same weights (``fused_frame``); img/s and the host time split."""
     shapes = lr_shapes(mixed['lr_dir'])
     m = META_COLS if experiment == 'qrcan_10x20' else 0
     expected, by_route = standard_launches(
         shapes, lambda hw: planned_ca_route((1,) + hw + (64,), 4, 2, m=m)[0])
     name = experiment.split('_')[0] + '_standard'
     launches, seconds, split, peak_gb, frame, by_map = run_standard_cli(
-        mixed, name, experiment, ['--save_im'])
+        mixed, name, experiment, ['--save_im'] if images else ['--no_image_comparison'])
     expect_launches(launches, expected, '%s standard protocol' % experiment)
     check_frame(frame, shapes, experiment, name)
     out = os.path.join(mixed['out_loc'], name)
-    written = sorted(os.listdir(os.path.join(out, experiment)))
-    collages = os.listdir(os.path.join(out, 'model_comparisons'))
-    if written != [n for n, _ in shapes] or len(collages) != len(shapes):
-        raise AssertionError('%s: %d SR images, %d collages for %d images'
-                             % (name, len(written), len(collages), len(shapes)))
+    if images:
+        written = sorted(os.listdir(os.path.join(out, experiment)))
+        collages = sorted(os.listdir(os.path.join(out, 'model_comparisons')))
+        expected_collages = sorted('image_comparison_%s.pdf' % os.path.splitext(n)[0]
+                                   for n, _ in shapes)
+        if written != [n for n, _ in shapes] or collages != expected_collages:
+            raise AssertionError('%s: SR images %s, collages %s for %d images'
+                                 % (name, written, collages, len(shapes)))
     diff = max_metric_diff(frame, fused_frame, ((experiment, experiment), ('LR', 'LR')))
     hold_bars(diff, '%s standard against fused on the shared pairs' % experiment)
     mean_psnr = float(frame[(experiment, 'PSNR')].mean())
@@ -2126,23 +2316,24 @@ def bucket_of(hw, multiple=128):
     return tuple(-(-v // multiple) * multiple for v in hw)
 
 
-def phase_bucketed_eval(mixed, unbucketed_frame):
-    """``--eval_buckets 128`` on RCAN's standard protocol over the mixed-size set: every
-    CA call given its image's valid extent (masked_launches equals the CA's launches)
-    on the route of its bucket's plan; every image's metrics within 0.01 dB / 1e-3 of
-    the unbucketed run's."""
+def phase_bucketed_eval(mixed, unbucketed_frame, experiment='rcan_10x20'):
+    """``--eval_buckets 128`` on ``experiment``'s standard protocol over the mixed-size
+    set: every CA call given its image's valid extent (masked_launches equals the CA's
+    launches) on the route of its bucket's plan (Q-HAN's LAM and CSAM exact on the
+    zero-masked pad); every image's metrics within 0.01 dB / 1e-3 of the unbucketed
+    run's."""
     shapes = lr_shapes(mixed['lr_dir'])
     expected, by_route = standard_launches(
         shapes, lambda hw: planned_ca_route((1,) + bucket_of(hw) + (64,), 4, 2)[0])
     expected['fused_channel_attention_masked'] = expected['fused_channel_attention']
+    name = experiment.split('_')[0] + '_buckets'
     launches, seconds, split, peak_gb, frame, by_map = run_standard_cli(
-        mixed, 'rcan_buckets', 'rcan_10x20', ['--eval_buckets', '128',
-                                              '--no_image_comparison'])
-    expect_launches(launches, expected, 'rcan --eval_buckets 128')
-    check_frame(frame, shapes, 'rcan_10x20', 'rcan_buckets')
-    diff = max_metric_diff(frame, unbucketed_frame, (('rcan_10x20', 'rcan_10x20'),))
-    hold_bars(diff, 'bucketed against unbucketed')
-    emit({'phase': 'rcan_buckets', 'images': len(shapes),
+        mixed, name, experiment, ['--eval_buckets', '128', '--no_image_comparison'])
+    expect_launches(launches, expected, '%s --eval_buckets 128' % experiment)
+    check_frame(frame, shapes, experiment, name)
+    diff = max_metric_diff(frame, unbucketed_frame, ((experiment, experiment),))
+    hold_bars(diff, '%s bucketed against unbucketed' % experiment)
+    emit({'phase': name, 'images': len(shapes),
           'buckets': sorted({bucket_of(hw) for _, hw in shapes}), 'launches': launches,
           'calls_by_route': by_route, 'onchip_by_map': by_map, 'cli_seconds': seconds,
           'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
@@ -2300,33 +2491,35 @@ def phase_qrcan_f32_model_only(mixed):
     return {'launches': launches, 'div2k_max_abs_err': err, 'onchip_by_map': by_map}
 
 
-def phase_train_standard_val(dirs, root):
-    """``train_sisr`` on configs/div2k/qrcan.toml as shipped (no fused_val key: the
-    standard validation epoch), with only its data paths, save location, num_epochs
-    and epoch_cutoff (1) set, and the eval set's ``cutoff`` (its ``name = "div2k"``
-    selects DIV2K's validation images by index, 800-900, which the 16 pairs do not
-    have): one epoch, 200 CA launches a forward on the planned routes (the train steps'
-    (8, 64, 64, 64) and the validation's (1, 128, 128, 64) f32 maps); then a
-    fused_val = true validation of the same checkpoint, its val-PSNR within 0.01 dB
-    of the standard epoch's.  cuDNN TF32 on, matmul off (PyTorch's defaults)."""
+def phase_train_standard_val(dirs, root, recipe='qrcan'):
+    """``train_sisr`` on configs/div2k/<recipe>.toml as shipped (no fused_val key: the
+    standard validation epoch), with only its data paths (every training set and the
+    eval set on the 16 pairs), save location, num_epochs and epoch_cutoff (1) set, and
+    the eval set's ``cutoff`` (its ``name = "div2k"`` selects DIV2K's validation images
+    by index, 800-900, which the 16 pairs do not have): one epoch, 200 CA launches a
+    forward on the planned routes (the train steps' (8, 64, 64, 64) and the
+    validation's (1, 128, 128, 64) f32 maps); then a fused_val = true validation of
+    the same checkpoint, its val-PSNR within 0.01 dB of the standard epoch's.  cuDNN
+    TF32 on, matmul off (PyTorch's defaults)."""
     import numpy as np
     import pandas as pd
     from sisr_tpu_torch.training.handler import TrainingHandler
     from sisr_tpu_torch.utils import toml_io
     here = os.path.dirname(os.path.abspath(__file__))
-    config = toml_io.load(os.path.join(here, 'configs', 'div2k', 'qrcan.toml'))
+    source = os.path.join('configs', 'div2k', recipe + '.toml')
+    config = toml_io.load(os.path.join(here, source))
     if 'fused_val' in config['training']:
-        raise AssertionError('configs/div2k/qrcan.toml sets fused_val')
-    save_loc = os.path.join(root, 'Results_shipped')
+        raise AssertionError('%s sets fused_val' % source)
+    save_loc = os.path.join(root, 'Results_shipped_' + recipe)
     config['experiment_save_loc'] = save_loc
-    for table in (config['data']['training_sets']['data_1'],
-                  config['data']['eval_sets']['data_1']):
+    training_sets = list(config['data']['training_sets'].values())
+    for table in training_sets + [config['data']['eval_sets']['data_1']]:
         table['lr'], table['hr'] = dirs['lr_dir'], dirs['hr_dir']
     config['data']['eval_sets']['data_1']['cutoff'] = N_IMAGES
     config['training']['epoch_cutoff'] = 1
-    path = os.path.join(root, 'qrcan_shipped.toml')
+    path = os.path.join(root, recipe + '_shipped.toml')
     toml_io.dump(config, path)
-    n_train = N_IMAGES // BATCH
+    n_train = len(training_sets) * N_IMAGES // BATCH
     routes = {'train': planned_ca_route(TRAIN_SHAPE, 4, 4)[0],
               'validation': planned_ca_route((1, LR_SIZE, LR_SIZE, 64), 4, 4)[0]}
     counts = {'train': CA_PER_FORWARD * n_train, 'validation': CA_PER_FORWARD * N_IMAGES}
@@ -2337,7 +2530,7 @@ def phase_train_standard_val(dirs, root):
             expected['fused_channel_attention_' + route] += counts[part]
     with tf32(True, False):
         launches, seconds = run_train_cli(path, '--num_epochs', '1')
-        expect_launches(launches, expected, 'train_sisr qrcan.toml (standard validation)')
+        expect_launches(launches, expected, 'train_sisr %s (standard validation)' % source)
         base = os.path.join(save_loc, config['experiment'])
         summary = pd.read_csv(os.path.join(base, 'result_outputs', 'summary.csv'))
         if list(summary['epoch']) != [0] or not np.isfinite(
@@ -2355,8 +2548,8 @@ def phase_train_standard_val(dirs, root):
     diff = {'PSNR': abs(float(np.mean(fused['val-PSNR'])) - float(summary['val-PSNR'][0])),
             'SSIM': abs(float(np.mean(fused['val-SSIM'])) - float(summary['val-SSIM'][0]))}
     hold_bars(diff, 'standard against fused validation')
-    emit({'phase': 'train_standard_val', 'config': 'configs/div2k/qrcan.toml',
-          'launches': launches, 'routes': routes, 'cli_seconds': seconds,
+    emit({'phase': ('' if recipe == 'qrcan' else recipe + '_') + 'train_standard_val',
+          'config': source, 'launches': launches, 'routes': routes, 'cli_seconds': seconds,
           'summary': summary.to_dict('list'),
           'fused_val_psnr': float(np.mean(fused['val-PSNR'])),
           'fused_val_ssim': float(np.mean(fused['val-SSIM'])), 'diff': diff,
@@ -2376,7 +2569,6 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, here)
-    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2388,8 +2580,9 @@ def main():
     stream = phase_kernel_stream()
     batch1 = phase_kernel_batch1()
     training_shape = phase_kernel_backward()
-    for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b'):
+    for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20'):
         phase_reference(name)
+    phase_holistic_attention()
     phase_int8_reference()
     for name in INT8_REFERENCE:
         phase_int8_family_reference(name)
@@ -2400,7 +2593,8 @@ def main():
         paths = {'rcan_bf16': phase_main_path(dirs)}
         paths['rcan_int8'] = phase_int8_main_path(dirs, paths['rcan_bf16']['mean_psnr'])
         for name, model in (('qrcan', 'qrcan_10x20'), ('edsr', 'edsr_16b'),
-                            ('qedsr', 'qedsr_32b')):
+                            ('qedsr', 'qedsr_32b'), ('han', 'han_10x20'),
+                            ('qhan', 'qhan_10x20')):
             paths[name + '_bf16'] = phase_main_path(dirs, model)
             paths[name + '_int8'] = phase_int8_main_path(
                 dirs, paths[name + '_bf16']['mean_psnr'], model)
@@ -2415,7 +2609,12 @@ def main():
         div2k_tail = paths['rcan_int8_standard']['stream_tail']
         paths['rcan_model_only'] = phase_model_only(mixed)
         paths['qrcan_f32_model_only'] = phase_qrcan_f32_model_only(mixed)
+        paths['qhan_standard'] = phase_standard_eval(mixed, 'qhan_10x20',
+                                                     paths['qhan_bf16']['frame'], images=False)
+        paths['qhan_buckets'] = phase_bucketed_eval(mixed, paths['qhan_standard']['frame'],
+                                                    'qhan_10x20')
         paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
+        paths['qhan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qhan')
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2526,7 +2725,13 @@ def main():
                 row.update({tag + key: case[key] for key in (
                     'shape', 'valid_hw', 'dtype', 'ms', 'unmasked_ms', 'plain_ms',
                     'bound_ms', 'max_abs_err')})
-    emit({'phase': 'total', 'seconds': time.perf_counter() - start,
+    # int8 img/s over bf16 img/s of each family's fused eval (the table of
+    # sisr_tpu_torch.models.handlers.INT8_MEASURED_SLOWER)
+    int8_over_bf16 = {family: paths[family + '_int8']['img_per_s']
+                      / paths[family + '_bf16']['img_per_s']
+                      for family in ('rcan', 'qrcan', 'edsr', 'qedsr', 'han', 'qhan')}
+    emit({'phase': 'total', 'seconds': time.perf_counter() - START,
+          'int8_over_bf16_img_per_s': int8_over_bf16, 'nvidia_smi': nvidia_smi_line(),
           'masked_launches_by_path': path_launches(lambda c: c[ca_key + '_masked'])})
     emit({'kernels': kernel_rows})
     print(nvidia_smi_line())

@@ -5,7 +5,8 @@
   Pillow-exact host bicubic LR baseline (timed per image) or an interpolated-LR
   folder, each model's forward on the card (``ModelInterface.net_run_and_process``,
   timed), host PSNR/SSIM on the Y channel (or on the card with ``device_metrics``),
-  the SR images (``save_im``) and a comparison collage per image (PNG pages, see
+  the SR images (``save_im``) and a comparison collage per image
+  (``model_comparisons/image_comparison_<name>.pdf``, one-page PDFs, see
   ``tools/visualization.py``).
 * The fused protocol (``fused_eval``, metrics only): forward + bicubic LR baseline +
   YCbCr + PSNR/SSIM in one device step per batch (``BaseHandler.run_eval_fused``);
@@ -227,7 +228,7 @@ class EvalHub:
         output_package.update(model_data)
         interpret_sisr_images(
             output_package, metric_slice or {}, metrics or [], self.comparisons_dir,
-            names=['image_comparison_%s.png' % p.replace(os.path.sep, '_')
+            names=['image_comparison_%s.pdf' % p.replace(os.path.sep, '_')
                    for p in probe_names],
             config='rgb', extra_info={model.experiment: [['epoch', model.model_epoch]]
                                       for model in self.model_bundles})

@@ -22,12 +22,12 @@ from ..ops.masking import valid_extent
 
 
 def torch_default_init_(module, generator):
-    """Re-draw every Conv2d of ``module`` as U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    kernel then bias, in module order, from ``generator``."""
+    """Re-draw every Conv2d (and HAN's Conv3d) of ``module`` as U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), kernel then bias, in module order, from ``generator``."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+            if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:

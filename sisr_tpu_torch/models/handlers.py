@@ -30,6 +30,7 @@ Each handler is registered under the reference's lowercase model name and owns:
 import math
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -49,7 +50,13 @@ from .blocks import torch_default_init_
 
 available_models = {}
 # int8 families whose program is ported; sisr_tpu's others raise in set_int8
-_INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr')
+_INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr', 'han', 'qhan')
+# Families whose --int8 fused eval was measured slower than their bf16 one on the card
+# below (chip_smoke.py: int8 img/s over bf16 img/s, 16 images of 128^2 -> 512^2,
+# batch 8); set_int8 warns at the point of use.
+INT8_CARD = 'NVIDIA H100 80GB HBM3, 700.00 W'
+INT8_MEASURED_SLOWER = {'rcan': '0.41x', 'qrcan': '0.52x', 'edsr': '0.43x',
+                        'qedsr': '0.26x', 'han': '0.43x', 'qhan': '0.51x'}
 
 
 def _training_not_ported(what, item):
@@ -162,7 +169,12 @@ class BaseHandler:
         self._place()
 
     def _place(self):
-        self.module.to(device=self.device, memory_format=torch.channels_last)
+        """The module on the handler's device, every Conv2d weight channels_last (HAN's
+        Conv3d keeps its own layout)."""
+        self.module.to(self.device)
+        for m in self.module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.to(memory_format=torch.channels_last)
 
     def _set_training(self, mode):
         """``module.train()`` for the train step, ``.eval()`` for eval (no-op when
@@ -363,6 +375,13 @@ class BaseHandler:
         if enabled and self.int8_family not in _INT8_PROGRAMS:
             raise _int8_not_ported('The %s program' % self.int8_family,
                                    'remaining families')
+        if enabled and self.int8_family in INT8_MEASURED_SLOWER:
+            warnings.warn(
+                'int8 measured slower than bf16 for the %s family on an %s (%s bf16 '
+                'img/s; the im2col gather and the elementwise passes around each int8 '
+                'GEMM cost more than the GEMMs save) — engaging anyway as requested. '
+                'See PERF.md.' % (self.int8_family, INT8_CARD,
+                                  INT8_MEASURED_SLOWER[self.int8_family]))
         if residual_dtype not in ('float32', 'bfloat16', 'int16'):
             raise ValueError("residual_dtype must be 'float32', 'bfloat16' or 'int16', "
                              "got %r" % (residual_dtype,))
@@ -409,6 +428,14 @@ class BaseHandler:
             scales = qz.calibrate_qedsr_scales(params, [x], [meta], m.num_blocks,
                                                self.scale, m.res_scale,
                                                m.q_layer_nonlinearity, margin=1.1)
+        elif family == 'han':
+            qp = qz.quantize_han_params(params, m.n_resgroups, m.n_resblocks)
+            scales = qz.calibrate_han_scales(params, [x], m.n_resgroups, m.n_resblocks,
+                                             margin=1.1)
+        elif family == 'qhan':
+            qp = qz.quantize_qhan_params(params, m.n_resgroups, m.n_resblocks)
+            scales = qz.calibrate_qhan_scales(params, [x], [meta], m.n_resgroups,
+                                              m.n_resblocks, margin=1.1)
         else:
             raise RuntimeError('unknown int8 family %r' % family)
         self.load_int8_state(qp, scales)
@@ -446,6 +473,15 @@ class BaseHandler:
                                                     m.num_blocks, self.scale, m.res_scale,
                                                     m.q_layer_nonlinearity,
                                                     residual_dtype=rd)
+        elif family == 'han':
+            def program(x, meta=None):
+                return qz.han_int8_forward_static(qparams, dev_scales, x, m.n_resgroups,
+                                                  m.n_resblocks, residual_dtype=rd)
+        elif family == 'qhan':
+            def program(x, meta=None):
+                return qz.qhan_int8_forward_static(qparams, dev_scales, x, meta,
+                                                   m.n_resgroups, m.n_resblocks,
+                                                   residual_dtype=rd)
         else:
             raise RuntimeError('unknown int8 family %r' % family)
         self._int8_ctx = (program, qparams, dict(act_scales))
@@ -748,6 +784,21 @@ class QHandler(BaseHandler):
         super().__init__(**kwargs)
 
 
+@register_model('han')
+class HANHandler(BaseHandler):
+    """(ref: advanced/handlers.py:42-55).  The reference handler hardcodes the
+    full-size net; like sisr_tpu's, this one takes the size parameters as an optional
+    superset (defaults identical)."""
+
+    int8_family = 'han'
+
+    def build_module(self, scale, **kwargs):
+        cfg = {k: v for k, v in kwargs.items()
+               if k in ('n_resgroups', 'n_resblocks', 'n_feats', 'reduction')
+               and v is not None}
+        return advanced.HAN(scale=scale, **cfg)
+
+
 @register_model('edsr')
 class EDSRHandler(BaseHandler):
     """(ref: advanced/handlers.py:7-23)"""
@@ -833,3 +884,19 @@ class QEDSRHandler(QHandler):
                              else 0.1, in_features=in_features or 3,
                              input_para=self.num_metadata,
                              q_layer_nonlinearity=bool(q_layer_nonlinearity))
+
+
+@register_model('qhan')
+class QHANHandler(QHandler):
+    """(ref: attention_manipulators/handlers.py:156-171).  HAN whose residual groups
+    are QRCAB groups (``standard`` QCALayer, a q_node in every block) taking the
+    selected metadata columns."""
+
+    int8_family = 'qhan'
+
+    def build_module(self, scale, n_feats=None, n_resgroups=None, n_resblocks=None,
+                     reduction=None, **kwargs):
+        arch = {k: v for k, v in (('n_feats', n_feats), ('n_resgroups', n_resgroups),
+                                  ('n_resblocks', n_resblocks),
+                                  ('reduction', reduction)) if v is not None}
+        return qmodels.QHAN(scale=scale, num_metadata=self.num_metadata, **arch)

@@ -1,6 +1,6 @@
-"""Meta-attention model family: QRCAN and QEDSR (PyTorch port of sisr_tpu's
+"""Meta-attention model family: QRCAN, QEDSR and QHAN (PyTorch port of sisr_tpu's
 ``models/qmodels.py``; ref: Code/SISR/models/attention_manipulators/architectures.py).
-QSAN and QHAN come with later slices.
+QSAN comes with a later slice.
 
 Every module takes ``(x, metadata)`` explicitly.  Module and attribute names follow
 the reference's torch modules, so ``state_dict`` keys are those sisr_tpu's
@@ -8,6 +8,7 @@ the reference's torch modules, so ``state_dict`` keys are those sisr_tpu's
 """
 from torch import nn
 
+from .advanced import CSAM, LAM, holistic_fusion
 from .blocks import Upsampler, conv
 from .q_layers import PALayer, ParaCALayer, QCALayer
 
@@ -156,3 +157,41 @@ class QEDSR(nn.Module):
             res = block(res, metadata)
         res = self.final_body(res) + x
         return self.tail(res)
+
+
+class QHAN(nn.Module):
+    """HAN with meta-attention residual groups
+    (ref: attention_manipulators/architectures.py:470-540): every group a
+    :class:`QResidualGroup` of QRCABs with the ``standard`` QCALayer (which ignores
+    the metadata) and a q_node (the metadata enters through its gate alone, fused
+    into each block's CA launch), then HAN's LAM / CSAM fusion.
+
+    Keys: ``head.0``, ``body.<g>`` (:class:`QResidualGroup`), ``body.<n_resgroups>``
+    (the body tail conv; Q-RCAN's is ``final_body``), ``la.gamma``,
+    ``csa.conv.{weight,bias}``, ``csa.gamma``, ``last_conv``, ``last``,
+    ``tail.0.<2i>``, ``tail.1``."""
+
+    def __init__(self, n_resgroups=10, n_resblocks=20, n_feats=64, reduction=16,
+                 num_metadata=1, scale=4, n_colors=3, num_q_layers_inner_residual=None):
+        super().__init__()
+        self.n_resgroups = n_resgroups
+        self.n_resblocks = n_resblocks
+        self.head = nn.Sequential(conv(n_colors, n_feats, 3))
+        self.body = nn.ModuleList(
+            [QResidualGroup(n_feats, 3, reduction, n_resblocks, 'standard', num_metadata,
+                            pa=False, q_layer=True,
+                            num_q_layers=num_q_layers_inner_residual)
+             for _ in range(n_resgroups)] + [conv(n_feats, n_feats, 3)])
+        self.csa = CSAM()
+        self.la = LAM()
+        self.last_conv = conv(n_feats * (n_resgroups + 1), n_feats, 3)
+        self.last = conv(n_feats * 2, n_feats, 3)
+        self.tail = nn.Sequential(Upsampler(scale, n_feats), conv(n_feats, n_colors, 3))
+
+    def forward(self, x, metadata):
+        x = self.head(x)
+        outs, res = [], x
+        for group in self.body[:-1]:
+            res = group(res, metadata)
+            outs.append(res)
+        return holistic_fusion(self, outs, x)

@@ -1,5 +1,5 @@
-"""Int8 serving of RCAN, EDSR, Q-RCAN and Q-EDSR: those families' part of sisr_tpu's
-``ops/quantization.py``.
+"""Int8 serving of RCAN, EDSR, Q-RCAN, Q-EDSR, HAN and Q-HAN: those families' part of
+sisr_tpu's ``ops/quantization.py``.
 
 The recipe is sisr_tpu's, with its names, NHWC activations, HWIO kernels and
 parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
@@ -13,7 +13,8 @@ parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
   residual carry (bfloat16 or float32; for EDSR also an int16 grid) in float32 or the
   carry's type;
 * the attention stages (RCAN's CA, Q-RCAN's QCALayer, PALayer and q_node, Q-EDSR's
-  ParaCALayer gates) stay float32;
+  ParaCALayer gates) stay float32; HAN's and Q-HAN's LAM and CSAM run in bfloat16
+  (the gram, the softmax and every sum in float32), as in sisr_tpu's serving forwards;
 * each RCAB tail (channel attention scale + residual add) runs as
   :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention_residual`, the
   CUDA kernel on the card: the numerics of sisr_tpu's ``ca_epilogue='pallas'``;
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.advanced import csam_weight, layer_attention
 from .channel_attention import (KERNEL_STYLES, fused_channel_attention,
                                 fused_channel_attention_residual)
 
@@ -205,15 +207,23 @@ def _rcan_float_forward(params, x, n_resgroups, n_resblocks, track=None):
     sisr_tpu's ``_rcan_float_forward``)."""
     tr = track or (lambda name, h: h)
     fconv = _tracked_fconv(tr)
+    h = fconv('head', params['head'], x)
+    res = _rcan_groups_float(params, fconv, tr, h, n_resgroups, n_resblocks)[-1]
+    res = fconv('body_tail', params['body_tail'], res) + h
+    res = _pow2_upsample(fconv, params['upsampler'], res)
+    return fconv('tail', params['tail'], res)
 
-    def ca(entry, h):
-        a = h.mean(dim=(1, 2))
+
+def _rcan_groups_float(params, fconv, tr, h, n_resgroups, n_resblocks):
+    """RCAN's (and HAN's) residual groups in f32 on the head's output ``h``: each
+    group's output, in order."""
+    def ca(entry, y):
+        a = y.mean(dim=(1, 2))
         a = torch.relu(a @ entry['du_0']['kernel'] + entry['du_0']['bias'])
         a = torch.sigmoid(a @ entry['du_1']['kernel'] + entry['du_1']['bias'])
-        return h * a[:, None, None, :]
+        return y * a[:, None, None, :]
 
-    h = fconv('head', params['head'], x)
-    res = tr('_residual', h)
+    res, outs = tr('_residual', h), []
     for g in range(n_resgroups):
         grp = params['group_%d' % g]
         r = res
@@ -224,9 +234,8 @@ def _rcan_float_forward(params, x, n_resgroups, n_resblocks, track=None):
             y = fconv(pre + '.conv_1', blk['conv_1'], y)
             r = tr('_residual', ca(blk['ca'], y) + r)
         res = tr('_residual', fconv('group_%d.conv_tail' % g, grp['conv_tail'], r) + res)
-    res = fconv('body_tail', params['body_tail'], res) + h
-    res = _pow2_upsample(fconv, params['upsampler'], res)
-    return fconv('tail', params['tail'], res)
+        outs.append(res)
+    return outs
 
 
 def _tracked_fconv(tr):
@@ -330,14 +339,18 @@ def rcan_int8_forward_static(qparams, act_scales, x, n_resgroups=10, n_resblocks
     ``x`` is the f32 NHWC LR batch; returns the f32 NHWC SR batch."""
     carry_t = _carry_type(residual_dtype)
     qconv = _qconv_with(act_scales)
-
-    def ca_res(entry, h, r):
-        return fused_channel_attention_residual(
-            h, r, entry['du_0']['kernel'], entry['du_0']['bias'],
-            entry['du_1']['kernel'], entry['du_1']['bias'])
-
     h = qconv('head', qparams['head'], x).to(carry_t)
-    res = h
+    res = _rcan_groups_int8(qparams, qconv, h, n_resgroups, n_resblocks)[-1]
+    res = qconv('body_tail', qparams['body_tail'], res) + h.float()
+    res = _pow2_upsample(qconv, qparams['upsampler'], res)
+    return qconv('tail', qparams['tail'], res)
+
+
+def _rcan_groups_int8(qparams, qconv, h, n_resgroups, n_resblocks):
+    """RCAN's (and HAN's) int8 residual groups on the head's output ``h`` in the
+    carry's type, each RCAB tail one :func:`fused_channel_attention_residual` call:
+    each group's output, in order."""
+    res, outs = h, []
     for g in range(n_resgroups):
         grp = qparams['group_%d' % g]
         r = res
@@ -346,11 +359,13 @@ def rcan_int8_forward_static(qparams, act_scales, x, n_resgroups=10, n_resblocks
             pre = 'group_%d.rcab_%d' % (g, b)
             y = torch.relu(qconv(pre + '.conv_0', blk['conv_0'], r))
             y = qconv(pre + '.conv_1', blk['conv_1'], y)
-            r = ca_res(blk['ca'], y, r)
-        res = qconv('group_%d.conv_tail' % g, grp['conv_tail'], r).to(carry_t) + res
-    res = qconv('body_tail', qparams['body_tail'], res) + h.float()
-    res = _pow2_upsample(qconv, qparams['upsampler'], res)
-    return qconv('tail', qparams['tail'], res)
+            ca = blk['ca']
+            r = fused_channel_attention_residual(y, r, ca['du_0']['kernel'],
+                                                 ca['du_0']['bias'], ca['du_1']['kernel'],
+                                                 ca['du_1']['bias'])
+        res = qconv('group_%d.conv_tail' % g, grp['conv_tail'], r).to(h.dtype) + res
+        outs.append(res)
+    return outs
 
 
 def _qconv_with(act_scales):
@@ -598,12 +613,12 @@ def _pa_apply(entry, h):
     return h * y.to(h.dtype)
 
 
-def quantize_qrcan_params(params, n_resgroups=10, n_resblocks=20):
+def quantize_qrcan_params(params, n_resgroups=10, n_resblocks=20, body_tail='final_body'):
     """Quantize a QRCAN parameter tree (sisr_tpu's ``models/qmodels.py`` naming) to
     int8: the 3x3 convs go int8, every attention stage (qca, pa_node, q_node) stays
-    f32."""
+    f32.  ``body_tail`` names the conv after the groups (Q-HAN's is ``body_tail``)."""
     q = _q_entry
-    out = {'head': q(params['head']), 'final_body': q(params['final_body']),
+    out = {'head': q(params['head']), body_tail: q(params[body_tail]),
            'tail': q(params['tail']),
            'upsampler': {k: q(v) for k, v in params['upsampler'].items()}}
     for g in range(n_resgroups):
@@ -627,9 +642,18 @@ def _qrcan_float_forward(params, x, metadata, style, n_resgroups, n_resblocks,
     q_node presence is read off the tree)."""
     tr = track or (lambda name, h: h)
     fconv = _tracked_fconv(tr)
-    meta = metadata.float()
     h = fconv('head', params['head'], x)
-    res = tr('_residual', h)
+    res = _qrcan_groups_float(params, fconv, tr, h, metadata.float(), style, n_resgroups,
+                              n_resblocks)[-1]
+    res = fconv('final_body', params['final_body'], res) + h
+    res = _pow2_upsample(fconv, params['upsampler'], res)
+    return fconv('tail', params['tail'], res)
+
+
+def _qrcan_groups_float(params, fconv, tr, h, meta, style, n_resgroups, n_resblocks):
+    """Q-RCAN's (and Q-HAN's) residual groups in f32 on the head's output ``h``: each
+    group's output, in order."""
+    res, outs = tr('_residual', h), []
     for g in range(n_resgroups):
         grp = params['group_%d' % g]
         r = res
@@ -645,9 +669,8 @@ def _qrcan_float_forward(params, x, metadata, style, n_resgroups, n_resblocks,
                 y = y * _para_ca_apply(blk['q_node'], meta)[:, None, None, :]
             r = tr('_residual', y + r)
         res = tr('_residual', fconv('group_%d.final_body' % g, grp['final_body'], r) + res)
-    res = fconv('final_body', params['final_body'], res) + h
-    res = _pow2_upsample(fconv, params['upsampler'], res)
-    return fconv('tail', params['tail'], res)
+        outs.append(res)
+    return outs
 
 
 def calibrate_qrcan_scales(params, sample_batches, metadata_batches, style='modulate',
@@ -701,11 +724,20 @@ def qrcan_int8_forward_static(qparams, act_scales, x, metadata, style='modulate'
     """Quantized QRCAN forward: int8 convs, f32 meta-attention (:func:`_qrcab_tail`)
     on the handler-prepared ``metadata``, and a narrow residual carry: each block's
     branch is cast once to the carry and added in the carry's type."""
-    carry_t = _carry_type(residual_dtype)
-    meta = metadata.float()
     qconv = _qconv_with(act_scales)
-    h = qconv('head', qparams['head'], x).to(carry_t)
-    res = h
+    h = qconv('head', qparams['head'], x).to(_carry_type(residual_dtype))
+    res = _qrcan_groups_int8(qparams, qconv, h, metadata.float(), style, n_resgroups,
+                             n_resblocks)[-1]
+    res = qconv('final_body', qparams['final_body'], res) + h.float()
+    res = _pow2_upsample(qconv, qparams['upsampler'], res)
+    return qconv('tail', qparams['tail'], res)
+
+
+def _qrcan_groups_int8(qparams, qconv, h, meta, style, n_resgroups, n_resblocks):
+    """Q-RCAN's (and Q-HAN's) int8 residual groups on the head's output ``h`` in the
+    carry's type, each QRCAB tail :func:`_qrcab_tail`: each group's output, in
+    order."""
+    res, outs = h, []
     for g in range(n_resgroups):
         grp = qparams['group_%d' % g]
         r = res
@@ -715,7 +747,149 @@ def qrcan_int8_forward_static(qparams, act_scales, x, metadata, style='modulate'
             y = torch.relu(qconv(pre + '.conv_0', blk['conv_0'], r))
             y = qconv(pre + '.conv_1', blk['conv_1'], y)
             r = _qrcab_tail(blk, y, r, meta, style)
-        res = qconv('group_%d.final_body' % g, grp['final_body'], r).to(carry_t) + res
-    res = qconv('final_body', qparams['final_body'], res) + h.float()
+        res = qconv('group_%d.final_body' % g, grp['final_body'], r).to(h.dtype) + res
+        outs.append(res)
+    return outs
+
+
+# --- HAN and Q-HAN ---------------------------------------------------------------------------
+def _quantize_han_fusion(params, out):
+    """Add HAN's fusion layers to a quantised tree: the two fusion convs (``last_conv``,
+    (N+1)*C -> C, the widest conv of the net) int8, LAM and CSAM f32."""
+    out['last_conv'] = _q_entry(params['last_conv'])
+    out['last'] = _q_entry(params['last'])
+    out['la'] = _f32_tree(params['la'])
+    out['csa'] = _f32_tree(params['csa'])
+    return out
+
+
+def quantize_han_params(params, n_resgroups=10, n_resblocks=20):
+    """Quantize a HAN parameter tree (sisr_tpu's ``models/advanced.py`` naming) to
+    int8: RCAN's tree and HAN's fusion layers."""
+    return _quantize_han_fusion(params, quantize_rcan_params(params, n_resgroups,
+                                                             n_resblocks))
+
+
+def _lam_apply(entry, stack, compute_dtype=None):
+    """LAM on the (B, N, H, W, C) stack (sisr_tpu's ``_lam_apply``): f32 by default
+    (calibration); the int8 forwards pass ``compute_dtype=torch.bfloat16``, so the
+    stack, the largest tensor of the model, moves at bf16 (the gram, the softmax
+    and the sums stay f32: :func:`~sisr_tpu_torch.models.advanced.layer_attention`,
+    which takes the maps as image rows)."""
+    rows = stack.transpose(1, 2).to(compute_dtype or stack.dtype).contiguous()
+    return layer_attention(rows, entry['gamma'])
+
+
+def _csam_apply(entry, h_in, compute_dtype=None):
+    """CSAM on the NHWC map (sisr_tpu's ``_csam_apply``): the 3-D conv summed in f32
+    (on the ``compute_dtype`` values when given), plus the bias and the sigmoid in
+    f32, then ``h * (gamma * att) + h`` in the map's type."""
+    kernel = entry['conv3d_kernel']  # DHWIO over (C, H, W)
+    if compute_dtype is not None:
+        h_in, kernel = h_in.to(compute_dtype), kernel.to(compute_dtype)
+    weight = csam_weight(kernel.permute(4, 3, 0, 1, 2).float(), h_in.shape[-1])
+    att = F.conv2d(h_in.float().permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1)
+    att = torch.sigmoid(att + entry['conv3d_bias']).to(h_in.dtype)
+    return h_in * (entry['gamma'].to(h_in.dtype) * att) + h_in
+
+
+def _han_fusion_float(params, fconv, h, outs):
+    """HAN's and Q-HAN's end in f32 after the groups' outputs ``outs`` (sisr_tpu's
+    ``_han_float_forward`` from the body tail on)."""
+    res = fconv('body_tail', params['body_tail'], outs[-1])
+    la = _lam_apply(params['la'], torch.stack([res] + outs[::-1], dim=1))
+    out2 = fconv('last_conv', params['last_conv'], la)
+    out = torch.cat([_csam_apply(params['csa'], res), out2], dim=-1)
+    res = fconv('last', params['last'], out) + h
+    res = _pow2_upsample(fconv, params['upsampler'], res)
+    return fconv('tail', params['tail'], res)
+
+
+def _han_fusion_int8(qparams, qconv, h, outs):
+    """HAN's and Q-HAN's int8 end (sisr_tpu's ``han_int8_forward_static`` from the body
+    tail on): the body tail int8, LAM over the stack (newest first, the body tail's
+    output cast to the carry) and CSAM on the body tail's f32 output, both in bf16,
+    the fusion convs int8."""
+    res = qconv('body_tail', qparams['body_tail'], outs[-1])
+    stack = torch.stack([res.to(h.dtype)] + outs[::-1], dim=1)
+    out2 = qconv('last_conv', qparams['last_conv'],
+                 _lam_apply(qparams['la'], stack, compute_dtype=torch.bfloat16))
+    out1 = _csam_apply(qparams['csa'], res, compute_dtype=torch.bfloat16)
+    res = qconv('last', qparams['last'], torch.cat([out1.float(), out2], dim=-1)) + h.float()
     res = _pow2_upsample(qconv, qparams['upsampler'], res)
     return qconv('tail', qparams['tail'], res)
+
+
+def _han_float_forward(params, x, n_resgroups, n_resblocks, track=None):
+    """f32 HAN forward over the parameter tree (the calibration mirror)."""
+    tr = track or (lambda name, h: h)
+    fconv = _tracked_fconv(tr)
+    h = fconv('head', params['head'], x)
+    return _han_fusion_float(params, fconv, h, _rcan_groups_float(
+        params, fconv, tr, h, n_resgroups, n_resblocks))
+
+
+def calibrate_han_scales(params, sample_batches, n_resgroups=10, n_resblocks=20,
+                         margin=1.0):
+    """Static activation scales for the int8 HAN forward (absmax calibration, true
+    f32)."""
+    maxes = _calibration_maxes(
+        lambda p, x, _, track: _han_float_forward(p, x, n_resgroups, n_resblocks, track),
+        params, sample_batches)
+    maxes.pop('_residual')
+    return _finalize_scales(maxes, margin)
+
+
+def han_int8_forward_static(qparams, act_scales, x, n_resgroups=10, n_resblocks=20,
+                            residual_dtype='bfloat16'):
+    """Quantized HAN forward: RCAN's int8 body (each RCAB tail one
+    :func:`fused_channel_attention_residual` call: sisr_tpu's
+    ``ca_epilogue='pallas'``), LAM and CSAM in bf16, the fusion convs int8."""
+    qconv = _qconv_with(act_scales)
+    h = qconv('head', qparams['head'], x).to(_carry_type(residual_dtype))
+    return _han_fusion_int8(qparams, qconv, h, _rcan_groups_int8(
+        qparams, qconv, h, n_resgroups, n_resblocks))
+
+
+def quantize_qhan_params(params, n_resgroups=10, n_resblocks=20):
+    """Quantize a QHAN parameter tree (sisr_tpu's ``models/qmodels.py`` naming) to int8:
+    Q-RCAN's groups (the convs int8, every attention stage f32), the body tail, and
+    HAN's fusion layers."""
+    return _quantize_han_fusion(params, quantize_qrcan_params(
+        params, n_resgroups, n_resblocks, body_tail='body_tail'))
+
+
+def _qhan_float_forward(params, x, metadata, n_resgroups, n_resblocks, track=None):
+    """f32 QHAN forward (the calibration mirror): Q-RCAN's groups in the ``standard``
+    style, then HAN's fusion."""
+    tr = track or (lambda name, h: h)
+    fconv = _tracked_fconv(tr)
+    h = fconv('head', params['head'], x)
+    return _han_fusion_float(params, fconv, h, _qrcan_groups_float(
+        params, fconv, tr, h, metadata.float(), 'standard', n_resgroups, n_resblocks))
+
+
+def calibrate_qhan_scales(params, sample_batches, metadata_batches, n_resgroups=10,
+                          n_resblocks=20, margin=1.0):
+    """Static activation scales for the int8 QHAN forward (absmax calibration, true
+    f32); ``metadata_batches`` are the handler-prepared metadata of each sample
+    batch."""
+    maxes = _calibration_maxes(
+        lambda p, x, meta, track: _qhan_float_forward(p, x, meta, n_resgroups,
+                                                      n_resblocks, track),
+        params, sample_batches, metadata_batches, name='calibrate_qhan_scales')
+    maxes.pop('_residual')
+    return _finalize_scales(maxes, margin)
+
+
+def qhan_int8_forward_static(qparams, act_scales, x, metadata, n_resgroups=10,
+                             n_resblocks=20, residual_dtype='bfloat16'):
+    """Quantized QHAN forward: Q-RCAN's int8 groups, each QRCAB tail
+    :func:`_qrcab_tail` in the ``standard`` style (one
+    :func:`fused_channel_attention_residual` call with the q_node's gate, cast first;
+    sisr_tpu multiplies by the attention and then by the gate, which differs from
+    one product by f32 rounding), then HAN's int8 fusion."""
+    qconv = _qconv_with(act_scales)
+    h = qconv('head', qparams['head'], x).to(_carry_type(residual_dtype))
+    return _han_fusion_int8(qparams, qconv, h, _qrcan_groups_int8(
+        qparams, qconv, h, metadata.float(), 'standard', n_resgroups, n_resblocks))

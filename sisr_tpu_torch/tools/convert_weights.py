@@ -1,10 +1,12 @@
 """Weights bridge: sisr_tpu (Flax) parameter trees <-> this package's torch state_dicts.
 
 * :func:`state_dict_from_jax` is the inverse of sisr_tpu's ``tools/convert_weights.py``
-  for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan, QEDSR): flax Conv
-  kernels (kH, kW, I, O) become torch Conv2d weights (O, I, kH, kW), and the Dense
-  layers that sisr_tpu runs on pooled or metadata vectors (I, O) become 1x1 convs
-  (O, I, 1, 1).  Each family's layout lists every layer once, for both directions.
+  for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan, QEDSR, HAN,
+  QHAN): flax Conv kernels (kH, kW, I, O) become torch Conv2d weights (O, I, kH, kW),
+  the Dense layers that sisr_tpu runs on pooled or metadata vectors (I, O) become 1x1
+  convs (O, I, 1, 1), and HAN's CSAM kernel (DHWIO over (C, H, W)) becomes the
+  Conv3d weight (O, I, D, H, W); LAM's and CSAM's ``gamma`` and CSAM's bias pass as
+  they are.  Each family's layout lists every layer once, for both directions.
   The param tree is read as nested dicts of array-likes (pass numpy arrays); every
   leaf must be consumed and every key the model needs must be present, else it
   raises.
@@ -12,8 +14,8 @@
   tree naming and HWIO layout: the form the int8 recipes of ``ops/quantization.py``
   take.
 * :func:`int8_state_from_jax` carries sisr_tpu's quantised trees and activation
-  scales (RCAN, EDSR, QRCAN, QEDSR) across, so both packages can run the same int8
-  state.
+  scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN) across, so both packages can run the
+  same int8 state.
 """
 import numpy as np
 import torch
@@ -59,9 +61,23 @@ def _upsampler_tail(n_stages):
     yield ('tail',), 'tail.1', 'conv'
 
 
-def _rcan_layout(n_groups, n_blocks, n_stages):
-    """(sisr_tpu path, torch key, kind) of every RCAN layer; kind is 'conv' (flax Conv)
-    or 'dense' (a flax Dense on the pooled vector, a 1x1 conv in torch)."""
+def _han_fusion(n_stages):
+    """(path, key, kind) of HAN's and QHAN's layers after the body tail: the leaves of
+    LAM and CSAM ('leaf': one tensor as it is; 'conv3d': CSAM's kernel), the two
+    fusion convs, the upsampler and the tail."""
+    yield ('la', 'gamma'), 'la.gamma', 'leaf'
+    yield ('csa', 'conv3d_kernel'), 'csa.conv.weight', 'conv3d'
+    yield ('csa', 'conv3d_bias'), 'csa.conv.bias', 'leaf'
+    yield ('csa', 'gamma'), 'csa.gamma', 'leaf'
+    yield ('last_conv',), 'last_conv', 'conv'
+    yield ('last',), 'last', 'conv'
+    yield from _upsampler_tail(n_stages)
+
+
+def _rcan_layout(n_groups, n_blocks, n_stages, han=False):
+    """(sisr_tpu path, torch key, kind) of every RCAN layer, or with ``han`` every HAN
+    layer (RCAN's body, then :func:`_han_fusion`); kind is 'conv' (flax Conv) or
+    'dense' (a flax Dense on the pooled vector, a 1x1 conv in torch)."""
     yield ('head',), 'head.0', 'conv'
     for g in range(n_groups):
         for b in range(n_blocks):
@@ -72,7 +88,7 @@ def _rcan_layout(n_groups, n_blocks, n_stages):
             yield src + ('ca', 'du_1'), dst + '.3.conv_du.2', 'dense'
         yield ('group_%d' % g, 'conv_tail'), 'body.%d.body.%d' % (g, n_blocks), 'conv'
     yield ('body_tail',), 'body.%d' % n_groups, 'conv'
-    yield from _upsampler_tail(n_stages)
+    yield from _han_fusion(n_stages) if han else _upsampler_tail(n_stages)
 
 
 def _edsr_layout(n_blocks, n_stages):
@@ -92,10 +108,12 @@ _QRCAB_PARTS = {'pa_node': '.pa_node.pa.0.weight',
                 'feature_0': '.final_body.feature_convs.0.0.weight'}  # extended_attention
 
 
-def _qrcan_layout(n_groups, n_blocks, n_stages, has):
-    """(path, key, kind) of every QRCAN layer (sisr_tpu's ``convert_qrcan`` naming);
-    ``has(g, b, part)`` says whether block b of group g has a part of
-    ``_QRCAB_PARTS``, which also tells the QCALayer's style."""
+def _qrcan_layout(n_groups, n_blocks, n_stages, has, han=False):
+    """(path, key, kind) of every QRCAN layer (sisr_tpu's ``convert_qrcan`` naming), or
+    with ``han`` every QHAN layer (``convert_qhan``: the body tail is ``body_tail``,
+    torch ``body.<n_groups>``, then :func:`_han_fusion`); ``has(g, b, part)`` says
+    whether block b of group g has a part of ``_QRCAB_PARTS``, which also tells the
+    QCALayer's style."""
     yield ('head',), 'head.0', 'conv'
     for g in range(n_groups):
         for b in range(n_blocks):
@@ -121,8 +139,12 @@ def _qrcan_layout(n_groups, n_blocks, n_stages, has):
                     yield (src + ('q_node', 'fc_%d' % i),
                            dst + '.q_node.attribute_integrator.%d' % (2 * i), 'dense')
         yield ('group_%d' % g, 'final_body'), 'body.%d.final_body' % g, 'conv'
-    yield ('final_body',), 'final_body', 'conv'
-    yield from _upsampler_tail(n_stages)
+    if han:
+        yield ('body_tail',), 'body.%d' % n_groups, 'conv'
+        yield from _han_fusion(n_stages)
+    else:
+        yield ('final_body',), 'final_body', 'conv'
+        yield from _upsampler_tail(n_stages)
 
 
 def _qedsr_layout(n_blocks, n_stages, nonlinearity):
@@ -149,8 +171,9 @@ def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
         return len({p[len(parent)] for p in tree.leaves if p[:len(parent)] == parent
                     and p[len(parent)].startswith(prefix)})
     n_stages = count('conv_', 'upsampler')
-    if model_name == 'rcan':
-        return _rcan_layout(count('group_'), count('rcab_', 'group_0'), n_stages)
+    if model_name in ('rcan', 'han'):
+        return _rcan_layout(count('group_'), count('rcab_', 'group_0'), n_stages,
+                            han=model_name == 'han')
     if model_name == 'edsr':
         return _edsr_layout(count('block_'), n_stages)
     if model_name == 'qedsr':
@@ -160,16 +183,17 @@ def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
         block = ('group_%d' % g, 'qrcab_%d' % b)
         prefix = block + (('qca', part) if part in ('pre_concat', 'feature_0') else (part,))
         return any(p[:len(prefix)] == prefix for p in tree.leaves)
-    return _qrcan_layout(count('group_'), count('qrcab_', 'group_0'), n_stages, has)
+    return _qrcan_layout(count('group_'), count('qrcab_', 'group_0'), n_stages, has,
+                         han=model_name == 'qhan')
 
 
 def _state_dict_layout(model_name, state_dict):
     """The layout of the port model whose ``state_dict`` this is."""
     n_stages = _count(lambda i: 'tail.0.%d.weight' % (2 * i) in state_dict)
-    if model_name == 'rcan':
+    if model_name in ('rcan', 'han'):
         return _rcan_layout(_count(lambda g: 'body.%d.body.0.body.0.weight' % g in state_dict),
                             _count(lambda b: 'body.0.body.%d.body.0.weight' % b in state_dict),
-                            n_stages)
+                            n_stages, han=model_name == 'han')
     if model_name == 'edsr':
         return _edsr_layout(_count(lambda b: 'body.%d.body.0.weight' % b in state_dict),
                             n_stages)
@@ -183,10 +207,15 @@ def _state_dict_layout(model_name, state_dict):
         return 'body.%d.body.%d%s' % (g, b, _QRCAB_PARTS[part]) in state_dict
     return _qrcan_layout(_count(lambda g: 'body.%d.final_body.weight' % g in state_dict),
                          _count(lambda b: 'body.0.body.%d.body.0.weight' % b in state_dict),
-                         n_stages, has)
+                         n_stages, has, han=model_name == 'qhan')
 
 
-LAYOUT_MODELS = ('edsr', 'qedsr', 'qpircan', 'qrcan', 'rcan')
+LAYOUT_MODELS = ('edsr', 'han', 'qedsr', 'qhan', 'qpircan', 'qrcan', 'rcan')
+# leaf kinds: (sisr_tpu leaf -> torch tensor, torch tensor -> sisr_tpu leaf)
+_LEAF_KINDS = {'leaf': (lambda a: a, lambda t: t),
+               # CSAM's kernel: DHWIO over (C, H, W) <-> the Conv3d's (O, I, D, H, W)
+               'conv3d': (lambda a: a.transpose(4, 3, 0, 1, 2),
+                          lambda t: t.permute(2, 3, 4, 1, 0))}
 
 
 def _canonical(model_name):
@@ -206,6 +235,9 @@ def state_dict_from_jax(model_name, params, q_layer_nonlinearity=False):
     tree = _TrackingTree(params)
     sd = {}
     for path, key, kind in _tree_layout(_canonical(model_name), tree, q_layer_nonlinearity):
+        if kind in _LEAF_KINDS:
+            sd[key] = _LEAF_KINDS[kind][0](tree(*path))
+            continue
         w = tree(*path, 'kernel')
         # flax Conv (kH, kW, I, O) -> (O, I, kH, kW); Dense (I, O) -> (O, I, 1, 1)
         sd[key + '.weight'] = (w.transpose(3, 2, 0, 1) if kind == 'conv'
@@ -230,10 +262,14 @@ def params_from_state_dict(model_name, state_dict):
                                   '(available: %s)' % (model_name, list(LAYOUT_MODELS)))
     params, used = {}, set()
     for path, key, kind in _state_dict_layout(_canonical(model_name), state_dict):
-        w = state_dict[key + '.weight']
         node = params
         for name in path[:-1]:
             node = node.setdefault(name, {})
+        if kind in _LEAF_KINDS:
+            node[path[-1]] = _LEAF_KINDS[kind][1](state_dict[key])
+            used.add(key)
+            continue
+        w = state_dict[key + '.weight']
         node[path[-1]] = {'kernel': w.permute(2, 3, 1, 0) if kind == 'conv'
                           else w.reshape(w.shape[0], w.shape[1]).t(),
                           'bias': state_dict[key + '.bias']}
@@ -247,10 +283,11 @@ def params_from_state_dict(model_name, state_dict):
 
 def int8_state_from_jax(qparams, act_scales, device='cpu'):
     """sisr_tpu's quantised tree and activation scales (``quantize_<family>_params``
-    and ``calibrate_<family>_scales`` of RCAN, EDSR, QRCAN or QEDSR, as numpy) -> the
-    port's: the same tree of tensors on ``device``, each int8 conv entry (one with a
-    ``scale``) with its packed ``_int_mm`` matrix, the f32 attention entries (``ca``,
-    ``qca``, ``pa_node``, ``q_node``, ``attention``) as they are, and the scales
+    and ``calibrate_<family>_scales`` of RCAN, EDSR, QRCAN, QEDSR, HAN or QHAN, as
+    numpy) -> the port's: the same tree of tensors on ``device``, each int8 conv entry
+    (one with a ``scale``) with its packed ``_int_mm`` matrix, the f32 attention
+    entries (``ca``, ``qca``, ``pa_node``, ``q_node``, ``attention``, ``la``,
+    ``csa``) as they are, and the scales
     (``residual16`` too) as ``np.float32``."""
     from ..ops.quantization import pack_kernel_matrix
 

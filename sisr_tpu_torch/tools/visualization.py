@@ -2,12 +2,14 @@
 ``tools/visualization.py``, ref: Code/sr_tools/visualization.py).
 
 Images move through this module as N,H,W,C float arrays in [0, max_val].  The collages
-are drawn with PIL, so the port needs no plotting library, and saved as RGB PNG
-pages: PIL writes an RGB page to PDF only through its JPEG encoder, which is lossy,
-and a palette page would quantise the images being compared.
+are drawn with PIL, so the port needs no plotting library, and saved as one-page PDFs,
+the pages sisr_tpu writes: the RGB page is one FlateDecode (zlib) image, lossless
+(:func:`write_pdf_page`; PIL writes an RGB page to PDF only through its JPEG encoder,
+which is lossy, and a palette page would quantise the images being compared).
 """
 import math
 import os
+import zlib
 
 import numpy as np
 from PIL import Image, ImageDraw
@@ -46,6 +48,36 @@ def safe_image_save(images, out_loc, names, config='rgb', max_val=1, im_type='jp
         Image.fromarray(im).save(os.path.join(out_loc, names[index]))
 
 
+def write_pdf_page(image, path):
+    """Write a PIL RGB ``image`` as a one-page PDF at ``path``: the page is the image
+    at one point per pixel, an 8-bit DeviceRGB image XObject whose rows are
+    zlib-compressed (FlateDecode), so the pixels read back exactly."""
+    width, height = image.size
+    pixels = zlib.compress(image.convert('RGB').tobytes())
+    content = b'q %d 0 0 %d 0 0 cm /Im0 Do Q' % (width, height)
+    objects = [
+        b'<< /Type /Catalog /Pages 2 0 R >>',
+        b'<< /Type /Pages /Kids [3 0 R] /Count 1 >>',
+        b'<< /Type /Page /Parent 2 0 R /MediaBox [0 0 %d %d] /Resources << /XObject '
+        b'<< /Im0 4 0 R >> >> /Contents 5 0 R >>' % (width, height),
+        b'<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace /DeviceRGB '
+        b'/BitsPerComponent 8 /Filter /FlateDecode /Length %d >>\nstream\n%s\nendstream'
+        % (width, height, len(pixels), pixels),
+        b'<< /Length %d >>\nstream\n%s\nendstream' % (len(content), content)]
+    out = bytearray(b'%PDF-1.4\n%\xe2\xe3\xcf\xd3\n')
+    offsets = []
+    for number, body in enumerate(objects, 1):
+        offsets.append(len(out))
+        out += b'%d 0 obj\n%s\nendobj\n' % (number, body)
+    xref = len(out)
+    out += b'xref\n0 %d\n0000000000 65535 f \n' % (len(objects) + 1)
+    out += b''.join(b'%010d 00000 n \n' % offset for offset in offsets)
+    out += b'trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n' % (
+        len(objects) + 1, xref)
+    with open(path, 'wb') as f:
+        f.write(out)
+
+
 def _panel_titles(image_package, extra_info):
     """{key: (grid position, title)}: HR ('Ground Truth') first, then LR ('Low Res'),
     then each model, its name split in two when longer than 14 characters, followed
@@ -74,7 +106,8 @@ def interpret_sisr_images(image_package, metrics, metric_names, out_loc, names,
     ``images_per_row`` columns, each with its title above and, for the models, the
     values of ``metric_names`` from ``metrics`` ({'model>metric': per-image values})
     below; model outputs are converted from YCbCr when ``config`` is 'ycbcr'.  Image
-    ``i``'s page is written to ``out_loc/names[i]`` (a PNG name)."""
+    ``i``'s page is written to ``out_loc/names[i]`` as a one-page PDF
+    (:func:`write_pdf_page`)."""
     metrics = metrics if metrics is not None else {}
     metric_names = metric_names if metric_names is not None else []
     ordering = _panel_titles(image_package, extra_info)
@@ -118,4 +151,4 @@ def interpret_sisr_images(image_package, metrics, metric_names, out_loc, names,
             page.paste(panel, (left, top + title_lines * _LINE))
             draw.multiline_text((left, top + title_lines * _LINE + panel.height + 2),
                                 label.rstrip('\n'), fill=(0, 0, 0))
-        page.save(os.path.join(out_loc, name))
+        write_pdf_page(page, os.path.join(out_loc, name))

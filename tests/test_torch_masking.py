@@ -3,8 +3,9 @@ against sisr_tpu's on the CPU: the mask helpers; the channel attention of CALaye
 of QCALayer in all six styles on a zero-padded map inside a mask context; the CA
 op's extent (plain version) against the unpadded map, the full extent bit-identical
 to none; the conv mask hooks' lifetime; and the bucketed forward of RCAN, Q-RCAN,
-EDSR and Q-EDSR, equal to the port's unpadded forward within 1e-6 and to sisr_tpu's
-``_bucketed_forward`` within 5e-4 (f32, the same weights)."""
+EDSR, Q-EDSR, HAN and Q-HAN (LAM's and CSAM's gammas non-zero), equal to the port's
+unpadded forward within 1e-6 and to sisr_tpu's ``_bucketed_forward`` within 5e-4
+(f32, the same weights)."""
 import numpy as np
 import pytest
 import torch
@@ -185,6 +186,10 @@ FAMILIES = {
     'edsr': ({'scale': 4, 'num_features': 16, 'num_blocks': 2}, None),
     'qedsr': ({'scale': 4, 'num_features': 16, 'num_blocks': 2,
                'metadata': ['blur_kernel'], 'q_layer_nonlinearity': True}, 10),
+    'han': ({'scale': 4, 'n_resgroups': 2, 'n_resblocks': 1, 'n_feats': 16,
+             'reduction': 16}, None),
+    'qhan': ({'scale': 4, 'n_resgroups': 2, 'n_resblocks': 1, 'n_feats': 16,
+              'reduction': 16, 'metadata': ['blur_kernel']}, 10),
 }
 
 
@@ -200,6 +205,10 @@ def test_bucketed_forward_matches_unpadded_and_sisr_tpu(name):
         kwargs['metadata'] = np.random.RandomState(4).rand(1, n_meta).astype(np.float32)
     jax_handler.init_state(spatial=(16, 16))
     params = jax.tree.map(np.asarray, jax_handler.state.params)
+    if 'la' in params:  # HAN's LAM and CSAM start as the identity (gamma 0): make them act
+        params = {**params, 'la': {'gamma': np.array([0.5], np.float32)},
+                  'csa': {**params['csa'], 'gamma': np.array([-0.7], np.float32)}}
+        jax_handler.state = jax_handler.state.replace(params=jax.tree.map(jnp.asarray, params))
     port.module.load_state_dict(state_dict_from_jax(
         name, params, q_layer_nonlinearity=internal.get('q_layer_nonlinearity', False)))
     rng = np.random.RandomState(3)

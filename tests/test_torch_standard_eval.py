@@ -2,12 +2,16 @@
 sisr_tpu's on the CPU, on small models with the same weights (through the weights
 bridge): the host Metrics hub; net_run_and_process and run_eval; the standard
 protocol through the CLI (individual/average CSVs, --save_im images, the comparison
-collages, --model_only, --lr_dir_interp, --decoded_cache_dir, --eval_buckets); int8
-standard against int8 fused; and train_sisr with fused_val = false in both packages.
-Bars: forward and loss 5e-4 abs in f32, PSNR within 0.01 dB and SSIM within 1e-3 per
-image, saved images within 1 uint8 LSB."""
+collages, --model_only, --lr_dir_interp, --decoded_cache_dir, --eval_buckets), for
+RCAN, Q-RCAN, HAN and Q-HAN (LAM's and CSAM's gammas non-zero); the collage page's
+PDF decoded back to its drawn pixels; int8 standard against int8 fused; and
+train_sisr with fused_val = false in both packages.  Bars: forward and loss 5e-4 abs
+in f32, PSNR within 0.01 dB and SSIM within 1e-3 per image, saved images within 1
+uint8 LSB."""
 import json
 import os
+import re
+import zlib
 
 import numpy as np
 import pandas as pd
@@ -16,6 +20,7 @@ import torch
 from PIL import Image
 
 import jax
+import jax.numpy as jnp
 
 from sisr_tpu.evaluation.standard_eval import EvalHub as JaxEvalHub
 from sisr_tpu.models.handlers import define_model as jax_define_model
@@ -29,6 +34,7 @@ from sisr_tpu_torch.evaluation.standard_eval import EvalHub
 from sisr_tpu_torch.models.handlers import define_model
 from sisr_tpu_torch.models.interface import ModelInterface
 from sisr_tpu_torch.ops.metrics import Metrics
+from sisr_tpu_torch.tools import visualization
 from sisr_tpu_torch.tools.convert_weights import state_dict_from_jax
 from sisr_tpu_torch.training.handler import TrainingHandler
 from sisr_tpu_torch.utils import toml_io
@@ -36,7 +42,10 @@ from sisr_tpu_torch.utils import toml_io
 RCAN = {'scale': 4, 'n_resgroups': 1, 'n_resblocks': 2, 'n_feats': 16, 'reduction': 16}
 QRCAN = {'scale': 4, 'n_resgroups': 1, 'n_resblocks': 2, 'n_feats': 16, 'reduction': 16,
          'style': 'max_concat', 'include_q_layer': True, 'metadata': ['blur_kernel']}
-MODELS = {'rcan': RCAN, 'qrcan': QRCAN}
+HAN = {'scale': 4, 'n_resgroups': 2, 'n_resblocks': 1, 'n_feats': 16, 'reduction': 16}
+QHAN = {**HAN, 'metadata': ['blur_kernel']}
+MODELS = {'rcan': RCAN, 'qrcan': QRCAN, 'han': HAN, 'qhan': QHAN}
+META_MODELS = ('qrcan', 'qhan')
 BARS = {'PSNR': 0.01, 'SSIM': 1e-3}
 # HR sizes of the mixed-size set (multiples of 4); 12 x 12 LR appears twice
 HR_SIZES = ((48, 48), (44, 64), (48, 48), (64, 36))
@@ -51,16 +60,22 @@ def jax_models():
     out = {}
     for name, internal in MODELS.items():
         handler = jax_define_model(name, eval_mode=True, **internal)
-        if name == 'qrcan':
+        if name in META_MODELS:
             handler.set_metadata_keys(['blur_kernel'] * 10)
         handler.init_state(spatial=(12, 12))
+        if name in ('han', 'qhan'):
+            # LAM and CSAM start as the identity (gamma 0): make them act
+            params = _params(handler)
+            params = {**params, 'la': {'gamma': np.array([0.5], np.float32)},
+                      'csa': {**params['csa'], 'gamma': np.array([-0.7], np.float32)}}
+            handler.state = handler.state.replace(params=jax.tree.map(jnp.asarray, params))
         out[name] = handler
     return out
 
 
 def _port(name, jax_handler, **kwargs):
     handler = define_model(name, device='cpu', **{**MODELS[name], **kwargs})
-    if name == 'qrcan':
+    if name in META_MODELS:
         handler.set_metadata_keys(['blur_kernel'] * 10)
     handler.module.load_state_dict(state_dict_from_jax(name, _params(jax_handler)))
     return handler
@@ -98,7 +113,7 @@ def test_run_eval_and_net_run_and_process_match_sisr_tpu(jax_models, name):
     rng = np.random.RandomState(1)
     lr = rng.rand(2, 12, 16, 3).astype(np.float32)
     hr = rng.rand(2, 48, 64, 3).astype(np.float32)
-    meta = rng.rand(2, 10).astype(np.float32) if name == 'qrcan' else None
+    meta = rng.rand(2, 10).astype(np.float32) if name in META_MODELS else None
     port = _port(name, jax_models[name])
     out, loss, runtime = port.run_eval(lr, hr, request_loss=True, metadata=meta, timing=True)
     ref, ref_loss, _ = jax_models[name].run_eval(lr, hr, request_loss=True, metadata=meta)
@@ -172,7 +187,7 @@ def workload(tmp_path_factory, jax_models):
 
 
 def _hub_kwargs(dirs, models, out, name, **kwargs):
-    return {'hr_dir': dirs['hr'], 'lr_dir': dirs['lr_meta' if name == 'qrcan' else 'lr'],
+    return {'hr_dir': dirs['hr'], 'lr_dir': dirs['lr_meta' if name in META_MODELS else 'lr'],
             'results_name': 'r', 'gpu': False, 'metrics': ['PSNR', 'SSIM'],
             'data_split': None, 'save_im': True, 'batch_size': 1, 'full_directory': True,
             'lr_dir_interp': None, 'model_only': False, 'scale': 4, 'model_loc': models,
@@ -183,7 +198,8 @@ def _hub_kwargs(dirs, models, out, name, **kwargs):
 
 
 def _cli(dirs, models, out, name, *extra):
-    args = ['--hr_dir', dirs['hr'], '--lr_dir', dirs['lr_meta' if name == 'qrcan' else 'lr'],
+    args = ['--hr_dir', dirs['hr'],
+            '--lr_dir', dirs['lr_meta' if name in META_MODELS else 'lr'],
             '-me', 'torch_' + name, '0', '--model_loc', models, '--out_loc', out,
             '--results_name', 'r', '-m', 'PSNR', '-m', 'SSIM', '--full_directory',
             '--save_im', '--no-gpu', *extra]
@@ -210,7 +226,8 @@ def _assert_frames_match(ours, theirs, our_exp, their_exp):
 @pytest.mark.parametrize('name', sorted(MODELS))
 def test_standard_protocol_cli_matches_sisr_tpu(workload, name, tmp_path):
     """eval_sisr without --fused_eval, --save_im and comparisons on: CSVs, images
-    within 1 uint8 LSB, one collage per image with sisr_tpu's stems (PNG here)."""
+    within 1 uint8 LSB, one collage per image with sisr_tpu's file names (one-page
+    PDFs)."""
     _, dirs, models = workload
     ours_out, theirs_out = str(tmp_path / 'port'), str(tmp_path / 'ref')
     _cli(dirs, models, ours_out, name)
@@ -225,12 +242,55 @@ def test_standard_protocol_cli_matches_sisr_tpu(workload, name, tmp_path):
         a = np.asarray(Image.open(os.path.join(ours_out, 'r', 'torch_' + name, image)))
         b = np.asarray(Image.open(os.path.join(theirs_out, 'r', 'jax_' + name, image)))
         assert a.shape == b.shape and np.abs(a.astype(int) - b).max() <= 1
-    stems = [sorted(os.path.splitext(f)[0] for f in os.listdir(
-        os.path.join(out, 'r', 'model_comparisons'))) for out in (ours_out, theirs_out)]
+    stems = [sorted(os.listdir(os.path.join(out, 'r', 'model_comparisons')))
+             for out in (ours_out, theirs_out)]
     assert stems[0] == stems[1] and len(stems[0]) == len(HR_SIZES)
-    page = Image.open(os.path.join(ours_out, 'r', 'model_comparisons',
-                                   'image_comparison_im_1.png'))
-    assert page.mode == 'RGB' and page.width > 3 * 64
+    assert all(name.endswith('.pdf') for name in stems[0])
+    page = _pdf_page(os.path.join(ours_out, 'r', 'model_comparisons',
+                                  'image_comparison_im_1.pdf'))
+    assert page.shape[2] == 3 and page.shape[1] > 3 * 64
+
+
+def _pdf_page(path):
+    """The pixels of a one-page PDF written by write_pdf_page, read with no PDF
+    library: the image XObject's FlateDecode stream, shaped by its /Width and
+    /Height."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    assert data.startswith(b'%PDF-') and data.rstrip().endswith(b'%%EOF')
+    head = re.search(rb'/Subtype /Image /Width (\d+) /Height (\d+) /ColorSpace /DeviceRGB '
+                     rb'/BitsPerComponent 8 /Filter /FlateDecode /Length (\d+) >>\nstream\n',
+                     data)
+    width, height, length = (int(v) for v in head.groups())
+    pixels = zlib.decompress(data[head.end():head.end() + length])
+    return np.frombuffer(pixels, np.uint8).reshape(height, width, 3)
+
+
+def test_collage_pdf_holds_the_drawn_pixels(tmp_path, monkeypatch):
+    """A collage page parsed back from its PDF is the page PIL drew, pixel for pixel,
+    and the HR panel sits in it unchanged; the xref table points at every object."""
+    drawn = []
+    write = visualization.write_pdf_page
+    monkeypatch.setattr(visualization, 'write_pdf_page',
+                        lambda image, path: drawn.append(np.asarray(image)) or write(image,
+                                                                                     path))
+    rng = np.random.RandomState(3)
+    hr = rng.rand(2, 40, 52, 3).astype(np.float32)
+    package = {'HR': hr, 'LR': rng.rand(2, 40, 52, 3).astype(np.float32),
+               'exp': rng.rand(2, 40, 52, 3).astype(np.float32)}
+    visualization.interpret_sisr_images(package, {'exp>PSNR': [30.0, 31.5]}, ['PSNR'],
+                                        str(tmp_path), ['a.pdf', 'b.pdf'], config='rgb',
+                                        extra_info={'exp': [['epoch', 3]]})
+    for index, name in enumerate(('a.pdf', 'b.pdf')):
+        page = _pdf_page(str(tmp_path / name))
+        np.testing.assert_array_equal(page, drawn[index])
+        top = visualization._MARGIN + visualization._LINE * 2  # two title lines: exp, epoch
+        panel = page[top:top + 40, visualization._MARGIN:visualization._MARGIN + 52]
+        np.testing.assert_array_equal(panel, (hr[index] * 255).astype(np.uint8))
+        data = (tmp_path / name).read_bytes()
+        xref = int(data.rsplit(b'startxref\n', 1)[1].split()[0])
+        offsets = [int(line[:10]) for line in data[xref:].split(b'\n')[3:8]]
+        assert [data[o:].split(b' ', 1)[0] for o in offsets] == [b'1', b'2', b'3', b'4', b'5']
 
 
 def test_model_only_and_lr_dir_interp_match_sisr_tpu(workload, tmp_path):

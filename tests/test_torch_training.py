@@ -1,6 +1,6 @@
 """sisr_tpu_torch's training against sisr_tpu's on the CPU: the schedules, the
-optimizer and clipping, 20-step loss and parameter trajectories of RCAN, Q-RCAN and
-EDSR across a warm restart, one whole Q-RCAN step's grads against jax.grad, the
+optimizer and clipping, 20-step loss and parameter trajectories of RCAN, Q-RCAN,
+EDSR, HAN and Q-HAN (LAM's and CSAM's gammas non-zero) across a warm restart, one whole Q-RCAN step's grads against jax.grad, the
 K-step loop, checkpoints that carry Adam and the step, the fused validation's loss
 row, the training data (crops, flips, shuffle, uint8) for two epochs, and the
 options that raise.  Small models (1 group x 2 blocks, 16 features, scale 2, 8^2 LR);
@@ -55,6 +55,10 @@ MODELS = {
                        {'n_resgroups': 1, 'n_resblocks': 2, 'style': 'standard',
                         'include_q_layer': True}),
     'edsr': ('edsr', {'num_features': 8, 'num_blocks': 2}, {'num_blocks': 2}),
+    'han': ('han', {'n_resgroups': 2, 'n_resblocks': 1, 'n_feats': 16, 'reduction': 4},
+            {'n_resgroups': 2, 'n_resblocks': 1}),
+    'qhan': ('qhan', {'n_resgroups': 2, 'n_resblocks': 1, 'n_feats': 16,
+                      'metadata': ['blur_kernel']}, {'n_resgroups': 2, 'n_resblocks': 1}),
 }
 KEYS = ['blur_kernel'] * 10
 
@@ -70,6 +74,10 @@ def _port(case, seed=None, **extra):
     seed = SEEDS.get(case, 3) if seed is None else seed
     handler = define_model(name, device='cpu', seed=seed, **{**TRAIN, **arch, **extra})
     handler.set_metadata_keys(KEYS)
+    if name in ('han', 'qhan'):
+        with torch.no_grad():  # LAM and CSAM start as the identity (gamma 0): make them act
+            handler.module.la.gamma.fill_(0.5)
+            handler.module.csa.gamma.fill_(-0.7)
     return handler
 
 
