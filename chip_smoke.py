@@ -4,8 +4,10 @@
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
-1. environment: the card (nvidia-smi), torch and CUDA versions, and the build of every
-   CUDA kernel from the sources in this checkout;
+1. environment: the card (nvidia-smi), torch and CUDA versions, the build of every
+   CUDA kernel from the sources in this checkout, and whether the native host helpers
+   (sisr_tpu_torch.native: the Pillow-exact resize and the PNG decoder, g++) loaded,
+   with the reason where not;
 2. kernel: each kernel against its plain PyTorch version on the card, at the main-path
    shape and at edge shapes, with its time (the CA kernel also with Q-RCAN's meta and
    gate, on both paths, timed beside the meta-less call): ``ms`` per call replayed from a CUDA
@@ -27,11 +29,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    CA at the standard protocol's batch-1 bf16 maps (128^2, the largest Set14 LR
    shape, 510 x 339) against its bound, with its launches there as each
    standard-protocol run counts them by map;
-3. reference: the full-width RCAN, Q-RCAN, EDSR, HAN and Q-HAN forwards and fused
-   evals on a small input, card (CUDA kernels) against the CPU (plain versions), in
-   f32 (every HAN and Q-HAN of this script with LAM's and CSAM's gammas non-zero:
-   GAMMAS); then HAN's LAM and CSAM alone at the fused eval's shapes, card against
-   CPU in f32, and timed in bf16 and f32 beside their bounds;
+3. reference: the full-width RCAN, Q-RCAN, EDSR, HAN, Q-HAN, SAN and Q-SAN forwards
+   and fused evals on a small input, card (CUDA kernels) against the CPU (plain
+   versions), in f32 (every HAN and Q-HAN of this script with LAM's and CSAM's gammas
+   non-zero: GAMMAS; every SAN and Q-SAN with gamma and the non-local output conv W
+   non-zero: set_gammas); then HAN's LAM and CSAM, and SAN's SOCA and non-local block,
+   alone at the fused eval's shapes, card against CPU in f32, and timed in bf16 and
+   f32 beside their bounds;
 4. int8 reference: one int8 conv's int32 sums, card against CPU, and the time of
    ``torch._int_mm`` in both weight layouts; calibration on the card (with TF32
    allowed globally) against the CPU's; the full-width int8 RCAN and its fused eval
@@ -40,8 +44,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Q-RCAN's e2e configuration cut to 2 x 2 (from 10 x 20, to make room for HAN's
    phases; its 4 CA + residual launches a forward counted, their path held against
    the plan: the int8 main path runs it at full depth), Q-EDSR at 2 blocks and 256
-   features (also its f32 module forward), and HAN and Q-HAN at 2 x 2 (LAM and CSAM
-   in bf16), each with the int32 sums of its head and first body conv;
+   features (also its f32 module forward), HAN and Q-HAN at 2 x 2 (LAM and CSAM in
+   bf16) and SAN and Q-SAN at 2 x 2 (SOCA and the non-local block in f32), each with
+   the int32 sums of its head and first body conv;
 5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
    launch counts of that run (every CA call on chip); then the img/s of warm protocol
@@ -63,9 +68,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    features, 4x; Q-HAN's QRCABs the standard style with a q_node, on the blur
    kernel) in bf16 (200 CA launches a forward on chip, Q-HAN's with the gate) and
    with ``--int8`` (200 CA + residual launches a forward in rounds, Q-HAN's cast
-   first with the gate), LAM, CSAM and last_conv timed apart; each int8 path's mean
-   PSNR within 1 dB of its bf16 run's, with img/s, a device-time breakdown and peak
-   memory;
+   first with the gate), LAM, CSAM and last_conv timed apart; SAN and Q-SAN as
+   configs/div2k/san.toml and qsan.toml build them (20 x 10, 64 features, reduction
+   16, 4x, max_combined_im_size 20000: no tile grid at 128^2; Q-SAN gated on the blur
+   kernel) in bf16 and with ``--int8``, no CA call, their SOCAs and non-local passes
+   timed apart; each int8 path's mean PSNR within 1 dB of its bf16 run's, with img/s,
+   a device-time breakdown and peak memory;
 9. kernel backward: the CA op under autograd (the kernel forward, the plain VJP) at the
    training shape (8, 64, 64, 64) f32 with and without Q-RCAN's gate, and at the f32
    eval shape (in rounds), against plain autograd; the kernel's forward time at the
@@ -78,7 +86,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
    epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
    --fused_eval`` of the best epoch (f32, the CA in rounds); then 10 timed warm train
-   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20 through the handler (forward /
+   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20 and SAN and Q-SAN 20 x 10 through
+   the handler (forward /
    backward / optimizer, device busy, the CA kernel's share, conv FLOPs against the
    TF32 and f32 peaks, peak memory), and the same step with the CA's plain version in
    its place, in turns;
@@ -97,10 +106,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
    builds it (f32, standard style with a q_node: the CA with a gate), the 510 x 339
    image's CA calls streaming, its SR output against the plain CA's forward; then
    Q-HAN bf16 with ``--no_image_comparison`` and with ``--eval_buckets 128`` (its
-   LAM and CSAM on the zero-masked pads), each against the run before it;
-14. train_sisr on configs/div2k/qrcan.toml and on configs/div2k/qhan.toml (both
-   training sets on the pairs) as shipped (no fused_val: the standard validation
-   epoch), each one's val-PSNR against a fused validation of the same checkpoint;
+   LAM and CSAM on the zero-masked pads), each against the run before it; then Q-SAN
+   bf16 with ``--no_image_comparison`` on the tile grid (the Set14 maps 2 x 2, the
+   510 x 339 map 16 tiles of 105 x 148; the tile batches counted against the plan,
+   no CA call), its shared pairs against the fused run; then Q-SAN at
+   max_combined_im_size 10000 (a 2 x 2 grid on the 128^2 maps) on the 16 pairs, the
+   fused and the standard protocol, in bf16 and ``--int8`` (one int8 state), each
+   pair's metrics against the other protocol's;
+14. train_sisr on configs/div2k/qrcan.toml, qhan.toml and qsan.toml (both training
+   sets on the pairs) as shipped (no fused_val: the standard validation epoch), each
+   one's val-PSNR against a fused validation of the same checkpoint;
 
 then the script's total seconds with each family's int8 img/s over its bf16 img/s
 (the table of ``INT8_MEASURED_SLOWER``), the ``kernels`` table (a row for each route
@@ -146,12 +161,25 @@ QEDSR = {'scale': SCALE, 'num_features': 256, 'num_blocks': 32, 'res_scale': 0.1
 HAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
        'reduction': 16, 'dtype': 'bf16'}
 QHAN = {**HAN, 'metadata': ['blur_kernel']}
+# configs/div2k/san.toml's and qsan.toml's models: 20 x 10, 64 features, reduction 16,
+# 4x, the tile grid under max_combined_im_size = 20000 (Q-SAN's blocks gated on the blur
+# kernel)
+SAN = {'scale': SCALE, 'n_resgroups': 20, 'n_resblocks': 10, 'n_feats': 64,
+       'reduction': 16, 'max_combined_im_size': 20000, 'dtype': 'bf16'}
+QSAN = {**SAN, 'metadata': ['blur_kernel']}
+# Q-SAN at max_combined_im_size = 10000: the 128^2 maps of the fused cell on a 2 x 2 grid
+QSAN_GRID = {**QSAN, 'max_combined_im_size': 10000}
 MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
           'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR),
-          'han_10x20': ('han', HAN), 'qhan_10x20': ('qhan', QHAN)}
+          'han_10x20': ('han', HAN), 'qhan_10x20': ('qhan', QHAN),
+          'san_20x10': ('san', SAN), 'qsan_20x10': ('qsan', QSAN),
+          'qsan_grid': ('qsan', QSAN_GRID)}
 # LAM's and CSAM's gammas start at 0, where both are the identity: every HAN and Q-HAN
-# of this script sets them to these, so each check exercises them
+# of this script sets them to these, so each check exercises them; SAN's gamma and its
+# non-local output conv W start at 0 too (the block is then the identity): every SAN and
+# Q-SAN takes SAN_GAMMA and a W drawn from N(0, 0.3^2), its bias from N(0, 0.1^2), seed 11
 GAMMAS = {'la': 0.5, 'csa': -0.7}
+SAN_GAMMA = 0.5
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
 CA_KERNELS = ('ca_onchip', 'ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_scale')
 CA_RES_KERNELS = ('ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
@@ -162,13 +190,28 @@ CONV_KERNEL_HINTS = ('conv', 'xmma', 'gemm', 'cutlass', 'cudnn', 'fprop', 'impli
 
 
 def set_gammas(module):
-    """GAMMAS into a HAN or Q-HAN module's LAM and CSAM (nothing for other models)."""
+    """GAMMAS into a HAN or Q-HAN module's LAM and CSAM; SAN_GAMMA and a seeded W into a
+    SAN or Q-SAN module (nothing for other models)."""
     import torch
-    if hasattr(module, 'la'):
-        with torch.no_grad():
+    with torch.no_grad():
+        if hasattr(module, 'la'):
             for name, value in GAMMAS.items():
                 getattr(module, name).gamma.fill_(value)
+        if hasattr(module, 'non_local'):
+            module.gamma.fill_(SAN_GAMMA)
+            draw_nonlocal_w(module.non_local)
     return module
+
+
+def draw_nonlocal_w(nonlocal_ca):
+    """A NonlocalCA's output conv W (0 at init: the block is the identity) drawn from
+    N(0, 0.3^2), its bias from N(0, 0.1^2), seed 11."""
+    import torch
+    w, gen = nonlocal_ca.non_local.W, torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        w.weight.copy_(0.3 * torch.randn(w.weight.shape, generator=gen))
+        w.bias.copy_(0.1 * torch.randn(w.bias.shape, generator=gen))
+    return nonlocal_ca
 
 
 START = time.perf_counter()
@@ -188,11 +231,11 @@ def nvidia_smi_line():
                           text=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=50, rounds=5):
+def cuda_ms(fn, reps=50, rounds=5, warm=5):
     """Median over ``rounds`` of the CUDA-event time of ``reps`` back-to-back calls,
-    per call, after a warm-up."""
+    per call, after ``warm`` calls."""
     import torch
-    for _ in range(5):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(rounds):
@@ -382,13 +425,21 @@ def write_experiment(model_loc, name, seed):
 
 
 def phase_environment():
+    """The card, the versions, the CUDA kernels built (one nvcc each, all at once) and
+    whether the native host helpers (sisr_tpu_torch.native: the Pillow-exact resize
+    and the PNG decoder, g++) loaded on this host, with the reason where not."""
     import torch
+    from sisr_tpu_torch import native
     from sisr_tpu_torch.ops.cuda import build
     tic = time.perf_counter()
     built = build.build()
+    native_tic = time.perf_counter()
+    native_status = native.status()
+    native_seconds = time.perf_counter() - native_tic
     from PIL import Image, features
     Image.init()
     emit({'phase': 'environment', 'nvidia_smi': nvidia_smi_line(),
+          'native': native_status, 'native_build_seconds': native_seconds,
           'pil': {'save_formats': sorted(Image.SAVE), 'jpeg_codec': features.check_codec('jpg'),
                   'zlib_codec': features.check_codec('zlib')},
           'torch': torch.__version__, 'cuda': torch.version.cuda,
@@ -1068,10 +1119,11 @@ def phase_kernel_batch1():
 
 
 def phase_reference(name='rcan_10x20', seed=3):
-    """Full-width MODELS[name] (seeded weights; HAN's gammas set) on a 32^2 LR input in
-    f32 (with 10 seeded metadata values per image for Q-RCAN and Q-HAN): the card
-    (CUDA kernels, cuDNN) against the CPU (plain versions).  Forward <= 5e-4 abs;
-    fused-eval PSNR within 0.01 dB and SSIM within 1e-3."""
+    """Full-width MODELS[name] (seeded weights; HAN's gammas, SAN's gamma and W set) on a
+    32^2 LR input in f32 (with 10 seeded metadata values per image for the Q-models):
+    the card (CUDA kernels, cuDNN, cuBLAS) against the CPU (plain versions).  Forward
+    <= 5e-4 abs; fused-eval PSNR within 0.01 dB and SSIM within 1e-3; SAN and Q-SAN
+    launch neither CA op."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1092,12 +1144,16 @@ def phase_reference(name='rcan_10x20', seed=3):
         for handler in (card, host):
             handler.set_metadata_keys(['blur_kernel'] * META_COLS)
         meta = (torch.from_numpy(batch['metadata']),)
+    reset_launches()
     with torch.inference_mode():
         out_card = card.forward(x.cuda(), *(m.cuda() for m in meta)).cpu()
         out_host = host.forward(x, *meta)
     fwd_err = (out_card - out_host).abs().max().item()
     (keys, m_card), _ = card.run_eval_fused(batch)
     (_, m_host), _ = host.run_eval_fused(batch)
+    if model in ('san', 'qsan'):
+        torch.cuda.synchronize()
+        expect_launches(read_launches(), NO_LAUNCHES, '%s reference' % name)
     m_card, m_host = m_card.cpu().numpy(), m_host.numpy()
     diff = {k: float(np.abs(m_card[i] - m_host[i]).max()) for i, k in enumerate(keys)}
     emit({'phase': 'reference', 'model': name, 'forward_max_abs_err': fwd_err,
@@ -1163,6 +1219,66 @@ def phase_holistic_attention():
     emit(report)
     for key, bar in (('lam', 5e-5), ('csam', 1e-5)):
         if not report[key + '_max_abs_err'] <= bar:
+            raise AssertionError('%s on the card is %g from the CPU'
+                                 % (key, report[key + '_max_abs_err']))
+
+
+def phase_san_attention():
+    """SAN's SOCA and non-local block alone (the port's modules, seeded: SOCA at
+    reduction 16, NonlocalCA 64 -> 8 channels with W drawn), at the fused eval's shape:
+    SOCA on one (8, 128, 128, 64) map (N(0, 1)), NonlocalCA on one (its four 64^2
+    quadrants), in f32 with TF32 off, card (cuBLAS, cuDNN) against the CPU: each
+    <= 1e-5 abs; neither launches a CA op.  Then each on the card in bf16 (the fused
+    eval's type, under autocast: the covariance, the square root and the logits stay
+    f32) and f32 (training's), CUDA-event ms a call, beside its bound: the map read
+    once and written once at the HBM rate, or the f32 products (SOCA's covariance,
+    2 B M C^2; the non-local logits, 2 B M_q (M_q / 4) I per quadrant, and the
+    attention's product as many, at the f32 rate without TF32), whichever is longer."""
+    import torch
+    from sisr_tpu_torch.models.blocks import torch_default_init_
+    from sisr_tpu_torch.models.san import SOCA, NonlocalCA
+    gen = torch.Generator().manual_seed(10)
+    shape = (BATCH, LR_SIZE, LR_SIZE, 64)
+    vol = torch.randn(shape, generator=gen)
+    soca = torch_default_init_(SOCA(64, SAN['reduction']), gen)
+    non_local = draw_nonlocal_w(torch_default_init_(NonlocalCA(64, 8), gen))
+
+    def calls(device, dtype):
+        soca.to(device)
+        non_local.to(device)
+        x = vol.to(device, dtype).permute(0, 3, 1, 2)
+        return lambda: soca(x), lambda: non_local(x)
+
+    report = {'phase': 'san_attention', 'shape': list(shape)}
+    reset_launches()
+    with torch.inference_mode():
+        host = [fn().permute(0, 2, 3, 1) for fn in calls('cpu', torch.float32)]
+        card = [fn().permute(0, 2, 3, 1).cpu() for fn in calls('cuda', torch.float32)]
+        for key, a, b in (('soca', card[0], host[0]), ('non_local', card[1], host[1])):
+            report[key + '_max_abs_err'] = (a - b).abs().max().item()
+        report['non_local_changes_its_input_by'] = (host[1] - vol).abs().max().item()
+        m, c, i = LR_SIZE ** 2, 64, 8
+        m_q = m // 4
+        soca_flops = 2 * BATCH * m * c * c
+        non_local_flops = 4 * 2 * 2 * BATCH * m_q * (m_q // 4) * i
+        for dtype, itemsize in ((torch.bfloat16, 2), (torch.float32, 4)):
+            tag = str(dtype).split('.')[-1]
+            soca_fn, non_local_fn = calls('cuda', dtype)
+            with torch.autocast('cuda', dtype=torch.bfloat16, enabled=tag == 'bfloat16'):
+                report['soca_%s_ms' % tag] = cuda_ms(soca_fn, reps=10, rounds=3)
+                report['non_local_%s_ms' % tag] = cuda_ms(non_local_fn, reps=10, rounds=3)
+            map_s = 2 * BATCH * m * c * itemsize / HBM_BYTES_PER_S
+            report['soca_%s_bound_ms' % tag] = max(map_s, soca_flops / F32_CUDA_CORE_FLOPS) * 1e3
+            report['non_local_%s_bound_ms' % tag] = max(
+                map_s, non_local_flops / F32_CUDA_CORE_FLOPS) * 1e3
+    torch.cuda.synchronize()
+    expect_launches(read_launches(), NO_LAUNCHES, 'SOCA and the non-local block')
+    report['nvidia_smi'] = nvidia_smi_line()
+    emit(report)
+    if not report['non_local_changes_its_input_by'] > 0.1:
+        raise AssertionError('the non-local block is near the identity')
+    for key in ('soca', 'non_local'):
+        if not report[key + '_max_abs_err'] <= 1e-5:
             raise AssertionError('%s on the card is %g from the CPU'
                                  % (key, report[key + '_max_abs_err']))
 
@@ -1276,6 +1392,10 @@ INT8_REFERENCE = {
             ('bfloat16',)),
     'qhan': ('qhan', {**QHAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
              ('bfloat16',)),
+    'san': ('san', {**SAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
+            ('bfloat16',)),
+    'qsan': ('qsan', {**QSAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
+             ('bfloat16',)),
 }
 
 
@@ -1295,8 +1415,9 @@ def phase_int8_family_reference(name):
     eval (bfloat16 carry) within 0.01 dB PSNR and 1e-3 SSIM.  Q-RCAN, HAN and Q-HAN
     (2 x 2, gammas set; LAM and CSAM in bf16 on cuBLAS and cuDNN) count their CA +
     residual launches (one per block: the RCAB tail, or the cast-first QRCAB tail) and
-    hold their path against res_onchip_plan, and launch no CA; Q-EDSR also holds its
-    f32 module forward to 5e-4."""
+    hold their path against res_onchip_plan, and launch no CA; SAN and Q-SAN (2 x 2,
+    gamma and W set; the non-local block and SOCA in f32) launch neither op; Q-EDSR
+    also holds its f32 module forward to 5e-4."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1345,8 +1466,12 @@ def phase_int8_family_reference(name):
     report['calibration_max_rel_diff'] = scale_rel
 
     qp = host._int8_ctx[1]
-    first_body = qp['block_0']['conv_0'] if 'block_0' in qp \
-        else qp['group_0'].get('rcab_0', qp['group_0'].get('qrcab_0'))['conv_0']
+    if 'block_0' in qp:
+        first_body = qp['block_0']['conv_0']
+    elif 'rg_0' in qp:
+        first_body = qp['rg_0'].get('rb_0', qp['rg_0'].get('qrb_0'))['conv_0']
+    else:
+        first_body = qp['group_0'].get('rcab_0', qp['group_0'].get('qrcab_0'))['conv_0']
     gen = torch.Generator().manual_seed(8)
     for conv_name, entry in (('head', qp['head']), ('first_body_conv', first_body)):
         x_q = torch.randint(-127, 128, (2, size, size, entry['kernel'].shape[2]),
@@ -1498,19 +1623,24 @@ def expect_launches(launches, expected, path):
         raise AssertionError('%s launches %s, expected %s' % (path, launches, expected))
 
 
+def eval_hub(dirs, experiment, results_name, fused, int8, batch_size):
+    """An EvalHub over ``dirs`` (no images saved, no comparisons, not timed)."""
+    from sisr_tpu_torch.evaluation.standard_eval import EvalHub
+    return EvalHub(hr_dir=dirs['hr_dir'], lr_dir=dirs['lr_dir'],
+                   model_and_epoch=[(experiment, '0')], results_name=results_name,
+                   gpu=True, metrics=['PSNR', 'SSIM'], data_split=None, save_im=False,
+                   batch_size=batch_size, full_directory=True, lr_dir_interp=None,
+                   model_only=False, scale=SCALE, model_loc=dirs['model_loc'],
+                   out_loc=dirs['out_loc'], use_test_group=False, no_image_comparison=True,
+                   num_image_save=0, qpi_selection=(None, None), data_attributes=None,
+                   dataset_name=None, image_shortlist=None, metadata_file=None, sp_gpu=0,
+                   time_models=False, recursive=False, fused_eval=fused, int8=int8)
+
+
 def warm_passes(dirs, results_name, int8, experiment='rcan_10x20'):
     """img/s of 3 warm fused protocol passes on one hub (the first pass decodes and
     sets up, the rest are timed), and the hub's handler."""
-    from sisr_tpu_torch.evaluation.standard_eval import EvalHub
-    hub = EvalHub(hr_dir=dirs['hr_dir'], lr_dir=dirs['lr_dir'],
-                  model_and_epoch=[(experiment, '0')], results_name=results_name,
-                  gpu=True, metrics=['PSNR', 'SSIM'], data_split=None, save_im=False,
-                  batch_size=BATCH, full_directory=True, lr_dir_interp=None,
-                  model_only=False, scale=SCALE, model_loc=dirs['model_loc'],
-                  out_loc=dirs['out_loc'], use_test_group=False, no_image_comparison=True,
-                  num_image_save=0, qpi_selection=(None, None), data_attributes=None,
-                  dataset_name=None, image_shortlist=None, metadata_file=None, sp_gpu=0,
-                  time_models=False, recursive=False, fused_eval=True, int8=int8)
+    hub = eval_hub(dirs, experiment, results_name, True, int8, BATCH)
     hub.full_image_protocol()
     rates = []
     for _ in range(3):
@@ -1538,11 +1668,11 @@ def breakdown_batch(handler=None):
     return dev, x, meta
 
 
-def step_times(handler, dev):
-    """The fused step's wall ms (CUDA events), its device-busy ms (profiler) and the
-    idle share; and the step's per-kernel device ms."""
+def step_times(handler, dev, warm=5):
+    """The fused step's wall ms (CUDA events, after ``warm`` calls), its device-busy ms
+    (profiler) and the idle share; and the step's per-kernel device ms."""
     step = lambda: handler.run_eval_fused(dev)[0][1]
-    step_ms = cuda_ms(step, reps=5, rounds=3)
+    step_ms = cuda_ms(step, reps=5, rounds=3, warm=warm)
     step_device_ms, per_kernel = device_kernel_ms(step, reps=3)
     return ({'fused_step_ms': step_ms, 'fused_step_device_ms': step_device_ms,
              'device_idle_share': (1 - step_device_ms / step_ms) if step_device_ms
@@ -1561,6 +1691,10 @@ BF16_PATHS = {
                   HAN['n_resgroups'] * HAN['n_resblocks']),
     'qhan_10x20': ('qhan_', 'qhan 10x20 64f 4x bf16, standard + q_node, 10 blur-kernel '
                    'values, LAM + CSAM', QHAN['n_resgroups'] * QHAN['n_resblocks']),
+    'san_20x10': ('san_', 'san 20x10 64f 4x bf16, 20 SOCA + 2 non-local passes, no tile '
+                  'grid at 128^2 (max_combined_im_size 20000)', 0),
+    'qsan_20x10': ('qsan_', 'qsan 20x10 64f 4x bf16, ParaCALayer gates on 10 blur-kernel '
+                   'values, 20 SOCA + 2 non-local passes', 0),
 }
 
 
@@ -1623,11 +1757,60 @@ def holistic_int8_ms(handler, x, meta):
                     entry['matrix']), 10, 3)}
 
 
+def san_attention_ms(module, forward):
+    """SAN's and Q-SAN's 20 SOCAs and 2 non-local passes of one forward, each set timed
+    alone (CUDA events, under the forward's bf16 autocast) on the inputs that
+    ``forward`` gives them: ms per forward."""
+    import torch
+    inputs = {'soca': [], 'non_local': []}
+    hooks = [group.soca.register_forward_pre_hook(
+        lambda mod, args: inputs['soca'].append((mod, args))) for group in module.RG]
+    hooks.append(module.non_local.register_forward_pre_hook(
+        lambda mod, args: inputs['non_local'].append((mod, args))))
+    try:
+        with torch.inference_mode():
+            forward()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    with torch.inference_mode(), torch.autocast('cuda', dtype=torch.bfloat16):
+        return {key + '_ms_per_forward': cuda_ms(
+            lambda calls=calls: [mod(*args) for mod, args in calls], reps=5, rounds=3)
+            for key, calls in inputs.items()}
+
+
+def san_int8_attention_ms(handler, x, meta):
+    """The int8 program's SOCAs and non-local passes (f32), each set timed alone (CUDA
+    events) on the inputs one forward gives them: ms per forward."""
+    import torch
+    from sisr_tpu_torch.ops import quantization as qz
+    program, qparams, _ = handler._int8_ctx
+    seen = {'soca': [], 'non_local': []}
+    soca, non_local = qz._soca_apply, qz._nonlocal_ca_apply
+
+    def spy(key, fn):
+        def call(*args):
+            seen[key].append(args)
+            return fn(*args)
+        return call
+
+    qz._soca_apply, qz._nonlocal_ca_apply = spy('soca', soca), spy('non_local', non_local)
+    try:
+        with torch.inference_mode():
+            program(x, meta)
+    finally:
+        qz._soca_apply, qz._nonlocal_ca_apply = soca, non_local
+    with torch.inference_mode():
+        return {key + '_ms_per_forward': cuda_ms(
+            lambda fn=fn, calls=seen[key]: [fn(*args) for args in calls], reps=5, rounds=3)
+            for key, fn in (('soca', soca), ('non_local', non_local))}
+
+
 def phase_main_path(dirs, experiment='rcan_10x20'):
     """``eval_sisr --fused_eval`` in bf16 on ``experiment``: every CALayer or QRCAB tail
     through the on-chip CA kernel (200 per forward for RCAN, Q-RCAN, HAN and Q-HAN,
-    none for EDSR), the CA + residual kernel not at all; HAN's LAM, CSAM and
-    last_conv timed apart."""
+    none for EDSR, Q-EDSR, SAN and Q-SAN), the CA + residual kernel not at all; HAN's
+    LAM, CSAM and last_conv, SAN's SOCAs and non-local passes timed apart."""
     import torch
     prefix, description, ca_calls = BF16_PATHS[experiment]
     launches, cli_seconds, frame = run_eval_cli(dirs, prefix + 'smoke', experiment=experiment)
@@ -1651,7 +1834,9 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     mean_psnr = float(frame[(experiment, 'PSNR')].mean())
     holistic = holistic_ms(handler.module, lambda: handler.forward(x, meta)) \
-        if hasattr(handler.module, 'la') else {}
+        if hasattr(handler.module, 'la') else san_attention_ms(
+            handler.module, lambda: handler.forward(x, meta)) \
+        if hasattr(handler.module, 'non_local') else {}
     emit({'phase': prefix + 'main_path', 'model': description, 'images': N_IMAGES,
           'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds, 'launches': launches,
           'mean_psnr': mean_psnr, 'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
@@ -1678,6 +1863,9 @@ INT8_PATHS = {
     'han_10x20': ('han_', 'han 10x20 64f 4x int8 (bf16 carry), LAM + CSAM in bf16'),
     'qhan_10x20': ('qhan_', 'qhan 10x20 64f 4x int8 (bf16 carry), standard + q_node, '
                    '10 blur-kernel values, LAM + CSAM in bf16'),
+    'san_20x10': ('san_', 'san 20x10 64f 4x int8 (bf16 carry), SOCA + non-local in f32'),
+    'qsan_20x10': ('qsan_', 'qsan 20x10 64f 4x int8 (bf16 carry), f32 ParaCALayer gates '
+                   'on 10 blur-kernel values, SOCA + non-local in f32'),
 }
 
 
@@ -1730,11 +1918,12 @@ def phase_int8_main_path(dirs, bf16_mean_psnr, experiment='rcan_10x20'):
 
     dev, x, meta = breakdown_batch(handler)
     program = handler._int8_ctx[0]
+    # the program ran in the CLI run and the warm passes: one call warms each timing
     with torch.inference_mode():
-        forward_ms = cuda_ms(lambda: program(x, meta), reps=3, rounds=3)
+        forward_ms = cuda_ms(lambda: program(x, meta), reps=3, rounds=3, warm=1)
         forward_device_ms, per_kernel = device_kernel_ms(lambda: program(x, meta), reps=3)
     peak_gb = peak_forward_gb(lambda: program(x, meta))
-    steps, _ = step_times(handler, dev)
+    steps, _ = step_times(handler, dev, warm=1)
     per_kernel = {k: v / 3 for k, v in per_kernel.items()}
     ours = CA_KERNELS + CA_RES_KERNELS
     ca_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in ours))
@@ -1742,7 +1931,9 @@ def phase_int8_main_path(dirs, bf16_mean_psnr, experiment='rcan_10x20'):
                   and any(t in k.lower() for t in GEMM_KERNEL_HINTS))
     other_ms = sum(per_kernel.values()) - ca_ms - gemm_ms
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
-    holistic = holistic_int8_ms(handler, x, meta) if hasattr(handler.module, 'la') else {}
+    holistic = holistic_int8_ms(handler, x, meta) if hasattr(handler.module, 'la') \
+        else san_int8_attention_ms(handler, x, meta) if hasattr(handler.module, 'non_local') \
+        else {}
     emit({'phase': prefix + 'int8_main_path', 'model': description,
           'images': N_IMAGES, 'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds,
           'launches': launches, 'mean_psnr': mean_psnr, 'bf16_mean_psnr': bf16_mean_psnr,
@@ -1794,6 +1985,10 @@ RCAN_TRAIN = {k: v for k, v in QRCAN_TRAIN.items()
 HAN_TRAIN = {'scale': SCALE, 'lr': 1e-4, 'scheduler': 'cosine_annealing_warm_restarts',
              'scheduler_params': {'t_mult': 1, 'restart_period': 40000, 'lr_min': 1e-7}}
 QHAN_TRAIN = {**HAN_TRAIN, 'metadata': ['blur_kernel']}
+# configs/div2k/san.toml's and qsan.toml's [model], at their full depth of 20 x 10
+SAN_TRAIN = {**HAN_TRAIN, 'max_combined_im_size': 20000, 'n_resgroups': 20,
+             'n_resblocks': 10}
+QSAN_TRAIN = {**SAN_TRAIN, 'metadata': ['blur_kernel']}
 
 
 FULL_DEPTH = {'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64}
@@ -2000,7 +2195,7 @@ def plain_channel_attention():
 
 def train_step_breakdown(model, internal, steps=10, turns=True):
     """10 warm train steps of the full-width model (seed 8, f32, PyTorch's default TF32
-    flags; HAN's gammas set) through the handler on seeded uint8 batches of 8 LR crops
+    flags; HAN's gammas, SAN's gamma and W set) through the handler on seeded uint8 batches of 8 LR crops
     of 64^2: per step the wall ms (host clock to a synchronise) and the forward+loss /
     backward / optimizer ms (CUDA events), medians; with ``turns``, then 10 with the
     CA's plain version in its place (plain autograd) and 10 more with the kernel, in
@@ -2009,7 +2204,7 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
-    handler = define_model(model, device='cuda', seed=8, **FULL_DEPTH, **internal)
+    handler = define_model(model, device='cuda', seed=8, **{**FULL_DEPTH, **internal})
     handler.set_metadata_keys(['blur_kernel'] * META_COLS)
     set_gammas(handler.module)
     rng = np.random.RandomState(6)
@@ -2070,8 +2265,8 @@ def phase_train_main_path(dirs, root):
     """``train_sisr`` on the Q-RCAN recipe for 2 epochs, then a resume for a third:
     finite losses, summary.csv, the checkpoints (the resumed one at step 6), every CA
     call on chip; 200 launches per train step.  ``eval_sisr --fused_eval`` of the best
-    epoch.  Then the timed steps of Q-RCAN, RCAN, HAN and Q-HAN.  cuDNN TF32 on, matmul TF32 off
-    (PyTorch's defaults) throughout the phase."""
+    epoch.  Then the timed steps of Q-RCAN, RCAN, HAN, Q-HAN, SAN and Q-SAN.  cuDNN TF32
+    on, matmul TF32 off (PyTorch's defaults) throughout the phase."""
     import numpy as np
     import pandas as pd
     import torch
@@ -2128,16 +2323,19 @@ def phase_train_main_path(dirs, root):
               'nvidia_smi': nvidia_smi_line()})
         breakdowns = {}
         # HAN's and Q-HAN's CA calls are RCAN's and Q-RCAN's: their steps skip the
-        # turns against the CA's plain version
+        # turns against the CA's plain version; SAN and Q-SAN make no CA call
         for name, model, internal, turns in (('qrcan_10x20', 'qrcan', QRCAN_TRAIN, True),
                                              ('rcan_10x20', 'rcan', RCAN_TRAIN, True),
                                              ('han_10x20', 'han', HAN_TRAIN, False),
-                                             ('qhan_10x20', 'qhan', QHAN_TRAIN, False)):
+                                             ('qhan_10x20', 'qhan', QHAN_TRAIN, False),
+                                             ('san_20x10', 'san', SAN_TRAIN, False),
+                                             ('qsan_20x10', 'qsan', QSAN_TRAIN, False)):
             breakdowns[name] = train_step_breakdown(model, internal, turns=turns)
             per_step = breakdowns[name]['launches_per_step']
-            if per_step['fused_channel_attention'] != CA_PER_FORWARD \
-                    or per_step['fused_channel_attention_onchip'] != CA_PER_FORWARD:
-                raise AssertionError('%s train step: %s launches' % (name, per_step))
+            calls = 0 if model in ('san', 'qsan') else CA_PER_FORWARD
+            expect_launches(per_step, {**NO_LAUNCHES, 'fused_channel_attention': calls,
+                                       'fused_channel_attention_onchip': calls},
+                            '%s train step' % name)
             emit({'phase': 'train_breakdown', 'model': name, 'batch': BATCH,
                   'lr_crop': TRAIN_CROP, 'tf32': report['tf32'], **breakdowns[name],
                   'nvidia_smi': nvidia_smi_line()})
@@ -2342,6 +2540,140 @@ def phase_bucketed_eval(mixed, unbucketed_frame, experiment='rcan_10x20'):
     return {'launches': launches, 'onchip_by_map': by_map}
 
 
+def tile_grid(hw, limit, shave=10):
+    """The side of the tile grid BaseHandler._tiled_forward cuts an (h, w) LR map into
+    at max_combined_im_size ``limit`` (1: none)."""
+    h, w = hw
+    level = 0
+    while (h // 2 ** level + shave) * (w // 2 ** level + shave) >= limit:
+        level += 1
+    grid = 2 ** level
+    while grid > 1 and (-(-h // grid) + 2 * shave > h or -(-w // grid) + 2 * shave > w):
+        grid //= 2
+    return grid
+
+
+@contextlib.contextmanager
+def tile_steps():
+    """The tile-batch size of every BaseHandler._tile_step call while the block runs:
+    {tiles in the batch: calls}."""
+    from sisr_tpu_torch.models import handlers
+    counts, step = {}, handlers.BaseHandler._tile_step
+
+    def spy(self, batch):
+        n = int(batch['lr'].shape[0])
+        counts[n] = counts.get(n, 0) + 1
+        return step(self, batch)
+
+    handlers.BaseHandler._tile_step = spy
+    try:
+        yield counts
+    finally:
+        handlers.BaseHandler._tile_step = step
+
+
+def phase_tiled_standard_eval(mixed, experiment, fused_frame):
+    """``eval_sisr`` on the standard protocol (batch 1, --time_models,
+    --no_image_comparison) over the mixed-size set for a tiled family (Q-SAN at
+    max_combined_im_size 20000): each image on the tile grid its size gives (the 128^2
+    maps none, the Set14 maps 2 x 2, the 510 x 339 map 4 x 4 tiles of 105 x 148), one
+    tile batch a forward (and one more, untimed, for the first image of each shape),
+    no CA call; a finite row for every image; on the 16 shared pairs the metrics
+    within 0.01 dB / 1e-3 of the fused protocol's; img/s, the host time split (its
+    resize part through the native resampler where it loaded) and peak memory."""
+    from sisr_tpu_torch import native
+    shapes = lr_shapes(mixed['lr_dir'])
+    limit = MODELS[experiment][1]['max_combined_im_size']
+    grids, expected_steps, seen = {}, {}, set()
+    for _, hw in shapes:
+        grid = tile_grid(hw, limit)
+        grids[grid] = grids.get(grid, 0) + 1
+        expected_steps[grid * grid] = expected_steps.get(grid * grid, 0) + 1 + (hw not in seen)
+        seen.add(hw)
+    name = experiment.split('_')[0] + '_standard'
+    with tile_steps() as steps:
+        launches, seconds, split, peak_gb, frame, _ = run_standard_cli(
+            mixed, name, experiment, ['--no_image_comparison'])
+    expect_launches(launches, NO_LAUNCHES, '%s standard protocol' % experiment)
+    if steps != expected_steps:
+        raise AssertionError('%s tile batches %s, expected %s' % (name, steps,
+                                                                  expected_steps))
+    check_frame(frame, shapes, experiment, name)
+    diff = max_metric_diff(frame, fused_frame, ((experiment, experiment), ('LR', 'LR')))
+    hold_bars(diff, '%s standard against fused on the shared pairs' % experiment)
+    mean_psnr = float(frame[(experiment, 'PSNR')].mean())
+    emit({'phase': name, 'images': len(shapes), 'max_combined_im_size': limit,
+          'images_by_grid': grids, 'tile_batches': steps,
+          'div2k_tiles': [tile_grid(DIV2K_LR, limit) ** 2] + [
+              -(-v // tile_grid(DIV2K_LR, limit)) + 20 for v in DIV2K_LR],
+          'launches': launches, 'cli_seconds': seconds,
+          'img_per_s': len(shapes) / split['protocol'], 'host_split_s': split,
+          'native': native.status(), 'peak_memory_gb': peak_gb, 'mean_psnr': mean_psnr,
+          'max_diff_to_fused_on_shared_pairs': diff, 'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches, 'frame': frame, 'mean_psnr': mean_psnr}
+
+
+def hub_frame(dirs, results_name):
+    import pandas as pd
+    return pd.read_csv(os.path.join(dirs['out_loc'], results_name, 'standard_metrics',
+                                    'individual_metrics.csv'), header=[0, 1], index_col=0)
+
+
+def phase_qsan_grid(dirs, bf16_mean_psnr):
+    """Q-SAN with max_combined_im_size 10000 (experiment qsan_grid: Q-SAN's weights at a
+    limit under which the 128^2 maps take a 2 x 2 grid of 84^2 tiles) on the 16 pairs:
+    the fused protocol (batch 8: one step a batch, the grid inside it, 32 tiles) and
+    the standard protocol (batch 1, 4 tiles a forward), in bf16 and with --int8 (the
+    standard run given the fused run's quantised weights and scales, calibrated on the
+    fused batch's 100^2 centre crop, so both run one program); each pair's PSNR and
+    SSIM within 0.01 dB / 1e-3 of the other protocol's; the int8 mean PSNR within 1 dB
+    of bf16's; no CA call; the seconds of each run."""
+    import torch
+    experiment = 'qsan_grid'
+    limit = MODELS[experiment][1]['max_combined_im_size']
+    report = {'phase': 'qsan_grid', 'max_combined_im_size': limit,
+              'grid': tile_grid((LR_SIZE, LR_SIZE), limit)}
+    frames = {}
+    n_batches = -(-N_IMAGES // BATCH)
+    for int8 in (False, True):
+        tag = 'int8' if int8 else 'bf16'
+        runs = {}
+        for fused, batch in ((True, BATCH), (False, 1)):
+            name = 'qsan_grid_%s_%s' % ('fused' if fused else 'standard', tag)
+            hub = eval_hub(dirs, experiment, name, fused, int8, batch)
+            if int8 and not fused:  # the fused run's int8 state: one program
+                hub.model_bundles[0].model.load_int8_state(*fused_handler._int8_ctx[1:])
+            reset_launches()
+            with tile_steps() as steps:
+                tic = time.perf_counter()
+                hub.full_image_protocol()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - tic
+            expect_launches(read_launches(), NO_LAUNCHES, name)
+            expected = {BATCH * 4: n_batches} if fused else {4: N_IMAGES}
+            if steps != expected:
+                raise AssertionError('%s tile batches %s, expected %s' % (name, steps,
+                                                                          expected))
+            frames[name] = hub_frame(dirs, name)
+            check_frame(frames[name], lr_shapes(dirs['lr_dir']), experiment, name)
+            runs['fused' if fused else 'standard'] = {
+                'seconds': seconds, 'tile_batches': steps,
+                'mean_psnr': float(frames[name][(experiment, 'PSNR')].mean())}
+            if fused:
+                fused_handler = hub.model_bundles[0].model
+        diff = max_metric_diff(frames['qsan_grid_standard_' + tag],
+                               frames['qsan_grid_fused_' + tag],
+                               ((experiment, experiment), ('LR', 'LR')))
+        hold_bars(diff, 'qsan grid %s: standard against fused' % tag)
+        report[tag] = {**runs, 'max_diff_standard_to_fused': diff}
+    if not abs(report['int8']['fused']['mean_psnr'] - report['bf16']['fused']['mean_psnr']) < 1:
+        raise AssertionError('qsan grid int8 mean PSNR is not within 1 dB of bf16\'s')
+    report['qsan_20x10_bf16_mean_psnr'] = bf16_mean_psnr
+    report['nvidia_smi'] = nvidia_smi_line()
+    emit(report)
+    return {'launches': dict(NO_LAUNCHES)}
+
+
 def phase_int8_standard(mixed, bf16_mean_psnr):
     """``--int8`` on RCAN's standard protocol over the mixed-size set (calibrated on the
     first image): every RCAB tail one CA + residual call (x f32, r bf16) on the route
@@ -2497,10 +2829,10 @@ def phase_train_standard_val(dirs, root, recipe='qrcan'):
     eval set on the 16 pairs), save location, num_epochs and epoch_cutoff (1) set, and
     the eval set's ``cutoff`` (its ``name = "div2k"`` selects DIV2K's validation images
     by index, 800-900, which the 16 pairs do not have): one epoch, 200 CA launches a
-    forward on the planned routes (the train steps' (8, 64, 64, 64) and the
-    validation's (1, 128, 128, 64) f32 maps); then a fused_val = true validation of
-    the same checkpoint, its val-PSNR within 0.01 dB of the standard epoch's.  cuDNN
-    TF32 on, matmul off (PyTorch's defaults)."""
+    forward on the planned routes (the train steps' (batch, 64, 64, 64) and the
+    validation's (1, 128, 128, 64) f32 maps; none for Q-SAN); then a fused_val = true
+    validation of the same checkpoint, its val-PSNR within 0.01 dB of the standard
+    epoch's.  cuDNN TF32 on, matmul off (PyTorch's defaults)."""
     import numpy as np
     import pandas as pd
     from sisr_tpu_torch.training.handler import TrainingHandler
@@ -2519,10 +2851,12 @@ def phase_train_standard_val(dirs, root, recipe='qrcan'):
     config['training']['epoch_cutoff'] = 1
     path = os.path.join(root, recipe + '_shipped.toml')
     toml_io.dump(config, path)
-    n_train = len(training_sets) * N_IMAGES // BATCH
-    routes = {'train': planned_ca_route(TRAIN_SHAPE, 4, 4)[0],
+    batch_size = config['data']['batch_size']
+    n_train = len(training_sets) * N_IMAGES // batch_size
+    routes = {'train': planned_ca_route((batch_size,) + TRAIN_SHAPE[1:], 4, 4)[0],
               'validation': planned_ca_route((1, LR_SIZE, LR_SIZE, 64), 4, 4)[0]}
-    counts = {'train': CA_PER_FORWARD * n_train, 'validation': CA_PER_FORWARD * N_IMAGES}
+    calls = 0 if config['model']['name'] in ('san', 'qsan') else CA_PER_FORWARD
+    counts = {'train': calls * n_train, 'validation': calls * N_IMAGES}
     expected = dict(NO_LAUNCHES)
     for part, route in routes.items():
         expected['fused_channel_attention'] += counts[part]
@@ -2580,9 +2914,11 @@ def main():
     stream = phase_kernel_stream()
     batch1 = phase_kernel_batch1()
     training_shape = phase_kernel_backward()
-    for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20'):
+    for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20',
+                 'san_20x10', 'qsan_20x10'):
         phase_reference(name)
     phase_holistic_attention()
+    phase_san_attention()
     phase_int8_reference()
     for name in INT8_REFERENCE:
         phase_int8_family_reference(name)
@@ -2594,7 +2930,8 @@ def main():
         paths['rcan_int8'] = phase_int8_main_path(dirs, paths['rcan_bf16']['mean_psnr'])
         for name, model in (('qrcan', 'qrcan_10x20'), ('edsr', 'edsr_16b'),
                             ('qedsr', 'qedsr_32b'), ('han', 'han_10x20'),
-                            ('qhan', 'qhan_10x20')):
+                            ('qhan', 'qhan_10x20'), ('san', 'san_20x10'),
+                            ('qsan', 'qsan_20x10')):
             paths[name + '_bf16'] = phase_main_path(dirs, model)
             paths[name + '_int8'] = phase_int8_main_path(
                 dirs, paths[name + '_bf16']['mean_psnr'], model)
@@ -2613,8 +2950,12 @@ def main():
                                                      paths['qhan_bf16']['frame'], images=False)
         paths['qhan_buckets'] = phase_bucketed_eval(mixed, paths['qhan_standard']['frame'],
                                                     'qhan_10x20')
+        paths['qsan_standard'] = phase_tiled_standard_eval(mixed, 'qsan_20x10',
+                                                           paths['qsan_bf16']['frame'])
+        paths['qsan_grid'] = phase_qsan_grid(dirs, paths['qsan_bf16']['mean_psnr'])
         paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
         paths['qhan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qhan')
+        paths['qsan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qsan')
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2729,7 +3070,8 @@ def main():
     # sisr_tpu_torch.models.handlers.INT8_MEASURED_SLOWER)
     int8_over_bf16 = {family: paths[family + '_int8']['img_per_s']
                       / paths[family + '_bf16']['img_per_s']
-                      for family in ('rcan', 'qrcan', 'edsr', 'qedsr', 'han', 'qhan')}
+                      for family in ('rcan', 'qrcan', 'edsr', 'qedsr', 'han', 'qhan',
+                                     'san', 'qsan')}
     emit({'phase': 'total', 'seconds': time.perf_counter() - START,
           'int8_over_bf16_img_per_s': int8_over_bf16, 'nvidia_smi': nvidia_smi_line(),
           'masked_launches_by_path': path_launches(lambda c: c[ca_key + '_masked'])})

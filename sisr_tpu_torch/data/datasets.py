@@ -24,6 +24,7 @@ import numpy as np
 import pandas as pd
 import PIL.Image
 
+from .. import native
 from ..configuration.constants import data_splits
 from ..ops.transforms import random_flip_rotate, random_matched_crop
 from ..utils.helpers import extract_image_names_from_folder
@@ -263,7 +264,13 @@ class SuperResImages:
     # --- loading --------------------------------------------------------------------------
     @staticmethod
     def read_image(filename):
-        """Decode to an H,W,3 uint8 RGB numpy array."""
+        """Decode to an H,W,3 uint8 RGB numpy array: a PNG through the native libpng
+        decoder (``sisr_tpu_torch.native``; lossless, PIL's pixels) where it loads and
+        takes the file, else through PIL."""
+        if filename.lower().endswith('.png'):
+            arr = native.decode_png_rgb8(filename)
+            if arr is not None:
+                return arr
         with PIL.Image.open(filename) as im:
             if im.mode != 'RGB':
                 im = im.convert('RGB')

@@ -23,10 +23,15 @@ from ..ops.masking import valid_extent
 
 def torch_default_init_(module, generator):
     """Re-draw every Conv2d (and HAN's Conv3d) of ``module`` as U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)), kernel then bias, in module order, from ``generator``."""
+    1/sqrt(fan_in)), kernel then bias, in module order, from ``generator``; a conv
+    with ``zero_init`` set (SAN's non-local output conv) is set to 0 instead, as the
+    reference initialises it."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            if getattr(m, 'zero_init', False):
+                m.weight.zero_()
+                m.bias.zero_()
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
                 fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)

@@ -13,8 +13,10 @@ Each handler is registered under the reference's lowercase model name and owns:
   loss, for the training-time validation) on the device, with only a (K, N) metric
   matrix for the host;
 * the standard eval step (:meth:`run_eval`): the SR image (and the loss) for the
-  host, through the module, the int8 program, or with ``set_eval_buckets`` the
-  zero-padded, mask-exact bucketed forward (``ops/masking.py``);
+  host, through the module, the int8 program, with ``set_eval_buckets`` the
+  zero-padded, mask-exact bucketed forward (``ops/masking.py``), or for a
+  ``tiled_eval`` family (SAN, Q-SAN) the static tile grid (:meth:`_tiled_forward`),
+  which the fused step runs too;
 * degradation metadata (``uses_metadata`` handlers, :class:`QHandler`): the
   dataset's metadata key list selects the columns the model takes
   (``set_metadata_keys``), and each batch's (N, M) metadata reaches the module
@@ -40,23 +42,24 @@ from ..ops.colorspace import rgb_to_ycbcr_nhwc
 from ..ops.masking import apply_mask, conv_mask_hooks, spatial_masks
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
-from ..tools.convert_weights import params_from_state_dict
+from ..tools.convert_weights import drop_dead_reference_keys, params_from_state_dict
 from ..training.losses import build_loss
 from ..training.state import apply_update, build_optimizer
 from ..utils import async_ckpt
 from ..utils.helpers import resolve_device
-from . import advanced, qmodels
+from . import advanced, qmodels, san
 from .blocks import torch_default_init_
 
 available_models = {}
 # int8 families whose program is ported; sisr_tpu's others raise in set_int8
-_INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr', 'han', 'qhan')
+_INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr', 'han', 'qhan', 'san', 'qsan')
 # Families whose --int8 fused eval was measured slower than their bf16 one on the card
 # below (chip_smoke.py: int8 img/s over bf16 img/s, 16 images of 128^2 -> 512^2,
 # batch 8); set_int8 warns at the point of use.
 INT8_CARD = 'NVIDIA H100 80GB HBM3, 700.00 W'
 INT8_MEASURED_SLOWER = {'rcan': '0.41x', 'qrcan': '0.52x', 'edsr': '0.43x',
-                        'qedsr': '0.26x', 'han': '0.43x', 'qhan': '0.51x'}
+                        'qedsr': '0.26x', 'han': '0.43x', 'qhan': '0.51x',
+                        'san': '0.36x', 'qsan': '0.45x'}
 
 
 def _training_not_ported(what, item):
@@ -101,6 +104,7 @@ class BaseHandler:
 
     colorspace = 'rgb'
     im_input = 'unmodified'
+    # the static tile grid for large eval images (SAN, Q-SAN: :meth:`_tiled_forward`)
     tiled_eval = False
     uses_metadata = False
     loss_type = 'l1'
@@ -115,12 +119,15 @@ class BaseHandler:
                  scheduler_params=None, perceptual=None, optimizer_params=None,
                  grad_clip=None, dtype=None, seed=8, device=None,
                  checkpoint_backend='msgpack', async_checkpoint=True,
-                 checkpoint_dtype='f32', **kwargs):
+                 checkpoint_dtype='f32', max_combined_im_size=160000, **kwargs):
         """``kwargs`` are the model's structure parameters.  The training keys (lr,
         scheduler, optimizer_params, grad_clip; ref models/__init__.py:281-329) build
         the optimizer, schedule and loss.  ``checkpoint_backend`` 'msgpack' (sisr_tpu's
-        name for its single-file checkpoint) is the torch file here."""
+        name for its single-file checkpoint) is the torch file here.
+        ``max_combined_im_size`` bounds the area of a tile of a ``tiled_eval`` family's
+        grid (halo included)."""
         self.eval_mode = eval_mode
+        self.max_combined_im_size = max_combined_im_size
         self.scale = scale
         self.seed = seed
         self.device = resolve_device(device)
@@ -275,15 +282,18 @@ class BaseHandler:
         return out.permute(0, 2, 3, 1)
 
     def super_resolve(self, batch):
-        """The module's output for a batch (as run_eval_fused takes it), clipped to
-        [0, 1], as an NHWC float32 numpy array (the epoch's sample images)."""
+        """The module's output for a batch (as run_eval_fused takes it; a
+        ``tiled_eval`` family's on its tile grid), clipped to [0, 1], as an NHWC
+        float32 numpy array (the epoch's sample images)."""
         self._set_training(False)
         dev = {'lr': self._to_device(batch['lr'])}
         if self.uses_metadata:
             dev['metadata'] = self._to_device(batch['metadata']).float()
         with torch.inference_mode():
             lr, _, metadata = self._prep_batch(dev)
-            return self.forward(lr, metadata).float().clamp(0.0, 1.0).cpu().numpy()
+            out = self._tiled_forward({**dev, 'lr': lr}) if self.tiled_eval \
+                else self.forward(lr, metadata)
+            return out.float().clamp(0.0, 1.0).cpu().numpy()
 
     # --- training (ref handlers.py:469-545) -----------------------------------------------
     def _train_batch_keys(self):
@@ -390,14 +400,19 @@ class BaseHandler:
         self._invalidate_steps()
 
     def _int8_calibration_input(self, lr_f32):
-        """The calibration input, matching what the int8 program takes: for models
-        that take the LR image as it is (RGB, or RGB with metadata beside it), the f32
-        LR batch itself."""
+        """The calibration input, matching what the int8 program takes (ref
+        handlers.py:228-248): for models that take the LR image as it is (RGB, or RGB
+        with metadata beside it), the f32 LR batch itself; for a ``tiled_eval``
+        family, its centre crop of at most ``max(16, int(sqrt(max_combined_im_size)))``
+        a side, a tile's size, since the grid runs the program tile by tile."""
         if self.im_input == 'interp' or self.colorspace == 'ycbcr':
             raise _int8_not_ported('Calibrating pre-upscaled or Y-channel inputs',
                                    'remaining families')
         if self.tiled_eval:
-            raise _int8_not_ported('Tile-sized calibration crops', 'remaining families')
+            side = max(16, int(math.sqrt(self.max_combined_im_size)))
+            h, w = lr_f32.shape[1:3]
+            hs, ws = (h - min(h, side)) // 2, (w - min(w, side)) // 2
+            return lr_f32[:, hs:hs + min(h, side), ws:ws + min(w, side), :]
         return lr_f32
 
     def _ensure_int8_ctx(self, x, meta=None):
@@ -435,6 +450,14 @@ class BaseHandler:
         elif family == 'qhan':
             qp = qz.quantize_qhan_params(params, m.n_resgroups, m.n_resblocks)
             scales = qz.calibrate_qhan_scales(params, [x], [meta], m.n_resgroups,
+                                              m.n_resblocks, margin=1.1)
+        elif family == 'san':
+            qp = qz.quantize_san_params(params, m.n_resgroups, m.n_resblocks)
+            scales = qz.calibrate_san_scales(params, [x], m.n_resgroups, m.n_resblocks,
+                                             margin=1.1)
+        elif family == 'qsan':
+            qp = qz.quantize_qsan_params(params, m.n_resgroups, m.n_resblocks)
+            scales = qz.calibrate_qsan_scales(params, [x], [meta], m.n_resgroups,
                                               m.n_resblocks, margin=1.1)
         else:
             raise RuntimeError('unknown int8 family %r' % family)
@@ -480,6 +503,15 @@ class BaseHandler:
         elif family == 'qhan':
             def program(x, meta=None):
                 return qz.qhan_int8_forward_static(qparams, dev_scales, x, meta,
+                                                   m.n_resgroups, m.n_resblocks,
+                                                   residual_dtype=rd)
+        elif family == 'san':
+            def program(x, meta=None):
+                return qz.san_int8_forward_static(qparams, dev_scales, x, m.n_resgroups,
+                                                  m.n_resblocks, residual_dtype=rd)
+        elif family == 'qsan':
+            def program(x, meta=None):
+                return qz.qsan_int8_forward_static(qparams, dev_scales, x, meta,
                                                    m.n_resgroups, m.n_resblocks,
                                                    residual_dtype=rd)
         else:
@@ -535,9 +567,11 @@ class BaseHandler:
                  **kwargs):
         """Eval of one batch for the host (ref BaseModel.run_eval, handlers.py:554-618):
         NHWC float images (numpy or tensors) in [0, 1], and for a metadata model its
-        (N, M) metadata.  The forward is the int8 program under ``set_int8``, else the
-        bucketed forward under ``set_eval_buckets``, else the module (sisr_tpu's order,
-        so ``--int8 --eval_buckets`` runs int8 unpadded).  With ``timing`` the card is
+        (N, M) metadata.  The forward is the tile grid for a ``tiled_eval`` family
+        (the int8 program on each tile batch under ``set_int8``, calibrated first on a
+        tile-sized crop), else the int8 program under ``set_int8``, else the bucketed
+        forward under ``set_eval_buckets``, else the module (sisr_tpu's order, so
+        ``--int8 --eval_buckets`` runs int8 unpadded).  With ``timing`` the card is
         synchronised around the forward, and the first call of each (path, shape) runs
         once untimed first (set-up: cuDNN heuristics, kernel builds).
 
@@ -550,8 +584,14 @@ class BaseHandler:
             batch['metadata'] = self._to_device(metadata).float()
         if y is not None and request_loss:
             batch['hr'] = self._to_device(y).float()
-        path = 'int8' if self.int8_mode else 'buckets' if self.eval_buckets else 'module'
-        fwd = {'int8': self._int8_forward, 'buckets': self._bucketed_forward}.get(path)
+        if self.tiled_eval and self.int8_mode and self._int8_ctx is None:
+            # calibrate before the grid, on a tile-sized crop of the image
+            x_cal = self._int8_calibration_input(batch['lr'])
+            self._ensure_int8_ctx(x_cal, self.prepare_metadata(x_cal, batch.get('metadata')))
+        path = 'tiled' if self.tiled_eval else 'int8' if self.int8_mode \
+            else 'buckets' if self.eval_buckets else 'module'
+        fwd = {'tiled': self._tiled_forward, 'int8': self._int8_forward,
+               'buckets': self._bucketed_forward}.get(path)
         step = self._eval_step if fwd is None else (lambda b: (fwd(b), None))
         runtime = None
         with torch.inference_mode():
@@ -573,6 +613,70 @@ class BaseHandler:
             else:
                 loss = None
             return out.float().cpu().numpy(), loss, runtime
+
+    def _tile_step(self, batch):
+        """One forward of the tile grid (ref handlers.py:620-632) over a batch of
+        tiles (and their metadata rows): the calibrated int8 program under
+        ``set_int8``, else the plain eval step."""
+        if self.int8_mode and self._int8_ctx is not None:
+            lr, _, metadata = self._prep_batch(batch)
+            return self._int8_ctx[0](lr, metadata)
+        return self._eval_step(batch)[0]
+
+    def _tiled_forward(self, batch, shave=10):
+        """The static tile grid (ref handlers.py:634-718), in place of the reference's
+        recursive ``forward_chop``: the LR batch is cut into grid x grid overlapping
+        tiles, each ``shave`` pixels of halo on every side, with the grid halved from
+        the image until a tile's area (halo included) is under
+        ``max_combined_im_size`` (and doubled back while a tile would not fit the
+        image); the tiles run as one batch, tile-major (tile t's n images at rows
+        t*n..t*n+n-1, and the metadata repeated grid^2 times, not interleaved); their
+        centres are stitched.  Anchors are clamped inside the image, so border tiles
+        see the image's own edge.  Without a grid, one :meth:`_tile_step` of the
+        batch."""
+        if self.max_combined_im_size <= shave * shave:
+            # a tile's area never falls under it: sisr_tpu's loop does not end
+            raise ValueError('max_combined_im_size must exceed %d (a tile\'s halo alone), '
+                             'got %r' % (shave * shave, self.max_combined_im_size))
+        x = batch['lr']
+        n, h, w, _ = x.shape
+        level = 0
+        while (h // (2 ** level) + shave) * (w // (2 ** level) + shave) \
+                >= self.max_combined_im_size:
+            level += 1
+        if level == 0:
+            return self._tile_step(batch)
+        grid = 2 ** level
+        tile_h, tile_w = -(-h // grid), -(-w // grid)
+        span_h, span_w = tile_h + 2 * shave, tile_w + 2 * shave
+        while grid > 1 and (span_h > h or span_w > w):  # the image is too small
+            grid //= 2
+            tile_h, tile_w = -(-h // grid), -(-w // grid)
+            span_h, span_w = tile_h + 2 * shave, tile_w + 2 * shave
+        if grid == 1:
+            return self._tile_step(batch)
+        anchors, tiles = [], []
+        for i in range(grid):
+            for j in range(grid):
+                src_i = min(max(i * tile_h - shave, 0), h - span_h)
+                src_j = min(max(j * tile_w - shave, 0), w - span_w)
+                anchors.append((i, j, i * tile_h - src_i, j * tile_w - src_j))
+                tiles.append(x[:, src_i:src_i + span_h, src_j:src_j + span_w, :])
+        tile_batch = {'lr': torch.cat(tiles)}
+        if batch.get('metadata') is not None:
+            tile_batch['metadata'] = batch['metadata'].repeat(grid * grid, 1)
+        sr_tiles = self._tile_step(tile_batch)
+        s = self.scale
+        out = sr_tiles.new_zeros((n, grid * tile_h * s, grid * tile_w * s,
+                                  sr_tiles.shape[-1]))
+        for idx, (i, j, off_i, off_j) in enumerate(anchors):
+            # a last tile's centre may run past its span: the slice then clips, as
+            # sisr_tpu's does, and the part that exists covers the image to its edge
+            tile = sr_tiles[idx * n:(idx + 1) * n, off_i * s:(off_i + tile_h) * s,
+                            off_j * s:(off_j + tile_w) * s, :]
+            out[:, i * tile_h * s:i * tile_h * s + tile.shape[1],
+                j * tile_w * s:j * tile_w * s + tile.shape[2], :] = tile
+        return out[:, :h * s, :w * s, :]
 
     def supports_fused_eval(self):
         """Whether the fused protocol can run this handler (ref handlers.py:711-722):
@@ -675,9 +779,13 @@ class BaseHandler:
                 # device bicubic stands in for the host PIL prep (same filter
                 # weights; <=1 uint8 LSB fixed-point difference)
                 lr_y = prep_y(resize_bicubic(lr, hr.shape[1], hr.shape[2]))
-            # the calibrated int8 program when int8 serving is on, else the module
-            sr = self._int8_ctx[0](lr, metadata) if self.int8_mode \
-                else self.forward(lr, metadata)
+            if self.tiled_eval:
+                # the tile grid; each tile batch through the int8 program or the module
+                sr = self._tiled_forward({'lr': lr, 'metadata': batch.get('metadata')})
+            elif self.int8_mode:  # the calibrated int8 program
+                sr = self._int8_ctx[0](lr, metadata)
+            else:
+                sr = self.forward(lr, metadata)
             sr_y = prep_y(sr)
             rows = []
             for met in metrics:  # row order matches run_eval_fused's keys tuple
@@ -725,7 +833,10 @@ class BaseHandler:
         path = os.path.join(load_override or model_save_dir,
                             '%s_%s' % (model_save_name, model_idx))
         state_dict = torch.load(path, map_location='cpu', weights_only=True)
-        self.module.load_state_dict(state_dict['network'])  # strict: layouts must match
+        # strict: layouts must match, once the parameters a reference checkpoint
+        # carries and its forward never uses (SAN's) are dropped
+        self.module.load_state_dict(drop_dead_reference_keys(self.model_name,
+                                                             state_dict['network']))
         self._place()
         if not self.eval_mode and state_dict.get('optimizer'):
             self._load_optimizer(state_dict['optimizer'])
@@ -900,3 +1011,37 @@ class QHANHandler(QHandler):
                                   ('n_resblocks', n_resblocks),
                                   ('reduction', reduction)) if v is not None}
         return qmodels.QHAN(scale=scale, num_metadata=self.num_metadata, **arch)
+
+
+@register_model('san')
+class SANHandler(BaseHandler):
+    """(ref: advanced/handlers.py:58-129): the static tile grid in place of the
+    reference's ``forward_chop``.  Like sisr_tpu's, it takes the size parameters as an
+    optional superset (defaults identical)."""
+
+    tiled_eval = True
+    bucketed_eval_ok = False  # the non-local spatial softmax and SOCA's covariance
+    int8_family = 'san'
+
+    def build_module(self, scale, **kwargs):
+        cfg = {k: v for k, v in kwargs.items()
+               if k in ('n_resgroups', 'n_resblocks', 'n_feats', 'reduction')
+               and v is not None}
+        return san.SAN(scale=scale, **cfg)
+
+
+@register_model('qsan')
+class QSANHandler(QHandler):
+    """(ref: attention_manipulators/handlers.py:79-153): SAN with a ParaCALayer gate on
+    the selected metadata columns in every block, on the tile grid."""
+
+    tiled_eval = True
+    bucketed_eval_ok = False  # the non-local spatial softmax and SOCA's covariance
+    int8_family = 'qsan'
+
+    def build_module(self, scale, n_feats=None, n_resgroups=None, n_resblocks=None,
+                     reduction=None, **kwargs):
+        arch = {k: v for k, v in (('n_feats', n_feats), ('n_resgroups', n_resgroups),
+                                  ('n_resblocks', n_resblocks),
+                                  ('reduction', reduction)) if v is not None}
+        return qmodels.QSAN(scale=scale, input_para=self.num_metadata, **arch)

@@ -1,16 +1,17 @@
-"""Meta-attention model family: QRCAN, QEDSR and QHAN (PyTorch port of sisr_tpu's
+"""Meta-attention model family: QRCAN, QEDSR, QSAN and QHAN (PyTorch port of sisr_tpu's
 ``models/qmodels.py``; ref: Code/SISR/models/attention_manipulators/architectures.py).
-QSAN comes with a later slice.
 
 Every module takes ``(x, metadata)`` explicitly.  Module and attribute names follow
 the reference's torch modules, so ``state_dict`` keys are those sisr_tpu's
-``convert_qrcan`` and ``convert_qedsr`` read.
+``convert_qrcan``, ``convert_qedsr``, ``convert_qsan`` and ``convert_qhan`` read.
 """
+import torch
 from torch import nn
 
 from .advanced import CSAM, LAM, holistic_fusion
 from .blocks import Upsampler, conv
 from .q_layers import PALayer, ParaCALayer, QCALayer
+from .san import SOCA, NonlocalCA, san_body
 
 
 class QRCAB(nn.Module):
@@ -157,6 +158,63 @@ class QEDSR(nn.Module):
             res = block(res, metadata)
         res = self.final_body(res) + x
         return self.tail(res)
+
+
+class QRB(nn.Module):
+    """SAN's residual block with a ParaCALayer gate on the metadata (ref:
+    qsan_blocks.py:9-34): ``gate(metadata) * conv_first(x) + x``.  Keys
+    ``conv_first.{0,2}`` and ``q_layer.attribute_integrator.{0,2}`` (a ReLU between
+    the gate's two layers)."""
+
+    def __init__(self, n_feat, kernel_size=3, num_metadata=1):
+        super().__init__()
+        self.conv_first = nn.Sequential(conv(n_feat, n_feat, kernel_size), nn.ReLU(inplace=True),
+                                        conv(n_feat, n_feat, kernel_size))
+        self.q_layer = ParaCALayer(n_feat, num_metadata, nonlinearity=True, num_layers=2)
+
+    def forward(self, x, metadata):
+        return self.q_layer(self.conv_first(x), metadata) + x
+
+
+class QLSRAG(nn.Module):
+    """Meta-enhanced LSRAG (ref: qsan_blocks.py:37-85): QRBs, SOCA, ``conv_last``, plus
+    the group's input.  Keys ``rcab.<b>``, ``soca``, ``conv_last``."""
+
+    def __init__(self, n_feat, kernel_size=3, reduction=16, n_resblocks=10, num_metadata=1):
+        super().__init__()
+        self.rcab = nn.ModuleList(QRB(n_feat, kernel_size, num_metadata)
+                                  for _ in range(n_resblocks))
+        self.soca = SOCA(n_feat, reduction)
+        self.conv_last = conv(n_feat, n_feat, kernel_size)
+
+    def forward(self, x, metadata):
+        flow = x
+        for block in self.rcab:
+            flow = block(flow, metadata)
+        return x + self.conv_last(self.soca(flow))
+
+
+class QSAN(nn.Module):
+    """SAN with meta-attention groups (ref: attention_manipulators/architectures.py:
+    402-467): SAN's head, shared non-local block, ``gamma`` and tail around
+    :class:`QLSRAG` groups.  Keys SAN's (``head.0``, ``non_local.non_local.*``,
+    ``RG.<g>.{rcab.<b>, soca, conv_last}``, ``tail``, ``gamma``) with each block's
+    ``q_layer``."""
+
+    def __init__(self, n_resgroups=20, n_resblocks=10, n_feats=64, reduction=16, scale=4,
+                 n_colors=3, input_para=1):
+        super().__init__()
+        self.n_resgroups = n_resgroups
+        self.n_resblocks = n_resblocks
+        self.gamma = nn.Parameter(torch.zeros(1))
+        self.head = nn.Sequential(conv(n_colors, n_feats, 3))
+        self.non_local = NonlocalCA(n_feats, n_feats // 8)
+        self.RG = nn.ModuleList(QLSRAG(n_feats, 3, reduction, n_resblocks, input_para)
+                                for _ in range(n_resgroups))
+        self.tail = nn.Sequential(Upsampler(scale, n_feats), conv(n_feats, n_colors, 3))
+
+    def forward(self, x, metadata):
+        return san_body(self, x, lambda group, xx: group(xx, metadata))
 
 
 class QHAN(nn.Module):

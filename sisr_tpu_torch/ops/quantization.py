@@ -1,10 +1,10 @@
-"""Int8 serving of RCAN, EDSR, Q-RCAN, Q-EDSR, HAN and Q-HAN: those families' part of
-sisr_tpu's ``ops/quantization.py``.
+"""Int8 serving of RCAN, EDSR, Q-RCAN, Q-EDSR, HAN, Q-HAN, SAN and Q-SAN: those
+families' part of sisr_tpu's ``ops/quantization.py``.
 
 The recipe is sisr_tpu's, with its names, NHWC activations, HWIO kernels and
 parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
-``group_<g>.qrcab_<b>.conv_0``, ``block_<i>.conv_0``, ``body_tail`` or
-``final_body``, ``upsampler.conv_<i>``, ``tail``):
+``group_<g>.qrcab_<b>.conv_0``, ``block_<i>.conv_0``, ``rg_<g>.rb_<b>.conv_0``,
+``body_tail`` or ``final_body``, ``upsampler.conv_<i>``, ``tail``):
 
 * weights: symmetric per-output-channel int8 (scale = max|w| / 127 over H, W, I);
 * activations: one static scale per conv input, from the absmax of a float32
@@ -13,8 +13,9 @@ parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
   residual carry (bfloat16 or float32; for EDSR also an int16 grid) in float32 or the
   carry's type;
 * the attention stages (RCAN's CA, Q-RCAN's QCALayer, PALayer and q_node, Q-EDSR's
-  ParaCALayer gates) stay float32; HAN's and Q-HAN's LAM and CSAM run in bfloat16
-  (the gram, the softmax and every sum in float32), as in sisr_tpu's serving forwards;
+  ParaCALayer gates, SAN's and Q-SAN's non-local block and SOCA, Q-SAN's ParaCALayer
+  gates) stay float32; HAN's and Q-HAN's LAM and CSAM run in bfloat16 (the gram, the
+  softmax and every sum in float32), as in sisr_tpu's serving forwards;
 * each RCAB tail (channel attention scale + residual add) runs as
   :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention_residual`, the
   CUDA kernel on the card: the numerics of sisr_tpu's ``ca_epilogue='pallas'``;
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.advanced import csam_weight, layer_attention
+from ..models.san import embedded_gaussian, max_pool2, quadrants, second_order_pool
 from .channel_attention import (KERNEL_STYLES, fused_channel_attention,
                                 fused_channel_attention_residual)
 
@@ -893,3 +895,156 @@ def qhan_int8_forward_static(qparams, act_scales, x, metadata, n_resgroups=10,
     h = qconv('head', qparams['head'], x).to(_carry_type(residual_dtype))
     return _han_fusion_int8(qparams, qconv, h, _qrcan_groups_int8(
         qparams, qconv, h, metadata.float(), 'standard', n_resgroups, n_resblocks))
+
+
+# --- SAN and Q-SAN ---------------------------------------------------------------------------
+def quantize_san_params(params, n_resgroups=20, n_resblocks=10, block='rb_%d'):
+    """Quantize a SAN parameter tree (sisr_tpu's ``models/san.py`` naming) to int8: the
+    3x3 convs (the blocks, each group's ``conv_last``, head, upsampler, tail) go int8;
+    the shared non-local block, each SOCA, ``gamma`` and (Q-SAN, ``block='qrb_%d'``)
+    each block's ParaCALayer ``q_layer`` stay f32."""
+    q = _q_entry
+    out = {'head': q(params['head']), 'tail': q(params['tail']),
+           'upsampler': {k: q(v) for k, v in params['upsampler'].items()},
+           'non_local': _f32_tree(params['non_local']), 'gamma': params['gamma'].float()}
+    for g in range(n_resgroups):
+        grp = params['rg_%d' % g]
+        qg = {'conv_last': q(grp['conv_last']), 'soca': _f32_tree(grp['soca'])}
+        for b in range(n_resblocks):
+            blk = grp[block % b]
+            qg[block % b] = {'conv_0': q(blk['conv_0']), 'conv_1': q(blk['conv_1'])}
+            if 'q_layer' in blk:
+                qg[block % b]['q_layer'] = _f32_tree(blk['q_layer'])
+        out['rg_%d' % g] = qg
+    return out
+
+
+def _nonlocal_block_apply(entry, x_f32):
+    """The embedded-gaussian non-local block in f32 on an NHWC map (sisr_tpu's
+    ``_nonlocal_block_apply``: g and phi always 2 x 2 max-pooled)."""
+    def c1x1(e, z):
+        return z @ e['kernel'][0, 0] + e['bias']
+    g = max_pool2(c1x1(entry['g'], x_f32))
+    phi = max_pool2(c1x1(entry['phi'], x_f32))
+    y = embedded_gaussian(c1x1(entry['theta'], x_f32), phi, g)
+    return c1x1(entry['w'], y) + x_f32
+
+
+def _nonlocal_ca_apply(entry, x_f32):
+    """The shared block on each quadrant of an NHWC map (sisr_tpu's
+    ``_nonlocal_ca_apply``)."""
+    return quadrants(lambda part: _nonlocal_block_apply(entry['non_local'], part), x_f32,
+                     1, 2)
+
+
+def _soca_apply(entry, h_f32):
+    """SOCA in f32 on an NHWC map (sisr_tpu's ``_soca_apply``, the 1000^2 crop
+    included)."""
+    y = torch.relu(_dense_apply(entry['du_0'], second_order_pool(h_f32)))
+    y = torch.sigmoid(_dense_apply(entry['du_1'], y))
+    return h_f32 * y[:, None, None, :]
+
+
+def _san_float_forward(params, x, n_resgroups, n_resblocks, track=None, meta=None):
+    """f32 SAN forward over the parameter tree (the calibration mirror), or with
+    ``meta`` (handler-prepared metadata) the QSAN forward: each block's branch times its
+    ``q_layer`` gate."""
+    tr = track or (lambda name, h: h)
+    fconv = _tracked_fconv(tr)
+    block = 'rb_%d' if meta is None else 'qrb_%d'
+    h = fconv('head', params['head'], x)
+    xx = _nonlocal_ca_apply(params['non_local'], h)
+    residual = tr('_residual', xx)
+    for g in range(n_resgroups):
+        grp = params['rg_%d' % g]
+        r = xx
+        for b in range(n_resblocks):
+            blk = grp[block % b]
+            pre = 'rg_%d.%s' % (g, block % b)
+            y = torch.relu(fconv(pre + '.conv_0', blk['conv_0'], r))
+            y = fconv(pre + '.conv_1', blk['conv_1'], y)
+            if meta is not None:
+                y = y * _para_ca_apply(blk['q_layer'], meta)[:, None, None, :]
+            r = tr('_residual', y + r)
+        r = _soca_apply(grp['soca'], r)
+        xx = tr('_residual', fconv('rg_%d.conv_last' % g, grp['conv_last'], r) + xx
+                + params['gamma'] * residual)
+    res = _nonlocal_ca_apply(params['non_local'], xx) + h
+    res = _pow2_upsample(fconv, params['upsampler'], res)
+    return fconv('tail', params['tail'], res)
+
+
+def calibrate_san_scales(params, sample_batches, n_resgroups=20, n_resblocks=10,
+                         margin=1.0):
+    """Static activation scales for the int8 SAN forward (absmax calibration, true
+    f32)."""
+    maxes = _calibration_maxes(
+        lambda p, x, _, track: _san_float_forward(p, x, n_resgroups, n_resblocks, track),
+        params, sample_batches)
+    maxes.pop('_residual')
+    return _finalize_scales(maxes, margin)
+
+
+def _san_int8(qparams, act_scales, x, n_resgroups, n_resblocks, residual_dtype, meta=None):
+    """SAN's (with ``meta``, Q-SAN's) int8 forward: the int8 convs, the non-local block
+    and SOCA in f32 (the carry cast up for them), each block's branch (Q-SAN: times its
+    f32 gate) cast to the carry and added in its type, each group's output
+    ``conv_last + xx + gamma * residual`` in the carry's type, in that order."""
+    carry_t = _carry_type(residual_dtype)
+    qconv = _qconv_with(act_scales)
+    block = 'rb_%d' if meta is None else 'qrb_%d'
+    gamma = qparams['gamma'].to(carry_t)
+    h = qconv('head', qparams['head'], x)
+    xx = _nonlocal_ca_apply(qparams['non_local'], h).to(carry_t)
+    residual = xx
+    for g in range(n_resgroups):
+        grp = qparams['rg_%d' % g]
+        r = xx
+        for b in range(n_resblocks):
+            blk = grp[block % b]
+            pre = 'rg_%d.%s' % (g, block % b)
+            y = torch.relu(qconv(pre + '.conv_0', blk['conv_0'], r))
+            y = qconv(pre + '.conv_1', blk['conv_1'], y)
+            if meta is not None:
+                y = y * _para_ca_apply(blk['q_layer'], meta)[:, None, None, :]
+            r = y.to(carry_t) + r
+        r = _soca_apply(grp['soca'], r.float())
+        xx = qconv('rg_%d.conv_last' % g, grp['conv_last'], r).to(carry_t) + xx \
+            + gamma * residual
+    res = _nonlocal_ca_apply(qparams['non_local'], xx.float()) + h
+    res = _pow2_upsample(qconv, qparams['upsampler'], res)
+    return qconv('tail', qparams['tail'], res)
+
+
+def san_int8_forward_static(qparams, act_scales, x, n_resgroups=20, n_resblocks=10,
+                            residual_dtype='bfloat16'):
+    """Quantized SAN forward: the int8 conv body, the non-local block and SOCA in f32, a
+    narrow residual carry (:func:`_san_int8`)."""
+    return _san_int8(qparams, act_scales, x, n_resgroups, n_resblocks, residual_dtype)
+
+
+def quantize_qsan_params(params, n_resgroups=20, n_resblocks=10):
+    """Quantize a QSAN parameter tree to int8: SAN's split, each block's ParaCALayer
+    gate f32."""
+    return quantize_san_params(params, n_resgroups, n_resblocks, block='qrb_%d')
+
+
+def calibrate_qsan_scales(params, sample_batches, metadata_batches, n_resgroups=20,
+                          n_resblocks=10, margin=1.0):
+    """Static activation scales for the int8 QSAN forward (absmax calibration, true
+    f32); ``metadata_batches`` are the handler-prepared metadata of each sample
+    batch."""
+    maxes = _calibration_maxes(
+        lambda p, x, meta, track: _san_float_forward(p, x, n_resgroups, n_resblocks, track,
+                                                     meta=meta),
+        params, sample_batches, metadata_batches, name='calibrate_qsan_scales')
+    maxes.pop('_residual')
+    return _finalize_scales(maxes, margin)
+
+
+def qsan_int8_forward_static(qparams, act_scales, x, metadata, n_resgroups=20,
+                             n_resblocks=10, residual_dtype='bfloat16'):
+    """Quantized QSAN forward: SAN's int8 program with each block's f32 ParaCALayer gate
+    on the handler-prepared ``metadata``."""
+    return _san_int8(qparams, act_scales, x, n_resgroups, n_resblocks, residual_dtype,
+                     meta=metadata.float())

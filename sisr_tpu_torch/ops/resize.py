@@ -7,7 +7,8 @@ factor when downscaling; for uint8 images the two passes run in fixed-point arit
 with rounding+clipping after each pass.
 
 1. :func:`resize_uint8` — bit-exact reimplementation of Pillow's 8-bit fixed-point path
-   (numpy), for host-side data prep.
+   (the native resampler of ``sisr_tpu_torch.native``, else numpy), for host-side data
+   prep.
 2. :func:`resize_bicubic` — batched NHWC torch version as two dense float32 matrix
    products (``W_h @ img @ W_w^T``), the device path of the fused eval.
 """
@@ -15,6 +16,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .. import native
 
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point coefficient precision for 8bpc
 
@@ -99,7 +102,9 @@ def _resample_axis_uint8(img, out_size, axis):
 
 
 def resize_uint8(img, size):
-    """Bit-exact Pillow BICUBIC resize of an H,W[,C] uint8 numpy image.
+    """Bit-exact Pillow BICUBIC resize of an H,W[,C] uint8 numpy image: the native
+    resampler (``sisr_tpu_torch.native``, 9-14x faster) where it loads, else the numpy
+    loop below, with the same output.
 
     :param img: uint8 array, H,W or H,W,C.
     :param size: (width, height) target, PIL convention.
@@ -107,6 +112,9 @@ def resize_uint8(img, size):
     out_w, out_h = size
     if img.dtype != np.uint8:
         raise TypeError('resize_uint8 expects a uint8 image')
+    fast = native.resize_bicubic_u8(img, out_h, out_w)
+    if fast is not None:
+        return fast
     # Pillow resamples horizontally first, then vertically, with rounding after each pass.
     out = img
     if out.shape[1] != out_w:

@@ -2,23 +2,46 @@
 
 * :func:`state_dict_from_jax` is the inverse of sisr_tpu's ``tools/convert_weights.py``
   for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan, QEDSR, HAN,
-  QHAN): flax Conv kernels (kH, kW, I, O) become torch Conv2d weights (O, I, kH, kW),
+  QHAN, SAN, QSAN): flax Conv kernels (kH, kW, I, O) become torch Conv2d weights (O, I, kH, kW),
   the Dense layers that sisr_tpu runs on pooled or metadata vectors (I, O) become 1x1
   convs (O, I, 1, 1), and HAN's CSAM kernel (DHWIO over (C, H, W)) becomes the
-  Conv3d weight (O, I, D, H, W); LAM's and CSAM's ``gamma`` and CSAM's bias pass as
-  they are.  Each family's layout lists every layer once, for both directions.
+  Conv3d weight (O, I, D, H, W); LAM's and CSAM's ``gamma``, CSAM's bias and SAN's
+  ``gamma`` pass as they are.  Each family's layout lists every layer once, for both directions.
   The param tree is read as nested dicts of array-likes (pass numpy arrays); every
   leaf must be consumed and every key the model needs must be present, else it
   raises.
 * :func:`params_from_state_dict` reads a port model's state_dict back in sisr_tpu's
   tree naming and HWIO layout: the form the int8 recipes of ``ops/quantization.py``
-  take.
+  take.  It also reads a reference checkpoint's ``network``: the parameters a
+  reference SAN or Q-SAN registers and never uses are dropped
+  (:func:`drop_dead_reference_keys`), and any other unread key raises.
 * :func:`int8_state_from_jax` carries sisr_tpu's quantised trees and activation
-  scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN) across, so both packages can run the
+  scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN, SAN, QSAN) across, so both packages can run the
   same int8 state.
 """
+import re
+
 import numpy as np
 import torch
+
+# the parameters a reference checkpoint carries and its forward never uses (ref:
+# SAN_blocks.py:309, :377; architectures.py): SAN's and Q-SAN's top-level conv_last,
+# each group's gamma and the non-local wrapper's SOCA.  Each pattern names those keys
+# alone, so a stray key under a live SOCA (RG.<g>.soca.*) is still unread and raises.
+DEAD_REFERENCE_KEYS = {
+    'san': (r'^conv_last\.(weight|bias)$', r'^RG\.\d+\.gamma$',
+            r'^non_local\.soca\.conv_du\.[02]\.(weight|bias)$'),
+}
+DEAD_REFERENCE_KEYS['qsan'] = DEAD_REFERENCE_KEYS['san']
+
+
+def drop_dead_reference_keys(model_name, state_dict):
+    """``state_dict`` without the keys of ``DEAD_REFERENCE_KEYS[model_name]`` (the same
+    dict when the family has none)."""
+    dead = [re.compile(p) for p in DEAD_REFERENCE_KEYS.get(model_name, ())]
+    if not dead:
+        return state_dict
+    return {k: v for k, v in state_dict.items() if not any(d.search(k) for d in dead)}
 
 
 class _TrackingTree:
@@ -164,6 +187,30 @@ def _qedsr_layout(n_blocks, n_stages, nonlinearity):
     yield from _upsampler_tail(n_stages)
 
 
+def _san_layout(n_groups, n_blocks, n_stages, q=False):
+    """(path, key, kind) of every SAN layer (sisr_tpu's ``convert_san`` naming), or with
+    ``q`` every QSAN layer (``convert_qsan``: each block a ``qrb_<b>`` with its
+    ParaCALayer ``q_layer``, two layers with a ReLU between)."""
+    yield ('head',), 'head.0', 'conv'
+    yield ('gamma',), 'gamma', 'leaf'
+    for part, key in (('g', 'g.0'), ('theta', 'theta'), ('phi', 'phi.0'), ('w', 'W')):
+        yield ('non_local', 'non_local', part), 'non_local.non_local.' + key, 'conv'
+    for g in range(n_groups):
+        for b in range(n_blocks):
+            src = ('rg_%d' % g, ('qrb_%d' if q else 'rb_%d') % b)
+            dst = 'RG.%d.rcab.%d' % (g, b)
+            yield src + ('conv_0',), dst + '.conv_first.0', 'conv'
+            yield src + ('conv_1',), dst + '.conv_first.2', 'conv'
+            if q:
+                for i in range(2):
+                    yield (src + ('q_layer', 'fc_%d' % i),
+                           dst + '.q_layer.attribute_integrator.%d' % (2 * i), 'dense')
+        yield ('rg_%d' % g, 'soca', 'du_0'), 'RG.%d.soca.conv_du.0' % g, 'dense'
+        yield ('rg_%d' % g, 'soca', 'du_1'), 'RG.%d.soca.conv_du.2' % g, 'dense'
+        yield ('rg_%d' % g, 'conv_last'), 'RG.%d.conv_last' % g, 'conv'
+    yield from _upsampler_tail(n_stages)
+
+
 def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
     """The layout of the model whose sisr_tpu params ``tree`` holds; a gap in the
     numbering surfaces as a missing or an unconsumed leaf."""
@@ -178,6 +225,10 @@ def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
         return _edsr_layout(count('block_'), n_stages)
     if model_name == 'qedsr':
         return _qedsr_layout(count('block_'), n_stages, q_layer_nonlinearity)
+    if model_name in ('san', 'qsan'):
+        q = model_name == 'qsan'
+        return _san_layout(count('rg_'), count('qrb_' if q else 'rb_', 'rg_0'), n_stages,
+                           q=q)
 
     def has(g, b, part):
         block = ('group_%d' % g, 'qrcab_%d' % b)
@@ -202,6 +253,11 @@ def _state_dict_layout(model_name, state_dict):
         return _qedsr_layout(
             _count(lambda b: 'body.%d.body.0.weight' % b in state_dict), n_stages,
             'body.0.attention_layer.attribute_integrator.2.weight' in state_dict)
+    if model_name in ('san', 'qsan'):
+        return _san_layout(
+            _count(lambda g: 'RG.%d.conv_last.weight' % g in state_dict),
+            _count(lambda b: 'RG.0.rcab.%d.conv_first.0.weight' % b in state_dict),
+            n_stages, q=model_name == 'qsan')
 
     def has(g, b, part):
         return 'body.%d.body.%d%s' % (g, b, _QRCAB_PARTS[part]) in state_dict
@@ -210,7 +266,7 @@ def _state_dict_layout(model_name, state_dict):
                          n_stages, has, han=model_name == 'qhan')
 
 
-LAYOUT_MODELS = ('edsr', 'han', 'qedsr', 'qhan', 'qpircan', 'qrcan', 'rcan')
+LAYOUT_MODELS = ('edsr', 'han', 'qedsr', 'qhan', 'qpircan', 'qrcan', 'qsan', 'rcan', 'san')
 # leaf kinds: (sisr_tpu leaf -> torch tensor, torch tensor -> sisr_tpu leaf)
 _LEAF_KINDS = {'leaf': (lambda a: a, lambda t: t),
                # CSAM's kernel: DHWIO over (C, H, W) <-> the Conv3d's (O, I, D, H, W)
@@ -256,10 +312,12 @@ def params_from_state_dict(model_name, state_dict):
     """A port model's ``state_dict`` (torch layout) as sisr_tpu's parameter tree:
     nested dicts of tensors, conv kernels HWIO and Dense kernels (I, O), as views of
     the state_dict's tensors (on their device).  A ``qedsr`` state_dict tells its
-    ``q_layer_nonlinearity`` by the ReLU-shifted ParaCALayer indices."""
+    ``q_layer_nonlinearity`` by the ReLU-shifted ParaCALayer indices.  A reference
+    checkpoint's dead parameters are dropped first (:func:`drop_dead_reference_keys`)."""
     if model_name not in LAYOUT_MODELS:
         raise NotImplementedError('No torch -> sisr_tpu tree reader for %r yet '
                                   '(available: %s)' % (model_name, list(LAYOUT_MODELS)))
+    state_dict = drop_dead_reference_keys(model_name, state_dict)
     params, used = {}, set()
     for path, key, kind in _state_dict_layout(_canonical(model_name), state_dict):
         node = params
@@ -287,7 +345,7 @@ def int8_state_from_jax(qparams, act_scales, device='cpu'):
     numpy) -> the port's: the same tree of tensors on ``device``, each int8 conv entry
     (one with a ``scale``) with its packed ``_int_mm`` matrix, the f32 attention
     entries (``ca``, ``qca``, ``pa_node``, ``q_node``, ``attention``, ``la``,
-    ``csa``) as they are, and the scales
+    ``csa``, ``non_local``, ``soca``, ``q_layer``, ``gamma``) as they are, and the scales
     (``residual16`` too) as ``np.float32``."""
     from ..ops.quantization import pack_kernel_matrix
 

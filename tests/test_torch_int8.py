@@ -244,8 +244,7 @@ def test_set_int8_without_a_family_is_ignored(bridged, calibration_batch, capsys
     assert not port.int8_mode and 'ignoring' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize('attr,value', [('im_input', 'interp'), ('colorspace', 'ycbcr'),
-                                        ('tiled_eval', True)])
+@pytest.mark.parametrize('attr,value', [('im_input', 'interp'), ('colorspace', 'ycbcr')])
 def test_unported_calibration_inputs_raise(bridged, attr, value):
     _, jax_params, _, _ = bridged
     port = _port_rcan(jax_params)
