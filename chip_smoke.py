@@ -29,10 +29,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    CA at the standard protocol's batch-1 bf16 maps (128^2, the largest Set14 LR
    shape, 510 x 339) against its bound, with its launches there as each
    standard-protocol run counts them by map;
-3. reference: the full-width RCAN, Q-RCAN, EDSR, HAN, Q-HAN, SAN and Q-SAN forwards
-   and fused evals on a small input, card (CUDA kernels) against the CPU (plain
-   versions), in f32 (every HAN and Q-HAN of this script with LAM's and CSAM's gammas
-   non-zero: GAMMAS; every SAN and Q-SAN with gamma and the non-local output conv W
+3. reference: the full-width RCAN, Q-RCAN, EDSR, HAN, Q-HAN, SAN, Q-SAN, SRMD, SFTMD and
+   SFTMD with q_injection forwards (each on the input its _prep_batch makes: SRMD's
+   with the metadata maps concatenated) and fused evals on a small input, card (CUDA
+   kernels) against the CPU (plain versions), in f32 (every HAN and Q-HAN of this
+   script with LAM's and CSAM's gammas non-zero: GAMMAS; every SAN and Q-SAN with gamma and the non-local output conv W
    non-zero: set_gammas); then HAN's LAM and CSAM, and SAN's SOCA and non-local block,
    alone at the fused eval's shapes, card against CPU in f32, and timed in bf16 and
    f32 beside their bounds;
@@ -45,8 +46,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    phases; its 4 CA + residual launches a forward counted, their path held against
    the plan: the int8 main path runs it at full depth), Q-EDSR at 2 blocks and 256
    features (also its f32 module forward), HAN and Q-HAN at 2 x 2 (LAM and CSAM in
-   bf16) and SAN and Q-SAN at 2 x 2 (SOCA and the non-local block in f32), each with
-   the int32 sums of its head and first body conv;
+   bf16), SAN and Q-SAN at 2 x 2 (SOCA and the non-local block in f32), SRMD (12 convs)
+   and SFTMD with q_injection at 2 blocks (SFT branches in bf16; also the int32 sums of
+   its 9 x 9 conv_output at HR size, whole and in bands of rows), each with the int32
+   sums of its first two convs;
 5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
    launch counts of that run (every CA call on chip); then the img/s of warm protocol
@@ -72,8 +75,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    configs/div2k/san.toml and qsan.toml build them (20 x 10, 64 features, reduction
    16, 4x, max_combined_im_size 20000: no tile grid at 128^2; Q-SAN gated on the blur
    kernel) in bf16 and with ``--int8``, no CA call, their SOCAs and non-local passes
-   timed apart; each int8 path's mean PSNR within 1 dB of its bf16 run's, with img/s,
-   a device-time breakdown and peak memory;
+   timed apart; SRMD and SFTMD as configs/div2k/srmd.toml and sftmd.toml build them
+   (12 convs of 128 features over 3 + 10 channels; 16 SFT residual blocks of 64
+   features, standard SFT) in bf16 and with ``--int8``, no CA call, the forward's
+   device time split into convs and the rest and the odd-channel convs (13 and 74
+   input channels) timed beside zero-padded copies; each int8 path's mean PSNR within
+   1 dB of its bf16 run's, with img/s, a device-time breakdown and peak memory; the
+   img/s of every path is that of warm passes without the device-batch cache, and
+   RCAN's and EDSR's bf16 paths also give it with the cache (each cached pass decodes
+   no item and writes the first pass's metrics);
 9. kernel backward: the CA op under autograd (the kernel forward, the plain VJP) at the
    training shape (8, 64, 64, 64) f32 with and without Q-RCAN's gate, and at the f32
    eval shape (in rounds), against plain autograd; the kernel's forward time at the
@@ -86,8 +96,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
    epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
    --fused_eval`` of the best epoch (f32, the CA in rounds); then 10 timed warm train
-   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20 and SAN and Q-SAN 20 x 10 through
-   the handler (forward /
+   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20, SAN and Q-SAN 20 x 10, SRMD and
+   SFTMD through the handler (forward /
    backward / optimizer, device busy, the CA kernel's share, conv FLOPs against the
    TF32 and f32 peaks, peak memory), and the same step with the CA's plain version in
    its place, in turns;
@@ -112,9 +122,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    no CA call), its shared pairs against the fused run; then Q-SAN at
    max_combined_im_size 10000 (a 2 x 2 grid on the 128^2 maps) on the 16 pairs, the
    fused and the standard protocol, in bf16 and ``--int8`` (one int8 state), each
-   pair's metrics against the other protocol's;
-14. train_sisr on configs/div2k/qrcan.toml, qhan.toml and qsan.toml (both training
-   sets on the pairs) as shipped (no fused_val: the standard validation epoch), each
+   pair's metrics against the other protocol's; then SFTMD bf16 with
+   ``--no_image_comparison`` and with ``--eval_buckets 128`` (no CA call), each against
+   the run before it;
+14. train_sisr on configs/div2k/qrcan.toml, qhan.toml, qsan.toml and sftmd.toml (both
+   training sets on the pairs) as shipped (no fused_val: the standard validation epoch), each
    one's val-PSNR against a fused validation of the same checkpoint;
 
 then the script's total seconds with each family's int8 img/s over its bf16 img/s
@@ -169,11 +181,21 @@ SAN = {'scale': SCALE, 'n_resgroups': 20, 'n_resblocks': 10, 'n_feats': 64,
 QSAN = {**SAN, 'metadata': ['blur_kernel']}
 # Q-SAN at max_combined_im_size = 10000: the 128^2 maps of the fused cell on a 2 x 2 grid
 QSAN_GRID = {**QSAN, 'max_combined_im_size': 10000}
+# configs/div2k/srmd.toml's and sftmd.toml's models, on the blur kernel: SRMD 12 convs of
+# 128 features over 3 + 10 channels; SFTMD 16 SFT residual blocks of 64 features,
+# standard SFT, 4x (and with q_injection, held card against CPU)
+SRMD = {'scale': SCALE, 'nc': 128, 'nb': 12, 'metadata': ['blur_kernel'], 'dtype': 'bf16'}
+SFTMD = {'scale': SCALE, 'num_features': 64, 'num_blocks': 16, 'in_nc': 3,
+         'sft_type': 'standard', 'metadata': ['blur_kernel'], 'dtype': 'bf16'}
+SFTMD_Q = {**SFTMD, 'q_injection': True}
 MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
           'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR),
           'han_10x20': ('han', HAN), 'qhan_10x20': ('qhan', QHAN),
           'san_20x10': ('san', SAN), 'qsan_20x10': ('qsan', QSAN),
-          'qsan_grid': ('qsan', QSAN_GRID)}
+          'qsan_grid': ('qsan', QSAN_GRID), 'srmd_12': ('srmd', SRMD),
+          'sftmd_16b': ('sftmd', SFTMD), 'sftmd_q16b': ('sftmd', SFTMD_Q)}
+# the families whose paths make no call of either CA op
+NO_CA_MODELS = ('san', 'qsan', 'srmd', 'sftmd')
 # LAM's and CSAM's gammas start at 0, where both are the identity: every HAN and Q-HAN
 # of this script sets them to these, so each check exercises them; SAN's gamma and its
 # non-local output conv W start at 0 too (the block is then the identity): every SAN and
@@ -181,6 +203,7 @@ MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
 GAMMAS = {'la': 0.5, 'csa': -0.7}
 SAN_GAMMA = 0.5
 CA_PER_FORWARD = RCAN['n_resgroups'] * RCAN['n_resblocks']
+CONCAT_PATHS = ('srmd_12', 'sftmd_16b')  # the channel-concat families' main paths
 CA_KERNELS = ('ca_onchip', 'ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_scale')
 CA_RES_KERNELS = ('ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
 # substrings of cuBLASLt / CUTLASS integer GEMM kernel names (torch._int_mm)
@@ -1118,12 +1141,22 @@ def phase_kernel_batch1():
     return rows
 
 
+def module_input(handler, x, meta=None, device=None):
+    """(the module's input, its metadata input) as the handler's _prep_batch makes them
+    from an f32 NHWC LR batch and its raw metadata (SRMD's with the maps concatenated),
+    moved to ``device`` first when given."""
+    if device is not None:
+        x, meta = x.to(device), None if meta is None else meta.to(device)
+    inp, _, module_meta = handler._prep_batch({'lr': x, 'metadata': meta})
+    return inp, module_meta
+
+
 def phase_reference(name='rcan_10x20', seed=3):
     """Full-width MODELS[name] (seeded weights; HAN's gammas, SAN's gamma and W set) on a
     32^2 LR input in f32 (with 10 seeded metadata values per image for the Q-models):
     the card (CUDA kernels, cuDNN, cuBLAS) against the CPU (plain versions).  Forward
-    <= 5e-4 abs; fused-eval PSNR within 0.01 dB and SSIM within 1e-3; SAN and Q-SAN
-    launch neither CA op."""
+    <= 5e-4 abs; fused-eval PSNR within 0.01 dB and SSIM within 1e-3; SAN, Q-SAN, SRMD
+    and SFTMD launch neither CA op."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1138,20 +1171,20 @@ def phase_reference(name='rcan_10x20', seed=3):
     hr = rng.randint(0, 256, (2, 32 * SCALE, 32 * SCALE, 3)).astype(np.uint8)
     batch = {'lr': lr, 'hr': hr}
     x = torch.from_numpy(lr).float() / 255.0
-    meta = ()
+    meta = None
     if card.uses_metadata:
         batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, 2).astype(np.float32)
         for handler in (card, host):
             handler.set_metadata_keys(['blur_kernel'] * META_COLS)
-        meta = (torch.from_numpy(batch['metadata']),)
+        meta = torch.from_numpy(batch['metadata'])
     reset_launches()
     with torch.inference_mode():
-        out_card = card.forward(x.cuda(), *(m.cuda() for m in meta)).cpu()
-        out_host = host.forward(x, *meta)
+        out_card = card.forward(*module_input(card, x, meta, 'cuda')).cpu()
+        out_host = host.forward(*module_input(host, x, meta))
     fwd_err = (out_card - out_host).abs().max().item()
     (keys, m_card), _ = card.run_eval_fused(batch)
     (_, m_host), _ = host.run_eval_fused(batch)
-    if model in ('san', 'qsan'):
+    if model in NO_CA_MODELS:
         torch.cuda.synchronize()
         expect_launches(read_launches(), NO_LAUNCHES, '%s reference' % name)
     m_card, m_host = m_card.cpu().numpy(), m_host.numpy()
@@ -1396,6 +1429,8 @@ INT8_REFERENCE = {
             ('bfloat16',)),
     'qsan': ('qsan', {**QSAN, 'n_resgroups': 2, 'n_resblocks': 2, 'dtype': 'f32'}, 32,
              ('bfloat16',)),
+    'srmd': ('srmd', {**SRMD, 'dtype': 'f32'}, 32, ('bfloat16',)),
+    'sftmd': ('sftmd', {**SFTMD_Q, 'num_blocks': 2, 'dtype': 'f32'}, 32, ('bfloat16',)),
 }
 
 
@@ -1416,8 +1451,11 @@ def phase_int8_family_reference(name):
     (2 x 2, gammas set; LAM and CSAM in bf16 on cuBLAS and cuDNN) count their CA +
     residual launches (one per block: the RCAB tail, or the cast-first QRCAB tail) and
     hold their path against res_onchip_plan, and launch no CA; SAN and Q-SAN (2 x 2,
-    gamma and W set; the non-local block and SOCA in f32) launch neither op; Q-EDSR
-    also holds its f32 module forward to 5e-4."""
+    gamma and W set; the non-local block and SOCA in f32), SRMD (12 convs, on its
+    concatenated input) and SFTMD (2 blocks, q_injection: SFT branches in bf16, gates in
+    f32) launch neither op; SFTMD also holds the int32 sums of its 9 x 9 conv_output at
+    HR size, gathered whole and in bands of 16 rows; Q-EDSR also holds its f32 module
+    forward to 5e-4."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1433,18 +1471,22 @@ def phase_int8_family_reference(name):
     batch = {'lr': lr,
              'hr': rng.randint(0, 256, (2, size * SCALE, size * SCALE, 3)).astype(np.uint8)}
     x = torch.from_numpy(lr).float() / 255.0
-    meta = meta_card = None
+    raw_meta = None
     if host.uses_metadata:
         batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, 2).astype(np.float32)
         for handler in (card, host):
             handler.set_metadata_keys(['blur_kernel'] * META_COLS)
-        meta = host.prepare_metadata(x, torch.from_numpy(batch['metadata']))
-        meta_card = meta.cuda()
+        raw_meta = torch.from_numpy(batch['metadata'])
+    # the program's input: the LR batch (SRMD's with its maps concatenated) and the
+    # prepared metadata (None where the program takes none)
+    x, meta = module_input(host, x, raw_meta)
+    x_card = x.cuda()
+    meta_card = None if meta is None else meta.cuda()
     report = {'phase': 'int8_reference', 'model': name, 'structure': internal,
               'lr': size}
     if name == 'qedsr':
         with torch.inference_mode():
-            fwd_err = (card.forward(x.cuda(), meta_card).cpu()
+            fwd_err = (card.forward(x_card, meta_card).cpu()
                        - host.forward(x, meta)).abs().max().item()
         report['f32_forward_max_abs_err'] = fwd_err
         if not fwd_err <= 5e-4:
@@ -1454,7 +1496,7 @@ def phase_int8_family_reference(name):
         handler.set_int8(True)
     host._ensure_int8_ctx(x, meta)
     with tf32(True, True):  # calibration turns TF32 off for its own convs and products
-        card._ensure_int8_ctx(x.cuda(), meta_card)
+        card._ensure_int8_ctx(x_card, meta_card)
         if not (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32):
             raise AssertionError('int8 calibration left a global TF32 flag changed')
     scales_card, scales_host = card._int8_ctx[2], host._int8_ctx[2]
@@ -1466,23 +1508,40 @@ def phase_int8_family_reference(name):
     report['calibration_max_rel_diff'] = scale_rel
 
     qp = host._int8_ctx[1]
-    if 'block_0' in qp:
-        first_body = qp['block_0']['conv_0']
+    if model == 'srmd':
+        head, first_body = qp['conv_0'], qp['conv_1']
+    elif model == 'sftmd':
+        head, first_body = qp['conv1'], qp['sft_residual_1']['conv1']
+    elif 'block_0' in qp:
+        head, first_body = qp['head'], qp['block_0']['conv_0']
     elif 'rg_0' in qp:
+        head = qp['head']
         first_body = qp['rg_0'].get('rb_0', qp['rg_0'].get('qrb_0'))['conv_0']
     else:
+        head = qp['head']
         first_body = qp['group_0'].get('rcab_0', qp['group_0'].get('qrcab_0'))['conv_0']
+    convs = [('head', head, size, None), ('first_body_conv', first_body, size, None)]
+    if model == 'sftmd':  # the 9 x 9 tail at HR size, whole and in bands of 16 rows
+        hr = size * SCALE
+        convs += [('conv_output', qp['conv_output'], hr, None),
+                  ('conv_output_banded', qp['conv_output'], hr,
+                   16 * 2 * hr * qp['conv_output']['matrix'].shape[0])]
     gen = torch.Generator().manual_seed(8)
-    for conv_name, entry in (('head', qp['head']), ('first_body_conv', first_body)):
-        x_q = torch.randint(-127, 128, (2, size, size, entry['kernel'].shape[2]),
+    whole_bytes = qz.IM2COL_BAND_BYTES
+    for conv_name, entry, side, band_bytes in convs:
+        x_q = torch.randint(-127, 128, (2, side, side, entry['kernel'].shape[2]),
                             generator=gen, dtype=torch.int8)
         acc_host = qz.conv_int8_accumulate(x_q, entry['kernel'], entry['matrix'])
-        acc_card = qz.conv_int8_accumulate(x_q.cuda(), entry['kernel'].cuda(),
-                                           entry['matrix'].cuda()).cpu()
+        qz.IM2COL_BAND_BYTES = band_bytes or whole_bytes
+        try:
+            acc_card = qz.conv_int8_accumulate(x_q.cuda(), entry['kernel'].cuda(),
+                                               entry['matrix'].cuda()).cpu()
+        finally:
+            qz.IM2COL_BAND_BYTES = whole_bytes
         if acc_card.dtype != torch.int32 or not torch.equal(acc_card, acc_host):
             raise AssertionError('%s int8 %s on the card: int32 sums differ from the CPU\'s'
                                  % (name, conv_name))
-    report['conv_int32_equal'] = True
+    report['conv_int32_equal'] = [c[0] for c in convs]
 
     state = host._int8_ctx[1:]
     props = torch.cuda.get_device_properties(0)
@@ -1500,7 +1559,7 @@ def phase_int8_family_reference(name):
             handler.load_int8_state(*state)
         reset_launches()
         with torch.inference_mode():
-            ours = card._int8_ctx[0](x.cuda(), meta_card).cpu()
+            ours = card._int8_ctx[0](x_card, meta_card).cpu()
             theirs = host._int8_ctx[0](x, meta)
         torch.cuda.synchronize()
         launches = read_launches()
@@ -1623,8 +1682,9 @@ def expect_launches(launches, expected, path):
         raise AssertionError('%s launches %s, expected %s' % (path, launches, expected))
 
 
-def eval_hub(dirs, experiment, results_name, fused, int8, batch_size):
-    """An EvalHub over ``dirs`` (no images saved, no comparisons, not timed)."""
+def eval_hub(dirs, experiment, results_name, fused, int8, batch_size, cache_device=False):
+    """An EvalHub over ``dirs`` (no images saved, no comparisons, not timed), by default
+    without the device-batch cache (every pass uploads its batches)."""
     from sisr_tpu_torch.evaluation.standard_eval import EvalHub
     return EvalHub(hr_dir=dirs['hr_dir'], lr_dir=dirs['lr_dir'],
                    model_and_epoch=[(experiment, '0')], results_name=results_name,
@@ -1634,12 +1694,15 @@ def eval_hub(dirs, experiment, results_name, fused, int8, batch_size):
                    out_loc=dirs['out_loc'], use_test_group=False, no_image_comparison=True,
                    num_image_save=0, qpi_selection=(None, None), data_attributes=None,
                    dataset_name=None, image_shortlist=None, metadata_file=None, sp_gpu=0,
-                   time_models=False, recursive=False, fused_eval=fused, int8=int8)
+                   time_models=False, recursive=False, fused_eval=fused, int8=int8,
+                   cache_device=cache_device)
 
 
 def warm_passes(dirs, results_name, int8, experiment='rcan_10x20'):
-    """img/s of 3 warm fused protocol passes on one hub (the first pass decodes and
-    sets up, the rest are timed), and the hub's handler."""
+    """img/s of 3 warm fused protocol passes on one hub without the device-batch cache
+    (the series of PRs 1-12: decoded images cached on the host, batches uploaded every
+    pass; the first pass decodes and sets up, the rest are timed), and the hub's
+    handler."""
     hub = eval_hub(dirs, experiment, results_name, True, int8, BATCH)
     hub.full_image_protocol()
     rates = []
@@ -1650,10 +1713,41 @@ def warm_passes(dirs, results_name, int8, experiment='rcan_10x20'):
     return rates, hub.model_bundles[0].model
 
 
+def cached_passes(dirs, results_name, experiment):
+    """img/s of 3 warm fused protocol passes on one hub with the device-batch cache (the
+    EvalHub default): the first pass decodes, uploads and fills the cache, each later
+    pass runs from it and must decode no item (ITEMS_LOADED) and write the first pass's
+    metrics."""
+    import pandas as pd
+    from sisr_tpu_torch.data import loader
+    hub = eval_hub(dirs, experiment, results_name, True, False, BATCH, cache_device=True)
+    hub.full_image_protocol()
+    if hub._device_batch_cache is None:
+        raise AssertionError('%s: the first pass left no device-batch cache' % experiment)
+    csv = os.path.join(dirs['out_loc'], results_name, 'standard_metrics',
+                       'individual_metrics.csv')
+    first = pd.read_csv(csv, header=[0, 1], index_col=0)
+    rates, decoded = [], []
+    for _ in range(3):
+        before = loader.ITEMS_LOADED
+        tic = time.perf_counter()
+        hub.full_image_protocol()
+        rates.append(N_IMAGES / (time.perf_counter() - tic))
+        decoded.append(loader.ITEMS_LOADED - before)
+        pd.testing.assert_frame_equal(pd.read_csv(csv, header=[0, 1], index_col=0), first)
+    if any(decoded):
+        raise AssertionError('%s: cached passes decoded %s items' % (experiment, decoded))
+    cache_mb = sum(v.numel() * v.element_size() for b in hub._device_batch_cache
+                   for v in b.values() if hasattr(v, 'element_size')) / 1e6
+    return {'img_per_s_cached_passes': rates, 'img_per_s_cached': statistics.median(rates),
+            'cached_passes_decoded_items': decoded, 'device_batch_cache_mb': cache_mb}
+
+
 def breakdown_batch(handler=None):
-    """One seeded uint8 batch on the card, and its f32 LR input; for a metadata model
-    (``handler.uses_metadata``) also 10 metadata values per image, and the module's
-    metadata input (else None)."""
+    """One seeded uint8 batch on the card, and the module's input (the f32 LR, SRMD's
+    with its maps concatenated) and metadata input (None without) as _prep_batch makes
+    them; for a metadata model (``handler.uses_metadata``) the batch has 10 metadata
+    values per image."""
     import numpy as np
     import torch
     rng = np.random.RandomState(1)
@@ -1663,8 +1757,7 @@ def breakdown_batch(handler=None):
     if handler is not None and handler.uses_metadata:
         batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, BATCH).astype(np.float32)
     dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    x = dev['lr'].float() / 255.0
-    meta = handler.prepare_metadata(x, dev['metadata']) if 'metadata' in dev else None
+    x, _, meta = handler._prep_batch(dev)
     return dev, x, meta
 
 
@@ -1695,7 +1788,63 @@ BF16_PATHS = {
                   'grid at 128^2 (max_combined_im_size 20000)', 0),
     'qsan_20x10': ('qsan_', 'qsan 20x10 64f 4x bf16, ParaCALayer gates on 10 blur-kernel '
                    'values, 20 SOCA + 2 non-local passes', 0),
+    'srmd_12': ('srmd_', 'srmd 12 convs 128f 4x bf16, 3 + 10 input channels (the '
+                'blur-kernel maps concatenated)', 0),
+    'sftmd_16b': ('sftmd_', 'sftmd 16b 64f 4x bf16, standard SFT on 10 blur-kernel maps', 0),
 }
+
+
+def odd_channel_convs(handler, x, meta):
+    """The convs whose input channels are no multiple of 8 (SRMD's first: 13; each SFT
+    branch's first: 74), each timed alone (CUDA events, under the bf16 autocast) on the
+    input one forward gives the first of its kind, beside the same conv with its input
+    channels zero-padded to the next multiple of 8; with the calls a forward makes."""
+    import torch
+    from torch.nn import functional as F
+    odd = [m for m in handler.module.modules()
+           if isinstance(m, torch.nn.Conv2d) and m.in_channels % 8]
+    seen = {}
+    def keep_first(mod, args):
+        seen.setdefault(mod.in_channels, (mod, args[0]))
+
+    hooks = [m.register_forward_pre_hook(keep_first) for m in odd]
+    try:
+        with torch.inference_mode():
+            handler.forward(x, meta)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    out = {}
+    with torch.inference_mode(), torch.autocast('cuda', dtype=torch.bfloat16):
+        for cin, (mod, inp) in seen.items():
+            pad = -cin % 8
+            inp_p = F.pad(inp, (0, 0, 0, 0, 0, pad)).contiguous(
+                memory_format=torch.channels_last)
+            w_p = F.pad(mod.weight, (0, 0, 0, 0, 0, pad)).contiguous(
+                memory_format=torch.channels_last)
+            calls = sum(1 for m in odd if m.in_channels == cin)
+            ms = cuda_ms(lambda mod=mod, inp=inp: mod(inp), reps=10, rounds=3)
+            out['conv_in%d' % cin] = {
+                'calls_per_forward': calls, 'input_shape': list(inp.shape),
+                'out_channels': mod.out_channels, 'ms': ms, 'ms_per_forward': ms * calls,
+                'padded_to_%d_ms' % (cin + pad): cuda_ms(
+                    lambda: F.conv2d(inp_p, w_p, mod.bias, padding=mod.padding),
+                    reps=10, rounds=3)}
+    return out
+
+
+def concat_breakdown(handler, x, meta):
+    """SRMD's and SFTMD's forward device time split into the convs (cuDNN kernel
+    names) and the rest (the concats, the maps, the SFT products, the shuffles), and
+    its odd-channel convs timed alone (odd_channel_convs)."""
+    import torch
+    with torch.inference_mode():
+        device_ms, per_kernel = device_kernel_ms(lambda: handler.forward(x, meta), reps=3)
+    conv_ms = sum(v for k, v in per_kernel.items()
+                  if any(t in k.lower() for t in CONV_KERNEL_HINTS)) / 3
+    return {'forward_device_ms': device_ms, 'forward_conv_device_ms': conv_ms,
+            'forward_other_device_ms': device_ms - conv_ms if device_ms else None,
+            'odd_channel_convs': odd_channel_convs(handler, x, meta)}
 
 
 def peak_forward_gb(fn):
@@ -1809,8 +1958,10 @@ def san_int8_attention_ms(handler, x, meta):
 def phase_main_path(dirs, experiment='rcan_10x20'):
     """``eval_sisr --fused_eval`` in bf16 on ``experiment``: every CALayer or QRCAB tail
     through the on-chip CA kernel (200 per forward for RCAN, Q-RCAN, HAN and Q-HAN,
-    none for EDSR, Q-EDSR, SAN and Q-SAN), the CA + residual kernel not at all; HAN's
-    LAM, CSAM and last_conv, SAN's SOCAs and non-local passes timed apart."""
+    none for EDSR, Q-EDSR, SAN, Q-SAN, SRMD and SFTMD), the CA + residual kernel not at
+    all; HAN's LAM, CSAM and last_conv, SAN's SOCAs and non-local passes, SRMD's and
+    SFTMD's convs, the rest and their odd-channel convs timed apart; for RCAN and EDSR
+    also the img/s of warm passes from the device-batch cache."""
     import torch
     prefix, description, ca_calls = BF16_PATHS[experiment]
     launches, cli_seconds, frame = run_eval_cli(dirs, prefix + 'smoke', experiment=experiment)
@@ -1821,6 +1972,8 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
                     '%s bf16 main path' % experiment)
     rates, handler = warm_passes(dirs, prefix + 'smoke_timed', int8=False,
                                  experiment=experiment)
+    cached = cached_passes(dirs, prefix + 'smoke_cached', experiment) \
+        if experiment in ('rcan_10x20', 'edsr_16b') else {}
 
     dev, x, meta = breakdown_batch(handler)
     conv_flops = count_conv_flops(handler, x, meta)
@@ -1836,11 +1989,12 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
     holistic = holistic_ms(handler.module, lambda: handler.forward(x, meta)) \
         if hasattr(handler.module, 'la') else san_attention_ms(
             handler.module, lambda: handler.forward(x, meta)) \
-        if hasattr(handler.module, 'non_local') else {}
+        if hasattr(handler.module, 'non_local') else concat_breakdown(handler, x, meta) \
+        if experiment in CONCAT_PATHS else {}
     emit({'phase': prefix + 'main_path', 'model': description, 'images': N_IMAGES,
           'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds, 'launches': launches,
           'mean_psnr': mean_psnr, 'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
-          'img_per_s_warm_passes': rates, 'img_per_s': statistics.median(rates),
+          'img_per_s_warm_passes': rates, 'img_per_s': statistics.median(rates), **cached,
           'nvidia_smi': nvidia_smi_line()})
     emit({'phase': prefix + 'breakdown', 'batch': BATCH, 'forward_ms': forward_ms,
           'forward_conv_gflop': conv_flops / 1e9,
@@ -1866,6 +2020,10 @@ INT8_PATHS = {
     'san_20x10': ('san_', 'san 20x10 64f 4x int8 (bf16 carry), SOCA + non-local in f32'),
     'qsan_20x10': ('qsan_', 'qsan 20x10 64f 4x int8 (bf16 carry), f32 ParaCALayer gates '
                    'on 10 blur-kernel values, SOCA + non-local in f32'),
+    'srmd_12': ('srmd_', 'srmd 12 convs 128f 4x int8, the whole chain on the concatenated '
+                'input'),
+    'sftmd_16b': ('sftmd_', 'sftmd 16b 64f 4x int8 conv spine, standard SFT branches in '
+                  'bf16, the 9x9 conv_output gathered in bands'),
 }
 
 
@@ -1986,6 +2144,8 @@ HAN_TRAIN = {'scale': SCALE, 'lr': 1e-4, 'scheduler': 'cosine_annealing_warm_res
              'scheduler_params': {'t_mult': 1, 'restart_period': 40000, 'lr_min': 1e-7}}
 QHAN_TRAIN = {**HAN_TRAIN, 'metadata': ['blur_kernel']}
 # configs/div2k/san.toml's and qsan.toml's [model], at their full depth of 20 x 10
+SRMD_TRAIN = {**{k: v for k, v in SRMD.items() if k != 'dtype'}, 'lr': 1e-4}
+SFTMD_TRAIN = {**{k: v for k, v in SFTMD.items() if k != 'dtype'}, 'lr': 1e-4}
 SAN_TRAIN = {**HAN_TRAIN, 'max_combined_im_size': 20000, 'n_resgroups': 20,
              'n_resblocks': 10}
 QSAN_TRAIN = {**SAN_TRAIN, 'metadata': ['blur_kernel']}
@@ -2238,10 +2398,8 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
     conv_ms = sum(v for k, v in per_kernel.items() if not any(n in k for n in CA_KERNELS)
                   and any(t in k.lower() for t in CONV_KERNEL_HINTS)) / 3
     x = batch['lr'].float() / 255.0
-    meta = handler.prepare_metadata(x, batch.get('metadata')) if handler.uses_metadata \
-        else None
-    fwd_flops = count_conv_flops(handler, x, meta)
-    head = handler.module.head[0]
+    fwd_flops = count_conv_flops(handler, *module_input(handler, x, batch.get('metadata')))
+    head = next(m for m in handler.module.modules() if isinstance(m, torch.nn.Conv2d))
     head_flops = 2 * BATCH * TRAIN_CROP ** 2 * head.out_channels * head.in_channels * 9
     # backward: the data grad and the weight grad of every conv, each the forward's
     # FLOPs, but no data grad for the head (its input needs none)
@@ -2329,10 +2487,12 @@ def phase_train_main_path(dirs, root):
                                              ('han_10x20', 'han', HAN_TRAIN, False),
                                              ('qhan_10x20', 'qhan', QHAN_TRAIN, False),
                                              ('san_20x10', 'san', SAN_TRAIN, False),
-                                             ('qsan_20x10', 'qsan', QSAN_TRAIN, False)):
+                                             ('qsan_20x10', 'qsan', QSAN_TRAIN, False),
+                                             ('srmd_12', 'srmd', SRMD_TRAIN, False),
+                                             ('sftmd_16b', 'sftmd', SFTMD_TRAIN, False)):
             breakdowns[name] = train_step_breakdown(model, internal, turns=turns)
             per_step = breakdowns[name]['launches_per_step']
-            calls = 0 if model in ('san', 'qsan') else CA_PER_FORWARD
+            calls = 0 if model in NO_CA_MODELS else CA_PER_FORWARD
             expect_launches(per_step, {**NO_LAUNCHES, 'fused_channel_attention': calls,
                                        'fused_channel_attention_onchip': calls},
                             '%s train step' % name)
@@ -2399,9 +2559,10 @@ def lr_shapes(lr_dir):
     return shapes
 
 
-def standard_launches(shapes, route_of, timed=True, residual=False):
+def standard_launches(shapes, route_of, timed=True, residual=False,
+                      per_forward=CA_PER_FORWARD):
     """The launch counts of a standard-protocol run at batch 1 (and the calls by
-    route): CA_PER_FORWARD kernel calls a forward, one forward an image and, when the
+    route): ``per_forward`` kernel calls a forward, one forward an image and, when the
     run is timed, one more (the untimed first call) for the first image of each LR
     shape; each image's calls on the route ``route_of((h, w))`` gives ('onchip',
     'rounds', 'stream' or 'three_pass'), of the CA or, with ``residual``, of the CA +
@@ -2409,7 +2570,7 @@ def standard_launches(shapes, route_of, timed=True, residual=False):
     by_route, seen = {}, set()
     for _, hw in shapes:
         route = route_of(hw)
-        by_route[route] = by_route.get(route, 0) + CA_PER_FORWARD * (
+        by_route[route] = by_route.get(route, 0) + per_forward * (
             1 + (timed and hw not in seen))
         seen.add(hw)
     total = sum(by_route.values())
@@ -2483,7 +2644,8 @@ def phase_standard_eval(mixed, experiment, fused_frame, images=True):
     shapes = lr_shapes(mixed['lr_dir'])
     m = META_COLS if experiment == 'qrcan_10x20' else 0
     expected, by_route = standard_launches(
-        shapes, lambda hw: planned_ca_route((1,) + hw + (64,), 4, 2, m=m)[0])
+        shapes, lambda hw: planned_ca_route((1,) + hw + (64,), 4, 2, m=m)[0],
+        per_forward=BF16_PATHS[experiment][2])
     name = experiment.split('_')[0] + '_standard'
     launches, seconds, split, peak_gb, frame, by_map = run_standard_cli(
         mixed, name, experiment, ['--save_im'] if images else ['--no_image_comparison'])
@@ -2522,7 +2684,8 @@ def phase_bucketed_eval(mixed, unbucketed_frame, experiment='rcan_10x20'):
     run's."""
     shapes = lr_shapes(mixed['lr_dir'])
     expected, by_route = standard_launches(
-        shapes, lambda hw: planned_ca_route((1,) + bucket_of(hw) + (64,), 4, 2)[0])
+        shapes, lambda hw: planned_ca_route((1,) + bucket_of(hw) + (64,), 4, 2)[0],
+        per_forward=BF16_PATHS[experiment][2])
     expected['fused_channel_attention_masked'] = expected['fused_channel_attention']
     name = experiment.split('_')[0] + '_buckets'
     launches, seconds, split, peak_gb, frame, by_map = run_standard_cli(
@@ -2855,7 +3018,7 @@ def phase_train_standard_val(dirs, root, recipe='qrcan'):
     n_train = len(training_sets) * N_IMAGES // batch_size
     routes = {'train': planned_ca_route((batch_size,) + TRAIN_SHAPE[1:], 4, 4)[0],
               'validation': planned_ca_route((1, LR_SIZE, LR_SIZE, 64), 4, 4)[0]}
-    calls = 0 if config['model']['name'] in ('san', 'qsan') else CA_PER_FORWARD
+    calls = 0 if config['model']['name'] in NO_CA_MODELS else CA_PER_FORWARD
     counts = {'train': calls * n_train, 'validation': calls * N_IMAGES}
     expected = dict(NO_LAUNCHES)
     for part, route in routes.items():
@@ -2915,7 +3078,7 @@ def main():
     batch1 = phase_kernel_batch1()
     training_shape = phase_kernel_backward()
     for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20',
-                 'san_20x10', 'qsan_20x10'):
+                 'san_20x10', 'qsan_20x10', 'srmd_12', 'sftmd_16b', 'sftmd_q16b'):
         phase_reference(name)
     phase_holistic_attention()
     phase_san_attention()
@@ -2931,7 +3094,8 @@ def main():
         for name, model in (('qrcan', 'qrcan_10x20'), ('edsr', 'edsr_16b'),
                             ('qedsr', 'qedsr_32b'), ('han', 'han_10x20'),
                             ('qhan', 'qhan_10x20'), ('san', 'san_20x10'),
-                            ('qsan', 'qsan_20x10')):
+                            ('qsan', 'qsan_20x10'), ('srmd', 'srmd_12'),
+                            ('sftmd', 'sftmd_16b')):
             paths[name + '_bf16'] = phase_main_path(dirs, model)
             paths[name + '_int8'] = phase_int8_main_path(
                 dirs, paths[name + '_bf16']['mean_psnr'], model)
@@ -2953,9 +3117,15 @@ def main():
         paths['qsan_standard'] = phase_tiled_standard_eval(mixed, 'qsan_20x10',
                                                            paths['qsan_bf16']['frame'])
         paths['qsan_grid'] = phase_qsan_grid(dirs, paths['qsan_bf16']['mean_psnr'])
+        paths['sftmd_standard'] = phase_standard_eval(mixed, 'sftmd_16b',
+                                                      paths['sftmd_bf16']['frame'],
+                                                      images=False)
+        paths['sftmd_buckets'] = phase_bucketed_eval(
+            mixed, paths['sftmd_standard']['frame'], 'sftmd_16b')
         paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
         paths['qhan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qhan')
         paths['qsan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qsan')
+        paths['sftmd_train_standard_val'] = phase_train_standard_val(dirs, root, 'sftmd')
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3071,7 +3241,7 @@ def main():
     int8_over_bf16 = {family: paths[family + '_int8']['img_per_s']
                       / paths[family + '_bf16']['img_per_s']
                       for family in ('rcan', 'qrcan', 'edsr', 'qedsr', 'han', 'qhan',
-                                     'san', 'qsan')}
+                                     'san', 'qsan', 'srmd', 'sftmd')}
     emit({'phase': 'total', 'seconds': time.perf_counter() - START,
           'int8_over_bf16_img_per_s': int8_over_bf16, 'nvidia_smi': nvidia_smi_line(),
           'masked_launches_by_path': path_launches(lambda c: c[ca_key + '_masked'])})

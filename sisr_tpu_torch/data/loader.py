@@ -7,9 +7,14 @@ once from the global ``random`` stream when the loader is built.  With one worke
 items load in the iterating thread, in order, so a seeded run draws its crops and
 flips as sisr_tpu's does.  :func:`device_prefetch` keeps the next batches on their way
 to the card while the current one computes: pinned host memory and a ``non_blocking``
-copy on a side CUDA stream, in a background thread.
+copy on a side CUDA stream, in a background thread.  With ``device_collate`` (the fused
+eval protocol) uniform uint8 image lists are not stacked on the host: each image is
+copied up on its own and the batch stacked on the card.  ``ITEMS_LOADED`` counts the
+items every loader of the process has loaded (decoded), so a caller can show that a
+pass decoded nothing.
 """
 from collections import deque
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 import queue as queue_mod
 import random
@@ -17,6 +22,11 @@ import threading
 
 import numpy as np
 import torch
+
+# items loaded by any DataLoader of the process (dataset.__getitem__ calls); counted
+# under a lock, since loader threads finish batches concurrently
+ITEMS_LOADED = 0
+_ITEMS_LOADED_LOCK = threading.Lock()
 
 
 class ConcatDataset:
@@ -56,13 +66,14 @@ class CelebaSplitSampler:
                                   'item 3).')
 
 
-def _collate(items):
+def _collate(items, device_images=False):
     """Stack per-item dicts into batch arrays (``metadata`` to (N, M) float32);
     strings stay lists; the dataset's ``metadata_keys`` list passes through once (it
     is the same for every item, and as strings it is no tensor); differently sized
     images (eval sets at bs>1) stay lists of arrays.  Items of ``request_crops``
     carry (K, h, w, c) crop stacks: the crops join the batch axis, and every other
-    entry repeats per crop."""
+    entry repeats per crop.  ``device_images`` keeps uint8 lr and hr images as lists
+    (:func:`device_prefetch` stacks uniform ones on the card)."""
     out = {}
     crops_per_item = None
     for key in ('lr', 'hr'):
@@ -80,6 +91,10 @@ def _collate(items):
         arrs = [np.asarray(v) for v in vals]
         if arrs[0].ndim >= 4:  # crop stacks: crops into the batch axis
             out[key] = np.concatenate(arrs, axis=0)
+            continue
+        if device_images and key in ('lr', 'hr') and arrs[0].dtype == np.uint8 \
+                and arrs[0].ndim == 3:
+            out[key] = arrs
             continue
         try:
             stacked = np.stack(arrs, axis=0)
@@ -101,6 +116,9 @@ class DataLoader:
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=8,
                  drop_last=False):
         self.dataset = dataset
+        # uint8 images stay lists, for device_prefetch to stack on the card (the
+        # fused eval protocol sets it)
+        self.device_collate = False
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers or 1)
@@ -124,11 +142,17 @@ class DataLoader:
             batches.pop()
         return batches
 
+    def _finish(self, items):
+        global ITEMS_LOADED
+        with _ITEMS_LOADED_LOCK:
+            ITEMS_LOADED += len(items)
+        return _collate(items, device_images=self.device_collate)
+
     def __iter__(self):
         batches = iter(self._batches())
         if self.num_workers == 1:
             for batch in batches:
-                yield _collate([self.dataset[i] for i in batch])
+                yield self._finish([self.dataset[i] for i in batch])
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             def submit(batch):  # per-ITEM futures: all workers decode in parallel
@@ -144,10 +168,17 @@ class DataLoader:
                 nxt = next(batches, None)
                 if nxt is not None:
                     pending.append(submit(nxt))
-                yield _collate([f.result() for f in futs])
+                yield self._finish([f.result() for f in futs])
 
 
 _DEVICE_BATCHES_AHEAD = 2  # batches on their way to the device at once
+
+
+def _uniform_images(v):
+    """A list of uint8 arrays of one shape (a batch for the card to stack)."""
+    return isinstance(v, list) and bool(v) and all(
+        isinstance(a, np.ndarray) and a.dtype == np.uint8 and a.shape == v[0].shape
+        for a in v)
 
 
 def device_prefetch(iterator, device):
@@ -157,21 +188,30 @@ def device_prefetch(iterator, device):
     On CUDA each array is copied into pinned host memory and sent with a
     ``non_blocking`` copy on a side stream; the consumer's stream waits on an event
     recorded after the copies, and each tensor is marked as used by that stream so
-    the caching allocator does not hand its memory out early.  On the CPU the arrays
-    become tensors without a copy.
+    the caching allocator does not hand its memory out early.  A list of uint8 images
+    of one shape (``DataLoader.device_collate``) goes up image by image the same way
+    and is stacked on the card, on the side stream; ragged lists pass as they are.
+    On the CPU the arrays become tensors without a copy (a list is stacked).
     """
     device = torch.device(device)
     side = torch.cuda.Stream(device) if device.type == 'cuda' else None
+
+    on_side = (lambda: torch.cuda.stream(side)) if side is not None \
+        else contextlib.nullcontext
+
+    def upload(arr):
+        t = torch.from_numpy(arr)
+        return t.pin_memory().to(device, non_blocking=True) if side is not None else t
 
     def put(batch):
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray) and v.dtype != object and v.ndim >= 1:
-                t = torch.from_numpy(v)
-                if side is not None:
-                    with torch.cuda.stream(side):
-                        t = t.pin_memory().to(device, non_blocking=True)
-                out[k] = t
+                with on_side():
+                    out[k] = upload(v)
+            elif _uniform_images(v):
+                with on_side():
+                    out[k] = torch.stack([upload(a) for a in v])
             else:
                 out[k] = v
         event = None

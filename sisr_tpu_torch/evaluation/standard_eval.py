@@ -11,7 +11,10 @@
 * The fused protocol (``fused_eval``, metrics only): forward + bicubic LR baseline +
   YCbCr + PSNR/SSIM in one device step per batch (``BaseHandler.run_eval_fused``);
   it falls back to the standard protocol where it cannot serve (image outputs,
-  interpolated LR, bucketed eval), as in sisr_tpu.
+  interpolated LR, bucketed eval), as in sisr_tpu.  With ``cache_device`` (by default
+  ``cache_decoded``) the batches of its first complete pass stay on the card (up to
+  1 GiB), and each later pass on the hub runs from them: no decode, no collate, no
+  upload, and one copy of each model's metrics to the host.
 * :meth:`EvalHub.direct_model_protocol` (``model_only``): SR images only.
 
 The CSV reports have the reference's layout.  Degradation metadata for the
@@ -43,6 +46,8 @@ from ..tools.visualization import interpret_sisr_images, safe_image_save
 from ..utils import toml_io
 from ..utils.helpers import create_dir_if_empty
 
+DEVICE_BATCH_CACHE_BYTES = 1 << 30  # the fused protocol's device-batch cache, at most
+
 
 def _not_ported(what, slice_name):
     return NotImplementedError('%s is not ported to sisr_tpu_torch yet: it comes with the '
@@ -58,8 +63,11 @@ class EvalHub:
                  dataset_name, image_shortlist, metadata_file, sp_gpu, time_models,
                  recursive, mesh=False, eval_buckets=None, int8=False,
                  device_metrics=False, fused_eval=False, face_model='lightcnn',
-                 face_weights=None, cache_decoded=True, decoded_cache_dir=None):
-        """Main eval class; param info in net_eval.py (mirrors the reference CLI)."""
+                 face_weights=None, cache_decoded=True, decoded_cache_dir=None,
+                 cache_device=None):
+        """Main eval class; param info in net_eval.py (mirrors the reference CLI).
+        ``cache_device`` (None: as ``cache_decoded``) keeps the fused protocol's batches
+        on the card for later passes; False uploads every pass."""
         if mesh:
             raise _not_ported('--mesh (multi-device eval)', 'multi-GPU data parallelism')
         if metrics and 'FACE_SIM' in metrics:
@@ -69,6 +77,9 @@ class EvalHub:
         if not model_and_epoch:
             raise ValueError('No models specified: pass at least one '
                              '-me/--model_and_epoch EXPERIMENT EPOCH pair.')
+        self.cache_device = bool(cache_decoded) if cache_device is None else bool(cache_device)
+        self._device_batch_cache = None  # the fused protocol's batches, on the card
+        self._device_batch_cache_cap = DEVICE_BATCH_CACHE_BYTES
         if decoded_cache_dir:
             # decoded uint8 sidecars on disk: a new process skips the PNG decode
             cache_decoded = decoded_cache_dir
@@ -238,6 +249,7 @@ class EvalHub:
         serving uint8), and this run's interpolated-LR iterator."""
         for ds in getattr(self.rgb_data.dataset, 'datasets', [self.rgb_data.dataset]):
             ds.keep_uint8 = False
+        self.rgb_data.device_collate = False
         self.interp_data = iter(self.interp_loader) if self.interp_loader else None
         return self.rgb_data
 
@@ -351,29 +363,77 @@ class EvalHub:
         BaseHandler.run_eval_fused).  ``LR>runtime`` under --time_models is NaN: the LR
         prep runs inside the device step, so no separate host resize time exists.
 
-        Batches reach the card ahead of use (device_prefetch) and each batch's metric
-        matrix is copied back on a background thread, so host decode of later
-        batches overlaps device compute.  The dataset serves uint8, divided on the
-        device."""
+        The first pass: batches reach the card ahead of use (device_prefetch; uniform
+        uint8 images copied one by one and stacked on the card) and each batch's metric
+        matrix is copied back on a background thread, so host decode of later batches
+        overlaps device compute.  The dataset serves uint8, divided on the device.
+        With ``cache_device`` a complete pass leaves its device batches in
+        ``_device_batch_cache`` (when they take at most 1 GiB; past that the pass keeps
+        none); a later pass iterates
+        them (no decode, no upload, no fetcher thread) and, unless timed, copies each
+        model's metrics to the host once (:meth:`_realize_pending_grouped`)."""
         self.rgb_data.dataset.keep_uint8 = True
+        self.rgb_data.device_collate = True
         metric_package = defaultdict(list)
-        pending = []  # (experiment, is_first_model, keys, future of (K,N) values, rt, n)
-        batches = device_prefetch(iter(self.rgb_data), self.device)
-        with ThreadPoolExecutor(max_workers=1) as fetcher:
-            self._run_fused_loop(batches, pending, metric_package, fetcher)
-            for experiment, is_first, keys, fut, runtime, n in pending:
-                rows = dict(zip(keys, fut.result()))
-                for met in self.metrics:
-                    if is_first:
-                        metric_package['LR>%s' % met].append(
-                            [float(x) for x in rows['LR>%s' % met]])
-                    metric_package['%s>%s' % (experiment, met)].append(
-                        [float(x) for x in rows['model>%s' % met]])
-                if runtime is not None:
-                    if is_first:
-                        metric_package['LR>runtime'].append([float('nan')] * n)
-                    metric_package['%s>runtime' % experiment].append([runtime] * n)
+        pending = []  # (experiment, is_first_model, keys, future or (K,N) values, rt, n)
+        collect = None
+        if self._device_batch_cache is not None:
+            batches = iter(self._device_batch_cache)
+        else:
+            batches = device_prefetch(iter(self.rgb_data), self.device)
+            if self.cache_device:
+                collect = {'batches': [], 'bytes': 0}
+                batches = self._collecting_iter(batches, collect)
+        defer = self._device_batch_cache is not None and not self.time_models
+        if defer:
+            self._run_fused_loop(batches, pending, metric_package, None)
+            self._realize_pending_grouped(pending)
+        else:
+            with ThreadPoolExecutor(max_workers=1) as fetcher:
+                self._run_fused_loop(batches, pending, metric_package, fetcher)
+                pending = [entry[:3] + (entry[3].result(),) + entry[4:] for entry in pending]
+        if collect is not None and collect['bytes'] <= self._device_batch_cache_cap:
+            self._device_batch_cache = collect['batches']  # after a complete pass only
+        for experiment, is_first, keys, vals, runtime, n in pending:
+            rows = dict(zip(keys, vals))
+            for met in self.metrics:
+                if is_first:
+                    metric_package['LR>%s' % met].append(
+                        [float(x) for x in rows['LR>%s' % met]])
+                metric_package['%s>%s' % (experiment, met)].append(
+                    [float(x) for x in rows['model>%s' % met]])
+            if runtime is not None:
+                if is_first:
+                    metric_package['LR>runtime'].append([float('nan')] * n)
+                metric_package['%s>runtime' % experiment].append([runtime] * n)
         self.manipulate_and_save_metrics(metric_package)
+
+    def _collecting_iter(self, batches, collect):
+        """``batches``, each kept in ``collect['batches']`` while the bytes of all so far
+        (``collect['bytes']``) stay within the cap; past it none are kept."""
+        for batch in batches:
+            collect['bytes'] += _batch_bytes([batch])
+            if collect['bytes'] <= self._device_batch_cache_cap:
+                collect['batches'].append(batch)
+            else:
+                collect['batches'].clear()
+            yield batch
+
+    @staticmethod
+    def _realize_pending_grouped(pending):
+        """Each pending entry's (K, N) device matrix replaced by its host copy, made
+        with one concatenation on the card and one copy per (model, keys) group."""
+        groups = OrderedDict()
+        for i, entry in enumerate(pending):
+            groups.setdefault((entry[0], entry[2]), []).append(i)
+        for idxs in groups.values():
+            mats = [pending[i][3] for i in idxs]
+            host = torch.cat(mats, dim=1).cpu().numpy()
+            offset = 0
+            for i, mat in zip(idxs, mats):
+                width = mat.shape[1]
+                pending[i] = pending[i][:3] + (host[:, offset:offset + width],) + pending[i][4:]
+                offset += width
 
     def _run_fused_loop(self, batches, pending, metric_package, fetcher):
         with tqdm(total=len(self.rgb_data)) as pbar:
@@ -385,7 +445,9 @@ class EvalHub:
                     (keys, vals), runtime = model.model.run_eval_fused(
                         batch, metrics=tuple(self.metrics), timing=self.time_models,
                         include_lr=idx == 0)
-                    fut = fetcher.submit(lambda v: v.cpu().numpy(), vals)
+                    # no fetcher: the device matrix waits for one grouped copy
+                    fut = vals if fetcher is None \
+                        else fetcher.submit(lambda v: v.cpu().numpy(), vals)
                     pending.append((model.experiment, idx == 0, keys, fut, runtime,
                                     len(im_names)))
                     if runtime is not None and 'PSNR' in self.metrics:
@@ -419,3 +481,16 @@ class EvalHub:
         results = pd.concat([r1, r2], axis=1)
         results = pd.DataFrame(results.stack()).T.stack(0).droplevel(level=0)
         return results
+
+
+def _batch_bytes(batches):
+    """The bytes of every tensor and array in ``batches`` (lists of them included)."""
+    def size(v):
+        if isinstance(v, torch.Tensor):
+            return v.numel() * v.element_size()
+        if isinstance(v, np.ndarray):
+            return v.nbytes
+        if isinstance(v, (list, tuple)):
+            return sum(size(a) for a in v)
+        return 0
+    return sum(size(v) for batch in batches for v in batch.values())

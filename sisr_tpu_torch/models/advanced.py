@@ -1,6 +1,6 @@
-"""EDSR, RCAN and HAN (PyTorch port of sisr_tpu's ``models/advanced.py``; SRMD comes
-with a later slice).  HAN's holistic-attention blocks, LAM and CSAM (ref:
-advanced/HAN_blocks.py), live here too, with their math as functions
+"""EDSR, RCAN, HAN and SRMD (PyTorch port of sisr_tpu's ``models/advanced.py``).
+HAN's holistic-attention blocks, LAM and CSAM (ref: advanced/HAN_blocks.py), live
+here too, with their math as functions
 (:func:`layer_attention`, :func:`channel_spatial_attention`) that the int8 programs
 of ``ops/quantization.py`` share."""
 import torch
@@ -176,3 +176,26 @@ class HAN(nn.Module):
             res = group(res)
             outs.append(res)
         return holistic_fusion(self, outs, x)
+
+
+class SRMD(nn.Module):
+    """A plain conv chain over RGB concatenated with per-pixel degradation maps (ref:
+    advanced/architectures.py:380-425, KAIR's SRMD).  The handler concatenates the
+    maps (``BaseHandler.network_input``): the module sees one (N, in_nc, H, W) input.
+    ``nb`` convs of ``nc`` features with a ReLU after each but the last, which makes
+    ``out_nc * scale^2`` channels for the pixel shuffle.
+
+    Keys: KAIR's one Sequential, ``model.<2i>`` for conv i (the ReLUs at the odd
+    indices, the shuffle at ``model.<2 nb - 1>``)."""
+
+    def __init__(self, in_nc=13, out_nc=3, nc=128, nb=12, scale=4):
+        super().__init__()
+        layers = [conv(in_nc, nc, 3), nn.ReLU(inplace=True)]
+        for _ in range(nb - 2):
+            layers += [conv(nc, nc, 3), nn.ReLU(inplace=True)]
+        layers += [conv(nc, out_nc * scale ** 2, 3), nn.PixelShuffle(scale)]
+        self.nb = nb
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.model(x)

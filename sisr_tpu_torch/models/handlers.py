@@ -20,7 +20,10 @@ Each handler is registered under the reference's lowercase model name and owns:
 * degradation metadata (``uses_metadata`` handlers, :class:`QHandler`): the
   dataset's metadata key list selects the columns the model takes
   (``set_metadata_keys``), and each batch's (N, M) metadata reaches the module
-  through ``prepare_metadata``;
+  through ``prepare_metadata``; a ``channel_concat`` handler (SRMD, SFTMD with
+  ``concat_strategy``) broadcasts it to per-pixel maps and concatenates them onto
+  the LR image in :meth:`_prep_batch`, the one place every path builds the module's
+  input;
 * int8 serving (``set_int8``): quantised weights and activation scales calibrated on
   the first eval batch (with its prepared metadata, for a metadata model), and the
   int8 program of ``ops/quantization.py`` in place of the module in the fused step;
@@ -42,24 +45,25 @@ from ..ops.colorspace import rgb_to_ycbcr_nhwc
 from ..ops.masking import apply_mask, conv_mask_hooks, spatial_masks
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
-from ..tools.convert_weights import drop_dead_reference_keys, params_from_state_dict
+from ..tools.convert_weights import params_from_state_dict, repair_reference_keys
 from ..training.losses import build_loss
 from ..training.state import apply_update, build_optimizer
 from ..utils import async_ckpt
 from ..utils.helpers import resolve_device
-from . import advanced, qmodels, san
+from . import advanced, qmodels, san, sftmd
 from .blocks import torch_default_init_
 
 available_models = {}
 # int8 families whose program is ported; sisr_tpu's others raise in set_int8
-_INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr', 'han', 'qhan', 'san', 'qsan')
+_INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr', 'han', 'qhan', 'san', 'qsan', 'srmd',
+                  'sftmd')
 # Families whose --int8 fused eval was measured slower than their bf16 one on the card
 # below (chip_smoke.py: int8 img/s over bf16 img/s, 16 images of 128^2 -> 512^2,
 # batch 8); set_int8 warns at the point of use.
 INT8_CARD = 'NVIDIA H100 80GB HBM3, 700.00 W'
 INT8_MEASURED_SLOWER = {'rcan': '0.41x', 'qrcan': '0.52x', 'edsr': '0.43x',
                         'qedsr': '0.26x', 'han': '0.43x', 'qhan': '0.51x',
-                        'san': '0.36x', 'qsan': '0.45x'}
+                        'san': '0.36x', 'qsan': '0.45x', 'srmd': '0.63x', 'sftmd': '0.40x'}
 
 
 def _training_not_ported(what, item):
@@ -71,6 +75,12 @@ def _int8_not_ported(what, slice_name):
     return NotImplementedError('%s for int8 serving is not ported to sisr_tpu_torch yet: '
                                'it comes with the %s slice (ROADMAP.md, Queue 1).'
                                % (what, slice_name))
+
+
+def _as_f32(img):
+    """uint8 transport divided on the device (ref handlers.py:415); anything else as
+    it is."""
+    return img.float() / 255.0 if img is not None and img.dtype == torch.uint8 else img
 
 
 def _tree_to(tree, device):
@@ -104,6 +114,10 @@ class BaseHandler:
 
     colorspace = 'rgb'
     im_input = 'unmodified'
+    in_channels = 3
+    # concatenate the metadata's per-pixel maps onto the network input (SRMD, SFTMD
+    # with concat_strategy)
+    channel_concat = False
     # the static tile grid for large eval images (SAN, Q-SAN: :meth:`_tiled_forward`)
     tiled_eval = False
     uses_metadata = False
@@ -254,14 +268,35 @@ class BaseHandler:
         """Width of the module's metadata input for ``n_meta`` selected columns."""
         return n_meta
 
+    def network_input(self, x, metadata):
+        """The module's input (ref handlers.py:400-407): for a ``channel_concat``
+        handler the NHWC batch with the (N, M) metadata broadcast to per-pixel maps
+        concatenated after its channels, else the batch as it is."""
+        if self.channel_concat and metadata is not None:
+            n, h, w, _ = x.shape
+            maps = metadata.to(x.dtype)[:, None, None, :].expand(n, h, w, metadata.shape[-1])
+            return torch.cat([x, maps], dim=-1)
+        return x
+
+    @property
+    def module_input_channels(self):
+        """The module's input channels: the image's, plus the metadata maps'."""
+        return self.in_channels + (self.num_metadata if self.channel_concat else 0)
+
+    @property
+    def module_takes_metadata(self):
+        """Whether the module takes the metadata vector as its second argument (a
+        ``channel_concat`` handler's maps replace it; SFTMD's SFT layers take it
+        even then)."""
+        return self.uses_metadata and not self.channel_concat
+
     # --- forward --------------------------------------------------------------------------
     def _prep_batch(self, batch):
-        """(lr, hr, metadata): uint8 transport, the /255 on the device (ref
-        handlers.py:415), and the module's metadata input (None without)."""
-        def as_f32(img):
-            return img.float() / 255.0 if img is not None and img.dtype == torch.uint8 \
-                else img
-        lr = as_f32(batch['lr'])
+        """(x, hr, metadata): uint8 transport, the /255 on the device (ref
+        handlers.py:415-438); x the module's input (:meth:`network_input`: with a
+        ``channel_concat`` handler the metadata maps concatenated, here and nowhere
+        else) and the module's metadata input (None when it takes none)."""
+        lr = _as_f32(batch['lr'])
         metadata = self.prepare_metadata(lr, batch.get('metadata'))
         if metadata is not None and \
                 metadata.shape[-1] != self._metadata_width(self.num_metadata):
@@ -269,13 +304,15 @@ class BaseHandler:
                              '(selected columns of %s)'
                              % (type(self).__name__, self._metadata_width(self.num_metadata),
                                 metadata.shape[-1], self.metadata_keys))
-        return lr, as_f32(batch.get('hr')), metadata
+        x = self.network_input(lr, metadata)
+        return x, _as_f32(batch.get('hr')), metadata if self.module_takes_metadata else None
 
     def forward(self, x, metadata=None):
-        """Model output for an NHWC float batch (and the module's (N, M) metadata for a
-        metadata model), as NHWC.  A contiguous NHWC tensor permuted to NCHW is
+        """Model output for an NHWC float batch (the module's input, as
+        :meth:`_prep_batch` gives it, and the module's (N, M) metadata for a model
+        that takes it), as NHWC.  A contiguous NHWC tensor permuted to NCHW is
         channels_last, the layout the convs and the channel attention kernel take."""
-        args = (metadata,) if self.uses_metadata else ()
+        args = (metadata,) if self.module_takes_metadata else ()
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             out = self.module(x.permute(0, 3, 1, 2), *args)
@@ -290,9 +327,11 @@ class BaseHandler:
         if self.uses_metadata:
             dev['metadata'] = self._to_device(batch['metadata']).float()
         with torch.inference_mode():
-            lr, _, metadata = self._prep_batch(dev)
-            out = self._tiled_forward({**dev, 'lr': lr}) if self.tiled_eval \
-                else self.forward(lr, metadata)
+            if self.tiled_eval:  # each tile batch is prepared in _tile_step
+                out = self._tiled_forward({**dev, 'lr': _as_f32(dev['lr'])})
+            else:
+                x, _, metadata = self._prep_batch(dev)
+                out = self.forward(x, metadata)
             return out.float().clamp(0.0, 1.0).cpu().numpy()
 
     # --- training (ref handlers.py:469-545) -----------------------------------------------
@@ -402,7 +441,8 @@ class BaseHandler:
     def _int8_calibration_input(self, lr_f32):
         """The calibration input, matching what the int8 program takes (ref
         handlers.py:228-248): for models that take the LR image as it is (RGB, or RGB
-        with metadata beside it), the f32 LR batch itself; for a ``tiled_eval``
+        with metadata beside it, or SRMD's input with its maps concatenated, as
+        :meth:`_prep_batch` gives it), that f32 batch itself; for a ``tiled_eval``
         family, its centre crop of at most ``max(16, int(sqrt(max_combined_im_size)))``
         a side, a tile's size, since the grid runs the program tile by tile."""
         if self.im_input == 'interp' or self.colorspace == 'ycbcr':
@@ -421,7 +461,7 @@ class BaseHandler:
         metadata), once; the program then runs with them."""
         if self._int8_ctx is not None:
             return
-        if self.uses_metadata and meta is None:
+        if self.module_takes_metadata and meta is None:
             raise RuntimeError('int8 %s calibration needs a metadata batch alongside the '
                                'first LR batch.' % self.int8_family.upper())
         params = params_from_state_dict(self.model_name, self.module.state_dict())
@@ -459,6 +499,16 @@ class BaseHandler:
             qp = qz.quantize_qsan_params(params, m.n_resgroups, m.n_resblocks)
             scales = qz.calibrate_qsan_scales(params, [x], [meta], m.n_resgroups,
                                               m.n_resblocks, margin=1.1)
+        elif family == 'srmd':  # x: the input with its metadata maps concatenated
+            qp = qz.quantize_srmd_params(params)
+            scales = qz.calibrate_srmd_scales(params, [x], self.scale, margin=1.1)
+        elif family == 'sftmd':
+            if self.channel_concat:
+                raise RuntimeError('int8 SFTMD does not support concat_strategy — disable '
+                                   '--int8 or the concat strategy.')
+            qp = qz.quantize_sftmd_params(params, m.num_blocks, self.scale)
+            scales = qz.calibrate_sftmd_scales(params, [x], [meta], margin=1.1,
+                                               **self._sftmd_config())
         else:
             raise RuntimeError('unknown int8 family %r' % family)
         self.load_int8_state(qp, scales)
@@ -514,17 +564,23 @@ class BaseHandler:
                 return qz.qsan_int8_forward_static(qparams, dev_scales, x, meta,
                                                    m.n_resgroups, m.n_resblocks,
                                                    residual_dtype=rd)
+        elif family == 'srmd':
+            def program(x, meta=None):  # x: the input with its maps concatenated
+                return qz.srmd_int8_forward_static(qparams, dev_scales, x, self.scale)
+        elif family == 'sftmd':
+            def program(x, meta=None):
+                return qz.sftmd_int8_forward_static(qparams, dev_scales, x, meta,
+                                                    **self._sftmd_config())
         else:
             raise RuntimeError('unknown int8 family %r' % family)
         self._int8_ctx = (program, qparams, dict(act_scales))
 
     def _int8_forward(self, batch):
-        """The int8 program on a device batch (ref handlers.py:251): quantises the
-        weights and calibrates the scales on the first batch it sees (and its prepared
-        metadata), then runs with them."""
-        x = batch['lr'].float()
-        meta = self.prepare_metadata(x, batch.get('metadata')) if self.uses_metadata \
-            else None
+        """The int8 program on a device batch (ref handlers.py:251) and its prepared
+        input (:meth:`_prep_batch`): quantises the weights and calibrates the scales on
+        the first batch it sees (and its prepared metadata), then runs with them."""
+        x, _, meta = self._prep_batch({'lr': batch['lr'].float(),
+                                       'metadata': batch.get('metadata')})
         self._ensure_int8_ctx(self._int8_calibration_input(x), meta)
         return self._int8_ctx[0](x, meta)
 
@@ -772,7 +828,8 @@ class BaseHandler:
         @torch.inference_mode()
         def step(batch):
             self._set_training(False)
-            lr, hr, metadata = self._prep_batch(batch)
+            x, hr, metadata = self._prep_batch(batch)
+            lr = _as_f32(batch['lr'])  # the RGB LR, without any metadata maps
             hr_y = prep_y(hr)
             lr_y = None
             if include_lr:
@@ -783,9 +840,9 @@ class BaseHandler:
                 # the tile grid; each tile batch through the int8 program or the module
                 sr = self._tiled_forward({'lr': lr, 'metadata': batch.get('metadata')})
             elif self.int8_mode:  # the calibrated int8 program
-                sr = self._int8_ctx[0](lr, metadata)
+                sr = self._int8_ctx[0](x, metadata)
             else:
-                sr = self.forward(lr, metadata)
+                sr = self.forward(x, metadata)
             sr_y = prep_y(sr)
             rows = []
             for met in metrics:  # row order matches run_eval_fused's keys tuple
@@ -834,9 +891,10 @@ class BaseHandler:
                             '%s_%s' % (model_save_name, model_idx))
         state_dict = torch.load(path, map_location='cpu', weights_only=True)
         # strict: layouts must match, once the parameters a reference checkpoint
-        # carries and its forward never uses (SAN's) are dropped
-        self.module.load_state_dict(drop_dead_reference_keys(self.model_name,
-                                                             state_dict['network']))
+        # carries and its forward never uses (SAN's) are dropped and its aged keys
+        # (SFTMD's) renamed
+        self.module.load_state_dict(repair_reference_keys(self.model_name,
+                                                          state_dict['network']))
         self._place()
         if not self.eval_mode and state_dict.get('optimizer'):
             self._load_optimizer(state_dict['optimizer'])
@@ -1045,3 +1103,63 @@ class QSANHandler(QHandler):
                                   ('n_resblocks', n_resblocks),
                                   ('reduction', reduction)) if v is not None}
         return qmodels.QSAN(scale=scale, input_para=self.num_metadata, **arch)
+
+
+@register_model('srmd')
+class SRMDHandler(QHandler):
+    """(ref: advanced/handlers.py:132-158): the metadata broadcast to per-pixel maps
+    and concatenated onto the LR image, a plain conv chain of ``nb`` convs of ``nc``
+    features.  int8 runs the whole chain in int8 on the concatenated input."""
+
+    colorspace = 'augmented_rgb'
+    channel_concat = True
+    int8_family = 'srmd'
+
+    def build_module(self, scale, in_features=3, nc=128, nb=12, **kwargs):
+        self.in_channels = in_features or 3
+        return advanced.SRMD(in_nc=self.module_input_channels, nc=nc or 128, nb=nb or 12,
+                             scale=scale)
+
+
+@register_model('sftmd')
+class SFTMDHandler(QHandler):
+    """(ref: SFTMD_variants/handlers.py:6-60): the metadata vector feeds every SFT
+    layer as per-pixel maps (and, with ``q_injection``, ParaCALayer gates as the
+    vector); ``concat_strategy`` also concatenates the maps onto the LR image, and
+    the module still takes the vector.  int8 runs the conv spine in int8, the SFT
+    branches in bf16 and the gates in f32, and refuses ``concat_strategy``, as
+    sisr_tpu does.
+
+    Bucketed eval stays exact although the maps are non-zero in the pad: the conv
+    hooks zero every conv's input and output there, so an SFT layer's product or
+    concat sees zeros in the pad from the features' side, and each conv re-zeroes
+    the maps' pad before it reads them."""
+
+    colorspace = 'augmented_rgb'
+    int8_family = 'sftmd'
+
+    def __init__(self, concat_strategy=False, q_injection=False, **kwargs):
+        self.channel_concat = bool(concat_strategy)
+        self.q_injection = bool(q_injection)
+        super().__init__(**kwargs)
+
+    @property
+    def module_takes_metadata(self):
+        return True  # the SFT layers take the vector, with concat_strategy too
+
+    def build_module(self, scale, in_nc=3, num_features=64, num_blocks=16,
+                     SFT_type='standard', sft_type=None, mask_para=False, repeats=None,
+                     q_layers=2, **kwargs):
+        self.in_channels = in_nc or 3
+        return sftmd.SFTMD(in_nc=self.module_input_channels,
+                           num_features=num_features or 64, num_blocks=num_blocks or 16,
+                           scale=scale, input_para=self.num_metadata,
+                           sft_type=sft_type or SFT_type or 'standard',
+                           mask_para=bool(mask_para), repeats=repeats,
+                           q_injection=self.q_injection, q_layers=q_layers or 2)
+
+    def _sftmd_config(self):
+        """The int8 program's structure arguments."""
+        m = self.module
+        return dict(num_blocks=m.num_blocks, scale=self.scale, sft_type=m.sft_type,
+                    mask_para=m.mask_para, repeats=m.repeats)

@@ -1,5 +1,5 @@
-"""Int8 serving of RCAN, EDSR, Q-RCAN, Q-EDSR, HAN, Q-HAN, SAN and Q-SAN: those
-families' part of sisr_tpu's ``ops/quantization.py``.
+"""Int8 serving of RCAN, EDSR, Q-RCAN, Q-EDSR, HAN, Q-HAN, SAN, Q-SAN, SRMD and
+SFTMD: those families' part of sisr_tpu's ``ops/quantization.py``.
 
 The recipe is sisr_tpu's, with its names, NHWC activations, HWIO kernels and
 parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
@@ -14,8 +14,10 @@ parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
   carry's type;
 * the attention stages (RCAN's CA, Q-RCAN's QCALayer, PALayer and q_node, Q-EDSR's
   ParaCALayer gates, SAN's and Q-SAN's non-local block and SOCA, Q-SAN's ParaCALayer
-  gates) stay float32; HAN's and Q-HAN's LAM and CSAM run in bfloat16 (the gram, the
-  softmax and every sum in float32), as in sisr_tpu's serving forwards;
+  gates, SFTMD's q-injection gates) stay float32; HAN's and Q-HAN's LAM and CSAM and
+  SFTMD's SFT branches run in bfloat16 (the gram, the softmax and every sum in
+  float32), as in sisr_tpu's serving forwards; SRMD's whole chain is int8, on the
+  input with its metadata maps concatenated;
 * each RCAB tail (channel attention scale + residual add) runs as
   :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention_residual`, the
   CUDA kernel on the card: the numerics of sisr_tpu's ``ca_epilogue='pallas'``;
@@ -26,11 +28,14 @@ parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
   with ``cast_first``; with a pa_node, the attention is one
   :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention` call.
 
-The int8 convolution is an im2col product: the padded int8 input's 3x3 windows are
-gathered into an (N*H*W, 9*Cin) int8 matrix and multiplied by the HWIO kernel
-reshaped to (9*Cin, Cout) with ``torch._int_mm``, which sums in int32 exactly.  The
-weight matrix is packed once, at quantisation (``entry['matrix']``), zero-padded to
-the multiples of 8 that ``_int_mm`` takes.
+The int8 convolution is an im2col product: the padded int8 input's kh x kw windows
+are gathered into an (N*H*W, kh*kw*Cin) int8 matrix and multiplied by the HWIO kernel
+reshaped to (kh*kw*Cin, Cout) with ``torch._int_mm``, which sums in int32 exactly.
+The weight matrix is packed once, at quantisation (``entry['matrix']``), zero-padded
+to the multiples of 8 that ``_int_mm`` takes.  Where the matrix would pass
+``IM2COL_BAND_BYTES`` (SFTMD's 9x9 ``conv_output`` at HR size: 5184 bytes a row), it
+is gathered and multiplied in bands of output rows, each band's sums complete in
+itself: the same int32 sums, at a bounded peak.
 
 The programs are plain functions over dicts of tensors, as in sisr_tpu; they do not
 run the ``nn.Module``.  Activation scales are ``np.float32`` numbers; the forward
@@ -50,6 +55,8 @@ from .channel_attention import (KERNEL_STYLES, fused_channel_attention,
 
 _INT_MM_MULTIPLE = 8    # _int_mm on CUDA takes K and N divisible by 8 ...
 _INT_MM_MIN_ROWS = 17   # ... and more than 16 rows
+# the largest im2col matrix gathered at once; a larger one is cut into bands of rows
+IM2COL_BAND_BYTES = 1 << 30
 # EDSR's Upsampler: conv + pixel-shuffle stages per scale, x3 in one stage
 _UPSAMPLE_STAGES = {2: 1, 4: 2, 8: 3, 3: 1}
 
@@ -101,13 +108,17 @@ def _f32_tree(tree):
     return tree.float()
 
 
-def _fconv(entry, h):
-    """SAME conv + bias in f32 (the calibration mirror's conv primitive; sisr_tpu's
-    ``_fconv`` f32 branch).  NHWC in and out, HWIO kernel."""
-    k = entry['kernel']
+def _fconv(entry, h, compute_dtype=None):
+    """SAME conv + bias (sisr_tpu's ``_fconv``).  NHWC in and out, HWIO kernel.  In f32
+    by default (the calibration mirrors' conv primitive); with ``compute_dtype``
+    (bfloat16: SFTMD's SFT branches in its int8 forward) the conv takes operands of
+    that type and gives that type, and the bias is added in it."""
+    k, bias = entry['kernel'], entry['bias']
+    if compute_dtype is not None:
+        h, k, bias = h.to(compute_dtype), k.to(compute_dtype), bias.to(compute_dtype)
     out = F.conv2d(h.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
                    padding=(k.shape[0] // 2, k.shape[1] // 2))
-    return out.permute(0, 2, 3, 1) + entry['bias']
+    return out.permute(0, 2, 3, 1) + bias
 
 
 def _absmax_tracker():
@@ -140,30 +151,55 @@ def _scale_tensor(x_scale, device):
     return torch.as_tensor(np.float32(x_scale), device=device)
 
 
-def _im2col(x_q, kh, kw, k_cols):
-    """(N, H, W, Cin) int8 -> (N*H*W, k_cols) int8: the SAME-padded kh x kw windows in
-    (kh, kw, Cin) order, then zero columns up to ``k_cols``."""
-    n, h, w, cin = x_q.shape
-    xp = F.pad(x_q, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
-    cols = [xp[:, i:i + h, j:j + w, :] for i in range(kh) for j in range(kw)]
+def _im2col(xp, kh, kw, k_cols, r0=0, r1=None):
+    """The SAME-padded int8 map ``xp`` (N, H + kh - 1, W + kw - 1, Cin) -> the
+    (N * (r1 - r0) * W, k_cols) int8 matrix of the kh x kw windows of output rows r0 to
+    r1 (all by default), in (kh, kw, Cin) order, then zero columns up to ``k_cols``."""
+    n, hp, wp, cin = xp.shape
+    h, w = hp - kh + 1, wp - kw + 1
+    r1 = h if r1 is None else r1
+    cols = [xp[:, r0 + i:r1 + i, j:j + w, :] for i in range(kh) for j in range(kw)]
     if k_cols > kh * kw * cin:
-        cols.append(x_q.new_zeros((n, h, w, k_cols - kh * kw * cin)))
-    return torch.cat(cols, dim=-1).reshape(n * h * w, k_cols)
+        cols.append(xp.new_zeros((n, r1 - r0, w, k_cols - kh * kw * cin)))
+    return torch.cat(cols, dim=-1).reshape(n * (r1 - r0) * w, k_cols)
+
+
+def _int_mm_rows(a, matrix, cout):
+    """``torch._int_mm`` of an im2col matrix (padded to the rows it takes) and the
+    packed kernel: the (rows, cout) int32 sums."""
+    rows = a.shape[0]
+    if rows < _INT_MM_MIN_ROWS:
+        a = F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - rows))
+    return torch._int_mm(a, matrix)[:rows, :cout]
+
+
+def band_rows(n, h, w, k_cols):
+    """Output rows per band of the im2col gather of an (n, h, w) map with ``k_cols``
+    bytes a row: every row (one band) when the matrix fits ``IM2COL_BAND_BYTES``, else
+    as many as fit, at least one."""
+    return max(1, min(h, IM2COL_BAND_BYTES // max(1, n * w * k_cols)))
 
 
 def conv_int8_accumulate(x_q, q_kernel, matrix=None):
     """SAME conv of an int8 NHWC map with an int8 HWIO kernel: the exact int32 sums
-    (N, H, W, Cout), by ``torch._int_mm`` on the im2col matrix."""
+    (N, H, W, Cout), by ``torch._int_mm`` on the im2col matrix, gathered whole or,
+    past ``IM2COL_BAND_BYTES``, in bands of output rows (each output sum within one
+    band: the same sums)."""
     kh, kw, _, cout = q_kernel.shape
     if matrix is None:
         matrix = pack_kernel_matrix(q_kernel)
     n, h, w, _ = x_q.shape
-    a = _im2col(x_q, kh, kw, matrix.shape[0])
-    rows = a.shape[0]
-    if rows < _INT_MM_MIN_ROWS:
-        a = F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - rows))
-    acc = torch._int_mm(a, matrix)
-    return acc[:rows, :cout].reshape(n, h, w, cout)
+    k_cols = matrix.shape[0]
+    xp = F.pad(x_q, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    step = band_rows(n, h, w, k_cols)
+    if step >= h:
+        return _int_mm_rows(_im2col(xp, kh, kw, k_cols), matrix, cout).reshape(n, h, w, cout)
+    acc = torch.empty((n, h, w, cout), dtype=torch.int32, device=x_q.device)
+    for r0 in range(0, h, step):
+        r1 = min(h, r0 + step)
+        acc[:, r0:r1] = _int_mm_rows(_im2col(xp, kh, kw, k_cols, r0, r1), matrix,
+                                     cout).reshape(n, r1 - r0, w, cout)
+    return acc
 
 
 def conv_int8(x_q, q_kernel, w_scale, x_scale, bias=None, matrix=None):
@@ -304,7 +340,7 @@ def _calibration_maxes(forward, params, sample_batches, metadata_batches=None, n
         raise ValueError('%s%d sample batches but %d metadata batches — zip would '
                          'silently truncate the calibration set.'
                          % (prefix, len(sample_batches), len(metadata_batches)))
-    device = params['head']['kernel'].device
+    device = _first_tensor(params).device
     track, maxes = _absmax_tracker()
     with torch.inference_mode(), _true_f32():
         for x, meta in zip(sample_batches, metadata_batches):
@@ -312,6 +348,13 @@ def _calibration_maxes(forward, params, sample_batches, metadata_batches=None, n
             meta = None if meta is None else torch.as_tensor(meta).float().to(device)
             forward(params, x, meta, track)
     return maxes
+
+
+def _first_tensor(tree):
+    """The first tensor of a nested dict of tensors."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def calibrate_rcan_scales(params, sample_batches, n_resgroups=10, n_resblocks=20,
@@ -1048,3 +1091,161 @@ def qsan_int8_forward_static(qparams, act_scales, x, metadata, n_resgroups=20,
     on the handler-prepared ``metadata``."""
     return _san_int8(qparams, act_scales, x, n_resgroups, n_resblocks, residual_dtype,
                      meta=metadata.float())
+
+
+# --- SRMD and SFTMD --------------------------------------------------------------------------
+def quantize_srmd_params(params):
+    """Quantize an SRMD parameter tree (sisr_tpu's ``models/advanced.py`` naming:
+    ``conv_0`` .. ``conv_<nb - 2>`` and ``conv_tail``) to int8: the whole chain."""
+    return {k: _q_entry(v) for k, v in params.items() if k.startswith('conv_')}
+
+
+def _srmd_convs(params):
+    return sum(1 for k in params if k.startswith('conv_') and k != 'conv_tail')
+
+
+def _srmd_float_forward(params, x, scale, track=None):
+    """f32 SRMD forward over the parameter tree (the calibration mirror); ``x`` is the
+    input with its metadata maps concatenated."""
+    fconv = _tracked_fconv(track or (lambda name, h: h))
+    out = x.float()
+    for i in range(_srmd_convs(params)):
+        out = torch.relu(fconv('conv_%d' % i, params['conv_%d' % i], out))
+    return pixel_shuffle(fconv('conv_tail', params['conv_tail'], out), scale)
+
+
+def calibrate_srmd_scales(params, sample_batches, scale, margin=1.0):
+    """Static activation scales for the int8 SRMD forward (absmax calibration, true
+    f32) on the concatenated inputs."""
+    maxes = _calibration_maxes(
+        lambda p, x, _, track: _srmd_float_forward(p, x, scale, track), params,
+        sample_batches)
+    return _finalize_scales(maxes, margin)
+
+
+def srmd_int8_forward_static(qparams, act_scales, x, scale):
+    """Quantized SRMD forward: every conv int8, the ReLUs in f32, on the input with
+    its metadata maps concatenated."""
+    qconv = _qconv_with(act_scales)
+    out = x.float()
+    for i in range(_srmd_convs(qparams)):
+        out = torch.relu(qconv('conv_%d' % i, qparams['conv_%d' % i], out))
+    return pixel_shuffle(qconv('conv_tail', qparams['conv_tail'], out), scale)
+
+
+_SFTMD_SPINE = ('conv1', 'conv2', 'conv3', 'conv_mid', 'up_conv1', 'up_conv2', 'conv_output')
+
+
+def quantize_sftmd_params(params, num_blocks=16, scale=4):
+    """Quantize an SFTMD parameter tree (sisr_tpu's ``models/sftmd.py`` naming) to
+    int8: the conv spine (conv1-3, each block's conv1 and conv2, conv_mid, the
+    upscale's convs, the 9x9 conv_output) int8; the SFT layers (none for the
+    parameterless ``weak`` and ``none``) and the q-injection ParaCALayers f32."""
+    out = {k: _q_entry(params[k]) for k in _SFTMD_SPINE if k in params}
+    for k in ('sft', 'final_injection'):
+        if k in params:
+            out[k] = _f32_tree(params[k])
+    for i in range(1, num_blocks + 1):
+        blk = params['sft_residual_%d' % i]
+        qb = {'conv1': _q_entry(blk['conv1']), 'conv2': _q_entry(blk['conv2'])}
+        qb.update({k: _f32_tree(blk[k]) for k in ('sft1', 'sft2', 'q_1', 'q_2') if k in blk})
+        out['sft_residual_%d' % i] = qb
+    return out
+
+
+def _sft_apply(entry, sft_type, fea, para_maps, repeats=None, mask_para=False,
+               compute_dtype=None):
+    """SFTLayer math on NHWC maps (sisr_tpu's ``_sft_apply``): f32 by default (the
+    calibration mirror); ``compute_dtype`` bfloat16 casts the features and the maps and
+    runs the branches' convs in it (the int8 forward)."""
+    if compute_dtype is not None:
+        fea, para_maps = fea.to(compute_dtype), para_maps.to(compute_dtype)
+    if sft_type == 'none':
+        return fea
+    if sft_type == 'weak':
+        return fea * para_maps
+    if sft_type == 'concat':
+        return _fconv(entry['sft_module']['conv'], torch.cat([fea, para_maps], dim=-1),
+                      compute_dtype)
+    mod = entry['sft_module']
+    if repeats is not None:
+        para_maps = para_maps.repeat(1, 1, 1, repeats)
+    cat = fea if mask_para else torch.cat([fea, para_maps], dim=-1)
+    mul = F.leaky_relu(_fconv(mod['mul_conv1'], cat, compute_dtype), 0.2)
+    mul = torch.sigmoid(_fconv(mod['mul_conv2'], mul, compute_dtype))
+    add = F.leaky_relu(_fconv(mod['add_conv1'], cat, compute_dtype), 0.2)
+    return fea * mul + _fconv(mod['add_conv2'], add, compute_dtype)
+
+
+def _sftmd_upscale(conv, params, fea, scale):
+    """SFTMD's upscale: at 4x two conv + x2 shuffle + LeakyReLU stages, else one."""
+    stages = (('up_conv1', 2), ('up_conv2', 2)) if scale == 4 else (('up_conv1', scale),)
+    for name, factor in stages:
+        fea = F.leaky_relu(pixel_shuffle(conv(name, params[name], fea), factor), 0.2)
+    return fea
+
+
+def _sftmd_body(params, conv, x, meta, num_blocks, scale, sft_type, mask_para, repeats,
+                sft_dtype=None):
+    """SFTMD's forward over a parameter tree with the spine's ``conv(name, entry, h)``
+    (f32 or int8): the SFT layers in ``sft_dtype`` (f32 when None), each q-injection
+    gate in f32 on the (N, M) ``meta``, cast to its map's type in the blocks (the final
+    gate's product promotes to f32), as sisr_tpu's forwards do."""
+    n, h, w, _ = x.shape
+    para_maps = meta[:, None, None, :].expand(n, h, w, meta.shape[-1])
+    if sft_dtype is not None:  # cast once: the same values as a cast at each layer
+        para_maps = para_maps.to(sft_dtype)
+
+    def sft(entry, fea):
+        return _sft_apply(entry, sft_type, fea, para_maps, repeats, mask_para, sft_dtype)
+
+    def gate(entry):
+        return _para_ca_apply(entry, meta)[:, None, None, :]
+
+    fea = F.leaky_relu(conv('conv1', params['conv1'], x), 0.2)
+    fea = F.leaky_relu(conv('conv2', params['conv2'], fea), 0.2)
+    fea_bef = conv('conv3', params['conv3'], fea)
+    fea_in = fea_bef
+    for i in range(1, num_blocks + 1):
+        blk, pre = params['sft_residual_%d' % i], 'sft_residual_%d' % i
+        f1 = torch.relu(sft(blk.get('sft1'), fea_in))
+        if 'q_1' in blk:
+            f1 = f1 * gate(blk['q_1']).to(f1.dtype)
+        f1 = conv(pre + '.conv1', blk['conv1'], f1)
+        f2 = torch.relu(sft(blk.get('sft2'), f1))
+        if 'q_2' in blk:
+            f2 = f2 * gate(blk['q_2']).to(f2.dtype)
+        fea_in = fea_in + conv(pre + '.conv2', blk['conv2'], f2)
+    fea_fin = sft(params.get('sft'), fea_in + fea_bef)
+    if 'final_injection' in params:
+        fea_fin = fea_fin * gate(params['final_injection'])
+    fea = _sftmd_upscale(conv, params, conv('conv_mid', params['conv_mid'], fea_fin), scale)
+    return torch.clamp(conv('conv_output', params['conv_output'], fea), 0.0, 1.0)
+
+
+def _sftmd_float_forward(params, x, metadata, num_blocks=16, scale=4, sft_type='standard',
+                         mask_para=False, repeats=None, track=None):
+    """f32 SFTMD forward (the calibration mirror); ``metadata`` the (N, M) vector."""
+    fconv = _tracked_fconv(track or (lambda name, h: h))
+    return _sftmd_body(params, fconv, x.float(), metadata.float(), num_blocks, scale,
+                       sft_type, mask_para, repeats)
+
+
+def calibrate_sftmd_scales(params, sample_batches, metadata_batches, num_blocks=16, scale=4,
+                           sft_type='standard', mask_para=False, repeats=None, margin=1.0):
+    """Static activation scales for the int8 SFTMD forward (absmax calibration, true
+    f32) on the batches and their handler-prepared (N, M) metadata."""
+    maxes = _calibration_maxes(
+        lambda p, x, meta, track: _sftmd_float_forward(p, x, meta, num_blocks, scale,
+                                                       sft_type, mask_para, repeats, track),
+        params, sample_batches, metadata_batches, name='calibrate_sftmd_scales')
+    return _finalize_scales(maxes, margin)
+
+
+def sftmd_int8_forward_static(qparams, act_scales, x, metadata, num_blocks=16, scale=4,
+                              sft_type='standard', mask_para=False, repeats=None):
+    """Quantized SFTMD forward: the int8 conv spine (the 9x9 conv_output's gather in
+    bands at HR size), the SFT branches in bf16, the q-injection gates in f32."""
+    return _sftmd_body(qparams, _qconv_with(act_scales), x.float(), metadata.float(),
+                       num_blocks, scale, sft_type, mask_para, repeats,
+                       sft_dtype=torch.bfloat16)

@@ -2,22 +2,25 @@
 
 * :func:`state_dict_from_jax` is the inverse of sisr_tpu's ``tools/convert_weights.py``
   for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan, QEDSR, HAN,
-  QHAN, SAN, QSAN): flax Conv kernels (kH, kW, I, O) become torch Conv2d weights (O, I, kH, kW),
-  the Dense layers that sisr_tpu runs on pooled or metadata vectors (I, O) become 1x1
-  convs (O, I, 1, 1), and HAN's CSAM kernel (DHWIO over (C, H, W)) becomes the
-  Conv3d weight (O, I, D, H, W); LAM's and CSAM's ``gamma``, CSAM's bias and SAN's
-  ``gamma`` pass as they are.  Each family's layout lists every layer once, for both directions.
+  QHAN, SAN, QSAN, SRMD, SFTMD): flax Conv kernels (kH, kW, I, O) become torch Conv2d
+  weights (O, I, kH, kW), the Dense layers that sisr_tpu runs on pooled or metadata
+  vectors (I, O) become 1x1 convs (O, I, 1, 1), and HAN's CSAM kernel (DHWIO over
+  (C, H, W)) becomes the Conv3d weight (O, I, D, H, W); LAM's and CSAM's ``gamma``,
+  CSAM's bias and SAN's ``gamma`` pass as they are.  Each family's layout lists every
+  layer once, for both directions.
   The param tree is read as nested dicts of array-likes (pass numpy arrays); every
   leaf must be consumed and every key the model needs must be present, else it
   raises.
 * :func:`params_from_state_dict` reads a port model's state_dict back in sisr_tpu's
   tree naming and HWIO layout: the form the int8 recipes of ``ops/quantization.py``
-  take.  It also reads a reference checkpoint's ``network``: the parameters a
-  reference SAN or Q-SAN registers and never uses are dropped
-  (:func:`drop_dead_reference_keys`), and any other unread key raises.
+  take.  It also reads a reference checkpoint's ``network``
+  (:func:`repair_reference_keys`): the parameters a reference SAN or Q-SAN registers
+  and never uses are dropped, an aged SFTMD checkpoint's SFT keys are renamed, and
+  any other unread key raises.  SRMD's KAIR keys (``model.<2i>``) are read as they
+  are: no ``model.`` prefix is ever stripped.
 * :func:`int8_state_from_jax` carries sisr_tpu's quantised trees and activation
-  scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN, SAN, QSAN) across, so both packages can run the
-  same int8 state.
+  scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN, SAN, QSAN, SRMD, SFTMD) across, so both
+  packages can run the same int8 state.
 """
 import re
 
@@ -42,6 +45,39 @@ def drop_dead_reference_keys(model_name, state_dict):
     if not dead:
         return state_dict
     return {k: v for k, v in state_dict.items() if not any(d.search(k) for d in dead)}
+
+
+def sftmd_aged_keys(state_dict):
+    """An aged SFTMD checkpoint's keys as today's (sisr_tpu's ``sftmd_legacy_switch``;
+    ref: SFTMD_variants/handlers.py:41-60): the dead ``sft_branch`` entries dropped, and
+    the SFT layers' keys before the ``sft_module`` nesting (``sft1.``, ``sft2.``,
+    ``sft.``) nested.  Today's keys pass as they are."""
+    new = {}
+    for k, v in state_dict.items():
+        if 'sft_branch' in k:
+            continue
+        if 'sft_module' in k:
+            new[k] = v
+        elif 'sft1' in k or 'sft2' in k:
+            new[k.replace('sft1', 'sft1.sft_module').replace('sft2', 'sft2.sft_module')] = v
+        elif k[:4] == 'sft.':
+            new[k.replace('sft.', 'sft.sft_module.')] = v
+        else:
+            new[k] = v
+    return new
+
+
+# a family's renames of an aged reference checkpoint's keys
+AGED_KEY_REPAIRS = {'sftmd': sftmd_aged_keys}
+
+
+def repair_reference_keys(model_name, state_dict):
+    """A reference checkpoint's ``network`` as the port's model names it: the dead
+    keys dropped (:func:`drop_dead_reference_keys`) and aged keys renamed
+    (``AGED_KEY_REPAIRS``)."""
+    state_dict = drop_dead_reference_keys(model_name, state_dict)
+    repair = AGED_KEY_REPAIRS.get(model_name)
+    return state_dict if repair is None else repair(state_dict)
 
 
 class _TrackingTree:
@@ -211,6 +247,52 @@ def _san_layout(n_groups, n_blocks, n_stages, q=False):
     yield from _upsampler_tail(n_stages)
 
 
+def _srmd_layout(n_convs):
+    """(path, key, kind) of every SRMD conv (sisr_tpu's ``convert_srmd`` naming): KAIR's
+    Sequential ``model``, conv i at index 2i."""
+    for i in range(n_convs):
+        name = 'conv_tail' if i == n_convs - 1 else 'conv_%d' % i
+        yield (name,), 'model.%d' % (2 * i), 'conv'
+
+
+def _sft_layout(src, dst, sft_type):
+    """(path, key, kind) of one SFT layer's ``sft_module`` (none for ``weak`` and
+    ``none``, which have no parameters)."""
+    convs = {'standard': ('mul_conv1', 'mul_conv2', 'add_conv1', 'add_conv2'),
+             'concat': ('conv',)}.get(sft_type, ())
+    for name in convs:
+        yield src + ('sft_module', name), dst + '.sft_module.' + name, 'conv'
+
+
+def _para_ca_layout(src, dst, n_layers):
+    """A ParaCALayer with a ReLU between its layers: layer k at index 2k."""
+    for k in range(n_layers):
+        yield src + ('fc_%d' % k,), '%s.attribute_integrator.%d' % (dst, 2 * k), 'dense'
+
+
+def _sftmd_layout(n_blocks, sft_type, q_layers, four_x):
+    """(path, key, kind) of every SFTMD layer (sisr_tpu's ``convert_sftmd`` naming);
+    ``q_layers`` 0 without q-injection; ``four_x``: two upscale convs."""
+    for name in ('conv1', 'conv2', 'conv3'):
+        yield (name,), name, 'conv'
+    for i in range(1, n_blocks + 1):
+        src, dst = ('sft_residual_%d' % i,), 'SFT-residual%d' % i
+        yield src + ('conv1',), dst + '.conv1', 'conv'
+        yield src + ('conv2',), dst + '.conv2', 'conv'
+        for sft in ('sft1', 'sft2'):
+            yield from _sft_layout(src + (sft,), '%s.%s' % (dst, sft), sft_type)
+        for q in ('q_1', 'q_2') if q_layers else ():
+            yield from _para_ca_layout(src + (q,), '%s.%s' % (dst, q), q_layers)
+    yield from _sft_layout(('sft',), 'sft', sft_type)
+    if q_layers:
+        yield from _para_ca_layout(('final_injection',), 'final_injection', q_layers)
+    yield ('conv_mid',), 'conv_mid', 'conv'
+    yield ('up_conv1',), 'upscale.0', 'conv'
+    if four_x:
+        yield ('up_conv2',), 'upscale.3', 'conv'
+    yield ('conv_output',), 'conv_output', 'conv'
+
+
 def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
     """The layout of the model whose sisr_tpu params ``tree`` holds; a gap in the
     numbering surfaces as a missing or an unconsumed leaf."""
@@ -229,6 +311,14 @@ def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
         q = model_name == 'qsan'
         return _san_layout(count('rg_'), count('qrb_' if q else 'rb_', 'rg_0'), n_stages,
                            q=q)
+    if model_name == 'srmd':
+        return _srmd_layout(count('conv_'))
+    if model_name == 'sftmd':
+        module = {p[3] for p in tree.leaves if p[:3] == ('sft_residual_1', 'sft1', 'sft_module')}
+        sft_type = 'standard' if 'mul_conv1' in module else 'concat' if module else 'none'
+        return _sftmd_layout(count('sft_residual_'), sft_type,
+                             count('fc_', 'sft_residual_1', 'q_1'),
+                             any(p[0] == 'up_conv2' for p in tree.leaves))
 
     def has(g, b, part):
         block = ('group_%d' % g, 'qrcab_%d' % b)
@@ -258,6 +348,16 @@ def _state_dict_layout(model_name, state_dict):
             _count(lambda g: 'RG.%d.conv_last.weight' % g in state_dict),
             _count(lambda b: 'RG.0.rcab.%d.conv_first.0.weight' % b in state_dict),
             n_stages, q=model_name == 'qsan')
+    if model_name == 'srmd':
+        return _srmd_layout(_count(lambda i: 'model.%d.weight' % (2 * i) in state_dict))
+    if model_name == 'sftmd':
+        sft = 'SFT-residual1.sft1.sft_module.'
+        sft_type = 'standard' if sft + 'mul_conv1.weight' in state_dict \
+            else 'concat' if sft + 'conv.weight' in state_dict else 'none'
+        return _sftmd_layout(
+            _count(lambda i: 'SFT-residual%d.conv1.weight' % (i + 1) in state_dict),
+            sft_type, _count(lambda k: 'SFT-residual1.q_1.attribute_integrator.%d.weight'
+                             % (2 * k) in state_dict), 'upscale.3.weight' in state_dict)
 
     def has(g, b, part):
         return 'body.%d.body.%d%s' % (g, b, _QRCAB_PARTS[part]) in state_dict
@@ -266,7 +366,8 @@ def _state_dict_layout(model_name, state_dict):
                          n_stages, has, han=model_name == 'qhan')
 
 
-LAYOUT_MODELS = ('edsr', 'han', 'qedsr', 'qhan', 'qpircan', 'qrcan', 'qsan', 'rcan', 'san')
+LAYOUT_MODELS = ('edsr', 'han', 'qedsr', 'qhan', 'qpircan', 'qrcan', 'qsan', 'rcan', 'san',
+                 'sftmd', 'srmd')
 # leaf kinds: (sisr_tpu leaf -> torch tensor, torch tensor -> sisr_tpu leaf)
 _LEAF_KINDS = {'leaf': (lambda a: a, lambda t: t),
                # CSAM's kernel: DHWIO over (C, H, W) <-> the Conv3d's (O, I, D, H, W)
@@ -313,11 +414,12 @@ def params_from_state_dict(model_name, state_dict):
     nested dicts of tensors, conv kernels HWIO and Dense kernels (I, O), as views of
     the state_dict's tensors (on their device).  A ``qedsr`` state_dict tells its
     ``q_layer_nonlinearity`` by the ReLU-shifted ParaCALayer indices.  A reference
-    checkpoint's dead parameters are dropped first (:func:`drop_dead_reference_keys`)."""
+    checkpoint's dead parameters are dropped and its aged keys renamed first
+    (:func:`repair_reference_keys`)."""
     if model_name not in LAYOUT_MODELS:
         raise NotImplementedError('No torch -> sisr_tpu tree reader for %r yet '
                                   '(available: %s)' % (model_name, list(LAYOUT_MODELS)))
-    state_dict = drop_dead_reference_keys(model_name, state_dict)
+    state_dict = repair_reference_keys(model_name, state_dict)
     params, used = {}, set()
     for path, key, kind in _state_dict_layout(_canonical(model_name), state_dict):
         node = params
@@ -341,11 +443,12 @@ def params_from_state_dict(model_name, state_dict):
 
 def int8_state_from_jax(qparams, act_scales, device='cpu'):
     """sisr_tpu's quantised tree and activation scales (``quantize_<family>_params``
-    and ``calibrate_<family>_scales`` of RCAN, EDSR, QRCAN, QEDSR, HAN or QHAN, as
+    and ``calibrate_<family>_scales`` of any family of ``LAYOUT_MODELS``, as
     numpy) -> the port's: the same tree of tensors on ``device``, each int8 conv entry
     (one with a ``scale``) with its packed ``_int_mm`` matrix, the f32 attention
     entries (``ca``, ``qca``, ``pa_node``, ``q_node``, ``attention``, ``la``,
-    ``csa``, ``non_local``, ``soca``, ``q_layer``, ``gamma``) as they are, and the scales
+    ``csa``, ``non_local``, ``soca``, ``q_layer``, ``gamma``, SFTMD's SFT layers and
+    gates) as they are, and the scales
     (``residual16`` too) as ``np.float32``."""
     from ..ops.quantization import pack_kernel_matrix
 
