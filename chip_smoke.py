@@ -29,9 +29,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    CA at the standard protocol's batch-1 bf16 maps (128^2, the largest Set14 LR
    shape, 510 x 339) against its bound, with its launches there as each
    standard-protocol run counts them by map;
-3. reference: the full-width RCAN, Q-RCAN, EDSR, HAN, Q-HAN, SAN, Q-SAN, SRMD, SFTMD and
-   SFTMD with q_injection forwards (each on the input its _prep_batch makes: SRMD's
-   with the metadata maps concatenated) and fused evals on a small input, card (CUDA
+3. reference: the full-width RCAN, Q-RCAN, EDSR, HAN, Q-HAN, SAN, Q-SAN, SRMD, SFTMD,
+   SFTMD with q_injection, SPARNet, Q-SPARNet, SRCNN and VDSR forwards (each on the
+   input its _prep_batch makes: SRMD's with the metadata maps concatenated, the
+   pre-upscaled families' upscaled on the card, SRCNN's and VDSR's its Y channel;
+   SPARNet's and Q-SPARNet's BatchNorms also in train mode) and fused evals on a small input, card (CUDA
    kernels) against the CPU (plain versions), in f32 (every HAN and Q-HAN of this
    script with LAM's and CSAM's gammas non-zero: GAMMAS; every SAN and Q-SAN with gamma and the non-local output conv W
    non-zero: set_gammas); then HAN's LAM and CSAM, and SAN's SOCA and non-local block,
@@ -48,8 +50,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    features (also its f32 module forward), HAN and Q-HAN at 2 x 2 (LAM and CSAM in
    bf16), SAN and Q-SAN at 2 x 2 (SOCA and the non-local block in f32), SRMD (12 convs)
    and SFTMD with q_injection at 2 blocks (SFT branches in bf16; also the int32 sums of
-   its 9 x 9 conv_output at HR size, whole and in bands of rows), each with the int32
-   sums of its first two convs;
+   its 9 x 9 conv_output at HR size, whole and in bands of rows) and VDSR 20 x 64 (on
+   the Y channel of the LR upscaled on the card), each with the int32 sums of its
+   first two convs;
 5. main path: ``eval_sisr --fused_eval`` (sisr_tpu_torch.net_eval) on RCAN 10x20, 64
    features, 4x, bf16, over 16 seeded synthetic 128^2 -> 512^2 PNG pairs; the kernel
    launch counts of that run (every CA call on chip); then the img/s of warm protocol
@@ -80,8 +83,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    features, standard SFT) in bf16 and with ``--int8``, no CA call, the forward's
    device time split into convs and the rest and the odd-channel convs (13 and 74
    input channels) timed beside zero-padded copies; each int8 path's mean PSNR within
-   1 dB of its bf16 run's, with img/s, a device-time breakdown and peak memory; the
-   img/s of every path is that of warm passes without the device-batch cache, and
+   1 dB of its bf16 run's, with img/s, a device-time breakdown and peak memory; then
+   the pre-upscaled families on the LR upscaled to 512^2 on the card: SPARNet as
+   sisr_tpu's e2e benchmark builds it, Q-SPARNet as configs/celebahq/qsparnet.toml
+   builds it, SRCNN and VDSR at their default patterns on the Y channel, in bf16 (no CA
+   call; the forward's device time split into convs, norms and the rest), VDSR also
+   with ``--int8``, and ``--int8`` on SPARNet and SRCNN printing sisr_tpu's notice and
+   staying bf16; the img/s of every path is that of warm passes without the
+   device-batch cache, and
    RCAN's and EDSR's bf16 paths also give it with the cache (each cached pass decodes
    no item and writes the first pass's metrics);
 9. kernel backward: the CA op under autograd (the kernel forward, the plain VJP) at the
@@ -96,8 +105,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
    epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
    --fused_eval`` of the best epoch (f32, the CA in rounds); then 10 timed warm train
-   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20, SAN and Q-SAN 20 x 10, SRMD and
-   SFTMD through the handler (forward /
+   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20, SAN and Q-SAN 20 x 10, SRMD,
+   SFTMD, SPARNet (its BatchNorms in train mode) and VDSR (MSE, its clip of 0.1; both
+   on HR-size crops of 256^2) through the handler (forward /
    backward / optimizer, device busy, the CA kernel's share, conv FLOPs against the
    TF32 and f32 peaks, peak memory), and the same step with the CA's plain version in
    its place, in turns;
@@ -124,9 +134,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    fused and the standard protocol, in bf16 and ``--int8`` (one int8 state), each
    pair's metrics against the other protocol's; then SFTMD bf16 with
    ``--no_image_comparison`` and with ``--eval_buckets 128`` (no CA call), each against
-   the run before it;
+   the run before it; then Q-SPARNet at SPARNet's default sizes, bf16, on the mixed
+   set's images whose sides are multiples of 8 (its output's size is its input's only
+   there, as in sisr_tpu; the sides that are no multiple of 32 take the hourglasses'
+   nearest-exact resize), its shared pairs within 0.3 dB of its fused run, and
+   ``--eval_buckets 128`` ignored with sisr_tpu's notice;
 14. train_sisr on configs/div2k/qrcan.toml, qhan.toml, qsan.toml and sftmd.toml (both
-   training sets on the pairs) as shipped (no fused_val: the standard validation epoch), each
+   training sets on the pairs) and configs/celebahq/qsparnet.toml (on the pairs' LR
+   upscaled on the host with Pillow bicubic) as shipped (no fused_val: the standard validation epoch), each
    one's val-PSNR against a fused validation of the same checkpoint;
 
 then the script's total seconds with each family's int8 img/s over its bf16 img/s
@@ -188,14 +203,33 @@ SRMD = {'scale': SCALE, 'nc': 128, 'nb': 12, 'metadata': ['blur_kernel'], 'dtype
 SFTMD = {'scale': SCALE, 'num_features': 64, 'num_blocks': 16, 'in_nc': 3,
          'sft_type': 'standard', 'metadata': ['blur_kernel'], 'dtype': 'bf16'}
 SFTMD_Q = {**SFTMD, 'q_injection': True}
+# the pre-upscaled families, each on the LR upscaled to HR size on the card: sisr_tpu's
+# e2e benchmark's SPARNet (tools/e2e_bench.py:54-57: the defaults, in_size 128: 3
+# stride-2 steps, 32-128 channels, BatchNorm, LeakyReLU, hourglasses of depth 4 to 2 and
+# back to 5); Q-SPARNet as configs/celebahq/qsparnet.toml builds it (in_size = out_size
+# = 512: 5 stride-2 steps; the blur kernel's 10 values); Q-SPARNet at SPARNet's default
+# sizes, the standard protocol's (its output keeps every side that is a multiple of 8,
+# while its hourglasses halve a map 5 times: odd sides); SRCNN [9, 5, 5] over
+# [1, 64, 32, 1] and VDSR 20 x 64, on the Y channel
+SPARNET = {'scale': SCALE, 'dtype': 'bf16'}
+QSPARNET = {'scale': SCALE, 'in_size': 512, 'out_size': 512, 'metadata': ['blur_kernel'],
+            'dtype': 'bf16'}
+QSPARNET_STD = {'scale': SCALE, 'metadata': ['blur_kernel'], 'dtype': 'bf16'}
+SRCNN = {'scale': SCALE, 'dtype': 'bf16'}
+VDSR = {'scale': SCALE, 'dtype': 'bf16'}
 MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
           'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR),
           'han_10x20': ('han', HAN), 'qhan_10x20': ('qhan', QHAN),
           'san_20x10': ('san', SAN), 'qsan_20x10': ('qsan', QSAN),
           'qsan_grid': ('qsan', QSAN_GRID), 'srmd_12': ('srmd', SRMD),
-          'sftmd_16b': ('sftmd', SFTMD), 'sftmd_q16b': ('sftmd', SFTMD_Q)}
+          'sftmd_16b': ('sftmd', SFTMD), 'sftmd_q16b': ('sftmd', SFTMD_Q),
+          'sparnet_128': ('sparnet', SPARNET), 'qsparnet_512': ('qsparnet', QSPARNET),
+          'qsparnet_128': ('qsparnet', QSPARNET_STD), 'srcnn_955': ('srcnn', SRCNN),
+          'vdsr_20': ('vdsr', VDSR)}
 # the families whose paths make no call of either CA op
-NO_CA_MODELS = ('san', 'qsan', 'srmd', 'sftmd')
+NO_CA_MODELS = ('san', 'qsan', 'srmd', 'sftmd', 'sparnet', 'qsparnet', 'srcnn', 'vdsr')
+# the pre-upscaled families' main paths
+PRE_UPSCALED_PATHS = ('sparnet_128', 'qsparnet_512', 'srcnn_955', 'vdsr_20')
 # LAM's and CSAM's gammas start at 0, where both are the identity: every HAN and Q-HAN
 # of this script sets them to these, so each check exercises them; SAN's gamma and its
 # non-local output conv W start at 0 too (the block is then the identity): every SAN and
@@ -210,6 +244,8 @@ CA_RES_KERNELS = ('ca_rounds', 'ca_pool_partial', 'ca_excite', 'ca_res_scale')
 GEMM_KERNEL_HINTS = ('gemm', 'xmma', 'cutlass', 'imma')
 # substrings of cuDNN / CUTLASS convolution and GEMM kernel names
 CONV_KERNEL_HINTS = ('conv', 'xmma', 'gemm', 'cutlass', 'cudnn', 'fprop', 'implicit')
+# substrings of normalisation kernel names (PyTorch's batch_norm_*, cuDNN's bn_*)
+NORM_KERNEL_HINTS = ('norm', 'bn_fw', 'bn_bw')
 
 
 def set_gammas(module):
@@ -1141,22 +1177,30 @@ def phase_kernel_batch1():
     return rows
 
 
-def module_input(handler, x, meta=None, device=None):
+def module_input(handler, x, meta=None, device=None, hr_hw=None):
     """(the module's input, its metadata input) as the handler's _prep_batch makes them
-    from an f32 NHWC LR batch and its raw metadata (SRMD's with the maps concatenated),
-    moved to ``device`` first when given."""
+    from an f32 NHWC LR batch and its raw metadata (SRMD's with the maps concatenated;
+    given ``hr_hw``, a pre-upscaled family's LR upscaled to it on the device first, and
+    its Y channel for SRCNN and VDSR), moved to ``device`` first when given."""
     if device is not None:
         x, meta = x.to(device), None if meta is None else meta.to(device)
+    if hr_hw is not None and handler.im_input == 'interp':
+        from sisr_tpu_torch.ops.resize import resize_bicubic
+        x = handler._module_image(resize_bicubic(x, *hr_hw))
     inp, _, module_meta = handler._prep_batch({'lr': x, 'metadata': meta})
     return inp, module_meta
 
 
 def phase_reference(name='rcan_10x20', seed=3):
     """Full-width MODELS[name] (seeded weights; HAN's gammas, SAN's gamma and W set) on a
-    32^2 LR input in f32 (with 10 seeded metadata values per image for the Q-models):
-    the card (CUDA kernels, cuDNN, cuBLAS) against the CPU (plain versions).  Forward
-    <= 5e-4 abs; fused-eval PSNR within 0.01 dB and SSIM within 1e-3; SAN, Q-SAN, SRMD
-    and SFTMD launch neither CA op."""
+    32^2 LR input in f32 (with 10 seeded metadata values per image for the Q-models; a
+    pre-upscaled family on it upscaled to 128^2, SRCNN and VDSR on its Y channel): the
+    card (CUDA kernels, cuDNN, cuBLAS) against the CPU (plain versions), in eval mode.
+    Forward <= 5e-4 abs; fused-eval PSNR within 0.01 dB and SSIM within 1e-3; SAN,
+    Q-SAN, SRMD, SFTMD and the pre-upscaled families launch neither CA op.  A model
+    with BatchNorms (SPARNet, Q-SPARNet) also runs one train-mode forward on each side
+    (the batch's statistics): the outputs within 5e-4 of their largest magnitude, the
+    running statistics it leaves within 1e-4 of each other's."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1177,11 +1221,34 @@ def phase_reference(name='rcan_10x20', seed=3):
         for handler in (card, host):
             handler.set_metadata_keys(['blur_kernel'] * META_COLS)
         meta = torch.from_numpy(batch['metadata'])
+    hr_hw = (32 * SCALE, 32 * SCALE)
     reset_launches()
+    for handler in (card, host):
+        handler._set_training(False)
     with torch.inference_mode():
-        out_card = card.forward(*module_input(card, x, meta, 'cuda')).cpu()
-        out_host = host.forward(*module_input(host, x, meta))
+        out_card = card.forward(*module_input(card, x, meta, 'cuda', hr_hw)).cpu()
+        out_host = host.forward(*module_input(host, x, meta, hr_hw=hr_hw))
     fwd_err = (out_card - out_host).abs().max().item()
+    train_mode = {}
+    norms = [m for m in host.module.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    if norms:
+        for handler in (card, host):
+            handler._set_training(True)
+        with torch.no_grad():
+            t_card = card.forward(*module_input(card, x, meta, 'cuda', hr_hw)).cpu()
+            t_host = host.forward(*module_input(host, x, meta, hr_hw=hr_hw))
+        card_norms = [m for m in card.module.modules()
+                      if isinstance(m, torch.nn.BatchNorm2d)]
+        stats_err = max((c.running_var.cpu() - h.running_var).abs().max().item()
+                        / max(1.0, h.running_var.abs().max().item())
+                        for c, h in zip(card_norms, norms))
+        train_mode = {'train_forward_max_abs_err': (t_card - t_host).abs().max().item(),
+                      'train_output_max_abs': t_host.abs().max().item(),
+                      'batchnorms': len(norms), 'running_var_max_rel_err': stats_err}
+        if not train_mode['train_forward_max_abs_err'] <= \
+                5e-4 * max(1.0, train_mode['train_output_max_abs']) or stats_err > 1e-4:
+            raise AssertionError('%s train-mode forward on the card disagrees with the '
+                                 'CPU: %s' % (name, train_mode))
     (keys, m_card), _ = card.run_eval_fused(batch)
     (_, m_host), _ = host.run_eval_fused(batch)
     if model in NO_CA_MODELS:
@@ -1190,7 +1257,7 @@ def phase_reference(name='rcan_10x20', seed=3):
     m_card, m_host = m_card.cpu().numpy(), m_host.numpy()
     diff = {k: float(np.abs(m_card[i] - m_host[i]).max()) for i, k in enumerate(keys)}
     emit({'phase': 'reference', 'model': name, 'forward_max_abs_err': fwd_err,
-          'metric_max_abs_diff': diff, 'output_shape': list(out_card.shape)})
+          'metric_max_abs_diff': diff, 'output_shape': list(out_card.shape), **train_mode})
     if not np.isfinite(out_card.numpy()).all() or fwd_err > 5e-4:
         raise AssertionError('%s forward on the card disagrees with the CPU: %g'
                              % (name, fwd_err))
@@ -1431,6 +1498,7 @@ INT8_REFERENCE = {
              ('bfloat16',)),
     'srmd': ('srmd', {**SRMD, 'dtype': 'f32'}, 32, ('bfloat16',)),
     'sftmd': ('sftmd', {**SFTMD_Q, 'num_blocks': 2, 'dtype': 'f32'}, 32, ('bfloat16',)),
+    'vdsr': ('vdsr', {**VDSR, 'dtype': 'f32'}, 32, ('bfloat16',)),
 }
 
 
@@ -1453,9 +1521,10 @@ def phase_int8_family_reference(name):
     hold their path against res_onchip_plan, and launch no CA; SAN and Q-SAN (2 x 2,
     gamma and W set; the non-local block and SOCA in f32), SRMD (12 convs, on its
     concatenated input) and SFTMD (2 blocks, q_injection: SFT branches in bf16, gates in
-    f32) launch neither op; SFTMD also holds the int32 sums of its 9 x 9 conv_output at
-    HR size, gathered whole and in bands of 16 rows; Q-EDSR also holds its f32 module
-    forward to 5e-4."""
+    f32) and VDSR (20 x 64, on the Y channel of the LR upscaled to 128^2 on the card,
+    the program's and calibration's input) launch neither op; SFTMD also holds the
+    int32 sums of its 9 x 9 conv_output at HR size, gathered whole and in bands of 16
+    rows; Q-EDSR also holds its f32 module forward to 5e-4."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.handlers import define_model
@@ -1479,7 +1548,7 @@ def phase_int8_family_reference(name):
         raw_meta = torch.from_numpy(batch['metadata'])
     # the program's input: the LR batch (SRMD's with its maps concatenated) and the
     # prepared metadata (None where the program takes none)
-    x, meta = module_input(host, x, raw_meta)
+    x, meta = module_input(host, x, raw_meta, hr_hw=(size * SCALE, size * SCALE))
     x_card = x.cuda()
     meta_card = None if meta is None else meta.cuda()
     report = {'phase': 'int8_reference', 'model': name, 'structure': internal,
@@ -1508,7 +1577,7 @@ def phase_int8_family_reference(name):
     report['calibration_max_rel_diff'] = scale_rel
 
     qp = host._int8_ctx[1]
-    if model == 'srmd':
+    if model in ('srmd', 'vdsr'):
         head, first_body = qp['conv_0'], qp['conv_1']
     elif model == 'sftmd':
         head, first_body = qp['conv1'], qp['sft_residual_1']['conv1']
@@ -1745,8 +1814,9 @@ def cached_passes(dirs, results_name, experiment):
 
 def breakdown_batch(handler=None):
     """One seeded uint8 batch on the card, and the module's input (the f32 LR, SRMD's
-    with its maps concatenated) and metadata input (None without) as _prep_batch makes
-    them; for a metadata model (``handler.uses_metadata``) the batch has 10 metadata
+    with its maps concatenated, a pre-upscaled family's upscaled to 512^2 on the card)
+    and metadata input (None without) as module_input makes them; for a metadata
+    model (``handler.uses_metadata``) the batch has 10 metadata
     values per image."""
     import numpy as np
     import torch
@@ -1757,7 +1827,8 @@ def breakdown_batch(handler=None):
     if handler is not None and handler.uses_metadata:
         batch['metadata'] = rng.dirichlet(np.ones(META_COLS) * 5, BATCH).astype(np.float32)
     dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    x, _, meta = handler._prep_batch(dev)
+    x, meta = module_input(handler, dev['lr'].float() / 255.0, dev.get('metadata'),
+                           hr_hw=dev['hr'].shape[1:3])
     return dev, x, meta
 
 
@@ -1791,6 +1862,13 @@ BF16_PATHS = {
     'srmd_12': ('srmd_', 'srmd 12 convs 128f 4x bf16, 3 + 10 input channels (the '
                 'blur-kernel maps concatenated)', 0),
     'sftmd_16b': ('sftmd_', 'sftmd 16b 64f 4x bf16, standard SFT on 10 blur-kernel maps', 0),
+    'sparnet_128': ('sparnet_', 'sparnet defaults (in_size 128, 32-128 ch, bn, leakyrelu) '
+                    'bf16 on the LR upscaled to 512^2 on the card', 0),
+    'qsparnet_512': ('qsparnet_', 'qsparnet in_size 512 (configs/celebahq/qsparnet.toml) '
+                     'bf16, 10 blur-kernel values, on the LR upscaled to 512^2', 0),
+    'srcnn_955': ('srcnn_', 'srcnn [9, 5, 5] [1, 64, 32, 1] bf16 on the Y of the LR '
+                  'upscaled to 512^2', 0),
+    'vdsr_20': ('vdsr_', 'vdsr 20 x 64 bf16 on the Y of the LR upscaled to 512^2', 0),
 }
 
 
@@ -1831,6 +1909,25 @@ def odd_channel_convs(handler, x, meta):
                     lambda: F.conv2d(inp_p, w_p, mod.bias, padding=mod.padding),
                     reps=10, rounds=3)}
     return out
+
+
+def norm_breakdown(handler, x, meta):
+    """A pre-upscaled family's forward device time split into the convs (cuDNN kernel
+    names), the norms (batch-norm kernel names: SPARNet's and Q-SPARNet's BatchNorms in
+    eval mode) and the rest (activations, the hourglass resizes and gates, the
+    residual adds, ParaCALayer gates)."""
+    import torch
+    with torch.inference_mode():
+        device_ms, per_kernel = device_kernel_ms(lambda: handler.forward(x, meta), reps=3)
+    norm_ms = sum(v for k, v in per_kernel.items()
+                  if any(t in k.lower() for t in NORM_KERNEL_HINTS)) / 3
+    conv_ms = sum(v for k, v in per_kernel.items()
+                  if not any(t in k.lower() for t in NORM_KERNEL_HINTS)
+                  and any(t in k.lower() for t in CONV_KERNEL_HINTS)) / 3
+    return {'forward_device_ms': device_ms, 'forward_conv_device_ms': conv_ms,
+            'forward_norm_device_ms': norm_ms,
+            'forward_other_device_ms': device_ms - conv_ms - norm_ms if device_ms else None,
+            'forward_input_shape': list(x.shape)}
 
 
 def concat_breakdown(handler, x, meta):
@@ -1958,9 +2055,10 @@ def san_int8_attention_ms(handler, x, meta):
 def phase_main_path(dirs, experiment='rcan_10x20'):
     """``eval_sisr --fused_eval`` in bf16 on ``experiment``: every CALayer or QRCAB tail
     through the on-chip CA kernel (200 per forward for RCAN, Q-RCAN, HAN and Q-HAN,
-    none for EDSR, Q-EDSR, SAN, Q-SAN, SRMD and SFTMD), the CA + residual kernel not at
-    all; HAN's LAM, CSAM and last_conv, SAN's SOCAs and non-local passes, SRMD's and
-    SFTMD's convs, the rest and their odd-channel convs timed apart; for RCAN and EDSR
+    none for EDSR, Q-EDSR, SAN, Q-SAN, SRMD, SFTMD and the pre-upscaled families), the
+    CA + residual kernel not at all; HAN's LAM, CSAM and last_conv, SAN's SOCAs and
+    non-local passes, SRMD's and SFTMD's convs, the rest and their odd-channel convs,
+    the pre-upscaled families' convs, norms and the rest timed apart; for RCAN and EDSR
     also the img/s of warm passes from the device-batch cache."""
     import torch
     prefix, description, ca_calls = BF16_PATHS[experiment]
@@ -1990,7 +2088,8 @@ def phase_main_path(dirs, experiment='rcan_10x20'):
         if hasattr(handler.module, 'la') else san_attention_ms(
             handler.module, lambda: handler.forward(x, meta)) \
         if hasattr(handler.module, 'non_local') else concat_breakdown(handler, x, meta) \
-        if experiment in CONCAT_PATHS else {}
+        if experiment in CONCAT_PATHS else norm_breakdown(handler, x, meta) \
+        if experiment in PRE_UPSCALED_PATHS else {}
     emit({'phase': prefix + 'main_path', 'model': description, 'images': N_IMAGES,
           'batch': BATCH, 'lr': LR_SIZE, 'cli_seconds': cli_seconds, 'launches': launches,
           'mean_psnr': mean_psnr, 'mean_lr_psnr': float(frame[('LR', 'PSNR')].mean()),
@@ -2024,7 +2123,32 @@ INT8_PATHS = {
                 'input'),
     'sftmd_16b': ('sftmd_', 'sftmd 16b 64f 4x int8 conv spine, standard SFT branches in '
                   'bf16, the 9x9 conv_output gathered in bands'),
+    'vdsr_20': ('vdsr_', 'vdsr 20 x 64 int8, the whole chain at 512^2 on the Y of the '
+                'LR upscaled on the card'),
 }
+
+
+def phase_int8_ignored(dirs, bf16_frame, experiment):
+    """``eval_sisr --fused_eval --int8`` on a family without an int8 program (SPARNet,
+    SRCNN): sisr_tpu's notice, the run in bf16 (every image's PSNR within 1e-3 dB of
+    the bf16 run's), no CA launch."""
+    import io
+    import numpy as np
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launches, seconds, frame = run_eval_cli(dirs, experiment + '_int8_ignored',
+                                                ['--int8'], experiment=experiment)
+    notice = 'no int8 serving path for this architecture' in out.getvalue()
+    diff = float(np.abs(frame[(experiment, 'PSNR')].to_numpy()
+                        - bf16_frame[(experiment, 'PSNR')].to_numpy()).max())
+    same = diff <= 1e-3
+    emit({'phase': experiment.split('_')[0] + '_int8_ignored', 'notice': notice,
+          'max_psnr_diff_to_bf16': diff, 'launches': launches, 'cli_seconds': seconds})
+    expect_launches(launches, NO_LAUNCHES, '%s --int8' % experiment)
+    if not (notice and same):
+        raise AssertionError('%s --int8: notice %s, metrics equal to bf16 %s'
+                             % (experiment, notice, same))
+    return {'launches': launches}
 
 
 def int8_expected_launches(experiment, forwards):
@@ -2146,6 +2270,10 @@ QHAN_TRAIN = {**HAN_TRAIN, 'metadata': ['blur_kernel']}
 # configs/div2k/san.toml's and qsan.toml's [model], at their full depth of 20 x 10
 SRMD_TRAIN = {**{k: v for k, v in SRMD.items() if k != 'dtype'}, 'lr': 1e-4}
 SFTMD_TRAIN = {**{k: v for k, v in SFTMD.items() if k != 'dtype'}, 'lr': 1e-4}
+# the pre-upscaled families train on HR-size crops (the LR upscaled on the host): SPARNet
+# with its BatchNorms in train mode, VDSR with the MSE loss and its clip of 0.1
+SPARNET_TRAIN = {**{k: v for k, v in SPARNET.items() if k != 'dtype'}, 'lr': 1e-4}
+VDSR_TRAIN = {**{k: v for k, v in VDSR.items() if k != 'dtype'}, 'lr': 1e-4}
 SAN_TRAIN = {**HAN_TRAIN, 'max_combined_im_size': 20000, 'n_resgroups': 20,
              'n_resblocks': 10}
 QSAN_TRAIN = {**SAN_TRAIN, 'metadata': ['blur_kernel']}
@@ -2355,8 +2483,9 @@ def plain_channel_attention():
 
 def train_step_breakdown(model, internal, steps=10, turns=True):
     """10 warm train steps of the full-width model (seed 8, f32, PyTorch's default TF32
-    flags; HAN's gammas, SAN's gamma and W set) through the handler on seeded uint8 batches of 8 LR crops
-    of 64^2: per step the wall ms (host clock to a synchronise) and the forward+loss /
+    flags; HAN's gammas, SAN's gamma and W set) through the handler on seeded uint8
+    batches of 8 LR crops of 64^2 (a pre-upscaled family's: HR-size crops of 256^2, the
+    Y channel for VDSR): per step the wall ms (host clock to a synchronise) and the forward+loss /
     backward / optimizer ms (CUDA events), medians; with ``turns``, then 10 with the
     CA's plain version in its place (plain autograd) and 10 more with the kernel, in
     turns; the profiler over 3 steps: device-busy ms, the CA kernel's device ms, the
@@ -2369,9 +2498,12 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
     set_gammas(handler.module)
     rng = np.random.RandomState(6)
     hr = TRAIN_CROP * SCALE
-    batch = {'lr': torch.from_numpy(rng.randint(0, 256, (BATCH, TRAIN_CROP, TRAIN_CROP, 3))
+    # a pre-upscaled family's LR crop is HR-size (one channel for a Y family)
+    lr = hr if handler.im_input == 'interp' else TRAIN_CROP
+    channels = handler.in_channels
+    batch = {'lr': torch.from_numpy(rng.randint(0, 256, (BATCH, lr, lr, channels))
                                     .astype(np.uint8)).cuda(),
-             'hr': torch.from_numpy(rng.randint(0, 256, (BATCH, hr, hr, 3))
+             'hr': torch.from_numpy(rng.randint(0, 256, (BATCH, hr, hr, channels))
                                     .astype(np.uint8)).cuda()}
     if handler.uses_metadata:
         batch['metadata'] = torch.from_numpy(rng.dirichlet(np.ones(META_COLS) * 5, BATCH)
@@ -2400,7 +2532,8 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
     x = batch['lr'].float() / 255.0
     fwd_flops = count_conv_flops(handler, *module_input(handler, x, batch.get('metadata')))
     head = next(m for m in handler.module.modules() if isinstance(m, torch.nn.Conv2d))
-    head_flops = 2 * BATCH * TRAIN_CROP ** 2 * head.out_channels * head.in_channels * 9
+    head_flops = 2 * BATCH * lr ** 2 * head.out_channels * head.in_channels \
+        * head.kernel_size[0] * head.kernel_size[1]
     # backward: the data grad and the weight grad of every conv, each the forward's
     # FLOPs, but no data grad for the head (its input needs none)
     step_flops = 3 * fwd_flops - head_flops
@@ -2489,15 +2622,19 @@ def phase_train_main_path(dirs, root):
                                              ('san_20x10', 'san', SAN_TRAIN, False),
                                              ('qsan_20x10', 'qsan', QSAN_TRAIN, False),
                                              ('srmd_12', 'srmd', SRMD_TRAIN, False),
-                                             ('sftmd_16b', 'sftmd', SFTMD_TRAIN, False)):
+                                             ('sftmd_16b', 'sftmd', SFTMD_TRAIN, False),
+                                             ('sparnet_128', 'sparnet', SPARNET_TRAIN, False),
+                                             ('vdsr_20', 'vdsr', VDSR_TRAIN, False)):
             breakdowns[name] = train_step_breakdown(model, internal, turns=turns)
             per_step = breakdowns[name]['launches_per_step']
             calls = 0 if model in NO_CA_MODELS else CA_PER_FORWARD
             expect_launches(per_step, {**NO_LAUNCHES, 'fused_channel_attention': calls,
                                        'fused_channel_attention_onchip': calls},
                             '%s train step' % name)
+            interp = name in PRE_UPSCALED_PATHS
             emit({'phase': 'train_breakdown', 'model': name, 'batch': BATCH,
-                  'lr_crop': TRAIN_CROP, 'tf32': report['tf32'], **breakdowns[name],
+                  'lr_crop': TRAIN_CROP * SCALE if interp else TRAIN_CROP,
+                  'lr_pre_upscaled': interp, 'tf32': report['tf32'], **breakdowns[name],
                   'nvidia_smi': nvidia_smi_line()})
     launches = {k: report['first']['launches'][k] + report['resume']['launches'][k]
                 + report['eval_best']['launches'][k] for k in report['first']['launches']}
@@ -2837,6 +2974,105 @@ def phase_qsan_grid(dirs, bf16_mean_psnr):
     return {'launches': dict(NO_LAUNCHES)}
 
 
+def write_interp_workload(dirs, root):
+    """The 16 pairs with their LR upscaled to HR size on the host (Pillow bicubic: a
+    pre-upscaled family's data folder, as configs/celebahq/qsparnet.toml's
+    ``lr_interp_512``), their degradation_metadata.csv beside them."""
+    from PIL import Image
+    interp = {**dirs, 'lr_dir': os.path.join(root, 'interp', 'lr')}
+    os.makedirs(interp['lr_dir'])
+    for name in sorted(os.listdir(dirs['lr_dir'])):
+        src = os.path.join(dirs['lr_dir'], name)
+        if name.endswith('.png'):
+            with Image.open(src) as im:
+                im.resize((im.width * SCALE, im.height * SCALE), Image.BICUBIC).save(
+                    os.path.join(interp['lr_dir'], name))
+        else:
+            shutil.copy(src, interp['lr_dir'])
+    return interp
+
+
+def write_multiple_subset(mixed, root, multiple=8):
+    """The images of the mixed-size set whose HR sides are multiples of ``multiple``
+    (hard links, their metadata rows): the sizes on which SPARNet at its default
+    in_size (3 stride-2 steps) gives an output of its input's size, as in sisr_tpu.
+    The others (500 x 480, 276^2, 500 x 360, 584 x 388, 2040 x 1356) would give a larger
+    one, whose metrics fail in both packages."""
+    import pandas as pd
+    from PIL import Image
+    sub = {**mixed, 'lr_dir': os.path.join(root, 'mixed8', 'lr'),
+           'hr_dir': os.path.join(root, 'mixed8', 'hr'),
+           'out_loc': os.path.join(root, 'out_mixed8')}
+    for key in ('lr_dir', 'hr_dir'):
+        os.makedirs(sub[key])
+    names = []
+    for name in sorted(n for n in os.listdir(mixed['hr_dir']) if n.endswith('.png')):
+        with Image.open(os.path.join(mixed['hr_dir'], name)) as im:
+            size = im.size
+        if size[0] % multiple == 0 and size[1] % multiple == 0:
+            names.append(name)
+            for key in ('lr_dir', 'hr_dir'):
+                os.link(os.path.join(mixed[key], name), os.path.join(sub[key], name))
+    csv = os.path.join(mixed['lr_dir'], 'degradation_metadata.csv')
+    rows = pd.read_csv(csv, index_col=0)
+    rows.loc[names].to_csv(os.path.join(sub['lr_dir'], 'degradation_metadata.csv'))
+    return sub
+
+
+def phase_preupscaled_standard(mixed, dirs, root, experiment='qsparnet_128'):
+    """``eval_sisr`` on the standard protocol (batch 1, --time_models,
+    --no_image_comparison) of Q-SPARNet at SPARNet's default sizes, bf16, over the
+    mixed-size set's images whose sides are multiples of 8 (write_multiple_subset): the
+    host Pillow bicubic of each LR is the module's input; the hourglasses halve each map
+    5 times, so the sides that are no multiple of 32 (720 x 576, 248 x 360, 528 x 656)
+    take the nearest-exact resize.  No CA launch; a finite row for every image; on the 16
+    shared pairs the model's PSNR within 0.3 dB of the fused protocol's (its input the
+    device bicubic: sisr_tpu's bar for the family); then ``--eval_buckets 128`` is
+    ignored with sisr_tpu's notice (every PSNR within 1e-3 dB of the unbucketed run's)."""
+    import io
+    import numpy as np
+    sub = write_multiple_subset(mixed, root)
+    shapes = lr_shapes(sub['lr_dir'])
+    _, fused_seconds, fused = run_eval_cli(dirs, 'qsparnet_std_fused', experiment=experiment)
+    launches, seconds, split, peak_gb, frame, _ = run_standard_cli(
+        sub, 'qsparnet_standard', experiment, ['--no_image_comparison'])
+    expect_launches(launches, NO_LAUNCHES, '%s standard protocol' % experiment)
+    check_frame(frame, shapes, experiment, 'qsparnet_standard')
+    shared = fused.index
+    psnr_diff = float((frame.loc[shared, (experiment, 'PSNR')]
+                       - fused[(experiment, 'PSNR')]).abs().max())
+    ssim_diff = float((frame.loc[shared, (experiment, 'SSIM')]
+                       - fused[(experiment, 'SSIM')]).abs().max())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        b_launches, b_seconds, _, _, bucketed, _ = run_standard_cli(
+            sub, 'qsparnet_buckets', experiment, ['--eval_buckets', '128',
+                                                  '--no_image_comparison'])
+    notice = 'bucketed eval is not exact for this architecture' in out.getvalue()
+    bucket_diff = float((bucketed[(experiment, 'PSNR')]
+                         - frame[(experiment, 'PSNR')]).abs().max())
+    odd = sorted({(h * SCALE, w * SCALE) for _, (h, w) in shapes
+                  if (h * SCALE) % 32 or (w * SCALE) % 32})
+    emit({'phase': 'qsparnet_standard', 'model': 'qsparnet defaults (in_size 128) bf16, '
+          '10 blur-kernel values', 'images': len(shapes),
+          'hr_shapes': sorted({(h * SCALE, w * SCALE) for _, (h, w) in shapes}),
+          'hr_shapes_with_odd_hourglass_sides': odd, 'launches': launches,
+          'cli_seconds': seconds, 'img_per_s': len(shapes) / split['protocol'],
+          'host_split_s': split, 'peak_memory_gb': peak_gb,
+          'mean_psnr': float(frame[(experiment, 'PSNR')].mean()),
+          'max_psnr_diff_to_fused_on_shared_pairs': psnr_diff,
+          'max_ssim_diff_to_fused_on_shared_pairs': ssim_diff,
+          'fused_cli_seconds': fused_seconds, 'eval_buckets_notice': notice,
+          'eval_buckets_max_psnr_diff': bucket_diff, 'eval_buckets_launches': b_launches,
+          'eval_buckets_cli_seconds': b_seconds, 'nvidia_smi': nvidia_smi_line()})
+    expect_launches(b_launches, NO_LAUNCHES, '%s --eval_buckets 128' % experiment)
+    if not odd or not psnr_diff <= 0.3 or not notice or not bucket_diff <= 1e-3:
+        raise AssertionError('%s standard protocol: odd sides %s, PSNR %g from the fused '
+                             'protocol, buckets notice %s, %g from unbucketed'
+                             % (experiment, odd, psnr_diff, notice, bucket_diff))
+    return {'launches': launches, 'frame': frame}
+
+
 def phase_int8_standard(mixed, bf16_mean_psnr):
     """``--int8`` on RCAN's standard protocol over the mixed-size set (calibrated on the
     first image): every RCAB tail one CA + residual call (x f32, r bf16) on the route
@@ -2986,14 +3222,16 @@ def phase_qrcan_f32_model_only(mixed):
     return {'launches': launches, 'div2k_max_abs_err': err, 'onchip_by_map': by_map}
 
 
-def phase_train_standard_val(dirs, root, recipe='qrcan'):
-    """``train_sisr`` on configs/div2k/<recipe>.toml as shipped (no fused_val key: the
-    standard validation epoch), with only its data paths (every training set and the
-    eval set on the 16 pairs), save location, num_epochs and epoch_cutoff (1) set, and
-    the eval set's ``cutoff`` (its ``name = "div2k"`` selects DIV2K's validation images
-    by index, 800-900, which the 16 pairs do not have): one epoch, 200 CA launches a
-    forward on the planned routes (the train steps' (batch, 64, 64, 64) and the
-    validation's (1, 128, 128, 64) f32 maps; none for Q-SAN); then a fused_val = true
+def phase_train_standard_val(dirs, root, recipe='qrcan', source_dir='div2k'):
+    """``train_sisr`` on configs/<source_dir>/<recipe>.toml as shipped (no fused_val key:
+    the standard validation epoch), with only its data paths (every training set and
+    the eval set on the 16 pairs; for configs/celebahq/qsparnet.toml their LR upscaled
+    to HR size on the host, write_interp_workload), save location, num_epochs and
+    epoch_cutoff (1) set, and the eval set's ``cutoff`` (div2k's ``name = "div2k"``
+    selects DIV2K's validation images by index, 800-900, celebahq's cutoff CelebA-HQ's
+    28000-30000, which the 16 pairs do not have): one epoch, 200 CA launches a forward on
+    the planned routes (the train steps' (batch, 64, 64, 64) and the validation's (1,
+    128, 128, 64) f32 maps; none for Q-SAN, SFTMD and Q-SPARNet); then a fused_val = true
     validation of the same checkpoint, its val-PSNR within 0.01 dB of the standard
     epoch's.  cuDNN TF32 on, matmul off (PyTorch's defaults)."""
     import numpy as np
@@ -3001,7 +3239,7 @@ def phase_train_standard_val(dirs, root, recipe='qrcan'):
     from sisr_tpu_torch.training.handler import TrainingHandler
     from sisr_tpu_torch.utils import toml_io
     here = os.path.dirname(os.path.abspath(__file__))
-    source = os.path.join('configs', 'div2k', recipe + '.toml')
+    source = os.path.join('configs', source_dir, recipe + '.toml')
     config = toml_io.load(os.path.join(here, source))
     if 'fused_val' in config['training']:
         raise AssertionError('%s sets fused_val' % source)
@@ -3078,7 +3316,8 @@ def main():
     batch1 = phase_kernel_batch1()
     training_shape = phase_kernel_backward()
     for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20',
-                 'san_20x10', 'qsan_20x10', 'srmd_12', 'sftmd_16b', 'sftmd_q16b'):
+                 'san_20x10', 'qsan_20x10', 'srmd_12', 'sftmd_16b', 'sftmd_q16b',
+                 'sparnet_128', 'qsparnet_512', 'srcnn_955', 'vdsr_20'):
         phase_reference(name)
     phase_holistic_attention()
     phase_san_attention()
@@ -3095,10 +3334,16 @@ def main():
                             ('qedsr', 'qedsr_32b'), ('han', 'han_10x20'),
                             ('qhan', 'qhan_10x20'), ('san', 'san_20x10'),
                             ('qsan', 'qsan_20x10'), ('srmd', 'srmd_12'),
-                            ('sftmd', 'sftmd_16b')):
+                            ('sftmd', 'sftmd_16b'), ('vdsr', 'vdsr_20')):
             paths[name + '_bf16'] = phase_main_path(dirs, model)
             paths[name + '_int8'] = phase_int8_main_path(
                 dirs, paths[name + '_bf16']['mean_psnr'], model)
+        for name, model in (('sparnet', 'sparnet_128'), ('qsparnet', 'qsparnet_512'),
+                            ('srcnn', 'srcnn_955')):
+            paths[name + '_bf16'] = phase_main_path(dirs, model)
+        for name, model in (('sparnet', 'sparnet_128'), ('srcnn', 'srcnn_955')):
+            paths[name + '_int8_ignored'] = phase_int8_ignored(
+                dirs, paths[name + '_bf16']['frame'], model)
         paths['qrcan_train'] = phase_train_main_path(dirs, root)
         mixed = write_mixed_workload(dirs, root)
         for name, model in (('rcan', 'rcan_10x20'), ('qrcan', 'qrcan_10x20')):
@@ -3122,10 +3367,13 @@ def main():
                                                       images=False)
         paths['sftmd_buckets'] = phase_bucketed_eval(
             mixed, paths['sftmd_standard']['frame'], 'sftmd_16b')
+        paths['qsparnet_standard'] = phase_preupscaled_standard(mixed, dirs, root)
         paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
         paths['qhan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qhan')
         paths['qsan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qsan')
         paths['sftmd_train_standard_val'] = phase_train_standard_val(dirs, root, 'sftmd')
+        paths['qsparnet_train_standard_val'] = phase_train_standard_val(
+            write_interp_workload(dirs, root), root, 'qsparnet', 'celebahq')
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3241,7 +3489,7 @@ def main():
     int8_over_bf16 = {family: paths[family + '_int8']['img_per_s']
                       / paths[family + '_bf16']['img_per_s']
                       for family in ('rcan', 'qrcan', 'edsr', 'qedsr', 'han', 'qhan',
-                                     'san', 'qsan', 'srmd', 'sftmd')}
+                                     'san', 'qsan', 'srmd', 'sftmd', 'vdsr')}
     emit({'phase': 'total', 'seconds': time.perf_counter() - START,
           'int8_over_bf16_img_per_s': int8_over_bf16, 'nvidia_smi': nvidia_smi_line(),
           'masked_launches_by_path': path_launches(lambda c: c[ca_key + '_masked'])})

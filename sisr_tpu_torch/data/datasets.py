@@ -1,5 +1,5 @@
 """SuperResImages dataset for LR/HR folder pairs (PyTorch port of sisr_tpu's
-``data/datasets.py`` for RGB images, ref: Code/sr_tools/data_handler.py:147-528).
+``data/datasets.py``, ref: Code/sr_tools/data_handler.py:147-528).
 
 Index building (``_qN`` group tags, recursive search, dataset splits, shortlists,
 blacklists), PIL decode to H,W,3 uint8, the HR alignment crop, a capped in-memory
@@ -7,10 +7,12 @@ cache of decoded images with optional decoded ``.npy`` sidecars on disk, the
 degradation-metadata CSV (:func:`read_augmentation_list`) with a float32 ``metadata``
 vector per item, and the training options: random flips and transposes
 (``random_augments``), matched random crops (``random_crop``) and several crops per
-image (``request_crops``).  ``input='interp'`` reads RGB LR images that are already
-at the HR size (the eval's ``--lr_dir_interp``).  Online degradations, CelebA
-attributes, legacy blur-kernel files, masks, and the Y-channel inputs of other
-families come with later slices.
+image (``request_crops``).  ``input='interp'`` reads LR images that are already at the
+HR size (the eval's ``--lr_dir_interp``, a pre-upscaled family's data);
+``colorspace='ycbcr'`` serves both images in YCbCr ('jpg' matrices), the Y channel
+alone with ``y_only`` (SRCNN's and VDSR's training split).  Online degradations,
+CelebA attributes, legacy blur-kernel files and masks are not ported yet (ROADMAP.md,
+Queue 1).
 """
 from collections import OrderedDict, deque
 import hashlib
@@ -26,6 +28,7 @@ import PIL.Image
 
 from .. import native
 from ..configuration.constants import data_splits
+from ..ops.colorspace import RGBtoYCbCrConverter
 from ..ops.transforms import random_flip_rotate, random_matched_crop
 from ..utils.helpers import extract_image_names_from_folder
 
@@ -123,9 +126,11 @@ class SuperResImages:
     HR references, yielding per-image dicts of H,W,3 arrays: float32 in [0,1], or
     the decoded uint8 when ``keep_uint8`` is set (the fused eval and the train step
     divide on the device).  With ``random_crop`` the images are matched LR/HR patches
-    (``request_crops`` of them per image, stacked).  ``y_only`` acts on Y-channel
-    models only, so it changes nothing here; keys of the reference's data tables that
-    no option here reads pass through ``kwargs``.
+    (``request_crops`` of them per image, stacked).  With ``colorspace='ycbcr'`` the
+    float images are converted to YCbCr (``conv_type``'s matrices), H,W,1 with
+    ``y_only``, and travel as float32 whatever ``keep_uint8`` says (sisr_tpu's rule:
+    the conversion needs the float image); keys of the reference's data tables that no
+    option here reads pass through ``kwargs``.
 
     ``cache_decoded``: True (a 4 GiB cap) or an int > 1 (the cap in bytes) keeps
     decoded images in memory; a string also persists them as decoded uint8 ``.npy``
@@ -138,16 +143,16 @@ class SuperResImages:
                  recursive_search=False, image_shortlist=None, scale=4, cache_decoded=None,
                  degradation_metadata_file=None, metadata=None, qpi_selection=None,
                  data_attributes=None, input='unmodified', colorspace='rgb', y_only=True,
-                 blacklist=None, random_augments=None, random_crop=None,
+                 conv_type='jpg', blacklist=None, random_augments=None, random_crop=None,
                  request_crops=None, online_degradations=None, mask_data=None,
                  legacy_blur_kernels=None, **kwargs):
         if split not in ['train', 'eval', 'test', 'all', None]:
             raise RuntimeError('"Split" must be one of: train | eval | test | all | None')
         if input not in ('interp', 'unmodified'):
             raise RuntimeError('"lr_type" must be one of: interp | unmodified')
-        if colorspace not in ('rgb', 'augmented_rgb'):
-            raise _not_ported('Y-channel model inputs (input=%r, colorspace=%r)'
-                              % (input, colorspace), 7)
+        if colorspace not in ('rgb', 'augmented_rgb', 'ycbcr'):
+            raise ValueError('colorspace must be rgb | augmented_rgb | ycbcr, got %r'
+                             % (colorspace,))
         if online_degradations:
             raise _not_ported('Online degradations', 10)
         if mask_data is not None:
@@ -156,6 +161,8 @@ class SuperResImages:
         self.lr_type = input
         self.lr_base = lr_dir
         self.hr_base = hr_dir
+        self._ycbcr = RGBtoYCbCrConverter(y_only=y_only, im_type=conv_type) \
+            if colorspace == 'ycbcr' else None
         self.patch_crop = random_crop
         self.random_augment = random_augments
         self.request_crops = request_crops
@@ -194,7 +201,7 @@ class SuperResImages:
         self.image_count = len(self.lr_filenames)
 
         # serve decoded uint8 instead of float (the fused eval's and train step's
-        # transport)
+        # transport); a YCbCr dataset serves floats whatever it says
         self.keep_uint8 = False
         # decoded-image cache: eval protocols re-iterate the same images (warm-up
         # and timed passes, repeated hub calls), and PNG decode is the host's
@@ -364,6 +371,11 @@ class SuperResImages:
         return arr
 
     def _to_image(self, arr):
+        """The decoded uint8 array as the dataset serves it: as it is under
+        ``keep_uint8`` (RGB datasets), else float32 in [0, 1], in YCbCr for a
+        ``ycbcr`` dataset."""
+        if self._ycbcr is not None:
+            return self._ycbcr(arr.astype(np.float32) / 255.0)
         if self.keep_uint8:
             return arr
         return arr.astype(np.float32) / 255.0

@@ -73,7 +73,8 @@ class EvalHub:
         if metrics and 'FACE_SIM' in metrics:
             raise _not_ported('The FACE_SIM metric', 'long-tail tools')
         if data_attributes is not None:
-            raise _not_ported('CelebA data attributes', 'remaining families')
+            raise _not_ported('CelebA data attributes',
+                              'CelebA attributes and legacy blur kernels')
         if not model_and_epoch:
             raise ValueError('No models specified: pass at least one '
                              '-me/--model_and_epoch EXPERIMENT EPOCH pair.')

@@ -17,6 +17,11 @@ Each handler is registered under the reference's lowercase model name and owns:
   zero-padded, mask-exact bucketed forward (``ops/masking.py``), or for a
   ``tiled_eval`` family (SAN, Q-SAN) the static tile grid (:meth:`_tiled_forward`),
   which the fused step runs too;
+* pre-upscaled inputs (``im_input = 'interp'``: SPARNet, Q-SPARNet, SRCNN, VDSR): the
+  fused step feeds the module the device bicubic of the RGB LR at HR size, the tensor
+  that also gives the LR baseline, and a Y-channel (``colorspace = 'ycbcr'``: SRCNN,
+  VDSR) module its Y channel, reading the output as Y; the standard protocol and the
+  training data hand these families their input already upscaled;
 * degradation metadata (``uses_metadata`` handlers, :class:`QHandler`): the
   dataset's metadata key list selects the columns the model takes
   (``set_metadata_keys``), and each batch's (N, M) metadata reaches the module
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 from ..ops import quantization as qz
-from ..ops.colorspace import rgb_to_ycbcr_nhwc
+from ..ops.colorspace import rgb_to_ycbcr_nhwc, ycbcr_to_rgb_nhwc
 from ..ops.masking import apply_mask, conv_mask_hooks, spatial_masks
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
@@ -50,20 +55,21 @@ from ..training.losses import build_loss
 from ..training.state import apply_update, build_optimizer
 from ..utils import async_ckpt
 from ..utils.helpers import resolve_device
-from . import advanced, qmodels, san, sftmd
+from . import advanced, basic, qmodels, san, sftmd, sparnet
 from .blocks import torch_default_init_
 
 available_models = {}
-# int8 families whose program is ported; sisr_tpu's others raise in set_int8
+# sisr_tpu's int8 families, each with its program ported; set_int8 raises for another
 _INT8_PROGRAMS = ('rcan', 'edsr', 'qrcan', 'qedsr', 'han', 'qhan', 'san', 'qsan', 'srmd',
-                  'sftmd')
+                  'sftmd', 'vdsr')
 # Families whose --int8 fused eval was measured slower than their bf16 one on the card
 # below (chip_smoke.py: int8 img/s over bf16 img/s, 16 images of 128^2 -> 512^2,
 # batch 8); set_int8 warns at the point of use.
 INT8_CARD = 'NVIDIA H100 80GB HBM3, 700.00 W'
 INT8_MEASURED_SLOWER = {'rcan': '0.41x', 'qrcan': '0.52x', 'edsr': '0.43x',
                         'qedsr': '0.26x', 'han': '0.43x', 'qhan': '0.51x',
-                        'san': '0.36x', 'qsan': '0.45x', 'srmd': '0.63x', 'sftmd': '0.40x'}
+                        'san': '0.36x', 'qsan': '0.45x', 'srmd': '0.63x', 'sftmd': '0.40x',
+                        'vdsr': '0.19x'}
 
 
 def _training_not_ported(what, item):
@@ -71,16 +77,17 @@ def _training_not_ported(what, item):
                                '(ROADMAP.md, Queue 1 item %d).' % (what, item))
 
 
-def _int8_not_ported(what, slice_name):
-    return NotImplementedError('%s for int8 serving is not ported to sisr_tpu_torch yet: '
-                               'it comes with the %s slice (ROADMAP.md, Queue 1).'
-                               % (what, slice_name))
-
-
 def _as_f32(img):
     """uint8 transport divided on the device (ref handlers.py:415); anything else as
     it is."""
     return img.float() / 255.0 if img is not None and img.dtype == torch.uint8 else img
+
+
+def _y_channel(img):
+    """The Y channel ('jpg') of an NHWC RGB batch clipped to [0, 1], (N, H, W) f32: as
+    sisr_tpu's EvalHub._high_res_prep."""
+    img = img.float().clamp(0.0, 1.0)
+    return rgb_to_ycbcr_nhwc(img, y_only=True, im_type='jpg')[..., 0]
 
 
 def _tree_to(tree, device):
@@ -318,21 +325,40 @@ class BaseHandler:
             out = self.module(x.permute(0, 3, 1, 2), *args)
         return out.permute(0, 2, 3, 1)
 
+    def _module_image(self, interp):
+        """The image a pre-upscaled family's module takes from the upscaled RGB LR
+        batch (ref handlers.py:868-873): that batch, or for a ``ycbcr`` family the Y
+        channel of it clipped, (N, H, W, 1)."""
+        return _y_channel(interp)[..., None] if self.colorspace == 'ycbcr' else interp
+
     def super_resolve(self, batch):
         """The module's output for a batch (as run_eval_fused takes it; a
         ``tiled_eval`` family's on its tile grid), clipped to [0, 1], as an NHWC
-        float32 numpy array (the epoch's sample images)."""
+        float32 RGB numpy array (the epoch's sample images).  A pre-upscaled family
+        takes the LR upscaled to the batch's HR size where the two differ; a ``ycbcr``
+        family's Y output is recombined with that image's CbCr."""
         self._set_training(False)
         dev = {'lr': self._to_device(batch['lr'])}
         if self.uses_metadata:
             dev['metadata'] = self._to_device(batch['metadata']).float()
         with torch.inference_mode():
+            lr = _as_f32(dev['lr'])
+            if self.im_input == 'interp' and batch.get('hr') is not None:
+                hr_hw = tuple(batch['hr'].shape[1:3])
+                if tuple(lr.shape[1:3]) != hr_hw:
+                    lr = resize_bicubic(lr, *hr_hw)
+            x_img = self._module_image(lr) if self.im_input == 'interp' else lr
             if self.tiled_eval:  # each tile batch is prepared in _tile_step
-                out = self._tiled_forward({**dev, 'lr': _as_f32(dev['lr'])})
+                out = self._tiled_forward({**dev, 'lr': x_img})
             else:
-                x, _, metadata = self._prep_batch(dev)
+                x, _, metadata = self._prep_batch({**dev, 'lr': x_img})
                 out = self.forward(x, metadata)
-            return out.float().clamp(0.0, 1.0).cpu().numpy()
+            out = out.float().clamp(0.0, 1.0)
+            if self.colorspace == 'ycbcr':
+                ycc = rgb_to_ycbcr_nhwc(lr.float().clamp(0.0, 1.0), im_type='jpg')
+                out = ycbcr_to_rgb_nhwc(torch.cat([out[..., :1], ycc[..., 1:]], dim=-1),
+                                        im_type='jpg').clamp(0.0, 1.0)
+            return out.cpu().numpy()
 
     # --- training (ref handlers.py:469-545) -----------------------------------------------
     def _train_batch_keys(self):
@@ -422,8 +448,7 @@ class BaseHandler:
                   % type(self).__name__)
             return
         if enabled and self.int8_family not in _INT8_PROGRAMS:
-            raise _int8_not_ported('The %s program' % self.int8_family,
-                                   'remaining families')
+            raise RuntimeError('unknown int8 family %r' % self.int8_family)
         if enabled and self.int8_family in INT8_MEASURED_SLOWER:
             warnings.warn(
                 'int8 measured slower than bf16 for the %s family on an %s (%s bf16 '
@@ -438,16 +463,17 @@ class BaseHandler:
         self.int8_residual_dtype = residual_dtype
         self._invalidate_steps()
 
-    def _int8_calibration_input(self, lr_f32):
-        """The calibration input, matching what the int8 program takes (ref
-        handlers.py:228-248): for models that take the LR image as it is (RGB, or RGB
-        with metadata beside it, or SRMD's input with its maps concatenated, as
-        :meth:`_prep_batch` gives it), that f32 batch itself; for a ``tiled_eval``
-        family, its centre crop of at most ``max(16, int(sqrt(max_combined_im_size)))``
-        a side, a tile's size, since the grid runs the program tile by tile."""
-        if self.im_input == 'interp' or self.colorspace == 'ycbcr':
-            raise _int8_not_ported('Calibrating pre-upscaled or Y-channel inputs',
-                                   'remaining families')
+    def _int8_calibration_input(self, lr_f32, hr_hw=None):
+        """The calibration image, matching what the int8 program takes (ref
+        handlers.py:228-248): for a pre-upscaled family given the HR size ``hr_hw``
+        (the fused path), the image its module takes from the RGB LR
+        (:meth:`_module_image` of the LR's device bicubic at that size: VDSR's Y
+        channel); for a ``tiled_eval`` family, its centre crop of at most
+        ``max(16, int(sqrt(max_combined_im_size)))`` a side, a tile's size, since the
+        grid runs the program tile by tile; else the f32 batch as it is (the standard
+        protocol hands a pre-upscaled family its input already upscaled)."""
+        if self.im_input == 'interp' and hr_hw is not None:
+            return self._module_image(resize_bicubic(lr_f32, *hr_hw))
         if self.tiled_eval:
             side = max(16, int(math.sqrt(self.max_combined_im_size)))
             h, w = lr_f32.shape[1:3]
@@ -509,6 +535,11 @@ class BaseHandler:
             qp = qz.quantize_sftmd_params(params, m.num_blocks, self.scale)
             scales = qz.calibrate_sftmd_scales(params, [x], [meta], margin=1.1,
                                                **self._sftmd_config())
+        elif family == 'vdsr':  # x: the Y channel of the pre-upscaled LR
+            if m.padding != 'same':
+                raise RuntimeError("int8 VDSR supports padding='same' only.")
+            qp = qz.quantize_vdsr_params(params)
+            scales = qz.calibrate_vdsr_scales(params, [x], margin=1.1)
         else:
             raise RuntimeError('unknown int8 family %r' % family)
         self.load_int8_state(qp, scales)
@@ -571,6 +602,9 @@ class BaseHandler:
             def program(x, meta=None):
                 return qz.sftmd_int8_forward_static(qparams, dev_scales, x, meta,
                                                     **self._sftmd_config())
+        elif family == 'vdsr':
+            def program(x, meta=None):
+                return qz.vdsr_int8_forward_static(qparams, dev_scales, x)
         else:
             raise RuntimeError('unknown int8 family %r' % family)
         self._int8_ctx = (program, qparams, dict(act_scales))
@@ -793,8 +827,10 @@ class BaseHandler:
             dev_batch['metadata'] = self._to_device(meta).float()
         if self.int8_mode and self._int8_ctx is None:
             # calibrate outside the step, on the input (and metadata) the program takes
-            lr, _, metadata = self._prep_batch(dev_batch)
-            self._ensure_int8_ctx(self._int8_calibration_input(lr), metadata)
+            x_cal = self._int8_calibration_input(_as_f32(dev_batch['lr']),
+                                                 dev_batch['hr'].shape[1:3])
+            x, _, metadata = self._prep_batch({**dev_batch, 'lr': x_cal})
+            self._ensure_int8_ctx(x, metadata)
         key = ('fused', tuple(metrics), include_lr, self.int8_mode, request_loss)
         if key not in self._eval_step_cache:
             self._eval_step_cache[key] = self._make_fused_step(tuple(metrics), include_lr,
@@ -817,42 +853,51 @@ class BaseHandler:
         return (keys, out), runtime
 
     def _make_fused_step(self, metrics, include_lr=True, request_loss=False):
-        """(ref handlers.py:835) The per-batch device program as one function."""
+        """(ref handlers.py:835) The per-batch device program as one function.  A
+        pre-upscaled family's module takes :meth:`_module_image` of the LR's device
+        bicubic at HR size, the tensor that also gives the LR baseline; a ``ycbcr``
+        family's output is read as Y, clipped."""
         fns = {'PSNR': lambda a, b: psnr_nhw(a, b, 1.0),
                'SSIM': lambda a, b: ssim_nhw(a, b, 1.0)}
-
-        def prep_y(img):  # as sisr_tpu's EvalHub._high_res_prep: clip + Y ('jpg')
-            img = img.float().clamp(0.0, 1.0)
-            return rgb_to_ycbcr_nhwc(img, y_only=True, im_type='jpg')[..., 0]
+        interp_input = self.im_input == 'interp'
 
         @torch.inference_mode()
         def step(batch):
             self._set_training(False)
-            x, hr, metadata = self._prep_batch(batch)
             lr = _as_f32(batch['lr'])  # the RGB LR, without any metadata maps
-            hr_y = prep_y(hr)
-            lr_y = None
-            if include_lr:
+            hr = _as_f32(batch['hr'])
+            hr_y = _y_channel(hr)
+            lr_y, x_img = None, lr
+            if include_lr or interp_input:
                 # device bicubic stands in for the host PIL prep (same filter
                 # weights; <=1 uint8 LSB fixed-point difference)
-                lr_y = prep_y(resize_bicubic(lr, hr.shape[1], hr.shape[2]))
+                interp = resize_bicubic(lr, hr.shape[1], hr.shape[2])
+                lr_y = _y_channel(interp)
+                if interp_input:  # the module's input: that tensor, or its Y
+                    x_img = lr_y[..., None] if self.colorspace == 'ycbcr' else interp
+            x, _, metadata = self._prep_batch({**batch, 'lr': x_img, 'hr': None})
             if self.tiled_eval:
                 # the tile grid; each tile batch through the int8 program or the module
-                sr = self._tiled_forward({'lr': lr, 'metadata': batch.get('metadata')})
+                sr = self._tiled_forward({'lr': x_img, 'metadata': batch.get('metadata')})
             elif self.int8_mode:  # the calibrated int8 program
                 sr = self._int8_ctx[0](x, metadata)
             else:
                 sr = self.forward(x, metadata)
-            sr_y = prep_y(sr)
+            if self.colorspace == 'ycbcr':  # the model gives Y
+                sr_y = sr[..., 0].float().clamp(0.0, 1.0)
+                target = hr_y[..., None]
+            else:
+                sr_y, target = _y_channel(sr), hr
             rows = []
             for met in metrics:  # row order matches run_eval_fused's keys tuple
                 if include_lr:
                     rows.append(fns[met](lr_y, hr_y))
                 rows.append(fns[met](sr_y, hr_y))
             if request_loss:
-                # the train step's loss on the model's output, once per image so the
-                # (K, N) matrix stays rectangular
-                rows.append(self.loss_fn(sr, hr).float().expand(hr.shape[0]))
+                # the train step's loss on the model's output (against the model's
+                # colorspace: Y for a ycbcr family), once per image so the (K, N)
+                # matrix stays rectangular
+                rows.append(self.loss_fn(sr, target).float().expand(hr.shape[0]))
             return torch.stack(rows)
 
         return step
@@ -1163,3 +1208,72 @@ class SFTMDHandler(QHandler):
         m = self.module
         return dict(num_blocks=m.num_blocks, scale=self.scale, sft_type=m.sft_type,
                     mask_para=m.mask_para, repeats=m.repeats)
+
+
+@register_model('srcnn')
+class SRCNNHandler(BaseHandler):
+    """(ref: basic/handlers.py:6-17): the Y channel of the pre-upscaled LR in, the
+    restored Y channel out, the MSE loss."""
+
+    colorspace = 'ycbcr'
+    im_input = 'interp'
+    loss_type = 'mse'
+    in_channels = 1
+
+    def build_module(self, scale, kernel_pattern=None, channel_pattern=None,
+                     padding='same', **kwargs):
+        return basic.SRCNN(kernel_pattern=kernel_pattern, channel_pattern=channel_pattern,
+                           padding=padding or 'same')
+
+
+@register_model('vdsr')
+class VDSRHandler(SRCNNHandler):
+    """(ref: basic/handlers.py:20-35): SRCNN's contract, 20 convs with a global
+    residual, gradients clipped to a norm of 0.1 by default.  int8 runs the whole conv
+    chain in int8 at HR size (``padding = 'same'`` only)."""
+
+    grad_clip = 0.1
+    int8_family = 'vdsr'
+
+    def build_module(self, scale, kernel_pattern=None, channel_pattern=None,
+                     padding='same', **kwargs):
+        return basic.VDSR(kernel_pattern=kernel_pattern, channel_pattern=channel_pattern,
+                          padding=padding or 'same')
+
+
+def _sparnet_structure(kwargs):
+    """The structure parameters SPARNet takes among a config's keys (ref:
+    SPARNet/handlers.py:6-34), those set."""
+    keys = ('min_ch', 'max_ch', 'in_size', 'out_size', 'min_feat_size', 'res_depth',
+            'relu_type', 'norm_type', 'att_name', 'bottleneck_size')
+    return {k: v for k, v in kwargs.items() if k in keys and v is not None}
+
+
+@register_model('sparnet')
+class SPARNetHandler(BaseHandler):
+    """(ref: SPARNet/handlers.py:6-18): the RGB LR pre-upscaled to HR size.  Its
+    BatchNorms run on the batch's statistics in the train step and on the running
+    ones in every eval, and the running statistics travel in the checkpoint.  No
+    bucketed eval (the strided hourglass and the norms see the pad), no int8 program,
+    as in sisr_tpu."""
+
+    im_input = 'interp'
+    bucketed_eval_ok = False  # strided hourglass + spatial instance norm
+
+    def build_module(self, scale, **kwargs):
+        return sparnet.SPARNet(**_sparnet_structure(kwargs))
+
+
+@register_model('qsparnet')
+class QSPARNetHandler(QHandler):
+    """(ref: SPARNet/handlers.py:21-34): SPARNet with a ParaCALayer gate on the
+    selected metadata columns after every residual block (the encoder's only with
+    ``metadata_encoder_only``)."""
+
+    im_input = 'interp'
+    bucketed_eval_ok = False  # strided hourglass + spatial instance norm
+
+    def build_module(self, scale, metadata_encoder_only=False, **kwargs):
+        return sparnet.QSPARNet(metadata_count=self.num_metadata,
+                                metadata_encoder_only=bool(metadata_encoder_only),
+                                **_sparnet_structure(kwargs))

@@ -95,6 +95,22 @@ def ycbcr_convert(img, y_only=True, max_val=1, im_type='png', input='rgb'):
     return np.stack([a, b, c], axis=0).astype(np.float32)
 
 
+class RGBtoYCbCrConverter:
+    """The Y-channel datasets' transform (sisr_tpu's ``RGBtoYCbCrConverter``; ref:
+    image_manipulation.py:177-194): an H,W,3 float RGB array to YCbCr, H,W,1 with
+    ``y_only``, H,W,3 without."""
+
+    def __init__(self, im_type='jpg', y_only=True, max_val=1):
+        self.im_type = im_type
+        self.y_only = y_only
+        self.max_val = max_val
+
+    def __call__(self, image):
+        out = ycbcr_convert(np.transpose(image, (2, 0, 1)), y_only=self.y_only,
+                            max_val=self.max_val, im_type=self.im_type, input='rgb')
+        return np.transpose(out, (1, 2, 0))
+
+
 # --- device-side (torch, NHWC batched) ---------------------------------------------------
 def rgb_to_ycbcr_nhwc(img, y_only=False, max_val=1.0, im_type=None):
     """Batched NHWC RGB->YCbCr; identical math to :func:`rgb_to_ycbcr`.
@@ -112,11 +128,20 @@ def rgb_to_ycbcr_nhwc(img, y_only=False, max_val=1.0, im_type=None):
     return out
 
 
+def ycbcr_to_rgb_nhwc(img, max_val=1.0, im_type=None):
+    """Batched NHWC YCbCr->RGB; identical math to :func:`ycbcr_to_rgb`.  ``im_type``
+    is required, as for :func:`rgb_to_ycbcr_nhwc`."""
+    if im_type is None:
+        raise ValueError("im_type required: 'jpg' or 'png' — the matrices differ.")
+    mat, bias = _device_matrices(im_type, float(max_val), img.dtype, img.device, True)
+    return img @ mat + bias
+
+
 @functools.lru_cache(maxsize=16)
-def _device_matrices(im_type, max_val, dtype, device):
-    """The forward matrix (transposed for ``img @ mat``) and bias on ``device``, made
-    once: a fresh host-to-device copy per call would make the host wait for the
-    device's queue to drain."""
-    mat, bias = _matrices(im_type, inverse=False)
+def _device_matrices(im_type, max_val, dtype, device, inverse=False):
+    """The forward (or inverse) matrix, transposed for ``img @ mat``, and bias on
+    ``device``, made once: a fresh host-to-device copy per call would make the host
+    wait for the device's queue to drain."""
+    mat, bias = _matrices(im_type, inverse=inverse)
     return (torch.as_tensor(mat.T, dtype=dtype, device=device),
             torch.as_tensor(bias * (max_val / 255.), dtype=dtype, device=device))

@@ -1,5 +1,5 @@
-"""Int8 serving of RCAN, EDSR, Q-RCAN, Q-EDSR, HAN, Q-HAN, SAN, Q-SAN, SRMD and
-SFTMD: those families' part of sisr_tpu's ``ops/quantization.py``.
+"""Int8 serving of RCAN, EDSR, Q-RCAN, Q-EDSR, HAN, Q-HAN, SAN, Q-SAN, SRMD, SFTMD and
+VDSR: those families' part of sisr_tpu's ``ops/quantization.py``.
 
 The recipe is sisr_tpu's, with its names, NHWC activations, HWIO kernels and
 parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
@@ -17,7 +17,8 @@ parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
   gates, SFTMD's q-injection gates) stay float32; HAN's and Q-HAN's LAM and CSAM and
   SFTMD's SFT branches run in bfloat16 (the gram, the softmax and every sum in
   float32), as in sisr_tpu's serving forwards; SRMD's whole chain is int8, on the
-  input with its metadata maps concatenated;
+  input with its metadata maps concatenated, and VDSR's on the Y channel of the
+  pre-upscaled LR;
 * each RCAB tail (channel attention scale + residual add) runs as
   :func:`~sisr_tpu_torch.ops.channel_attention.fused_channel_attention_residual`, the
   CUDA kernel on the card: the numerics of sisr_tpu's ``ca_epilogue='pallas'``;
@@ -1249,3 +1250,49 @@ def sftmd_int8_forward_static(qparams, act_scales, x, metadata, num_blocks=16, s
     return _sftmd_body(qparams, _qconv_with(act_scales), x.float(), metadata.float(),
                        num_blocks, scale, sft_type, mask_para, repeats,
                        sft_dtype=torch.bfloat16)
+
+
+# --- VDSR ------------------------------------------------------------------------------------
+def quantize_vdsr_params(params):
+    """Quantize a VDSR parameter tree (sisr_tpu's ``models/basic.py`` naming:
+    ``conv_0`` .. ``conv_<n - 1>``) to int8: the whole chain."""
+    return {k: _q_entry(v) for k, v in params.items() if k.startswith('conv_')}
+
+
+def _vdsr_convs(params):
+    return sum(1 for k in params if k.startswith('conv_'))
+
+
+def _vdsr_float_forward(params, x, track=None):
+    """f32 VDSR forward over the parameter tree, ``padding='same'`` (the calibration
+    mirror); ``x`` the (N, H, W, 1) Y channel of the pre-upscaled LR."""
+    fconv = _tracked_fconv(track or (lambda name, h: h))
+    n = _vdsr_convs(params)
+    out = residual = x.float()
+    for i in range(n):
+        out = fconv('conv_%d' % i, params['conv_%d' % i], out)
+        if i != n - 1:
+            out = torch.relu(out)
+    return out + residual
+
+
+def calibrate_vdsr_scales(params, sample_batches, margin=1.0):
+    """Static activation scales for the int8 VDSR forward (absmax calibration, true
+    f32) on the Y channels of the pre-upscaled LR batches."""
+    maxes = _calibration_maxes(lambda p, x, _, track: _vdsr_float_forward(p, x, track),
+                               params, sample_batches)
+    return _finalize_scales(maxes, margin)
+
+
+def vdsr_int8_forward_static(qparams, act_scales, x):
+    """Quantized VDSR forward: the whole conv chain int8 at HR size (the first conv's
+    9 input values a pixel padded to 16 in the im2col matrix, the last conv's one
+    output to 8), the ReLUs and the global residual in f32."""
+    qconv = _qconv_with(act_scales)
+    n = _vdsr_convs(qparams)
+    out = residual = x.float()
+    for i in range(n):
+        out = qconv('conv_%d' % i, qparams['conv_%d' % i], out)
+        if i != n - 1:
+            out = torch.relu(out)
+    return out + residual

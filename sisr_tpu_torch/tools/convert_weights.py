@@ -1,13 +1,17 @@
 """Weights bridge: sisr_tpu (Flax) parameter trees <-> this package's torch state_dicts.
 
 * :func:`state_dict_from_jax` is the inverse of sisr_tpu's ``tools/convert_weights.py``
-  for the families ported so far (RCAN, EDSR, QRCAN and its alias qpircan, QEDSR, HAN,
-  QHAN, SAN, QSAN, SRMD, SFTMD): flax Conv kernels (kH, kW, I, O) become torch Conv2d
-  weights (O, I, kH, kW), the Dense layers that sisr_tpu runs on pooled or metadata
+  for every family (SRCNN, VDSR, RCAN, EDSR, QRCAN and its alias qpircan, QEDSR, HAN,
+  QHAN, SAN, QSAN, SRMD, SFTMD, SPARNet, QSPARNet): flax Conv kernels (kH, kW, I, O)
+  become torch Conv2d weights (O, I, kH, kW), the Dense layers that sisr_tpu runs on pooled or metadata
   vectors (I, O) become 1x1 convs (O, I, 1, 1), and HAN's CSAM kernel (DHWIO over
   (C, H, W)) becomes the Conv3d weight (O, I, D, H, W); LAM's and CSAM's ``gamma``,
   CSAM's bias and SAN's ``gamma`` pass as they are.  Each family's layout lists every
-  layer once, for both directions.
+  layer once, for both directions.  SPARNet and QSPARNet take sisr_tpu's full
+  variables, ``{'params', 'batch_stats'}``, and are walked key by key as sisr_tpu's
+  ``convert_sparnet`` walks them (:func:`sparnet_state_dict_from_jax`): bias-free
+  convs, BatchNorm scales and running statistics, the PReLU slopes and the
+  ParaCALayers.
   The param tree is read as nested dicts of array-likes (pass numpy arrays); every
   leaf must be consumed and every key the model needs must be present, else it
   raises.
@@ -17,10 +21,12 @@
   (:func:`repair_reference_keys`): the parameters a reference SAN or Q-SAN registers
   and never uses are dropped, an aged SFTMD checkpoint's SFT keys are renamed, and
   any other unread key raises.  SRMD's KAIR keys (``model.<2i>``) are read as they
-  are: no ``model.`` prefix is ever stripped.
+  are: no ``model.`` prefix is ever stripped.  :func:`variables_from_state_dict` gives
+  sisr_tpu's full variables: SPARNet's and QSPARNet's BatchNorm running statistics as
+  ``batch_stats``.
 * :func:`int8_state_from_jax` carries sisr_tpu's quantised trees and activation
-  scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN, SAN, QSAN, SRMD, SFTMD) across, so both
-  packages can run the same int8 state.
+  scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN, SAN, QSAN, SRMD, SFTMD, VDSR) across,
+  so both packages can run the same int8 state.
 """
 import re
 
@@ -293,6 +299,13 @@ def _sftmd_layout(n_blocks, sft_type, q_layers, four_x):
     yield ('conv_output',), 'conv_output', 'conv'
 
 
+def _basic_layout(n_convs):
+    """(path, key, kind) of every SRCNN or VDSR conv (sisr_tpu's ``convert_srcnn``
+    naming): the reference's ``layer_dict.conv_<i>``."""
+    for i in range(n_convs):
+        yield ('conv_%d' % i,), 'layer_dict.conv_%d' % i, 'conv'
+
+
 def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
     """The layout of the model whose sisr_tpu params ``tree`` holds; a gap in the
     numbering surfaces as a missing or an unconsumed leaf."""
@@ -313,6 +326,8 @@ def _tree_layout(model_name, tree, q_layer_nonlinearity=False):
                            q=q)
     if model_name == 'srmd':
         return _srmd_layout(count('conv_'))
+    if model_name in ('srcnn', 'vdsr'):
+        return _basic_layout(count('conv_'))
     if model_name == 'sftmd':
         module = {p[3] for p in tree.leaves if p[:3] == ('sft_residual_1', 'sft1', 'sft_module')}
         sft_type = 'standard' if 'mul_conv1' in module else 'concat' if module else 'none'
@@ -350,6 +365,8 @@ def _state_dict_layout(model_name, state_dict):
             n_stages, q=model_name == 'qsan')
     if model_name == 'srmd':
         return _srmd_layout(_count(lambda i: 'model.%d.weight' % (2 * i) in state_dict))
+    if model_name in ('srcnn', 'vdsr'):
+        return _basic_layout(_count(lambda i: 'layer_dict.conv_%d.weight' % i in state_dict))
     if model_name == 'sftmd':
         sft = 'SFT-residual1.sft1.sft_module.'
         sft_type = 'standard' if sft + 'mul_conv1.weight' in state_dict \
@@ -367,7 +384,152 @@ def _state_dict_layout(model_name, state_dict):
 
 
 LAYOUT_MODELS = ('edsr', 'han', 'qedsr', 'qhan', 'qpircan', 'qrcan', 'qsan', 'rcan', 'san',
-                 'sftmd', 'srmd')
+                 'sftmd', 'srcnn', 'srmd', 'vdsr')
+# the families walked key by key, with BatchNorm running statistics
+SPARNET_MODELS = ('qsparnet', 'sparnet')
+# the reference's SPARNet Sequentials -> the prefix of sisr_tpu's blocks (<prefix>_<i>)
+_SPAR_SECTIONS = {'encoder': 'encoder', 'res_layers': 'res', 'decoder': 'decoder'}
+_SPAR_BLOCKS = {v: k for k, v in _SPAR_SECTIONS.items()}
+
+
+def _sparnet_flax_path(key):
+    """A SPARNet torch key -> (collection, sisr_tpu path, kind), or None for
+    ``num_batches_tracked`` (flax keeps no count): sisr_tpu's ``convert_sparnet`` walk.
+    Kinds: 'conv' (a conv's weight, HWIO), 'dense' (a ParaCALayer's 1x1 conv, (I, O)),
+    'leaf' (as it is)."""
+    parts = key.split('.')
+    leaf = parts[-1]
+    if leaf == 'num_batches_tracked':
+        return None
+    if parts[0] == 'out_conv':
+        path, rest = ['out_conv'], parts[1:-1]
+    else:
+        path, rest = ['%s_%d' % (_SPAR_SECTIONS[parts[0]], int(parts[1]))], parts[2:-1]
+    i = 0
+    while i < len(rest):
+        part = rest[i]
+        if part == 'shortcut_func':
+            path.append('shortcut')
+        elif part == 'preact_func':  # Sequential(NormLayer, ReluLayer)
+            path.append('preact_norm' if rest[i + 1] == '0' else 'preact_relu')
+            i += 1
+        elif part == 'out_block':  # Sequential(ConvLayer, Sigmoid)
+            path.append('out_block')
+            i += 1
+        elif part == 'attribute_integrator':  # ParaCALayer: convs at 0, 2 (a ReLU at 1)
+            path.append('fc_%d' % (int(rest[i + 1]) // 2))
+            i += 1
+        elif part != 'func':  # a ReluLayer's PReLU holds its slope
+            path.append(part)
+        i += 1
+    if path[-1] in ('relu', 'preact_relu'):
+        return 'params', tuple(path) + ('prelu',), 'leaf'
+    if path[-1] == 'conv2d' or path[-1].startswith('fc_'):
+        kind = ('conv' if path[-1] == 'conv2d' else 'dense') if leaf == 'weight' else 'leaf'
+        return 'params', tuple(path) + ('kernel' if leaf == 'weight' else 'bias',), kind
+    collection, name = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
+                        'running_mean': ('batch_stats', 'mean'),
+                        'running_var': ('batch_stats', 'var')}[leaf]
+    return collection, tuple(path) + (name,), 'leaf'
+
+
+def _sparnet_torch_key(path):
+    """A sisr_tpu SPARNet path (within its collection) -> (torch key, kind): the
+    inverse of :func:`_sparnet_flax_path`.  A norm's leaves sit under ``norm/norm``
+    (flax's BatchNorm, GroupNorm, LayerNorm) or, for the ``in`` norm, on the NormLayer
+    itself: both are the torch NormLayer's ``norm``."""
+    block, *mods, leaf = path
+    if block == 'out_conv':
+        key = ['out_conv']
+    else:
+        prefix, _, index = block.rpartition('_')
+        key = [_SPAR_BLOCKS[prefix], str(int(index))]
+    for mod in mods:
+        if mod == 'shortcut':
+            key.append('shortcut_func')
+        elif mod in ('preact_norm', 'preact_relu'):
+            key += ['preact_func', '0' if mod == 'preact_norm' else '1']
+        elif mod == 'out_block':
+            key += ['out_block', '0']
+        elif mod.startswith('fc_'):
+            key += ['attribute_integrator', str(2 * int(mod[3:]))]
+        else:
+            key.append(mod)
+    if leaf == 'prelu':
+        return '.'.join(key + ['func', 'weight']), 'leaf'
+    if mods[-1] == 'conv2d' or mods[-1].startswith('fc_'):
+        name = {'kernel': 'weight', 'bias': 'bias'}[leaf]
+        kind = ('conv' if mods[-1] == 'conv2d' else 'dense') if leaf == 'kernel' else 'leaf'
+        return '.'.join(key + [name]), kind
+    if not (len(mods) > 1 and mods[-2:] in (['norm', 'norm'], ['preact_norm', 'norm'])):
+        key.append('norm')  # the ``in`` norm: flax's params on the NormLayer itself
+    name = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
+            'var': 'running_var'}[leaf]
+    return '.'.join(key + [name]), 'leaf'
+
+
+def sparnet_state_dict_from_jax(variables):
+    """sisr_tpu's SPARNet or QSPARNet variables ``{'params', 'batch_stats'}`` (or the
+    params alone, for a norm type without running statistics) -> the port's
+    state_dict, ``num_batches_tracked`` 0 beside each BatchNorm's statistics (flax
+    keeps no count).  Every leaf is read; a path the walk does not know raises."""
+    if 'params' not in variables:
+        variables = {'params': variables}
+    sd = {}
+    for collection in ('params', 'batch_stats'):
+        tree = _TrackingTree(variables.get(collection, {}))
+        for path in sorted(tree.leaves):
+            try:
+                key, kind = _sparnet_torch_key(path)
+            except (KeyError, ValueError, IndexError) as exc:
+                raise RuntimeError('sisr_tpu SPARNet %s leaf %s is not one the converter '
+                                   'reads (%s)' % (collection, '/'.join(path), exc))
+            sd[key] = _to_torch_layout(tree(*path), kind)
+            if key.endswith('running_mean'):
+                sd[key[:-len('running_mean')] + 'num_batches_tracked'] = np.array(0)
+    extra = sorted(set(variables) - {'params', 'batch_stats'})
+    if extra:
+        raise RuntimeError('sisr_tpu SPARNet variables hold collections the converter '
+                           'does not read: %s' % extra)
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith(
+        'num_batches_tracked') else np.float32)) for k, v in sd.items()}
+
+
+def _to_torch_layout(a, kind):
+    """A sisr_tpu leaf in torch's layout: flax Conv (kH, kW, I, O) -> (O, I, kH, kW);
+    Dense (I, O) -> a 1x1 conv's (O, I, 1, 1); anything else as it is."""
+    if kind == 'conv':
+        return a.transpose(3, 2, 0, 1)
+    if kind == 'dense':
+        return a.T.reshape(a.shape[1], a.shape[0], 1, 1)
+    return a
+
+
+def _sparnet_variables(state_dict):
+    """The port's SPARNet state_dict as sisr_tpu's variables (views on the
+    state_dict's tensors), every key read."""
+    variables = {}
+    for key, value in state_dict.items():
+        try:
+            found = _sparnet_flax_path(key)
+        except (KeyError, ValueError, IndexError) as exc:
+            raise RuntimeError('SPARNet state_dict key %r is not one the converter reads '
+                               '(%s)' % (key, exc))
+        if found is None:
+            continue
+        collection, path, kind = found
+        node = variables.setdefault(collection, {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        if kind == 'conv':
+            value = value.permute(2, 3, 1, 0)
+        elif kind == 'dense':
+            value = value.reshape(value.shape[0], value.shape[1]).t()
+        node[path[-1]] = value
+    variables.setdefault('params', {})
+    return variables
+
+
 # leaf kinds: (sisr_tpu leaf -> torch tensor, torch tensor -> sisr_tpu leaf)
 _LEAF_KINDS = {'leaf': (lambda a: a, lambda t: t),
                # CSAM's kernel: DHWIO over (C, H, W) <-> the Conv3d's (O, I, D, H, W)
@@ -386,19 +548,18 @@ def state_dict_from_jax(model_name, params, q_layer_nonlinearity=False):
     tree.  For ``qedsr`` the tree does not say whether the ParaCALayers have their
     ReLU, which shifts the torch keys: ``q_layer_nonlinearity`` is the model's
     flag."""
+    if model_name in SPARNET_MODELS:
+        return sparnet_state_dict_from_jax(params)
     if model_name not in LAYOUT_MODELS:
-        raise NotImplementedError('No sisr_tpu -> torch converter for %r yet (available: %s)'
-                                  % (model_name, list(LAYOUT_MODELS)))
+        raise NotImplementedError('No sisr_tpu -> torch converter for %r (available: %s)'
+                                  % (model_name, sorted(LAYOUT_MODELS + SPARNET_MODELS)))
     tree = _TrackingTree(params)
     sd = {}
     for path, key, kind in _tree_layout(_canonical(model_name), tree, q_layer_nonlinearity):
         if kind in _LEAF_KINDS:
             sd[key] = _LEAF_KINDS[kind][0](tree(*path))
             continue
-        w = tree(*path, 'kernel')
-        # flax Conv (kH, kW, I, O) -> (O, I, kH, kW); Dense (I, O) -> (O, I, 1, 1)
-        sd[key + '.weight'] = (w.transpose(3, 2, 0, 1) if kind == 'conv'
-                               else w.T.reshape(w.shape[1], w.shape[0], 1, 1))
+        sd[key + '.weight'] = _to_torch_layout(tree(*path, 'kernel'), kind)
         sd[key + '.bias'] = tree(*path, 'bias')
     leftovers = tree.unconsumed()
     if leftovers:
@@ -415,10 +576,18 @@ def params_from_state_dict(model_name, state_dict):
     the state_dict's tensors (on their device).  A ``qedsr`` state_dict tells its
     ``q_layer_nonlinearity`` by the ReLU-shifted ParaCALayer indices.  A reference
     checkpoint's dead parameters are dropped and its aged keys renamed first
-    (:func:`repair_reference_keys`)."""
+    (:func:`repair_reference_keys`).  A state_dict with BatchNorm running statistics
+    (SPARNet's, QSPARNet's) raises: :func:`variables_from_state_dict` reads it."""
+    if model_name in SPARNET_MODELS:
+        variables = _sparnet_variables(state_dict)
+        if variables.get('batch_stats'):
+            raise RuntimeError('state_dict for %r holds BatchNorm running statistics, '
+                               'which the params alone leave unread: use '
+                               'variables_from_state_dict' % model_name)
+        return variables['params']
     if model_name not in LAYOUT_MODELS:
-        raise NotImplementedError('No torch -> sisr_tpu tree reader for %r yet '
-                                  '(available: %s)' % (model_name, list(LAYOUT_MODELS)))
+        raise NotImplementedError('No torch -> sisr_tpu tree reader for %r (available: %s)'
+                                  % (model_name, sorted(LAYOUT_MODELS + SPARNET_MODELS)))
     state_dict = repair_reference_keys(model_name, state_dict)
     params, used = {}, set()
     for path, key, kind in _state_dict_layout(_canonical(model_name), state_dict):
@@ -439,6 +608,16 @@ def params_from_state_dict(model_name, state_dict):
         raise RuntimeError('state_dict for %r left %d key(s) unread (e.g. %s)'
                            % (model_name, len(leftovers), leftovers[:4]))
     return params
+
+
+def variables_from_state_dict(model_name, state_dict):
+    """A port model's ``state_dict`` as sisr_tpu's full variables: ``{'params': ...}``,
+    with ``'batch_stats'`` (each BatchNorm's ``mean`` and ``var``) for a SPARNet or
+    QSPARNet with BatchNorms, as sisr_tpu's ``convert_torch_variables`` gives them.
+    Every key is read, or it raises."""
+    if model_name in SPARNET_MODELS:
+        return _sparnet_variables(state_dict)
+    return {'params': params_from_state_dict(model_name, state_dict)}
 
 
 def int8_state_from_jax(qparams, act_scales, device='cpu'):

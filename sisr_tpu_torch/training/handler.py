@@ -251,8 +251,8 @@ class TrainingHandler:
         names = [name.replace(os.sep, '_') for name in batch['tag']]
         if isinstance(batch['lr'], list):
             meta = batch.get('metadata')
-            batch = {'lr': batch['lr'][0][None], 'metadata': None if meta is None
-                     else meta[:1]}
+            batch = {'lr': batch['lr'][0][None], 'hr': batch['hr'][0][None],
+                     'metadata': None if meta is None else meta[:1]}
             names = names[:1]
         folder = os.path.join(self.model.logs, 'epoch_%d_samples' % epoch_idx)
         create_dir_if_empty(folder)

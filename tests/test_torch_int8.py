@@ -246,11 +246,21 @@ def test_set_int8_without_a_family_is_ignored(bridged, calibration_batch, capsys
 
 @pytest.mark.parametrize('attr,value', [('im_input', 'interp'), ('colorspace', 'ycbcr')])
 def test_unported_calibration_inputs_raise(bridged, attr, value):
+    """These inputs raised until the pre-upscaled and Y-channel families were ported;
+    now they calibrate as sisr_tpu does: given the HR size (the fused path), a
+    pre-upscaled family on its module's image (the LR's device bicubic; its Y for a
+    ycbcr one: test_torch_int8_vdsr.py); without it (the standard protocol hands that
+    image already upscaled), and for a family that takes the LR as it is, the batch
+    itself."""
+    from sisr_tpu_torch.ops.resize import resize_bicubic
     _, jax_params, _, _ = bridged
     port = _port_rcan(jax_params)
     setattr(port, attr, value)
-    with pytest.raises(NotImplementedError, match='remaining families'):
-        port._int8_calibration_input(torch.rand(1, 8, 8, 3))
+    x = torch.rand(1, 8, 8, 3)
+    assert torch.equal(port._int8_calibration_input(x), x)
+    out = port._int8_calibration_input(x, (32, 32))
+    expected = resize_bicubic(x, 32, 32) if attr == 'im_input' else x
+    torch.testing.assert_close(out, expected, atol=0, rtol=0)
 
 
 def _write_experiments(root, jax_handler, port):

@@ -69,7 +69,7 @@ def test_bridge_rejects_mismatched_trees(jax_params):
     with pytest.raises(KeyError, match='tail'):
         state_dict_from_jax('rcan', missing)
     with pytest.raises(NotImplementedError):
-        state_dict_from_jax('sparnet', params)  # a family not ported yet
+        state_dict_from_jax('no_such_model', params)  # a name no family has
 
 
 def test_seeded_init_checkpoint_round_trip(tmp_path):
