@@ -100,12 +100,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
 10. train reference: 10 training steps of RCAN and Q-RCAN (2 x 2 blocks, 64 features,
    f32) on the card against the same 10 on the CPU, from the same weights and batches;
 11. train main path: ``train_sisr`` (sisr_tpu_torch.net_train) on the paper's Q-RCAN
-   recipe (configs/div2k/qrcan.toml: 10 x 20 QRCABs, 64 features, 4x, standard style
-   with a q_node in every block, blur-kernel metadata, batch 8, LR crops of 64, flips,
-   Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for 2
-   epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
+   recipe (configs/div2k/qrcan.toml, cut to 5 x 20 QRCABs: 64 features, 4x, standard
+   style with a q_node in every block, blur-kernel metadata, batch 8, LR crops of 64,
+   flips, Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for
+   2 epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
    --fused_eval`` of the best epoch (f32, the CA in rounds); then 10 timed warm train
-   steps each of Q-RCAN, RCAN, HAN and Q-HAN 10 x 20, SAN and Q-SAN 20 x 10, SRMD,
+   steps each of Q-RCAN and RCAN 10 x 20, HAN and Q-HAN 5 x 20, SAN and Q-SAN 10 x 10
+   (those four and this recipe run at half depth, to make room for phase 15), SRMD,
    SFTMD, SPARNet (its BatchNorms in train mode) and VDSR (MSE, its clip of 0.1; both
    on HR-size crops of 256^2) through the handler (forward /
    backward / optimizer, device busy, the CA kernel's share, conv FLOPs against the
@@ -130,7 +131,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bf16 with ``--no_image_comparison`` on the tile grid (the Set14 maps 2 x 2, the
    510 x 339 map 16 tiles of 105 x 148; the tile batches counted against the plan,
    no CA call), its shared pairs against the fused run; then Q-SAN at
-   max_combined_im_size 10000 (a 2 x 2 grid on the 128^2 maps) on the 16 pairs, the
+   10 x 10 with max_combined_im_size 10000 (a 2 x 2 grid on the 128^2 maps) on the 16 pairs, the
    fused and the standard protocol, in bf16 and ``--int8`` (one int8 state), each
    pair's metrics against the other protocol's; then SFTMD bf16 with
    ``--no_image_comparison`` and with ``--eval_buckets 128`` (no CA call), each against
@@ -143,6 +144,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
    training sets on the pairs) and configs/celebahq/qsparnet.toml (on the pairs' LR
    upscaled on the host with Pillow bicubic) as shipped (no fused_val: the standard validation epoch), each
    one's val-PSNR against a fused validation of the same checkpoint;
+15. online degradation, attributes and bf16 training (run after phase 11; phase 9 also
+   takes the CA under autograd in bf16, and after phase 10 ``degrade_batch_on_device``
+   and the dynamic-scale int8 conv run card against CPU): ``train_sisr`` of
+   configs/div2k/qrcan.toml's model at full depth in bf16 on the 16 HR images in
+   device-mode online degradation, with directory checkpoints and bf16 moments, for 2
+   epochs and a resume, then ``eval_sisr --fused_eval`` of its best epoch from its
+   directory, every CA call counted by map and type; an epoch in host-mode online
+   degradation with noise; ``--data_attributes`` on a CelebA attribute file for the
+   pairs renamed as CelebA's; ``CelebaSplitSampler`` ordering an epoch; and 10 timed
+   bf16 train steps of Q-RCAN and RCAN beside the f32 ones of phase 11;
 
 then the script's total seconds with each family's int8 img/s over its bf16 img/s
 (the table of ``INT8_MEASURED_SLOWER``), the ``kernels`` table (a row for each route
@@ -152,7 +163,7 @@ in rounds, in three passes and streaming), the card's name and power limit, and 
 line
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN throughout, so
 f32 comparisons are true f32, except where phase 4 turns it on to show calibration
-turns it off for itself, and in phases 11 and 14, which train with PyTorch's default
+turns it off for itself, and in phases 11, 14 and 15, which train with PyTorch's default
 (cuDNN TF32 on, matmul TF32 off) as a user's run would.  It exits non-zero without a result
 when CUDA is absent or when the sisr_tpu_torch package is not beside it.
 """
@@ -195,7 +206,7 @@ SAN = {'scale': SCALE, 'n_resgroups': 20, 'n_resblocks': 10, 'n_feats': 64,
        'reduction': 16, 'max_combined_im_size': 20000, 'dtype': 'bf16'}
 QSAN = {**SAN, 'metadata': ['blur_kernel']}
 # Q-SAN at max_combined_im_size = 10000: the 128^2 maps of the fused cell on a 2 x 2 grid
-QSAN_GRID = {**QSAN, 'max_combined_im_size': 10000}
+QSAN_GRID = {**QSAN, 'max_combined_im_size': 10000, 'n_resgroups': 10}
 # configs/div2k/srmd.toml's and sftmd.toml's models, on the blur kernel: SRMD 12 convs of
 # 128 features over 3 + 10 channels; SFTMD 16 SFT residual blocks of 64 features,
 # standard SFT, 4x (and with q_injection, held card against CPU)
@@ -2280,6 +2291,12 @@ QSAN_TRAIN = {**SAN_TRAIN, 'metadata': ['blur_kernel']}
 
 
 FULL_DEPTH = {'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64}
+# earlier paths cut to half depth to keep the script near 900 s beside phase 15: the
+# f32 train_sisr of the Q-RCAN recipe (phase 15's online-degradation path trains the
+# full-depth model) at 5 x 20, and Q-SAN's 2 x 2 grid run (QSAN_GRID) and the timed
+# steps of HAN and Q-HAN (5 x 20) and SAN and Q-SAN (10 x 10)
+RECIPE_TRAIN_DEPTH = {'n_resgroups': 5}
+RECIPE_CA_PER_FORWARD = RECIPE_TRAIN_DEPTH['n_resgroups'] * RCAN['n_resblocks']
 
 
 @contextlib.contextmanager
@@ -2294,32 +2311,53 @@ def tf32(cudnn, matmul):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def bf16_ulps(a, b):
+    """max |a - b| in units of b's bf16 spacing (the gap between b and the next bf16 of
+    larger magnitude; 2^-133 at zero)."""
+    import torch
+    b = b.float()
+    exponent = torch.floor(torch.log2(b.abs().clamp(min=2.0 ** -126)))
+    return ((a.float() - b).abs() / torch.pow(2.0, exponent - 7)).max().item()
+
+
 def phase_kernel_backward():
     """fused_channel_attention under autograd (the Function: the kernel forward, the
-    plain version's VJP in the backward) against plain autograd through
-    reference_channel_attention, in f32: at the training shape (on chip) with and
+    plain version's VJP in f32 in the backward) against plain autograd through
+    reference_channel_attention: in f32 at the training shape (on chip) with and
     without a gate (Q-RCAN's q_node), and at (8, 128, 128, 64), which takes the rounds
-    route.  Bars: output 1e-5 abs, every grad 1e-5 abs, the same bits on a rerun,
-    the route the plan gives.  Times per forward + backward (CUDA events) of both; and
-    the kernel's forward alone at the training shape in graph replay, against its
-    plain version and its bound."""
+    route; in bf16 at the training shape with and without the gate, under the bf16
+    train step's autocast (the map bf16, the weights and the gate f32), against plain
+    autograd of the f32 inputs.  Bars: f32 output and every grad 1e-5 abs; bf16 output
+    within 2 bf16 ULPs of the plain version on the same bf16 map, the map's grad within
+    1 bf16 ULP of the f32 grad, the weights' and the gate's within 1e-5 abs + 1e-5 rel
+    (the same f32 computation); the same bits on a rerun; the route the plan gives, and
+    the bf16 launches counted by map and type.  Times per forward + backward (CUDA
+    events) of both; and the kernel's forward alone at the training shape in graph
+    replay, f32 and bf16, against its plain version and its bound."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
     op = ca.fused_channel_attention
     gen = torch.Generator().manual_seed(7)
     results = []
-    for shape, with_gate in ((TRAIN_SHAPE, False), (TRAIN_SHAPE, True),
-                             ((BATCH, LR_SIZE, LR_SIZE, 64), False)):
-        args = ca_inputs(shape, torch.float32, 16, gen)
+    for shape, with_gate, dtype in ((TRAIN_SHAPE, False, torch.float32),
+                                    (TRAIN_SHAPE, True, torch.float32),
+                                    ((BATCH, LR_SIZE, LR_SIZE, 64), False, torch.float32),
+                                    (TRAIN_SHAPE, False, torch.bfloat16),
+                                    (TRAIN_SHAPE, True, torch.bfloat16)):
+        args = ca_inputs(shape, dtype, 16, gen)
         gate = torch.sigmoid(torch.randn(shape[0], shape[-1], generator=gen)).cuda() \
             if with_gate else None
-        cot = torch.randn(shape, generator=gen).cuda()
+        cot = torch.randn(shape, generator=gen).cuda().to(dtype)
+        bf16 = dtype == torch.bfloat16
 
-        def run(fn):
-            leaves = [t.detach().clone().requires_grad_() for t in args]
+        def run(fn, f32_inputs=False):
+            leaves = [t.detach().clone().float() if f32_inputs else t.detach().clone()
+                      for t in args]
+            leaves = [t.requires_grad_() for t in leaves]
             g = None if gate is None else gate.clone().requires_grad_()
-            out = fn(*leaves, gate=g)
-            out.backward(cot)
+            with torch.autocast('cuda', dtype=torch.bfloat16, enabled=bf16):
+                out = fn(*leaves, gate=g)
+            out.backward(cot.float() if f32_inputs else cot)
             return out.detach(), [t.grad for t in leaves] + ([] if g is None else [g.grad])
 
         reset_launches()
@@ -2327,43 +2365,81 @@ def phase_kernel_backward():
         again, grads_again = run(op)
         torch.cuda.synchronize()
         launches = read_launches()
-        path, plan = planned_ca_route(shape, shape[-1] // 16, 4)
+        by_map = read_onchip_shapes()
+        path, plan = planned_ca_route(shape, shape[-1] // 16, args[0].element_size())
         expected = {**NO_LAUNCHES, 'fused_channel_attention': 2}
         if path != 'three_pass':
             expected['fused_channel_attention_' + path] = 2
-        expect_launches(launches, expected, 'backward case %s, plan %s %s'
-                        % (shape, path, plan))
-        ref, ref_grads = run(ca.reference_channel_attention)
-        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        expect_launches(launches, expected, 'backward case %s %s, plan %s %s'
+                        % (shape, dtype, path, plan))
         names = ['x', 'w1', 'b1', 'w2', 'b2'] + (['gate'] if with_gate else [])
         grad_err = {}
-        for name, a, b, c2 in zip(names, grads, ref_grads, grads_again):
-            torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=lambda m: name + ': ' + m)
+        if bf16:
+            if by_map != {'%s bfloat16' % 'x'.join(map(str, shape)): 2}:
+                raise AssertionError('bf16 backward case launched %s' % by_map)
+            with torch.no_grad(), torch.autocast('cuda', dtype=torch.bfloat16):
+                plain_out = ca.reference_channel_attention(*args, gate=gate)
+            out_err = bf16_ulps(out, plain_out)
+            ref, ref_grads = run(ca.reference_channel_attention, f32_inputs=True)
+            if out.dtype != torch.bfloat16 or out_err > 2:
+                raise AssertionError('bf16 forward %s, %.2f ULPs from the plain version'
+                                     % (out.dtype, out_err))
+            for name, a, b in zip(names, grads, ref_grads):
+                if name == 'x':
+                    if a.dtype != torch.bfloat16 or bf16_ulps(a, b) > 1:
+                        raise AssertionError('bf16 grad of x: %s, %.2f ULPs'
+                                             % (a.dtype, bf16_ulps(a, b)))
+                    grad_err[name] = bf16_ulps(a, b)
+                else:
+                    torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5,
+                                               msg=lambda m: name + ': ' + m)
+                    grad_err[name] = (a - b).abs().max().item()
+            max_err = {'ulps_from_plain': out_err,
+                       'abs_from_f32': (out.float() - ref).abs().max().item()}
+        else:
+            ref, ref_grads = run(ca.reference_channel_attention)
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+            for name, a, b in zip(names, grads, ref_grads):
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=0,
+                                           msg=lambda m: name + ': ' + m)
+                grad_err[name] = (a - b).abs().max().item()
+            max_err = (out - ref).abs().max().item()
+        for name, a, c2 in zip(names, grads, grads_again):
             if not torch.equal(a, c2):
                 raise AssertionError('grad of %s differs on a rerun' % name)
-            grad_err[name] = (a - b).abs().max().item()
         if not torch.equal(out, again):
             raise AssertionError('the forward under autograd is not deterministic')
-        results.append({'shape': list(shape), 'gate': with_gate, 'path': path,
-                        'max_abs_err': (out - ref).abs().max().item(),
-                        'grad_max_abs_err': grad_err,
+        results.append({'shape': list(shape), 'dtype': str(dtype).split('.')[-1],
+                        'gate': with_gate, 'path': path, 'max_abs_err': max_err,
+                        'grad_max_err': grad_err, 'grad_x_unit': 'bf16 ULPs' if bf16
+                        else 'abs', 'launches_by_map': by_map,
                         'fwd_bwd_ms': cuda_ms(lambda: run(op), reps=10, rounds=3),
                         'plain_fwd_bwd_ms': cuda_ms(lambda: run(ca.reference_channel_attention),
                                                     reps=10, rounds=3)})
-    x, w1, b1, w2, b2 = ca_inputs(TRAIN_SHAPE, torch.float32, 16, gen)
-    with torch.inference_mode():
-        kern = lambda: op(x, w1, b1, w2, b2)
-        plain = lambda: ca.reference_channel_attention(x, w1, b1, w2, b2)
-        err = (kern() - plain()).abs().max().item()
-        timing = {}
-        for name, fn in (('plain_ms', plain), ('ms', kern), ('ms', kern), ('plain_ms', plain)):
-            timing[name] = graph_ms(fn)  # the second turn of each is kept
-    bytes_moved, ops, bound_ms = ca_bound(x, w1)
-    training_shape = {'shape': list(TRAIN_SHAPE), 'dtype': 'float32', 'max_abs_err': err,
-                      'bound_ms': bound_ms, 'bytes': bytes_moved, 'ops': ops, **timing}
+    forwards = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w1, b1, w2, b2 = ca_inputs(TRAIN_SHAPE, dtype, 16, gen)
+        with torch.inference_mode():
+            kern = lambda: op(x, w1, b1, w2, b2)
+            plain = lambda: ca.reference_channel_attention(x, w1, b1, w2, b2)
+            if dtype == torch.float32:
+                err = (kern() - plain()).abs().max().item()
+            else:
+                err = bf16_ulps(kern(), plain())
+                if err > 2:
+                    raise AssertionError('bf16 forward at the training shape: %.2f ULPs' % err)
+            timing = {}
+            for name, fn in (('plain_ms', plain), ('ms', kern), ('ms', kern),
+                             ('plain_ms', plain)):
+                timing[name] = graph_ms(fn)  # the second turn of each is kept
+        bytes_moved, ops, bound_ms = ca_bound(x, w1)
+        forwards[str(dtype).split('.')[-1]] = {
+            'shape': list(TRAIN_SHAPE), 'dtype': str(dtype).split('.')[-1],
+            'max_abs_err' if dtype == torch.float32 else 'max_ulps': err,
+            'bound_ms': bound_ms, 'bytes': bytes_moved, 'ops': ops, **timing}
     emit({'phase': 'kernel_backward', 'cases': results, 'forward_at_training_shape':
-          training_shape, 'nvidia_smi': nvidia_smi_line()})
-    return training_shape
+          forwards, 'nvidia_smi': nvidia_smi_line()})
+    return forwards
 
 
 def train_batches(n, rng, lr_size=16, meta=True):
@@ -2415,9 +2491,10 @@ def phase_train_reference():
 
 
 def write_train_config(dirs, save_loc):
-    """configs/div2k/qrcan.toml pointed at the seeded pairs: the same [model] and
-    [training] (epoch_cutoff left out: it overrides --num_epochs), fused validation on,
-    the pairs as both the training and the validation set."""
+    """configs/div2k/qrcan.toml pointed at the seeded pairs: the same [model] at half
+    depth (RECIPE_TRAIN_DEPTH: 5 x 20) and [training] (epoch_cutoff left out: it
+    overrides --num_epochs), fused validation on, the pairs as both the training and
+    the validation set."""
     from sisr_tpu_torch.utils import toml_io
     data_set = {'lr': dirs['lr_dir'], 'hr': dirs['hr_dir'], 'degradation_metadata': 'on_site',
                 'metadata': ['blur_kernel']}
@@ -2428,7 +2505,8 @@ def write_train_config(dirs, save_loc):
                  'training_sets': {'data_1': {**data_set, 'crop': TRAIN_CROP,
                                               'random_augment': True}},
                  'eval_sets': {'data_1': data_set}},
-        'model': {'name': 'qrcan', 'internal_params': QRCAN_TRAIN},
+        'model': {'name': 'qrcan', 'internal_params': {**QRCAN_TRAIN,
+                                                       **RECIPE_TRAIN_DEPTH}},
         'training': {'gpu': 'single', 'seed': 8, 'metrics': ['PSNR', 'SSIM'],
                      'logging': 'visual', 'fused_val': True}}, path)
     return path
@@ -2525,6 +2603,7 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
     handler.run_train(**batch)
     torch.cuda.synchronize()
     step_launches = read_launches()
+    step_by_map = read_onchip_shapes()
     busy_ms, per_kernel = device_kernel_ms(lambda: handler.run_train(**batch), reps=3)
     ca_ms = sum(v for k, v in per_kernel.items() if any(n in k for n in CA_KERNELS)) / 3
     conv_ms = sum(v for k, v in per_kernel.items() if not any(n in k for n in CA_KERNELS)
@@ -2544,7 +2623,8 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
             'device_busy_ms': busy_ms, 'device_idle_share':
                 (1 - busy_ms / wall) if busy_ms else None,
             'ca_kernel_device_ms': ca_ms, 'conv_device_ms': conv_ms,
-            'launches_per_step': step_launches, 'conv_tflop_per_step': step_flops / 1e12,
+            'launches_per_step': step_launches, 'onchip_by_map_per_step': step_by_map,
+            'conv_tflop_per_step': step_flops / 1e12,
             'tf32_bound_ms': step_flops / TF32_TENSOR_FLOPS * 1e3,
             'f32_bound_ms': step_flops / F32_CUDA_CORE_FLOPS * 1e3,
             'max_memory_allocated_gb': peak / 1e9, 'crops_per_s': BATCH / wall * 1e3,
@@ -2553,18 +2633,20 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
 
 
 def phase_train_main_path(dirs, root):
-    """``train_sisr`` on the Q-RCAN recipe for 2 epochs, then a resume for a third:
-    finite losses, summary.csv, the checkpoints (the resumed one at step 6), every CA
-    call on chip; 200 launches per train step.  ``eval_sisr --fused_eval`` of the best
-    epoch.  Then the timed steps of Q-RCAN, RCAN, HAN, Q-HAN, SAN and Q-SAN.  cuDNN TF32
-    on, matmul TF32 off (PyTorch's defaults) throughout the phase."""
+    """``train_sisr`` on the Q-RCAN recipe at 5 x 20 for 2 epochs, then a resume for a
+    third: finite losses, summary.csv, the checkpoints (the resumed one at step 6),
+    every CA call on chip; 100 launches per train step.  ``eval_sisr --fused_eval`` of
+    the best epoch.  Then the timed steps of Q-RCAN and RCAN (10 x 20), HAN and Q-HAN
+    (5 x 20), SAN and Q-SAN (10 x 10), SRMD, SFTMD, SPARNet and VDSR.  cuDNN TF32 on,
+    matmul TF32 off (PyTorch's defaults) throughout the phase."""
     import numpy as np
     import pandas as pd
     import torch
     save_loc = os.path.join(root, 'Results_train')
     config = write_train_config(dirs, save_loc)
     n_train = N_IMAGES // BATCH  # steps per epoch
-    per_epoch = CA_PER_FORWARD * (n_train + N_IMAGES + 1)  # train, validation, samples
+    # train, validation, samples
+    per_epoch = RECIPE_CA_PER_FORWARD * (n_train + N_IMAGES + 1)
     report = {'tf32': {'cudnn': True, 'matmul': False}}
     with tf32(True, False):
         for label, args, epochs in (('first', ('--num_epochs', '2'), 2),
@@ -2601,8 +2683,8 @@ def phase_train_main_path(dirs, root):
         if route != 'rounds':
             raise AssertionError('the f32 eval\'s maps take the %s route' % route)
         expect_launches(eval_launches, {
-            **NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD * n_batches,
-            'fused_channel_attention_rounds': CA_PER_FORWARD * n_batches},
+            **NO_LAUNCHES, 'fused_channel_attention': RECIPE_CA_PER_FORWARD * n_batches,
+            'fused_channel_attention_rounds': RECIPE_CA_PER_FORWARD * n_batches},
             'eval of the best epoch')
         best = summary.loc[summary['val-PSNR'].idxmax()]
         report['eval_best'] = {'launches': eval_launches, 'cli_seconds': eval_seconds,
@@ -2615,19 +2697,20 @@ def phase_train_main_path(dirs, root):
         breakdowns = {}
         # HAN's and Q-HAN's CA calls are RCAN's and Q-RCAN's: their steps skip the
         # turns against the CA's plain version; SAN and Q-SAN make no CA call
-        for name, model, internal, turns in (('qrcan_10x20', 'qrcan', QRCAN_TRAIN, True),
-                                             ('rcan_10x20', 'rcan', RCAN_TRAIN, True),
-                                             ('han_10x20', 'han', HAN_TRAIN, False),
-                                             ('qhan_10x20', 'qhan', QHAN_TRAIN, False),
-                                             ('san_20x10', 'san', SAN_TRAIN, False),
-                                             ('qsan_20x10', 'qsan', QSAN_TRAIN, False),
-                                             ('srmd_12', 'srmd', SRMD_TRAIN, False),
-                                             ('sftmd_16b', 'sftmd', SFTMD_TRAIN, False),
-                                             ('sparnet_128', 'sparnet', SPARNET_TRAIN, False),
-                                             ('vdsr_20', 'vdsr', VDSR_TRAIN, False)):
+        half = {'n_resgroups': 5}
+        for name, model, internal, turns, calls in (
+                ('qrcan_10x20', 'qrcan', QRCAN_TRAIN, True, CA_PER_FORWARD),
+                ('rcan_10x20', 'rcan', RCAN_TRAIN, True, CA_PER_FORWARD),
+                ('han_5x20', 'han', {**HAN_TRAIN, **half}, False, CA_PER_FORWARD // 2),
+                ('qhan_5x20', 'qhan', {**QHAN_TRAIN, **half}, False, CA_PER_FORWARD // 2),
+                ('san_10x10', 'san', {**SAN_TRAIN, 'n_resgroups': 10}, False, 0),
+                ('qsan_10x10', 'qsan', {**QSAN_TRAIN, 'n_resgroups': 10}, False, 0),
+                ('srmd_12', 'srmd', SRMD_TRAIN, False, 0),
+                ('sftmd_16b', 'sftmd', SFTMD_TRAIN, False, 0),
+                ('sparnet_128', 'sparnet', SPARNET_TRAIN, False, 0),
+                ('vdsr_20', 'vdsr', VDSR_TRAIN, False, 0)):
             breakdowns[name] = train_step_breakdown(model, internal, turns=turns)
             per_step = breakdowns[name]['launches_per_step']
-            calls = 0 if model in NO_CA_MODELS else CA_PER_FORWARD
             expect_launches(per_step, {**NO_LAUNCHES, 'fused_channel_attention': calls,
                                        'fused_channel_attention_onchip': calls},
                             '%s train step' % name)
@@ -2639,6 +2722,454 @@ def phase_train_main_path(dirs, root):
     launches = {k: report['first']['launches'][k] + report['resume']['launches'][k]
                 + report['eval_best']['launches'][k] for k in report['first']['launches']}
     return {'launches': launches, 'breakdowns': breakdowns}
+
+
+# --- online degradation, the dynamic int8 conv, CelebA attributes, bf16 training ----------
+# the online-degradation path: configs/div2k/qrcan.toml's model trained in bf16 with
+# directory checkpoints and bf16 moments on the 16 HR images in device-mode online
+# degradation
+QRCAN_ONLINE = {**QRCAN_TRAIN, 'dtype': 'bf16', 'checkpoint_backend': 'orbax',
+                'checkpoint_dtype': 'bf16_moments'}
+# host-mode online degradation with noise: the kernel's code and the noise level
+QRCAN_NOISE = {**QRCAN_TRAIN, 'dtype': 'bf16', 'metadata': ['blur_kernel', 'noise']}
+# Q-RCAN (sisr_tpu's e2e configuration) taking the blur kernel and two CelebA attributes
+# by CelebA's own column names (eval_sisr --data_attributes reads every column as named)
+QRCAN_CELEBA = {**QRCAN, 'metadata': ['blur_kernel', 'Male', 'Young']}
+# the recipe's model on the blur kernel and the attributes a data table renames
+QRCAN_SAMPLER = {**QRCAN_TRAIN, 'dtype': 'bf16', 'metadata': ['blur_kernel', 'gender', 'age']}
+EDSR_F32 = {**EDSR, 'dtype': 'f32'}
+
+
+def map_key(shape, dtype='bfloat16'):
+    return '%s %s' % ('x'.join(map(str, shape)), dtype)
+
+
+def phase_degradation():
+    """degrade_batch_on_device (the train step's online degradation: the batched blur as
+    one grouped conv, the ToPILImage truncation, the matmul-form bicubic) on the card
+    against the CPU at the train step's HR crops, 8 x 256^2, with 8 random kernels of
+    21^2 (numpy seed 5) and a PCA of 2000 kernels for the codes.  Bars: blurred HR and
+    codes 1e-5 abs; LR 1e-5 abs but where a blurred value sits within 1e-4 of a uint8
+    step (the truncation may fall either side), and there at most one step.  Times:
+    the card's call (CUDA events), and the host chain it replaces (per image: scipy
+    blur, ToPILImage, Pillow-exact bicubic down) over the batch."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.ops import degradations as deg
+    from sisr_tpu_torch.ops.transforms import downsample, float_to_pil
+    np.random.seed(5)
+    kernels = deg.random_batch_kernel(BATCH).astype(np.float32)
+    pca = deg.pca_matrix(deg.random_batch_kernel(2000).reshape(2000, -1), 10)
+    rng = np.random.RandomState(5)
+    side = TRAIN_CROP * SCALE
+    hr = torch.from_numpy(rng.randint(0, 256, (BATCH, side, side, 3)).astype(np.uint8))
+    hr_f = hr.float() / 255.0
+    host = deg.degrade_batch_on_device(hr_f, torch.from_numpy(kernels), pca, SCALE)
+    card_args = (hr_f.cuda(), torch.from_numpy(kernels).cuda(), pca, SCALE)
+    card = [t.cpu() for t in deg.degrade_batch_on_device(*card_args)]
+    blurred_err = (card[2] - host[2]).abs().max().item()
+    code_err = (card[1] - host[1]).abs().max().item()
+    lr_delta = (card[0] - host[0]).abs()
+    on_edge = (host[2] * 255 - torch.round(host[2] * 255)).abs() < 1e-4
+    off = lr_delta > 1e-5
+    if blurred_err > 1e-5 or code_err > 1e-5 or lr_delta.max().item() > 1 / 255 \
+            or off.float().mean().item() > on_edge.float().mean().item() + 1e-3:
+        raise AssertionError('degrade_batch_on_device on the card: blurred %.3g, codes '
+                             '%.3g, LR %.3g (%d values past 1e-5)'
+                             % (blurred_err, code_err, lr_delta.max().item(),
+                                int(off.sum())))
+    card_ms = cuda_ms(lambda: deg.degrade_batch_on_device(*card_args), reps=10, rounds=3)
+    tic = time.perf_counter()
+    for i in range(BATCH):
+        blurred = deg.blur_image(hr_f[i].numpy(), kernels[i])
+        downsample(float_to_pil(blurred), SCALE)
+    host_chain_ms = (time.perf_counter() - tic) * 1e3
+    emit({'phase': 'degradation', 'hr_shape': [BATCH, side, side, 3], 'kernel': 21,
+          'blurred_max_abs_err': blurred_err, 'codes_max_abs_err': code_err,
+          'lr_max_abs_err': lr_delta.max().item(),
+          'lr_values_past_1e-5': int(off.sum()), 'blurred_on_a_uint8_step': int(on_edge.sum()),
+          'card_ms': card_ms, 'host_chain_ms_per_batch': host_chain_ms,
+          'nvidia_smi': nvidia_smi_line()})
+
+
+def phase_int8_dynamic():
+    """The dynamic-scale int8 conv (conv_int8 without x_scale: each input quantised on
+    its own absmax) on the card against the CPU: the quantised map, its scale and the
+    int32 sums of one 3 x 3 conv of 64 -> 64 at the eval's map (8, 128, 128, 64), equal;
+    then the dynamic EDSR program (edsr_int8_forward, 64 features, 16 blocks, 4x) on a
+    2 x 32^2 batch, card against CPU within 1e-5 abs; and the time of the dynamic and
+    the static program at the eval batch (8 x 128^2), in turns."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.models.handlers import _tree_to, define_model
+    from sisr_tpu_torch.ops import quantization as qz
+    from sisr_tpu_torch.tools.convert_weights import params_from_state_dict
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(BATCH, LR_SIZE, LR_SIZE, 64, generator=gen)
+    kernel = torch.randn(3, 3, 64, 64, generator=gen) * 0.05
+    q_kernel, w_scale = qz.quantize_kernel_int8(kernel)
+    host_q, host_scale = qz.quantize_activations(x)
+    card_q, card_scale = qz.quantize_activations(x.cuda())
+    if not torch.equal(card_q.cpu(), host_q) or card_scale.item() != host_scale.item():
+        raise AssertionError('dynamic quantisation differs on the card')
+    sums_host = qz.conv_int8_accumulate(host_q, q_kernel)
+    sums_card = qz.conv_int8_accumulate(card_q, q_kernel.cuda()).cpu()
+    if sums_card.dtype != torch.int32 or not torch.equal(sums_card, sums_host):
+        raise AssertionError('dynamic int8 conv: int32 sums differ on the card')
+    out_err = (qz.conv_int8(x.cuda(), q_kernel.cuda(), w_scale.cuda()).cpu()
+               - qz.conv_int8(x, q_kernel, w_scale)).abs().max().item()
+    handler = define_model('edsr', device='cpu', seed=3, **EDSR_F32)
+    params = params_from_state_dict('edsr', handler.module.state_dict())
+    qp = qz.quantize_edsr_params(params)
+    qp_card = _tree_to(qp, 'cuda')
+    rng = np.random.RandomState(9)
+    small = torch.from_numpy(rng.rand(2, 32, 32, 3).astype(np.float32))
+    with torch.inference_mode():
+        host_out = qz.edsr_int8_forward(qp, small, EDSR['num_blocks'], SCALE, 0.1)
+        card_out = qz.edsr_int8_forward(qp_card, small.cuda(), EDSR['num_blocks'], SCALE,
+                                        0.1).cpu()
+    forward_err = (card_out - host_out).abs().max().item()
+    if out_err > 1e-5 or forward_err > 1e-5:
+        raise AssertionError('dynamic int8 on the card: conv %.3g, EDSR %.3g'
+                             % (out_err, forward_err))
+    batch = torch.from_numpy(rng.rand(BATCH, LR_SIZE, LR_SIZE, 3).astype(np.float32)).cuda()
+    with tf32(False, False):
+        scales = qz.scales_on(qz.calibrate_edsr_scales(
+            _tree_to(params, 'cuda'), [batch], EDSR['num_blocks'], SCALE, 0.1,
+            margin=1.1), 'cuda')
+    with torch.inference_mode():
+        dynamic = lambda: qz.edsr_int8_forward(qp_card, batch, EDSR['num_blocks'], SCALE, 0.1)
+        static = lambda: qz.edsr_int8_forward_static(qp_card, scales, batch,
+                                                     EDSR['num_blocks'], SCALE, 0.1,
+                                                     residual_dtype='float32')
+        timing = {}
+        for name, fn in (('static_ms', static), ('dynamic_ms', dynamic),
+                         ('dynamic_ms', dynamic), ('static_ms', static)):
+            timing[name] = cuda_ms(fn, reps=3, rounds=3, warm=1)
+    emit({'phase': 'int8_dynamic', 'conv_map': [BATCH, LR_SIZE, LR_SIZE, 64],
+          'scale': card_scale.item(), 'conv_max_abs_err': out_err,
+          'edsr_forward_max_abs_err': forward_err, 'edsr': '64f 16 blocks 4x, batch 8 x '
+          '128^2, f32 carry', **timing, 'nvidia_smi': nvidia_smi_line()})
+
+
+def write_online_config(path, save_loc, experiment, internal, training_set, eval_set,
+                        extra_data=None):
+    """A train_sisr config of ``internal`` (configs/div2k/qrcan.toml's [training] keys:
+    seed 8, PSNR and SSIM, fused validation) with one training and one eval table,
+    batch 8 for both."""
+    from sisr_tpu_torch.utils import toml_io
+    toml_io.dump({
+        'experiment': experiment, 'experiment_save_loc': save_loc,
+        'data': {'batch_size': BATCH, 'eval_batch_size': BATCH, 'dataloader_threads': 8,
+                 'training_sets': {'data_1': training_set},
+                 'eval_sets': {'data_1': eval_set}, **(extra_data or {})},
+        'model': {'name': 'qrcan', 'internal_params': internal},
+        'training': {'gpu': 'single', 'seed': 8, 'metrics': ['PSNR', 'SSIM'],
+                     'logging': 'visual', 'fused_val': True}}, path)
+    return path
+
+
+@contextlib.contextmanager
+def module_inputs_seen(store):
+    """Record, for each train step made with the device degradation on, the largest
+    absolute value of the module's input (the LR made from the HR crops)."""
+    from sisr_tpu_torch.models.handlers import BaseHandler
+    prep = BaseHandler._prep_batch
+
+    def spy(self, batch):
+        out = prep(self, batch)
+        if self.device_degrade and self.module.training:
+            store.append(out[0].detach().abs().amax())
+        return out
+
+    BaseHandler._prep_batch = spy
+    try:
+        yield
+    finally:
+        BaseHandler._prep_batch = prep
+
+
+def epoch_launches(calls, epochs, n_train, n_val):
+    """CA launches of ``epochs`` train_sisr epochs, all on chip: the train steps, the
+    validation batches and the first validation batch's samples."""
+    n = calls * epochs * (n_train + n_val + 1)
+    return {**NO_LAUNCHES, 'fused_channel_attention': n, 'fused_channel_attention_onchip': n}
+
+
+def phase_online_train_main_path(dirs, root):
+    """The bf16 online-degradation path: ``train_sisr`` of configs/div2k/qrcan.toml's
+    model (10 x 20 QRCABs, 64 features, 4x, standard style with a q_node, its optimizer
+    and schedule) in bf16, the training set the 16 HR images in device-mode online
+    degradation (LR crops of 64: each step makes its LR on the card from the HR crops
+    and their kernels; the metadata the kernels' 10 PCA codes, of 30000 kernels drawn
+    at construction), no noise, flips; the eval set the 16 pairs with their blur-kernel
+    CSV, validated fused in bf16 at batch 8; directory checkpoints (orbax backend) with
+    bf16 moments; 2 epochs, then a resume for a third.  Every CA call on chip on a bf16
+    map, counted by map: (8, 64, 64, 64) in the train steps, (8, 128, 128, 64) in the
+    validation and samples.  Checks: finite losses, summary, the three checkpoints
+    directories, the resumed one at step 6 with bf16 moments on disk, the module's
+    input in every step the degraded HR (non-zero), not the zero placeholder.  Then
+    ``eval_sisr --fused_eval`` of the best epoch from its directory (bf16, on chip).
+    cuDNN TF32 on, matmul off (PyTorch's defaults; the blur turns TF32 off for itself)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    save_loc = os.path.join(root, 'Results_online')
+    config = write_online_config(
+        os.path.join(root, 'qrcan_online.toml'), save_loc, 'qrcan_online', QRCAN_ONLINE,
+        {'hr': dirs['hr_dir'], 'crop': TRAIN_CROP, 'random_augment': True,
+         'online_degradations': True,
+         'online_degradation_params': {'device': True, 'noise': False}},
+        {'lr': dirs['lr_dir'], 'hr': dirs['hr_dir'], 'degradation_metadata': 'on_site',
+         'metadata': ['blur_kernel']})
+    n_train = n_val = N_IMAGES // BATCH
+    report = {'tf32': {'cudnn': True, 'matmul': False}}
+    seen = []
+    with tf32(True, False), module_inputs_seen(seen):
+        for label, args, epochs in (('first', ('--num_epochs', '2'), 2),
+                                    ('resume', ('--num_epochs', '1',
+                                                '--continue_from_epoch', '1'), 1)):
+            launches, seconds = run_train_cli(config, *args)
+            by_map = read_onchip_shapes()
+            expect_launches(launches, epoch_launches(CA_PER_FORWARD, epochs, n_train, n_val),
+                            'train_sisr online (%s)' % label)
+            want = {map_key(TRAIN_SHAPE): CA_PER_FORWARD * epochs * n_train,
+                    map_key((BATCH, LR_SIZE, LR_SIZE, 64)):
+                        CA_PER_FORWARD * epochs * (n_val + 1)}
+            if by_map != want:
+                raise AssertionError('train_sisr online (%s) launched %s, expected %s'
+                                     % (label, by_map, want))
+            report[label] = {'launches': launches, 'launches_by_map': by_map,
+                             'cli_seconds': seconds}
+    steps_seen = [float(v) for v in seen]
+    if len(steps_seen) != 3 * n_train or min(steps_seen) < 0.05:
+        raise AssertionError('device degradation: the module saw inputs of max %s'
+                             % steps_seen)
+    base = os.path.join(save_loc, 'qrcan_online')
+    summary = pd.read_csv(os.path.join(base, 'result_outputs', 'summary.csv'))
+    values = summary[['train-loss', 'val-loss', 'val-PSNR', 'val-SSIM']].to_numpy()
+    saved = os.path.join(base, 'saved_models')
+    meta = json.load(open(os.path.join(saved, 'train_model_2', 'handler_meta.json')))
+    optimizer = torch.load(os.path.join(saved, 'train_model_2', 'optimizer.pt'),
+                           weights_only=True, map_location='cpu')
+    moment_types = sorted({str(v.dtype) for s in optimizer['state'].values()
+                           for k, v in s.items() if k in ('exp_avg', 'exp_avg_sq')})
+    if list(summary['epoch']) != [0, 1, 2] or not np.isfinite(values).all() \
+            or meta['step'] != 3 * n_train or moment_types != ['torch.bfloat16'] \
+            or not all(os.path.isdir(os.path.join(saved, 'train_model_%d' % e))
+                       for e in range(3)):
+        raise AssertionError('train_sisr online: summary %s, step %s, moments %s, saved %s'
+                             % (summary.to_dict('list'), meta['step'], moment_types,
+                                sorted(os.listdir(saved))))
+    report.update({'summary': summary.to_dict('list'), 'resumed_step': meta['step'],
+                   'moments_on_disk': moment_types, 'module_input_max_per_step': steps_seen})
+    eval_launches, eval_seconds, frame = run_eval_cli({**dirs, 'model_loc': save_loc},
+                                                      'online_best',
+                                                      experiment='qrcan_online',
+                                                      epoch='best')
+    eval_by_map = read_onchip_shapes()
+    n_batches = -(-N_IMAGES // BATCH)
+    expect_launches(eval_launches, {
+        **NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD * n_batches,
+        'fused_channel_attention_onchip': CA_PER_FORWARD * n_batches}, 'eval of the best '
+        'online epoch')
+    if eval_by_map != {map_key((BATCH, LR_SIZE, LR_SIZE, 64)): CA_PER_FORWARD * n_batches}:
+        raise AssertionError('eval of the best online epoch launched %s' % eval_by_map)
+    best = summary.loc[summary['val-PSNR'].idxmax()]
+    report['eval_best'] = {'launches': eval_launches, 'launches_by_map': eval_by_map,
+                           'cli_seconds': eval_seconds, 'epoch': int(best['epoch']),
+                           'mean_psnr': float(frame[('qrcan_online', 'PSNR')].mean()),
+                           'val_psnr': float(best['val-PSNR'])}
+    emit({'phase': 'online_train_main_path', 'model': 'qrcan 10x20 64f 4x bf16, standard '
+          '+ q_node, device-mode online degradation (kernel 21, 10 PCA codes), batch 8, '
+          'LR crop 64, orbax-backend directories, bf16 moments', **report,
+          'nvidia_smi': nvidia_smi_line()})
+    launches = {k: report['first']['launches'][k] + report['resume']['launches'][k]
+                + eval_launches[k] for k in eval_launches}
+    return {'launches': launches}
+
+
+def phase_host_degradation_train(dirs, root):
+    """``train_sisr`` for one epoch of the recipe's model in bf16 on the 16 HR images in
+    host-mode online degradation with noise (the defaults: noise level up to 0.08, no
+    noise in 20% of the images): each item blurred, noised, truncated to uint8 and
+    Pillow-bicubic downscaled on the host; the metadata 11 wide, the 10 PCA codes and
+    the noise level x 10, and the model takes the 11.  The eval set the same images in
+    the same mode, at batch 8.  Every CA call on chip; finite losses."""
+    import numpy as np
+    import pandas as pd
+    save_loc = os.path.join(root, 'Results_noise')
+    online = {'hr': dirs['hr_dir'], 'online_degradations': True,
+              'online_degradation_params': {'noise': True}}
+    config = write_online_config(
+        os.path.join(root, 'qrcan_noise.toml'), save_loc, 'qrcan_noise', QRCAN_NOISE,
+        {**online, 'crop': TRAIN_CROP, 'random_augment': True}, online)
+    n_train = n_val = N_IMAGES // BATCH
+    with tf32(True, False):
+        launches, seconds = run_train_cli(config, '--num_epochs', '1')
+    by_map = read_onchip_shapes()
+    expect_launches(launches, epoch_launches(CA_PER_FORWARD, 1, n_train, n_val),
+                    'train_sisr host-mode degradation')
+    summary = pd.read_csv(os.path.join(save_loc, 'qrcan_noise', 'result_outputs',
+                                       'summary.csv'))
+    if list(summary['epoch']) != [0] or not np.isfinite(
+            summary[['train-loss', 'val-loss', 'val-PSNR', 'val-SSIM']].to_numpy()).all():
+        raise AssertionError('train_sisr host-mode degradation: %s' % summary.to_dict('list'))
+    emit({'phase': 'host_degradation_train', 'model': 'qrcan 10x20 64f 4x bf16, '
+          'metadata blur_kernel (10) + noise', 'launches': launches,
+          'launches_by_map': by_map, 'cli_seconds': seconds,
+          'summary': summary.to_dict('list'), 'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches}
+
+
+def write_celeba_workload(dirs, root):
+    """The 16 pairs under CelebA's names (000001.png ..., hard links), their
+    degradation_metadata.csv renamed alike, and a list_attr_celeba.txt of the 40
+    attributes (-1 / 1, numpy seed 15) with a ``<stem>.jpg`` row for each."""
+    import numpy as np
+    import pandas as pd
+    from sisr_tpu_torch.configuration.constants import celeba_attributes
+    faces = {'lr_dir': os.path.join(root, 'celeba', 'lr'),
+             'hr_dir': os.path.join(root, 'celeba', 'hr'),
+             'model_loc': os.path.join(root, 'Results_celeba'),
+             'out_loc': os.path.join(root, 'out_celeba'),
+             'attributes': os.path.join(root, 'celeba', 'list_attr_celeba.txt')}
+    names = sorted(n for n in os.listdir(dirs['lr_dir']) if n.endswith('.png'))
+    renamed = {name: '%06d.png' % (i + 1) for i, name in enumerate(names)}
+    for key in ('lr_dir', 'hr_dir'):
+        os.makedirs(faces[key])
+        for old, new in renamed.items():
+            os.link(os.path.join(dirs[key], old), os.path.join(faces[key], new))
+    meta = pd.read_csv(os.path.join(dirs['lr_dir'], 'degradation_metadata.csv'), index_col=0)
+    meta.index = [renamed[n] for n in meta.index]
+    meta.index.name = 'image'
+    meta.to_csv(os.path.join(faces['lr_dir'], 'degradation_metadata.csv'))
+    rng = np.random.RandomState(15)
+    with open(faces['attributes'], 'w') as f:
+        f.write('%d\n%s\n' % (len(renamed), ' '.join(celeba_attributes)))
+        for name in sorted(renamed.values()):
+            f.write('%s.jpg %s\n' % (name[:-4], ' '.join(
+                '%2d' % v for v in rng.choice([-1, 1], len(celeba_attributes)))))
+    return faces
+
+
+def phase_attributes_eval(faces):
+    """``eval_sisr --fused_eval --data_attributes`` of Q-RCAN (sisr_tpu's e2e
+    configuration, bf16) taking the blur kernel and CelebA's Male and Young, 12 values,
+    on the 16 renamed pairs: every attribute goes in front of the blur kernel, and the
+    model selects its 12; every QRCAB tail one CA launch with the 12-value meta, on
+    chip at (8, 128, 128, 64) bf16."""
+    from sisr_tpu_torch.models.handlers import define_model
+    from sisr_tpu_torch.utils import toml_io
+    base = os.path.join(faces['model_loc'], 'qrcan_celeba')
+    os.makedirs(os.path.join(base, 'saved_models'))
+    toml_io.dump({'model': {'name': 'qrcan', 'internal_params': QRCAN_CELEBA}},
+                 os.path.join(base, 'config.toml'))
+    define_model('qrcan', device='cpu', seed=8, **QRCAN_CELEBA).save_model(
+        'train_model', 0, os.path.join(base, 'saved_models'))
+    launches, seconds, frame = run_eval_cli(
+        faces, 'celeba_attributes', extra=('--data_attributes', faces['attributes']),
+        experiment='qrcan_celeba')
+    by_map = read_onchip_shapes()
+    n = CA_PER_FORWARD * -(-N_IMAGES // BATCH)
+    expect_launches(launches, {**NO_LAUNCHES, 'fused_channel_attention': n,
+                               'fused_channel_attention_onchip': n}, 'attributes eval')
+    if by_map != {map_key((BATCH, LR_SIZE, LR_SIZE, 64)): n}:
+        raise AssertionError('attributes eval launched %s' % by_map)
+    emit({'phase': 'attributes_eval', 'model': 'qrcan 10x20 64f 4x bf16 max_concat + '
+          'q_node, metadata blur_kernel + Male + Young (12)', 'launches': launches,
+          'launches_by_map': by_map, 'cli_seconds': seconds,
+          'mean_psnr': float(frame[('qrcan_celeba', 'PSNR')].mean()),
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches}
+
+
+def phase_sampler_train(faces, root):
+    """``train_sisr`` for one epoch of the recipe's model in bf16 on the renamed pairs
+    with CelebA attributes (the data tables' ``metadata = ["gender", "age"]``, amplified
+    to +/-2, in front of the blur-kernel CSV's 10 values; the model takes all 12) and
+    ``CelebaSplitSampler`` on gender ordering the epoch: the epoch's images with a
+    positive gender first, then the rest, each image once.  Every CA call on chip."""
+    import numpy as np
+    import pandas as pd
+    from sisr_tpu_torch.data import loader
+    save_loc = os.path.join(root, 'Results_sampler')
+    table = {'name': 'celeba_pairs', 'lr': faces['lr_dir'], 'hr': faces['hr_dir'],
+             'cutoff': [0, N_IMAGES], 'degradation_metadata': 'on_site',
+             'metadata': ['gender', 'age'], 'attribute_amplification': True}
+    config = write_online_config(
+        os.path.join(root, 'qrcan_sampler.toml'), save_loc, 'qrcan_sampler', QRCAN_SAMPLER,
+        {**table, 'crop': TRAIN_CROP, 'random_augment': True}, table,
+        {'attributes': {'celeba_pairs': faces['attributes']},
+         'sampler_attributes': {'name': 'CelebaSplitSampler',
+                                'selected_attribute': 'gender'}})
+    orders = []
+    batches = loader.DataLoader._batches
+
+    def spy(self):
+        out = batches(self)
+        if self.sampler is not None:
+            orders.append(([i for b in out for i in b], self.dataset))
+        return out
+
+    loader.DataLoader._batches = spy
+    try:
+        with tf32(True, False):
+            launches, seconds = run_train_cli(config, '--num_epochs', '1')
+    finally:
+        loader.DataLoader._batches = batches
+    n_train = n_val = N_IMAGES // BATCH
+    expect_launches(launches, epoch_launches(CA_PER_FORWARD, 1, n_train, n_val),
+                    'train_sisr with CelebaSplitSampler')
+    if len(orders) != 1:
+        raise AssertionError('the sampler ordered %d epochs' % len(orders))
+    order, dataset = orders[0]
+    gender = dataset.metadata_keys.index('gender')
+    signs = [bool(dataset.metadata[i][gender] > 0) for i in order]
+    split = sum(signs)
+    if sorted(order) != list(range(N_IMAGES)) or not all(signs[:split]) \
+            or any(signs[split:]) or dataset.metadata_keys[:2] != ['age', 'gender']:
+        raise AssertionError('CelebaSplitSampler order %s, positive %s, keys %s'
+                             % (order, signs, dataset.metadata_keys))
+    summary = pd.read_csv(os.path.join(save_loc, 'qrcan_sampler', 'result_outputs',
+                                       'summary.csv'))
+    if not np.isfinite(summary[['train-loss', 'val-loss', 'val-PSNR']].to_numpy()).all():
+        raise AssertionError('train_sisr with the sampler: %s' % summary.to_dict('list'))
+    emit({'phase': 'sampler_train', 'order': order, 'positive_gender': split,
+          'metadata_keys': dataset.metadata_keys, 'launches': launches,
+          'cli_seconds': seconds, 'summary': summary.to_dict('list'),
+          'nvidia_smi': nvidia_smi_line()})
+    return {'launches': launches}
+
+
+def phase_bf16_train_steps(f32_breakdowns):
+    """10 timed warm bf16 train steps (autocast around f32 parameters) of Q-RCAN and
+    RCAN 10 x 20 as configs/div2k/qrcan.toml trains them, through the handler (as
+    train_step_breakdown: wall, forward / backward / optimizer, device busy, idle share,
+    peak memory), beside this run's f32 steps of the same models.  Each step's 200 CA
+    launches on chip at (8, 64, 64, 64) bf16."""
+    out = {}
+    with tf32(True, False):
+        for name, model, internal in (('qrcan_10x20', 'qrcan', QRCAN_TRAIN),
+                                      ('rcan_10x20', 'rcan', RCAN_TRAIN)):
+            bf16 = train_step_breakdown(model, {**internal, 'dtype': 'bf16'}, turns=False)
+            expect_launches(bf16['launches_per_step'], {
+                **NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD,
+                'fused_channel_attention_onchip': CA_PER_FORWARD}, '%s bf16 step' % name)
+            if bf16['onchip_by_map_per_step'] != {map_key(TRAIN_SHAPE): CA_PER_FORWARD}:
+                raise AssertionError('%s bf16 step launched %s'
+                                     % (name, bf16['onchip_by_map_per_step']))
+            f32 = f32_breakdowns[name]
+            keys = ('median_step_wall_ms', 'forward_loss_ms', 'backward_ms', 'optimizer_ms',
+                    'device_busy_ms', 'device_idle_share', 'ca_kernel_device_ms',
+                    'max_memory_allocated_gb', 'crops_per_s')
+            out[name] = {'bf16': {k: bf16[k] for k in keys + ('top_kernels_ms',)},
+                         'f32': {k: f32[k] for k in keys},
+                         'bf16_over_f32_wall': bf16['median_step_wall_ms']
+                         / f32['median_step_wall_ms']}
+    emit({'phase': 'train_breakdown_bf16', 'batch': BATCH, 'lr_crop': TRAIN_CROP,
+          'tf32': {'cudnn': True, 'matmul': False}, **out, 'nvidia_smi': nvidia_smi_line()})
+    return out
 
 
 @contextlib.contextmanager
@@ -2920,8 +3451,9 @@ def hub_frame(dirs, results_name):
 
 
 def phase_qsan_grid(dirs, bf16_mean_psnr):
-    """Q-SAN with max_combined_im_size 10000 (experiment qsan_grid: Q-SAN's weights at a
-    limit under which the 128^2 maps take a 2 x 2 grid of 84^2 tiles) on the 16 pairs:
+    """Q-SAN at 10 x 10 (half depth: QSAN_GRID) with max_combined_im_size 10000
+    (experiment qsan_grid: a limit under which the 128^2 maps take a 2 x 2 grid of 84^2
+    tiles) on the 16 pairs:
     the fused protocol (batch 8: one step a batch, the grid inside it, 32 tiles) and
     the standard protocol (batch 1, 4 tiles a forward), in bf16 and with --int8 (the
     standard run given the fused run's quantised weights and scales, calibrated on the
@@ -3314,7 +3846,8 @@ def main():
     extent = phase_kernel_extent()
     stream = phase_kernel_stream()
     batch1 = phase_kernel_batch1()
-    training_shape = phase_kernel_backward()
+    training_shapes = phase_kernel_backward()
+    training_shape = training_shapes['float32']
     for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20',
                  'san_20x10', 'qsan_20x10', 'srmd_12', 'sftmd_16b', 'sftmd_q16b',
                  'sparnet_128', 'qsparnet_512', 'srcnn_955', 'vdsr_20'):
@@ -3325,6 +3858,8 @@ def main():
     for name in INT8_REFERENCE:
         phase_int8_family_reference(name)
     phase_train_reference()
+    phase_degradation()
+    phase_int8_dynamic()
     root = tempfile.mkdtemp(prefix='sisr_chip_smoke_')
     try:
         dirs = prepare_workload(root)
@@ -3345,6 +3880,12 @@ def main():
             paths[name + '_int8_ignored'] = phase_int8_ignored(
                 dirs, paths[name + '_bf16']['frame'], model)
         paths['qrcan_train'] = phase_train_main_path(dirs, root)
+        paths['qrcan_online_train'] = phase_online_train_main_path(dirs, root)
+        paths['qrcan_host_degradation_train'] = phase_host_degradation_train(dirs, root)
+        faces = write_celeba_workload(dirs, root)
+        paths['qrcan_attributes_eval'] = phase_attributes_eval(faces)
+        paths['qrcan_sampler_train'] = phase_sampler_train(faces, root)
+        bf16_steps = phase_bf16_train_steps(paths['qrcan_train']['breakdowns'])
         mixed = write_mixed_workload(dirs, root)
         for name, model in (('rcan', 'rcan_10x20'), ('qrcan', 'qrcan_10x20')):
             paths[name + '_standard'] = phase_standard_eval(mixed, model,
@@ -3434,9 +3975,11 @@ def main():
     # the meta and gate inputs of Q-RCAN's bf16 path, at its shape (on chip)
     ca_row.update({'meta_gate_' + key: meta_gate[0][key]
                    for key in ('ms', 'no_meta_ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
-    # the training path's shape, f32 (on chip)
+    # the training path's shape, f32 (on chip), and in bf16 (the bf16 train step's map)
     ca_row.update({'training_shape_' + key: training_shape[key]
                    for key in ('ms', 'plain_ms', 'bound_ms', 'max_abs_err')})
+    ca_row.update({'training_shape_bf16_' + key: training_shapes['bfloat16'][key]
+                   for key in ('ms', 'plain_ms', 'bound_ms', 'max_ulps')})
     # the standard protocol's batch-1 bf16 maps, each with its ca_onchip launches as
     # each standard-protocol path's run counted them (batch 1 is that protocol's alone)
     for case in batch1:
@@ -3492,6 +4035,8 @@ def main():
                                      'san', 'qsan', 'srmd', 'sftmd', 'vdsr')}
     emit({'phase': 'total', 'seconds': time.perf_counter() - START,
           'int8_over_bf16_img_per_s': int8_over_bf16, 'nvidia_smi': nvidia_smi_line(),
+          'bf16_over_f32_train_step_wall': {name: v['bf16_over_f32_wall']
+                                            for name, v in bf16_steps.items()},
           'masked_launches_by_path': path_launches(lambda c: c[ca_key + '_masked'])})
     emit({'kernels': kernel_rows})
     print(nvidia_smi_line())

@@ -31,7 +31,7 @@ _ITEMS_LOADED_LOCK = threading.Lock()
 
 class ConcatDataset:
     """Minimal torch-style dataset concatenation; every dataset must carry the same
-    metadata layout."""
+    metadata layout and the same online-degradation mode."""
 
     def __init__(self, datasets):
         self.datasets = list(datasets)
@@ -44,6 +44,11 @@ class ConcatDataset:
                 'batches straddling the sets would misalign or fail to stack. Give '
                 'every set the same degradation_metadata/metadata configuration.'
                 % sorted(key_sets))
+        modes = {bool(getattr(d, 'device_degradations', False)) for d in self.datasets}
+        if len(modes) > 1:
+            raise RuntimeError('Cannot mix device-mode and host-mode online '
+                               'degradation across concatenated training sets.')
+        self.device_degradations = modes.pop()
 
     def __len__(self):
         return self.cumulative[-1]
@@ -57,13 +62,47 @@ class ConcatDataset:
 
 
 class CelebaSplitSampler:
-    """The reference's attribute-split sampler (ref: data_handler.py:531-573), not
-    ported: it needs the CelebA attributes."""
+    """The images whose ``selected_attribute`` is positive first, then the others,
+    each part in a random order (ref: data_handler.py:531-573).  The attribute is the
+    first metadata key containing its name; the test is the sign, so amplified
+    (+/-2) attributes split as plain ones.  The orders come from a dedicated numpy
+    ``RandomState`` seeded once from the global numpy stream, here (sisr_tpu's)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError('CelebaSplitSampler is not ported to sisr_tpu_torch yet: '
-                                  'it comes with the CelebA attributes (ROADMAP.md, Queue 1 '
-                                  'item 3).')
+    def __init__(self, data_source, selected_attribute='gender', **kwargs):
+        self.discriminatory_attribute = selected_attribute
+        datasets = data_source.datasets if isinstance(data_source, ConcatDataset) \
+            else [data_source]
+        self.positive_indices, self.negative_indices = [], []
+        offset = 0
+        for dataset in datasets:
+            positive, negative, length = self._index_with_attribute(dataset)
+            self.positive_indices += [i + offset for i in positive]
+            self.negative_indices += [i + offset for i in negative]
+            offset += length
+        self.length = offset
+        self._rng = np.random.RandomState(np.random.randint(0, 2 ** 31))
+
+    def _index_with_attribute(self, dataset):
+        found = [self.discriminatory_attribute in key for key in dataset.metadata_keys]
+        if not any(found) or dataset.metadata is None:
+            raise RuntimeError('CelebaSplitSampler: no metadata key contains %r (keys: %s); '
+                               'give the training set CelebA attributes that include it.'
+                               % (self.discriminatory_attribute, dataset.metadata_keys))
+        position = found.index(True)
+        pertinent = [m[position] for m in dataset.metadata]
+        positive = [i for i, m in enumerate(pertinent) if m > 0]
+        negative = [i for i, m in enumerate(pertinent) if m <= 0]
+        return positive, negative, len(dataset.metadata)
+
+    def __iter__(self):
+        pos = self._rng.choice(self.positive_indices, len(self.positive_indices),
+                               replace=False).tolist()
+        neg = self._rng.choice(self.negative_indices, len(self.negative_indices),
+                               replace=False).tolist()
+        return iter(pos + neg)
+
+    def __len__(self):
+        return self.length
 
 
 def _collate(items, device_images=False):
@@ -114,8 +153,11 @@ class DataLoader:
     """Order-preserving threaded batch loader (ref: torch DataLoader's options)."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=8,
-                 drop_last=False):
+                 drop_last=False, sampler=None):
+        """``sampler``: an iterable of indices (:class:`CelebaSplitSampler`) giving each
+        epoch's order in place of ``shuffle``."""
         self.dataset = dataset
+        self.sampler = sampler
         # uint8 images stay lists, for device_prefetch to stack on the card (the
         # fused eval protocol sets it)
         self.device_collate = False
@@ -133,8 +175,11 @@ class DataLoader:
         return -(-len(self.dataset) // self.batch_size)
 
     def _batches(self):
-        indices = list(range(len(self.dataset)))
-        if self.shuffle:
+        if self.sampler is not None:
+            indices = list(iter(self.sampler))
+        else:
+            indices = list(range(len(self.dataset)))
+        if self.shuffle and self.sampler is None:
             self._shuffle_rng.shuffle(indices)
         batches = [indices[i:i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]

@@ -18,6 +18,7 @@ def sisr_data_setup(training_sets, eval_sets, batch_size=16, eval_batch_size=1,
 
     def setup_data(data_set, split):
         get = data_set.get
+        usage = split  # 'train' or 'eval', before the split is rewritten
         custom_range = None
         if get('cutoff') is not None:
             custom_range = get('cutoff') if type(get('cutoff')) == list \
@@ -50,8 +51,10 @@ def sisr_data_setup(training_sets, eval_sets, batch_size=16, eval_batch_size=1,
             mask_data=os.path.join(get('hr'), 'segmentation_patterns')
             if extract_masks else None,
             online_degradations=get('online_degradations'),
+            online_degradation_params=get('online_degradation_params'),
+            attribute_amplification=get('attribute_amplification'),
             request_crops=get('request_crops'), cache_decoded=get('cache_decoded'),
-            **kwargs)
+            usage=usage, **kwargs)
 
     print('---------------')
     print('preparing training data:')
@@ -65,15 +68,16 @@ def sisr_data_setup(training_sets, eval_sets, batch_size=16, eval_batch_size=1,
         else ConcatDataset(all_train_data)
     all_val_data = all_val_data[0] if len(all_val_data) == 1 else ConcatDataset(all_val_data)
 
+    sampler = None
     if sampler_attributes is not None:
         if sampler_attributes['name'].lower() != 'celebasplitsampler':
             raise RuntimeError('Selected data sampler not recognized.')
-        CelebaSplitSampler(all_train_data, **sampler_attributes)
+        sampler = CelebaSplitSampler(all_train_data, **sampler_attributes)
 
     train_dataloader = DataLoader(dataset=all_train_data, batch_size=batch_size,
-                                  shuffle=True,
+                                  shuffle=sampler is None,
                                   num_workers=8 if dataloader_threads is None
                                   else dataloader_threads,
-                                  drop_last=bool(drop_last_training_batch))
+                                  drop_last=bool(drop_last_training_batch), sampler=sampler)
     val_dataloader = DataLoader(dataset=all_val_data, batch_size=eval_batch_size)
     return train_dataloader, val_dataloader

@@ -22,8 +22,9 @@ meta-models comes from ``--metadata_file``, else a ``degradation_metadata.csv`` 
 ``qpi_slices.csv`` beside the LR images.  ``int8=True`` turns on each model's int8
 serving path (``BaseHandler.set_int8``), ``eval_buckets`` the bucketed eval
 (``BaseHandler.set_eval_buckets``; int8 takes precedence), ``decoded_cache_dir`` the
-decoded-image sidecars.  CelebA data attributes, the FACE_SIM metric and multi-device
-eval are not ported yet: asking for them raises NotImplementedError.
+decoded-image sidecars.  ``data_attributes`` (a CelebA attribute file) puts every
+attribute in front of each image's metadata, as sisr_tpu does.  The FACE_SIM metric
+and multi-device eval are not ported yet: asking for them raises NotImplementedError.
 """
 from collections import OrderedDict, defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -49,10 +50,10 @@ from ..utils.helpers import create_dir_if_empty
 DEVICE_BATCH_CACHE_BYTES = 1 << 30  # the fused protocol's device-batch cache, at most
 
 
-def _not_ported(what, slice_name):
+def _not_ported(what, slice_name, item):
     return NotImplementedError('%s is not ported to sisr_tpu_torch yet: it comes with the '
-                               '%s slice (ROADMAP.md, Queue 1). Use sisr_tpu for it.'
-                               % (what, slice_name))
+                               '%s slice (ROADMAP.md, Queue 1 item %d). Use sisr_tpu for it.'
+                               % (what, slice_name, item))
 
 
 class EvalHub:
@@ -69,12 +70,9 @@ class EvalHub:
         ``cache_device`` (None: as ``cache_decoded``) keeps the fused protocol's batches
         on the card for later passes; False uploads every pass."""
         if mesh:
-            raise _not_ported('--mesh (multi-device eval)', 'multi-GPU data parallelism')
+            raise _not_ported('--mesh (multi-device eval)', 'multi-GPU data parallelism', 9)
         if metrics and 'FACE_SIM' in metrics:
-            raise _not_ported('The FACE_SIM metric', 'long-tail tools')
-        if data_attributes is not None:
-            raise _not_ported('CelebA data attributes',
-                              'CelebA attributes and legacy blur kernels')
+            raise _not_ported('The FACE_SIM metric', 'long-tail tools', 10)
         if not model_and_epoch:
             raise ValueError('No models specified: pass at least one '
                              '-me/--model_and_epoch EXPERIMENT EPOCH pair.')
@@ -123,7 +121,7 @@ class EvalHub:
             custom_split=custom_split, image_shortlist=image_shortlist,
             recursive_search=recursive, cache_decoded=cache_decoded,
             degradation_metadata_file=metadata_file, metadata=requested_metadata,
-            qpi_selection=qpi_selection)
+            data_attributes=data_attributes, qpi_selection=qpi_selection)
         self.rgb_data = DataLoader(dataset=rgb_handler, batch_size=batch_size)
         for model in self.model_bundles:
             model.model.set_metadata_keys(rgb_handler.metadata_keys)

@@ -32,9 +32,16 @@ Each handler is registered under the reference's lowercase model name and owns:
 * int8 serving (``set_int8``): quantised weights and activation scales calibrated on
   the first eval batch (with its prepared metadata, for a metadata model), and the
   int8 program of ``ops/quantization.py`` in place of the module in the fused step;
+* bf16 training (``dtype = 'bf16'``): the train step's forward under the same autocast,
+  the parameters, their grads and Adam's moments in float32 (sisr_tpu's flax
+  ``param_dtype``);
+* online degradation in the train step (:meth:`set_device_degrade`): the batch's LR
+  made on the device from its HR crops and blur kernels (``ops/degradations.py``);
 * checkpoints in the reference's file contract (``saved_models/train_model_<N>``, a
   ``torch.save`` dict with ``network``, ``optimizer``, ``step``, ``model_name``,
-  ``model_epoch``), written in the background during training
+  ``model_epoch``) or, with ``checkpoint_backend = 'orbax'``, a directory at that path
+  (``utils/orbax_ckpt.py``); ``checkpoint_dtype = 'bf16_moments'`` stores Adam's
+  moments as bfloat16.  Written in the background during training
   (``utils/async_ckpt.py``).
 """
 import math
@@ -47,13 +54,14 @@ import torch
 
 from ..ops import quantization as qz
 from ..ops.colorspace import rgb_to_ycbcr_nhwc, ycbcr_to_rgb_nhwc
+from ..ops.degradations import degrade_batch_on_device
 from ..ops.masking import apply_mask, conv_mask_hooks, spatial_masks
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
 from ..tools.convert_weights import params_from_state_dict, repair_reference_keys
 from ..training.losses import build_loss
 from ..training.state import apply_update, build_optimizer
-from ..utils import async_ckpt
+from ..utils import async_ckpt, orbax_ckpt
 from ..utils.helpers import resolve_device
 from . import advanced, basic, qmodels, san, sftmd, sparnet
 from .blocks import torch_default_init_
@@ -144,7 +152,9 @@ class BaseHandler:
         """``kwargs`` are the model's structure parameters.  The training keys (lr,
         scheduler, optimizer_params, grad_clip; ref models/__init__.py:281-329) build
         the optimizer, schedule and loss.  ``checkpoint_backend`` 'msgpack' (sisr_tpu's
-        name for its single-file checkpoint) is the torch file here.
+        name for its single-file checkpoint) is the torch file here, 'orbax' the
+        directory of ``utils/orbax_ckpt.py``; ``checkpoint_dtype`` 'bf16_moments'
+        writes Adam's moments as bfloat16.
         ``max_combined_im_size`` bounds the area of a tile of a ``tiled_eval`` family's
         grid (halo included)."""
         self.eval_mode = eval_mode
@@ -156,12 +166,14 @@ class BaseHandler:
         if checkpoint_dtype not in ('f32', 'bf16_moments'):
             raise ValueError("checkpoint_dtype must be 'f32' or 'bf16_moments', got %r"
                              % (checkpoint_dtype,))
+        if checkpoint_backend not in ('msgpack', 'orbax'):
+            raise ValueError("checkpoint_backend must be 'msgpack' or 'orbax', got %r"
+                             % (checkpoint_backend,))
+        self.checkpoint_backend = checkpoint_backend
+        self.checkpoint_dtype = checkpoint_dtype
         # options training refuses (check_trainable); eval runs with them
-        self._unported_training = [(what, item) for what, item, on in (
-            ('dtype = "bf16"', 11, self.dtype == torch.bfloat16),
-            ('checkpoint_backend = "orbax"', 11, checkpoint_backend == 'orbax'),
-            ('checkpoint_dtype = "bf16_moments"', 11, checkpoint_dtype == 'bf16_moments'),
-            ('the perceptual (VGG feature) loss', 10, perceptual is not None)) if on]
+        self._unported_training = [('the perceptual (VGG feature) loss', 10)] \
+            if perceptual is not None else []
         # background checkpoint writes (utils/async_ckpt.py); false writes at the call
         self.async_checkpoint = bool(async_checkpoint)
         if grad_clip == 0:  # explicit 0 disables clipping, incl. subclass defaults
@@ -176,6 +188,7 @@ class BaseHandler:
         self._eval_step_cache = {}
         self._warm_eval_shapes = set()
         self.eval_buckets = None  # pad eval images to multiples of this (set_eval_buckets)
+        self.device_degrade = False  # the train step makes the LR (set_device_degrade)
         self.int8_mode = False  # int8 serving (set_int8)
         self.int8_residual_dtype = 'bfloat16'
         self._int8_ctx = None  # (program, quantised params, scales) once calibrated
@@ -298,12 +311,26 @@ class BaseHandler:
         return self.uses_metadata and not self.channel_concat
 
     # --- forward --------------------------------------------------------------------------
+    def set_device_degrade(self, enabled):
+        """Online degradation in the train step (ref handlers.py:186-190): each batch
+        brings HR crops and their ``blur_kernels``, and :meth:`_prep_batch` makes the
+        LR from them on the device."""
+        self.device_degrade = bool(enabled)
+
     def _prep_batch(self, batch):
         """(x, hr, metadata): uint8 transport, the /255 on the device (ref
         handlers.py:415-438); x the module's input (:meth:`network_input`: with a
         ``channel_concat`` handler the metadata maps concatenated, here and nowhere
-        else) and the module's metadata input (None when it takes none)."""
-        lr = _as_f32(batch['lr'])
+        else) and the module's metadata input (None when it takes none).  With
+        :meth:`set_device_degrade` and ``blur_kernels`` in the batch, the LR is
+        :func:`~sisr_tpu_torch.ops.degradations.degrade_batch_on_device` of the HR
+        (the batch's ``lr`` is a placeholder)."""
+        hr = _as_f32(batch.get('hr'))
+        if self.device_degrade and batch.get('blur_kernels') is not None \
+                and hr is not None:
+            lr = degrade_batch_on_device(hr, batch['blur_kernels'], None, self.scale)[0]
+        else:
+            lr = _as_f32(batch['lr'])
         metadata = self.prepare_metadata(lr, batch.get('metadata'))
         if metadata is not None and \
                 metadata.shape[-1] != self._metadata_width(self.num_metadata):
@@ -312,7 +339,7 @@ class BaseHandler:
                              % (type(self).__name__, self._metadata_width(self.num_metadata),
                                 metadata.shape[-1], self.metadata_keys))
         x = self.network_input(lr, metadata)
-        return x, _as_f32(batch.get('hr')), metadata if self.module_takes_metadata else None
+        return x, hr, metadata if self.module_takes_metadata else None
 
     def forward(self, x, metadata=None):
         """Model output for an NHWC float batch (the module's input, as
@@ -362,18 +389,22 @@ class BaseHandler:
 
     # --- training (ref handlers.py:469-545) -----------------------------------------------
     def _train_batch_keys(self):
-        """Batch entries the train step takes."""
-        return ('lr', 'hr', 'metadata') if self.uses_metadata else ('lr', 'hr')
+        """Batch entries the train step takes: with :meth:`set_device_degrade` the HR
+        crops and their blur kernels (the LR is made from them), else LR and HR; and
+        the metadata for a metadata model."""
+        keys = ('hr', 'blur_kernels') if self.device_degrade else ('lr', 'hr')
+        return keys + ('metadata',) if self.uses_metadata else keys
 
     def check_trainable(self, batch=None):
         """Raise unless this handler can train (on ``batch``): eval mode, an option
-        whose training is not ported (bf16, orbax or bf16_moments checkpoints, the
-        perceptual loss), or differently sized images in the batch."""
+        whose training is not ported (the perceptual loss), or differently sized
+        images in the batch."""
         if self.eval_mode:
             raise RuntimeError('Model initialized in eval mode, training not possible.')
         if self._unported_training:
             raise _training_not_ported(*self._unported_training[0])
-        if batch is not None and isinstance(batch['lr'], (list, tuple)):
+        probe = None if batch is None else batch.get('hr' if self.device_degrade else 'lr')
+        if isinstance(probe, (list, tuple)):
             raise RuntimeError('Training batch contains differently-sized images — use a '
                                'fixed crop (data "crop" option, which must be no larger '
                                'than the smallest LR image) or batch_size=1.')
@@ -392,7 +423,7 @@ class BaseHandler:
         tensor, not waited for."""
         if isinstance(batches, dict):
             keys = [k for k in self._train_batch_keys() if batches.get(k) is not None]
-            batches = [{k: batches[k][i] for k in keys} for i in range(len(batches['lr']))]
+            batches = [{k: batches[k][i] for k in keys} for i in range(len(batches['hr']))]
         losses = []
         for batch in batches:
             self.check_trainable(batch)
@@ -904,23 +935,32 @@ class BaseHandler:
 
     # --- checkpointing (ref: models/__init__.py:349-464) -----------------------------------
     def save_model(self, model_save_name, model_idx, model_save_dir, background=False):
-        """Write ``<model_save_dir>/<name>_<idx>``: a ``torch.save`` dict of
-        ``network`` (the state_dict), ``optimizer`` (Adam's state_dict; training
-        handlers), ``step``, ``model_name`` and ``model_epoch``.  The state is copied to
-        host tensors here, before any later step can change it.  With ``background``
-        (the epoch loop's saves) a training handler with ``async_checkpoint`` writes
-        the file on the background writer (fence: :meth:`wait_pending_checkpoints`);
-        otherwise it is written before this returns."""
+        """Write ``<model_save_dir>/<name>_<idx>``: ``network`` (the state_dict),
+        ``optimizer`` (Adam's state_dict; training handlers), ``step``, ``model_name``
+        and ``model_epoch``, as one ``torch.save`` file, or with ``checkpoint_backend
+        = 'orbax'`` as a directory (``utils/orbax_ckpt.py``); either replaces the other
+        at that path.  ``checkpoint_dtype = 'bf16_moments'`` casts Adam's moments to
+        bfloat16 on the device, before the copy.  The state is copied to host tensors
+        here, before any later step can change it.  With ``background`` (the epoch
+        loop's saves) a training handler with ``async_checkpoint`` writes on the
+        background writer (fence: :meth:`wait_pending_checkpoints`); otherwise the
+        checkpoint is written before this returns."""
         state = {'network': self.module.state_dict(), 'model_name': self.model_name,
                  'model_epoch': int(self.curr_epoch), 'step': int(self.step)}
         if not self.eval_mode:
             state['optimizer'] = self.optimizer.state_dict()
+            if self.checkpoint_dtype == 'bf16_moments':
+                state['optimizer'] = async_ckpt.narrow_moments(state['optimizer'])
         state = async_ckpt.to_host(state)
         path = os.path.join(model_save_dir, '%s_%s' % (model_save_name, model_idx))
-        if background and self.async_checkpoint and not self.eval_mode:
-            async_ckpt.WRITER.submit(path, lambda: async_ckpt.atomic_save(state, path))
+        if self.checkpoint_backend == 'orbax':
+            job = lambda: orbax_ckpt.save_dir(path, state)  # noqa: E731
         else:
-            async_ckpt.atomic_save(state, path)
+            job = lambda: async_ckpt.atomic_save(state, path)  # noqa: E731
+        if background and self.async_checkpoint and not self.eval_mode:
+            async_ckpt.WRITER.submit(path, job)
+        else:
+            job()
 
     def wait_pending_checkpoints(self, timeout=None):
         """Fence: block until every background checkpoint write of the process is on
@@ -928,13 +968,17 @@ class BaseHandler:
         async_ckpt.WRITER.wait(timeout=timeout)
 
     def load_model(self, model_save_name, model_idx, model_save_dir, load_override=None):
-        """Load ``<load_override or model_save_dir>/<name>_<idx>``: the network, and for
-        a training handler the Adam state and the step, so the moments and the
-        schedule continue."""
+        """Load ``<load_override or model_save_dir>/<name>_<idx>``, a file or a
+        directory checkpoint: the network, and for a training handler the Adam state
+        (bfloat16 moments cast back to the parameters' type) and the step, so the
+        moments and the schedule continue."""
         self.wait_pending_checkpoints()  # a just-saved epoch may still be in flight
         path = os.path.join(load_override or model_save_dir,
                             '%s_%s' % (model_save_name, model_idx))
-        state_dict = torch.load(path, map_location='cpu', weights_only=True)
+        if os.path.isdir(path):
+            state_dict = orbax_ckpt.restore_dir(path)
+        else:
+            state_dict = torch.load(path, map_location='cpu', weights_only=True)
         # strict: layouts must match, once the parameters a reference checkpoint
         # carries and its forward never uses (SAN's) are dropped and its aged keys
         # (SFTMD's) renamed
@@ -953,8 +997,10 @@ class BaseHandler:
         return state_dict
 
     def _load_optimizer(self, saved):
-        """Adam's moments and counts from a checkpoint; the hyperparameters stay the
-        configured ones (the schedule sets the lr before every update)."""
+        """Adam's moments and counts from a checkpoint (``load_state_dict`` casts a
+        'bf16_moments' checkpoint's bfloat16 moments to their parameters' type); the
+        hyperparameters stay the configured ones (the schedule sets the lr before
+        every update)."""
         groups = [{**current, 'params': old['params']} for current, old in
                   zip(self.optimizer.state_dict()['param_groups'], saved['param_groups'])]
         self.optimizer.load_state_dict({'state': saved['state'], 'param_groups': groups})

@@ -121,10 +121,12 @@ class ModelInterface:
         return cand
 
     # --- training passthroughs ------------------------------------------------------------
-    def train_batch(self, lr, hr, metadata=None, metadata_keys=None, **kwargs):
+    def train_batch(self, lr=None, hr=None, metadata=None, metadata_keys=None,
+                    blur_kernels=None, **kwargs):
         if metadata_keys is not None and self.model.metadata_keys is None:
             self.model.set_metadata_keys(metadata_keys)
-        return self.model.run_train(lr=lr, hr=hr, metadata=metadata)
+        return self.model.run_train(lr=lr, hr=hr, metadata=metadata,
+                                    blur_kernels=blur_kernels)
 
     def train_batch_multi(self, batches):
         """K steps (see BaseHandler.run_train_multi): a list of K batch dicts, or one

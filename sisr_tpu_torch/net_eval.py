@@ -30,8 +30,8 @@ def _config_callback(ctx, param, value):
 @click.option("--lr_dir", default=None, help='LR image directory.')
 @click.option("--lr_dir_interp", default=None, help='LR (interpolated) image directory.')
 @click.option('--data_attributes', default=None,
-              help='Additional data attributes (such as gender etc; CelebA attributes '
-                   'are not ported yet: raises).')
+              help='Additional data attributes (such as gender etc): a CelebA '
+                   'attribute file, every column put in front of each image\'s metadata.')
 @click.option("--batch_size", default=1, help='Batch size for parallel data loading.',
               show_default=True)
 @click.option('--full_directory', is_flag=True,

@@ -358,19 +358,30 @@ def _records_grad(*tensors):
 def _plain_vjp(plain, ctx, grad):
     """The backward of an op whose forward is a kernel: recompute ``plain`` on the
     saved inputs under autograd and return its VJP, a grad for each input that needs
-    one (sisr_tpu's ``_bwd`` / ``_res_bwd``)."""
+    one (sisr_tpu's ``_bwd`` / ``_res_bwd``).  The VJP runs in f32 with autocast off:
+    each saved input and the incoming grad are taken as f32 (a bf16 map of a bf16
+    train step too), and each grad is returned in its input's type (bf16 for that
+    map, f32 for the weights).  For f32 inputs no cast happens."""
     needs = ctx.needs_input_grad
-    with torch.enable_grad():
-        leaves = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, needs)]
+    inputs = ctx.saved_tensors
+    with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
+        leaves = [None if t is None else t.detach().float().requires_grad_(need)
+                  for t, need in zip(inputs, needs)]
         wanted = [t for t in leaves if t is not None and t.requires_grad]
-        grads = iter(torch.autograd.grad(plain(*leaves), wanted, grad))
-    return tuple(next(grads) if t is not None and t.requires_grad else None
-                 for t in leaves)
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, grad.float()))
+    return tuple(next(grads).to(t.dtype) if leaf is not None and leaf.requires_grad
+                 else None for t, leaf in zip(inputs, leaves))
 
 
 class _ChannelAttention(torch.autograd.Function):
-    """fused_channel_attention under autograd: the kernel forward, the plain VJP."""
+    """fused_channel_attention under autograd: the kernel forward, the plain VJP.
+
+    Under a bf16 autocast the Function receives mixed types, and casts nothing by
+    hand before the launch: ``x`` arrives as the convs left it (bf16) and the kernel
+    runs on that map; the weights, ``meta`` and ``gate`` arrive f32 (or bf16 from a
+    product) and the launch reads them as f32, as in eval.  The output is in x's
+    type.  No ``custom_fwd`` cast: it would cast every input to one type, and the
+    map must not become an f32 copy.  The backward is :func:`_plain_vjp` in f32."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, meta, gate, valid_hw):

@@ -8,7 +8,8 @@ parameter-tree and scale-key names (``head``, ``group_<g>.rcab_<b>.conv_0``,
 
 * weights: symmetric per-output-channel int8 (scale = max|w| / 127 over H, W, I);
 * activations: one static scale per conv input, from the absmax of a float32
-  calibration pass (``calibrate_<family>_scales``);
+  calibration pass (``calibrate_<family>_scales``), or for :func:`edsr_int8_forward`
+  one dynamic scale per conv input, its own absmax (:func:`quantize_activations`);
 * every 3x3 conv in int8 with an exact int32 sum; dequantisation, bias, ReLU and the
   residual carry (bfloat16 or float32; for EDSR also an int16 grid) in float32 or the
   carry's type;
@@ -203,12 +204,24 @@ def conv_int8_accumulate(x_q, q_kernel, matrix=None):
     return acc
 
 
-def conv_int8(x_q, q_kernel, w_scale, x_scale, bias=None, matrix=None):
-    """int8 conv of an already quantised input ``x_q`` on the grid ``x_scale``
-    (sisr_tpu's ``conv_int8`` with ``x_scale`` given): sum in int32, dequantise
+def quantize_activations(x):
+    """Dynamic per-tensor symmetric int8 quantisation (sisr_tpu's
+    ``quantize_activations``): (int8 map, its scale ``max(max|x| / 127, 1e-12)`` as a
+    0-dim f32 tensor on x's device)."""
+    x = x.float()
+    scale = torch.clamp(x.abs().amax() / 127.0, min=1e-12)
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
+def conv_int8(x, q_kernel, w_scale, x_scale=None, bias=None, matrix=None):
+    """int8 SAME conv (sisr_tpu's ``conv_int8``): ``x`` an int8 map already on the grid
+    ``x_scale``, or, with ``x_scale`` None, a float map quantised here with its own
+    dynamic scale (:func:`quantize_activations`).  Sum in int32, dequantise
     ``acc * (x_scale * w_scale) + bias`` in f32, in that order."""
-    x_scale = _scale_tensor(x_scale, x_q.device)
-    out = conv_int8_accumulate(x_q, q_kernel, matrix).float() * (x_scale * w_scale)
+    if x_scale is None:
+        x, x_scale = quantize_activations(x)
+    x_scale = _scale_tensor(x_scale, x.device)
+    out = conv_int8_accumulate(x, q_kernel, matrix).float() * (x_scale * w_scale)
     if bias is not None:
         out = out + bias
     return out
@@ -512,6 +525,25 @@ def edsr_int8_forward_static(qparams, act_scales, x, num_blocks=16, scale=4,
                                         res_scale)
     return _edsr_spine_int8(qparams, act_scales, x, num_blocks, scale, res_scale,
                             _carry_type(residual_dtype), 'body_tail')
+
+
+def edsr_int8_forward(qparams, x, num_blocks=16, scale=4, res_scale=0.1):
+    """Quantized EDSR forward with dynamic activation scales (sisr_tpu's
+    ``edsr_int8_forward``): every conv quantises its input with the input's own
+    absmax (:func:`conv_int8` without ``x_scale``); the residual carry is f32."""
+    def qconv(name, tree, h):
+        return conv_int8(h, tree['kernel'], tree['scale'], bias=tree['bias'],
+                         matrix=tree.get('matrix'))
+
+    h = qconv('head', qparams['head'], x)
+    res = h
+    for i in range(num_blocks):
+        blk = qparams['block_%d' % i]
+        y = torch.relu(qconv('conv_0', blk['conv_0'], res))
+        res = res + qconv('conv_1', blk['conv_1'], y) * res_scale
+    res = qconv('body_tail', qparams['body_tail'], res) + h
+    res = _edsr_upsample(qconv, qparams['upsampler'], res, scale)
+    return qconv('tail', qparams['tail'], res)
 
 
 def _edsr_int8_forward_res16(qparams, act_scales, x, num_blocks, scale, res_scale):

@@ -113,6 +113,9 @@ class TrainingHandler:
             scale=model_params['internal_params']['scale'], **self.model.configuration,
             **data_params)
         self.model.set_metadata_keys(self.train_data.dataset.metadata_keys)
+        if getattr(self.train_data.dataset, 'device_degradations', False):
+            # the items carry HR crops and kernels; the train step makes the LR
+            self.handler.set_device_degrade(True)
         # uint8 transport: crops travel as uint8 (4x fewer bytes) and the train step
         # divides by 255 on the device, bit-identical to the host conversion
         for ds in getattr(self.train_data.dataset, 'datasets', [self.train_data.dataset]):

@@ -16,9 +16,15 @@ background thread (:data:`WRITER`).
   exit, so a CLI that saves and returns still flushes its queue.
 * Files are written to a dot-prefixed ``.tmp-<pid>-<name>`` sibling, fsync'd, then
   renamed over the real name (and the directory fsync'd): a crash mid-write never leaves
-  a truncated checkpoint under the real name.
+  a truncated checkpoint under the real name.  A directory checkpoint
+  (``utils/orbax_ckpt.py``) at that name is moved aside and removed, and the other way
+  round.
+* ``checkpoint_dtype = "bf16_moments"``: :func:`narrow_moments` casts Adam's
+  ``exp_avg`` and ``exp_avg_sq`` to bfloat16 for the disk (half their bytes);
+  ``Optimizer.load_state_dict`` casts them back to their parameters' type at load.
 """
 import os
+import shutil
 import sys
 import threading
 import time
@@ -39,22 +45,61 @@ def to_host(tree):
     return tree
 
 
+MOMENT_KEYS = ('exp_avg', 'exp_avg_sq')  # Adam's moments in its state_dict
+
+
+def narrow_moments(optimizer_state, dtype=torch.bfloat16):
+    """An optimizer state_dict with every moment tensor (:data:`MOMENT_KEYS`) cast to
+    ``dtype`` (new tensors; the live state is untouched), the rest as it is."""
+    state = {index: {k: v.to(dtype) if k in MOMENT_KEYS and torch.is_tensor(v) else v
+                     for k, v in entry.items()}
+             for index, entry in optimizer_state['state'].items()}
+    return {**optimizer_state, 'state': state}
+
+
+def remove_path(path):
+    """Remove a file or a directory tree (nothing if neither is there)."""
+    if os.path.isdir(path) and not os.path.islink(path):
+        shutil.rmtree(path)
+    elif os.path.lexists(path):
+        os.remove(path)
+
+
+def replace_atomically(staging, path):
+    """Move ``staging`` (a file or a directory) to ``path``.  A file over a file is one
+    rename; otherwise what held ``path`` is renamed aside first and removed after, so
+    ``path`` names the old checkpoint or the new one, whole, at every moment but the
+    one between the two renames."""
+    if not os.path.isdir(staging) and not os.path.isdir(path):
+        os.replace(staging, path)
+        return
+    head, base = os.path.split(path)
+    aside = os.path.join(head, '.old-%d-%s' % (os.getpid(), base))
+    remove_path(aside)
+    had_old = os.path.lexists(path)
+    if had_old:
+        os.rename(path, aside)
+    os.rename(staging, path)
+    if had_old:
+        remove_path(aside)
+
+
 def sweep_stale_tmp(head, base, max_age_s=3600):
-    """Remove crash-leftover ``.tmp-<pid>-<base>`` siblings older than ``max_age_s``
-    (a killed writer leaves a full-size staging file under a pid a restarted run never
-    matches)."""
+    """Remove crash-leftover ``.tmp-<pid>-<base>`` and ``.old-<pid>-<base>`` siblings
+    (files or directories) older than ``max_age_s`` (a killed writer leaves a
+    full-size staging copy under a pid a restarted run never matches)."""
     suffix = '-%s' % base
     try:
         entries = os.listdir(head)
     except OSError:
         return
     for name in entries:
-        if not (name.startswith('.tmp-') and name.endswith(suffix)):
+        if not (name.startswith(('.tmp-', '.old-')) and name.endswith(suffix)):
             continue
         full = os.path.join(head, name)
         try:
             if time.time() - os.stat(full).st_mtime >= max_age_s:
-                os.remove(full)
+                remove_path(full)
         except OSError:
             pass  # gone already, or a live writer's
 
@@ -62,7 +107,7 @@ def sweep_stale_tmp(head, base, max_age_s=3600):
 def atomic_save(obj, path):
     """``torch.save(obj)`` to ``path`` through an fsync'd dot-prefixed sibling and a
     rename (the sibling never matches the ``train_model_*`` names that best/last
-    resolution scans)."""
+    resolution scans); a directory checkpoint at ``path`` is replaced."""
     head, base = os.path.split(path)
     sweep_stale_tmp(head, base)
     tmp = os.path.join(head, '.tmp-%d-%s' % (os.getpid(), base))
@@ -70,7 +115,7 @@ def atomic_save(obj, path):
         torch.save(obj, f)
         f.flush()
         os.fsync(f.fileno())  # the rename makes the name durable, not the data
-    os.replace(tmp, path)
+    replace_atomically(tmp, path)
     try:  # make the rename itself durable
         dfd = os.open(head or '.', os.O_RDONLY)
         try:

@@ -189,7 +189,11 @@ def test_ported_options_run(override, jax_rcan, tmp_path):
     {'mesh': True}, {'data_attributes': 'list_attr_celeba.txt'},
     {'metrics': ['PSNR', 'FACE_SIM']},
 ])
-def test_unported_options_raise(override):
+def test_unported_options_raise(override, tmp_path, monkeypatch):
+    """Multi-device eval and FACE_SIM raise NotImplementedError; CelebA attributes
+    are ported now: the hub takes the file and goes on to load the model, missing
+    here."""
+    monkeypatch.chdir(tmp_path)  # the hub writes under out_loc before it loads models
     kwargs = dict(hr_dir='hr', lr_dir='lr', model_and_epoch=[('e', '0')], results_name='r',
                   gpu=False, metrics=['PSNR'], data_split=None, save_im=False, batch_size=1,
                   full_directory=True, lr_dir_interp=None, model_only=False, scale=4,
@@ -198,5 +202,9 @@ def test_unported_options_raise(override):
                   data_attributes=None, dataset_name=None, image_shortlist=None,
                   metadata_file=None, sp_gpu=0, time_models=False, recursive=False,
                   fused_eval=True)
+    if 'data_attributes' in override:
+        with pytest.raises(RuntimeError, match='No config.toml'):
+            EvalHub(**{**kwargs, **override})
+        return
     with pytest.raises(NotImplementedError, match='not ported'):
         EvalHub(**{**kwargs, **override})

@@ -271,7 +271,9 @@ def test_dataset_serves_metadata_and_the_loader_keeps_keys_as_a_list(tmp_path):
     batch = next(device_prefetch(iter(DataLoader(dataset, batch_size=2)), 'cpu'))
     assert batch['metadata'].dtype == torch.float32 and batch['metadata'].shape == (2, 10)
     assert batch['metadata_keys'] == ['blur_kernel'] * 10
-    with pytest.raises(NotImplementedError, match='CelebA'):
+    # CelebA attributes are ported (tests/test_torch_celeba.py): a missing file fails
+    # to read, as in sisr_tpu
+    with pytest.raises(FileNotFoundError):
         SuperResImages(lr_dir, hr_dir, split='all', metadata='all', data_attributes='a.txt')
 
 
