@@ -154,6 +154,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
    degradation with noise; ``--data_attributes`` on a CelebA attribute file for the
    pairs renamed as CelebA's; ``CelebaSplitSampler`` ordering an epoch; and 10 timed
    bf16 train steps of Q-RCAN and RCAN beside the f32 ones of phase 11;
+16. the long tail (after phase 14): the CA's host time a call, its launcher against the
+   ``sisr::ca`` custom op called directly, in turns; ``train_sisr`` of
+   configs/div2k/qrcan.toml's model in f32 with the perceptual term on a seeded VGG19,
+   tracked and cleaned every epoch (2 epochs and a resume), its loss card against CPU,
+   10 timed steps with and without the term; FACE_SIM on Q-SPARNet's standard protocol
+   with both face models, their embeddings card against CPU; ``export_serving`` of RCAN
+   in bf16 and int8 and of Q-RCAN (5 x 20), each program run
+   over the 16 LR images (``run_serving``: launches, PSNR against the fused or the
+   eager int8 forward, ms a batch against the eager program's); ``image_manipulate``
+   against ``degrade_batch_on_device``, the reference import and its fused eval,
+   ``model_report``, the tracker's records and the profiling helpers.  To make room,
+   the timed f32 and bf16 steps of Q-RCAN and RCAN (phases 11 and 15) go at 5 x 20;
 
 then the script's total seconds with each family's int8 img/s over its bf16 img/s
 (the table of ``INT8_MEASURED_SLOWER``), the ``kernels`` table (a row for each route
@@ -236,7 +248,9 @@ MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
           'sftmd_16b': ('sftmd', SFTMD), 'sftmd_q16b': ('sftmd', SFTMD_Q),
           'sparnet_128': ('sparnet', SPARNET), 'qsparnet_512': ('qsparnet', QSPARNET),
           'qsparnet_128': ('qsparnet', QSPARNET_STD), 'srcnn_955': ('srcnn', SRCNN),
-          'vdsr_20': ('vdsr', VDSR)}
+          'vdsr_20': ('vdsr', VDSR),
+          # the serving export's Q-RCAN (the e2e configuration cut to 5 x 20)
+          'qrcan_5x20': ('qrcan', {**QRCAN, 'n_resgroups': 5})}
 # the families whose paths make no call of either CA op
 NO_CA_MODELS = ('san', 'qsan', 'srmd', 'sftmd', 'sparnet', 'qsparnet', 'srcnn', 'vdsr')
 # the pre-upscaled families' main paths
@@ -2294,7 +2308,9 @@ FULL_DEPTH = {'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64}
 # earlier paths cut to half depth to keep the script near 900 s beside phase 15: the
 # f32 train_sisr of the Q-RCAN recipe (phase 15's online-degradation path trains the
 # full-depth model) at 5 x 20, and Q-SAN's 2 x 2 grid run (QSAN_GRID) and the timed
-# steps of HAN and Q-HAN (5 x 20) and SAN and Q-SAN (10 x 10)
+# steps of HAN and Q-HAN (5 x 20) and SAN and Q-SAN (10 x 10); beside phase 16, the
+# timed f32 and bf16 steps of Q-RCAN and RCAN at 5 x 20 (phase 16 times the full-depth
+# f32 Q-RCAN step)
 RECIPE_TRAIN_DEPTH = {'n_resgroups': 5}
 RECIPE_CA_PER_FORWARD = RECIPE_TRAIN_DEPTH['n_resgroups'] * RCAN['n_resblocks']
 
@@ -2699,8 +2715,8 @@ def phase_train_main_path(dirs, root):
         # turns against the CA's plain version; SAN and Q-SAN make no CA call
         half = {'n_resgroups': 5}
         for name, model, internal, turns, calls in (
-                ('qrcan_10x20', 'qrcan', QRCAN_TRAIN, True, CA_PER_FORWARD),
-                ('rcan_10x20', 'rcan', RCAN_TRAIN, True, CA_PER_FORWARD),
+                ('qrcan_5x20', 'qrcan', {**QRCAN_TRAIN, **half}, True, CA_PER_FORWARD // 2),
+                ('rcan_5x20', 'rcan', {**RCAN_TRAIN, **half}, True, CA_PER_FORWARD // 2),
                 ('han_5x20', 'han', {**HAN_TRAIN, **half}, False, CA_PER_FORWARD // 2),
                 ('qhan_5x20', 'qhan', {**QHAN_TRAIN, **half}, False, CA_PER_FORWARD // 2),
                 ('san_10x10', 'san', {**SAN_TRAIN, 'n_resgroups': 10}, False, 0),
@@ -3143,20 +3159,23 @@ def phase_sampler_train(faces, root):
 
 
 def phase_bf16_train_steps(f32_breakdowns):
-    """10 timed warm bf16 train steps (autocast around f32 parameters) of Q-RCAN and
-    RCAN 10 x 20 as configs/div2k/qrcan.toml trains them, through the handler (as
+    """10 timed warm bf16 train steps (autocast around f32 parameters) of Q-RCAN and RCAN
+    at 5 x 20 as configs/div2k/qrcan.toml trains them, through the handler (as
     train_step_breakdown: wall, forward / backward / optimizer, device busy, idle share,
-    peak memory), beside this run's f32 steps of the same models.  Each step's 200 CA
-    launches on chip at (8, 64, 64, 64) bf16."""
+    peak memory), beside this run's f32 steps of the same models.  Each step's CA
+    launches (a block's each) on chip at (8, 64, 64, 64) bf16."""
     out = {}
     with tf32(True, False):
-        for name, model, internal in (('qrcan_10x20', 'qrcan', QRCAN_TRAIN),
-                                      ('rcan_10x20', 'rcan', RCAN_TRAIN)):
+        for name, model, internal, calls in (
+                ('qrcan_5x20', 'qrcan', {**QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH},
+                 RECIPE_CA_PER_FORWARD),
+                ('rcan_5x20', 'rcan', {**RCAN_TRAIN, **RECIPE_TRAIN_DEPTH},
+                 RECIPE_CA_PER_FORWARD)):
             bf16 = train_step_breakdown(model, {**internal, 'dtype': 'bf16'}, turns=False)
             expect_launches(bf16['launches_per_step'], {
-                **NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD,
-                'fused_channel_attention_onchip': CA_PER_FORWARD}, '%s bf16 step' % name)
-            if bf16['onchip_by_map_per_step'] != {map_key(TRAIN_SHAPE): CA_PER_FORWARD}:
+                **NO_LAUNCHES, 'fused_channel_attention': calls,
+                'fused_channel_attention_onchip': calls}, '%s bf16 step' % name)
+            if bf16['onchip_by_map_per_step'] != {map_key(TRAIN_SHAPE): calls}:
                 raise AssertionError('%s bf16 step launched %s'
                                      % (name, bf16['onchip_by_map_per_step']))
             f32 = f32_breakdowns[name]
@@ -3824,6 +3843,616 @@ def phase_train_standard_val(dirs, root, recipe='qrcan', source_dir='div2k'):
     return {'launches': launches}
 
 
+# --- the perceptual loss, FACE_SIM, serving export and the host tools -------------------
+# configs/div2k/qrcan.toml's model and optimizer at full depth in f32 with the VGG54
+# perceptual term (lambda 1.0) on a seeded torchvision-layout VGG19 trunk to conv5_4
+QRCAN_PERCEPTUAL = {**QRCAN_TRAIN, 'perceptual': 1.0}
+# the perceptual loss card against the CPU: Q-RCAN cut to 2 x 2, batch 2, LR crops of
+# 16 (the CPU runs the whole VGG19 trunk on 4 images of 64^2 a step)
+PERCEPTUAL_CPU_DEPTH = {'n_resgroups': 2, 'n_resblocks': 2, 'n_feats': 64}
+LIGHTCNN_CLASSES = 79077  # LightCNN-29's released checkpoint (its fc2 the loader drops)
+
+
+def write_vgg19_weights(path, seed=5):
+    """A torchvision-layout VGG19 state_dict (``features.N.*``, the trunk to conv5_4),
+    torch's default init from ``seed``."""
+    import torch
+    from sisr_tpu_torch.models.feature_extractors import VGG19Features
+    torch.manual_seed(seed)
+    torch.save(VGG19Features().state_dict(), path)
+    return path
+
+
+def write_face_weights(root, seed=9):
+    """Seeded full-width face checkpoints in the reference layouts: LightCNN-29's
+    ``{'state_dict': {'module.…'}}`` with its 79077-class fc2, and ``vgg_face_dag``'s
+    names; {name: path}."""
+    import torch
+    from sisr_tpu_torch.models.feature_extractors import LightCNN29, VggFace
+    torch.manual_seed(seed)
+    light = {'module.' + k: v for k, v in LightCNN29(LIGHTCNN_CLASSES).state_dict().items()}
+    paths = {'lightcnn': os.path.join(root, 'LightCNN_29Layers_checkpoint.pth.tar'),
+             'vggface': os.path.join(root, 'vgg_face_dag.pth')}
+    torch.save({'epoch': 0, 'arch': 'LightCNN-29', 'state_dict': light}, paths['lightcnn'])
+    torch.save(VggFace().state_dict(), paths['vggface'])
+    return paths
+
+
+def write_perceptual_config(dirs, root, vgg_path):
+    """configs/div2k/qrcan.toml's [model] at full depth with ``perceptual = 1.0`` and
+    ``vgg_weights``, in f32, on the 16 pairs (LR crops of 64, HR 256^2), fused
+    validation, tracked (``aim_track``, ``aim_home``) and cleaned every epoch
+    (``model_cleanup_frequency = 1``): (config path, save location, aim_home)."""
+    from sisr_tpu_torch.utils import toml_io
+    save_loc = os.path.join(root, 'Results_perceptual')
+    aim_home = os.path.join(root, 'tracking')
+    data_set = {'lr': dirs['lr_dir'], 'hr': dirs['hr_dir'], 'degradation_metadata': 'on_site',
+                'metadata': ['blur_kernel']}
+    path = os.path.join(root, 'qrcan_perceptual.toml')
+    toml_io.dump({
+        'experiment': 'qrcan_perceptual', 'experiment_save_loc': save_loc,
+        'data': {'batch_size': BATCH, 'dataloader_threads': 8,
+                 'training_sets': {'data_1': {**data_set, 'crop': TRAIN_CROP,
+                                              'random_augment': True}},
+                 'eval_sets': {'data_1': data_set}},
+        'model': {'name': 'qrcan', 'internal_params': {**QRCAN_PERCEPTUAL,
+                                                       'vgg_weights': vgg_path}},
+        'training': {'gpu': 'single', 'seed': 8, 'metrics': ['PSNR', 'SSIM'],
+                     'logging': 'visual', 'fused_val': True, 'aim_track': True,
+                     'aim_home': aim_home, 'model_cleanup_frequency': 1}}, path)
+    return path, save_loc, aim_home
+
+
+def train_batch_on(device, batch, lr=TRAIN_CROP, seed=6):
+    """A seeded uint8 train batch of ``batch`` LR crops of ``lr``^2, their HR crops and
+    10 blur-kernel values each, on ``device``."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    hr = lr * SCALE
+    return {'lr': torch.from_numpy(rng.randint(0, 256, (batch, lr, lr, 3)).astype(np.uint8)
+                                   ).to(device),
+            'hr': torch.from_numpy(rng.randint(0, 256, (batch, hr, hr, 3)).astype(np.uint8)
+                                   ).to(device),
+            'metadata': torch.from_numpy(rng.dirichlet(np.ones(META_COLS) * 5, batch)
+                                         .astype(np.float32)).to(device)}
+
+
+def perceptual_step_breakdown(vgg_path, steps=10):
+    """10 warm f32 train steps of Q-RCAN 10 x 20 (configs/div2k/qrcan.toml's model) with
+    and without the perceptual term, in turns (without, with, with, without: 5 steps a
+    turn), on one seeded batch of 8 LR crops of 64^2 (HR 256^2): each one's median step
+    wall ms, device-busy ms (profiler, 3 steps), idle share, peak memory of a step (both
+    handlers live throughout), and the 200 ca_onchip launches of a step; the VGG term
+    alone (its forward on the SR and the HR and its backward to the SR, as a step runs
+    it) in device ms and its share of the step's device time.  Returns the report and
+    the handler without the term, with the batch (for the profiling tools)."""
+    import torch
+    from sisr_tpu_torch.models.feature_extractors import load_vgg_extractor
+    from sisr_tpu_torch.models.handlers import define_model
+    from sisr_tpu_torch.training.losses import l1_loss
+    handlers = {label: define_model('qrcan', device='cuda', seed=8,
+                                    **{**FULL_DEPTH, **QRCAN_TRAIN, **extra})
+                for label, extra in (('without', {}), ('with', {'perceptual': 1.0,
+                                                                'vgg_weights': vgg_path}))}
+    batch = train_batch_on('cuda', BATCH)
+    for handler in handlers.values():
+        handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+        for _ in range(3):
+            handler.run_train(**batch)
+    torch.cuda.synchronize()
+    walls = {'without': [], 'with': []}
+    for label in ('without', 'with', 'with', 'without'):
+        walls[label] += timed_steps(handlers[label], batch, steps // 2)[0]
+    report = {}
+    for label, handler in handlers.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        handler.run_train(**batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(launches, {**NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD,
+                                   'fused_channel_attention_onchip': CA_PER_FORWARD},
+                        'Q-RCAN train step %s the perceptual term' % label)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy_ms, _ = device_kernel_ms(lambda h=handler: h.run_train(**batch), reps=3)
+        wall = statistics.median(walls[label])
+        report[label] = {'median_step_wall_ms': wall, 'step_wall_ms': walls[label],
+                         'device_busy_ms': busy_ms, 'device_idle_share':
+                             (1 - busy_ms / wall) if busy_ms else None,
+                         'step_peak_memory_gb': peak, 'launches_per_step': launches}
+    vgg = load_vgg_extractor(vgg_path, device='cuda')
+    h = handlers['with']
+    lr, hr, meta = h._prep_batch({'lr': batch['lr'], 'hr': batch['hr'],
+                                  'metadata': batch['metadata']})
+    with torch.no_grad():
+        sr = h.forward(lr, meta).float()
+    sr.requires_grad_(True)
+
+    def term():
+        gen = vgg(sr)
+        with torch.no_grad():
+            real = vgg(hr)
+        l1_loss(gen, real).backward()
+    term_ms, per_kernel = device_kernel_ms(term, reps=3)
+    with_, without = report['with'], report['without']
+    report.update({
+        'vgg_term_device_ms': term_ms,
+        'vgg_term_share_of_step_device': term_ms / with_['device_busy_ms']
+        if term_ms and with_['device_busy_ms'] else None,
+        'vgg_term_top_kernels_ms': sorted(((k, v / 3) for k, v in per_kernel.items()),
+                                          key=lambda kv: -kv[1])[:6],
+        'with_over_without_wall': with_['median_step_wall_ms']
+        / without['median_step_wall_ms'],
+        'with_over_without_device_busy': with_['device_busy_ms'] / without['device_busy_ms']
+        if with_['device_busy_ms'] and without['device_busy_ms'] else None,
+        'peak_memory_delta_gb': with_['step_peak_memory_gb'] - without['step_peak_memory_gb'],
+        'vgg_gflop_per_256_image': vgg_conv_flops(vgg, 256) / 1e9})
+    del handlers['with']
+    return report, handlers['without'], batch
+
+
+def vgg_conv_flops(vgg, side):
+    """Multiply-add FLOPs of the VGG trunk's convs on one side x side image."""
+    import torch
+    flops = 0
+    for m in vgg.module.features:
+        if isinstance(m, torch.nn.Conv2d):
+            flops += 2 * side * side * m.out_channels * m.in_channels * 9
+        elif isinstance(m, torch.nn.MaxPool2d):
+            side //= 2
+    return flops
+
+
+def phase_perceptual_train(dirs, root):
+    """``train_sisr`` of configs/div2k/qrcan.toml's model and optimizer, Q-RCAN 10 x 20
+    f32, with ``perceptual = 1.0`` on a seeded VGG19 trunk (write_vgg19_weights), on
+    the 16 pairs at HR crops of 256^2, fused validation, tracked and cleaned every
+    epoch: 2 epochs, then a resume for a third (finite losses, the checkpoints, the
+    resumed one at step 6), every CA call on chip, 200 a forward.  Then the loss of 3
+    steps on the card (TF32 off) against the CPU at 2 x 2 (batch 2, LR crops of 16),
+    within rtol 2e-4, and perceptual_step_breakdown.  cuDNN TF32 on, matmul off
+    (PyTorch's defaults) in the train runs and the timed steps."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from sisr_tpu_torch.models.handlers import define_model
+    vgg_path = write_vgg19_weights(os.path.join(root, 'vgg19_features.pth'))
+    config, save_loc, aim_home = write_perceptual_config(dirs, root, vgg_path)
+    n_train = N_IMAGES // BATCH
+    per_epoch = CA_PER_FORWARD * (n_train + N_IMAGES + 1)  # train, validation, samples
+    report = {'tf32': {'cudnn': True, 'matmul': False}}
+    total = dict(NO_LAUNCHES)
+    with tf32(True, False):
+        for label, args, epochs in (('first', ('--num_epochs', '2'), 2),
+                                    ('resume', ('--num_epochs', '1',
+                                                '--continue_from_epoch', '1'), 1)):
+            launches, seconds = run_train_cli(config, *args)
+            expect_launches(launches, {**NO_LAUNCHES,
+                                       'fused_channel_attention': per_epoch * epochs,
+                                       'fused_channel_attention_onchip': per_epoch * epochs},
+                            'perceptual train_sisr (%s)' % label)
+            report[label] = {'launches': launches, 'cli_seconds': seconds}
+            total = {k: total[k] + launches[k] for k in total}
+    base = os.path.join(save_loc, 'qrcan_perceptual')
+    summary = pd.read_csv(os.path.join(base, 'result_outputs', 'summary.csv'))
+    values = summary[['train-loss', 'val-loss', 'val-PSNR', 'val-SSIM']].to_numpy()
+    saved = torch.load(os.path.join(base, 'saved_models', 'train_model_2'),
+                       weights_only=True, map_location='cpu')
+    if list(summary['epoch']) != [0, 1, 2] or not np.isfinite(values).all() \
+            or saved['step'] != 3 * n_train:
+        raise AssertionError('perceptual train_sisr: summary %s, checkpoint step %s'
+                             % (summary.to_dict('list'), saved['step']))
+    report['summary'] = summary.to_dict('list')
+
+    # the loss of the first steps, card (TF32 off) against the CPU, at reduced depth
+    losses = {}
+    for device in ('cuda', 'cpu'):
+        handler = define_model('qrcan', device=device, seed=8, **{
+            **QRCAN_PERCEPTUAL, **PERCEPTUAL_CPU_DEPTH, 'vgg_weights': vgg_path})
+        handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+        with tf32(False, False):
+            losses[device] = [float(handler.run_train(**train_batch_on(device, 2, 16, seed))[0])
+                              for seed in (21, 22, 23)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses['cuda'], losses['cpu']))
+    report['card_vs_cpu'] = {'depth': PERCEPTUAL_CPU_DEPTH, 'batch': 2, 'lr_crop': 16,
+                             'losses': losses, 'max_rel_diff': rel}
+    if not rel <= 2e-4:
+        raise AssertionError('perceptual loss card against CPU: %s' % losses)
+    with tf32(True, False):
+        steps, handler, batch = perceptual_step_breakdown(vgg_path)
+    emit({'phase': 'perceptual_train', 'model': 'qrcan 10x20 64f 4x f32, standard + q_node, '
+          '10 blur-kernel values, batch 8, LR crop 64, perceptual 1.0 on VGG19 to conv5_4',
+          **report, 'steps': steps, 'nvidia_smi': nvidia_smi_line()})
+    return {'launches': total, 'save_loc': save_loc, 'experiment': 'qrcan_perceptual',
+            'aim_home': aim_home, 'handler': handler, 'batch': batch}
+
+
+def read_images(folder, n):
+    """The first ``n`` PNG images of ``folder`` as one (n, H, W, 3) float32 array."""
+    import numpy as np
+    from PIL import Image
+    names = sorted(f for f in os.listdir(folder) if f.endswith('.png'))[:n]
+    return np.stack([np.asarray(Image.open(os.path.join(folder, f)).convert('RGB'),
+                                np.float32) / 255.0 for f in names])
+
+
+def phase_face_sim_eval(dirs, root):
+    """``eval_sisr`` on the standard protocol (batch 1, --time_models,
+    --no_image_comparison) of Q-SPARNet as configs/celebahq/qsparnet.toml builds it
+    (qsparnet_512, bf16) over the 16 pairs with ``-m PSNR -m SSIM -m FACE_SIM``, with
+    ``--face_model lightcnn`` and with ``vggface`` on seeded full-width checkpoints in
+    the reference layouts (write_face_weights): sisr_tpu's columns, every FACE_SIM in
+    [-1, 1], no CA launch.  Then each extractor's embeddings of 4 HR images, card (TF32
+    off) against the CPU, within 1e-4 of the embedding's norm, and its ms a batch."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.models.feature_extractors import load_face_extractor
+    weights = write_face_weights(root)
+    experiment = 'qsparnet_512'
+    shapes = lr_shapes(dirs['lr_dir'])
+    columns = [('LR', 'runtime'), ('LR', 'PSNR'), ('LR', 'SSIM'), ('LR', 'FACE_SIM'),
+               (experiment, 'runtime'), (experiment, 'PSNR'), (experiment, 'SSIM'),
+               (experiment, 'FACE_SIM')]
+    report, total = {}, dict(NO_LAUNCHES)
+    x = torch.from_numpy(read_images(dirs['hr_dir'], 4))
+    for name, path in weights.items():
+        launches, seconds, split, peak_gb, frame, _ = run_standard_cli(
+            dirs, 'face_sim_' + name, experiment,
+            ['-m', 'FACE_SIM', '--face_model', name, '--face_weights', path,
+             '--no_image_comparison'])
+        expect_launches(launches, NO_LAUNCHES, 'FACE_SIM eval (%s)' % name)
+        check_frame(frame, shapes, experiment, 'face_sim_' + name)
+        sims = frame[[('LR', 'FACE_SIM'), (experiment, 'FACE_SIM')]].to_numpy()
+        if list(frame.columns) != columns or not np.isfinite(sims).all() \
+                or np.abs(sims).max() > 1 + 1e-6:
+            raise AssertionError('FACE_SIM (%s): columns %s, values %s'
+                                 % (name, list(frame.columns), sims))
+        card = load_face_extractor(name, path, device='cuda')
+        cpu = load_face_extractor(name, path, device='cpu')
+        with tf32(False, False), torch.inference_mode():
+            e_card = card(x.cuda()).cpu()
+            e_cpu = cpu(x)
+            batch_ms = cuda_ms(lambda: card(x.cuda()), reps=3, rounds=3, warm=1)
+        norms = e_cpu.norm(dim=1)
+        rel = float(((e_card - e_cpu).abs().max(dim=1).values / norms).max())
+        report[name] = {'cli_seconds': seconds, 'img_per_s': N_IMAGES / split['protocol'],
+                        'peak_memory_gb': peak_gb,
+                        'mean_face_sim': {'LR': float(sims[:, 0].mean()),
+                                          experiment: float(sims[:, 1].mean())},
+                        'mean_psnr': float(frame[(experiment, 'PSNR')].mean()),
+                        'embedding_dim': int(e_cpu.shape[1]),
+                        'embedding_max_rel_diff_card_vs_cpu': rel,
+                        'embedding_ms_per_batch_of_4_512': batch_ms}
+        total = {k: total[k] + launches[k] for k in total}
+        if not (norms > 0).all() or not rel <= 1e-4:
+            raise AssertionError('%s embeddings card against CPU: %g of the norm (norms %s)'
+                                 % (name, rel, norms.tolist()))
+    emit({'phase': 'face_sim_eval', 'model': 'qsparnet in_size 512 '
+          '(configs/celebahq/qsparnet.toml) bf16, 10 blur-kernel values', 'images': N_IMAGES,
+          'columns': [list(c) for c in columns], **report, 'nvidia_smi': nvidia_smi_line()})
+    return {'launches': total}
+
+
+def eager_psnr(program, lr_dir, hr_dir, meta_rows=None):
+    """Per-image Y PSNR of an eager serving ``program`` over the LR images of
+    ``lr_dir`` in batches of BATCH (with their ``meta_rows``), by run_serving's own
+    metric code: {name: PSNR}."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from sisr_tpu_torch.tools import run_serving
+    names = sorted(f for f in os.listdir(lr_dir) if f.endswith('.png'))
+    sr_images, results = {}, {}
+    for start in range(0, len(names), BATCH):
+        chunk = names[start:start + BATCH]
+        x = np.stack([np.asarray(Image.open(os.path.join(lr_dir, n)).convert('RGB'),
+                                 np.float32) / 255.0 for n in chunk])
+        args = [torch.from_numpy(x).cuda()]
+        if meta_rows is not None:
+            args.append(torch.from_numpy(meta_rows[start:start + BATCH]).cuda())
+        with torch.inference_mode():
+            y = program(*args).float().cpu().numpy()
+        for j, name in enumerate(chunk):
+            sr_images[name] = np.clip(y[j], 0.0, 1.0)
+            results[name] = {}
+    run_serving._run_gt_metrics(sr_images, hr_dir, ['PSNR'], results, None)
+    return {name: results[name]['PSNR'] for name in names}
+
+
+def read_serving_csv(out_dir):
+    import pandas as pd
+    frame = pd.read_csv(os.path.join(out_dir, 'serving_metrics.csv'), index_col=0)
+    return {name: float(v) for name, v in frame['PSNR'].items() if name != '[mean]'}
+
+
+# the export phase's programs: label -> (experiment, int8); an int8 RCAN 10 x 20 program
+# runs 415 int8 convs (head, 2 a block and one a group, body tail, 2 upsampler stages,
+# tail), each one sisr::conv_int8_static node when exported
+INT8_RCAN_CONVS = 1 + RCAN['n_resgroups'] * (2 * RCAN['n_resblocks'] + 1) + 1 + 2 + 1
+SERVING_CASES = (('rcan_bf16', 'rcan_10x20', False),
+                 ('rcan_int8', 'rcan_10x20', True),
+                 ('qrcan_bf16', 'qrcan_5x20', False))
+
+
+def phase_ca_dispatch():
+    """The CA's eager dispatch at the bf16 main map: the time a call (CUDA events around
+    50 back-to-back calls, which the host bounds) of ``fused_channel_attention``, whose
+    eager call goes straight to the launcher, against the ``sisr::ca`` custom op called
+    directly (what a traced program calls), in turns (launcher, op, op, launcher); both
+    give the same output."""
+    import torch
+    from sisr_tpu_torch.ops import channel_attention as ca
+    gen = torch.Generator().manual_seed(0)
+    x, w1, b1, w2, b2 = ca_inputs((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 16, gen)
+    calls = {'launcher': lambda: ca.fused_channel_attention(x, w1, b1, w2, b2),
+             'op': lambda: torch.ops.sisr.ca(x, w1, b1, w2, b2, None, None, None)}
+    host_ms = {'launcher': [], 'op': []}
+    with torch.inference_mode():
+        if not torch.equal(calls['launcher'](), calls['op']()):
+            raise AssertionError('sisr::ca differs from fused_channel_attention')
+        for label in ('launcher', 'op', 'op', 'launcher'):
+            host_ms[label].append(cuda_ms(calls[label]))
+    report = {'ca_ms_per_call': host_ms,
+              'median_ca_ms': {k: statistics.median(v) for k, v in host_ms.items()}}
+    emit({'phase': 'ca_dispatch', 'shape': list(x.shape), 'dtype': 'bfloat16', **report,
+          'nvidia_smi': nvidia_smi_line()})
+    return report
+
+
+def phase_export_serving(dirs, root, rcan_frame):
+    """``export_serving`` of rcan_10x20 in bf16 and ``--int8`` (calibrated on the LR
+    images) and of Q-RCAN with its metadata (qrcan_5x20: the e2e configuration cut to
+    5 x 20, its fused eval run here), at batch 8 x 128^2 on the card: each program's CA
+    calls are the custom ops, one a block (in int8 also its 415 convs, one op each), as
+    its manifest counts them.  Then the program loaded once and ``run_serving``'s
+    ``serve_directory`` over the 16 LR images with a ground-truth folder: a launch a
+    block and a forward on the planned route (ca_onchip in
+    bf16, the CA + residual in rounds in int8), each image's PSNR within 0.01 dB of the
+    fused eval's in bf16 and of an eager int8 forward on the same calibrated context in
+    int8, whose mean is within 1 dB of bf16's; the served forward's ms a batch against
+    the eager program's (CUDA events, in turns) and the largest difference of their
+    outputs."""
+    import numpy as np
+    import torch
+    from sisr_tpu_torch.tools import export_serving as es, run_serving as rs
+    out = os.path.join(root, 'serving')
+    os.makedirs(out)
+    n_batches = -(-N_IMAGES // BATCH)
+    report, total = {}, dict(NO_LAUNCHES)
+    fused = {'rcan_10x20': rcan_frame}
+    launches, _, fused['qrcan_5x20'] = run_eval_cli(dirs, 'serving_qrcan_fused',
+                                                    experiment='qrcan_5x20')
+    total = {k: total[k] + launches[k] for k in total}
+    for label, experiment, int8 in SERVING_CASES:
+        blocks = MODELS[experiment][1]['n_resgroups'] * MODELS[experiment][1]['n_resblocks']
+        path = os.path.join(out, label + es.FILE_SUFFIX)
+        args = ['--model_loc', dirs['model_loc'], '--experiment', experiment, '--epoch', '0',
+                '--batch_size', str(BATCH), '--height', str(LR_SIZE), '--width',
+                str(LR_SIZE), '--out', path]
+        if int8:
+            args += ['--int8', '--calibration_images', dirs['lr_dir']]
+        tic = time.perf_counter()
+        es.export_serving_cli.main(args=args, standalone_mode=False)
+        export_s = time.perf_counter() - tic
+        with open(path + '.json') as f:
+            manifest = json.load(f)
+        ops = manifest['custom_ops']['calls']
+        expected_ops = {'sisr.ca_res.default': blocks,
+                        'sisr.conv_int8_static.default': INT8_RCAN_CONVS} if int8 \
+            else {'sisr.ca.default': blocks}
+        if ops != expected_ops or manifest['platforms'] != ['cuda']:
+            raise AssertionError('%s: custom ops %s, manifest %s' % (label, ops, manifest))
+        sr_dir = os.path.join(out, label + '_sr')
+        tic = time.perf_counter()
+        program = es.load_exported(path)
+        load_s = time.perf_counter() - tic
+        reset_launches()
+        tic = time.perf_counter()
+        rs.serve_directory(path, dirs['lr_dir'], out_dir=sr_dir, gt_dir=dirs['hr_dir'],
+                           device='cuda', program=program)
+        serve_s = time.perf_counter() - tic
+        launches = read_launches()
+        calls = blocks * n_batches
+        expected = int8_expected_launches(experiment, n_batches) if int8 else {
+            **NO_LAUNCHES, 'fused_channel_attention': calls,
+            'fused_channel_attention_onchip': calls}
+        expect_launches(launches, expected, 'run_serving %s' % label)
+        total = {k: total[k] + launches[k] for k in total}
+        served = read_serving_csv(sr_dir)
+        iface = es.load_for_export(dirs['model_loc'], experiment, 0, int8=int8,
+                                   calibration_images=dirs['lr_dir'] if int8 else None)
+        handler = iface.model
+        eager = (es.Int8ServingProgram if int8 else es.ServingProgram)(handler).eval()
+        meta_rows = None
+        if handler.uses_metadata:
+            names = sorted(f for f in os.listdir(dirs['lr_dir']) if f.endswith('.png'))
+            meta_rows = rs._load_metadata(names, len(manifest['metadata_keys']),
+                                          os.path.join(dirs['lr_dir'],
+                                                       'degradation_metadata.csv'), manifest)
+        if int8:
+            reference = eager_psnr(eager, dirs['lr_dir'], dirs['hr_dir'], meta_rows)
+        else:
+            frame = fused[experiment]
+            reference = {name: float(frame.loc[name, (experiment, 'PSNR')])
+                         for name in served}
+        diff = max(abs(served[n] - reference[n]) for n in served)
+        x = torch.from_numpy(read_images(dirs['lr_dir'], BATCH)).cuda()
+        call_args = (x,) if meta_rows is None else \
+            (x, torch.from_numpy(meta_rows[:BATCH]).cuda())
+        fn = program.module()
+        times = {'served': [], 'eager': []}
+        with torch.inference_mode():
+            out_diff = float((fn(*call_args) - eager(*call_args)).abs().max())
+            for turn, call in (('eager', eager), ('served', fn), ('served', fn),
+                               ('eager', eager)):  # in turns: the host's speed drifts
+                times[turn].append(cuda_ms(lambda: call(*call_args), reps=2, rounds=3,
+                                           warm=1))
+        served_ms, eager_ms = (statistics.median(times[k]) for k in ('served', 'eager'))
+        report[label] = {'experiment': experiment, 'export_seconds': export_s,
+                         'load_seconds': load_s,
+                         'artifact_mb': os.path.getsize(path) / 1e6, 'custom_ops': ops,
+                         'serve_seconds': serve_s, 'launches': launches,
+                         'mean_psnr': float(np.mean(list(served.values()))),
+                         'max_psnr_diff_to_' + ('eager_int8' if int8 else 'fused_eval'): diff,
+                         'served_ms_per_batch': served_ms, 'eager_ms_per_batch': eager_ms,
+                         'served_over_eager': served_ms / eager_ms,
+                         'max_abs_diff_served_vs_eager': out_diff}
+        if not diff <= 0.01:
+            raise AssertionError('run_serving %s: PSNR %g dB from its reference' % (label, diff))
+    int8_gap = abs(report['rcan_int8']['mean_psnr'] - report['rcan_bf16']['mean_psnr'])
+    report['rcan_int8']['mean_psnr_diff_to_bf16'] = int8_gap
+    emit({'phase': 'export_serving', 'batch': BATCH, 'lr': LR_SIZE, **report,
+          'nvidia_smi': nvidia_smi_line()})
+    if not int8_gap < 1.0:
+        raise AssertionError('served int8 RCAN %.4f dB from bf16' % int8_gap)
+    return {'launches': total}
+
+
+def write_reference_checkpoint(path):
+    """A Q-RCAN checkpoint in the reference's whole save layout, named ``qpircan`` at
+    epoch 5: ``network`` (the weights of the qrcan_10x20 experiment: seed 8),
+    torch's own Adam ``optimizer`` state after one update (zero grads, so the weights
+    stay) and a MultiStepLR ``scheduler_G`` state."""
+    import torch
+    from sisr_tpu_torch.models.handlers import define_model
+    _, internal = MODELS['qrcan_10x20']
+    handler = define_model('qrcan', device='cpu', seed=8, **internal)
+    set_gammas(handler.module)
+    params = list(handler.module.parameters())
+    optimizer = torch.optim.Adam(params, lr=1e-4)
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    optimizer.step()
+    scheduler = torch.optim.lr_scheduler.MultiStepLR(optimizer, milestones=[100, 200])
+    scheduler.step()
+    torch.save({'network': handler.module.state_dict(), 'optimizer': optimizer.state_dict(),
+                'scheduler_G': scheduler.state_dict(), 'model_name': 'qpircan',
+                'model_epoch': 5}, path)
+    return path
+
+
+def phase_tools_path(dirs, root, perceptual, qrcan_frame):
+    """The host tools on the card's machine, with no model forward beyond one eval:
+    ``image_manipulate`` blur-downscale of the 16 HR images (seed 8, the unmodified
+    kernels saved), its LR and its degradation_metadata.csv held against
+    degrade_batch_on_device of the same HR images and kernels on the card (LR within
+    one uint8 step, or two where a blurred value lies on a uint8 step; codes 1e-5);
+    ``import_reference_model`` of a reference-layout Q-RCAN checkpoint
+    (write_reference_checkpoint) and ``eval_sisr --fused_eval`` of the imported
+    experiment, its PSNR the live model's (qrcan_10x20's fused run) within 1e-4 dB;
+    ``model_report`` of the perceptual experiment; its tracker's JSONL records; and
+    ``profiling.trace`` around one train step (a Chrome trace with kernel events) and
+    ``device_timer`` around another against CUDA events recorded inside it."""
+    import io
+    import numpy as np
+    import pandas as pd
+    import torch
+    from sisr_tpu_torch.ops.degradations import degrade_batch_on_device
+    from sisr_tpu_torch.tools import data_converter, helper_cli, profiling
+    from sisr_tpu_torch.tools.convert_weights import import_reference_experiment
+    report = {}
+    # image_manipulate on the host, against the card's degradation of the same inputs
+    out = os.path.join(root, 'manipulated')
+    tic = time.perf_counter()
+    data_converter.manipulation_hub.main(args=[
+        '--source_dir', dirs['hr_dir'], '--output_dir', out, '--pipeline', 'blur-downscale',
+        '--seed', '8', '--scale', str(SCALE), '--save_original_kernel'], standalone_mode=False)
+    seconds = time.perf_counter() - tic
+    table = pd.read_csv(os.path.join(out, 'degradation_metadata.csv'), index_col=0)
+    kernels = np.stack([json.loads(v) for v in table['unmodified_blur_kernel']])
+    kernels = torch.from_numpy(kernels.reshape(-1, 21, 21).astype(np.float32)).cuda()
+    codes = np.stack([json.loads(v) for v in table['blur_kernel']]).astype(np.float32)
+    pca = torch.load(os.path.join(out, 'pca_matrix.pth'), weights_only=True).numpy()
+    hr = torch.from_numpy(read_images(dirs['hr_dir'], N_IMAGES)).cuda()
+    with tf32(False, False):
+        lr_card, codes_card, blurred = (t.cpu() for t in degrade_batch_on_device(
+            hr, kernels, pca, SCALE))
+    lr_tool = torch.from_numpy(read_images(out, N_IMAGES))
+    lr_steps = ((lr_card - lr_tool).abs() * 255).max().item()
+    on_step = int(((blurred * 255 - torch.round(blurred * 255)).abs() < 1e-4).sum())
+    code_err = float(np.abs(codes_card.numpy() - codes).max())
+    report['image_manipulate'] = {
+        'pipeline': 'blur-downscale', 'images': len(table), 'cli_seconds': seconds,
+        'lr_shape': list(lr_tool.shape), 'lr_max_diff_uint8_steps': lr_steps,
+        'lr_mean_diff_uint8_steps': float(((lr_card - lr_tool).abs() * 255).mean()),
+        'blurred_values_on_a_uint8_step': on_step, 'codes_max_abs_err': code_err,
+        'csv_columns': list(table.columns)}
+    if not (lr_steps <= 1 + 1e-3 or (on_step and lr_steps <= 2 + 1e-3)) or code_err > 1e-5:
+        raise AssertionError('image_manipulate against the card: %s'
+                             % report['image_manipulate'])
+
+    # the reference import, evaluated on the fused path
+    ref_path = write_reference_checkpoint(os.path.join(root, 'qpircan_reference.pth'))
+    import_loc = os.path.join(root, 'Results_imported')
+    _, internal = MODELS['qrcan_10x20']
+    import_reference_experiment(ref_path, import_loc, experiment='qrcan_imported',
+                                scale=SCALE, **{k: v for k, v in internal.items()
+                                                if k != 'scale'})
+    launches, seconds, frame = run_eval_cli({**dirs, 'model_loc': import_loc},
+                                            'imported_fused', experiment='qrcan_imported',
+                                            epoch='5')
+    n_batches = -(-N_IMAGES // BATCH)
+    calls = CA_PER_FORWARD * n_batches
+    expect_launches(launches, {**NO_LAUNCHES, 'fused_channel_attention': calls,
+                               'fused_channel_attention_onchip': calls}, 'imported eval')
+    diff = float((frame[('qrcan_imported', 'PSNR')]
+                  - qrcan_frame[('qrcan_10x20', 'PSNR')]).abs().max())
+    report['import_reference_model'] = {'cli_seconds': seconds, 'launches': launches,
+                                        'max_psnr_diff_to_live_model': diff}
+    if not diff <= 1e-4:
+        raise AssertionError('imported Q-RCAN: PSNR %g dB from the live model' % diff)
+
+    # model_report of the perceptual experiment, and its tracker's records
+    base = os.path.join(perceptual['save_loc'], perceptual['experiment'])
+    files, best, last = helper_cli.model_report(base)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        helper_cli.model_compare.main(args=['--main_dir', perceptual['save_loc']],
+                                      standalone_mode=False)
+    runs = sorted(os.listdir(os.path.join(perceptual['aim_home'], perceptual['experiment'])))
+    records = [json.loads(line) for run in runs for line in open(os.path.join(
+        perceptual['aim_home'], perceptual['experiment'], run))]
+    metrics = [r for r in records if r['event'] == 'metric']
+    report['model_report'] = {'checkpoints': sorted(files), 'best': best, 'last': last,
+                              'output': text.getvalue().strip()}
+    report['tracker'] = {'runs': runs, 'records': len(records),
+                         'events': sorted({r['event'] for r in records}),
+                         'metric_names': sorted({r['name'] for r in metrics}),
+                         'epochs': sorted({r['epoch'] for r in metrics})}
+    if last != 2 or 'train_model_2' not in files or len(runs) != 2 \
+            or report['tracker']['epochs'] != [0, 1, 2] \
+            or not all(isinstance(r['value'], (int, float)) and np.isfinite(r['value'])
+                       for r in metrics):
+        raise AssertionError('model_report / tracker: %s %s' % (report['model_report'],
+                                                                report['tracker']))
+
+    # profiling: a trace of one train step, and the device timer of another
+    handler, batch = perceptual['handler'], perceptual['batch']
+    trace_dir = os.path.join(root, 'trace')
+    with profiling.trace(trace_dir, name='train_step') as prof:
+        handler.run_train(**batch)
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        events = json.load(f)['traceEvents']
+    kernel_events = sum(1 for e in events if e.get('cat') == 'kernel')
+    with profiling.device_timer() as holder:
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        handler.run_train(**batch)
+        stop.record()
+    own_ms = start.elapsed_time(stop)
+    timer_ms = holder['seconds'] * 1e3
+    report['profiling'] = {'trace_file_mb': os.path.getsize(prof.trace_path) / 1e6,
+                           'trace_kernel_events': kernel_events,
+                           'device_timer_ms': timer_ms, 'cuda_events_ms': own_ms}
+    emit({'phase': 'tools_path', **report, 'nvidia_smi': nvidia_smi_line()})
+    if not kernel_events or not own_ms <= timer_ms <= own_ms * 1.05 + 0.5:
+        raise AssertionError('profiling: %s' % report['profiling'])
+    return {'launches': launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3915,6 +4544,13 @@ def main():
         paths['sftmd_train_standard_val'] = phase_train_standard_val(dirs, root, 'sftmd')
         paths['qsparnet_train_standard_val'] = phase_train_standard_val(
             write_interp_workload(dirs, root), root, 'qsparnet', 'celebahq')
+        dispatch = phase_ca_dispatch()
+        paths['qrcan_perceptual_train'] = phase_perceptual_train(dirs, root)
+        paths['qsparnet_face_sim_eval'] = phase_face_sim_eval(dirs, root)
+        paths['export_serving'] = phase_export_serving(dirs, root,
+                                                       paths['rcan_bf16']['frame'])
+        paths['tools_path'] = phase_tools_path(dirs, root, paths['qrcan_perceptual_train'],
+                                               paths['qrcan_bf16']['frame'])
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4034,6 +4670,7 @@ def main():
                       for family in ('rcan', 'qrcan', 'edsr', 'qedsr', 'han', 'qhan',
                                      'san', 'qsan', 'srmd', 'sftmd', 'vdsr')}
     emit({'phase': 'total', 'seconds': time.perf_counter() - START,
+          'ca_ms_per_call': dispatch['median_ca_ms'],
           'int8_over_bf16_img_per_s': int8_over_bf16, 'nvidia_smi': nvidia_smi_line(),
           'bf16_over_f32_train_step_wall': {name: v['bf16_over_f32_wall']
                                             for name, v in bf16_steps.items()},

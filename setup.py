@@ -27,6 +27,17 @@ setup(
             'export_serving=sisr_tpu.tools.export_serving:export_serving_cli',
             'run_serving=sisr_tpu.tools.run_serving:run_serving_cli',
             'train_sisr_torch=sisr_tpu_torch.net_train:experiment_setup',
+            'eval_sisr_torch=sisr_tpu_torch.net_eval:eval_run',
+            'image_manipulate_torch=sisr_tpu_torch.tools.data_converter:manipulation_hub',
+            'images_to_video_torch='
+            'sisr_tpu_torch.tools.helper_cli:click_image_sequence_to_movie',
+            'extract_best_model_torch=sisr_tpu_torch.tools.helper_cli:extract_best_models',
+            'clean_models_torch=sisr_tpu_torch.tools.helper_cli:click_clean',
+            'model_report_torch=sisr_tpu_torch.tools.helper_cli:model_compare',
+            'import_reference_model_torch='
+            'sisr_tpu_torch.tools.convert_weights:import_reference_model_cli',
+            'export_serving_torch=sisr_tpu_torch.tools.export_serving:export_serving_cli',
+            'run_serving_torch=sisr_tpu_torch.tools.run_serving:run_serving_cli',
         ],
     },
 )

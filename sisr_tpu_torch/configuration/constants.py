@@ -8,6 +8,7 @@ import os
 
 base_directory = os.path.abspath(os.path.join(__file__, os.path.pardir, os.path.pardir))
 results_directory = os.path.join(os.path.dirname(os.path.dirname(base_directory)), 'Results')
+data_directory = os.path.join(os.path.dirname(os.path.dirname(base_directory)), 'Data')
 
 # Dataset splits (ref: constants.py:9-14)
 data_splits = {'celeba': {'train': (0, 162770),
@@ -16,6 +17,12 @@ data_splits = {'celeba': {'train': (0, 162770),
                'div2k': {'train': (0, 800),
                          'eval': (800, 900)},
                'flickr2k': {'train': (0, 2650)}}
+
+# The face extractors' weights, from the reference's external packages (ref:
+# constants.py:17-19); FACE_SIM's --face_weights overrides them
+vggface_weights = os.path.join(base_directory, 'external_packages/VGGFace/vgg_face_dag.pth')
+lightcnn_weights = os.path.join(base_directory,
+                                'external_packages/LightCNN/LightCNN_29Layers_checkpoint.pth.tar')
 
 # The 40 attribute columns of CelebA's list_attr_celeba.txt, in its order (the file a
 # data table's ``attributes`` and eval_sisr's --data_attributes name)

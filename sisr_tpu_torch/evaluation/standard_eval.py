@@ -23,8 +23,10 @@ meta-models comes from ``--metadata_file``, else a ``degradation_metadata.csv`` 
 serving path (``BaseHandler.set_int8``), ``eval_buckets`` the bucketed eval
 (``BaseHandler.set_eval_buckets``; int8 takes precedence), ``decoded_cache_dir`` the
 decoded-image sidecars.  ``data_attributes`` (a CelebA attribute file) puts every
-attribute in front of each image's metadata, as sisr_tpu does.  The FACE_SIM metric
-and multi-device eval are not ported yet: asking for them raises NotImplementedError.
+attribute in front of each image's metadata, as sisr_tpu does.  FACE_SIM (the cosine
+similarity of face embeddings, ``face_model`` and ``face_weights``) runs on the RGB
+images in the standard protocol, and turns the fused protocol off.  Multi-device eval
+is not ported yet: asking for it raises NotImplementedError.
 """
 from collections import OrderedDict, defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -39,6 +41,7 @@ from tqdm import tqdm
 
 from ..data.datasets import SuperResImages
 from ..data.loader import DataLoader, device_prefetch
+from ..models.feature_extractors import load_face_extractor
 from ..models.interface import ModelInterface
 from ..ops.colorspace import ycbcr_convert
 from ..ops.metrics import Metrics
@@ -71,8 +74,6 @@ class EvalHub:
         on the card for later passes; False uploads every pass."""
         if mesh:
             raise _not_ported('--mesh (multi-device eval)', 'multi-GPU data parallelism', 9)
-        if metrics and 'FACE_SIM' in metrics:
-            raise _not_ported('The FACE_SIM metric', 'long-tail tools', 10)
         if not model_and_epoch:
             raise ValueError('No models specified: pass at least one '
                              '-me/--model_and_epoch EXPERIMENT EPOCH pair.')
@@ -145,13 +146,21 @@ class EvalHub:
             for exp in experiment_names:
                 self.save_folders[exp] = os.path.join(self.out_dir, exp)
                 create_dir_if_empty(self.save_folders[exp])
+        # FACE_SIM runs on the RGB images, not the Y-channel preps, so it is split out
+        # of the metric loop; --model_only computes no metric and loads no weights
+        self.face_metric = 'FACE_SIM' in self.metrics and not model_only
+        face_extractor = load_face_extractor(face_model, face_weights, device=self.device) \
+            if self.face_metric else None
+        self.metrics = [m for m in self.metrics if m != 'FACE_SIM']
         self.metric_hub = Metrics(self.metrics, delimeter='>',
-                                  device=self.device if device_metrics else None)
+                                  device=self.device if device_metrics else None,
+                                  face_extractor=face_extractor)
 
         # the fused protocol serves metrics-only runs; an interpolated-LR folder it
-        # cannot honour (it computes the device bicubic instead)
-        self.fused_eval = bool(fused_eval) and bool(metrics) and not model_only \
-            and not save_im and no_image_comparison and not lr_dir_interp
+        # cannot honour (it computes the device bicubic instead), nor FACE_SIM
+        self.fused_eval = bool(fused_eval) and bool(self.metrics) and not model_only \
+            and not save_im and no_image_comparison and not lr_dir_interp \
+            and not self.face_metric
         if fused_eval and not self.fused_eval:
             print('fused_eval needs metrics and no image outputs '
                   '(--no_image_comparison, no --save_im/--model_only, no '
@@ -326,6 +335,11 @@ class EvalHub:
                                                             key='LR', probe_names=hr_names)
                 for key, value in metric_slice.items():
                     metric_package[key].append(value)
+                if self.face_metric:
+                    hr_rgb_fmt = ModelInterface._standard_image_formatting(np.asarray(hr_rgb))
+                    metric_package['LR>FACE_SIM'].append(hub.run_image_metric(
+                        'FACE_SIM', ModelInterface._standard_image_formatting(
+                            np.asarray(interp_data)), hr_rgb_fmt, single_values=True))
 
                 output_package = {}
                 for model in self.model_bundles:
@@ -341,6 +355,10 @@ class EvalHub:
                     for key, value in metric_slice.items():
                         metric_package[key].append(value)
                     diag_string += mini_diag
+                    if self.face_metric:
+                        metric_package['%s>FACE_SIM' % model.experiment].append(
+                            hub.run_image_metric('FACE_SIM', rgb_im, hr_rgb_fmt,
+                                                 single_values=True))
                     output_package[model.experiment] = rgb_im
                     # as in the reference, images_processed counts this batch already,
                     # so up to batch_size - 1 fewer images are saved than asked for

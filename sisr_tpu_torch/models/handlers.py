@@ -7,8 +7,10 @@ Each handler is registered under the reference's lowercase model name and owns:
   bfloat16 around float32 parameters, for eval; activations are channels_last);
 * parameter initialisation from a seeded ``torch.Generator``;
 * training: the Adam optimizer with its per-step lr schedule, optional global-norm
-  clipping and the loss (``training/``), and the train step (:meth:`run_train`,
-  :meth:`run_train_multi`): prep, forward, loss, backward, clip, Adam step;
+  clipping and the loss (``training/``; with ``perceptual`` and ``vgg_weights`` the
+  VGG54 term on a frozen VGG19, training handlers only), and the train step
+  (:meth:`run_train`, :meth:`run_train_multi`): prep, forward, loss, backward, clip,
+  Adam step;
 * the fused eval step: forward + bicubic LR baseline + YCbCr Y + PSNR/SSIM (and the
   loss, for the training-time validation) on the device, with only a (K, N) metric
   matrix for the host;
@@ -65,6 +67,7 @@ from ..utils import async_ckpt, orbax_ckpt
 from ..utils.helpers import resolve_device
 from . import advanced, basic, qmodels, san, sftmd, sparnet
 from .blocks import torch_default_init_
+from .feature_extractors import load_vgg_extractor
 
 available_models = {}
 # sisr_tpu's int8 families, each with its program ported; set_int8 raises for another
@@ -80,9 +83,12 @@ INT8_MEASURED_SLOWER = {'rcan': '0.41x', 'qrcan': '0.52x', 'edsr': '0.43x',
                         'vdsr': '0.19x'}
 
 
-def _training_not_ported(what, item):
-    return NotImplementedError('Training with %s is not ported to sisr_tpu_torch yet '
-                               '(ROADMAP.md, Queue 1 item %d).' % (what, item))
+def _adam_updates(optimizer_state):
+    """The updates an Adam ``state_dict`` has made (its largest per-parameter
+    ``step``), 0 for none."""
+    steps = [int(v['step']) for v in ((optimizer_state or {}).get('state') or {}).values()
+             if 'step' in v]
+    return max(steps, default=0)
 
 
 def _as_f32(img):
@@ -146,7 +152,7 @@ class BaseHandler:
 
     def __init__(self, eval_mode=False, lr=1e-4, scale=4, scheduler=None,
                  scheduler_params=None, perceptual=None, optimizer_params=None,
-                 grad_clip=None, dtype=None, seed=8, device=None,
+                 grad_clip=None, dtype=None, vgg_weights=None, seed=8, device=None,
                  checkpoint_backend='msgpack', async_checkpoint=True,
                  checkpoint_dtype='f32', max_combined_im_size=160000, **kwargs):
         """``kwargs`` are the model's structure parameters.  The training keys (lr,
@@ -171,9 +177,6 @@ class BaseHandler:
                              % (checkpoint_backend,))
         self.checkpoint_backend = checkpoint_backend
         self.checkpoint_dtype = checkpoint_dtype
-        # options training refuses (check_trainable); eval runs with them
-        self._unported_training = [('the perceptual (VGG feature) loss', 10)] \
-            if perceptual is not None else []
         # background checkpoint writes (utils/async_ckpt.py); false writes at the call
         self.async_checkpoint = bool(async_checkpoint)
         if grad_clip == 0:  # explicit 0 disables clipping, incl. subclass defaults
@@ -196,7 +199,13 @@ class BaseHandler:
         self.optimizer, self.schedule = build_optimizer(
             self.module.parameters(), lr, scheduler, scheduler_params, optimizer_params,
             fused=self.device.type == 'cuda')
-        self.loss_fn = build_loss(self.loss_type)
+        # the perceptual term wraps the criterion for training only (ref
+        # models/__init__.py:334-342): the VGG19 trunk from ``vgg_weights``, frozen,
+        # on this handler's device
+        use_perceptual = perceptual if (perceptual is not None and not eval_mode) else None
+        vgg_apply = load_vgg_extractor(vgg_weights, device=self.device) \
+            if use_perceptual is not None else None
+        self.loss_fn = build_loss(self.loss_type, use_perceptual, vgg_apply)
 
     def build_module(self, scale, **kwargs):
         raise NotImplementedError
@@ -396,13 +405,10 @@ class BaseHandler:
         return keys + ('metadata',) if self.uses_metadata else keys
 
     def check_trainable(self, batch=None):
-        """Raise unless this handler can train (on ``batch``): eval mode, an option
-        whose training is not ported (the perceptual loss), or differently sized
-        images in the batch."""
+        """Raise unless this handler can train (on ``batch``): eval mode, or
+        differently sized images in the batch."""
         if self.eval_mode:
             raise RuntimeError('Model initialized in eval mode, training not possible.')
-        if self._unported_training:
-            raise _training_not_ported(*self._unported_training[0])
         probe = None if batch is None else batch.get('hr' if self.device_degrade else 'lr')
         if isinstance(probe, (list, tuple)):
             raise RuntimeError('Training batch contains differently-sized images — use a '
@@ -970,8 +976,9 @@ class BaseHandler:
     def load_model(self, model_save_name, model_idx, model_save_dir, load_override=None):
         """Load ``<load_override or model_save_dir>/<name>_<idx>``, a file or a
         directory checkpoint: the network, and for a training handler the Adam state
-        (bfloat16 moments cast back to the parameters' type) and the step, so the
-        moments and the schedule continue."""
+        (bfloat16 moments cast back to the parameters' type) and the step (a reference
+        checkpoint's, which carries ``optimizer`` and ``scheduler_G`` but no step: its
+        Adam state's update count), so the moments and the schedule continue."""
         self.wait_pending_checkpoints()  # a just-saved epoch may still be in flight
         path = os.path.join(load_override or model_save_dir,
                             '%s_%s' % (model_save_name, model_idx))
@@ -991,7 +998,9 @@ class BaseHandler:
             # the quantised weights came from the replaced parameters: requantise and
             # recalibrate on the next eval batch
             self._invalidate_steps()
-        self.step = int(state_dict.get('step', 0))
+        # the reference's own layout has no ``step``: its Adam state counts the updates
+        self.step = int(state_dict['step']) if 'step' in state_dict \
+            else _adam_updates(state_dict.get('optimizer'))
         self.set_epoch(int(state_dict['model_epoch']))
         print('Loaded model uses the following architecture:', state_dict['model_name'])
         return state_dict

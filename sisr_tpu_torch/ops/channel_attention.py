@@ -42,12 +42,23 @@ Both ops have a backward, as sisr_tpu's ``custom_vjp`` ops do: when autograd rec
 ``torch.autograd.Function`` whose forward is the one above on detached inputs (the
 kernel on the card) and whose backward recomputes the plain version and returns its
 vector-Jacobian product.  There is no backward kernel.
+
+Both ops are also registered as ``torch.library`` custom ops, ``sisr::ca`` and
+``sisr::ca_res`` (:data:`OP_NAMESPACE`): the CUDA implementation plans and launches the
+kernels above, the CPU one is the plain version, and a fake implementation gives the
+output's shape and type, so ``torch.export`` traces a forward through them and an
+exported program (``tools/export_serving.py``) launches the kernels when it runs on
+the card.  A call made while tracing (``torch.compiler.is_compiling()``, or a fake
+tensor) goes through the op; an eager call goes straight to the launcher, since the
+op's dispatch costs host time on paths that make 200 calls a forward (PERF.md).
 """
 import collections
 import ctypes
 import functools
+from typing import List, Optional
 
 import torch
+from torch import Tensor
 
 from .cuda import build as cuda_build
 
@@ -81,6 +92,7 @@ _SIGNATURES = {
         ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
+OP_NAMESPACE = 'sisr'  # the custom ops sisr::ca and sisr::ca_res
 _NO_R = -1  # r_dtype of the rounds and stream entries for the CA op (no r)
 # the three-pass excite keeps 2*C + M + Cr floats in the 48 KB of static shared memory
 _MAX_EXCITE_FLOATS = 12288
@@ -455,7 +467,17 @@ def fused_channel_attention(x, w1, b1, w2, b2, meta=None, gate=None, valid_hw=No
         valid_hw = (int(valid_hw[0]), int(valid_hw[1]))
     if _records_grad(x, w1, b1, w2, b2, meta, gate):
         return _ChannelAttention.apply(x, w1, b1, w2, b2, meta, gate, valid_hw)
+    if tracing(x):
+        return torch.ops.sisr.ca(x, w1, b1, w2, b2, meta, gate,
+                                 None if valid_hw is None else list(valid_hw))
     return _ca_forward(x, w1, b1, w2, b2, meta, gate, valid_hw)
+
+
+def tracing(x):
+    """Whether this call is being traced (``torch.export``, ``torch.compile``): the
+    custom op then stands in the graph for the launch."""
+    return torch.compiler.is_compiling() or \
+        isinstance(x, torch._subclasses.fake_tensor.FakeTensor)
 
 
 def _meta_count(meta):
@@ -625,6 +647,8 @@ def fused_channel_attention_residual(x, r, w1, b1, w2, b2, meta=None, gate=None,
     every tensor input (the plain VJP)."""
     if _records_grad(x, r, w1, b1, w2, b2, meta, gate):
         return _ChannelAttentionResidual.apply(x, r, w1, b1, w2, b2, meta, gate, cast_first)
+    if tracing(x):
+        return torch.ops.sisr.ca_res(x, r, w1, b1, w2, b2, meta, gate, bool(cast_first))
     return _ca_res_forward(x, r, w1, b1, w2, b2, meta, gate, cast_first)
 
 
@@ -676,3 +700,44 @@ def _res_three_pass(x, r, w1, b1, w2, b2, out=None, meta=None, gate=None,
 fused_channel_attention_residual.launches = 0
 fused_channel_attention_residual.onchip_launches = 0
 fused_channel_attention_residual.stream_launches = 0
+
+
+# --- the custom ops (torch.library): what torch.export records for the two wrappers ----
+@torch.library.custom_op('sisr::ca', mutates_args=(), device_types='cuda')
+def _ca_op(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor, meta: Optional[Tensor],
+           gate: Optional[Tensor], valid_hw: Optional[List[int]]) -> Tensor:
+    """sisr::ca on CUDA: plan and launch the CA kernel (:func:`_ca_forward`)."""
+    return _ca_forward(x, w1, b1, w2, b2, meta, gate,
+                       None if valid_hw is None else tuple(valid_hw))
+
+
+@_ca_op.register_kernel('cpu')
+def _ca_op_cpu(x, w1, b1, w2, b2, meta, gate, valid_hw):
+    """sisr::ca on the CPU: the plain version."""
+    return reference_channel_attention(x, w1, b1, w2, b2, meta, gate,
+                                       None if valid_hw is None else tuple(valid_hw))
+
+
+@_ca_op.register_fake
+def _ca_op_fake(x, w1, b1, w2, b2, meta, gate, valid_hw):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op('sisr::ca_res', mutates_args=(), device_types='cuda')
+def _ca_res_op(x: Tensor, r: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+               meta: Optional[Tensor], gate: Optional[Tensor], cast_first: bool) -> Tensor:
+    """sisr::ca_res on CUDA: plan and launch the CA + residual kernel
+    (:func:`_ca_res_forward`)."""
+    return _ca_res_forward(x, r, w1, b1, w2, b2, meta, gate, cast_first)
+
+
+@_ca_res_op.register_kernel('cpu')
+def _ca_res_op_cpu(x, r, w1, b1, w2, b2, meta, gate, cast_first):
+    """sisr::ca_res on the CPU: the plain version."""
+    return reference_channel_attention_residual(x, r, w1, b1, w2, b2, meta, gate,
+                                                cast_first)
+
+
+@_ca_res_op.register_fake
+def _ca_res_op_fake(x, r, w1, b1, w2, b2, meta, gate, cast_first):
+    return torch.empty_like(r)

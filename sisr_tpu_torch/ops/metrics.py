@@ -1,4 +1,4 @@
-"""Image quality metrics: PSNR and SSIM, host (numpy) and device (torch) variants
+"""Image quality metrics: PSNR, SSIM and FACE_SIM, host (numpy) and device (torch) variants
 (PyTorch port of sisr_tpu's ``ops/metrics.py``).
 
 PSNR follows the reference exactly (ref: Code/sr_tools/metrics.py:6-17): mean over the full
@@ -13,7 +13,8 @@ same filter is one banded matrix per axis in float32, so filtering is two matrix
 products.
 
 :class:`Metrics` is the host metric hub of the standard eval protocol and the
-standard validation epoch.
+standard validation epoch; it also computes FACE_SIM, the cosine similarity of face
+embeddings, given a face extractor.
 """
 from collections import defaultdict
 import functools
@@ -120,11 +121,15 @@ class Metrics:
     ``'{key}{delimeter}{metric}'``.  ``device`` (a torch device, or True for
     ``cuda``) computes the per-image PSNR/SSIM of a single-channel comparison as one
     batched pass on that device (:func:`psnr_nhw`, :func:`ssim_nhw`; eval's
-    ``--device_metrics``) instead of per image on the host."""
+    ``--device_metrics``) instead of per image on the host.  ``face_extractor`` (an
+    ``(N, H, W, 3) [0, 1] -> (N, D)`` embedding fn from
+    ``models/feature_extractors.load_face_extractor``) enables FACE_SIM, the cosine
+    similarity of the two images' face embeddings (RGB inputs)."""
 
-    def __init__(self, metrics, delimeter='-', device=None):
+    def __init__(self, metrics, delimeter='-', device=None, face_extractor=None):
         self.metrics = metrics
         self.delimeter = delimeter
+        self.face_extractor = face_extractor
         self.device = torch.device('cuda') if device is True \
             else torch.device(device) if device else None
 
@@ -136,6 +141,26 @@ class Metrics:
         fn = psnr_nhw if metric == 'PSNR' else ssim_nhw
         return [float(v) for v in fn(a, b, float(max_value)).cpu()]
 
+    def _face_sim(self, im_a, im_ref, single_values):
+        """Cosine similarity of each image's face embedding with its reference's (ref
+        sisr_tpu ops/metrics.py:209-221): the embeddings on the extractor's device in
+        float32, the cosine on the host."""
+        if self.face_extractor is None:
+            raise RuntimeError("FACE_SIM requires a face extractor — pass "
+                               "face_weights/face_model (eval CLI) or "
+                               "Metrics(face_extractor=...).")
+        if im_ref is None:
+            raise ValueError('Need a reference to calculate FACE_SIM.')
+        device = self.face_extractor.device
+        with torch.inference_mode():
+            ea, eb = (self.face_extractor(torch.as_tensor(np.asarray(im, np.float32),
+                                                          device=device)).cpu().numpy()
+                      for im in (im_a, im_ref))
+        num = np.sum(ea * eb, axis=-1)
+        den = np.linalg.norm(ea, axis=-1) * np.linalg.norm(eb, axis=-1) + 1e-12
+        sims = (num / den).tolist()
+        return sims if single_values else float(np.mean(sims))
+
     def run_image_metric(self, metric, im_a, im_ref=None, single_values=False, max_value=1,
                          multichannel=False):
         """``metric`` of a batch against its references: per image with
@@ -146,8 +171,7 @@ class Metrics:
         if im_ref is not None and len(im_ref.shape) == 3:
             im_ref = np.expand_dims(im_ref, axis=0)
         if metric == 'FACE_SIM':
-            raise NotImplementedError('The FACE_SIM metric is not ported to sisr_tpu_torch '
-                                      'yet (ROADMAP.md, Queue 1 item 10).')
+            return self._face_sim(im_a, im_ref, single_values)
         if metric not in ('PSNR', 'SSIM'):
             raise ValueError('Unknown metric %s' % metric)
         if im_ref is None:

@@ -43,17 +43,25 @@ The programs are plain functions over dicts of tensors, as in sisr_tpu; they do 
 run the ``nn.Module``.  Activation scales are ``np.float32`` numbers; the forward
 also takes them as 0-dim tensors on its device (:func:`scales_on`), which is how the
 handler passes them, so no host-to-device copy runs per conv.
+
+A static int8 conv traced by ``torch.export`` (``tools/export_serving.py``) is one
+node, the custom op ``sisr::conv_int8_static`` (its implementation is
+:func:`conv_int8_static`'s eager code on every device): traced op by op, the im2col
+gather alone makes some 20 nodes of a conv, and an int8 RCAN program some 20000,
+whose export, save and load each take minutes.  Eager calls do not go through it.
 """
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from ..models.advanced import csam_weight, layer_attention
 from ..models.san import embedded_gaussian, max_pool2, quadrants, second_order_pool
 from .channel_attention import (KERNEL_STYLES, fused_channel_attention,
-                                fused_channel_attention_residual)
+                                fused_channel_attention_residual, tracing)
 
 _INT_MM_MULTIPLE = 8    # _int_mm on CUDA takes K and N divisible by 8 ...
 _INT_MM_MIN_ROWS = 17   # ... and more than 16 rows
@@ -229,10 +237,28 @@ def conv_int8(x, q_kernel, w_scale, x_scale=None, bias=None, matrix=None):
 
 def conv_int8_static(x, q_kernel, w_scale, x_scale, bias=None, matrix=None):
     """int8 conv with a precomputed (static) activation scale: quantise x, then
-    :func:`conv_int8`."""
+    :func:`conv_int8`.  Traced, one ``sisr::conv_int8_static`` node."""
     x_scale = _scale_tensor(x_scale, x.device)
+    if tracing(x):
+        return torch.ops.sisr.conv_int8_static(x, q_kernel, w_scale, x_scale, bias, matrix)
+    return _conv_int8_static(x, q_kernel, w_scale, x_scale, bias, matrix)
+
+
+def _conv_int8_static(x, q_kernel, w_scale, x_scale, bias, matrix):
     return conv_int8(quantize_activations_static(x, x_scale), q_kernel, w_scale, x_scale,
                      bias, matrix)
+
+
+@torch.library.custom_op('sisr::conv_int8_static', mutates_args=())
+def _conv_int8_static_op(x: Tensor, q_kernel: Tensor, w_scale: Tensor, x_scale: Tensor,
+                         bias: Optional[Tensor], matrix: Optional[Tensor]) -> Tensor:
+    """sisr::conv_int8_static on any device: :func:`conv_int8_static`'s eager code."""
+    return _conv_int8_static(x, q_kernel, w_scale, x_scale, bias, matrix)
+
+
+@_conv_int8_static_op.register_fake
+def _conv_int8_static_fake(x, q_kernel, w_scale, x_scale, bias, matrix):
+    return x.new_empty(x.shape[:3] + (q_kernel.shape[3],), dtype=torch.float32)
 
 
 def quantize_rcan_params(params, n_resgroups=10, n_resblocks=20):

@@ -27,6 +27,10 @@
 * :func:`int8_state_from_jax` carries sisr_tpu's quantised trees and activation
   scales (RCAN, EDSR, QRCAN, QEDSR, HAN, QHAN, SAN, QSAN, SRMD, SFTMD, VDSR) across,
   so both packages can run the same int8 state.
+* The reference import (:func:`import_reference_experiment`, console script
+  ``import_reference_model_torch``) turns a reference checkpoint into an experiment
+  folder that ``eval_sisr`` loads: its config.toml and a checkpoint in the port's own
+  format.  The port's keys are the reference's, so the weights need no conversion.
 """
 import re
 
@@ -640,3 +644,215 @@ def int8_state_from_jax(qparams, act_scales, device='cpu'):
         return torch.from_numpy(np.array(node)).to(device)
 
     return convert(qparams), {str(k): np.float32(v) for k, v in act_scales.items()}
+
+
+def infer_structure_kwargs(model_name, state_dict):
+    """The meta-attention structure flags a checkpoint's keys tell (sisr_tpu's
+    ``infer_structure_kwargs``): for Q-RCAN, ``include_q_layer`` where the body's groups
+    hold ``q_node`` weights (``selective_meta_blocks`` where only some do) and
+    ``include_pixel_attention`` where any block holds a ``pa_node``."""
+    keys = list(state_dict)
+    inferred = {}
+    if model_name in ('qrcan', 'qpircan'):
+        q_groups = sorted({int(k.split('.')[1]) for k in keys
+                           if '.q_node.' in k and k.startswith('body.')})
+        all_groups = sorted({int(k.split('.')[1]) for k in keys
+                             if k.startswith('body.') and k.split('.')[1].isdigit()
+                             and '.body.' in k})
+        if q_groups:
+            inferred['include_q_layer'] = True
+            if all_groups and q_groups != all_groups:
+                inferred['selective_meta_blocks'] = [g in set(q_groups)
+                                                     for g in range(len(all_groups))]
+        if any('.pa_node.' in k for k in keys):
+            inferred['include_pixel_attention'] = True
+    return inferred
+
+
+def _read_reference_checkpoint(checkpoint_path, model_name=None, epoch=None):
+    """(model name, network state_dict, epoch) of a reference checkpoint: a dict with
+    ``network`` (and ``model_name``, ``model_epoch``), or a bare state_dict; the
+    legacy ``qpircan`` is ``qrcan``."""
+    state = torch.load(checkpoint_path, map_location='cpu', weights_only=True)
+    if isinstance(state, dict) and 'network' in state:
+        name = model_name or state.get('model_name')
+        network = state['network']
+        epoch = state.get('model_epoch', 0) if epoch is None else epoch
+    else:
+        name, network, epoch = model_name, state, epoch or 0
+    if name == 'qpircan':
+        name = 'qrcan'
+    if name is None:
+        raise RuntimeError('Checkpoint has no model_name — pass model_name explicitly.')
+    return name, network, int(epoch)
+
+
+def import_reference_experiment(checkpoint_path, out_dir, experiment=None, model_name=None,
+                                epoch=None, scale=4, **model_kwargs):
+    """A reference checkpoint as a ready experiment folder (sisr_tpu's
+    ``import_reference_experiment``; the reference's analogue is
+    ``convert_pre_trained_model``, helper_functions.py:208-211):
+    ``<out_dir>/<experiment>/{config.toml, saved_models/train_model_<N>}``, the
+    checkpoint in the port's format (the network, a fresh Adam state built by the
+    port's handler, step 0, model_name, model_epoch), so ``eval_sisr -me <experiment>
+    <N>`` runs it.  The structure flags the keys tell (:func:`infer_structure_kwargs`)
+    join ``model_kwargs``, which win; the network must load strictly into the model
+    they build.  Host-only: the model is built on the CPU and never run."""
+    import os
+    from ..models.handlers import define_model
+    from ..utils import toml_io
+    from ..utils.helpers import create_dir_if_empty
+
+    name, network, epoch = _read_reference_checkpoint(checkpoint_path, model_name, epoch)
+    model_kwargs = {**infer_structure_kwargs(name, network), **model_kwargs}
+    handler = define_model(name, eval_mode=False, scale=scale, device='cpu', **model_kwargs)
+    handler.module.load_state_dict(repair_reference_keys(name, network))
+    handler.set_epoch(epoch)
+
+    experiment = experiment or os.path.splitext(os.path.basename(checkpoint_path))[0]
+    base = os.path.join(out_dir, experiment)
+    create_dir_if_empty(base, os.path.join(base, 'saved_models'),
+                        os.path.join(base, 'result_outputs'))
+    internal = {'scale': scale, **{k: v for k, v in model_kwargs.items() if v is not None}}
+    with open(os.path.join(base, 'config.toml'), 'w') as f:
+        toml_io.dump({'model': {'name': name, 'internal_params': internal}}, f)
+    handler.save_model('train_model', epoch, os.path.join(base, 'saved_models'))
+    print('Imported %s checkpoint -> %s (epoch %d)'
+          % (name, os.path.join(base, 'saved_models', 'train_model_%d' % epoch), epoch))
+    return base
+
+
+# the reference's imports that the comparison never runs, as empty modules (with the
+# attributes its modules read at import time)
+_REFERENCE_STUBS = {
+    'moviepy': {}, 'moviepy.video': {}, 'moviepy.video.io': {},
+    'moviepy.video.io.ImageSequenceClip': {}, 'skvideo': {}, 'skvideo.io': {},
+    'skvideo.utils': {}, 'click_config_file': {}, 'skimage': {}, 'torchvision': {},
+    'aim': {}, 'skimage.metrics': {'structural_similarity': None},
+    'skimage.io': {'imsave': None}, 'torchvision.models': {'vgg19': None},
+    'torchvision.transforms': {'ToTensor': object, 'ToPILImage': object,
+                               'Compose': object},
+    'colorama': {'init': lambda *a, **k: None,
+                 'Fore': type('Fore', (), {'RED': '', 'GREEN': '', 'RESET': ''})},
+}
+
+
+def _reference_imports(ref_code=None):
+    """Make the reference code tree (``ref_code``, else ``SISR_REFERENCE_CODE``)
+    importable, with stub modules for the dependencies it imports and the comparison
+    never runs (sisr_tpu's ``install_reference_import_shims``); raises where there is
+    no tree."""
+    import collections
+    import collections.abc
+    import os
+    import sys
+    import types
+    from ..utils import toml_io
+
+    ref_code = ref_code or os.environ.get('SISR_REFERENCE_CODE')
+    if not ref_code or not os.path.isdir(ref_code):
+        raise RuntimeError('--verify needs the reference code tree: set '
+                           'SISR_REFERENCE_CODE to its Code/ directory (got %r).'
+                           % (ref_code,))
+    if not hasattr(collections, 'Callable'):  # the reference targets older python
+        collections.Callable = collections.abc.Callable
+    stubs = {**_REFERENCE_STUBS, 'toml': {'load': toml_io.load, 'dump': toml_io.dump}}
+    for name, attrs in stubs.items():
+        mod = sys.modules.setdefault(name, types.ModuleType(name))
+        for attr, value in attrs.items():
+            if not hasattr(mod, attr):
+                setattr(mod, attr, value)
+    if ref_code not in sys.path:
+        sys.path.insert(0, ref_code)
+    return ref_code
+
+
+def verify_reference_import(checkpoint_path, base, ref_code=None, spatial=(16, 16),
+                            device=None):
+    """max |reference - port| of the raw model outputs on one seeded probe: the
+    reference's model built through its own registry and loaded through its own
+    ``load_model`` (ref: SISR/models/__init__.py:411-464), on the CPU, against the
+    imported experiment ``base`` run by the port on ``device`` (default: cuda).  Needs
+    the reference code tree (:func:`_reference_imports`)."""
+    import glob
+    import os
+    from ..models.interface import ModelInterface
+    from ..utils import toml_io
+
+    _reference_imports(ref_code)
+    import SISR.models as ref_models
+
+    cfg = toml_io.load(os.path.join(base, 'config.toml'))['model']
+    name, internal = cfg['name'], dict(cfg['internal_params'])
+    state = torch.load(checkpoint_path, map_location='cpu', weights_only=True)
+    if not (isinstance(state, dict) and 'network' in state):
+        state = {'network': state, 'optimizer': {}}
+    state.setdefault('model_name', name)
+    state.setdefault('model_epoch', 0)  # the reference's load path reads it
+    epoch = max(int(os.path.basename(p).split('train_model_')[1])
+                for p in glob.glob(os.path.join(base, 'saved_models', 'train_model_*')))
+    ref_handler = ref_models.ModelInterface.define_model(
+        name=name, model_save_dir=os.path.join(base, 'saved_models'),
+        device=torch.device('cpu'), eval_mode=True, **internal)
+    ref_handler.load_model('train_model', epoch, legacy=ref_handler.legacy_load,
+                           preloaded_state=state)
+    ours = ModelInterface(os.path.dirname(base), os.path.basename(base), load_epoch=epoch,
+                          scale=internal.get('scale'), device=device).model
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(1, spatial[0], spatial[1], ours.in_channels).astype(np.float32)
+    kwargs_t, kwargs_p = {}, {}
+    if ours.uses_metadata:
+        meta_names = internal.get('metadata') or ['qpi']
+        if len(meta_names) != 1:
+            raise RuntimeError('--verify supports a single metadata source; verify '
+                               'multi-source models through eval_sisr instead.')
+        ours.set_metadata_keys([meta_names[0]] * ours.num_metadata)
+        meta = rng.rand(1, ours.num_metadata).astype(np.float32)
+        kwargs_t = {'metadata': torch.from_numpy(meta),
+                    'metadata_keys': [(meta_names[0],)] * ours.num_metadata}
+        kwargs_p = {'metadata': meta}
+    ref_handler.net.eval()
+    with torch.no_grad():
+        ref_out, _, _ = ref_handler.run_eval(torch.from_numpy(x.transpose(0, 3, 1, 2)),
+                                             **kwargs_t)
+    out, _, _ = ours.run_eval(x, **kwargs_p)
+    delta = float(np.abs(out - np.asarray(ref_out).transpose(0, 2, 3, 1)).max())
+    print('verify %s (epoch %d): max |reference - port| = %.3g on a %dx%d probe'
+          % (name, epoch, delta, spatial[0], spatial[1]))
+    return delta
+
+
+def import_reference_model_cli():
+    """console script: import_reference_model_torch"""
+    import click
+
+    @click.command()
+    @click.option('--checkpoint', required=True, help='Reference torch checkpoint file.')
+    @click.option('--out_dir', required=True, help='Experiment parent directory.')
+    @click.option('--experiment', default=None, help='Experiment name.')
+    @click.option('--model_name', default=None,
+                  help='Model registry name (read from the checkpoint if present).')
+    @click.option('--epoch', default=None, type=int, help='Epoch tag for the checkpoint.')
+    @click.option('--scale', default=4, help='SR scale.', show_default=True)
+    @click.option('--verify', is_flag=True,
+                  help='After importing, run the reference torch model and the imported '
+                       'model on the same probe and print max |delta| (needs the '
+                       'reference code tree: SISR_REFERENCE_CODE).')
+    @click.option('--gpu/--no-gpu', default=True, show_default=True,
+                  help='Run --verify\'s port model on the CUDA card (raises without one) '
+                       'or on the CPU.')
+    def run(checkpoint, out_dir, experiment, model_name, epoch, scale, verify, gpu):
+        """Convert a reference torch checkpoint into an evaluable experiment folder."""
+        base = import_reference_experiment(checkpoint, out_dir, experiment=experiment,
+                                           model_name=model_name, epoch=epoch, scale=scale)
+        if verify:
+            try:
+                _reference_imports()
+            except RuntimeError as exc:
+                raise SystemExit('verification not run: %s' % exc)
+            delta = verify_reference_import(checkpoint, base, device='cuda' if gpu else 'cpu')
+            if delta > 5e-3:
+                raise SystemExit('verification FAILED: max |delta| %.3g > 5e-3' % delta)
+
+    run()

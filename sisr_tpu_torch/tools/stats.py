@@ -15,47 +15,66 @@ _PALETTE = ((255, 255, 255), (0, 0, 0), (31, 119, 180), (255, 127, 14), (44, 160
 _WHITE, _BLACK, _COLOURS = 0, 1, (2, 3, 4, 5)
 
 
+def new_page(width, height):
+    """A white palette page and its ImageDraw (see _PALETTE)."""
+    from PIL import Image, ImageDraw
+    page = Image.new('P', (width, height), _WHITE)
+    page.putpalette([v for rgb in _PALETTE for v in rgb])
+    return page, ImageDraw.Draw(page)
+
+
+def draw_panel(draw, box, curves, xlabel, x_range=None, y_range=None, ylabel=None):
+    """Draw ``curves`` ((label, xs, ys) each; NaN points skipped) into ``box`` (left,
+    top, right, bottom) of a :func:`new_page`: a frame, the y limits, ``xlabel`` (and
+    ``ylabel``), dashed lines with a marker per point and a legend; ``x_range`` and
+    ``y_range`` fix the axes' limits (else the data's)."""
+    left, top, right, bottom = box
+    finite = [v for _, _, ys in curves for v in ys if v == v]
+    lo, hi = y_range or ((min(finite), max(finite)) if finite else (0.0, 1.0))
+    lo, hi = (lo - 0.5, hi + 0.5) if hi == lo else (lo, hi)
+    xs_all = [x for _, xs, _ in curves for x in xs] or [0.0]
+    e_lo, e_hi = x_range or (min(xs_all), max(xs_all))
+    e_hi = e_hi if e_hi > e_lo else e_lo + 1
+
+    def xy(e, v):
+        return (left + (e - e_lo) / (e_hi - e_lo) * (right - left),
+                bottom - (v - lo) / (hi - lo) * (bottom - top))
+
+    draw.rectangle((left, top, right, bottom), outline=_BLACK)
+    draw.text((5, top), '%.4g' % hi, fill=_BLACK)
+    draw.text((5, bottom - 10), '%.4g' % lo, fill=_BLACK)
+    draw.text(((left + right) // 2, bottom + 8), xlabel, fill=_BLACK)
+    if ylabel:
+        draw.text((5, (top + bottom) // 2), ylabel, fill=_BLACK)
+    colours = _COLOURS * (len(curves) // len(_COLOURS) + 1)
+    for colour, (_, xs, ys) in zip(colours, curves):
+        points = [xy(float(e), float(v)) for e, v in zip(xs, ys) if v == v]
+        for a, b in zip(points, points[1:]):  # dashed: every other tenth of a segment
+            for t in range(0, 10, 2):
+                draw.line([(a[0] + (b[0] - a[0]) * t / 10, a[1] + (b[1] - a[1]) * t / 10),
+                           (a[0] + (b[0] - a[0]) * (t + 1) / 10,
+                            a[1] + (b[1] - a[1]) * (t + 1) / 10)], fill=colour, width=2)
+        for x, y in points:
+            draw.ellipse((x - 3, y - 3, x + 3, y + 3), fill=colour)
+    for i, (colour, (label, _, _)) in enumerate(zip(colours, curves)):
+        draw.text((right - 150, top + 8 + 14 * i), label, fill=colour)
+
+
 def plot_stats(stats_dict, keynames, experiment_log_dir, filename):
     """Loss/PSNR/SSIM curves per epoch (ref: stats.py:11-31), one panel for each group
     of ``keynames`` whose metrics are all in ``stats_dict``: dashed lines with a marker
     per epoch and a legend, drawn with PIL and saved in the format ``filename`` names
     (a one-page pdf for loss_plots.pdf)."""
-    from PIL import Image, ImageDraw
     valid_keys = [key for key in keynames if all(metric in stats_dict for metric in key)]
     if not valid_keys or 'epoch' not in stats_dict:
         return
     width, height = _PANEL
-    page = Image.new('P', (width, height * len(valid_keys)), _WHITE)
-    page.putpalette([v for rgb in _PALETTE for v in rgb])
-    draw = ImageDraw.Draw(page)
+    page, draw = new_page(width, height * len(valid_keys))
     epochs = [float(e) for e in stats_dict['epoch']]
     for ind, key in enumerate(valid_keys):
-        top, left, right, bottom = ind * height + 20, 70, width - 20, (ind + 1) * height - 30
-        series = [[float(v) for v in stats_dict[metric]] for metric in key]
-        finite = [v for vals in series for v in vals if v == v]
-        lo, hi = (min(finite), max(finite)) if finite else (0.0, 1.0)
-        lo, hi = (lo - 0.5, hi + 0.5) if hi == lo else (lo, hi)
-        e_lo, e_hi = min(epochs), max(epochs) if max(epochs) > min(epochs) else min(epochs) + 1
-
-        def xy(e, v):
-            return (left + (e - e_lo) / (e_hi - e_lo) * (right - left),
-                    bottom - (v - lo) / (hi - lo) * (bottom - top))
-
-        draw.rectangle((left, top, right, bottom), outline=_BLACK)
-        draw.text((5, top), '%.4g' % hi, fill=_BLACK)
-        draw.text((5, bottom - 10), '%.4g' % lo, fill=_BLACK)
-        draw.text(((left + right) // 2, bottom + 8), 'Epoch', fill=_BLACK)
-        for colour, metric, vals in zip(_COLOURS * 2, key, series):
-            points = [xy(e, v) for e, v in zip(epochs, vals) if v == v]
-            for a, b in zip(points, points[1:]):  # dashed: every other tenth of a segment
-                for t in range(0, 10, 2):
-                    draw.line([(a[0] + (b[0] - a[0]) * t / 10, a[1] + (b[1] - a[1]) * t / 10),
-                               (a[0] + (b[0] - a[0]) * (t + 1) / 10,
-                                a[1] + (b[1] - a[1]) * (t + 1) / 10)], fill=colour, width=2)
-            for x, y in points:
-                draw.ellipse((x - 3, y - 3, x + 3, y + 3), fill=colour)
-        for i, (colour, metric) in enumerate(zip(_COLOURS * 2, key)):
-            draw.text((right - 150, top + 8 + 14 * i), metric, fill=colour)
+        curves = [(metric, epochs, [float(v) for v in stats_dict[metric]]) for metric in key]
+        draw_panel(draw, (70, ind * height + 20, width - 20, (ind + 1) * height - 30),
+                   curves, 'Epoch')
     page.save(os.path.join(experiment_log_dir, filename))
 
 

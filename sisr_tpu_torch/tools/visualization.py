@@ -152,3 +152,28 @@ def interpret_sisr_images(image_package, metrics, metric_names, out_loc, names,
             draw.multiline_text((left, top + title_lines * _LINE + panel.height + 2),
                                 label.rstrip('\n'), fill=(0, 0, 0))
         write_pdf_page(page, os.path.join(out_loc, name))
+
+
+def compare_training_curves(model_loc, out_name, models, metric='val-PSNR',
+                            epoch_range=None, psnr_range=None, smooth=False):
+    """Validation-curve comparison of experiments (ref: visualization.py:188-233): one
+    curve of ``metric`` over the epochs of each model's summary.csv (a model with a
+    '/' is a path, else a folder of ``model_loc``), optionally Savitzky-Golay smoothed
+    (window up to 11, order up to 3, as sisr_tpu), drawn with PIL and saved in the
+    format ``out_name`` names (a one-page pdf or a png)."""
+    import pandas as pd
+    from .stats import draw_panel, new_page
+    curves = []
+    for model in models:
+        path = model if '/' in model else os.path.join(model_loc, model)
+        data = pd.read_csv(os.path.join(path, 'result_outputs/summary.csv'))
+        values = np.asarray(data[metric], np.float64)
+        win = min(11, len(values) - (1 - len(values) % 2))
+        if smooth and win >= 5:
+            from scipy.signal import savgol_filter
+            values = savgol_filter(values, win, min(3, win - 1))
+        curves.append((model.split('/')[-1], list(data['epoch']), list(values)))
+    page, draw = new_page(1000, 420)
+    draw_panel(draw, (70, 20, 980, 370), curves, 'Epoch number', x_range=epoch_range,
+               y_range=psnr_range, ylabel='Validation %s' % metric)
+    page.save(out_name)

@@ -10,14 +10,14 @@ where it serves (no bucketed eval, metrics within PSNR/SSIM at ``max_im_val`` 1)
 fused one (forward, loss, Y PSNR/SSIM on the device, one (K, N) matrix per batch).
 Resume (``continue_from_epoch``) and branching (``new_branch``) continue from a saved
 epoch; early stopping watches the validation PSNR; ``epoch_cutoff`` fixes the last
-epoch.
-
-Not ported, and raising NotImplementedError: ``aim_track`` and
-``model_cleanup_frequency``.
+epoch.  ``aim_track`` writes the run's parameters and each epoch's metrics to a JSONL
+stream (``tools/tracker.py``, under ``aim_home``, default ``<save_loc>/tracking``);
+``model_cleanup_frequency`` N deletes the checkpoints ``clean_models`` does not keep
+every N epochs (``tools/helper_cli.py``).
 """
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
-from datetime import date
+from datetime import date, datetime
 import math
 import os
 import random
@@ -39,11 +39,6 @@ from ..utils.helpers import create_dir_if_empty, training_device
 _FUSED_METRICS = {'PSNR', 'SSIM'}
 
 
-def _not_ported(what, item, reason=''):
-    return NotImplementedError('%s is not ported to sisr_tpu_torch yet%s (ROADMAP.md, '
-                               'Queue 1 item %d).' % (what, reason, item))
-
-
 class TrainingHandler:
     def __init__(self,
                  experiment_name='experiment-%s' % date.today().strftime("%b-%d-%Y"),
@@ -59,11 +54,8 @@ class TrainingHandler:
         sisr_tpu's ``steps_per_dispatch`` (K steps in one device dispatch) falls into
         ``kwargs``: here every step is its own dispatch, and K steps in a row are
         the same K steps."""
-        if aim_track:
-            raise _not_ported('aim_track (tools/tracker.py)', 10)
-        if model_cleanup_frequency is not None:
-            raise _not_ported('model_cleanup_frequency (tools/helper_cli.py clean_models)',
-                              10)
+        self.model_cleanup_frequency = model_cleanup_frequency
+        self.tracker = None
         self.metrics = tuple(metrics or ())
         # an unknown metric fails in the validation epoch, as in sisr_tpu
         self.metric_hub = Metrics(metrics) if metrics is not None else None
@@ -120,6 +112,24 @@ class TrainingHandler:
         # divides by 255 on the device, bit-identical to the host conversion
         for ds in getattr(self.train_data.dataset, 'datasets', [self.train_data.dataset]):
             ds.keep_uint8 = True
+
+        if aim_track:
+            # runs are tracked to JSONL streams with Aim's API (tools/tracker.py), under
+            # sisr_tpu's run names
+            from ..tools.tracker import JsonlTracker
+            if continue_from_epoch is None:
+                run_name = experiment_name + '_%s' % datetime.today().strftime(
+                    "%Hh-%Mm-%Ss-%b-%d-%Y")
+            else:
+                run_name = 'continuation_from_epoch_%d_' % self.model.model_epoch \
+                    + experiment_name
+            home = aim_home or os.path.join(save_loc, 'tracking')
+            self.tracker = JsonlTracker(experiment=experiment_name, repo=home, run=run_name)
+            self.tracker.set_params(dict(model_params), name='model_parameters')
+            self.tracker.set_params({'num_epochs': num_epochs,
+                                     'continue_from_epoch': continue_from_epoch,
+                                     'seed': seed, 'epoch_cutoff': epoch_cutoff},
+                                    name='train_parameters')
 
     def _stream(self, batches, keys):
         """``batches`` on the handler's device (copied ahead on a side stream on CUDA),
@@ -332,6 +342,8 @@ class TrainingHandler:
                     # a metric new in this run: NaN history keeps the rows rectangular
                     total_losses[key] = [float('nan')] * n_rows + total_losses[key]
                 total_losses[key].append(avg_val)
+                if self.tracker is not None:
+                    self.tracker.track(avg_val, name=key.replace('-', '_'), epoch=epoch_idx)
             total_losses['epoch'].append(epoch_idx)
             for value in total_losses.values():
                 if len(value) < n_rows + 1:  # a metric dropped in this run
@@ -356,6 +368,15 @@ class TrainingHandler:
 
             out_string = ' '.join('{}_{:.4f}'.format(key, np.mean(value))
                                   for key, value in current_epoch_losses.items())
+            if self.model_cleanup_frequency is not None and i != 0 \
+                    and i % self.model_cleanup_frequency == 0:
+                from ..tools.helper_cli import clean_models
+                # cleanup lists the checkpoint files: every background write first
+                self.model.wait_pending_checkpoints()
+                clean_models(self.model.base_folder, clean_samples=True)
+            if self.tracker is not None:
+                self.tracker.track(time.time() - epoch_start_time, name='epoch_time',
+                                   epoch=epoch_idx)
             print('Epoch {}/{}:'.format(epoch_idx, self.starting_epoch + self.num_epochs - 1),
                   out_string, 'Epoch duration:',
                   '{:.4f}'.format(time.time() - epoch_start_time), 'seconds')

@@ -2,8 +2,34 @@
 plus device selection)."""
 import glob
 import os
+import re
 
 import torch
+
+
+def atoi(text):
+    return int(text) if text.isdigit() else text
+
+
+def natural_keys(text):
+    """Human-order sort key (ref: helper_functions.py:67-72)."""
+    return [atoi(c) for c in re.split(r'(\d+)', text)]
+
+
+def generate_range(limits, subdivisions):
+    """Split a numeric range into ``subdivisions`` intervals' boundaries, linearly
+    spaced and strictly increasing (sisr_tpu's repair of helper_functions.py:94-101,
+    whose truncated step repeats boundaries on narrow ranges)."""
+    if subdivisions < 1:
+        raise ValueError('subdivisions must be >= 1 (got %d)' % subdivisions)
+    span = limits[1] - limits[0]
+    if span < subdivisions:
+        raise ValueError('Range %s is too narrow for %d subdivisions — each '
+                         'interval needs at least one integer.'
+                         % (list(limits), subdivisions))
+    steps = [limits[0] + round(i * span / subdivisions) for i in range(subdivisions + 1)]
+    steps[-1] += 1
+    return steps
 
 
 def create_dir_if_empty(*directories):

@@ -190,9 +190,8 @@ def test_ported_options_run(override, jax_rcan, tmp_path):
     {'metrics': ['PSNR', 'FACE_SIM']},
 ])
 def test_unported_options_raise(override, tmp_path, monkeypatch):
-    """Multi-device eval and FACE_SIM raise NotImplementedError; CelebA attributes
-    are ported now: the hub takes the file and goes on to load the model, missing
-    here."""
+    """Multi-device eval raises NotImplementedError; CelebA attributes and FACE_SIM
+    are ported now: the hub takes them and goes on to load the model, missing here."""
     monkeypatch.chdir(tmp_path)  # the hub writes under out_loc before it loads models
     kwargs = dict(hr_dir='hr', lr_dir='lr', model_and_epoch=[('e', '0')], results_name='r',
                   gpu=False, metrics=['PSNR'], data_split=None, save_im=False, batch_size=1,
@@ -202,7 +201,7 @@ def test_unported_options_raise(override, tmp_path, monkeypatch):
                   data_attributes=None, dataset_name=None, image_shortlist=None,
                   metadata_file=None, sp_gpu=0, time_models=False, recursive=False,
                   fused_eval=True)
-    if 'data_attributes' in override:
+    if 'mesh' not in override:
         with pytest.raises(RuntimeError, match='No config.toml'):
             EvalHub(**{**kwargs, **override})
         return

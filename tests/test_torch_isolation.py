@@ -1,6 +1,6 @@
 """sisr_tpu_torch and chip_smoke import nothing of JAX, Flax or sisr_tpu, and the
-port's entry points (eval and training) run on CUDA unless told otherwise (raising
-where there is none)."""
+port's entry points (eval, training, the feature extractors, serving export and
+run_serving) run on CUDA unless told otherwise (raising where there is none)."""
 import os
 import subprocess
 import sys
@@ -29,9 +29,16 @@ CHECK = textwrap.dedent('''
     from sisr_tpu_torch.evaluation.standard_eval import EvalHub
     from sisr_tpu_torch.models.handlers import define_model
     from sisr_tpu_torch.utils.helpers import resolve_device, training_device
+    from sisr_tpu_torch.models import feature_extractors as fx
+    from sisr_tpu_torch.tools import export_serving, run_serving
+    weights = sisr_tpu_torch.__file__  # a file: the device is resolved before it is read
     for call in (lambda: resolve_device(), lambda: define_model('rcan', n_resgroups=1,
                  n_resblocks=1, n_feats=16), lambda: EvalHub._select_device(True),
-                 lambda: training_device(), lambda: training_device('single')):
+                 lambda: training_device(), lambda: training_device('single'),
+                 lambda: fx.load_vgg_extractor(weights),
+                 lambda: fx.load_face_extractor('lightcnn', weights),
+                 lambda: export_serving.export_experiment('m', 'e', 0, 1, 8, 8),
+                 lambda: run_serving.serve_directory('a.pt2', 'in')):
         try:
             call()
         except RuntimeError as exc:

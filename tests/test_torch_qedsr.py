@@ -193,15 +193,14 @@ def test_training_matches_sisr_tpu(nonlinearity):
 
 
 def test_training_refuses_what_check_trainable_refuses():
-    """The perceptual loss is not ported (bf16 training is: it takes a step)."""
+    """bf16 training takes a step; the perceptual loss without its VGG weights refuses
+    before any step (with them it trains: tests/test_torch_perceptual_loss.py)."""
     batch = _batch(2, n=2, lr=8)
     handler = define_model('qedsr', device='cpu', dtype='bf16', **QEDSR)
     handler.set_metadata_keys(KEYS)
     assert torch.isfinite(handler.run_train(**batch)[0])
-    handler = define_model('qedsr', device='cpu', perceptual=0.1, **QEDSR)
-    handler.set_metadata_keys(KEYS)
-    with pytest.raises(NotImplementedError, match='perceptual'):
-        handler.run_train(**batch)
+    with pytest.raises(RuntimeError, match='Perceptual loss requested'):
+        define_model('qedsr', device='cpu', perceptual=0.1, **QEDSR)
     evaluator = define_model('qedsr', device='cpu', eval_mode=True, **QEDSR)
     with pytest.raises(RuntimeError, match='eval mode'):
         evaluator.run_train(**batch)

@@ -162,8 +162,8 @@ def test_losses_match_sisr_tpu():
         ours = float(losses.build_loss(name)(torch.from_numpy(a), torch.from_numpy(b)))
         theirs = float(jax_losses.build_loss(name)(jnp.asarray(a), jnp.asarray(b)))
         assert ours == pytest.approx(theirs, rel=1e-6)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        losses.build_loss('l1', perceptual=0.1)
+    with pytest.raises(RuntimeError, match='no VGG feature extractor'):
+        losses.build_loss('l1', perceptual=0.1)  # the perceptual loss needs its weights
 
 
 def test_optimizer_takes_the_reference_keys_only():
@@ -290,16 +290,19 @@ def test_ragged_and_eval_mode_batches_raise():
     ({'checkpoint_dtype': 'bf16_moments'}, 'bf16_moments'),
     ({'perceptual': 0.1}, 'perceptual'),
 ])
-def test_unported_training_options_raise_and_eval_still_runs(option, match):
-    """The perceptual loss still raises; bf16 training and the orbax and bf16_moments
-    checkpoints are ported (tests/test_torch_bf16_training.py) and take a step.  Eval
-    runs with each."""
-    handler = define_model('rcan', device='cpu', scale=2, **MODELS['rcan'][1], **option)
+def test_unported_training_options_raise_and_eval_still_runs(option, match, tmp_path):
+    """Every option is ported now: bf16 training, the orbax and bf16_moments
+    checkpoints (tests/test_torch_bf16_training.py) and the perceptual loss (on a VGG19
+    file; tests/test_torch_perceptual_loss.py) take a step; without its weights the
+    perceptual loss refuses to train.  Eval runs with each."""
     if 'perceptual' in option:
-        with pytest.raises(NotImplementedError, match=match):
-            handler.run_train(**_batches(1)[0])
-    else:
-        assert torch.isfinite(handler.run_train(**_batches(1)[0])[0])
+        from sisr_tpu_torch.models.feature_extractors import VGG19Features
+        with pytest.raises(RuntimeError, match='no VGG feature extractor'):
+            define_model('rcan', device='cpu', scale=2, **MODELS['rcan'][1], **option)
+        torch.save(VGG19Features().state_dict(), str(tmp_path / 'vgg.pth'))
+        option = {**option, 'vgg_weights': str(tmp_path / 'vgg.pth')}
+    handler = define_model('rcan', device='cpu', scale=2, **MODELS['rcan'][1], **option)
+    assert torch.isfinite(handler.run_train(**_batches(1)[0])[0])
     batch = {k: np.rint(v * 255).astype(np.uint8) for k, v in _batches(1)[0].items()
              if k != 'metadata'}
     (keys, vals), _ = handler.run_eval_fused(batch)
@@ -483,16 +486,18 @@ def test_training_device_and_unported_handler_options(tmp_path):
     params = {'name': 'rcan', 'internal_params': {'scale': 2, **MODELS['rcan'][1]}}
     base = dict(experiment_name='x', save_loc=str(tmp_path), model_params=params,
                 gpu='off', data_params={}, num_epochs=1, fused_val=True)
-    for option, match in (({'aim_track': True}, 'item 10'),
-                          ({'model_cleanup_frequency': 2}, 'item 10')):
-        with pytest.raises(NotImplementedError, match=match):
-            TrainingHandler(**{**base, **option})
     # the standard validation epoch and other metrics are ported: fused_val = false
     # runs, and an unknown metric fails in the validation epoch, as in sisr_tpu
     lr_dir, hr_dir = build_workload(str(tmp_path / 'data'), 2, lr_size=8, scale=2)
     data = {'batch_size': 1, 'dataloader_threads': 1,
             'training_sets': {'d': {'lr': lr_dir, 'hr': hr_dir}},
             'eval_sets': {'d': {'lr': lr_dir, 'hr': hr_dir, 'cutoff': 2}}}
+    # aim_track and model_cleanup_frequency are ported
+    # (tests/test_torch_tracker_profiling.py)
+    tracked = TrainingHandler(**{**base, 'data_params': data, 'aim_track': True,
+                                 'aim_home': str(tmp_path / 'aim'),
+                                 'model_cleanup_frequency': 2})
+    assert tracked.tracker is not None and tracked.model_cleanup_frequency == 2
     for option, runs in (({'fused_val': False, 'metrics': ['PSNR']}, True),
                          ({'metrics': ['LPIPS']}, False)):
         handler = TrainingHandler(**{**base, 'data_params': data, 'save_samples': False,
@@ -503,11 +508,12 @@ def test_training_device_and_unported_handler_options(tmp_path):
         else:
             with pytest.raises(ValueError, match='Unknown metric LPIPS'):
                 handler.eval(0)
-    # bf16 training is ported; the perceptual loss still raises before any epoch
+    # bf16 training is ported; the perceptual loss without its weights raises before
+    # any epoch
     ModelInterface(str(tmp_path), 'y', device='cpu', mode='train',
                    new_params={'name': 'rcan', 'internal_params': {
                        'scale': 2, 'dtype': 'bf16', **MODELS['rcan'][1]}})
-    with pytest.raises(NotImplementedError, match='perceptual'):
+    with pytest.raises(RuntimeError, match='Perceptual loss requested'):
         ModelInterface(str(tmp_path), 'z', device='cpu', mode='train',
                        new_params={'name': 'rcan', 'internal_params': {
                            'scale': 2, 'perceptual': 0.1, **MODELS['rcan'][1]}})
