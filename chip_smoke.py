@@ -154,18 +154,34 @@ Phases, each printing one JSON line (any failure exits non-zero):
    degradation with noise; ``--data_attributes`` on a CelebA attribute file for the
    pairs renamed as CelebA's; ``CelebaSplitSampler`` ordering an epoch; and 10 timed
    bf16 train steps of Q-RCAN and RCAN beside the f32 ones of phase 11;
-16. the long tail (after phase 14): the CA's host time a call, its launcher against the
-   ``sisr::ca`` custom op called directly, in turns; ``train_sisr`` of
-   configs/div2k/qrcan.toml's model in f32 with the perceptual term on a seeded VGG19,
-   tracked and cleaned every epoch (2 epochs and a resume), its loss card against CPU,
-   10 timed steps with and without the term; FACE_SIM on Q-SPARNet's standard protocol
-   with both face models, their embeddings card against CPU; ``export_serving`` of RCAN
-   in bf16 and int8 and of Q-RCAN (5 x 20), each program run
-   over the 16 LR images (``run_serving``: launches, PSNR against the fused or the
-   eager int8 forward, ms a batch against the eager program's); ``image_manipulate``
-   against ``degrade_batch_on_device``, the reference import and its fused eval,
-   ``model_report``, the tracker's records and the profiling helpers.  To make room,
-   the timed f32 and bf16 steps of Q-RCAN and RCAN (phases 11 and 15) go at 5 x 20;
+16. the long tail (after phase 14): ``train_sisr`` of configs/div2k/qrcan.toml's model
+   in f32 with the perceptual term on a seeded VGG19, tracked and cleaned every epoch
+   (2 epochs and a resume), its loss card against CPU, 10 timed steps with and without
+   the term; FACE_SIM on Q-SPARNet's standard protocol with the LightCNN face model,
+   both face models' embeddings card against CPU; ``image_manipulate`` against
+   ``degrade_batch_on_device``, the reference import and its fused eval,
+   ``model_report``, the tracker's records and the profiling helpers; ``export_serving``
+   of RCAN in bf16 and int8 and of Q-RCAN (5 x 20), each program run over the 16 LR
+   images (``run_serving``: launches, PSNR against the fused or the eager int8
+   forward, ms a batch against the eager program's).  The three exports run beside
+   phase 14 and the perceptual train runs, each in a process of its own, and end
+   before the timed steps; the served programs' checks run beside phase 17's ranks,
+   and their timings after phase 17.  To make room, the timed f32 and bf16 steps of
+   Q-RCAN and RCAN (phases 11 and 15) go at 5 x 20;
+17. multi-GPU data parallelism (after phase 16; phase_multi_gpu): two ranks share the
+   card over gloo, each a process of this script (``--rank-job``) started through
+   sisr_tpu's launcher contract (SISR_TPU_*): ``train_sisr --gpu multi`` of
+   configs/div2k/qrcan.toml's model at 5 x 20, f32, on the 16 pairs' 64^2 crops, 2
+   epochs and a resume, against the same run in one process (losses, weights, rank 0's
+   files, each rank's decoded items and its ca_onchip launches at its (4, 64, 64, 64)
+   map); the same command with no launcher (the CLI starts a rank for the card, NCCL)
+   against ``--gpu single`` (the ranks, this process's one-process references and the
+   serving checks run at once); ``eval_sisr --fused_eval --mesh`` of RCAN in bf16 and
+   ``--int8`` against the main paths' runs (each rank's launches at (4, 128, 128, 64)),
+   int8 equal to one process running the ranks' halves of each batch; Q-SAN's standard
+   protocol with its tile grid shared over the ranks against its one-process run; then,
+   with the card the ranks' alone, each rank's DDP step and gradient all-reduce beside
+   one process's step;
 
 then the script's total seconds with each family's int8 img/s over its bf16 img/s
 (the table of ``INT8_MEASURED_SLOWER``), the ``kernels`` table (a row for each route
@@ -577,12 +593,12 @@ def path_run(op, args, **kwargs):
     return out, again, taken[0] if taken else 'three_pass'
 
 
-def planned_ca_route(shape, cr, itemsize, m=0):
-    """(route, plan as a dict) that ca_plan gives the CA on this card for a 16-byte
-    aligned x of ``shape``."""
+def planned_ca_route(shape, cr, itemsize, m=0, device=0):
+    """(route, plan as a dict) that ca_plan gives the CA on card ``device`` for a
+    16-byte aligned x of ``shape``."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
-    props = torch.cuda.get_device_properties(0)
+    props = torch.cuda.get_device_properties(device)
     n, h, w, c = shape
     route, plan = ca.ca_plan(n, h * w, c, cr, itemsize, True, props.multi_processor_count,
                              props.shared_memory_per_block_optin, m=m)
@@ -593,12 +609,12 @@ def planned_ca_route(shape, cr, itemsize, m=0):
     return route, dict(zip(keys, plan))
 
 
-def planned_res_route(shape, cr, x_itemsize, r_itemsize, aligned=True, m=0):
+def planned_res_route(shape, cr, x_itemsize, r_itemsize, aligned=True, m=0, device=0):
     """(route as path_run names it, plan as a dict) that ca_res_plan gives the CA +
-    residual on this card: 'onchip' (its rounds route), 'stream' or 'three_pass'."""
+    residual on card ``device``: 'onchip' (its rounds route), 'stream' or 'three_pass'."""
     import torch
     from sisr_tpu_torch.ops import channel_attention as ca
-    props = torch.cuda.get_device_properties(0)
+    props = torch.cuda.get_device_properties(device)
     n, h, w, c = shape
     route, plan = ca.ca_res_plan(n, h * w, c, cr, x_itemsize, r_itemsize, aligned,
                                  props.multi_processor_count,
@@ -2254,7 +2270,7 @@ def phase_int8_main_path(dirs, bf16_mean_psnr, experiment='rcan_10x20'):
           else None, 'forward_other_device_ms': other_ms,
           'forward_peak_memory_gb': peak_gb, 'forward_kernels': len(per_kernel),
           'top_forward_kernels_ms': top, **holistic, 'nvidia_smi': nvidia_smi_line()})
-    return {'launches': launches, 'mean_psnr': mean_psnr,
+    return {'launches': launches, 'mean_psnr': mean_psnr, 'frame': frame,
             'img_per_s': statistics.median(rates)}
 
 
@@ -2310,7 +2326,7 @@ FULL_DEPTH = {'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64}
 # full-depth model) at 5 x 20, and Q-SAN's 2 x 2 grid run (QSAN_GRID) and the timed
 # steps of HAN and Q-HAN (5 x 20) and SAN and Q-SAN (10 x 10); beside phase 16, the
 # timed f32 and bf16 steps of Q-RCAN and RCAN at 5 x 20 (phase 16 times the full-depth
-# f32 Q-RCAN step)
+# f32 Q-RCAN step); the multi-GPU runs of phase 17 at 5 x 20
 RECIPE_TRAIN_DEPTH = {'n_resgroups': 5}
 RECIPE_CA_PER_FORWARD = RECIPE_TRAIN_DEPTH['n_resgroups'] * RCAN['n_resblocks']
 
@@ -3522,7 +3538,7 @@ def phase_qsan_grid(dirs, bf16_mean_psnr):
     report['qsan_20x10_bf16_mean_psnr'] = bf16_mean_psnr
     report['nvidia_smi'] = nvidia_smi_line()
     emit(report)
-    return {'launches': dict(NO_LAUNCHES)}
+    return {'launches': dict(NO_LAUNCHES), 'frame': frames['qsan_grid_standard_bf16']}
 
 
 def write_interp_workload(dirs, root):
@@ -4005,15 +4021,16 @@ def vgg_conv_flops(vgg, side):
     return flops
 
 
-def phase_perceptual_train(dirs, root):
+def phase_perceptual_train(dirs, root, settle=None):
     """``train_sisr`` of configs/div2k/qrcan.toml's model and optimizer, Q-RCAN 10 x 20
     f32, with ``perceptual = 1.0`` on a seeded VGG19 trunk (write_vgg19_weights), on
     the 16 pairs at HR crops of 256^2, fused validation, tracked and cleaned every
     epoch: 2 epochs, then a resume for a third (finite losses, the checkpoints, the
     resumed one at step 6), every CA call on chip, 200 a forward.  Then the loss of 3
     steps on the card (TF32 off) against the CPU at 2 x 2 (batch 2, LR crops of 16),
-    within rtol 2e-4, and perceptual_step_breakdown.  cuDNN TF32 on, matmul off
-    (PyTorch's defaults) in the train runs and the timed steps."""
+    within rtol 2e-4, and perceptual_step_breakdown, after ``settle()`` (which ends the
+    jobs that run beside this phase).  cuDNN TF32 on, matmul off (PyTorch's defaults)
+    in the train runs and the timed steps."""
     import numpy as np
     import pandas as pd
     import torch
@@ -4060,6 +4077,8 @@ def phase_perceptual_train(dirs, root):
                              'losses': losses, 'max_rel_diff': rel}
     if not rel <= 2e-4:
         raise AssertionError('perceptual loss card against CPU: %s' % losses)
+    if settle is not None:
+        settle()
     with tf32(True, False):
         steps, handler, batch = perceptual_step_breakdown(vgg_path)
     emit({'phase': 'perceptual_train', 'model': 'qrcan 10x20 64f 4x f32, standard + q_node, '
@@ -4081,11 +4100,12 @@ def read_images(folder, n):
 def phase_face_sim_eval(dirs, root):
     """``eval_sisr`` on the standard protocol (batch 1, --time_models,
     --no_image_comparison) of Q-SPARNet as configs/celebahq/qsparnet.toml builds it
-    (qsparnet_512, bf16) over the 16 pairs with ``-m PSNR -m SSIM -m FACE_SIM``, with
-    ``--face_model lightcnn`` and with ``vggface`` on seeded full-width checkpoints in
-    the reference layouts (write_face_weights): sisr_tpu's columns, every FACE_SIM in
-    [-1, 1], no CA launch.  Then each extractor's embeddings of 4 HR images, card (TF32
-    off) against the CPU, within 1e-4 of the embedding's norm, and its ms a batch."""
+    (qsparnet_512, bf16) over the 16 pairs with ``-m PSNR -m SSIM -m FACE_SIM`` and
+    ``--face_model lightcnn`` on a seeded full-width checkpoint in the reference layout
+    (write_face_weights): sisr_tpu's columns, every FACE_SIM in [-1, 1], no CA launch.
+    Then each extractor's embeddings (LightCNN29 and VggFace) of 4 HR images, card
+    (TF32 off) against the CPU, within 1e-4 of the embedding's norm, and its ms a
+    batch."""
     import numpy as np
     import torch
     from sisr_tpu_torch.models.feature_extractors import load_face_extractor
@@ -4097,18 +4117,25 @@ def phase_face_sim_eval(dirs, root):
                (experiment, 'FACE_SIM')]
     report, total = {}, dict(NO_LAUNCHES)
     x = torch.from_numpy(read_images(dirs['hr_dir'], 4))
+    name = 'lightcnn'  # the CLI's run; both extractors are held card against CPU below
+    launches, seconds, split, peak_gb, frame, _ = run_standard_cli(
+        dirs, 'face_sim_' + name, experiment,
+        ['-m', 'FACE_SIM', '--face_model', name, '--face_weights', weights[name],
+         '--no_image_comparison'])
+    expect_launches(launches, NO_LAUNCHES, 'FACE_SIM eval (%s)' % name)
+    check_frame(frame, shapes, experiment, 'face_sim_' + name)
+    sims = frame[[('LR', 'FACE_SIM'), (experiment, 'FACE_SIM')]].to_numpy()
+    if list(frame.columns) != columns or not np.isfinite(sims).all() \
+            or np.abs(sims).max() > 1 + 1e-6:
+        raise AssertionError('FACE_SIM (%s): columns %s, values %s'
+                             % (name, list(frame.columns), sims))
+    report[name] = {'cli_seconds': seconds, 'img_per_s': N_IMAGES / split['protocol'],
+                    'peak_memory_gb': peak_gb,
+                    'mean_face_sim': {'LR': float(sims[:, 0].mean()),
+                                      experiment: float(sims[:, 1].mean())},
+                    'mean_psnr': float(frame[(experiment, 'PSNR')].mean())}
+    total = {k: total[k] + launches[k] for k in total}
     for name, path in weights.items():
-        launches, seconds, split, peak_gb, frame, _ = run_standard_cli(
-            dirs, 'face_sim_' + name, experiment,
-            ['-m', 'FACE_SIM', '--face_model', name, '--face_weights', path,
-             '--no_image_comparison'])
-        expect_launches(launches, NO_LAUNCHES, 'FACE_SIM eval (%s)' % name)
-        check_frame(frame, shapes, experiment, 'face_sim_' + name)
-        sims = frame[[('LR', 'FACE_SIM'), (experiment, 'FACE_SIM')]].to_numpy()
-        if list(frame.columns) != columns or not np.isfinite(sims).all() \
-                or np.abs(sims).max() > 1 + 1e-6:
-            raise AssertionError('FACE_SIM (%s): columns %s, values %s'
-                                 % (name, list(frame.columns), sims))
         card = load_face_extractor(name, path, device='cuda')
         cpu = load_face_extractor(name, path, device='cpu')
         with tf32(False, False), torch.inference_mode():
@@ -4117,15 +4144,9 @@ def phase_face_sim_eval(dirs, root):
             batch_ms = cuda_ms(lambda: card(x.cuda()), reps=3, rounds=3, warm=1)
         norms = e_cpu.norm(dim=1)
         rel = float(((e_card - e_cpu).abs().max(dim=1).values / norms).max())
-        report[name] = {'cli_seconds': seconds, 'img_per_s': N_IMAGES / split['protocol'],
-                        'peak_memory_gb': peak_gb,
-                        'mean_face_sim': {'LR': float(sims[:, 0].mean()),
-                                          experiment: float(sims[:, 1].mean())},
-                        'mean_psnr': float(frame[(experiment, 'PSNR')].mean()),
-                        'embedding_dim': int(e_cpu.shape[1]),
-                        'embedding_max_rel_diff_card_vs_cpu': rel,
-                        'embedding_ms_per_batch_of_4_512': batch_ms}
-        total = {k: total[k] + launches[k] for k in total}
+        report.setdefault(name, {}).update({'embedding_dim': int(e_cpu.shape[1]),
+                                            'embedding_max_rel_diff_card_vs_cpu': rel,
+                                            'embedding_ms_per_batch_of_4_512': batch_ms})
         if not (norms > 0).all() or not rel <= 1e-4:
             raise AssertionError('%s embeddings card against CPU: %g of the norm (norms %s)'
                                  % (name, rel, norms.tolist()))
@@ -4176,66 +4197,57 @@ SERVING_CASES = (('rcan_bf16', 'rcan_10x20', False),
                  ('qrcan_bf16', 'qrcan_5x20', False))
 
 
-def phase_ca_dispatch():
-    """The CA's eager dispatch at the bf16 main map: the time a call (CUDA events around
-    50 back-to-back calls, which the host bounds) of ``fused_channel_attention``, whose
-    eager call goes straight to the launcher, against the ``sisr::ca`` custom op called
-    directly (what a traced program calls), in turns (launcher, op, op, launcher); both
-    give the same output."""
-    import torch
-    from sisr_tpu_torch.ops import channel_attention as ca
-    gen = torch.Generator().manual_seed(0)
-    x, w1, b1, w2, b2 = ca_inputs((BATCH, LR_SIZE, LR_SIZE, 64), torch.bfloat16, 16, gen)
-    calls = {'launcher': lambda: ca.fused_channel_attention(x, w1, b1, w2, b2),
-             'op': lambda: torch.ops.sisr.ca(x, w1, b1, w2, b2, None, None, None)}
-    host_ms = {'launcher': [], 'op': []}
-    with torch.inference_mode():
-        if not torch.equal(calls['launcher'](), calls['op']()):
-            raise AssertionError('sisr::ca differs from fused_channel_attention')
-        for label in ('launcher', 'op', 'op', 'launcher'):
-            host_ms[label].append(cuda_ms(calls[label]))
-    report = {'ca_ms_per_call': host_ms,
-              'median_ca_ms': {k: statistics.median(v) for k, v in host_ms.items()}}
-    emit({'phase': 'ca_dispatch', 'shape': list(x.shape), 'dtype': 'bfloat16', **report,
-          'nvidia_smi': nvidia_smi_line()})
-    return report
+def start_exports(dirs, root):
+    """``export_serving`` of each program of SERVING_CASES through its CLI, all at once,
+    each in a process of its own (a rank job): {label: ((process, log file), artifact
+    path)}."""
+    from sisr_tpu_torch.tools import export_serving as es
+    out = os.path.join(root, 'serving')
+    os.makedirs(out)
+    exports = {}
+    for label, experiment, int8 in SERVING_CASES:
+        path = os.path.join(out, label + es.FILE_SUFFIX)
+        cli = ['--model_loc', dirs['model_loc'], '--experiment', experiment, '--epoch', '0',
+               '--batch_size', str(BATCH), '--height', str(LR_SIZE), '--width',
+               str(LR_SIZE), '--out', path]
+        if int8:
+            cli += ['--int8', '--calibration_images', dirs['lr_dir']]
+        exports[label] = (start_rank_job('export', {'cli': cli}, root,
+                                         name='export_' + label), path)
+    return exports
 
 
-def phase_export_serving(dirs, root, rcan_frame):
+def phase_export_serving(dirs, root, rcan_frame, exports):
     """``export_serving`` of rcan_10x20 in bf16 and ``--int8`` (calibrated on the LR
     images) and of Q-RCAN with its metadata (qrcan_5x20: the e2e configuration cut to
-    5 x 20, its fused eval run here), at batch 8 x 128^2 on the card: each program's CA
-    calls are the custom ops, one a block (in int8 also its 415 convs, one op each), as
-    its manifest counts them.  Then the program loaded once and ``run_serving``'s
+    5 x 20, its fused eval run here), at batch 8 x 128^2 on the card, the three
+    ``exports`` of start_exports: each program's CA calls are the custom ops, one a
+    block (in int8 also its 415 convs, one op each), as its manifest counts them.  Then
+    the program loaded once and ``run_serving``'s
     ``serve_directory`` over the 16 LR images with a ground-truth folder: a launch a
     block and a forward on the planned route (ca_onchip in
     bf16, the CA + residual in rounds in int8), each image's PSNR within 0.01 dB of the
     fused eval's in bf16 and of an eager int8 forward on the same calibrated context in
-    int8, whose mean is within 1 dB of bf16's; the served forward's ms a batch against
-    the eager program's (CUDA events, in turns) and the largest difference of their
-    outputs."""
+    int8, whose mean is within 1 dB of bf16's; the largest difference of the served
+    and the eager program's outputs.  Returns the function that times each served
+    forward's ms a batch against the eager program's (CUDA events, in turns), emits the
+    phase's line and returns its result, for the caller to call once the card is its
+    alone (this part runs beside phase 17's ranks: its seconds include their load)."""
     import numpy as np
     import torch
     from sisr_tpu_torch.tools import export_serving as es, run_serving as rs
     out = os.path.join(root, 'serving')
-    os.makedirs(out)
     n_batches = -(-N_IMAGES // BATCH)
-    report, total = {}, dict(NO_LAUNCHES)
+    report, total, timed = {}, dict(NO_LAUNCHES), {}
     fused = {'rcan_10x20': rcan_frame}
     launches, _, fused['qrcan_5x20'] = run_eval_cli(dirs, 'serving_qrcan_fused',
                                                     experiment='qrcan_5x20')
     total = {k: total[k] + launches[k] for k in total}
+    finish_jobs([job for job, _ in exports.values()], time.monotonic())
     for label, experiment, int8 in SERVING_CASES:
         blocks = MODELS[experiment][1]['n_resgroups'] * MODELS[experiment][1]['n_resblocks']
-        path = os.path.join(out, label + es.FILE_SUFFIX)
-        args = ['--model_loc', dirs['model_loc'], '--experiment', experiment, '--epoch', '0',
-                '--batch_size', str(BATCH), '--height', str(LR_SIZE), '--width',
-                str(LR_SIZE), '--out', path]
-        if int8:
-            args += ['--int8', '--calibration_images', dirs['lr_dir']]
-        tic = time.perf_counter()
-        es.export_serving_cli.main(args=args, standalone_mode=False)
-        export_s = time.perf_counter() - tic
+        path = exports[label][1]
+        export_s = rank_result(root, 'export_' + label, 0)['export_seconds']
         with open(path + '.json') as f:
             manifest = json.load(f)
         ops = manifest['custom_ops']['calls']
@@ -4282,32 +4294,39 @@ def phase_export_serving(dirs, root, rcan_frame):
         call_args = (x,) if meta_rows is None else \
             (x, torch.from_numpy(meta_rows[:BATCH]).cuda())
         fn = program.module()
-        times = {'served': [], 'eager': []}
         with torch.inference_mode():
             out_diff = float((fn(*call_args) - eager(*call_args)).abs().max())
-            for turn, call in (('eager', eager), ('served', fn), ('served', fn),
-                               ('eager', eager)):  # in turns: the host's speed drifts
-                times[turn].append(cuda_ms(lambda: call(*call_args), reps=2, rounds=3,
-                                           warm=1))
-        served_ms, eager_ms = (statistics.median(times[k]) for k in ('served', 'eager'))
+        timed[label] = (fn, eager, call_args)
         report[label] = {'experiment': experiment, 'export_seconds': export_s,
                          'load_seconds': load_s,
                          'artifact_mb': os.path.getsize(path) / 1e6, 'custom_ops': ops,
                          'serve_seconds': serve_s, 'launches': launches,
                          'mean_psnr': float(np.mean(list(served.values()))),
                          'max_psnr_diff_to_' + ('eager_int8' if int8 else 'fused_eval'): diff,
-                         'served_ms_per_batch': served_ms, 'eager_ms_per_batch': eager_ms,
-                         'served_over_eager': served_ms / eager_ms,
                          'max_abs_diff_served_vs_eager': out_diff}
         if not diff <= 0.01:
             raise AssertionError('run_serving %s: PSNR %g dB from its reference' % (label, diff))
     int8_gap = abs(report['rcan_int8']['mean_psnr'] - report['rcan_bf16']['mean_psnr'])
     report['rcan_int8']['mean_psnr_diff_to_bf16'] = int8_gap
-    emit({'phase': 'export_serving', 'batch': BATCH, 'lr': LR_SIZE, **report,
-          'nvidia_smi': nvidia_smi_line()})
     if not int8_gap < 1.0:
         raise AssertionError('served int8 RCAN %.4f dB from bf16' % int8_gap)
-    return {'launches': total}
+
+    def timings():
+        for label, (fn, eager, call_args) in timed.items():
+            times = {'served': [], 'eager': []}
+            with torch.inference_mode():
+                for turn, call in (('eager', eager), ('served', fn), ('served', fn),
+                                   ('eager', eager)):  # in turns: the host's speed drifts
+                    times[turn].append(cuda_ms(lambda: call(*call_args), reps=2, rounds=3,
+                                               warm=1))
+            served_ms, eager_ms = (statistics.median(times[k]) for k in ('served', 'eager'))
+            report[label].update({'served_ms_per_batch': served_ms,
+                                  'eager_ms_per_batch': eager_ms,
+                                  'served_over_eager': served_ms / eager_ms})
+        emit({'phase': 'export_serving', 'batch': BATCH, 'lr': LR_SIZE, **report,
+              'nvidia_smi': nvidia_smi_line()})
+        return {'launches': total}
+    return timings
 
 
 def write_reference_checkpoint(path):
@@ -4453,6 +4472,599 @@ def phase_tools_path(dirs, root, perceptual, qrcan_frame):
     return {'launches': launches}
 
 
+# --- multi-GPU data parallelism: ranks of one process group on the card -----------------
+# Two ranks share the one card (gloo: NCCL refuses two ranks on one device), each a
+# process of its own started through sisr_tpu's launcher contract (SISR_TPU_*); a third
+# process runs the CLI with no launcher, which starts one rank a card itself (NCCL).
+DDP_WORLD = 2
+DDP_EXPERIMENT = 'qrcan_ddp'
+# configs/div2k/qrcan.toml's model, 64 features, cut to 5 x 20 to fit the script's time;
+# each rank's map in a train step is (BATCH / DDP_WORLD, 64, 64, 64) f32, in a bf16 fused
+# eval (4, 128, 128, 64)
+DDP_TRAIN = {**QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH}
+DDP_TRAIN_MAP = (BATCH // DDP_WORLD, TRAIN_CROP, TRAIN_CROP, 64)
+DDP_EVAL_MAP = (BATCH // DDP_WORLD, LR_SIZE, LR_SIZE, 64)
+RANK_TIMEOUT_S = 600  # the parent reaps every rank within this, or kills it and fails
+
+
+def write_crop_workload(dirs, root):
+    """The 16 pairs' centre crops, LR 64^2 (the recipe's LR crop: a crop then has no
+    freedom, so each rank's own crop draws cannot move the trajectory) and HR 256^2, with
+    the pairs' degradation_metadata.csv."""
+    from PIL import Image
+    crops = {'lr_dir': os.path.join(root, 'ddp_crops', 'lr'),
+             'hr_dir': os.path.join(root, 'ddp_crops', 'hr')}
+    off = (LR_SIZE - TRAIN_CROP) // 2
+    for key, scale in (('lr_dir', 1), ('hr_dir', SCALE)):
+        os.makedirs(crops[key])
+        for name in sorted(n for n in os.listdir(dirs[key]) if n.endswith('.png')):
+            with Image.open(os.path.join(dirs[key], name)) as im:
+                im.crop((off * scale, off * scale, (off + TRAIN_CROP) * scale,
+                         (off + TRAIN_CROP) * scale)).save(os.path.join(crops[key], name))
+    shutil.copy(os.path.join(dirs['lr_dir'], 'degradation_metadata.csv'), crops['lr_dir'])
+    return crops
+
+
+def write_ddp_config(crops, save_loc):
+    """configs/div2k/qrcan.toml's [model] at 5 x 20 and its batch of 8 on the crops
+    (no flips: each rank would draw its own), fused validation over the 16 crops in
+    batches of 8 (under the mesh each rank runs 4 of them)."""
+    from sisr_tpu_torch.utils import toml_io
+    data_set = {'lr': crops['lr_dir'], 'hr': crops['hr_dir'],
+                'degradation_metadata': 'on_site', 'metadata': ['blur_kernel']}
+    path = save_loc + '.toml'
+    toml_io.dump({
+        'experiment': DDP_EXPERIMENT, 'experiment_save_loc': save_loc,
+        'data': {'batch_size': BATCH, 'eval_batch_size': BATCH, 'dataloader_threads': 4,
+                 'training_sets': {'data_1': {**data_set, 'crop': TRAIN_CROP}},
+                 'eval_sets': {'data_1': data_set}},
+        'model': {'name': 'qrcan', 'internal_params': DDP_TRAIN},
+        'training': {'seed': 8, 'metrics': ['PSNR', 'SSIM'], 'logging': 'visual',
+                     'fused_val': True}}, path)
+    return path
+
+
+DDP_RUNS = (('first', ('--num_epochs', '2')),
+            ('resume', ('--num_epochs', '1', '--continue_from_epoch', '1')))
+
+
+def start_rank_job(job, args, root, rank=0, launcher=None, name=None):
+    """``chip_smoke.py --rank-job job`` as a process of its own, the leader of a session
+    of its own (its output in ``<root>/<name>_rank<rank>.log``, ``name`` by default the
+    job's), with the launcher environment ``launcher`` (the SISR_TPU_* variables) or
+    none: (process, log file)."""
+    name = name or job
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('SISR_TPU_') and k not in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK')}
+    log = open(os.path.join(root, '%s_rank%d.log' % (name, rank)), 'w')
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--rank-job', job,
+         json.dumps({**args, 'out': os.path.join(root, '%s_rank%%d.json' % name)})],
+        stdout=log, stderr=subprocess.STDOUT, env={**env, **(launcher or {})},
+        start_new_session=True)
+    return proc, log
+
+
+def reap(jobs):
+    """Each job ((process, log file) pairs, each process the leader of a session of its
+    own) killed with every process of its session, and waited for, if still running."""
+    import signal
+    for proc, log in jobs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        log.close()
+
+
+@contextlib.contextmanager
+def reaped(jobs):
+    """The block's jobs, reaped (reap) when the block ends."""
+    try:
+        yield jobs
+    finally:
+        reap(jobs)
+
+
+def finish_jobs(jobs, started):
+    """Wait for every job ((process, log file) pairs) until RANK_TIMEOUT_S after
+    ``started`` (time.monotonic) and return their logs; a job that fails, or outlives
+    the deadline (reaped() kills it), fails the phase."""
+    for proc, _ in jobs:
+        proc.wait(timeout=max(1.0, started + RANK_TIMEOUT_S - time.monotonic()))
+    texts = []
+    for proc, log in jobs:
+        log.flush()
+        with open(log.name) as f:
+            texts.append(f.read())
+        if proc.returncode != 0:
+            raise AssertionError('%s exited %s:\n%s' % (os.path.basename(log.name),
+                                                        proc.returncode, texts[-1][-6000:]))
+    return texts
+
+
+def rank_result(root, job, rank):
+    with open(os.path.join(root, '%s_rank%d.json' % (job, rank))) as f:
+        return json.load(f)
+
+
+def mesh_eval_cli(dirs, results_name, experiment, extra):
+    """``eval_sisr --mesh`` on this rank, through the CLI entry point: the launch counts
+    of exactly this run (set to 0 just before, read just after), its ca_onchip launches
+    by map, its seconds."""
+    from sisr_tpu_torch import net_eval
+    args = ['--hr_dir', dirs['hr_dir'], '--lr_dir', dirs['lr_dir'], '-me', experiment, '0',
+            '--model_loc', dirs['model_loc'], '--out_loc', dirs['out_loc'],
+            '--results_name', results_name, '-m', 'PSNR', '-m', 'SSIM', '--scale',
+            str(SCALE), '--full_directory', '--no_image_comparison', '--no-time_models',
+            '--mesh', *extra]
+    reset_launches()
+    tic = time.perf_counter()
+    net_eval.eval_run.main(args=args, standalone_mode=False)
+    seconds = time.perf_counter() - tic
+    return {'launches': read_launches(), 'onchip_by_map': read_onchip_shapes(),
+            'seconds': seconds}
+
+
+def step_profile(handler, batch, steps=5):
+    """``steps`` timed train steps of ``handler`` on ``batch`` after 3 warm ones: the
+    median wall ms and forward / backward / optimizer ms (timed_steps), and this
+    process's device-busy ms of a step (profiler, 3 steps) with its idle share."""
+    import torch
+    for _ in range(3):
+        handler.run_train(**batch)
+    torch.cuda.synchronize()
+    walls, phases = timed_steps(handler, batch, steps)
+    busy_ms, _ = device_kernel_ms(lambda: handler.run_train(**batch), reps=3)
+    wall = statistics.median(walls)
+    return {'median_step_wall_ms': wall, 'step_wall_ms': walls,
+            'median_forward_backward_optimizer_ms': [statistics.median(p[i] for p in phases)
+                                                     for i in range(3)],
+            'step_device_ms': busy_ms, 'idle_share': 1 - busy_ms / wall if busy_ms else None}
+
+
+def ddp_train_handler(device):
+    from sisr_tpu_torch.models.handlers import define_model
+    handler = define_model('qrcan', device=device, seed=8, **DDP_TRAIN)
+    handler.set_metadata_keys(['blur_kernel'] * META_COLS)
+    return handler
+
+
+def ddp_step_times(device, steps=5):
+    """step_profile of DDP_TRAIN's model on this rank's half of a seeded batch of 8 LR
+    crops of 64^2, through DistributedDataParallel (the gradient all-reduce inside the
+    backward), and the ms of one all-reduce of a flat f32 tensor of the model's
+    parameter count, as the backward's buckets add up to."""
+    import torch
+    from sisr_tpu_torch.parallel import MeshContext
+    handler = ddp_train_handler(device)
+    mesh = MeshContext()
+    handler.set_mesh(mesh)
+    report = {'rank_batch': BATCH // mesh.n_devices,
+              **step_profile(handler, mesh.shard_batch(train_batch_on(device, BATCH)),
+                             steps)}
+    flat = torch.zeros(handler.print_parameters(), device=device)
+    torch.distributed.all_reduce(flat)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(steps):
+        torch.distributed.all_reduce(flat)
+    torch.cuda.synchronize()
+    return {**report, 'gradient_all_reduce_ms': (time.perf_counter() - tic) * 1e3 / steps,
+            'parameters': handler.print_parameters()}
+
+
+def wait_for_file(path, timeout, jobs=()):
+    """Wait until ``path`` exists; fail after ``timeout`` seconds, or as soon as one of
+    ``jobs`` ((process, log file) pairs) has exited."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError('%s did not appear within %d s' % (path, timeout))
+        for proc, log in jobs:
+            if proc.poll() is not None:
+                log.flush()
+                with open(log.name) as f:
+                    raise AssertionError('%s exited %s before %s:\n%s'
+                                         % (os.path.basename(log.name), proc.returncode,
+                                            os.path.basename(path), f.read()[-6000:]))
+        time.sleep(0.2)
+
+
+def rank_job(job, args):
+    """A process of the multi-GPU phases (started by start_rank_job), which writes its
+    result JSON to ``args['out'] % rank``:
+
+    * ``ddp``, one rank of a launcher's group (TF32 off for matmuls and cuDNN):
+      ``train_sisr --gpu multi`` on the crops, 2 epochs then a resume, each run's
+      launches, ca_onchip launches by map and items this process decoded; ``eval_sisr
+      --fused_eval --mesh`` of RCAN 10 x 20 in bf16 and with ``--int8``, and Q-SAN's
+      standard protocol on its tile grid with ``--mesh``, with the tile batch sizes
+      this rank ran; then (rank 0 writes ``args['ready']``) once the parent has written
+      ``args['go']`` (every other job on the card ended), ddp_step_times;
+    * ``nccl``, no launcher environment: ``train_sisr --gpu multi`` for 1 epoch, so the
+      CLI starts a rank for each card itself (PyTorch's TF32 defaults there);
+    * ``export``: ``export_serving`` with the arguments ``args['cli']`` (TF32 off),
+      and its seconds."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from sisr_tpu_torch.data import loader
+    from sisr_tpu_torch.parallel import distributed
+    result = {'job': job}
+    if job in ('nccl', 'export'):
+        if job == 'nccl':
+            _, result['cli_seconds'] = run_train_cli(args['config'], '--gpu', 'multi',
+                                                     '--num_epochs', '1')
+        else:
+            from sisr_tpu_torch.tools import export_serving as es
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            tic = time.perf_counter()
+            es.export_serving_cli.main(args=args['cli'], standalone_mode=False)
+            result['export_seconds'] = time.perf_counter() - tic
+        with open(args['out'] % 0, 'w') as f:
+            json.dump(result, f)
+        return 0
+    if job != 'ddp':
+        raise ValueError('unknown rank job %r' % job)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_init_distributed()
+    index = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(index)
+    result.update({'rank': distributed.rank(), 'world': distributed.world_size(),
+                   'backend': torch.distributed.get_backend(), 'device': index,
+                   'sm_count': props.multi_processor_count,
+                   'smem_optin': props.shared_memory_per_block_optin,
+                   'train_plan': planned_ca_route(DDP_TRAIN_MAP, 4, 4, device=index)[0],
+                   'eval_plan': planned_ca_route(DDP_EVAL_MAP, 4, 2, device=index)[0],
+                   'int8_plan': planned_res_route(DDP_EVAL_MAP, 4, 4, 2, device=index)[0]})
+    for label, extra in DDP_RUNS:
+        items = loader.ITEMS_LOADED
+        launches, seconds = run_train_cli(args['config'], '--gpu', 'multi', *extra)
+        result[label] = {'launches': launches, 'onchip_by_map': read_onchip_shapes(),
+                         'cli_seconds': seconds, 'items_loaded': loader.ITEMS_LOADED - items}
+    dirs = args['dirs']
+    result['eval_bf16'] = mesh_eval_cli(dirs, 'mesh_bf16', 'rcan_10x20',
+                                        ['--fused_eval', '--batch_size', str(BATCH)])
+    result['eval_int8'] = mesh_eval_cli(dirs, 'mesh_int8', 'rcan_10x20',
+                                        ['--fused_eval', '--batch_size', str(BATCH), '--int8'])
+    with tile_steps() as steps:
+        result['tiles'] = mesh_eval_cli(dirs, 'mesh_qsan_grid', 'qsan_grid',
+                                        ['--batch_size', '1'])
+    result['tiles']['tile_batches'] = steps
+    # the step timings, with the card the ranks' alone: rank 0 says both are ready,
+    # and the parent says go once every other job on the card has ended
+    distributed.barrier()
+    if distributed.rank() == 0:
+        with open(args['ready'], 'w'):
+            pass
+    wait_for_file(args['go'], RANK_TIMEOUT_S)
+    distributed.barrier()
+    result['steps'] = ddp_step_times(torch.device('cuda', index))
+    with open(args['out'] % distributed.rank(), 'w') as f:
+        json.dump(result, f)
+    distributed.barrier()
+    return 0
+
+
+def summary_of(save_loc):
+    import pandas as pd
+    return pd.read_csv(os.path.join(save_loc, DDP_EXPERIMENT, 'result_outputs',
+                                    'summary.csv'))
+
+
+def max_rel(ours, theirs):
+    import numpy as np
+    ours, theirs = np.asarray(ours, np.float64), np.asarray(theirs, np.float64)
+    return float(np.max(np.abs(ours - theirs) / np.abs(theirs)))
+
+
+def final_weights_diff(save_loc, ref_loc, epoch):
+    import torch
+    a, b = (torch.load(os.path.join(loc, DDP_EXPERIMENT, 'saved_models',
+                                    'train_model_%d' % epoch),
+                       weights_only=True, map_location='cpu')['network']
+            for loc in (save_loc, ref_loc))
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+
+
+def half_batches(batch):
+    """A fused-protocol batch cut as the 2-rank mesh cuts it: each rank's contiguous
+    half of every per-image entry."""
+    n = len(batch['lr'])
+    per = n // DDP_WORLD
+    return [{k: v[r * per:(r + 1) * per] if not k.startswith('_') and hasattr(v, '__len__')
+             and not isinstance(v, str) and len(v) == n else v for k, v in batch.items()}
+            for r in range(DDP_WORLD)]
+
+
+def split_equal(fn, *args):
+    """``fn`` on a batch against ``fn`` on its two halves, concatenated: bit equal, and
+    the largest |difference|."""
+    import torch
+    half = len(args[0]) // 2
+    with torch.inference_mode():
+        whole = fn(*args)
+        parts = torch.cat([fn(*(a[r * half:(r + 1) * half] for a in args))
+                           for r in range(2)])
+    return {'bit_equal': bool(torch.equal(whole, parts)),
+            'max_abs_diff': float((whole.float() - parts.float()).abs().max())}
+
+
+def int8_at_rank_batch(dirs):
+    """The one-process int8 fused eval of rcan_10x20 with each batch of 8 run as its
+    two halves of 4 (each rank's slice under the 2-rank mesh), calibrated on the whole
+    first batch as one process and the mesh are: its per-image frame; and where a batch
+    of 8 and its halves part (split_equal): the calibrated int8 program's SR of one
+    seeded batch, its head's static int8 conv, the CA + residual kernel on seeded maps
+    (8, 128, 128, 64) with the first block's weights, the device bicubic and the
+    PSNR and SSIM of the fused step."""
+    import torch
+    from sisr_tpu_torch.ops.channel_attention import fused_channel_attention_residual
+    from sisr_tpu_torch.ops.metrics import psnr_nhw, ssim_nhw
+    from sisr_tpu_torch.ops.quantization import conv_int8_static
+    from sisr_tpu_torch.ops.resize import resize_bicubic
+    hub = eval_hub(dirs, 'rcan_10x20', 'int8_rank_batch', True, True, BATCH)
+    handler = hub.model_bundles[0].model
+    whole = handler.run_eval_fused
+
+    def halves(batch, **kwargs):
+        if handler._int8_ctx is None:
+            whole(batch, **kwargs)  # calibrate on the whole first batch
+        parts = [whole(half, **kwargs) for half in half_batches(batch)]
+        return (parts[0][0][0], torch.cat([p[0][1] for p in parts], dim=1)), parts[0][1]
+
+    handler.run_eval_fused = halves
+    hub.full_image_protocol()
+    frame = hub_frame(dirs, 'int8_rank_batch')
+    program, qparams, scales = handler._int8_ctx
+    _, x, meta = breakdown_batch(handler)
+    head, ca = qparams['head'], qparams['group_0']['rcab_0']['ca']
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    y = torch.randn((BATCH, LR_SIZE, LR_SIZE, 64), device='cuda', generator=gen)
+    r = torch.randn(y.shape, device='cuda', generator=gen).to(torch.bfloat16)
+    sr = torch.rand((BATCH, LR_SIZE * SCALE, LR_SIZE * SCALE), device='cuda',
+                    generator=gen)
+    hr = torch.rand(sr.shape, device='cuda', generator=gen)
+    report = {
+        'program_sr': split_equal(lambda v: program(v, meta), x),
+        'head_conv_int8_static': split_equal(
+            lambda v: conv_int8_static(v, head['kernel'], head['scale'], scales['head'],
+                                       head['bias'], head.get('matrix')), x),
+        'ca_residual_kernel': split_equal(
+            lambda a, b: fused_channel_attention_residual(
+                a, b, ca['du_0']['kernel'], ca['du_0']['bias'], ca['du_1']['kernel'],
+                ca['du_1']['bias']), y, r),
+        'device_bicubic': split_equal(lambda v: resize_bicubic(v, LR_SIZE * SCALE,
+                                                                 LR_SIZE * SCALE), x),
+        'psnr': split_equal(lambda a, b: psnr_nhw(a, b, 1.0), sr, hr),
+        'ssim': split_equal(lambda a, b: ssim_nhw(a, b, 1.0), sr, hr)}
+    return frame, report
+
+
+def qsan_tile_batch_dependence(dirs):
+    """Q-SAN's (qsan_grid) bf16 forward on 4 tiles of 94^2 (the 2 x 2 grid's 84^2 tiles
+    with their halo) of one seeded batch at once, as one process runs a forward's
+    tiles, against 2 and 2, as each rank of the mesh runs them (split_equal)."""
+    hub = eval_hub(dirs, 'qsan_grid', 'qsan_tile_probe', False, False, 1)
+    handler = hub.model_bundles[0].model
+    _, x, meta = breakdown_batch(handler)
+    side = 94
+    tiles = x[:4, :side, :side].contiguous()
+    return split_equal(lambda v, m: handler.forward(v, m), tiles, meta[:4])
+
+
+def frame_equal_f32(ours, theirs):
+    """Every per-image metric of ``ours`` equal to ``theirs`` in float32 (each CSV holds
+    the shortest text that reads back as its float32 value), and the images where not."""
+    import numpy as np
+    a = ours.loc[theirs.index, theirs.columns].to_numpy(np.float32)
+    b = theirs.to_numpy(np.float32)
+    rows = sorted(set(theirs.index[np.nonzero((a != b).any(axis=1))[0]]))
+    return not rows, rows
+
+
+def phase_multi_gpu(dirs, root, rcan_frames, qsan_grid_frame, meanwhile=None):
+    """The multi-GPU paths (phase 17), two ranks sharing the card over gloo:
+
+    * ``multi_gpu_train``: ``train_sisr --gpu multi`` of configs/div2k/qrcan.toml's
+      model (cut to 5 x 20, 64 features, f32, TF32 off) on the 16 pairs' crops,
+      global batch 8, 2 epochs and a resume, against the same run in one process (this
+      one, ``--gpu single``): every epoch's losses within rtol 2e-4, the final weights
+      within 5e-4 (the f32 card-vs-CPU bar); one summary.csv row and one checkpoint an
+      epoch (rank 0's); each rank decoded 4 of each 8 training crops and the 16
+      validation crops; each rank's ca_onchip launches on the route planned on its own
+      card for its map (4, 64, 64, 64) f32, 100 a forward of a train step or of its
+      half of a validation batch of 8.  Then, with the card the ranks' alone, each
+      rank's DDP step (its 4 crops) and gradient all-reduce, beside one process's step
+      on the 8 (both TF32 off), each with its device-busy ms and idle share;
+    * ``multi_gpu_nccl``: the same command, 1 epoch, with no launcher environment: the
+      CLI starts one rank for the one card, over NCCL, with PyTorch's TF32 defaults; its
+      losses against ``--gpu single`` under the same flags within rtol 2e-4;
+    * ``mesh_eval``: ``eval_sisr --fused_eval --mesh`` of RCAN 10 x 20 in bf16 and
+      ``--int8``: each pair's PSNR within 0.01 dB and SSIM within 1e-3 of the
+      one-process runs of the main paths (batches of 8); int8 equal in float32, image
+      by image, to one process that runs each batch as the ranks' halves of 4
+      (int8_at_rank_batch, which also shows what differs between a batch of 8 and its
+      halves); each rank 200 launches a forward of row 1a (bf16) or 2a (int8) on the
+      route planned for (4, 128, 128, 64);
+    * ``mesh_tiles``: Q-SAN's standard protocol (10 x 10, max_combined_im_size 10000:
+      a 2 x 2 grid on the 128^2 maps) with ``--mesh``: each rank 2 of the 4 tiles a
+      forward, each pair's metrics within 0.01 dB / 1e-3 of the one-process run; the
+      forward on 4 tiles against 2 and 2 (qsan_tile_batch_dependence).
+
+    The ranks and the launcher-free CLI start at once, while this process runs the
+    one-process references and then ``meanwhile()`` (the serving checks): their seconds
+    include that load.  The step timings and everything after them wait until every
+    other job on the card has ended.
+    """
+    import socket
+    crops = write_crop_workload(dirs, root)
+    two, one = os.path.join(root, 'ddp_two'), os.path.join(root, 'ddp_one')
+    nccl, nccl_ref = os.path.join(root, 'ddp_nccl'), os.path.join(root, 'ddp_nccl_ref')
+    configs = {loc: write_ddp_config(crops, loc) for loc in (two, one, nccl, nccl_ref)}
+    ready, go = os.path.join(root, 'ddp_steps.ready'), os.path.join(root, 'ddp_steps.go')
+    n_train = N_IMAGES // BATCH
+    report = {'world': DDP_WORLD, 'model': 'qrcan 5x20 64f 4x f32 (configs/div2k/'
+              'qrcan.toml cut to half depth), batch 8, LR crops 64^2 of the 16 pairs'}
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    started = time.monotonic()
+    jobs = [start_rank_job('ddp', {'config': configs[two], 'dirs': dirs, 'ready': ready,
+                                   'go': go}, root,
+                           rank, {'SISR_TPU_COORDINATOR': 'localhost:%d' % port,
+                                  'SISR_TPU_NUM_PROCESSES': str(DDP_WORLD),
+                                  'SISR_TPU_PROCESS_ID': str(rank), 'LOCAL_RANK': '0'})
+            for rank in range(DDP_WORLD)]
+    jobs.append(start_rank_job('nccl', {'config': configs[nccl]}, root))
+    with reaped(jobs):
+        with tf32(False, False):
+            one_process = {label: run_train_cli(configs[one], '--gpu', 'single', *extra)
+                           for label, extra in DDP_RUNS}
+        with tf32(True, False):  # PyTorch's defaults, as the spawned rank has them
+            _, ref_seconds = run_train_cli(configs[nccl_ref], '--gpu', 'single',
+                                           '--num_epochs', '1')
+        if meanwhile is not None:
+            meanwhile()
+        finish_jobs(jobs[-1:], started)
+        wait_for_file(ready, max(1.0, started + RANK_TIMEOUT_S - time.monotonic()),
+                      jobs[:DDP_WORLD])
+        with tf32(False, False):  # the ranks' flags; they wait meanwhile
+            one_step = step_profile(ddp_train_handler('cuda'),
+                                    train_batch_on('cuda', BATCH))
+        with open(go, 'w'):
+            pass
+        logs = finish_jobs(jobs, started)
+    report['one_process_cli_seconds'] = {k: v[1] for k, v in one_process.items()}
+    report['all_jobs_seconds'] = time.monotonic() - started
+    ranks = [rank_result(root, 'ddp', rank) for rank in range(DDP_WORLD)]
+    rank_fields = ('rank', 'world', 'backend', 'device', 'sm_count', 'smem_optin',
+                   'train_plan', 'eval_plan', 'int8_plan')
+    report['ranks'] = [{k: r[k] for k in rank_fields} for r in ranks]
+    if [r['rank'] for r in ranks] != [0, 1] or {r['backend'] for r in ranks} != {'gloo'}:
+        raise AssertionError('multi_gpu ranks %s' % report['ranks'])
+
+    # multi_gpu_train: one process's trajectory, rank 0's files, each rank's slices
+    ours, theirs = summary_of(two), summary_of(one)
+    if list(ours['epoch']) != [0, 1, 2] or list(theirs['epoch']) != [0, 1, 2]:
+        raise AssertionError('summary.csv epochs %s / %s' % (list(ours['epoch']),
+                                                             list(theirs['epoch'])))
+    rel = {col: max_rel(ours[col], theirs[col]) for col in ('train-loss', 'val-loss')}
+    weights = final_weights_diff(two, one, 2)
+    models = sorted(os.listdir(os.path.join(two, DDP_EXPERIMENT, 'saved_models')))
+    if max(rel.values()) > 2e-4 or not weights <= 5e-4 \
+            or models != ['train_model_%d' % e for e in range(3)]:
+        raise AssertionError('multi_gpu_train: losses %s, weights %g, checkpoints %s'
+                             % (rel, weights, models))
+    key = '%s float32' % 'x'.join(map(str, DDP_TRAIN_MAP))
+    train = {}
+    for r in ranks:
+        for label, (_, extra) in zip(('first', 'resume'), DDP_RUNS):
+            epochs = int(extra[1])
+            got = r[label]
+            # each epoch: 4 of each batch of 8 crops, and the 16 validation crops whole
+            if got['items_loaded'] != epochs * (N_IMAGES // DDP_WORLD + N_IMAGES):
+                raise AssertionError('rank %d %s decoded %d items' % (r['rank'], label,
+                                                                       got['items_loaded']))
+            # the train steps' forwards and the validation's (its batches of 8 split)
+            expected = RECIPE_CA_PER_FORWARD * (n_train + N_IMAGES // BATCH) * epochs
+            if r['train_plan'] != 'onchip' or got['onchip_by_map'].get(key) != expected:
+                raise AssertionError('rank %d %s: %s launches at %s (plan %s), expected %d'
+                                     % (r['rank'], label, got['onchip_by_map'], key,
+                                        r['train_plan'], expected))
+            train['rank%d_%s' % (r['rank'], label)] = got
+    steps = {'ranks': [r['steps'] for r in ranks], 'one_process': one_step,
+             # the card's busy share while both ranks step: their device ms over the
+             # slower rank's wall
+             'two_rank_card_idle_share':
+                 1 - sum(r['steps']['step_device_ms'] for r in ranks)
+                 / max(r['steps']['median_step_wall_ms'] for r in ranks)
+                 if all(r['steps']['step_device_ms'] for r in ranks) else None}
+    emit({'phase': 'multi_gpu_train', **report, 'max_rel_loss_diff': rel,
+          'max_abs_weight_diff': weights, 'steps': steps, 'summary': ours.to_dict('list'),
+          'one_process_summary': theirs.to_dict('list'), 'runs': train,
+          'nvidia_smi': nvidia_smi_line()})
+
+    # multi_gpu_nccl: the CLI with no launcher environment started a rank for the card
+    # itself (NCCL); its output is in the job's log
+    if 'backend nccl (a card per rank)' not in logs[-1]:
+        raise AssertionError('multi_gpu_nccl: no NCCL group in\n%s' % logs[-1][-4000:])
+    nccl_seconds = rank_result(root, 'nccl', 0)['cli_seconds']
+    ours, theirs = summary_of(nccl), summary_of(nccl_ref)
+    rel_nccl = {col: max_rel(ours[col], theirs[col]) for col in ('train-loss', 'val-loss')}
+    if max(rel_nccl.values()) > 2e-4 or list(ours['epoch']) != [0]:
+        raise AssertionError('multi_gpu_nccl: losses %s' % rel_nccl)
+    emit({'phase': 'multi_gpu_nccl', 'cards': 1, 'seconds': nccl_seconds,
+          'single_cli_seconds': ref_seconds, 'max_rel_loss_diff': rel_nccl,
+          'summary': ours.to_dict('list'), 'nvidia_smi': nvidia_smi_line()})
+
+    # mesh_eval: the main paths' fused evals over the ranks
+    eval_report = {}
+    for tag, route_key, counter in (('bf16', 'eval_plan', 'fused_channel_attention'),
+                                    ('int8', 'int8_plan',
+                                     'fused_channel_attention_residual')):
+        frame = hub_frame(dirs, 'mesh_' + tag)
+        sides = (('rcan_10x20', 'rcan_10x20'), ('LR', 'LR'))
+        diff = max_metric_diff(frame, rcan_frames[tag], sides)
+        hold_bars(diff, 'mesh eval %s against one process' % tag)
+        eval_report[tag] = {'max_diff_to_one_process': diff}
+        if tag == 'int8':
+            # the int32 sums are exact, and each rank runs one process's program on its
+            # half: the same half in one process gives the same metrics
+            halves_frame, batch_dependence = int8_at_rank_batch(dirs)
+            equal, rows = frame_equal_f32(frame, halves_frame)
+            if not equal:
+                raise AssertionError('mesh int8 eval differs from one process at the '
+                                     'ranks\' batch of 4 on %s' % rows)
+            eval_report[tag].update({
+                'equal_to_one_process_at_rank_batch': equal,
+                'max_diff_one_process_batch4_to_batch8': max_metric_diff(
+                    halves_frame, rcan_frames[tag], sides),
+                'batch8_against_halves': batch_dependence})
+        per_rank = []
+        for r in ranks:
+            got = r['eval_' + tag]
+            expected = CA_PER_FORWARD * (N_IMAGES // BATCH)  # 2 forwards of 4 images
+            routes = {route: got['launches'].get(counter + '_' + route, 0)
+                      for route in ('onchip', 'rounds', 'stream')}
+            routes['three_pass'] = got['launches'][counter] - sum(routes.values())
+            if got['launches'][counter] != expected or routes[r[route_key]] != expected:
+                raise AssertionError('mesh %s rank %d: launches %s (plan %s), expected %d'
+                                     % (tag, r['rank'], got['launches'], r[route_key],
+                                        expected))
+            per_rank.append(got)
+        eval_report[tag].update({'ranks': per_rank,
+                                 'mean_psnr': float(frame[('rcan_10x20', 'PSNR')].mean())})
+    emit({'phase': 'mesh_eval', **eval_report, 'nvidia_smi': nvidia_smi_line()})
+
+    # mesh_tiles: Q-SAN's tile grid shared out over the ranks
+    frame = hub_frame(dirs, 'mesh_qsan_grid')
+    check_frame(frame, lr_shapes(dirs['lr_dir']), 'qsan_grid', 'mesh_qsan_grid')
+    diff = max_metric_diff(frame, qsan_grid_frame, (('qsan_grid', 'qsan_grid'),
+                                                    ('LR', 'LR')))
+    hold_bars(diff, 'mesh tile grid against one process')
+    for r in ranks:
+        expect_launches(r['tiles']['launches'], NO_LAUNCHES, 'mesh_qsan_grid')
+        if r['tiles']['tile_batches'] != {str(4 // DDP_WORLD): N_IMAGES}:
+            raise AssertionError('mesh tiles rank %d: tile batches %s'
+                                 % (r['rank'], r['tiles']['tile_batches']))
+    emit({'phase': 'mesh_tiles', 'max_diff_to_one_process': diff,
+          'tiles_4_against_2_and_2': qsan_tile_batch_dependence(dirs),
+          'tile_batches_per_rank': ranks[0]['tiles']['tile_batches'],
+          'seconds': [r['tiles']['seconds'] for r in ranks], 'nvidia_smi': nvidia_smi_line()})
+
+    def summed(*runs):
+        return {k: sum(run[k] for run in runs) for k in NO_LAUNCHES}
+    return {'multi_gpu_train': {'launches': summed(*(r[label]['launches'] for r in ranks
+                                                     for label in ('first', 'resume')))},
+            'mesh_eval_bf16': {'launches': summed(*(r['eval_bf16']['launches']
+                                                    for r in ranks))},
+            'mesh_eval_int8': {'launches': summed(*(r['eval_int8']['launches']
+                                                    for r in ranks))}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4468,30 +5080,36 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_environment()
-    ca_main = phase_kernel()
-    ca_res_main = phase_kernel_residual()
-    meta_gate = phase_kernel_meta()
-    extent = phase_kernel_extent()
-    stream = phase_kernel_stream()
-    batch1 = phase_kernel_batch1()
-    training_shapes = phase_kernel_backward()
-    training_shape = training_shapes['float32']
-    for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20',
-                 'san_20x10', 'qsan_20x10', 'srmd_12', 'sftmd_16b', 'sftmd_q16b',
-                 'sparnet_128', 'qsparnet_512', 'srcnn_955', 'vdsr_20'):
-        phase_reference(name)
-    phase_holistic_attention()
-    phase_san_attention()
-    phase_int8_reference()
-    for name in INT8_REFERENCE:
-        phase_int8_family_reference(name)
-    phase_train_reference()
-    phase_degradation()
-    phase_int8_dynamic()
     root = tempfile.mkdtemp(prefix='sisr_chip_smoke_')
+    # the workload's PNGs and seeded experiments are written on the host while nvcc
+    # builds the kernels
+    from concurrent.futures import ThreadPoolExecutor
+    writer = ThreadPoolExecutor(max_workers=1)
+    workload = writer.submit(prepare_workload, root)
+    side_jobs = []  # processes started beside the phases (rank jobs), reaped at the end
     try:
-        dirs = prepare_workload(root)
+        phase_environment()
+        ca_main = phase_kernel()
+        ca_res_main = phase_kernel_residual()
+        meta_gate = phase_kernel_meta()
+        extent = phase_kernel_extent()
+        stream = phase_kernel_stream()
+        batch1 = phase_kernel_batch1()
+        training_shapes = phase_kernel_backward()
+        training_shape = training_shapes['float32']
+        for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20',
+                     'san_20x10', 'qsan_20x10', 'srmd_12', 'sftmd_16b', 'sftmd_q16b',
+                     'sparnet_128', 'qsparnet_512', 'srcnn_955', 'vdsr_20'):
+            phase_reference(name)
+        phase_holistic_attention()
+        phase_san_attention()
+        phase_int8_reference()
+        for name in INT8_REFERENCE:
+            phase_int8_family_reference(name)
+        phase_train_reference()
+        phase_degradation()
+        phase_int8_dynamic()
+        dirs = workload.result()
         paths = {'rcan_bf16': phase_main_path(dirs)}
         paths['rcan_int8'] = phase_int8_main_path(dirs, paths['rcan_bf16']['mean_psnr'])
         for name, model in (('qrcan', 'qrcan_10x20'), ('edsr', 'edsr_16b'),
@@ -4538,20 +5156,32 @@ def main():
         paths['sftmd_buckets'] = phase_bucketed_eval(
             mixed, paths['sftmd_standard']['frame'], 'sftmd_16b')
         paths['qsparnet_standard'] = phase_preupscaled_standard(mixed, dirs, root)
+        # the serving exports are host work: they run beside the recipes and the
+        # perceptual train runs, and end before its timed steps
+        exports = start_exports(dirs, root)
+        side_jobs.extend(job for job, _ in exports.values())
         paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
         paths['qhan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qhan')
         paths['qsan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qsan')
         paths['sftmd_train_standard_val'] = phase_train_standard_val(dirs, root, 'sftmd')
         paths['qsparnet_train_standard_val'] = phase_train_standard_val(
             write_interp_workload(dirs, root), root, 'qsparnet', 'celebahq')
-        dispatch = phase_ca_dispatch()
-        paths['qrcan_perceptual_train'] = phase_perceptual_train(dirs, root)
+        paths['qrcan_perceptual_train'] = phase_perceptual_train(
+            dirs, root, settle=lambda: finish_jobs(side_jobs, time.monotonic()))
         paths['qsparnet_face_sim_eval'] = phase_face_sim_eval(dirs, root)
-        paths['export_serving'] = phase_export_serving(dirs, root,
-                                                       paths['rcan_bf16']['frame'])
         paths['tools_path'] = phase_tools_path(dirs, root, paths['qrcan_perceptual_train'],
                                                paths['qrcan_bf16']['frame'])
+        # the serving checks run while phase 17's ranks work; their timings after it
+        serving = []
+        paths.update(phase_multi_gpu(
+            dirs, root, {'bf16': paths['rcan_bf16']['frame'],
+                         'int8': paths['rcan_int8']['frame']}, paths['qsan_grid']['frame'],
+            meanwhile=lambda: serving.append(phase_export_serving(
+                dirs, root, paths['rcan_bf16']['frame'], exports))))
+        paths['export_serving'] = serving[0]()
     finally:
+        reap(side_jobs)
+        writer.shutdown(wait=True)
         shutil.rmtree(root, ignore_errors=True)
 
     def path_launches(count):
@@ -4670,7 +5300,6 @@ def main():
                       for family in ('rcan', 'qrcan', 'edsr', 'qedsr', 'han', 'qhan',
                                      'san', 'qsan', 'srmd', 'sftmd', 'vdsr')}
     emit({'phase': 'total', 'seconds': time.perf_counter() - START,
-          'ca_ms_per_call': dispatch['median_ca_ms'],
           'int8_over_bf16_img_per_s': int8_over_bf16, 'nvidia_smi': nvidia_smi_line(),
           'bf16_over_f32_train_step_wall': {name: v['bf16_over_f32_wall']
                                             for name, v in bf16_steps.items()},
@@ -4683,4 +5312,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if len(sys.argv) == 4 and sys.argv[1] == '--rank-job':  # one rank of phase_multi_gpu
+        sys.exit(rank_job(sys.argv[2], json.loads(sys.argv[3])))
     sys.exit(main())

@@ -11,7 +11,8 @@ copy on a side CUDA stream, in a background thread.  With ``device_collate`` (th
 eval protocol) uniform uint8 image lists are not stacked on the host: each image is
 copied up on its own and the batch stacked on the card.  ``ITEMS_LOADED`` counts the
 items every loader of the process has loaded (decoded), so a caller can show that a
-pass decoded nothing.
+pass decoded nothing, and that a rank decoded only its slice of each batch
+(``process_shard``).
 """
 from collections import deque
 import contextlib
@@ -153,9 +154,17 @@ class DataLoader:
     """Order-preserving threaded batch loader (ref: torch DataLoader's options)."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=8,
-                 drop_last=False, sampler=None):
+                 drop_last=False, sampler=None, process_shard=None):
         """``sampler``: an iterable of indices (:class:`CelebaSplitSampler`) giving each
-        epoch's order in place of ``shuffle``."""
+        epoch's order in place of ``shuffle``.
+
+        ``process_shard`` (rank, count): every rank builds the same global batch order
+        (the shuffle RNG and the sampler's are seeded from the global streams, which
+        every rank seeds alike), and loads only its contiguous slice
+        ``[rank*B/count, (rank+1)*B/count)`` of each batch of B that divides by count,
+        marked ``_shard_factor`` count; a batch that does not (a ragged tail) is loaded
+        whole, as sisr_tpu's loader does.  Per-item crops and flips draw from each
+        rank's own stream, so crop positions differ from one process's run."""
         self.dataset = dataset
         self.sampler = sampler
         # uint8 images stay lists, for device_prefetch to stack on the card (the
@@ -168,6 +177,7 @@ class DataLoader:
         # seeded from the global stream once, here: epoch orders do not depend on how
         # many global draws item loading made (sisr_tpu's _shuffle_rng)
         self._shuffle_rng = random.Random(random.getrandbits(64))
+        self.process_shard = tuple(process_shard) if process_shard else None
 
     def __len__(self):
         if self.drop_last:
@@ -187,33 +197,52 @@ class DataLoader:
             batches.pop()
         return batches
 
-    def _finish(self, items):
+    def _process_batches(self):
+        """(the indices this process loads, the shard factor) of each global batch."""
+        batches = self._batches()
+        if not self.process_shard:
+            return [(b, 1) for b in batches]
+        rank, count = self.process_shard
+        out = []
+        for b in batches:
+            if count > 1 and len(b) % count == 0:
+                per = len(b) // count
+                out.append((b[rank * per:(rank + 1) * per], count))
+            else:
+                out.append((b, 1))
+        return out
+
+    def _finish(self, items, factor=1):
         global ITEMS_LOADED
         with _ITEMS_LOADED_LOCK:
             ITEMS_LOADED += len(items)
-        return _collate(items, device_images=self.device_collate)
+        out = _collate(items, device_images=self.device_collate)
+        if factor > 1:
+            out['_shard_factor'] = factor
+        return out
 
     def __iter__(self):
-        batches = iter(self._batches())
+        """Each batch (of this rank's slice, under ``process_shard``)."""
+        batches = iter(self._process_batches())
         if self.num_workers == 1:
-            for batch in batches:
-                yield self._finish([self.dataset[i] for i in batch])
+            for batch, factor in batches:
+                yield self._finish([self.dataset[i] for i in batch], factor)
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             def submit(batch):  # per-ITEM futures: all workers decode in parallel
                 return [pool.submit(self.dataset.__getitem__, i) for i in batch]
 
             pending = deque()
-            for batch in batches:
-                pending.append(submit(batch))
+            for batch, factor in batches:
+                pending.append((submit(batch), factor))
                 if len(pending) >= _PREFETCH_BATCHES:
                     break
             while pending:
-                futs = pending.popleft()
+                futs, factor = pending.popleft()
                 nxt = next(batches, None)
                 if nxt is not None:
-                    pending.append(submit(nxt))
-                yield self._finish([f.result() for f in futs])
+                    pending.append((submit(nxt[0]), nxt[1]))
+                yield self._finish([f.result() for f in futs], factor)
 
 
 _DEVICE_BATCHES_AHEAD = 2  # batches on their way to the device at once

@@ -1,8 +1,11 @@
 """sisr_data_setup: train and eval loaders from the TOML data tables (PyTorch port of
-sisr_tpu's ``data/setup.py``, ref: Code/SISR/training/data_setup.py:9-125), for one
-process."""
+sisr_tpu's ``data/setup.py``, ref: Code/SISR/training/data_setup.py:9-125).  Under a
+process group of more than one rank each rank loads only its slice of every training
+batch (``DataLoader(process_shard=...)``); validation stays replicated, as in
+sisr_tpu (eval batches default to one image, and rank 0 alone writes)."""
 import os
 
+from ..parallel import distributed
 from .datasets import SuperResImages
 from .loader import CelebaSplitSampler, ConcatDataset, DataLoader
 
@@ -78,6 +81,8 @@ def sisr_data_setup(training_sets, eval_sets, batch_size=16, eval_batch_size=1,
                                   shuffle=sampler is None,
                                   num_workers=8 if dataloader_threads is None
                                   else dataloader_threads,
-                                  drop_last=bool(drop_last_training_batch), sampler=sampler)
+                                  drop_last=bool(drop_last_training_batch), sampler=sampler,
+                                  process_shard=(distributed.rank(), distributed.world_size())
+                                  if distributed.world_size() > 1 else None)
     val_dataloader = DataLoader(dataset=all_val_data, batch_size=eval_batch_size)
     return train_dataloader, val_dataloader

@@ -25,8 +25,12 @@ serving path (``BaseHandler.set_int8``), ``eval_buckets`` the bucketed eval
 decoded-image sidecars.  ``data_attributes`` (a CelebA attribute file) puts every
 attribute in front of each image's metadata, as sisr_tpu does.  FACE_SIM (the cosine
 similarity of face embeddings, ``face_model`` and ``face_weights``) runs on the RGB
-images in the standard protocol, and turns the fused protocol off.  Multi-device eval
-is not ported yet: asking for it raises NotImplementedError.
+images in the standard protocol, and turns the fused protocol off.  With ``mesh`` every
+model runs data-parallel over the ranks of the process group (``BaseHandler.set_mesh``:
+batches split over the ranks, the tile grid's tiles shared out, outputs and metric rows
+gathered); the fused protocol then collates on the host and hands each rank its slice
+of every batch (its device-batch cache holds that rank's slices), and rank 0 alone
+writes the CSVs, SR images and collages.
 """
 from collections import OrderedDict, defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -46,17 +50,13 @@ from ..models.interface import ModelInterface
 from ..ops.colorspace import ycbcr_convert
 from ..ops.metrics import Metrics
 from ..ops.resize import resize_uint8
+from ..parallel import distributed
+from ..parallel.mesh import MeshContext
 from ..tools.visualization import interpret_sisr_images, safe_image_save
 from ..utils import toml_io
 from ..utils.helpers import create_dir_if_empty
 
 DEVICE_BATCH_CACHE_BYTES = 1 << 30  # the fused protocol's device-batch cache, at most
-
-
-def _not_ported(what, slice_name, item):
-    return NotImplementedError('%s is not ported to sisr_tpu_torch yet: it comes with the '
-                               '%s slice (ROADMAP.md, Queue 1 item %d). Use sisr_tpu for it.'
-                               % (what, slice_name, item))
 
 
 class EvalHub:
@@ -72,8 +72,6 @@ class EvalHub:
         """Main eval class; param info in net_eval.py (mirrors the reference CLI).
         ``cache_device`` (None: as ``cache_decoded``) keeps the fused protocol's batches
         on the card for later passes; False uploads every pass."""
-        if mesh:
-            raise _not_ported('--mesh (multi-device eval)', 'multi-GPU data parallelism', 9)
         if not model_and_epoch:
             raise ValueError('No models specified: pass at least one '
                              '-me/--model_and_epoch EXPERIMENT EPOCH pair.')
@@ -86,11 +84,13 @@ class EvalHub:
 
         self.out_dir = os.path.join(out_loc, results_name)
         create_dir_if_empty(self.out_dir)
+        self._primary = distributed.is_primary_host()  # rank 0 alone writes files
         input_params = {k: v for k, v in locals().items()
                         if k not in ('self',) and not k.startswith('_')}
-        with open(os.path.join(self.out_dir, 'config.toml'), 'w') as f:
-            toml_io.dump({k: list(v) if isinstance(v, tuple) else v
-                          for k, v in input_params.items() if v is not None}, f)
+        if self._primary:
+            with open(os.path.join(self.out_dir, 'config.toml'), 'w') as f:
+                toml_io.dump({k: list(v) if isinstance(v, tuple) else v
+                              for k, v in input_params.items() if v is not None}, f)
 
         experiment_names, eval_epochs = zip(*model_and_epoch)
         self.metrics = list(metrics) if metrics is not None else []
@@ -100,9 +100,11 @@ class EvalHub:
         self.time_models = time_models
         self.images_processed = 0
         self.save_im = save_im
-        self.device = self._select_device(gpu, sp_gpu)
+        self.mesh = bool(mesh)
+        self.device = MeshContext(device=None if gpu else 'cpu').device if mesh \
+            else self._select_device(gpu, sp_gpu)
         self.model_bundles = self._prep_models(model_loc, experiment_names, eval_epochs,
-                                               self.device, scale=scale)
+                                               self.device, scale=scale, mesh=self.mesh)
         if eval_buckets:
             for model in self.model_bundles:
                 model.model.set_eval_buckets(eval_buckets)
@@ -200,12 +202,13 @@ class EvalHub:
         return torch.device('cuda', int(sp_gpu))
 
     @staticmethod
-    def _prep_models(model_loc, experiment_names, eval_epochs, device, scale=4):
-        """(ref: standard_eval.py:127-144)"""
+    def _prep_models(model_loc, experiment_names, eval_epochs, device, scale=4, mesh=False):
+        """(ref: standard_eval.py:127-144).  ``mesh`` puts every model on the process
+        group's mesh (sisr_tpu's ``gpu='multi'``)."""
         return [ModelInterface(model_loc, experiment,
                                load_epoch=eval_epoch if eval_epoch in ('best', 'last')
                                else int(eval_epoch),
-                               device=device, scale=scale)
+                               device=device, scale=scale, mesh=mesh)
                 for experiment, eval_epoch in zip(experiment_names, eval_epochs)]
 
     def _low_res_prep(self, lr_data, timing=True):
@@ -239,7 +242,9 @@ class EvalHub:
     def _generate_image_collage(self, interp_data, model_data, probe_names, metrics=None,
                                 metric_slice=None, hr_rgb=None):
         """One comparison collage per image: HR (when given), LR and each model, with
-        each model's epoch and metrics (ref: standard_eval.py:166-185)."""
+        each model's epoch and metrics (ref: standard_eval.py:166-185); rank 0's."""
+        if not self._primary:
+            return
         output_package = OrderedDict()
         if hr_rgb is not None:
             output_package['HR'] = np.asarray(hr_rgb)
@@ -270,6 +275,8 @@ class EvalHub:
         return lr_prep if lr_prep is not None else self._high_res_prep(interp_data)
 
     def _save_images(self, model, rgb_im, im_names):
+        if not self._primary:
+            return
         folder = self.save_folders[model.experiment]
         for name in im_names:  # recursive datasets: subfolders must exist
             if os.sep in name:
@@ -390,14 +397,21 @@ class EvalHub:
         them (no decode, no upload, no fetcher thread) and, unless timed, copies each
         model's metrics to the host once (:meth:`_realize_pending_grouped`)."""
         self.rgb_data.dataset.keep_uint8 = True
-        self.rgb_data.device_collate = True
+        # under a mesh the batches are stacked on the host, to be cut into the ranks'
+        # slices there; each rank uploads its own
+        self.rgb_data.device_collate = not self.mesh
         metric_package = defaultdict(list)
         pending = []  # (experiment, is_first_model, keys, future or (K,N) values, rt, n)
         collect = None
         if self._device_batch_cache is not None:
             batches = iter(self._device_batch_cache)
         else:
-            batches = device_prefetch(iter(self.rgb_data), self.device)
+            batches = iter(self.rgb_data)
+            if self.mesh and not any(m.model.tiled_eval for m in self.model_bundles):
+                # a tile-grid family takes whole batches (it shares out its tiles)
+                mesh = self.model_bundles[0].model.mesh
+                batches = (mesh.shard_batch(b) for b in batches)
+            batches = device_prefetch(batches, self.device)
             if self.cache_device:
                 collect = {'batches': [], 'bytes': 0}
                 batches = self._collecting_iter(batches, collect)
@@ -476,7 +490,7 @@ class EvalHub:
                     pbar.set_description(diag[:-2])
 
     def manipulate_and_save_metrics(self, metric_package):
-        """MultiIndex CSV reports (ref: standard_eval.py:300-319)."""
+        """MultiIndex CSV reports (ref: standard_eval.py:300-319), written by rank 0."""
         for key in metric_package.keys():
             metric_package[key] = list(itertools.chain.from_iterable(metric_package[key]))
 
@@ -485,10 +499,11 @@ class EvalHub:
             [tuple(c.split('>')) for c in full_results.columns])
         av_results = self.average_multilevel_dataframe(full_results)
 
-        metrics_dir = os.path.join(self.out_dir, 'standard_metrics')
-        create_dir_if_empty(metrics_dir)
-        full_results.to_csv(os.path.join(metrics_dir, 'individual_metrics.csv'))
-        av_results.to_csv(os.path.join(metrics_dir, 'average_metrics.csv'))
+        if self._primary:
+            metrics_dir = os.path.join(self.out_dir, 'standard_metrics')
+            create_dir_if_empty(metrics_dir)
+            full_results.to_csv(os.path.join(metrics_dir, 'individual_metrics.csv'))
+            av_results.to_csv(os.path.join(metrics_dir, 'average_metrics.csv'))
         return full_results, av_results
 
     def average_multilevel_dataframe(self, dataframe):

@@ -39,6 +39,11 @@ Each handler is registered under the reference's lowercase model name and owns:
   ``param_dtype``);
 * online degradation in the train step (:meth:`set_device_degrade`): the batch's LR
   made on the device from its HR crops and blur kernels (``ops/degradations.py``);
+* data parallelism over the ranks of a process group (:meth:`set_mesh`, sisr_tpu's
+  mesh): each rank's slice of a batch, the train step's forward through
+  ``DistributedDataParallel`` (gradients averaged before the clip, the loss the global
+  mean), eval outputs and metric rows gathered in rank order, the tile grid's tiles
+  shared out over the ranks, int8 calibrated on the whole first batch;
 * checkpoints in the reference's file contract (``saved_models/train_model_<N>``, a
   ``torch.save`` dict with ``network``, ``optimizer``, ``step``, ``model_name``,
   ``model_epoch``) or, with ``checkpoint_backend = 'orbax'``, a directory at that path
@@ -195,6 +200,8 @@ class BaseHandler:
         self.int8_mode = False  # int8 serving (set_int8)
         self.int8_residual_dtype = 'bfloat16'
         self._int8_ctx = None  # (program, quantised params, scales) once calibrated
+        self.mesh = None  # the process group's view (set_mesh)
+        self._ddp = None  # DistributedDataParallel around the module, for the train step
         self.init_state()
         self.optimizer, self.schedule = build_optimizer(
             self.module.parameters(), lr, scheduler, scheduler_params, optimizer_params,
@@ -356,9 +363,12 @@ class BaseHandler:
         that takes it), as NHWC.  A contiguous NHWC tensor permuted to NCHW is
         channels_last, the layout the convs and the channel attention kernel take."""
         args = (metadata,) if self.module_takes_metadata else ()
+        # the train step's forward goes through DistributedDataParallel under a mesh
+        module = self._ddp if self._ddp is not None and self.module.training \
+            else self.module
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            out = self.module(x.permute(0, 3, 1, 2), *args)
+            out = module(x.permute(0, 3, 1, 2), *args)
         return out.permute(0, 2, 3, 1)
 
     def _module_image(self, interp):
@@ -419,7 +429,11 @@ class BaseHandler:
         """One training step (ref BaseModel.run_train, models/__init__.py:466-489) on a
         batch of NHWC lr/hr arrays or tensors (uint8 or float) and, for a metadata
         model, its (N, M) metadata: (the loss, a 0-dim device tensor the device may
-        still be computing, None)."""
+        still be computing, None).  Under a mesh each rank steps on the batch it is
+        given: its slice of a global batch, as ``DataLoader(process_shard=...)`` loads
+        it (marked ``_shard_factor``), or a whole batch (a ragged tail) on every rank;
+        the gradients and the returned loss are the means over the ranks."""
+        batch = self._rank_batch(batch)
         self.check_trainable(batch)
         return self._train_step(batch), None
 
@@ -428,19 +442,34 @@ class BaseHandler:
         or one dict of (K, B, ...) stacked arrays.  Returns the K losses as one device
         tensor, not waited for."""
         if isinstance(batches, dict):
+            batches = self._rank_batch(batches)
             keys = [k for k in self._train_batch_keys() if batches.get(k) is not None]
             batches = [{k: batches[k][i] for k in keys} for i in range(len(batches['hr']))]
+        else:
+            batches = [self._rank_batch(b) for b in batches]
         losses = []
         for batch in batches:
             self.check_trainable(batch)
             losses.append(self._train_step(batch))
         return torch.stack(losses)
 
+    def _rank_batch(self, batch):
+        """The train batch without its ``_shard_factor`` mark, which only a rank of a
+        mesh may be given (sisr_tpu's handlers.py:473-477)."""
+        batch = dict(batch)
+        factor = int(batch.pop('_shard_factor', 1) or 1)
+        if factor > 1 and self.mesh is None:
+            raise RuntimeError('Received a process-local batch shard but no mesh is set — '
+                               'a multi-process launch trains with gpu = "multi" (or '
+                               '"off" for CPU ranks).')
+        return batch
+
     def _train_step(self, batch):
         loss = self.forward_loss(batch)
         self.backward(loss)
         self.update()
-        return loss.detach()
+        loss = loss.detach()
+        return loss if self.mesh is None else self.mesh.mean(loss)
 
     def forward_loss(self, batch):
         """The step's first part: the batch on the device (uint8 divided there), the
@@ -700,7 +729,10 @@ class BaseHandler:
         forward under ``set_eval_buckets``, else the module (sisr_tpu's order, so
         ``--int8 --eval_buckets`` runs int8 unpadded).  With ``timing`` the card is
         synchronised around the forward, and the first call of each (path, shape) runs
-        once untimed first (set-up: cuDNN heuristics, kernel builds).
+        once untimed first (set-up: cuDNN heuristics, kernel builds).  Under a mesh a
+        batch that divides the world size is split over the ranks (int8 calibrated on
+        the whole first batch before) and the SR gathered in rank order, the loss the
+        mean over the ranks; a ``tiled_eval`` family shares out its tiles instead.
 
         :return: (SR as an NHWC float32 numpy array, the loss against ``y`` when
             ``request_loss``, else None, the forward's seconds or None).
@@ -715,6 +747,15 @@ class BaseHandler:
             # calibrate before the grid, on a tile-sized crop of the image
             x_cal = self._int8_calibration_input(batch['lr'])
             self._ensure_int8_ctx(x_cal, self.prepare_metadata(x_cal, batch.get('metadata')))
+        sharded = False
+        if self.mesh is not None and not self.tiled_eval:
+            if self.int8_mode and self._int8_ctx is None:
+                # every rank calibrates on the whole first batch, as one process does
+                x_cal, _, meta_cal = self._prep_batch({'lr': batch['lr'],
+                                                       'metadata': batch.get('metadata')})
+                self._ensure_int8_ctx(self._int8_calibration_input(x_cal), meta_cal)
+            batch = self.mesh.shard_batch(batch)
+            sharded = batch.pop('_shard_factor', 1) > 1
         path = 'tiled' if self.tiled_eval else 'int8' if self.int8_mode \
             else 'buckets' if self.eval_buckets else 'module'
         fwd = {'tiled': self._tiled_forward, 'int8': self._int8_forward,
@@ -736,9 +777,11 @@ class BaseHandler:
             if request_loss and y is not None:
                 if loss is None:
                     loss = self.loss_fn(out.float(), batch['hr'])
-                loss = float(loss)
+                loss = float(self.mesh.mean(loss) if sharded else loss)
             else:
                 loss = None
+            if sharded:
+                out = self.mesh.gather(out)
             return out.float().cpu().numpy(), loss, runtime
 
     def _tile_step(self, batch):
@@ -760,7 +803,9 @@ class BaseHandler:
         t*n..t*n+n-1, and the metadata repeated grid^2 times, not interleaved); their
         centres are stitched.  Anchors are clamped inside the image, so border tiles
         see the image's own edge.  Without a grid, one :meth:`_tile_step` of the
-        batch."""
+        batch.  Under a mesh the tile batch is padded to a multiple of the world size,
+        each rank runs its share and the SR tiles are gathered, so every rank stitches
+        the whole image (sisr_tpu's context-parallel eval)."""
         if self.max_combined_im_size <= shave * shave:
             # a tile's area never falls under it: sisr_tpu's loop does not end
             raise ValueError('max_combined_im_size must exceed %d (a tile\'s halo alone), '
@@ -792,7 +837,14 @@ class BaseHandler:
         tile_batch = {'lr': torch.cat(tiles)}
         if batch.get('metadata') is not None:
             tile_batch['metadata'] = batch['metadata'].repeat(grid * grid, 1)
-        sr_tiles = self._tile_step(tile_batch)
+        mesh = self.mesh
+        if mesh is None or mesh.n_devices == 1:
+            sr_tiles = self._tile_step(tile_batch)
+        else:
+            n_tiles = tile_batch['lr'].shape[0]
+            local = mesh.shard_batch(mesh.pad_batch_to_devices(tile_batch,
+                                                               keys=('lr', 'metadata')))
+            sr_tiles = mesh.gather(self._tile_step(local))[:n_tiles]
         s = self.scale
         out = sr_tiles.new_zeros((n, grid * tile_h * s, grid * tile_w * s,
                                   sr_tiles.shape[-1]))
@@ -838,11 +890,25 @@ class BaseHandler:
             None).  ``include_lr=False`` omits the LR-baseline rows.  With
             ``request_loss`` a last 'model>loss' row carries the batch-mean loss of SR
             against HR, once per image (the training-time validation's loss).
+
+        Under a mesh each rank runs its slice of a batch that divides the world size
+        (or the slice it was given: ``_shard_factor``) and the (K, n) rows are gathered
+        in global order; int8 calibrates on the whole first batch (its slices
+        gathered).  A ``tiled_eval`` family runs the whole batch on every rank and
+        shares out its tiles; a ragged batch runs whole, image by image.
         """
         sides = ('LR', 'model') if include_lr else ('model',)
         keys = tuple('%s>%s' % (side, met) for met in metrics for side in sides)
         if request_loss:
             keys = keys + ('model>loss',)
+        factor = int(batch.get('_shard_factor', 1) or 1)
+        if factor > 1 and (self.mesh is None or self.tiled_eval):
+            raise RuntimeError('run_eval_fused got a batch slice (_shard_factor %d) '
+                               'without a mesh, or for a tile-grid family, which runs '
+                               'whole batches' % factor)
+        if self.mesh is not None and factor == 1 and not self.tiled_eval:
+            batch = self.mesh.shard_batch(batch)
+            factor = batch.get('_shard_factor', 1)
         meta = batch.get('metadata') if self.uses_metadata else None
         if isinstance(batch['lr'], (list, tuple)):
             # ragged batch (mixed-size eval images at bs>1): run per image, each with
@@ -863,10 +929,16 @@ class BaseHandler:
         if meta is not None:
             dev_batch['metadata'] = self._to_device(meta).float()
         if self.int8_mode and self._int8_ctx is None:
-            # calibrate outside the step, on the input (and metadata) the program takes
-            x_cal = self._int8_calibration_input(_as_f32(dev_batch['lr']),
+            # calibrate outside the step, on the input (and metadata) the program takes:
+            # of the whole batch, the ranks' slices gathered under a mesh
+            whole = dict(dev_batch)
+            if factor > 1:
+                whole['lr'] = self.mesh.gather(_as_f32(dev_batch['lr']))
+                if 'metadata' in dev_batch:
+                    whole['metadata'] = self.mesh.gather(dev_batch['metadata'])
+            x_cal = self._int8_calibration_input(_as_f32(whole['lr']),
                                                  dev_batch['hr'].shape[1:3])
-            x, _, metadata = self._prep_batch({**dev_batch, 'lr': x_cal})
+            x, _, metadata = self._prep_batch({**whole, 'lr': x_cal})
             self._ensure_int8_ctx(x, metadata)
         key = ('fused', tuple(metrics), include_lr, self.int8_mode, request_loss)
         if key not in self._eval_step_cache:
@@ -887,6 +959,8 @@ class BaseHandler:
             runtime = time.perf_counter() - tic
         else:
             out = step(dev_batch)
+        if factor > 1:
+            out = self.mesh.gather(out, dim=1)
         return (keys, out), runtime
 
     def _make_fused_step(self, metrics, include_lr=True, request_loss=False):
@@ -992,6 +1066,7 @@ class BaseHandler:
         self.module.load_state_dict(repair_reference_keys(self.model_name,
                                                           state_dict['network']))
         self._place()
+        self._sync_replicas()  # rank 0's weights on every rank, and a new DDP wrapper
         if not self.eval_mode and state_dict.get('optimizer'):
             self._load_optimizer(state_dict['optimizer'])
         if self._int8_ctx is not None or self.int8_mode:
@@ -1004,6 +1079,40 @@ class BaseHandler:
         self.set_epoch(int(state_dict['model_epoch']))
         print('Loaded model uses the following architecture:', state_dict['model_name'])
         return state_dict
+
+    # --- parallelism (ref handlers.py:1091-1096) ------------------------------------------
+    def set_mesh(self, mesh_ctx):
+        """Data parallelism over the ranks of the process group (sisr_tpu's ``set_mesh``
+        over a device mesh, the replacement for the reference's ``nn.DataParallel``):
+        rank 0's parameters and buffers on every rank, the train step's forward through
+        ``DistributedDataParallel`` (its gradient all-reduce averages before
+        :meth:`update` clips, so the clip sees the global gradient), BatchNorm on the
+        global batch's statistics, and eval split over the ranks (:meth:`run_eval`,
+        :meth:`run_eval_fused`, :meth:`_tiled_forward`).  ``self.module`` stays the
+        unwrapped module: checkpoints keep the reference's keys."""
+        if mesh_ctx.device != self.device:
+            raise ValueError('the mesh puts this rank on %s, the handler is on %s'
+                             % (mesh_ctx.device, self.device))
+        self.mesh = mesh_ctx
+        for m in self.module.modules():
+            if hasattr(m, 'sync_stats'):  # sparnet.FlaxBatchNorm2d
+                m.sync_stats = mesh_ctx.n_devices > 1
+        self._sync_replicas()
+
+    def _sync_replicas(self):
+        """Under a mesh: rank 0's state replicated, and (training handlers, once a
+        process group is up) the DistributedDataParallel wrapper made anew around the
+        module as it now is."""
+        if self.mesh is None:
+            return
+        self.mesh.replicate(self.module)
+        self._ddp = None
+        if not self.eval_mode and self.mesh.group_up:
+            cuda = self.device.type == 'cuda'
+            # every registered family's train forward gives each parameter a gradient,
+            # so none needs find_unused_parameters (tests/test_torch_parallel.py)
+            self._ddp = torch.nn.parallel.DistributedDataParallel(
+                self.module, device_ids=[self.device.index] if cuda else None)
 
     def _load_optimizer(self, saved):
         """Adam's moments and counts from a checkpoint (``load_state_dict`` casts a

@@ -10,6 +10,8 @@ import pandas as pd
 import torch
 
 from ..ops.colorspace import ycbcr_convert
+from ..parallel.distributed import barrier
+from ..parallel.mesh import MeshContext
 from ..utils import toml_io
 from ..utils.async_ckpt import WRITER
 from ..utils.helpers import create_dir_if_empty
@@ -23,10 +25,15 @@ class ModelInterface:
     'last').  ``mode='train'`` builds a new model from ``new_params`` (the config's
     [model] table), or, given ``load_epoch``, resumes that checkpoint with its optimizer
     state; ``save_subdir`` puts logs and checkpoints in a subfolder (a branch), and
-    with ``new_branch`` the checkpoint is read from the parent folder."""
+    with ``new_branch`` the checkpoint is read from the parent folder.  With ``mesh``
+    (sisr_tpu's ``gpu = 'multi'``) the model runs data-parallel over the process
+    group's ranks (``BaseHandler.set_mesh``) once it is built and loaded; under a
+    process group constructing one with ``load_epoch`` is collective: every rank meets
+    at a barrier before any reads the checkpoint rank 0 wrote."""
 
     def __init__(self, model_loc, experiment, load_epoch=None, device=None, scale=None,
-                 mode='eval', new_params=None, save_subdir=None, new_branch=False):
+                 mode='eval', new_params=None, save_subdir=None, new_branch=False,
+                 mesh=False):
         log_dir, save_dir = 'result_outputs', 'saved_models'
         if save_subdir is not None:
             log_dir = os.path.join(log_dir, save_subdir)
@@ -48,6 +55,9 @@ class ModelInterface:
         if load_epoch is None:
             self.metadata = new_params
         else:
+            # rank 0's background checkpoint writes are on disk before any rank reads
+            WRITER.wait()
+            barrier()
             self.metadata = toml_io.load(self._config_path())['model']
         self.name = self.metadata['name']
         if self.name == 'qpircan':  # legacy conversion (ref: models/__init__.py:92-93)
@@ -77,6 +87,8 @@ class ModelInterface:
                                   model_save_dir=self.saved_models,
                                   load_override=load_override)
 
+        if mesh:
+            self.model.set_mesh(MeshContext(device=device))
         self.configuration = {'input': self.model.im_input,
                               'colorspace': self.model.colorspace}
         self.print_overview()
@@ -122,11 +134,13 @@ class ModelInterface:
 
     # --- training passthroughs ------------------------------------------------------------
     def train_batch(self, lr=None, hr=None, metadata=None, metadata_keys=None,
-                    blur_kernels=None, **kwargs):
+                    blur_kernels=None, _shard_factor=1, **kwargs):
+        """One train step; ``_shard_factor`` W > 1 marks the arrays as this rank's
+        slice of a global batch W times larger (``DataLoader(process_shard=...)``)."""
         if metadata_keys is not None and self.model.metadata_keys is None:
             self.model.set_metadata_keys(metadata_keys)
         return self.model.run_train(lr=lr, hr=hr, metadata=metadata,
-                                    blur_kernels=blur_kernels)
+                                    blur_kernels=blur_kernels, _shard_factor=_shard_factor)
 
     def train_batch_multi(self, batches):
         """K steps (see BaseHandler.run_train_multi): a list of K batch dicts, or one

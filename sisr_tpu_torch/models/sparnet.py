@@ -65,22 +65,42 @@ def _fast_stats(x, dims):
     return mean, var
 
 
+def _global_stats(x):
+    """:func:`_fast_stats` over (N, H, W) of the batch of every rank: one all-reduce
+    of each channel's sum and sum of squares and the pixel count, whose backward
+    all-reduces the gradients (``torch.distributed.nn.functional.all_reduce``)."""
+    from torch.distributed.nn.functional import all_reduce
+    x = x.float()
+    c = x.shape[1]
+    count = x.new_full((1,), x.numel() / c)
+    sums = all_reduce(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+    mean = (sums[:c] / sums[-1]).view(1, c, 1, 1)
+    var = torch.clamp(sums[c:2 * c].view(1, c, 1, 1) / sums[-1] - mean * mean, min=0.0)
+    return mean, var
+
+
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's numerics (``nn.BatchNorm(momentum=0.9)``, epsilon 1e-5):
     in train mode the batch's biased f32 statistics normalise, and the running
     statistics move by ``0.9 * running + 0.1 * batch`` with the biased variance; in
     eval mode the running statistics normalise.  The buffers are torch's
     (``running_mean``, ``running_var``, ``num_batches_tracked``), so a reference
-    checkpoint loads strictly."""
+    checkpoint loads strictly.
+
+    With ``sync_stats`` (``BaseHandler.set_mesh`` sets it over more than one rank) the
+    train-mode statistics are the global batch's, as sisr_tpu's ``jnp.mean`` over a
+    batch sharded by GSPMD is: the per-channel sum, sum of squares and count are summed
+    over the ranks by an all-reduce that carries autograd."""
 
     def __init__(self, channels):
         super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.sync_stats = False
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        mean, var = _fast_stats(x, (0, 2, 3))
+        mean, var = _global_stats(x) if self.sync_stats else _fast_stats(x, (0, 2, 3))
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean.flatten())
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var.flatten())

@@ -3,12 +3,17 @@ Code/SISR/net_eval.py).
 
 ``--config`` loads a TOML file whose keys become option defaults; explicit CLI flags
 still win.  Run as ``python -m sisr_tpu_torch.net_eval ...``; ``--no-gpu`` runs on the CPU.
+``--mesh`` evaluates data-parallel, one process per card: under a launcher (sisr_tpu's
+``SISR_TPU_*`` contract or torchrun's environment) this process is one rank; without
+one the command starts a rank for every visible card itself (``--no-gpu``: one CPU
+rank, this process).
 """
 import sys
 
 import click
 
 from .configuration import constants as sconst
+from .parallel import distributed
 from .utils import toml_io
 
 results_directory = sconst.results_directory
@@ -60,7 +65,9 @@ def _config_callback(ctx, param, value):
               help='Run on the CUDA card (the default; raises when there is none) or, '
                    'with --no-gpu, on the CPU.')
 @click.option('--mesh', is_flag=True,
-              help='Shard eval over all local devices (not ported yet: raises).')
+              help='Shard eval over the ranks of a process group, one process per card '
+                   '(batches split over the ranks, the tile grid\'s tiles shared out); '
+                   'without a launcher environment a rank for every visible card.')
 @click.option('--eval_buckets', type=int, default=None,
               help='Pad eval images up to multiples of this size and run the mask-exact '
                    'padded forward (the channel attention pools the valid pixels only), '
@@ -125,12 +132,20 @@ def eval_run(model_only, **kwargs):
     Main function that controls the creation, configuration and running of a SISR
     evaluation experiment.
     """
+    if kwargs['mesh'] and kwargs['gpu'] and not distributed.launcher_present():
+        # no launcher: a rank for every visible card, each this command again
+        return distributed.spawn_local_ranks(_rank_main, model_only, kwargs)
+    distributed.maybe_init_distributed(device=None if kwargs['gpu'] else 'cpu')
     from .evaluation.standard_eval import EvalHub
     eval_hub = EvalHub(model_only=model_only, **kwargs)
     if model_only:
         eval_hub.direct_model_protocol()
     else:
         eval_hub.full_image_protocol()
+
+
+def _rank_main(model_only, kwargs):
+    eval_run.callback(model_only=model_only, **kwargs)
 
 
 if __name__ == '__main__':

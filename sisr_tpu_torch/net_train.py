@@ -2,18 +2,23 @@
 Code/SISR/net_train.py).
 
     python -m sisr_tpu_torch.net_train --parameters config.toml [--num_epochs N]
-        [--continue_from_epoch N] [--gpu off|single] [--sp_gpu I] [--overwrite_data]
+        [--continue_from_epoch N] [--gpu off|single|multi] [--sp_gpu I] [--overwrite_data]
 
 Everything else comes from the TOML file's [data], [model] and [training] tables, as
 for sisr_tpu.  Training runs on cuda:<sp_gpu> unless ``gpu = "off"`` asks for the
-CPU, and needs ``fused_val = true`` in [training] (the standard validation path is
-not ported).
+CPU.  ``gpu = "multi"`` trains data-parallel, one process per card: under a launcher
+(sisr_tpu's ``SISR_TPU_COORDINATOR`` / ``SISR_TPU_NUM_PROCESSES`` /
+``SISR_TPU_PROCESS_ID``, or torchrun's environment) this process is one rank; without
+one the command starts a rank for every visible card itself, with a localhost
+rendezvous (``parallel/distributed.py``).  Under a launcher ``gpu = "off"`` trains
+data-parallel on CPU ranks.
 """
 import os
 import sys
 
 import click
 
+from .parallel import distributed
 from .utils import toml_io
 from .utils.helpers import read_metadata_list
 
@@ -25,8 +30,9 @@ from .utils.helpers import read_metadata_list
 @click.option("--num_epochs", type=int, help='Number of epochs to run through dataset.')
 @click.option("--gpu", default=None, show_default=True,
               type=click.Choice(['off', 'single', 'multi'], case_sensitive=False),
-              help='Device selection: single = one CUDA card (the default), off = the CPU; '
-                   'multi is not ported yet (raises).')
+              help='Device selection: single = one CUDA card (the default), off = the CPU, '
+                   'multi = data parallelism, one process per card (without a launcher '
+                   'environment: every visible card).')
 @click.option("--sp_gpu", default=None, show_default=True,
               help='Specify which base device to use.')
 @click.option("--experiment_name", help='Experiment name to use for saving models/data.')
@@ -41,10 +47,27 @@ def experiment_setup(parameters, experiment_name, **kwargs):
     Main function that controls the creation, configuration and running of a SISR
     experiment.  All functionality can be controlled via the PARAMETERS config toml file.
     """
-    from .training.handler import TrainingHandler
-    params = toml_io.load(parameters)
     kwargs = {k: v for (k, v) in kwargs.items() if v is not None}
+    params = toml_io.load(parameters)
     params['training'] = {**params.get('training', {}), **kwargs}
+    gpu = params['training'].get('gpu')
+    if gpu == 'multi' and not distributed.launcher_present():
+        # no launcher: a rank for every visible card, each this command again
+        return distributed.spawn_local_ranks(_rank_main, parameters, experiment_name,
+                                             kwargs)
+    distributed.maybe_init_distributed(device='cpu' if gpu in ('off', False) else None)
+    run_experiment(params, experiment_name)
+
+
+def _rank_main(parameters, experiment_name, kwargs):
+    experiment_setup.callback(parameters=parameters, experiment_name=experiment_name,
+                              **kwargs)
+
+
+def run_experiment(params, experiment_name):
+    """Build the experiment from the TOML ``params`` and train it; rank 0 writes the
+    config snapshot and the metadata."""
+    from .training.handler import TrainingHandler
     params = toml_io.convert_default_none_dict(params)
     if experiment_name is not None:
         params['experiment'] = experiment_name
@@ -67,9 +90,10 @@ def experiment_setup(parameters, experiment_name, **kwargs):
         config_file = 'config_from_epoch_%s.toml' % params['training']['continue_from_epoch']
     else:
         config_file = 'config.toml'
-    with open(os.path.join(experiment.model.base_folder, config_file), 'w') as f:
-        toml_io.dump(params, f)
-    experiment.model.save_metadata()
+    if distributed.is_primary_host():  # rank 0 owns the experiment directory
+        with open(os.path.join(experiment.model.base_folder, config_file), 'w') as f:
+            toml_io.dump(params, f)
+        experiment.model.save_metadata()
     experiment.run_experiment()
 
 

@@ -14,6 +14,12 @@ epoch.  ``aim_track`` writes the run's parameters and each epoch's metrics to a 
 stream (``tools/tracker.py``, under ``aim_home``, default ``<save_loc>/tracking``);
 ``model_cleanup_frequency`` N deletes the checkpoints ``clean_models`` does not keep
 every N epochs (``tools/helper_cli.py``).
+
+Data parallelism (``gpu = "multi"``, or ``"off"`` for CPU ranks, under a launcher's
+process group: ``parallel/distributed.py``): every rank runs this loop on its slice of
+each training batch (``BaseHandler.set_mesh``); rank 0 alone writes (checkpoints and
+the background writer, summary.csv, plots, samples, tracking, cleanup), and rank 0's
+epoch results decide the best epoch and early stopping on every rank.
 """
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -32,6 +38,7 @@ from ..data.loader import device_prefetch
 from ..data.setup import sisr_data_setup
 from ..models.interface import ModelInterface
 from ..ops.metrics import Metrics
+from ..parallel import distributed
 from ..tools.stats import legacy_load_statistics, plot_stats, save_statistics
 from ..tools.visualization import safe_image_save
 from ..utils.helpers import create_dir_if_empty, training_device
@@ -50,7 +57,9 @@ class TrainingHandler:
                  new_branch=False, logging='visual', save_samples=True,
                  experiment_group=None, fused_val=False, **kwargs):
         """Parameter semantics follow the reference (training_handler.py:39-63).
-        ``gpu``: unset or 'single' trains on cuda:<sp_gpu>, 'off' on the CPU.
+        ``gpu``: unset or 'single' trains on cuda:<sp_gpu>, 'off' on the CPU, 'multi'
+        data-parallel on each rank's card; under a process group of more than one
+        rank, 'off' trains data-parallel on CPU ranks and 'single' raises.
         sisr_tpu's ``steps_per_dispatch`` (K steps in one device dispatch) falls into
         ``kwargs``: here every step is its own dispatch, and K steps in a row are
         the same K steps."""
@@ -62,7 +71,13 @@ class TrainingHandler:
         self.max_im_val = max_im_val
         self.fused_val = bool(fused_val)
         self._fused_val_warned = False
+        world = distributed.world_size()
+        if world > 1 and gpu not in ('multi', 'off', False):
+            raise RuntimeError('a %d-rank launch trains with gpu = "multi" (a card per '
+                               'rank) or "off" (CPU ranks), not %r' % (world, gpu))
         device = training_device(gpu, sp_gpu)
+        # every rank runs this loop; rank 0 alone owns the experiment's files
+        self._primary = distributed.is_primary_host()
         self.experiment_name = experiment_name
         self.num_epochs = num_epochs
         self.logging = logging
@@ -90,7 +105,8 @@ class TrainingHandler:
 
         self.model = ModelInterface(save_loc, experiment_name, load_epoch=continue_from_epoch,
                                     device=device, mode='train', new_params=model_params,
-                                    save_subdir=subdir, new_branch=self.branch_off)
+                                    save_subdir=subdir, new_branch=self.branch_off,
+                                    mesh=gpu == 'multi' or world > 1)
         self.handler = self.model.model
 
         # a resume trains the epoch after the loaded checkpoint
@@ -113,7 +129,7 @@ class TrainingHandler:
         for ds in getattr(self.train_data.dataset, 'datasets', [self.train_data.dataset]):
             ds.keep_uint8 = True
 
-        if aim_track:
+        if aim_track and self._primary:
             # runs are tracked to JSONL streams with Aim's API (tools/tracker.py), under
             # sisr_tpu's run names
             from ..tools.tracker import JsonlTracker
@@ -214,7 +230,7 @@ class TrainingHandler:
                         probe_names=[n.split('.')[0] for n in im_names])
                     for metric, result in metric_package.items():
                         current_epoch_losses[metric].extend(result)
-                if index == 0 and self.save_samples:
+                if index == 0 and self.save_samples and self._primary:
                     folder = os.path.join(self.model.logs, 'epoch_%d_samples' % epoch_idx)
                     create_dir_if_empty(folder)
                     safe_image_save(rgb_out, folder,
@@ -260,21 +276,25 @@ class TrainingHandler:
 
     def _save_samples(self, batch, epoch_idx):
         """The SR images of the first validation batch (the first image of a ragged
-        one) into logs/epoch_<N>_samples (ref: training_handler.py:210-214)."""
+        one) into logs/epoch_<N>_samples (ref: training_handler.py:210-214).  Every rank
+        computes them (a tile grid is shared out over the ranks); rank 0 writes them."""
         names = [name.replace(os.sep, '_') for name in batch['tag']]
         if isinstance(batch['lr'], list):
             meta = batch.get('metadata')
             batch = {'lr': batch['lr'][0][None], 'hr': batch['hr'][0][None],
                      'metadata': None if meta is None else meta[:1]}
             names = names[:1]
+        images = self.handler.super_resolve(batch)
+        if not self._primary:
+            return
         folder = os.path.join(self.model.logs, 'epoch_%d_samples' % epoch_idx)
         create_dir_if_empty(folder)
-        safe_image_save(self.handler.super_resolve(batch), folder, names, config='rgb')
+        safe_image_save(images, folder, names, config='rgb')
 
     def run_experiment(self):
         """Full training run (ref: training_handler.py:226-323)."""
         total_losses = defaultdict(list)
-        if self.starting_epoch != 0:
+        if self.starting_epoch != 0 and self._primary:
             logs = os.path.dirname(self.model.logs) if self.branch_off else self.model.logs
             loaded = legacy_load_statistics(logs, 'summary.csv')
             if 'epoch' in loaded:
@@ -292,6 +312,11 @@ class TrainingHandler:
                 self.best_val_model_psnr = loaded['val-PSNR'][best_row]
                 self.best_val_model_idx = int(loaded['epoch'][best_row]) \
                     if 'epoch' in loaded else best_row
+        # summary.csv is rank 0's: its history and best epoch hold on every rank
+        (total_losses, self.best_val_model_psnr, self.best_val_model_idx,
+         self._rewrite_stats) = distributed.broadcast_object(
+            (total_losses, self.best_val_model_psnr, self.best_val_model_idx,
+             self._rewrite_stats))
         try:
             result = self._epoch_loop(total_losses)
         except BaseException:
@@ -303,8 +328,9 @@ class TrainingHandler:
                 print('WARNING: background checkpoint writes also failed/stalled '
                       'during shutdown: %r' % (ckpt_err,), file=sys.stderr)
             raise
-        # the checkpoints are on disk before the run is reported complete
+        # the checkpoints are on disk before the run is reported complete, on every rank
         self.model.wait_pending_checkpoints()
+        distributed.barrier()
         return result
 
     def _epoch_loop(self, total_losses):
@@ -314,14 +340,17 @@ class TrainingHandler:
             epoch_start_time = time.time()
             print('Running epoch', epoch_idx)
             self.model.set_epoch(epoch_idx)
-            if i == 0:
+            if i == 0 and self._primary:
                 self.model.save(override=self.overwrite, dry_run=True)
 
             print('Training Run:')
             training_loss = self.train()
             print('Validation Run:')
             eval_loss = self.eval(epoch_idx)
-            current_epoch_losses = {**training_loss, **eval_loss}
+            # rank 0's results decide the best epoch and early stopping on every rank: a
+            # rank that decided alone would wait in the next step's all-reduce for ever
+            current_epoch_losses = distributed.broadcast_object(
+                {**training_loss, **eval_loss})
 
             if 'val-PSNR' in current_epoch_losses:
                 val_mean_psnr = np.mean(current_epoch_losses['val-PSNR'])
@@ -349,41 +378,48 @@ class TrainingHandler:
                 if len(value) < n_rows + 1:  # a metric dropped in this run
                     value.extend([float('nan')] * (n_rows + 1 - len(value)))
 
-            if self.logging == 'visual':
-                plot_stats(stats_dict=total_losses,
-                           keynames=[['train-loss', 'val-loss'], ['val-PSNR'], ['val-SSIM']],
-                           experiment_log_dir=self.model.logs, filename='loss_plots.pdf')
-
-            self.model.save(override=self.overwrite)
-            if self._rewrite_stats:
-                save_statistics(experiment_log_dir=self.model.logs, filename='summary.csv',
-                                stats_dict=total_losses, append=False)
-                self._rewrite_stats = False
-            else:
-                resumed = self.starting_epoch != 0 or i > 0
-                save_statistics(experiment_log_dir=self.model.logs, filename='summary.csv',
-                                stats_dict=total_losses,
-                                selected_data=epoch_idx if resumed else None,
-                                append=resumed)
-
-            out_string = ' '.join('{}_{:.4f}'.format(key, np.mean(value))
-                                  for key, value in current_epoch_losses.items())
-            if self.model_cleanup_frequency is not None and i != 0 \
-                    and i % self.model_cleanup_frequency == 0:
-                from ..tools.helper_cli import clean_models
-                # cleanup lists the checkpoint files: every background write first
-                self.model.wait_pending_checkpoints()
-                clean_models(self.model.base_folder, clean_samples=True)
-            if self.tracker is not None:
-                self.tracker.track(time.time() - epoch_start_time, name='epoch_time',
-                                   epoch=epoch_idx)
-            print('Epoch {}/{}:'.format(epoch_idx, self.starting_epoch + self.num_epochs - 1),
-                  out_string, 'Epoch duration:',
-                  '{:.4f}'.format(time.time() - epoch_start_time), 'seconds')
-            print('-------------')
-
+            if self._primary:
+                self._write_epoch(i, epoch_idx, total_losses, current_epoch_losses,
+                                  epoch_start_time)
             if self.stop_patience is not None \
                     and improvement_count >= max(1, self.stop_patience):
                 print('Stopping model training, validation PSNR has plateaued.')
                 break
         return total_losses
+
+    def _write_epoch(self, i, epoch_idx, total_losses, current_epoch_losses,
+                     epoch_start_time):
+        """The epoch's files (rank 0's): plots, the checkpoint, summary.csv, cleanup,
+        tracking."""
+        if self.logging == 'visual':
+            plot_stats(stats_dict=total_losses,
+                       keynames=[['train-loss', 'val-loss'], ['val-PSNR'], ['val-SSIM']],
+                       experiment_log_dir=self.model.logs, filename='loss_plots.pdf')
+
+        self.model.save(override=self.overwrite)
+        if self._rewrite_stats:
+            save_statistics(experiment_log_dir=self.model.logs, filename='summary.csv',
+                            stats_dict=total_losses, append=False)
+            self._rewrite_stats = False
+        else:
+            resumed = self.starting_epoch != 0 or i > 0
+            save_statistics(experiment_log_dir=self.model.logs, filename='summary.csv',
+                            stats_dict=total_losses,
+                            selected_data=epoch_idx if resumed else None,
+                            append=resumed)
+
+        out_string = ' '.join('{}_{:.4f}'.format(key, np.mean(value))
+                              for key, value in current_epoch_losses.items())
+        if self.model_cleanup_frequency is not None and i != 0 \
+                and i % self.model_cleanup_frequency == 0:
+            from ..tools.helper_cli import clean_models
+            # cleanup lists the checkpoint files: every background write first
+            self.model.wait_pending_checkpoints()
+            clean_models(self.model.base_folder, clean_samples=True)
+        if self.tracker is not None:
+            self.tracker.track(time.time() - epoch_start_time, name='epoch_time',
+                               epoch=epoch_idx)
+        print('Epoch {}/{}:'.format(epoch_idx, self.starting_epoch + self.num_epochs - 1),
+              out_string, 'Epoch duration:',
+              '{:.4f}'.format(time.time() - epoch_start_time), 'seconds')
+        print('-------------')

@@ -73,16 +73,17 @@ def resolve_device(device=None):
 def training_device(gpu=None, sp_gpu=0):
     """The device of a training run from the reference's ``gpu`` option: 'off' (or
     False) is the CPU; unset, 'single' (or True) is ``cuda:<sp_gpu>`` (device 0 when
-    out of range), and raises without CUDA; 'multi' is not ported."""
+    out of range); 'multi' is this rank's card, ``cuda:<local rank>``
+    (``parallel/distributed.py``; cuda:0 without a process group).  The CUDA choices
+    raise without CUDA."""
     if gpu in ('off', False):
         return torch.device('cpu')
-    if gpu == 'multi':
-        raise NotImplementedError('gpu = "multi" (data parallelism over several cards) is '
-                                  'not ported to sisr_tpu_torch yet: it comes with the '
-                                  'multi-GPU slice (ROADMAP.md, Queue 1 item 9).')
-    if gpu not in (None, 'single', True):
+    if gpu not in (None, 'single', True, 'multi'):
         raise ValueError("gpu must be 'off', 'single' or 'multi', got %r" % (gpu,))
     resolve_device('cuda')  # raises without CUDA
+    if gpu == 'multi':
+        from ..parallel.distributed import local_rank
+        return torch.device('cuda', local_rank())
     index = int(sp_gpu or 0)
     if index >= torch.cuda.device_count():
         print('sp_gpu=%s requested but only %d device(s) visible — using device 0.'

@@ -190,8 +190,9 @@ def test_ported_options_run(override, jax_rcan, tmp_path):
     {'metrics': ['PSNR', 'FACE_SIM']},
 ])
 def test_unported_options_raise(override, tmp_path, monkeypatch):
-    """Multi-device eval raises NotImplementedError; CelebA attributes and FACE_SIM
-    are ported now: the hub takes them and goes on to load the model, missing here."""
+    """Multi-device eval (--mesh: one CPU rank here, with --no-gpu and no launcher),
+    CelebA attributes and FACE_SIM are ported now: the hub takes them and goes on to
+    load the model, missing here."""
     monkeypatch.chdir(tmp_path)  # the hub writes under out_loc before it loads models
     kwargs = dict(hr_dir='hr', lr_dir='lr', model_and_epoch=[('e', '0')], results_name='r',
                   gpu=False, metrics=['PSNR'], data_split=None, save_im=False, batch_size=1,
@@ -201,9 +202,5 @@ def test_unported_options_raise(override, tmp_path, monkeypatch):
                   data_attributes=None, dataset_name=None, image_shortlist=None,
                   metadata_file=None, sp_gpu=0, time_models=False, recursive=False,
                   fused_eval=True)
-    if 'mesh' not in override:
-        with pytest.raises(RuntimeError, match='No config.toml'):
-            EvalHub(**{**kwargs, **override})
-        return
-    with pytest.raises(NotImplementedError, match='not ported'):
+    with pytest.raises(RuntimeError, match='No config.toml'):
         EvalHub(**{**kwargs, **override})

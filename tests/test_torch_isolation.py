@@ -35,6 +35,7 @@ CHECK = textwrap.dedent('''
     for call in (lambda: resolve_device(), lambda: define_model('rcan', n_resgroups=1,
                  n_resblocks=1, n_feats=16), lambda: EvalHub._select_device(True),
                  lambda: training_device(), lambda: training_device('single'),
+                 lambda: training_device('multi'),
                  lambda: fx.load_vgg_extractor(weights),
                  lambda: fx.load_face_extractor('lightcnn', weights),
                  lambda: export_serving.export_experiment('m', 'e', 0, 1, 8, 8),
@@ -50,6 +51,11 @@ CHECK = textwrap.dedent('''
                                 '--no_image_comparison'])
     assert isinstance(result.exception, RuntimeError), result.exception
     assert 'no-gpu' in str(result.exception)
+    for extra in (['--mesh'], ['--mesh', '--no-gpu']):  # --mesh runs on CUDA unless asked
+        result = CliRunner().invoke(net_eval.eval_run, ['--hr_dir', 'h', '--lr_dir', 'l',
+                                    '-me', 'e', '0', '-m', 'PSNR', *extra])
+        assert isinstance(result.exception, RuntimeError), result.exception
+        assert ('CUDA' in str(result.exception)) == (extra == ['--mesh']), result.exception
     print('modules imported:', len(names) + 1)
 ''')
 

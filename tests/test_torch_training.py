@@ -477,10 +477,8 @@ def test_loader_drop_last_concat_and_threads(tmp_path):
 # --- the experiment layer -----------------------------------------------------------------
 def test_training_device_and_unported_handler_options(tmp_path):
     assert training_device('off') == torch.device('cpu')
-    with pytest.raises(NotImplementedError, match='item 9'):
-        training_device('multi')
     if not torch.cuda.is_available():
-        for gpu in (None, 'single'):
+        for gpu in (None, 'single', 'multi'):
             with pytest.raises(RuntimeError, match='CUDA'):
                 training_device(gpu)
     params = {'name': 'rcan', 'internal_params': {'scale': 2, **MODELS['rcan'][1]}}
