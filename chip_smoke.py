@@ -70,12 +70,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bf16 carry, all in rounds at this shape),
    and Q-EDSR at configs/div2k/qedsr.toml's width (256 features, 32 blocks, the
    gate's nonlinearity, 10 blur-kernel values, 4x) in bf16 and with ``--int8``; then
-   HAN and Q-HAN as configs/div2k/han.toml and qhan.toml build them (10 x 20, 64
-   features, 4x; Q-HAN's QRCABs the standard style with a q_node, on the blur
-   kernel) in bf16 (200 CA launches a forward on chip, Q-HAN's with the gate) and
-   with ``--int8`` (200 CA + residual launches a forward in rounds, Q-HAN's cast
+   HAN and Q-HAN as configs/div2k/han.toml and qhan.toml build them, cut to 10 x 10
+   (64 features, 4x; Q-HAN's QRCABs the standard style with a q_node, on the blur
+   kernel) in bf16 (100 CA launches a forward on chip, Q-HAN's with the gate) and
+   with ``--int8`` (100 CA + residual launches a forward in rounds, Q-HAN's cast
    first with the gate), LAM, CSAM and last_conv timed apart; SAN and Q-SAN as
-   configs/div2k/san.toml and qsan.toml build them (20 x 10, 64 features, reduction
+   configs/div2k/san.toml and qsan.toml build them, cut to 20 x 5 (64 features, reduction
    16, 4x, max_combined_im_size 20000: no tile grid at 128^2; Q-SAN gated on the blur
    kernel) in bf16 and with ``--int8``, no CA call, their SOCAs and non-local passes
    timed apart; SRMD and SFTMD as configs/div2k/srmd.toml and sftmd.toml build them
@@ -100,13 +100,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
 10. train reference: 10 training steps of RCAN and Q-RCAN (2 x 2 blocks, 64 features,
    f32) on the card against the same 10 on the CPU, from the same weights and batches;
 11. train main path: ``train_sisr`` (sisr_tpu_torch.net_train) on the paper's Q-RCAN
-   recipe (configs/div2k/qrcan.toml, cut to 5 x 20 QRCABs: 64 features, 4x, standard
+   recipe (configs/div2k/qrcan.toml, cut to 5 x 10 QRCABs: 64 features, 4x, standard
    style with a q_node in every block, blur-kernel metadata, batch 8, LR crops of 64,
    flips, Adam with cosine warm restarts, f32, fused validation) on the seeded pairs for
    2 epochs, then a resume for a third, with its kernel launch counts; ``eval_sisr
    --fused_eval`` of the best epoch (f32, the CA in rounds); then 10 timed warm train
-   steps each of Q-RCAN and RCAN 10 x 20, HAN and Q-HAN 5 x 20, SAN and Q-SAN 10 x 10
-   (those four and this recipe run at half depth, to make room for phase 15), SRMD,
+   steps each of Q-RCAN, RCAN, HAN and Q-HAN 5 x 10, SAN and Q-SAN 10 x 5 (these and
+   this recipe run cut in depth, RECIPE_TRAIN_DEPTH, to keep the script's time), SRMD,
    SFTMD, SPARNet (its BatchNorms in train mode) and VDSR (MSE, its clip of 0.1; both
    on HR-size crops of 256^2) through the handler (forward /
    backward / optimizer, device busy, the CA kernel's share, conv FLOPs against the
@@ -131,7 +131,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bf16 with ``--no_image_comparison`` on the tile grid (the Set14 maps 2 x 2, the
    510 x 339 map 16 tiles of 105 x 148; the tile batches counted against the plan,
    no CA call), its shared pairs against the fused run; then Q-SAN at
-   10 x 10 with max_combined_im_size 10000 (a 2 x 2 grid on the 128^2 maps) on the 16 pairs, the
+   10 x 5 with max_combined_im_size 10000 (a 2 x 2 grid on the 128^2 maps) on the 16 pairs, the
    fused and the standard protocol, in bf16 and ``--int8`` (one int8 state), each
    pair's metrics against the other protocol's; then SFTMD bf16 with
    ``--no_image_comparison`` and with ``--eval_buckets 128`` (no CA call), each against
@@ -144,10 +144,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    training sets on the pairs) and configs/celebahq/qsparnet.toml (on the pairs' LR
    upscaled on the host with Pillow bicubic) as shipped (no fused_val: the standard validation epoch), each
    one's val-PSNR against a fused validation of the same checkpoint;
-15. online degradation, attributes and bf16 training (run after phase 11; phase 9 also
+15. online degradation, attributes and bf16 training (the bf16 steps after phase 11,
+   the training runs after phase 14, beside phase 18; phase 9 also
    takes the CA under autograd in bf16, and after phase 10 ``degrade_batch_on_device``
    and the dynamic-scale int8 conv run card against CPU): ``train_sisr`` of
-   configs/div2k/qrcan.toml's model at full depth in bf16 on the 16 HR images in
+   configs/div2k/qrcan.toml's model at 5 x 10 in bf16 on the 16 HR images in
    device-mode online degradation, with directory checkpoints and bf16 moments, for 2
    epochs and a resume, then ``eval_sisr --fused_eval`` of its best epoch from its
    directory, every CA call counted by map and type; an epoch in host-mode online
@@ -164,14 +165,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    of RCAN in bf16 and int8 and of Q-RCAN (5 x 20), each program run over the 16 LR
    images (``run_serving``: launches, PSNR against the fused or the eager int8
    forward, ms a batch against the eager program's).  The three exports run beside
-   phase 14 and the perceptual train runs, each in a process of its own, and end
+   phase 14, phase 15's training runs and the perceptual train runs, each in a process
+   of its own (with phase 18), and end
    before the timed steps; the served programs' checks run beside phase 17's ranks,
    and their timings after phase 17.  To make room, the timed f32 and bf16 steps of
-   Q-RCAN and RCAN (phases 11 and 15) go at 5 x 20;
+   Q-RCAN and RCAN (phases 11 and 15) go at 5 x 10, as do the perceptual runs;
 17. multi-GPU data parallelism (after phase 16; phase_multi_gpu): two ranks share the
    card over gloo, each a process of this script (``--rank-job``) started through
    sisr_tpu's launcher contract (SISR_TPU_*): ``train_sisr --gpu multi`` of
-   configs/div2k/qrcan.toml's model at 5 x 20, f32, on the 16 pairs' 64^2 crops, 2
+   configs/div2k/qrcan.toml's model at 5 x 10, f32, on the 16 pairs' 64^2 crops, 2
    epochs and a resume, against the same run in one process (losses, weights, rank 0's
    files, each rank's decoded items and its ca_onchip launches at its (4, 64, 64, 64)
    map); the same command with no launcher (the CLI starts a rank for the card, NCCL)
@@ -182,6 +184,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
    protocol with its tile grid shared over the ranks against its one-process run; then,
    with the card the ranks' alone, each rank's DDP step and gradient all-reduce beside
    one process's step;
+18. the benchmark tools (phase_bench_tools, a process of its own, ``--rank-job
+   bench_tools``, started with the serving exports beside phases 14-16's untimed runs;
+   its line printed after the perceptual train runs): each tool of
+   sisr_tpu_torch/tools once at full width with few passes — ``flops.py``'s counts of
+   EDSR 64f/16b and 256f/32b, RCAN 10 x 20 and Q-RCAN held within 0.1% of the conv
+   FLOPs the port's own modules run at 128^2; every ``e2e_bench.E2E_CONFIGS`` key
+   through ``run_config`` (16 images, batch 8, one timed pass; finite per-image PSNR,
+   edsr_int8 within 1 dB of edsr, qrcan's 200 ca_onchip launches a forward, san on its
+   tile grid, no CA on the others); ``bench_models``' family table and ``--paper`` (no
+   FAILED row, MFU in (0, 100%], the int8 RCAN row's 200 CA + residual launches a
+   forward on its planned route), ``--train --vs-torch`` and ``--val`` (one timed
+   epoch each, on 32 and 16 images); ``bench_quantization --all`` (batch 8);
+   ``bench_ca_epilogue`` (each shape's route against its launches, 1e-5 abs with the
+   f32 carry, 2 bf16 ULPs with the bf16 one, the two epilogues' raw int8 RCAN outputs
+   at least min(40 dB, the PSNR a rounding-only change of the plain tail gives) apart;
+   its launches kept out of the kernels line, a kernel against its plain version);
+   ``bench_bucketed``;
+   ``bench_decode_cache --passes 1`` (both arms' per-image PSNR equal); ``train_soak``
+   at 256f/32b for 32 steps into a temporary ``--out``;
 
 then the script's total seconds with each family's int8 img/s over its bf16 img/s
 (the table of ``INT8_MEASURED_SLOWER``), the ``kernels`` table (a row for each route
@@ -196,6 +217,7 @@ turns it off for itself, and in phases 11, 14 and 15, which train with PyTorch's
 when CUDA is absent or when the sisr_tpu_torch package is not beside it.
 """
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -222,15 +244,17 @@ EDSR = {'scale': SCALE, 'num_features': 64, 'num_blocks': 16, 'dtype': 'bf16'}
 # configs/div2k/qedsr.toml's model: the paper's Q-EDSR, the widest model of the configs
 QEDSR = {'scale': SCALE, 'num_features': 256, 'num_blocks': 32, 'res_scale': 0.1,
          'q_layer_nonlinearity': True, 'metadata': ['blur_kernel'], 'dtype': 'bf16'}
-# configs/div2k/han.toml's and qhan.toml's models: 10 x 20, 64 features, 4x (Q-HAN's
-# groups take the 'standard' style and a q_node in every block, on the blur kernel)
-HAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64,
+# configs/div2k/han.toml's and qhan.toml's models (10 x 20, 64 features, 4x; Q-HAN's
+# groups take the 'standard' style and a q_node in every block, on the blur kernel), cut
+# to 10 blocks a group (the width and the 10 groups LAM weighs unchanged)
+HAN = {'scale': SCALE, 'n_resgroups': 10, 'n_resblocks': 10, 'n_feats': 64,
        'reduction': 16, 'dtype': 'bf16'}
 QHAN = {**HAN, 'metadata': ['blur_kernel']}
-# configs/div2k/san.toml's and qsan.toml's models: 20 x 10, 64 features, reduction 16,
-# 4x, the tile grid under max_combined_im_size = 20000 (Q-SAN's blocks gated on the blur
-# kernel)
-SAN = {'scale': SCALE, 'n_resgroups': 20, 'n_resblocks': 10, 'n_feats': 64,
+# configs/div2k/san.toml's and qsan.toml's models (20 x 10, 64 features, reduction 16,
+# 4x, the tile grid under max_combined_im_size = 20000; Q-SAN's blocks gated on the blur
+# kernel), cut to 5 blocks a group (the width and the 20 SOCA groups
+# unchanged)
+SAN = {'scale': SCALE, 'n_resgroups': 20, 'n_resblocks': 5, 'n_feats': 64,
        'reduction': 16, 'max_combined_im_size': 20000, 'dtype': 'bf16'}
 QSAN = {**SAN, 'metadata': ['blur_kernel']}
 # Q-SAN at max_combined_im_size = 10000: the 128^2 maps of the fused cell on a 2 x 2 grid
@@ -258,8 +282,8 @@ SRCNN = {'scale': SCALE, 'dtype': 'bf16'}
 VDSR = {'scale': SCALE, 'dtype': 'bf16'}
 MODELS = {'rcan_10x20': ('rcan', RCAN), 'qrcan_10x20': ('qrcan', QRCAN),
           'edsr_16b': ('edsr', EDSR), 'qedsr_32b': ('qedsr', QEDSR),
-          'han_10x20': ('han', HAN), 'qhan_10x20': ('qhan', QHAN),
-          'san_20x10': ('san', SAN), 'qsan_20x10': ('qsan', QSAN),
+          'han_10x10': ('han', HAN), 'qhan_10x10': ('qhan', QHAN),
+          'san_20x5': ('san', SAN), 'qsan_20x5': ('qsan', QSAN),
           'qsan_grid': ('qsan', QSAN_GRID), 'srmd_12': ('srmd', SRMD),
           'sftmd_16b': ('sftmd', SFTMD), 'sftmd_q16b': ('sftmd', SFTMD_Q),
           'sparnet_128': ('sparnet', SPARNET), 'qsparnet_512': ('qsparnet', QSPARNET),
@@ -1892,13 +1916,13 @@ BF16_PATHS = {
     'edsr_16b': ('edsr_', 'edsr 16b 64f 4x bf16', 0),
     'qedsr_32b': ('qedsr_', 'qedsr 32b 256f 4x bf16, q_layer_nonlinearity, '
                   '10 blur-kernel values', 0),
-    'han_10x20': ('han_', 'han 10x20 64f 4x bf16, LAM over 11 maps + CSAM',
+    'han_10x10': ('han_', 'han 10x10 64f 4x bf16, LAM over 11 maps + CSAM',
                   HAN['n_resgroups'] * HAN['n_resblocks']),
-    'qhan_10x20': ('qhan_', 'qhan 10x20 64f 4x bf16, standard + q_node, 10 blur-kernel '
+    'qhan_10x10': ('qhan_', 'qhan 10x10 64f 4x bf16, standard + q_node, 10 blur-kernel '
                    'values, LAM + CSAM', QHAN['n_resgroups'] * QHAN['n_resblocks']),
-    'san_20x10': ('san_', 'san 20x10 64f 4x bf16, 20 SOCA + 2 non-local passes, no tile '
+    'san_20x5': ('san_', 'san 20x5 64f 4x bf16, 20 SOCA + 2 non-local passes, no tile '
                   'grid at 128^2 (max_combined_im_size 20000)', 0),
-    'qsan_20x10': ('qsan_', 'qsan 20x10 64f 4x bf16, ParaCALayer gates on 10 blur-kernel '
+    'qsan_20x5': ('qsan_', 'qsan 20x5 64f 4x bf16, ParaCALayer gates on 10 blur-kernel '
                    'values, 20 SOCA + 2 non-local passes', 0),
     'srmd_12': ('srmd_', 'srmd 12 convs 128f 4x bf16, 3 + 10 input channels (the '
                 'blur-kernel maps concatenated)', 0),
@@ -2154,11 +2178,11 @@ INT8_PATHS = {
                     '10 blur-kernel values'),
     'qedsr_32b': ('qedsr_', 'qedsr 32b 256f 4x int8 (bf16 carry), q_layer_nonlinearity, '
                   '10 blur-kernel values'),
-    'han_10x20': ('han_', 'han 10x20 64f 4x int8 (bf16 carry), LAM + CSAM in bf16'),
-    'qhan_10x20': ('qhan_', 'qhan 10x20 64f 4x int8 (bf16 carry), standard + q_node, '
+    'han_10x10': ('han_', 'han 10x10 64f 4x int8 (bf16 carry), LAM + CSAM in bf16'),
+    'qhan_10x10': ('qhan_', 'qhan 10x10 64f 4x int8 (bf16 carry), standard + q_node, '
                    '10 blur-kernel values, LAM + CSAM in bf16'),
-    'san_20x10': ('san_', 'san 20x10 64f 4x int8 (bf16 carry), SOCA + non-local in f32'),
-    'qsan_20x10': ('qsan_', 'qsan 20x10 64f 4x int8 (bf16 carry), f32 ParaCALayer gates '
+    'san_20x5': ('san_', 'san 20x5 64f 4x int8 (bf16 carry), SOCA + non-local in f32'),
+    'qsan_20x5': ('qsan_', 'qsan 20x5 64f 4x int8 (bf16 carry), f32 ParaCALayer gates '
                    'on 10 blur-kernel values, SOCA + non-local in f32'),
     'srmd_12': ('srmd_', 'srmd 12 convs 128f 4x int8, the whole chain on the concatenated '
                 'input'),
@@ -2203,8 +2227,8 @@ def int8_expected_launches(experiment, forwards):
     counts = dict(NO_LAUNCHES)
     tails = {'rcan_10x20': CA_PER_FORWARD,
              'qrcan_10x20': QRCAN['n_resgroups'] * QRCAN['n_resblocks'],
-             'han_10x20': HAN['n_resgroups'] * HAN['n_resblocks'],
-             'qhan_10x20': QHAN['n_resgroups'] * QHAN['n_resblocks']}.get(experiment, 0)
+             'han_10x10': HAN['n_resgroups'] * HAN['n_resblocks'],
+             'qhan_10x10': QHAN['n_resgroups'] * QHAN['n_resblocks']}.get(experiment, 0)
     if tails:
         props = torch.cuda.get_device_properties(0)
         plan = ca.res_onchip_plan(BATCH, LR_SIZE ** 2, 64, 4, 4, 2, True,
@@ -2321,14 +2345,13 @@ QSAN_TRAIN = {**SAN_TRAIN, 'metadata': ['blur_kernel']}
 
 
 FULL_DEPTH = {'n_resgroups': 10, 'n_resblocks': 20, 'n_feats': 64}
-# earlier paths cut to half depth to keep the script near 900 s beside phase 15: the
-# f32 train_sisr of the Q-RCAN recipe (phase 15's online-degradation path trains the
-# full-depth model) at 5 x 20, and Q-SAN's 2 x 2 grid run (QSAN_GRID) and the timed
-# steps of HAN and Q-HAN (5 x 20) and SAN and Q-SAN (10 x 10); beside phase 16, the
-# timed f32 and bf16 steps of Q-RCAN and RCAN at 5 x 20 (phase 16 times the full-depth
-# f32 Q-RCAN step); the multi-GPU runs of phase 17 at 5 x 20
-RECIPE_TRAIN_DEPTH = {'n_resgroups': 5}
-RECIPE_CA_PER_FORWARD = RECIPE_TRAIN_DEPTH['n_resgroups'] * RCAN['n_resblocks']
+# earlier training paths cut in depth to keep the script within its time (the main
+# paths evaluate the full-depth models): the f32 train_sisr of the Q-RCAN recipe, the
+# timed f32 and bf16 steps of Q-RCAN, RCAN, HAN and Q-HAN, phase 15's online-degradation
+# run, phase 16's perceptual runs and timed steps and phase 17's multi-GPU runs at
+# 5 x 10 (RECIPE_TRAIN_DEPTH); the timed steps of SAN and Q-SAN at 10 x 5
+RECIPE_TRAIN_DEPTH = {'n_resgroups': 5, 'n_resblocks': 10}
+RECIPE_CA_PER_FORWARD = RECIPE_TRAIN_DEPTH['n_resgroups'] * RECIPE_TRAIN_DEPTH['n_resblocks']
 
 
 @contextlib.contextmanager
@@ -2524,7 +2547,7 @@ def phase_train_reference():
 
 def write_train_config(dirs, save_loc):
     """configs/div2k/qrcan.toml pointed at the seeded pairs: the same [model] at half
-    depth (RECIPE_TRAIN_DEPTH: 5 x 20) and [training] (epoch_cutoff left out: it
+    depth (RECIPE_TRAIN_DEPTH: 5 x 10) and [training] (epoch_cutoff left out: it
     overrides --num_epochs), fused validation on, the pairs as both the training and
     the validation set."""
     from sisr_tpu_torch.utils import toml_io
@@ -2665,11 +2688,11 @@ def train_step_breakdown(model, internal, steps=10, turns=True):
 
 
 def phase_train_main_path(dirs, root):
-    """``train_sisr`` on the Q-RCAN recipe at 5 x 20 for 2 epochs, then a resume for a
+    """``train_sisr`` on the Q-RCAN recipe at 5 x 10 for 2 epochs, then a resume for a
     third: finite losses, summary.csv, the checkpoints (the resumed one at step 6),
-    every CA call on chip; 100 launches per train step.  ``eval_sisr --fused_eval`` of
-    the best epoch.  Then the timed steps of Q-RCAN and RCAN (10 x 20), HAN and Q-HAN
-    (5 x 20), SAN and Q-SAN (10 x 10), SRMD, SFTMD, SPARNet and VDSR.  cuDNN TF32 on,
+    every CA call on chip; 50 launches per train step.  ``eval_sisr --fused_eval`` of
+    the best epoch.  Then the timed steps of Q-RCAN, RCAN, HAN and Q-HAN (5 x 10), SAN
+    and Q-SAN (10 x 5), SRMD, SFTMD, SPARNet and VDSR.  cuDNN TF32 on,
     matmul TF32 off (PyTorch's defaults) throughout the phase."""
     import numpy as np
     import pandas as pd
@@ -2723,20 +2746,21 @@ def phase_train_main_path(dirs, root):
                                'epoch': int(best['epoch']),
                                'mean_psnr': float(frame[('qrcan_train', 'PSNR')].mean()),
                                'val_psnr': float(best['val-PSNR'])}
-        emit({'phase': 'train_main_path', 'model': 'qrcan 10x20 64f 4x f32, standard + '
+        emit({'phase': 'train_main_path', 'model': 'qrcan 5x10 64f 4x f32, standard + '
               'q_node, 10 blur-kernel values, batch 8, LR crop 64', **report,
               'nvidia_smi': nvidia_smi_line()})
         breakdowns = {}
         # HAN's and Q-HAN's CA calls are RCAN's and Q-RCAN's: their steps skip the
         # turns against the CA's plain version; SAN and Q-SAN make no CA call
-        half = {'n_resgroups': 5}
+        cut, calls_cut = RECIPE_TRAIN_DEPTH, RECIPE_CA_PER_FORWARD
+        san_cut = {'n_resgroups': 10, 'n_resblocks': 5}
         for name, model, internal, turns, calls in (
-                ('qrcan_5x20', 'qrcan', {**QRCAN_TRAIN, **half}, True, CA_PER_FORWARD // 2),
-                ('rcan_5x20', 'rcan', {**RCAN_TRAIN, **half}, True, CA_PER_FORWARD // 2),
-                ('han_5x20', 'han', {**HAN_TRAIN, **half}, False, CA_PER_FORWARD // 2),
-                ('qhan_5x20', 'qhan', {**QHAN_TRAIN, **half}, False, CA_PER_FORWARD // 2),
-                ('san_10x10', 'san', {**SAN_TRAIN, 'n_resgroups': 10}, False, 0),
-                ('qsan_10x10', 'qsan', {**QSAN_TRAIN, 'n_resgroups': 10}, False, 0),
+                ('qrcan_5x10', 'qrcan', {**QRCAN_TRAIN, **cut}, True, calls_cut),
+                ('rcan_5x10', 'rcan', {**RCAN_TRAIN, **cut}, True, calls_cut),
+                ('han_5x10', 'han', {**HAN_TRAIN, **cut}, False, calls_cut),
+                ('qhan_5x10', 'qhan', {**QHAN_TRAIN, **cut}, False, calls_cut),
+                ('san_10x5', 'san', {**SAN_TRAIN, **san_cut}, False, 0),
+                ('qsan_10x5', 'qsan', {**QSAN_TRAIN, **san_cut}, False, 0),
                 ('srmd_12', 'srmd', SRMD_TRAIN, False, 0),
                 ('sftmd_16b', 'sftmd', SFTMD_TRAIN, False, 0),
                 ('sparnet_128', 'sparnet', SPARNET_TRAIN, False, 0),
@@ -2760,8 +2784,8 @@ def phase_train_main_path(dirs, root):
 # the online-degradation path: configs/div2k/qrcan.toml's model trained in bf16 with
 # directory checkpoints and bf16 moments on the 16 HR images in device-mode online
 # degradation
-QRCAN_ONLINE = {**QRCAN_TRAIN, 'dtype': 'bf16', 'checkpoint_backend': 'orbax',
-                'checkpoint_dtype': 'bf16_moments'}
+QRCAN_ONLINE = {**QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH, 'dtype': 'bf16',
+                'checkpoint_backend': 'orbax', 'checkpoint_dtype': 'bf16_moments'}
 # host-mode online degradation with noise: the kernel's code and the noise level
 QRCAN_NOISE = {**QRCAN_TRAIN, 'dtype': 'bf16', 'metadata': ['blur_kernel', 'noise']}
 # Q-RCAN (sisr_tpu's e2e configuration) taking the blur kernel and two CelebA attributes
@@ -2930,7 +2954,7 @@ def epoch_launches(calls, epochs, n_train, n_val):
 
 def phase_online_train_main_path(dirs, root):
     """The bf16 online-degradation path: ``train_sisr`` of configs/div2k/qrcan.toml's
-    model (10 x 20 QRCABs, 64 features, 4x, standard style with a q_node, its optimizer
+    model (cut to 5 x 10 QRCABs, 64 features, 4x, standard style with a q_node, its optimizer
     and schedule) in bf16, the training set the 16 HR images in device-mode online
     degradation (LR crops of 64: each step makes its LR on the card from the HR crops
     and their kernels; the metadata the kernels' 10 PCA codes, of 30000 kernels drawn
@@ -2963,11 +2987,11 @@ def phase_online_train_main_path(dirs, root):
                                                 '--continue_from_epoch', '1'), 1)):
             launches, seconds = run_train_cli(config, *args)
             by_map = read_onchip_shapes()
-            expect_launches(launches, epoch_launches(CA_PER_FORWARD, epochs, n_train, n_val),
+            expect_launches(launches, epoch_launches(RECIPE_CA_PER_FORWARD, epochs, n_train, n_val),
                             'train_sisr online (%s)' % label)
-            want = {map_key(TRAIN_SHAPE): CA_PER_FORWARD * epochs * n_train,
+            want = {map_key(TRAIN_SHAPE): RECIPE_CA_PER_FORWARD * epochs * n_train,
                     map_key((BATCH, LR_SIZE, LR_SIZE, 64)):
-                        CA_PER_FORWARD * epochs * (n_val + 1)}
+                        RECIPE_CA_PER_FORWARD * epochs * (n_val + 1)}
             if by_map != want:
                 raise AssertionError('train_sisr online (%s) launched %s, expected %s'
                                      % (label, by_map, want))
@@ -3002,17 +3026,17 @@ def phase_online_train_main_path(dirs, root):
     eval_by_map = read_onchip_shapes()
     n_batches = -(-N_IMAGES // BATCH)
     expect_launches(eval_launches, {
-        **NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD * n_batches,
-        'fused_channel_attention_onchip': CA_PER_FORWARD * n_batches}, 'eval of the best '
+        **NO_LAUNCHES, 'fused_channel_attention': RECIPE_CA_PER_FORWARD * n_batches,
+        'fused_channel_attention_onchip': RECIPE_CA_PER_FORWARD * n_batches}, 'eval of the best '
         'online epoch')
-    if eval_by_map != {map_key((BATCH, LR_SIZE, LR_SIZE, 64)): CA_PER_FORWARD * n_batches}:
+    if eval_by_map != {map_key((BATCH, LR_SIZE, LR_SIZE, 64)): RECIPE_CA_PER_FORWARD * n_batches}:
         raise AssertionError('eval of the best online epoch launched %s' % eval_by_map)
     best = summary.loc[summary['val-PSNR'].idxmax()]
     report['eval_best'] = {'launches': eval_launches, 'launches_by_map': eval_by_map,
                            'cli_seconds': eval_seconds, 'epoch': int(best['epoch']),
                            'mean_psnr': float(frame[('qrcan_online', 'PSNR')].mean()),
                            'val_psnr': float(best['val-PSNR'])}
-    emit({'phase': 'online_train_main_path', 'model': 'qrcan 10x20 64f 4x bf16, standard '
+    emit({'phase': 'online_train_main_path', 'model': 'qrcan 5x10 64f 4x bf16, standard '
           '+ q_node, device-mode online degradation (kernel 21, 10 PCA codes), batch 8, '
           'LR crop 64, orbax-backend directories, bf16 moments', **report,
           'nvidia_smi': nvidia_smi_line()})
@@ -3176,16 +3200,16 @@ def phase_sampler_train(faces, root):
 
 def phase_bf16_train_steps(f32_breakdowns):
     """10 timed warm bf16 train steps (autocast around f32 parameters) of Q-RCAN and RCAN
-    at 5 x 20 as configs/div2k/qrcan.toml trains them, through the handler (as
+    at 5 x 10 as configs/div2k/qrcan.toml trains them, through the handler (as
     train_step_breakdown: wall, forward / backward / optimizer, device busy, idle share,
     peak memory), beside this run's f32 steps of the same models.  Each step's CA
     launches (a block's each) on chip at (8, 64, 64, 64) bf16."""
     out = {}
     with tf32(True, False):
         for name, model, internal, calls in (
-                ('qrcan_5x20', 'qrcan', {**QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH},
+                ('qrcan_5x10', 'qrcan', {**QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH},
                  RECIPE_CA_PER_FORWARD),
-                ('rcan_5x20', 'rcan', {**RCAN_TRAIN, **RECIPE_TRAIN_DEPTH},
+                ('rcan_5x10', 'rcan', {**RCAN_TRAIN, **RECIPE_TRAIN_DEPTH},
                  RECIPE_CA_PER_FORWARD)):
             bf16 = train_step_breakdown(model, {**internal, 'dtype': 'bf16'}, turns=False)
             expect_launches(bf16['launches_per_step'], {
@@ -3486,7 +3510,7 @@ def hub_frame(dirs, results_name):
 
 
 def phase_qsan_grid(dirs, bf16_mean_psnr):
-    """Q-SAN at 10 x 10 (half depth: QSAN_GRID) with max_combined_im_size 10000
+    """Q-SAN at 10 x 5 (QSAN_GRID) with max_combined_im_size 10000
     (experiment qsan_grid: a limit under which the 128^2 maps take a 2 x 2 grid of 84^2
     tiles) on the 16 pairs:
     the fused protocol (batch 8: one step a batch, the grid inside it, 32 tiles) and
@@ -3535,7 +3559,7 @@ def phase_qsan_grid(dirs, bf16_mean_psnr):
         report[tag] = {**runs, 'max_diff_standard_to_fused': diff}
     if not abs(report['int8']['fused']['mean_psnr'] - report['bf16']['fused']['mean_psnr']) < 1:
         raise AssertionError('qsan grid int8 mean PSNR is not within 1 dB of bf16\'s')
-    report['qsan_20x10_bf16_mean_psnr'] = bf16_mean_psnr
+    report['qsan_20x5_bf16_mean_psnr'] = bf16_mean_psnr
     report['nvidia_smi'] = nvidia_smi_line()
     emit(report)
     return {'launches': dict(NO_LAUNCHES), 'frame': frames['qsan_grid_standard_bf16']}
@@ -3860,9 +3884,9 @@ def phase_train_standard_val(dirs, root, recipe='qrcan', source_dir='div2k'):
 
 
 # --- the perceptual loss, FACE_SIM, serving export and the host tools -------------------
-# configs/div2k/qrcan.toml's model and optimizer at full depth in f32 with the VGG54
+# configs/div2k/qrcan.toml's model and optimizer (cut to 5 x 10) in f32 with the VGG54
 # perceptual term (lambda 1.0) on a seeded torchvision-layout VGG19 trunk to conv5_4
-QRCAN_PERCEPTUAL = {**QRCAN_TRAIN, 'perceptual': 1.0}
+QRCAN_PERCEPTUAL = {**QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH, 'perceptual': 1.0}
 # the perceptual loss card against the CPU: Q-RCAN cut to 2 x 2, batch 2, LR crops of
 # 16 (the CPU runs the whole VGG19 trunk on 4 images of 64^2 a step)
 PERCEPTUAL_CPU_DEPTH = {'n_resgroups': 2, 'n_resblocks': 2, 'n_feats': 64}
@@ -3895,7 +3919,7 @@ def write_face_weights(root, seed=9):
 
 
 def write_perceptual_config(dirs, root, vgg_path):
-    """configs/div2k/qrcan.toml's [model] at full depth with ``perceptual = 1.0`` and
+    """configs/div2k/qrcan.toml's [model] at 5 x 10 with ``perceptual = 1.0`` and
     ``vgg_weights``, in f32, on the 16 pairs (LR crops of 64, HR 256^2), fused
     validation, tracked (``aim_track``, ``aim_home``) and cleaned every epoch
     (``model_cleanup_frequency = 1``): (config path, save location, aim_home)."""
@@ -3935,11 +3959,11 @@ def train_batch_on(device, batch, lr=TRAIN_CROP, seed=6):
 
 
 def perceptual_step_breakdown(vgg_path, steps=10):
-    """10 warm f32 train steps of Q-RCAN 10 x 20 (configs/div2k/qrcan.toml's model) with
+    """10 warm f32 train steps of Q-RCAN 5 x 10 (configs/div2k/qrcan.toml's model) with
     and without the perceptual term, in turns (without, with, with, without: 5 steps a
     turn), on one seeded batch of 8 LR crops of 64^2 (HR 256^2): each one's median step
     wall ms, device-busy ms (profiler, 3 steps), idle share, peak memory of a step (both
-    handlers live throughout), and the 200 ca_onchip launches of a step; the VGG term
+    handlers live throughout), and the 50 ca_onchip launches of a step; the VGG term
     alone (its forward on the SR and the HR and its backward to the SR, as a step runs
     it) in device ms and its share of the step's device time.  Returns the report and
     the handler without the term, with the batch (for the profiling tools)."""
@@ -3948,7 +3972,8 @@ def perceptual_step_breakdown(vgg_path, steps=10):
     from sisr_tpu_torch.models.handlers import define_model
     from sisr_tpu_torch.training.losses import l1_loss
     handlers = {label: define_model('qrcan', device='cuda', seed=8,
-                                    **{**FULL_DEPTH, **QRCAN_TRAIN, **extra})
+                                    **{**FULL_DEPTH, **QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH,
+                                       **extra})
                 for label, extra in (('without', {}), ('with', {'perceptual': 1.0,
                                                                 'vgg_weights': vgg_path}))}
     batch = train_batch_on('cuda', BATCH)
@@ -3968,8 +3993,9 @@ def perceptual_step_breakdown(vgg_path, steps=10):
         handler.run_train(**batch)
         torch.cuda.synchronize()
         launches = read_launches()
-        expect_launches(launches, {**NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD,
-                                   'fused_channel_attention_onchip': CA_PER_FORWARD},
+        expect_launches(launches, {**NO_LAUNCHES,
+                                   'fused_channel_attention': RECIPE_CA_PER_FORWARD,
+                                   'fused_channel_attention_onchip': RECIPE_CA_PER_FORWARD},
                         'Q-RCAN train step %s the perceptual term' % label)
         peak = torch.cuda.max_memory_allocated() / 1e9
         busy_ms, _ = device_kernel_ms(lambda h=handler: h.run_train(**batch), reps=3)
@@ -4022,11 +4048,11 @@ def vgg_conv_flops(vgg, side):
 
 
 def phase_perceptual_train(dirs, root, settle=None):
-    """``train_sisr`` of configs/div2k/qrcan.toml's model and optimizer, Q-RCAN 10 x 20
+    """``train_sisr`` of configs/div2k/qrcan.toml's model and optimizer, Q-RCAN 5 x 10
     f32, with ``perceptual = 1.0`` on a seeded VGG19 trunk (write_vgg19_weights), on
     the 16 pairs at HR crops of 256^2, fused validation, tracked and cleaned every
     epoch: 2 epochs, then a resume for a third (finite losses, the checkpoints, the
-    resumed one at step 6), every CA call on chip, 200 a forward.  Then the loss of 3
+    resumed one at step 6), every CA call on chip, 50 a forward.  Then the loss of 3
     steps on the card (TF32 off) against the CPU at 2 x 2 (batch 2, LR crops of 16),
     within rtol 2e-4, and perceptual_step_breakdown, after ``settle()`` (which ends the
     jobs that run beside this phase).  cuDNN TF32 on, matmul off (PyTorch's defaults)
@@ -4038,7 +4064,7 @@ def phase_perceptual_train(dirs, root, settle=None):
     vgg_path = write_vgg19_weights(os.path.join(root, 'vgg19_features.pth'))
     config, save_loc, aim_home = write_perceptual_config(dirs, root, vgg_path)
     n_train = N_IMAGES // BATCH
-    per_epoch = CA_PER_FORWARD * (n_train + N_IMAGES + 1)  # train, validation, samples
+    per_epoch = RECIPE_CA_PER_FORWARD * (n_train + N_IMAGES + 1)  # train, val, samples
     report = {'tf32': {'cudnn': True, 'matmul': False}}
     total = dict(NO_LAUNCHES)
     with tf32(True, False):
@@ -4081,7 +4107,7 @@ def phase_perceptual_train(dirs, root, settle=None):
         settle()
     with tf32(True, False):
         steps, handler, batch = perceptual_step_breakdown(vgg_path)
-    emit({'phase': 'perceptual_train', 'model': 'qrcan 10x20 64f 4x f32, standard + q_node, '
+    emit({'phase': 'perceptual_train', 'model': 'qrcan 5x10 64f 4x f32, standard + q_node, '
           '10 blur-kernel values, batch 8, LR crop 64, perceptual 1.0 on VGG19 to conv5_4',
           **report, 'steps': steps, 'nvidia_smi': nvidia_smi_line()})
     return {'launches': total, 'save_loc': save_loc, 'experiment': 'qrcan_perceptual',
@@ -4478,7 +4504,7 @@ def phase_tools_path(dirs, root, perceptual, qrcan_frame):
 # process runs the CLI with no launcher, which starts one rank a card itself (NCCL).
 DDP_WORLD = 2
 DDP_EXPERIMENT = 'qrcan_ddp'
-# configs/div2k/qrcan.toml's model, 64 features, cut to 5 x 20 to fit the script's time;
+# configs/div2k/qrcan.toml's model, 64 features, cut to 5 x 10 to fit the script's time;
 # each rank's map in a train step is (BATCH / DDP_WORLD, 64, 64, 64) f32, in a bf16 fused
 # eval (4, 128, 128, 64)
 DDP_TRAIN = {**QRCAN_TRAIN, **RECIPE_TRAIN_DEPTH}
@@ -4506,7 +4532,7 @@ def write_crop_workload(dirs, root):
 
 
 def write_ddp_config(crops, save_loc):
-    """configs/div2k/qrcan.toml's [model] at 5 x 20 and its batch of 8 on the crops
+    """configs/div2k/qrcan.toml's [model] at 5 x 10 and its batch of 8 on the crops
     (no flips: each rank would draw its own), fused validation over the 16 crops in
     batches of 8 (under the mesh each rank runs 4 of them)."""
     from sisr_tpu_torch.utils import toml_io
@@ -4684,13 +4710,22 @@ def rank_job(job, args):
     * ``nccl``, no launcher environment: ``train_sisr --gpu multi`` for 1 epoch, so the
       CLI starts a rank for each card itself (PyTorch's TF32 defaults there);
     * ``export``: ``export_serving`` with the arguments ``args['cli']`` (TF32 off),
-      and its seconds."""
+      and its seconds;
+    * ``bench_tools``: phase_bench_tools in the folder ``args['root']`` (TF32 off)."""
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from sisr_tpu_torch.data import loader
     from sisr_tpu_torch.parallel import distributed
     result = {'job': job}
+    if job == 'bench_tools':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.makedirs(args['root'])
+        result.update(phase_bench_tools(args['root']))
+        with open(args['out'] % 0, 'w') as f:
+            json.dump(result, f)
+        return 0
     if job in ('nccl', 'export'):
         if job == 'nccl':
             _, result['cli_seconds'] = run_train_cli(args['config'], '--gpu', 'multi',
@@ -4869,13 +4904,13 @@ def phase_multi_gpu(dirs, root, rcan_frames, qsan_grid_frame, meanwhile=None):
     """The multi-GPU paths (phase 17), two ranks sharing the card over gloo:
 
     * ``multi_gpu_train``: ``train_sisr --gpu multi`` of configs/div2k/qrcan.toml's
-      model (cut to 5 x 20, 64 features, f32, TF32 off) on the 16 pairs' crops,
+      model (cut to 5 x 10, 64 features, f32, TF32 off) on the 16 pairs' crops,
       global batch 8, 2 epochs and a resume, against the same run in one process (this
       one, ``--gpu single``): every epoch's losses within rtol 2e-4, the final weights
       within 5e-4 (the f32 card-vs-CPU bar); one summary.csv row and one checkpoint an
       epoch (rank 0's); each rank decoded 4 of each 8 training crops and the 16
       validation crops; each rank's ca_onchip launches on the route planned on its own
-      card for its map (4, 64, 64, 64) f32, 100 a forward of a train step or of its
+      card for its map (4, 64, 64, 64) f32, 50 a forward of a train step or of its
       half of a validation batch of 8.  Then, with the card the ranks' alone, each
       rank's DDP step (its 4 crops) and gradient all-reduce, beside one process's step
       on the 8 (both TF32 off), each with its device-busy ms and idle share;
@@ -4889,7 +4924,7 @@ def phase_multi_gpu(dirs, root, rcan_frames, qsan_grid_frame, meanwhile=None):
       (int8_at_rank_batch, which also shows what differs between a batch of 8 and its
       halves); each rank 200 launches a forward of row 1a (bf16) or 2a (int8) on the
       route planned for (4, 128, 128, 64);
-    * ``mesh_tiles``: Q-SAN's standard protocol (10 x 10, max_combined_im_size 10000:
+    * ``mesh_tiles``: Q-SAN's standard protocol (10 x 5, max_combined_im_size 10000:
       a 2 x 2 grid on the 128^2 maps) with ``--mesh``: each rank 2 of the 4 tiles a
       forward, each pair's metrics within 0.01 dB / 1e-3 of the one-process run; the
       forward on 4 tiles against 2 and 2 (qsan_tile_batch_dependence).
@@ -4906,8 +4941,9 @@ def phase_multi_gpu(dirs, root, rcan_frames, qsan_grid_frame, meanwhile=None):
     configs = {loc: write_ddp_config(crops, loc) for loc in (two, one, nccl, nccl_ref)}
     ready, go = os.path.join(root, 'ddp_steps.ready'), os.path.join(root, 'ddp_steps.go')
     n_train = N_IMAGES // BATCH
-    report = {'world': DDP_WORLD, 'model': 'qrcan 5x20 64f 4x f32 (configs/div2k/'
-              'qrcan.toml cut to half depth), batch 8, LR crops 64^2 of the 16 pairs'}
+    report = {'world': DDP_WORLD, 'model': 'qrcan 5x10 64f 4x f32 (configs/div2k/'
+              'qrcan.toml cut to a quarter of its blocks), batch 8, LR crops 64^2 of the '
+              '16 pairs'}
     with socket.socket() as sock:
         sock.bind(('localhost', 0))
         port = sock.getsockname()[1]
@@ -5065,6 +5101,261 @@ def phase_multi_gpu(dirs, root, rcan_frames, qsan_grid_frame, meanwhile=None):
                                                     for r in ranks))}}
 
 
+# --- the benchmark tools (sisr_tpu_torch/tools) ----------------------------------------------
+FLOP_CASES = (('edsr_64f_16b', 'edsr', {}, None, {}),
+              ('edsr_256f_32b', 'edsr', {'num_features': 256, 'num_blocks': 32}, None,
+               {'feats': 256, 'blocks': 32}),
+              ('rcan_10x20', 'rcan', {}, None, {}),
+              ('qrcan_modulate_1', 'qrcan', {'style': 'modulate', 'include_q_layer': True},
+               1, {}))
+NO_CA_CONFIGS = ('edsr', 'edsr_int8', 'san', 'srcnn', 'sparnet')
+SOAK_ARGS = ('--steps', '32', '--images', '64', '--batch', '8')
+
+
+@contextlib.contextmanager
+def module_values(module, **values):
+    """Module attributes set for a block (a tool's passes and sizes), restored after."""
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def phase_bench_tools(root):
+    """Each benchmark tool's entry once on the card at full width with few passes,
+    held to its checks: flops.py's counts within 0.1% of the port's own modules' conv
+    FLOPs (count_conv_flops at 128^2); every E2E_CONFIGS key through run_config (16
+    images, batch 8, one timed pass: finite per-image PSNR, edsr_int8 within 1 dB of
+    edsr, qrcan's 200 ca_onchip launches a forward, san on its tile grid, no CA on
+    edsr, edsr_int8, san, srcnn, sparnet); the family table and --paper (no FAILED
+    row, every MFU in (0, 100%], the int8 RCAN row's 200 CA + residual launches a
+    forward on its planned route); --train and --val (one timed epoch each, on 32 and
+    16 images); every bench_quantization section (batch 8); bench_ca_epilogue (each
+    standalone shape on its planned route, 1e-5 abs with the f32 carry, 2 bf16 ULPs
+    with the bf16 one; the raw int8 RCAN outputs of both epilogues at least min(40 dB, the rounding
+    witnesses' PSNRs) apart); bench_bucketed (its shape counts); bench_decode_cache
+    --passes 1 (the sidecar arm's per-image PSNR equal to the png arm's, each CSV read
+    as the tool writes it); train_soak at 256f/32b for 32 steps into a temporary
+    --out (finite steps, img/s and dB over bicubic).  The launches of
+    bench_ca_epilogue (a kernel against its plain version) are kept apart.  Runs as
+    the rank job ``bench_tools`` (its own process, beside the recipes' runs): returns
+    {'line': the phase's figures, 'launches': the phase's launches}."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from sisr_tpu_torch.tools import (bench_bucketed, bench_ca_epilogue, bench_decode_cache,
+                                      bench_models, bench_quantization, e2e_bench, flops,
+                                      train_soak)
+    tic = time.perf_counter()
+    total = dict(NO_LAUNCHES)
+    seconds = {}
+
+    def run(name, fn, count=True):
+        """(fn(), the launch counts of read_launches made during the call), its
+        seconds added to ``seconds[name]`` and, with ``count``, its launches to the
+        phase's."""
+        before, started = read_launches(), time.perf_counter()
+        result = fn()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - started
+        delta = {k: v - before[k] for k, v in read_launches().items()}
+        if count:
+            for k, v in delta.items():
+                total[k] += v
+        return result, delta
+
+    # analytic FLOPs against the forward hooks' count of the port's modules
+    flop_counts = {}
+    for name, model, internal, meta_cols, kwargs in FLOP_CASES:
+        with module_values(bench_models, BATCH=1):
+            handler = bench_models.family_forward(model, {'scale': SCALE, **internal},
+                                                  LR_SIZE, meta_cols, 'cuda')[0]
+        x = torch.rand(1, LR_SIZE, LR_SIZE, 3, device='cuda')
+        meta = None if meta_cols is None else torch.zeros(1, meta_cols, device='cuda')
+        inp, _, meta = handler._prep_batch({'lr': x, 'metadata': meta})
+        hooks = count_conv_flops(handler, inp, meta)
+        analytic = getattr(flops, '%s_flops_per_image' % model)(lr=LR_SIZE, **kwargs)
+        rel = abs(analytic - hooks) / hooks
+        flop_counts[name] = {'analytic': analytic, 'hooks': hooks, 'rel_diff': rel}
+        if rel > 1e-3:
+            raise AssertionError('flops.py %s: %.6g against %.6g counted (%.2e)'
+                                 % (name, analytic, hooks, rel))
+        del handler
+
+    def csv_of(out_dir):
+        return pd.read_csv(os.path.join(out_dir, 'standard_metrics',
+                                        'individual_metrics.csv'), header=[0, 1], index_col=0)
+
+    # every e2e config through run_config: one warm-up and one timed pass of 16 images,
+    # each per-image CSV read as measure_e2e returns (run_config then removes it)
+    e2e, forwards, frames = {}, 2 * -(-N_IMAGES // BATCH), []
+    measure_e2e = e2e_bench.measure_e2e
+
+    def measure_and_read(lr_dir, hr_dir, model_loc, out_root, *args, **kwargs):
+        rate = measure_e2e(lr_dir, hr_dir, model_loc, out_root, *args, **kwargs)
+        frames.append(csv_of(os.path.join(out_root, 'bench_eval')))
+        return rate
+    saved_passes = os.environ.get('BENCH_PASSES')
+    os.environ['BENCH_PASSES'] = '1'
+    try:
+        for key in e2e_bench.E2E_CONFIGS:
+            with tile_steps() as tiles, module_values(e2e_bench,
+                                                      measure_e2e=measure_and_read):
+                rate, delta = run('e2e_' + key, lambda: e2e_bench.run_config(
+                    key, N_IMAGES, BATCH))
+            frame = frames.pop()
+            vals = frame[[('bench_%s' % key, 'PSNR'), ('LR', 'PSNR')]].to_numpy()
+            if len(frame) != N_IMAGES or not np.isfinite(vals).all():
+                raise AssertionError('e2e %s: %d rows, finite=%s'
+                                     % (key, len(frame), np.isfinite(vals).all()))
+            e2e[key] = {'img_per_s': rate, 'mean_psnr': float(vals[:, 0].mean()),
+                        'launches': delta, 'tile_batches': dict(tiles)}
+    finally:
+        if saved_passes is None:
+            os.environ.pop('BENCH_PASSES')
+        else:
+            os.environ['BENCH_PASSES'] = saved_passes
+    if abs(e2e['edsr_int8']['mean_psnr'] - e2e['edsr']['mean_psnr']) > 1.0:
+        raise AssertionError('e2e edsr_int8 mean PSNR %.4f, edsr %.4f' % (
+            e2e['edsr_int8']['mean_psnr'], e2e['edsr']['mean_psnr']))
+    expect_launches(e2e['qrcan']['launches'], {
+        **NO_LAUNCHES, 'fused_channel_attention': CA_PER_FORWARD * forwards,
+        'fused_channel_attention_onchip': CA_PER_FORWARD * forwards}, 'e2e qrcan')
+    for key in NO_CA_CONFIGS:
+        expect_launches(e2e[key]['launches'], NO_LAUNCHES, 'e2e ' + key)
+    grid = tile_grid((LR_SIZE, LR_SIZE), e2e_bench.E2E_CONFIGS['san']['internal'][
+        'max_combined_im_size'])
+    if grid < 2 or e2e['san']['tile_batches'] != {grid * grid * BATCH: forwards}:
+        raise AssertionError('e2e san tile batches %s (grid %d)'
+                             % (e2e['san']['tile_batches'], grid))
+
+    # the family table and --paper
+    with module_values(bench_models, ITERS=2, WARM=1, PAPER_ITERS=2):
+        table, table_launches = run('table', lambda: bench_models.main_table(set(), 'cuda'))
+        paper, _ = run('paper', lambda: bench_models.main_paper(set(), 'cuda'))
+    failed = sorted(k for k, v in table.items() if v is None)
+    if failed or len(table) != len(bench_models._families()):
+        raise AssertionError('family table: FAILED rows %s' % failed)
+    for row in paper:
+        if row['mfu'] is not None and not 0 < row['mfu'] <= 1:
+            raise AssertionError('--paper %s MFU %s' % (row['name'], row['mfu']))
+    int8_rcan = next(r for r in paper if r['name'] == 'rcan 10x20x64 int8')
+    route, plan = planned_res_route((bench_models.BATCH, LR_SIZE, LR_SIZE, 64),
+                                    64 // RCAN['reduction'], 4, 2)
+    want = CA_PER_FORWARD * int8_rcan['calls']
+    got = int8_rcan['launches']
+    on_route = got['ca_res_rounds' if route == 'onchip' else 'ca_res_stream'
+                   if route == 'stream' else 'ca_res']
+    if got['ca_res'] != want or on_route != want or got['ca']:
+        raise AssertionError('--paper int8 RCAN launches %s, expected %d on %s'
+                             % (got, want, route))
+
+    # --train and --val, one timed epoch each, on 32 and 16 images
+    with module_values(e2e_bench, TIMED_EPOCHS=1,
+                       run_train_bench=functools.partial(e2e_bench.run_train_bench,
+                                                         n_images=32),
+                       run_val_bench=functools.partial(e2e_bench.run_val_bench,
+                                                       n_images=16)):
+        train, _ = run('train', lambda: bench_models.main_train({'--train', '--vs-torch'},
+                                                                'cuda'))
+        val, _ = run('val', lambda: bench_models.main_val('cuda'))
+    if not all(np.isfinite(v) and v > 0 for v in (*train.values(), *val)):
+        raise AssertionError('--train %s, --val %s' % (train, val))
+
+    # every bench_quantization section, at batch 8 (the tool's 16) to keep the phase short
+    with module_values(bench_quantization, ITERS=1, BATCH=8), \
+            module_values(bench_models, WARM=1):
+        quant, _ = run('quantization', lambda: bench_quantization.main(['--all']))
+    for section in quant:
+        for carry, v in section['int8'].items():
+            if not (v['img_s'] > 0 and np.isfinite(v['db_vs_f32'])):
+                raise AssertionError('bench_quantization %s %s: %s'
+                                     % (section['family'], carry, v))
+
+    # bench_ca_epilogue: the standalone shapes on their planned routes, then end to end
+    epilogue, epilogue_launches = [], dict(NO_LAUNCHES)
+    with module_values(bench_ca_epilogue, ITERS=5, E2E_ITERS=1, ROUNDS=1, WARM=1):
+        for shape in bench_ca_epilogue.SHAPES:
+            for r_dtype in ('bfloat16', 'float32'):
+                result, delta = run('ca_epilogue', lambda: bench_ca_epilogue.bench_standalone(
+                    *shape, device='cuda', r_dtype=r_dtype), count=False)
+                key = {'rounds': 'fused_channel_attention_residual_onchip',
+                       'stream': 'fused_channel_attention_residual_stream'}.get(
+                    result['route'])
+                n = delta['fused_channel_attention_residual']
+                if not n or (key and delta[key] != n) or (not key and (
+                        delta['fused_channel_attention_residual_onchip']
+                        or delta['fused_channel_attention_residual_stream'])):
+                    raise AssertionError('ca_epilogue %s %s on %s: launches %s'
+                                         % (shape, r_dtype, result['route'], delta))
+                bad = result['max_abs_err'] > 1e-5 if r_dtype == 'float32' \
+                    else result['max_ulps'] > 2
+                if bad:
+                    raise AssertionError('ca_epilogue %s %s: %s' % (shape, r_dtype, result))
+                epilogue.append(result)
+                epilogue_launches = {k: epilogue_launches[k] + delta[k] for k in delta}
+        result, delta = run('ca_epilogue_e2e', lambda: bench_ca_epilogue.bench_e2e_int8_rcan(
+            device='cuda'), count=False)
+    epilogue_launches = {k: epilogue_launches[k] + delta[k] for k in delta}
+    # the raw outputs at least 40 dB apart, or as close as a rounding-only change of the
+    # plain tail leaves them (its pool summed other ways), whichever is lower
+    limit = min([40.0, *result['witness_psnr_db_unclipped'].values()])
+    result['limit_db'] = limit
+    if not result['psnr_db_unclipped'] >= limit:
+        raise AssertionError('ca_epilogue e2e: kernel and plain outputs %.2f dB apart, '
+                             'limit %.2f (rounding witnesses %s)'
+                             % (result['psnr_db_unclipped'], limit,
+                                result['witness_psnr_db_unclipped']))
+    epilogue.append(result)
+
+    # bench_bucketed, bench_decode_cache --passes 1, train_soak for 32 steps
+    bucketed, _ = run('bucketed', lambda: bench_bucketed.main([]))
+    per_shape, buckets = (r[2] for r in bucketed.values())
+    want_buckets = len({(-(-h // 32) * 32, -(-w // 32) * 32)
+                        for h, w in bench_bucketed.SHAPES})
+    if (per_shape, buckets) != (len(set(bench_bucketed.SHAPES)), want_buckets):
+        raise AssertionError('bench_bucketed shapes %s' % bucketed)
+    # each arm's per-image CSV read after its passes (the tool then removes it)
+    timed_passes = bench_decode_cache._timed_passes
+
+    def passes_and_read(hub, *args, **kwargs):
+        result = timed_passes(hub, *args, **kwargs)
+        frames.append(csv_of(hub.out_dir))
+        return result
+    with module_values(bench_decode_cache, _timed_passes=passes_and_read):
+        decode, _ = run('decode_cache', lambda: bench_decode_cache.main(['--passes', '1']))
+    arms, frames[:] = frames[:], []
+    psnr = [arm[('bench_edsr', 'PSNR')] for arm in arms]
+    if len(psnr) != 2 or not psnr[0].equals(psnr[1]):
+        raise AssertionError('bench_decode_cache: the sidecar arm\'s PSNR differs')
+    soak_out = os.path.join(root, 'soak_out')
+    soak, _ = run('soak', lambda: train_soak.main([*SOAK_ARGS, '--out', soak_out]))
+    with open(os.path.join(soak_out, 'soak_result.json')) as f:
+        written = json.load(f)
+    if written != soak or not all(
+            isinstance(soak[k], (int, float)) and np.isfinite(soak[k])
+            for k in ('steps', 'train_img_per_sec_per_chip', 'db_over_bicubic')):
+        raise AssertionError('train_soak result %s' % written)
+    torch.cuda.empty_cache()
+    line = {'seconds': time.perf_counter() - tic,
+          'tool_seconds': seconds, 'flops': flop_counts,
+          'e2e': {k: {kk: v[kk] for kk in ('img_per_s', 'mean_psnr', 'tile_batches')}
+                  for k, v in e2e.items()},
+          'table_img_per_s': table, 'table_launches': table_launches,
+          'paper': paper, 'int8_rcan_route': route, 'train': train,
+          'val_img_per_s': {'standard': val[0], 'fused': val[1]},
+          'quantization': quant, 'ca_epilogue': epilogue,
+          'ca_epilogue_launches': epilogue_launches,
+          'bucketed': {k: {'cold_s': v[0], 'warm_s': v[1], 'forward_shapes': v[2]}
+                       for k, v in bucketed.items()},
+          'decode_cache': decode, 'soak': soak, 'launches': total,
+          'nvidia_smi': nvidia_smi_line()}
+    return {'line': line, 'launches': total}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5097,8 +5388,8 @@ def main():
         batch1 = phase_kernel_batch1()
         training_shapes = phase_kernel_backward()
         training_shape = training_shapes['float32']
-        for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x20', 'qhan_10x20',
-                     'san_20x10', 'qsan_20x10', 'srmd_12', 'sftmd_16b', 'sftmd_q16b',
+        for name in ('rcan_10x20', 'qrcan_10x20', 'edsr_16b', 'han_10x10', 'qhan_10x10',
+                     'san_20x5', 'qsan_20x5', 'srmd_12', 'sftmd_16b', 'sftmd_q16b',
                      'sparnet_128', 'qsparnet_512', 'srcnn_955', 'vdsr_20'):
             phase_reference(name)
         phase_holistic_attention()
@@ -5113,9 +5404,9 @@ def main():
         paths = {'rcan_bf16': phase_main_path(dirs)}
         paths['rcan_int8'] = phase_int8_main_path(dirs, paths['rcan_bf16']['mean_psnr'])
         for name, model in (('qrcan', 'qrcan_10x20'), ('edsr', 'edsr_16b'),
-                            ('qedsr', 'qedsr_32b'), ('han', 'han_10x20'),
-                            ('qhan', 'qhan_10x20'), ('san', 'san_20x10'),
-                            ('qsan', 'qsan_20x10'), ('srmd', 'srmd_12'),
+                            ('qedsr', 'qedsr_32b'), ('han', 'han_10x10'),
+                            ('qhan', 'qhan_10x10'), ('san', 'san_20x5'),
+                            ('qsan', 'qsan_20x5'), ('srmd', 'srmd_12'),
                             ('sftmd', 'sftmd_16b'), ('vdsr', 'vdsr_20')):
             paths[name + '_bf16'] = phase_main_path(dirs, model)
             paths[name + '_int8'] = phase_int8_main_path(
@@ -5127,11 +5418,6 @@ def main():
             paths[name + '_int8_ignored'] = phase_int8_ignored(
                 dirs, paths[name + '_bf16']['frame'], model)
         paths['qrcan_train'] = phase_train_main_path(dirs, root)
-        paths['qrcan_online_train'] = phase_online_train_main_path(dirs, root)
-        paths['qrcan_host_degradation_train'] = phase_host_degradation_train(dirs, root)
-        faces = write_celeba_workload(dirs, root)
-        paths['qrcan_attributes_eval'] = phase_attributes_eval(faces)
-        paths['qrcan_sampler_train'] = phase_sampler_train(faces, root)
         bf16_steps = phase_bf16_train_steps(paths['qrcan_train']['breakdowns'])
         mixed = write_mixed_workload(dirs, root)
         for name, model in (('rcan', 'rcan_10x20'), ('qrcan', 'qrcan_10x20')):
@@ -5143,11 +5429,11 @@ def main():
         div2k_tail = paths['rcan_int8_standard']['stream_tail']
         paths['rcan_model_only'] = phase_model_only(mixed)
         paths['qrcan_f32_model_only'] = phase_qrcan_f32_model_only(mixed)
-        paths['qhan_standard'] = phase_standard_eval(mixed, 'qhan_10x20',
+        paths['qhan_standard'] = phase_standard_eval(mixed, 'qhan_10x10',
                                                      paths['qhan_bf16']['frame'], images=False)
         paths['qhan_buckets'] = phase_bucketed_eval(mixed, paths['qhan_standard']['frame'],
-                                                    'qhan_10x20')
-        paths['qsan_standard'] = phase_tiled_standard_eval(mixed, 'qsan_20x10',
+                                                    'qhan_10x10')
+        paths['qsan_standard'] = phase_tiled_standard_eval(mixed, 'qsan_20x5',
                                                            paths['qsan_bf16']['frame'])
         paths['qsan_grid'] = phase_qsan_grid(dirs, paths['qsan_bf16']['mean_psnr'])
         paths['sftmd_standard'] = phase_standard_eval(mixed, 'sftmd_16b',
@@ -5156,18 +5442,30 @@ def main():
         paths['sftmd_buckets'] = phase_bucketed_eval(
             mixed, paths['sftmd_standard']['frame'], 'sftmd_16b')
         paths['qsparnet_standard'] = phase_preupscaled_standard(mixed, dirs, root)
-        # the serving exports are host work: they run beside the recipes and the
-        # perceptual train runs, and end before its timed steps
+        # the serving exports (host work) and the benchmark tools (phase 18, a process
+        # of its own) run beside the recipes, phase 15's training runs and the
+        # perceptual train runs, none of them timed, and end before its timed steps
         exports = start_exports(dirs, root)
         side_jobs.extend(job for job, _ in exports.values())
+        side_jobs.append(start_rank_job('bench_tools',
+                                        {'root': os.path.join(root, 'bench_tools')}, root))
         paths['qrcan_train_standard_val'] = phase_train_standard_val(dirs, root)
         paths['qhan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qhan')
         paths['qsan_train_standard_val'] = phase_train_standard_val(dirs, root, 'qsan')
         paths['sftmd_train_standard_val'] = phase_train_standard_val(dirs, root, 'sftmd')
         paths['qsparnet_train_standard_val'] = phase_train_standard_val(
             write_interp_workload(dirs, root), root, 'qsparnet', 'celebahq')
+        paths['qrcan_online_train'] = phase_online_train_main_path(dirs, root)
+        paths['qrcan_host_degradation_train'] = phase_host_degradation_train(dirs, root)
+        faces = write_celeba_workload(dirs, root)
+        paths['qrcan_attributes_eval'] = phase_attributes_eval(faces)
+        paths['qrcan_sampler_train'] = phase_sampler_train(faces, root)
         paths['qrcan_perceptual_train'] = phase_perceptual_train(
             dirs, root, settle=lambda: finish_jobs(side_jobs, time.monotonic()))
+        bench = rank_result(root, 'bench_tools', 0)
+        emit({'phase': 'bench_tools', 'ran_beside': 'the recipes, phase 15\'s training '
+              'runs, the perceptual train runs and the serving exports', **bench['line']})
+        paths['bench_tools'] = {'launches': bench['launches']}
         paths['qsparnet_face_sim_eval'] = phase_face_sim_eval(dirs, root)
         paths['tools_path'] = phase_tools_path(dirs, root, paths['qrcan_perceptual_train'],
                                                paths['qrcan_bf16']['frame'])

@@ -61,7 +61,8 @@ from torch import Tensor
 from ..models.advanced import csam_weight, layer_attention
 from ..models.san import embedded_gaussian, max_pool2, quadrants, second_order_pool
 from .channel_attention import (KERNEL_STYLES, fused_channel_attention,
-                                fused_channel_attention_residual, tracing)
+                                fused_channel_attention_residual,
+                                reference_channel_attention_residual, tracing)
 
 _INT_MM_MULTIPLE = 8    # _int_mm on CUDA takes K and N divisible by 8 ...
 _INT_MM_MIN_ROWS = 17   # ... and more than 16 rows
@@ -417,24 +418,39 @@ def scales_on(act_scales, device):
 
 
 def rcan_int8_forward_static(qparams, act_scales, x, n_resgroups=10, n_resblocks=20,
-                             residual_dtype='bfloat16'):
+                             residual_dtype='bfloat16', ca_epilogue='kernel'):
     """Quantized RCAN forward: int8 convs, f32 channel attention, narrow residual
-    carry; each RCAB tail is one :func:`fused_channel_attention_residual` call.
+    carry; each RCAB tail is one :func:`fused_channel_attention_residual` call, or with
+    ``ca_epilogue='plain'`` its plain version (:func:`_ca_tail`).
 
     ``x`` is the f32 NHWC LR batch; returns the f32 NHWC SR batch."""
     carry_t = _carry_type(residual_dtype)
     qconv = _qconv_with(act_scales)
     h = qconv('head', qparams['head'], x).to(carry_t)
-    res = _rcan_groups_int8(qparams, qconv, h, n_resgroups, n_resblocks)[-1]
+    res = _rcan_groups_int8(qparams, qconv, h, n_resgroups, n_resblocks, ca_epilogue)[-1]
     res = qconv('body_tail', qparams['body_tail'], res) + h.float()
     res = _pow2_upsample(qconv, qparams['upsampler'], res)
     return qconv('tail', qparams['tail'], res)
 
 
-def _rcan_groups_int8(qparams, qconv, h, n_resgroups, n_resblocks):
+def _ca_tail(ca_epilogue):
+    """The RCAB tail of the int8 programs: ``'kernel'`` (the default, the main path)
+    :func:`fused_channel_attention_residual`, ``'plain'`` its plain version
+    :func:`reference_channel_attention_residual`, the unfused PyTorch ops on every
+    device (sisr_tpu's ``ca_epilogue`` 'pallas' and 'xla'; ``tools/bench_ca_epilogue``
+    times the two)."""
+    if ca_epilogue == 'kernel':
+        return fused_channel_attention_residual
+    if ca_epilogue == 'plain':
+        return reference_channel_attention_residual
+    raise ValueError("ca_epilogue must be 'kernel' or 'plain', got %r" % (ca_epilogue,))
+
+
+def _rcan_groups_int8(qparams, qconv, h, n_resgroups, n_resblocks, ca_epilogue='kernel'):
     """RCAN's (and HAN's) int8 residual groups on the head's output ``h`` in the
-    carry's type, each RCAB tail one :func:`fused_channel_attention_residual` call:
-    each group's output, in order."""
+    carry's type, each RCAB tail one ``ca_epilogue`` call (:func:`_ca_tail`): each
+    group's output, in order."""
+    tail = _ca_tail(ca_epilogue)
     res, outs = h, []
     for g in range(n_resgroups):
         grp = qparams['group_%d' % g]
@@ -445,9 +461,8 @@ def _rcan_groups_int8(qparams, qconv, h, n_resgroups, n_resblocks):
             y = torch.relu(qconv(pre + '.conv_0', blk['conv_0'], r))
             y = qconv(pre + '.conv_1', blk['conv_1'], y)
             ca = blk['ca']
-            r = fused_channel_attention_residual(y, r, ca['du_0']['kernel'],
-                                                 ca['du_0']['bias'], ca['du_1']['kernel'],
-                                                 ca['du_1']['bias'])
+            r = tail(y, r, ca['du_0']['kernel'], ca['du_0']['bias'], ca['du_1']['kernel'],
+                     ca['du_1']['bias'])
         res = qconv('group_%d.conv_tail' % g, grp['conv_tail'], r).to(h.dtype) + res
         outs.append(res)
     return outs
@@ -945,14 +960,15 @@ def calibrate_han_scales(params, sample_batches, n_resgroups=10, n_resblocks=20,
 
 
 def han_int8_forward_static(qparams, act_scales, x, n_resgroups=10, n_resblocks=20,
-                            residual_dtype='bfloat16'):
+                            residual_dtype='bfloat16', ca_epilogue='kernel'):
     """Quantized HAN forward: RCAN's int8 body (each RCAB tail one
     :func:`fused_channel_attention_residual` call: sisr_tpu's
-    ``ca_epilogue='pallas'``), LAM and CSAM in bf16, the fusion convs int8."""
+    ``ca_epilogue='pallas'``; ``'plain'`` its plain version), LAM and CSAM in bf16,
+    the fusion convs int8."""
     qconv = _qconv_with(act_scales)
     h = qconv('head', qparams['head'], x).to(_carry_type(residual_dtype))
     return _han_fusion_int8(qparams, qconv, h, _rcan_groups_int8(
-        qparams, qconv, h, n_resgroups, n_resblocks))
+        qparams, qconv, h, n_resgroups, n_resblocks, ca_epilogue))
 
 
 def quantize_qhan_params(params, n_resgroups=10, n_resblocks=20):

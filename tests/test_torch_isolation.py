@@ -1,6 +1,7 @@
 """sisr_tpu_torch and chip_smoke import nothing of JAX, Flax or sisr_tpu, and the
 port's entry points (eval, training, the feature extractors, serving export and
-run_serving) run on CUDA unless told otherwise (raising where there is none)."""
+run_serving, the benchmark tools) run on CUDA unless told otherwise (raising where
+there is none)."""
 import os
 import subprocess
 import sys
@@ -31,6 +32,9 @@ CHECK = textwrap.dedent('''
     from sisr_tpu_torch.utils.helpers import resolve_device, training_device
     from sisr_tpu_torch.models import feature_extractors as fx
     from sisr_tpu_torch.tools import export_serving, run_serving
+    from sisr_tpu_torch.tools import (bench_bucketed, bench_ca_epilogue,
+                                      bench_decode_cache, bench_models,
+                                      bench_quantization, e2e_bench, train_soak)
     weights = sisr_tpu_torch.__file__  # a file: the device is resolved before it is read
     for call in (lambda: resolve_device(), lambda: define_model('rcan', n_resgroups=1,
                  n_resblocks=1, n_feats=16), lambda: EvalHub._select_device(True),
@@ -39,7 +43,16 @@ CHECK = textwrap.dedent('''
                  lambda: fx.load_vgg_extractor(weights),
                  lambda: fx.load_face_extractor('lightcnn', weights),
                  lambda: export_serving.export_experiment('m', 'e', 0, 1, 8, 8),
-                 lambda: run_serving.serve_directory('a.pt2', 'in')):
+                 lambda: run_serving.serve_directory('a.pt2', 'in'),
+                 lambda: e2e_bench.measure_e2e('l', 'h', 'm', 'o', 'e', 8, 8),
+                 lambda: e2e_bench.run_train_bench(), lambda: e2e_bench.run_val_bench(),
+                 lambda: e2e_bench.measure_train_torch(),
+                 lambda: bench_models.main([]), lambda: bench_models.main(['--paper']),
+                 lambda: bench_models.main(['--train']), lambda: bench_models.main(['--val']),
+                 lambda: bench_quantization.main(['--all']),
+                 lambda: bench_ca_epilogue.main([]), lambda: bench_bucketed.main([]),
+                 lambda: bench_decode_cache.main([]),
+                 lambda: train_soak.main(['--out', 'never_written'])):
         try:
             call()
         except RuntimeError as exc:
