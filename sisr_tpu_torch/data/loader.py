@@ -24,6 +24,8 @@ import threading
 import numpy as np
 import torch
 
+from ..tools import profiling
+
 # items loaded by any DataLoader of the process (dataset.__getitem__ calls); counted
 # under a lock, since loader threads finish batches concurrently
 ITEMS_LOADED = 0
@@ -226,7 +228,9 @@ class DataLoader:
         batches = iter(self._process_batches())
         if self.num_workers == 1:
             for batch, factor in batches:
-                yield self._finish([self.dataset[i] for i in batch], factor)
+                with profiling.span('loader.batch'):
+                    out = self._finish([self.dataset[i] for i in batch], factor)
+                yield out
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             def submit(batch):  # per-ITEM futures: all workers decode in parallel
@@ -242,7 +246,9 @@ class DataLoader:
                 nxt = next(batches, None)
                 if nxt is not None:
                     pending.append((submit(nxt[0]), nxt[1]))
-                yield self._finish([f.result() for f in futs], factor)
+                with profiling.span('loader.batch'):
+                    out = self._finish([f.result() for f in futs], factor)
+                yield out
 
 
 _DEVICE_BATCHES_AHEAD = 2  # batches on their way to the device at once
@@ -311,7 +317,9 @@ def device_prefetch(iterator, device):
     def uploader():
         try:
             for b in iterator:
-                _put(put(b))
+                with profiling.span('loader.upload'):
+                    item = put(b)
+                _put(item)
                 if abandoned.is_set():
                     return
             _put(end)

@@ -52,6 +52,7 @@ from ..ops.metrics import Metrics
 from ..ops.resize import resize_uint8
 from ..parallel import distributed
 from ..parallel.mesh import MeshContext
+from ..tools import profiling
 from ..tools.visualization import interpret_sisr_images, safe_image_save
 from ..utils import toml_io
 from ..utils.helpers import create_dir_if_empty
@@ -396,48 +397,53 @@ class EvalHub:
         none); a later pass iterates
         them (no decode, no upload, no fetcher thread) and, unless timed, copies each
         model's metrics to the host once (:meth:`_realize_pending_grouped`)."""
-        self.rgb_data.dataset.keep_uint8 = True
-        # under a mesh the batches are stacked on the host, to be cut into the ranks'
-        # slices there; each rank uploads its own
-        self.rgb_data.device_collate = not self.mesh
-        metric_package = defaultdict(list)
-        pending = []  # (experiment, is_first_model, keys, future or (K,N) values, rt, n)
-        collect = None
-        if self._device_batch_cache is not None:
-            batches = iter(self._device_batch_cache)
-        else:
-            batches = iter(self.rgb_data)
-            if self.mesh and not any(m.model.tiled_eval for m in self.model_bundles):
-                # a tile-grid family takes whole batches (it shares out its tiles)
-                mesh = self.model_bundles[0].model.mesh
-                batches = (mesh.shard_batch(b) for b in batches)
-            batches = device_prefetch(batches, self.device)
-            if self.cache_device:
-                collect = {'batches': [], 'bytes': 0}
-                batches = self._collecting_iter(batches, collect)
-        defer = self._device_batch_cache is not None and not self.time_models
-        if defer:
-            self._run_fused_loop(batches, pending, metric_package, None)
-            self._realize_pending_grouped(pending)
-        else:
-            with ThreadPoolExecutor(max_workers=1) as fetcher:
-                self._run_fused_loop(batches, pending, metric_package, fetcher)
-                pending = [entry[:3] + (entry[3].result(),) + entry[4:] for entry in pending]
-        if collect is not None and collect['bytes'] <= self._device_batch_cache_cap:
-            self._device_batch_cache = collect['batches']  # after a complete pass only
-        for experiment, is_first, keys, vals, runtime, n in pending:
-            rows = dict(zip(keys, vals))
-            for met in self.metrics:
-                if is_first:
-                    metric_package['LR>%s' % met].append(
-                        [float(x) for x in rows['LR>%s' % met]])
-                metric_package['%s>%s' % (experiment, met)].append(
-                    [float(x) for x in rows['model>%s' % met]])
-            if runtime is not None:
-                if is_first:
-                    metric_package['LR>runtime'].append([float('nan')] * n)
-                metric_package['%s>runtime' % experiment].append([runtime] * n)
-        self.manipulate_and_save_metrics(metric_package)
+        with profiling.span('eval.pass'):
+            self.rgb_data.dataset.keep_uint8 = True
+            # under a mesh the batches are stacked on the host, to be cut into the ranks'
+            # slices there; each rank uploads its own
+            self.rgb_data.device_collate = not self.mesh
+            metric_package = defaultdict(list)
+            # (experiment, is_first_model, keys, future or (K,N) values, rt, n)
+            pending = []
+            collect = None
+            if self._device_batch_cache is not None:
+                batches = iter(self._device_batch_cache)
+            else:
+                batches = iter(self.rgb_data)
+                if self.mesh and not any(m.model.tiled_eval for m in self.model_bundles):
+                    # a tile-grid family takes whole batches (it shares out its tiles)
+                    mesh = self.model_bundles[0].model.mesh
+                    batches = (mesh.shard_batch(b) for b in batches)
+                batches = device_prefetch(batches, self.device)
+                if self.cache_device:
+                    collect = {'batches': [], 'bytes': 0}
+                    batches = self._collecting_iter(batches, collect)
+            defer = self._device_batch_cache is not None and not self.time_models
+            if defer:
+                self._run_fused_loop(batches, pending, metric_package, None)
+                with profiling.span('eval.rows_copy'):
+                    self._realize_pending_grouped(pending)
+            else:
+                with ThreadPoolExecutor(max_workers=1) as fetcher:
+                    self._run_fused_loop(batches, pending, metric_package, fetcher)
+                    with profiling.span('eval.rows_copy'):
+                        pending = [entry[:3] + (entry[3].result(),) + entry[4:]
+                                   for entry in pending]
+            if collect is not None and collect['bytes'] <= self._device_batch_cache_cap:
+                self._device_batch_cache = collect['batches']  # after a complete pass only
+            for experiment, is_first, keys, vals, runtime, n in pending:
+                rows = dict(zip(keys, vals))
+                for met in self.metrics:
+                    if is_first:
+                        metric_package['LR>%s' % met].append(
+                            [float(x) for x in rows['LR>%s' % met]])
+                    metric_package['%s>%s' % (experiment, met)].append(
+                        [float(x) for x in rows['model>%s' % met]])
+                if runtime is not None:
+                    if is_first:
+                        metric_package['LR>runtime'].append([float('nan')] * n)
+                    metric_package['%s>runtime' % experiment].append([runtime] * n)
+            self.manipulate_and_save_metrics(metric_package)
 
     def _collecting_iter(self, batches, collect):
         """``batches``, each kept in ``collect['batches']`` while the bytes of all so far
@@ -467,15 +473,21 @@ class EvalHub:
                 offset += width
 
     def _run_fused_loop(self, batches, pending, metric_package, fetcher):
+        batches = iter(batches)
         with tqdm(total=len(self.rgb_data)) as pbar:
-            for batch in batches:
+            for index in itertools.count():
+                with profiling.span('eval.batch_wait', unit=index):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 im_names = batch['tag']
                 metric_package['Image_Name'].append(list(im_names))
                 diag = ''
                 for idx, model in enumerate(self.model_bundles):
-                    (keys, vals), runtime = model.model.run_eval_fused(
-                        batch, metrics=tuple(self.metrics), timing=self.time_models,
-                        include_lr=idx == 0)
+                    with profiling.span('eval.step', device=True):
+                        (keys, vals), runtime = model.model.run_eval_fused(
+                            batch, metrics=tuple(self.metrics), timing=self.time_models,
+                            include_lr=idx == 0)
                     # no fetcher: the device matrix waits for one grouped copy
                     fut = vals if fetcher is None \
                         else fetcher.submit(lambda v: v.cpu().numpy(), vals)
@@ -485,26 +497,29 @@ class EvalHub:
                         psnr_row = fut.result()[keys.index('model>PSNR')]
                         diag += '%s PSNR: %.4f, ' % (model.experiment,
                                                      float(np.mean(psnr_row)))
+                profiling.count('eval.images', len(im_names))
                 pbar.update(1)
                 if diag:
                     pbar.set_description(diag[:-2])
 
     def manipulate_and_save_metrics(self, metric_package):
         """MultiIndex CSV reports (ref: standard_eval.py:300-319), written by rank 0."""
-        for key in metric_package.keys():
-            metric_package[key] = list(itertools.chain.from_iterable(metric_package[key]))
+        with profiling.span('eval.report'):
+            for key in metric_package.keys():
+                metric_package[key] = list(
+                    itertools.chain.from_iterable(metric_package[key]))
 
-        full_results = pd.DataFrame.from_dict(metric_package).set_index(['Image_Name'])
-        full_results.columns = pd.MultiIndex.from_tuples(
-            [tuple(c.split('>')) for c in full_results.columns])
-        av_results = self.average_multilevel_dataframe(full_results)
+            full_results = pd.DataFrame.from_dict(metric_package).set_index(['Image_Name'])
+            full_results.columns = pd.MultiIndex.from_tuples(
+                [tuple(c.split('>')) for c in full_results.columns])
+            av_results = self.average_multilevel_dataframe(full_results)
 
-        if self._primary:
-            metrics_dir = os.path.join(self.out_dir, 'standard_metrics')
-            create_dir_if_empty(metrics_dir)
-            full_results.to_csv(os.path.join(metrics_dir, 'individual_metrics.csv'))
-            av_results.to_csv(os.path.join(metrics_dir, 'average_metrics.csv'))
-        return full_results, av_results
+            if self._primary:
+                metrics_dir = os.path.join(self.out_dir, 'standard_metrics')
+                create_dir_if_empty(metrics_dir)
+                full_results.to_csv(os.path.join(metrics_dir, 'individual_metrics.csv'))
+                av_results.to_csv(os.path.join(metrics_dir, 'average_metrics.csv'))
+            return full_results, av_results
 
     def average_multilevel_dataframe(self, dataframe):
         """(ref: standard_eval.py:321-326)"""

@@ -65,6 +65,7 @@ from ..ops.degradations import degrade_batch_on_device
 from ..ops.masking import apply_mask, conv_mask_hooks, spatial_masks
 from ..ops.metrics import psnr_nhw, ssim_nhw
 from ..ops.resize import resize_bicubic
+from ..tools import profiling
 from ..tools.convert_weights import params_from_state_dict, repair_reference_keys
 from ..training.losses import build_loss
 from ..training.state import apply_update, build_optimizer
@@ -465,11 +466,15 @@ class BaseHandler:
         return batch
 
     def _train_step(self, batch):
-        loss = self.forward_loss(batch)
-        self.backward(loss)
-        self.update()
-        loss = loss.detach()
-        return loss if self.mesh is None else self.mesh.mean(loss)
+        with profiling.span('train.step', device=True):
+            with profiling.span('train.forward', device=True):
+                loss = self.forward_loss(batch)
+            with profiling.span('train.backward', device=True):
+                self.backward(loss)
+            with profiling.span('train.optimizer', device=True):
+                self.update()
+            loss = loss.detach()
+            return loss if self.mesh is None else self.mesh.mean(loss)
 
     def forward_loss(self, batch):
         """The step's first part: the batch on the device (uint8 divided there), the
@@ -975,41 +980,46 @@ class BaseHandler:
         @torch.inference_mode()
         def step(batch):
             self._set_training(False)
-            lr = _as_f32(batch['lr'])  # the RGB LR, without any metadata maps
-            hr = _as_f32(batch['hr'])
-            hr_y = _y_channel(hr)
-            lr_y, x_img = None, lr
-            if include_lr or interp_input:
-                # device bicubic stands in for the host PIL prep (same filter
-                # weights; <=1 uint8 LSB fixed-point difference)
-                interp = resize_bicubic(lr, hr.shape[1], hr.shape[2])
-                lr_y = _y_channel(interp)
-                if interp_input:  # the module's input: that tensor, or its Y
-                    x_img = lr_y[..., None] if self.colorspace == 'ycbcr' else interp
-            x, _, metadata = self._prep_batch({**batch, 'lr': x_img, 'hr': None})
-            if self.tiled_eval:
-                # the tile grid; each tile batch through the int8 program or the module
-                sr = self._tiled_forward({'lr': x_img, 'metadata': batch.get('metadata')})
-            elif self.int8_mode:  # the calibrated int8 program
-                sr = self._int8_ctx[0](x, metadata)
-            else:
-                sr = self.forward(x, metadata)
-            if self.colorspace == 'ycbcr':  # the model gives Y
-                sr_y = sr[..., 0].float().clamp(0.0, 1.0)
-                target = hr_y[..., None]
-            else:
-                sr_y, target = _y_channel(sr), hr
-            rows = []
-            for met in metrics:  # row order matches run_eval_fused's keys tuple
-                if include_lr:
-                    rows.append(fns[met](lr_y, hr_y))
-                rows.append(fns[met](sr_y, hr_y))
-            if request_loss:
-                # the train step's loss on the model's output (against the model's
-                # colorspace: Y for a ycbcr family), once per image so the (K, N)
-                # matrix stays rectangular
-                rows.append(self.loss_fn(sr, target).float().expand(hr.shape[0]))
-            return torch.stack(rows)
+            with profiling.span('eval.prep', device=True):
+                lr = _as_f32(batch['lr'])  # the RGB LR, without any metadata maps
+                hr = _as_f32(batch['hr'])
+                hr_y = _y_channel(hr)
+                lr_y, x_img = None, lr
+                if include_lr or interp_input:
+                    # device bicubic stands in for the host PIL prep (same filter
+                    # weights; <=1 uint8 LSB fixed-point difference)
+                    interp = resize_bicubic(lr, hr.shape[1], hr.shape[2])
+                    lr_y = _y_channel(interp)
+                    if interp_input:  # the module's input: that tensor, or its Y
+                        x_img = lr_y[..., None] if self.colorspace == 'ycbcr' else interp
+                x, _, metadata = self._prep_batch({**batch, 'lr': x_img, 'hr': None})
+            with profiling.span('eval.forward', device=True):
+                if self.tiled_eval:
+                    # the tile grid; each tile batch through the int8 program or the
+                    # module
+                    sr = self._tiled_forward({'lr': x_img,
+                                              'metadata': batch.get('metadata')})
+                elif self.int8_mode:  # the calibrated int8 program
+                    sr = self._int8_ctx[0](x, metadata)
+                else:
+                    sr = self.forward(x, metadata)
+            with profiling.span('eval.metrics', device=True):
+                if self.colorspace == 'ycbcr':  # the model gives Y
+                    sr_y = sr[..., 0].float().clamp(0.0, 1.0)
+                    target = hr_y[..., None]
+                else:
+                    sr_y, target = _y_channel(sr), hr
+                rows = []
+                for met in metrics:  # row order matches run_eval_fused's keys tuple
+                    if include_lr:
+                        rows.append(fns[met](lr_y, hr_y))
+                    rows.append(fns[met](sr_y, hr_y))
+                if request_loss:
+                    # the train step's loss on the model's output (against the model's
+                    # colorspace: Y for a ycbcr family), once per image so the (K, N)
+                    # matrix stays rectangular
+                    rows.append(self.loss_fn(sr, target).float().expand(hr.shape[0]))
+                return torch.stack(rows)
 
         return step
 

@@ -24,6 +24,7 @@ epoch results decide the best epoch and early stopping on every rank.
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from datetime import date, datetime
+import itertools
 import math
 import os
 import random
@@ -39,6 +40,7 @@ from ..data.setup import sisr_data_setup
 from ..models.interface import ModelInterface
 from ..ops.metrics import Metrics
 from ..parallel import distributed
+from ..tools import profiling
 from ..tools.stats import legacy_load_statistics, plot_stats, save_statistics
 from ..tools.visualization import safe_image_save
 from ..utils.helpers import create_dir_if_empty, training_device
@@ -158,27 +160,37 @@ class TrainingHandler:
 
     def train(self):
         """One training epoch (ref: training_handler.py:147-177).  Losses stay on the
-        device and reach the host in chunks of 8 steps."""
+        device and reach the host in chunks of 8 steps.  Its spans (``tools/profiling``):
+        the epoch, each wait for a batch, each step, the loss drains, the epoch's end."""
         current_epoch_losses = defaultdict(list)
         keys = self.handler._train_batch_keys()
-        with tqdm.tqdm(total=len(self.train_data)) as pbar_train:
-            pending = []
+        with profiling.span('train.epoch'), profiling.device_allocs(self.handler.device):
+            with tqdm.tqdm(total=len(self.train_data)) as pbar_train:
+                pending = []
 
-            def drain(force=False):
-                if not pending or (not force and len(pending) < 8):
-                    return
-                flat = torch.cat([p.reshape(-1) for p in pending]).tolist()
-                pending.clear()
-                current_epoch_losses['train-loss'].extend(flat)
-                pbar_train.set_description('loss: {:.4f}'.format(flat[-1]))
+                def drain(force=False):
+                    if not pending or (not force and len(pending) < 8):
+                        return
+                    with profiling.span('train.loss_drain'):
+                        flat = torch.cat([p.reshape(-1) for p in pending]).tolist()
+                    pending.clear()
+                    current_epoch_losses['train-loss'].extend(flat)
+                    pbar_train.set_description('loss: {:.4f}'.format(flat[-1]))
 
-            for batch in self._stream(self.train_data, keys):
-                pending.append(self.model.train_batch(**batch)[0])
-                drain()
-                pbar_train.update(1)
-            drain(force=True)
-        current_epoch_losses['learning-rate'].append(self.model.get_learning_rate())
-        self.model.epoch_end_calls()
+                batches = iter(self._stream(self.train_data, keys))
+                for step in itertools.count():
+                    with profiling.span('train.loader_wait', unit=step):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    pending.append(self.model.train_batch(**batch)[0])
+                    profiling.count('train.steps')
+                    drain()
+                    pbar_train.update(1)
+                drain(force=True)
+            with profiling.span('train.epoch_end'):
+                current_epoch_losses['learning-rate'].append(self.model.get_learning_rate())
+                self.model.epoch_end_calls()
         return current_epoch_losses
 
     def _use_fused_val(self):
